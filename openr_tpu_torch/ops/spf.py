@@ -1,0 +1,55 @@
+"""Numeric contract and the first-hop / LFA epilogue of the batched
+solve, as torch functions (port of `openr_tpu/ops/spf.py`).
+
+Distances are int32 with INF_DIST = 2^30 meaning unreachable; valid
+metrics are at most METRIC_MAX = 2^30-1, so a guarded `d + w` never
+exceeds INT32_MAX.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from openr_tpu_torch.common import constants as _C
+from openr_tpu_torch.common.util import pad_bucket as pad_batch  # noqa: F401
+
+INF_DIST = _C.DIST_INF
+METRIC_MAX = _C.METRIC_MAX
+DIST_DTYPE = torch.int32
+
+
+def first_hop_matrix(dist, neighbor_metric, neighbor_ids, neighbor_overloaded):
+    """ECMP first-hop validity [N, Vp]: neighbor n is a first hop toward
+    d iff metric(root->n) + dist_n(d) == dist_root(d), both reachable;
+    overloaded neighbors only toward themselves. `dist` [Vp, B] has
+    col 0 = the root, cols 1..N = its neighbors."""
+    d_root = dist[:, 0]
+    d_nbr = dist[:, 1 : 1 + neighbor_ids.shape[0]]
+    reach = (d_root < INF_DIST)[:, None] & (d_nbr < INF_DIST)
+    on_spt = reach & (neighbor_metric[None, :] + d_nbr == d_root[:, None])
+    ids = torch.arange(dist.shape[0], device=dist.device)
+    dest_is_nbr = ids[:, None] == neighbor_ids[None, :]
+    allowed = ~neighbor_overloaded[None, :] | dest_is_nbr
+    return (on_spt & allowed).T
+
+
+def lfa_matrix(dist, my_id, neighbor_ids, neighbor_overloaded):
+    """RFC 5286 loop-free alternates [N, Vp]:
+    dist_n(d) < dist_n(root) + dist_root(d), all three reachable;
+    overloaded neighbors only toward themselves."""
+    n = neighbor_ids.shape[0]
+    d_root = dist[:, 0]
+    d_nbr = dist[:, 1 : 1 + n]
+    n_to_root = dist[int(my_id), 1 : 1 + n]
+    reach = (
+        (d_root < INF_DIST)[:, None]
+        & (d_nbr < INF_DIST)
+        & (n_to_root < INF_DIST)[None, :]
+    )
+    loop_free = d_nbr < torch.clamp_max(
+        n_to_root[None, :] + d_root[:, None], INF_DIST
+    )
+    ids = torch.arange(dist.shape[0], device=dist.device)
+    dest_is_nbr = ids[:, None] == neighbor_ids[None, :]
+    allowed = ~neighbor_overloaded[None, :] | dest_is_nbr
+    return (reach & loop_free & allowed).T

@@ -1,0 +1,135 @@
+"""The relax kernel's plain version (what the port runs on the CPU) is
+equal to the JAX package's Pallas kernel run in interpret mode, and its
+row-indirection modes are equal to `_relax_rows` on gathered rows
+followed by `.at[rows].min`."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openr_tpu.ops.spf_pallas import _relax_once, batched_sssp_pallas
+from openr_tpu.ops.spf_split import _relax_rows
+from openr_tpu_torch.ops import relax
+
+INF = 1 << 30
+
+# one intra-op thread: the suite runs several test workers at once
+torch.set_num_threads(1)
+
+
+def _tables(v, d, b, seed, frac_pad=0.3, frac_over=0.0):
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, v, size=(v, d)).astype(np.int32)
+    wgt = rng.integers(1, 64, size=(v, d)).astype(np.int32)
+    wgt[rng.random((v, d)) < frac_pad] = INF  # INF padding slots
+    roots = rng.integers(0, v, size=b).astype(np.int32)
+    over = rng.random(v) < frac_over
+    if frac_over:
+        over[roots[0]] = True  # an overloaded root: the exemption path
+    dist = rng.integers(0, 500, size=(v, b)).astype(np.int32)
+    dist[rng.random((v, b)) < 0.4] = INF
+    dist[roots, np.arange(b)] = 0
+    return nbr, wgt, roots, over, dist
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("frac_over", [0.0, 0.15])
+def test_one_sweep_equals_pallas_interpret(seed, frac_over):
+    v, d, b = 256, 8, 16
+    nbr, wgt, roots, over, dist = _tables(v, d, b, seed, frac_over=frac_over)
+    has_over = frac_over > 0
+    over_t = over[nbr]
+    ref, ref_changed = _relax_once(
+        jnp.asarray(nbr), jnp.asarray(wgt), jnp.asarray(over_t),
+        jnp.asarray(roots), jnp.asarray(dist), 64, has_over, True,
+    )
+    got, changed = relax.relax_sweep(
+        _t(dist), _t(nbr), _t(wgt), _t(roots),
+        _t(over_t) if has_over else None,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(changed.item()) == int(ref_changed)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("frac_over", [0.0, 0.1])
+def test_fixpoint_equals_batched_sssp_pallas(seed, frac_over):
+    v, d, b = 256, 8, 8
+    nbr, wgt, roots, over, _ = _tables(v, d, b, seed, frac_over=frac_over)
+    has_over = frac_over > 0
+    ref = batched_sssp_pallas(
+        jnp.asarray(nbr), jnp.asarray(wgt), jnp.asarray(over),
+        jnp.asarray(roots), has_overloads=has_over, tile=128,
+        interpret=True,
+    )
+    got = relax.batched_sssp_relax(
+        _t(nbr), _t(wgt), _t(over), _t(roots), has_overloads=has_over
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _jax_rows(dist, nbr, wgt, over_t, roots, src, dst, has_over):
+    """JAX reference: `_relax_rows` on the gathered rows, then a min
+    scatter into the targets."""
+    sub = _relax_rows(
+        jnp.asarray(dist), jnp.asarray(nbr[src]), jnp.asarray(wgt[src]),
+        jnp.asarray(over_t[src]) if has_over else None,
+        jnp.asarray(roots), has_over,
+    )
+    return np.asarray(jnp.asarray(dist).at[jnp.asarray(dst)].min(sub))
+
+
+@pytest.mark.parametrize("mode", ["row0", "dst_rows", "src_dst_rows"])
+@pytest.mark.parametrize("frac_over", [0.0, 0.2])
+def test_indirection_modes_equal_jax_relax_rows(mode, frac_over):
+    v, d, b = 512, 16, 8
+    nbr, wgt, roots, over, dist = _tables(v, d, b, 5, frac_over=frac_over)
+    has_over = frac_over > 0
+    over_t = over[nbr]
+    rng = np.random.default_rng(9)
+    if mode == "row0":  # one dense chunk
+        src = np.arange(128, 384)
+        dst = src
+        kw = dict(row0=128, n=256)
+        tab = (nbr, wgt, over_t)
+    elif mode == "dst_rows":  # overflow table: own rows, targets repeat
+        ro = 64
+        dst = rng.integers(0, v, ro).astype(np.int32)
+        dst[ro // 2 :] = v - 1  # dead-slot padding
+        src = np.arange(ro)
+        tab = (nbr[:ro], wgt[:ro], over_t[:ro])
+        kw = dict(dst_rows=_t(dst))
+    else:  # compacted tail: rows of the base table, padded with dead
+        rows = np.sort(rng.choice(v - 1, 100, replace=False)).astype(np.int32)
+        rows = np.concatenate([rows, np.full(28, v - 1, np.int32)])
+        src = dst = rows
+        tab = (nbr, wgt, over_t)
+        kw = dict(src_rows=_t(rows), dst_rows=_t(rows))
+    ref = _jax_rows(dist, tab[0], tab[1], tab[2], roots, src, dst, has_over)
+    out = _t(dist).clone()
+    relax.relax_rows(
+        _t(dist), out, _t(tab[0]), _t(tab[1]), _t(roots),
+        _t(tab[2]) if has_over else None, **kw,
+    )
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_wrapper_checks_inputs():
+    nbr, wgt, roots, _over, dist = _tables(64, 8, 8, 0)
+    d, n, w, r = _t(dist), _t(nbr), _t(wgt), _t(roots)
+    with pytest.raises(TypeError):
+        relax.relax_rows(d.long(), d.long(), n, w, r)
+    with pytest.raises(ValueError):
+        relax.relax_rows(d, d, n.t(), w, r)  # not contiguous
+    with pytest.raises(ValueError):
+        relax.relax_rows(d, d, n, w, r[:4])
+    with pytest.raises(ValueError):
+        relax.relax_rows(d, d, n, w, r, row0=60, n=8)
+    launches = relax.LAUNCHES
+    relax.relax_rows(d, d.clone(), n, w, r)  # CPU: plain version
+    assert relax.LAUNCHES == launches
