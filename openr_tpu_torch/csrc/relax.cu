@@ -1,7 +1,7 @@
 // Pull-relax of a set of rows of an in-neighbor table, for Hopper (sm_90a).
 //
 // Replaces the one Pallas TPU kernel of the JAX package,
-// openr_tpu/ops/spf_pallas.py _relax_kernel (via _relax_once), and serves
+// openr_tpu/ops/spf_pallas.py:90 _relax_kernel (via _relax_once), and serves
 // every _relax_rows site of openr_tpu/ops/spf_split.py through row
 // indirection: the dense base table (row0), the overflow table (dst_rows),
 // and the compacted tail rows (src_rows == dst_rows).
@@ -13,22 +13,52 @@
 //   acc = min over d of  dist_in[nbr[r,d], b] < INF
 //                          ? min(dist_in[nbr[r,d], b] + wgt[r,d], INF) : INF
 //         (INF where over[r,d] && nbr[r,d] != roots[b])
-//   out[t, b] = atomicMin(out[t, b], acc)
+//   cur = out[t, b] (read before the write)
+//   if acc < cur: atomicMin(&out[t, b], acc)
 //   *changed += #{b : acc < dist_in[t, b]}          (if changed != nullptr)
+//   row_flag[t] = 1 if some acc < cur; the write that sets it first adds 1
+//   to *rows_changed                                (if row_flag != nullptr)
 //
 // Targets may repeat (the dead slot vp-1 pads ov_ids and the tail lists),
 // hence the atomicMin into an `out` the caller prepared. `out` may alias
 // `dist_in` (the Gauss-Seidel chunks update dist in place): every value
 // either buffer holds is a valid upper bound of the true distance, so a
 // read that races a write changes only how fast the fixpoint is reached,
-// never which fixpoint.
+// never which fixpoint. Values only fall, so over all launches that share
+// one cleared row_flag buffer, the flagged rows are exactly the rows whose
+// value ended below where it started, the split solve's change detection:
+// a flag's acc < cur <= start gives end <= acc < start; and a row that
+// fell was lowered by some atomicMin with old > acc, whose writer had read
+// cur >= old > acc. So the flag needs no atomic's return value, and the
+// min is a fire-and-forget red.global.min.
 //
-// Bound on this card: bytes. Each candidate is one 4-byte gather and three
-// integer ops; the table rows and the gathered dist rows have to come from
-// memory (dist [vp,B] is 13.6 MB at the 100k benchmark and stays in the
-// 50 MB L2). Design: one warp per row with lanes over the B columns, so a
-// gathered dist row at B=32 is one 128-byte line; the warp loads 32 table
-// slots at once, coalesced, and broadcasts them with __shfl_sync.
+// Bound on this card: bytes. Each candidate is one gathered distance and
+// four integer ops; a dense chunk of the 100k benchmark does 56.6 M such
+// ops, under 1 us at 67 Tops/s, while it must move ~26 MB (table rows,
+// distinct gathered dist rows, target rows). No tensor core helps: wgmma
+// multiplies and adds, and this is a min-plus over int32.
+//
+// Two designs, chosen by shape alone in openr_relax_rows:
+//
+// * relax_vec_kernel<W, B> for W, B in {8, 16, 32, 64} (the widths the
+//   split solve's builders produce). B/4 lanes cover one gathered dist row
+//   with 16-byte ld.global.cg loads (L2, no L1 allocation: the in-place
+//   writes are L2 atomics and L1 would give little reuse), so one load
+//   instruction of the warp serves 32/(B/4) table slots. The slot loop is
+//   unrolled at compile time and a row's gathers are all issued, predicated
+//   on w < INF and the overload test, before the first min, together with
+//   the target row's own reads (out, the row flag), so one L2 round trip
+//   covers them all; the slot groups are then combined with
+//   __shfl_xor_sync. The counts are summed per block and added once per
+//   block: thousands of rows counted into one word would serialise on its
+//   atomics. A persistent grid of warps
+//   strides over row groups; each warp double-buffers the next group's
+//   nbr/wgt/over slab in shared memory with cp.async (and loads the row
+//   indices two groups ahead into registers), so the table's latency hides
+//   behind the current group's gathers.
+// * relax_generic_kernel for every other shape: one warp per row, lanes
+//   over the B columns, 32 table slots loaded at once and broadcast with
+//   __shfl_sync (the first design, kept for odd widths such as B=128).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,76 +68,477 @@ namespace {
 constexpr int kInf = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 32 * kWarpsPerBlock;
+constexpr int kMaxDevices = 16;
 
-__global__ void relax_rows_kernel(
-    const int* dist_in, int* out, int B,
-    const int* __restrict__ nbr, const int* __restrict__ wgt,
-    const uint8_t* __restrict__ over, int W,
-    const int* __restrict__ roots,
-    const int* __restrict__ src_rows, const int* __restrict__ dst_rows,
-    int row0, int n, int* changed) {
+struct RelaxArgs {
+  const int* dist_in;
+  int* out;
+  const int* nbr;
+  const int* wgt;
+  const uint8_t* over;
+  const int* roots;
+  const int* src_rows;
+  const int* dst_rows;
+  int* changed;
+  int* row_flag;
+  int* rows_changed;
+  int B, W, row0, n;
+};
+
+// Adds each block's sums of `v` into *dst: one atomic per block, not one
+// per row. Every thread of the block calls it (s_sum: one shared int).
+__device__ __forceinline__ void block_add(int* dst, int v, int* s_sum) {
+  v = __reduce_add_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0 && v) atomicAdd(s_sum, v);
+  __syncthreads();
+  if (threadIdx.x == 0 && *s_sum) atomicAdd(dst, *s_sum);
+}
+
+// One candidate: INF guard before the add, INF where the slot is blocked.
+__device__ __forceinline__ int cand(int g, int w, unsigned blocked) {
+  return blocked ? kInf : (g < kInf ? min(g + w, kInf) : kInf);
+}
+
+// ------------------------------------------------------------- generic
+
+__global__ void __launch_bounds__(kThreads)
+    relax_generic_kernel(const RelaxArgs a) {
   const int lane = threadIdx.x & 31;
   const long long i =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (i >= n) return;  // uniform across the warp
-  const int r = src_rows ? src_rows[i] : row0 + (int)i;
-  const int t = dst_rows ? dst_rows[i] : r;
-  const int* nrow = nbr + (size_t)r * W;
-  const int* wrow = wgt + (size_t)r * W;
-  const uint8_t* orow = over ? over + (size_t)r * W : nullptr;
-
-  int n_better = 0;
-  for (int b0 = 0; b0 < B; b0 += 32) {
-    const int b = b0 + lane;
-    const bool active = b < B;
-    const int root_b = (active && orow) ? roots[b] : -1;
-    int acc = kInf;
-    for (int d0 = 0; d0 < W; d0 += 32) {
-      const int dl = d0 + lane;
-      int my_u = 0, my_w = kInf, my_o = 0;
-      if (dl < W) {
-        my_u = nrow[dl];
-        my_w = wrow[dl];
-        my_o = orow ? (int)orow[dl] : 0;
+  int n_rows = 0;
+  if (i < a.n) {  // uniform across the warp
+    int n_better = 0;
+    const int B = a.B, W = a.W;
+    const int r = a.src_rows ? a.src_rows[i] : a.row0 + (int)i;
+    const int t = a.dst_rows ? a.dst_rows[i] : r;
+    const int* nrow = a.nbr + (size_t)r * W;
+    const int* wrow = a.wgt + (size_t)r * W;
+    const uint8_t* orow = a.over ? a.over + (size_t)r * W : nullptr;
+    bool lowered = false;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const int b = b0 + lane;
+      const bool active = b < B;
+      const int root_b = (active && orow) ? a.roots[b] : -1;
+      int acc = kInf;
+      for (int d0 = 0; d0 < W; d0 += 32) {
+        const int dl = d0 + lane;
+        int my_u = 0, my_w = kInf, my_o = 0;
+        if (dl < W) {
+          my_u = nrow[dl];
+          my_w = wrow[dl];
+          my_o = orow ? (int)orow[dl] : 0;
+        }
+        const int cnt = min(32, W - d0);
+        for (int k = 0; k < cnt; ++k) {
+          const int w = __shfl_sync(kFull, my_w, k);
+          const int u = __shfl_sync(kFull, my_u, k);
+          const int o = __shfl_sync(kFull, my_o, k);
+          // padding slot: d + INF >= INF, so the candidate is INF
+          if (w >= kInf || !active) continue;
+          if (o && u != root_b) continue;  // overloaded transit, not root
+          const int g = a.dist_in[(size_t)u * B + b];
+          if (g < kInf) acc = min(acc, min(g + w, kInf));  // guard, then add
+        }
       }
-      const int cnt = min(32, W - d0);
-      for (int k = 0; k < cnt; ++k) {
-        const int w = __shfl_sync(kFull, my_w, k);
-        const int u = __shfl_sync(kFull, my_u, k);
-        const int o = __shfl_sync(kFull, my_o, k);
-        // padding slot: d + INF >= INF, so the candidate is INF
-        if (w >= kInf || !active) continue;
-        if (o && u != root_b) continue;  // overloaded transit, not root
-        const int g = dist_in[(size_t)u * B + b];
-        if (g < kInf) acc = min(acc, min(g + w, kInf));  // guard, then add
+      bool better = false;
+      if (active) {
+        const size_t o_idx = (size_t)t * B + b;
+        if (a.changed) better = acc < a.dist_in[o_idx];
+        if (acc < a.out[o_idx]) {
+          atomicMin(a.out + o_idx, acc);
+          lowered = true;
+        }
       }
+      if (a.changed) n_better += __popc(__ballot_sync(kFull, better));
     }
-    bool better = false;
-    if (active) {
-      const size_t o_idx = (size_t)t * B + b;
-      if (changed) better = acc < dist_in[o_idx];
-      if (acc < out[o_idx]) atomicMin(out + o_idx, acc);
-    }
-    if (changed) n_better += __popc(__ballot_sync(kFull, better));
+    if (a.changed && lane == 0 && n_better) atomicAdd(a.changed, n_better);
+    if (a.row_flag && __any_sync(kFull, lowered) && lane == 0 &&
+        __ldcg(a.row_flag + t) == 0 && atomicExch(a.row_flag + t, 1) == 0)
+      n_rows = 1;
   }
-  if (changed && lane == 0 && n_better) atomicAdd(changed, n_better);
+  if (a.rows_changed) {  // one atomic per block of 8 rows
+    const int nr = __syncthreads_count(n_rows);
+    if (threadIdx.x == 0 && nr) atomicAdd(a.rows_changed, nr);
+  }
+}
+
+// -------------------------------------------------------- vectorised
+
+template <int W, int B>
+struct VecShape {
+  static constexpr int kL = B / 4;               // lanes per dist row (int4)
+  static constexpr int kS = 32 / kL;             // slot lanes in the warp
+  static constexpr int kSR = kS < W ? kS : W;    // slot lanes per table row
+  static constexpr int kG = kS / kSR;            // table rows per warp step
+  static constexpr int kK = W / kSR;             // slots per lane
+  static constexpr int kSlots = kG * W;          // table slots per step
+  static constexpr int kNW = kSR < 4 ? kSR : 4;  // writer lanes per quad
+  static constexpr int kCPL = 4 / kNW;           // columns per writer lane
+  static constexpr int kChunk = kK < 8 ? kK : 8;  // gathers per batch
+  static_assert(kG >= 1 && kG <= 2, "a warp step holds one or two rows");
+  static_assert(kK % kChunk == 0, "slot batches divide the slots");
+};
+
+template <int G>
+struct Rows {
+  int r[G];  // table rows
+  int t[G];  // target dist rows
+};
+
+template <int G>
+__device__ __forceinline__ int pick(const int (&x)[G], int g) {
+  return (G == 1 || g == 0) ? x[0] : x[G - 1];
+}
+
+template <int G>
+__device__ __forceinline__ Rows<G> load_rows(const RelaxArgs& a,
+                                             long long grp) {
+  Rows<G> x;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const long long i = grp * G + g;
+    int r = 0, t = 0;
+    if (i < a.n) {
+      r = a.src_rows ? __ldg(a.src_rows + i) : a.row0 + (int)i;
+      t = a.dst_rows ? __ldg(a.dst_rows + i) : r;
+    }
+    x.r[g] = r;
+    x.t[g] = t;
+  }
+  return x;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts the copy of row group `grp`'s table slab into shared memory.
+template <int W, int B>
+__device__ __forceinline__ void issue_slab(const RelaxArgs& a,
+                                           const Rows<VecShape<W, B>::kG>& x,
+                                           long long grp, int* sn, int* sw,
+                                           uint8_t* so, int lane) {
+  using S = VecShape<W, B>;
+  constexpr int kCh = W / 4;           // 16-byte chunks per table row
+  constexpr int kChunks = S::kG * kCh;  // per table, <= 16
+  if (lane < 2 * kChunks) {
+    const int q = lane % kChunks;
+    const int g = q / kCh, c = q % kCh;
+    if (grp * S::kG + g < a.n) {
+      const size_t off = (size_t)pick(x.r, g) * W + c * 4;
+      if (lane < kChunks)
+        cp_async16(sn + g * W + c * 4, a.nbr + off);
+      else
+        cp_async16(sw + g * W + c * 4, a.wgt + off);
+    }
+  }
+  if (a.over) {
+    constexpr int kCo = W / 8;  // 8-byte chunks per over row
+    if (lane < S::kG * kCo) {
+      const int g = lane / kCo, c = lane % kCo;
+      if (grp * S::kG + g < a.n)
+        cp_async8(so + g * W + c * 8,
+                  a.over + (size_t)pick(x.r, g) * W + c * 8);
+    }
+  }
+}
+
+// Relaxes one row group whose table slab has landed in shared memory;
+// adds to this lane's counts of better entries and newly flagged rows.
+template <int W, int B, bool OVER>
+__device__ __forceinline__ void relax_group(
+    const RelaxArgs& a, const Rows<VecShape<W, B>::kG>& x, long long grp,
+    const int* sn, const int* sw, const uint8_t* so, int lane,
+    int& n_better, int& n_rows) {
+  using S = VecShape<W, B>;
+  const int c = lane % S::kL;  // column quad: columns 4c .. 4c+3
+  const int s = lane / S::kL;
+  const int g = s / S::kSR;    // row of the group
+  const int ds = s % S::kSR;   // first slot of this lane
+  const bool valid = grp * S::kG + g < a.n;
+  const int t = pick(x.t, g);
+  // the target row's reads go out first, with the gathers below
+  const bool writer = valid && ds < S::kNW;  // writes columns 4c + j
+  const bool leader = valid && ds == 0 && c == 0;  // flags the row
+  const size_t t_idx = (size_t)t * B + 4 * c + ds * S::kCPL;
+  int cur[S::kCPL], din[S::kCPL];
+#pragma unroll
+  for (int e = 0; e < S::kCPL; ++e) {
+    cur[e] = writer ? __ldcg(a.out + t_idx + e) : kInf;
+    din[e] = writer && a.changed ? __ldcg(a.dist_in + t_idx + e) : kInf;
+  }
+  const int flag0 = leader && a.row_flag ? __ldcg(a.row_flag + t) : 1;
+
+  const int* sn_g = sn + g * W;
+  const int* sw_g = sw + g * W;
+  const uint8_t* so_g = so + g * W;
+  int r0 = -1, r1 = -1, r2 = -1, r3 = -1;
+  if (OVER) {
+    r0 = __ldg(a.roots + 4 * c);
+    r1 = __ldg(a.roots + 4 * c + 1);
+    r2 = __ldg(a.roots + 4 * c + 2);
+    r3 = __ldg(a.roots + 4 * c + 3);
+  }
+  const int4* dist4 = reinterpret_cast<const int4*>(a.dist_in) + c;
+
+  int4 acc = make_int4(kInf, kInf, kInf, kInf);
+#pragma unroll
+  for (int k0 = 0; k0 < S::kK; k0 += S::kChunk) {
+    int4 v[S::kChunk];
+    int wv[S::kChunk];
+    unsigned blk[S::kChunk];
+#pragma unroll
+    for (int k = 0; k < S::kChunk; ++k) {  // issue every gather first
+      const int d = ds + (k0 + k) * S::kSR;
+      const int u = sn_g[d];
+      const int w = sw_g[d];
+      unsigned m = 0;
+      if (OVER && so_g[d])
+        m = (unsigned)(u != r0) | (unsigned)(u != r1) << 1 |
+            (unsigned)(u != r2) << 2 | (unsigned)(u != r3) << 3;
+      v[k] = make_int4(kInf, kInf, kInf, kInf);
+      if (valid && w < kInf && m != 0xFu)
+        v[k] = __ldcg(dist4 + (size_t)u * (B / 4));
+      wv[k] = w;
+      if (OVER) blk[k] = m;
+    }
+#pragma unroll
+    for (int k = 0; k < S::kChunk; ++k) {  // then take the mins
+      const unsigned m = OVER ? blk[k] : 0u;
+      acc.x = min(acc.x, cand(v[k].x, wv[k], m & 1u));
+      acc.y = min(acc.y, cand(v[k].y, wv[k], m & 2u));
+      acc.z = min(acc.z, cand(v[k].z, wv[k], m & 4u));
+      acc.w = min(acc.w, cand(v[k].w, wv[k], m & 8u));
+    }
+  }
+  // combine the slot lanes of each row (lane = s * kL + c)
+#pragma unroll
+  for (int off = S::kL; off < S::kL * S::kSR; off <<= 1) {
+    acc.x = min(acc.x, __shfl_xor_sync(kFull, acc.x, off));
+    acc.y = min(acc.y, __shfl_xor_sync(kFull, acc.y, off));
+    acc.z = min(acc.z, __shfl_xor_sync(kFull, acc.z, off));
+    acc.w = min(acc.w, __shfl_xor_sync(kFull, acc.w, off));
+  }
+  // every slot lane now holds its row's quad; kNW of them write it
+  bool lowered = false;
+  if (writer) {
+#pragma unroll
+    for (int e = 0; e < S::kCPL; ++e) {
+      const int j = ds * S::kCPL + e;
+      const int val = j == 0 ? acc.x : j == 1 ? acc.y : j == 2 ? acc.z : acc.w;
+      if (val < din[e]) ++n_better;
+      if (val < cur[e]) {
+        atomicMin(a.out + t_idx + e, val);
+        lowered = true;
+      }
+    }
+  }
+  if (a.row_flag) {
+    constexpr int kRowLanes = S::kSR * S::kL;  // 32 / kG
+    const unsigned lb = __ballot_sync(kFull, lowered);
+    const unsigned gm = kRowLanes == 32
+                            ? kFull
+                            : ((1u << (kRowLanes & 31)) - 1u) << (g * kRowLanes);
+    if (leader && (lb & gm) && flag0 == 0 &&
+        atomicExch(a.row_flag + t, 1) == 0)
+      ++n_rows;
+  }
+}
+
+template <int W, int B, bool OVER>
+__global__ void __launch_bounds__(kThreads)
+    relax_vec_kernel(const RelaxArgs a) {
+  using S = VecShape<W, B>;
+  __shared__ __align__(16) int s_nbr[kWarpsPerBlock][2][S::kSlots];
+  __shared__ __align__(16) int s_wgt[kWarpsPerBlock][2][S::kSlots];
+  __shared__ __align__(16) uint8_t s_over[kWarpsPerBlock][2][S::kSlots];
+  __shared__ int s_sum[2];
+  if (threadIdx.x < 2) s_sum[threadIdx.x] = 0;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n_groups = ((long long)a.n + S::kG - 1) / S::kG;
+  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
+  long long grp = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  int n_better = 0, n_rows = 0;
+  if (grp < n_groups) {  // uniform across the warp
+    Rows<S::kG> cur = load_rows<S::kG>(a, grp);
+    Rows<S::kG> nxt = load_rows<S::kG>(a, grp + stride);
+    issue_slab<W, B>(a, cur, grp, s_nbr[warp][0], s_wgt[warp][0],
+                     s_over[warp][0], lane);
+    cp_async_commit();
+    int st = 0;
+    for (; grp < n_groups; grp += stride) {
+      const Rows<S::kG> after = load_rows<S::kG>(a, grp + 2 * stride);
+      if (grp + stride < n_groups)
+        issue_slab<W, B>(a, nxt, grp + stride, s_nbr[warp][st ^ 1],
+                         s_wgt[warp][st ^ 1], s_over[warp][st ^ 1], lane);
+      cp_async_commit();
+      cp_async_wait<1>();  // this lane's copies of the current slab landed
+      __syncwarp();        // ... and every other lane's
+      relax_group<W, B, OVER>(a, cur, grp, s_nbr[warp][st], s_wgt[warp][st],
+                        s_over[warp][st], lane, n_better, n_rows);
+      __syncwarp();  // the slab is read before it is refilled
+      cur = nxt;
+      nxt = after;
+      st ^= 1;
+    }
+    cp_async_wait<0>();
+  }
+  if (a.changed) block_add(a.changed, n_better, s_sum);
+  if (a.rows_changed) block_add(a.rows_changed, n_rows, s_sum + 1);
+}
+
+using Launcher = int (*)(const RelaxArgs&, cudaStream_t);
+
+template <int W, int B, bool OVER>
+int launch_vec_over(const RelaxArgs& a, cudaStream_t stream) {
+  using S = VecShape<W, B>;
+  static int max_blocks[kMaxDevices];  // resident blocks on the card
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int mb = dev < kMaxDevices ? max_blocks[dev] : 0;
+  if (mb == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, relax_vec_kernel<W, B, OVER>, kThreads, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    mb = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+    if (dev < kMaxDevices) max_blocks[dev] = mb;
+  }
+  const long long groups = ((long long)a.n + S::kG - 1) / S::kG;
+  const long long want = (groups + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int blocks = (int)(want < mb ? want : mb);
+  relax_vec_kernel<W, B, OVER><<<blocks, kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The overload mask is a template argument: without it (the common
+// case) the kernel keeps no roots or per-slot mask in registers.
+template <int W, int B>
+int launch_vec(const RelaxArgs& a, cudaStream_t stream) {
+  return a.over ? launch_vec_over<W, B, true>(a, stream)
+                : launch_vec_over<W, B, false>(a, stream);
+}
+
+int launch_generic(const RelaxArgs& a, cudaStream_t stream) {
+  const int blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  relax_generic_kernel<<<blocks, kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int width_index(int x) {
+  switch (x) {
+    case 8: return 0;
+    case 16: return 1;
+    case 32: return 2;
+    case 64: return 3;
+    default: return -1;
+  }
+}
+
+template <int W>
+Launcher vec_for_b(int B) {
+  switch (width_index(B)) {
+    case 0: return launch_vec<W, 8>;
+    case 1: return launch_vec<W, 16>;
+    case 2: return launch_vec<W, 32>;
+    case 3: return launch_vec<W, 64>;
+    default: return nullptr;
+  }
+}
+
+// The vectorised specialisation for (W, B), or nullptr: the generic one.
+Launcher vec_launcher(int W, int B) {
+  switch (width_index(W)) {
+    case 0: return vec_for_b<8>(B);
+    case 1: return vec_for_b<16>(B);
+    case 2: return vec_for_b<32>(B);
+    case 3: return vec_for_b<64>(B);
+    default: return nullptr;
+  }
+}
+
+RelaxArgs make_args(const void* dist_in, void* out, int B, const void* nbr,
+                    const void* wgt, const void* over, int W,
+                    const void* roots, const void* src_rows,
+                    const void* dst_rows, int row0, int n, void* changed,
+                    void* row_flag, void* rows_changed) {
+  RelaxArgs a;
+  a.dist_in = (const int*)dist_in;
+  a.out = (int*)out;
+  a.nbr = (const int*)nbr;
+  a.wgt = (const int*)wgt;
+  a.over = (const uint8_t*)over;
+  a.roots = (const int*)roots;
+  a.src_rows = (const int*)src_rows;
+  a.dst_rows = (const int*)dst_rows;
+  a.changed = (int*)changed;
+  a.row_flag = (int*)row_flag;
+  a.rows_changed = (int*)rows_changed;
+  a.B = B;
+  a.W = W;
+  a.row0 = row0;
+  a.n = n;
+  return a;
 }
 
 }  // namespace
 
+// 1 if (W, B) takes the vectorised specialisation, 0 if the generic kernel.
+extern "C" int openr_relax_vec_shape(int W, int B) {
+  return vec_launcher(W, B) != nullptr;
+}
+
+// The kernel for this shape: the vectorised specialisation where one
+// exists, else the generic kernel.
 extern "C" int openr_relax_rows(
     const void* dist_in, void* out, int B,
     const void* nbr, const void* wgt, const void* over, int W,
     const void* roots, const void* src_rows, const void* dst_rows,
-    int row0, int n, void* changed, void* stream) {
+    int row0, int n, void* changed, void* row_flag, void* rows_changed,
+    void* stream) {
   if (n <= 0) return 0;
-  const int threads = 32 * kWarpsPerBlock;
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  relax_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)dist_in, (int*)out, B, (const int*)nbr, (const int*)wgt,
-      (const uint8_t*)over, W, (const int*)roots, (const int*)src_rows,
-      (const int*)dst_rows, row0, n, (int*)changed);
-  return (int)cudaGetLastError();
+  const RelaxArgs a = make_args(dist_in, out, B, nbr, wgt, over, W, roots,
+                                src_rows, dst_rows, row0, n, changed,
+                                row_flag, rows_changed);
+  const Launcher vec = vec_launcher(W, B);
+  return vec ? vec(a, (cudaStream_t)stream)
+             : launch_generic(a, (cudaStream_t)stream);
+}
+
+// The generic kernel at any shape (to time both designs side by side).
+extern "C" int openr_relax_rows_generic(
+    const void* dist_in, void* out, int B,
+    const void* nbr, const void* wgt, const void* over, int W,
+    const void* roots, const void* src_rows, const void* dst_rows,
+    int row0, int n, void* changed, void* row_flag, void* rows_changed,
+    void* stream) {
+  if (n <= 0) return 0;
+  return launch_generic(
+      make_args(dist_in, out, B, nbr, wgt, over, W, roots, src_rows,
+                dst_rows, row0, n, changed, row_flag, rows_changed),
+      (cudaStream_t)stream);
 }
 
 extern "C" const char* openr_cuda_error_string(int code) {

@@ -9,16 +9,18 @@ overflow table (`dst_rows=ov_ids`) and the compacted tail
 (`src_rows=dst_rows=rows`). The kernel is `csrc/relax.cu`; see its
 header for the semantics and the design.
 
-`relax_rows` chooses by device alone: a CUDA tensor launches the hand
-kernel (a build or launch failure raises), a CPU tensor runs the plain
-PyTorch version `relax_rows_ref`.
+`relax_rows` chooses by device and shape alone: a CUDA tensor launches a
+hand kernel, the vectorised specialisation where `design_for(W, B)` says
+"vec" and the generic kernel otherwise (a build or launch failure
+raises); a CPU tensor runs the plain PyTorch version `relax_rows_ref`.
+Given a `row_flag` buffer, every version also reports the dist rows it
+lowered, which the split solve reads as its change detection.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from contextlib import contextmanager
 
 import torch
 
@@ -26,54 +28,71 @@ from openr_tpu_torch.common.constants import DIST_INF
 
 INF_DIST = DIST_INF
 
-#: kernel launches made by `relax_rows` (CUDA path only)
+#: widths (W table slots, B distance columns) with a vectorised
+#: specialisation in `csrc/relax.cu`; any other shape takes the generic
+#: kernel
+VEC_WIDTHS = (8, 16, 32, 64)
+#: the kernel function of each design, as a profiler names it
+KERNEL_NAMES = {"vec": "relax_vec_kernel", "generic": "relax_generic_kernel"}
+
+_ROWS_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # dist_in, out, B
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # nbr, wgt, over
+    ctypes.c_int,  # W
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # roots, src, dst
+    ctypes.c_int, ctypes.c_int,  # row0, n
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # changed, flags
+    ctypes.c_void_p,  # stream
+]
+#: the C entry points of `csrc/relax.cu` and the ctypes types bound to them
+ENTRY_POINTS = {
+    "openr_relax_rows": (_ROWS_ARGTYPES, ctypes.c_int),
+    "openr_relax_rows_generic": (_ROWS_ARGTYPES, ctypes.c_int),
+    "openr_relax_vec_shape": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "openr_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+#: kernel launches made by the wrappers (CUDA path only): the total, and
+#: by design
 LAUNCHES = 0
-_PROFILE: list | None = None
-_FN = None
-_FN_LOCK = threading.Lock()
+LAUNCHES_BY_DESIGN = {"vec": 0, "generic": 0}
+_LIB = None
+_LIB_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+    for k in LAUNCHES_BY_DESIGN:
+        LAUNCHES_BY_DESIGN[k] = 0
 
 
-@contextmanager
-def profile_launches():
-    """Record a pair of CUDA events around every kernel launch made in
-    the block; yields the list of (start, end) pairs."""
-    global _PROFILE
-    events: list = []
-    prev, _PROFILE = _PROFILE, events
-    try:
-        yield events
-    finally:
-        _PROFILE = prev
+def design_for(w: int, b: int) -> str:
+    """The kernel `relax_rows` launches for a table of width `w` and `b`
+    distance columns: "vec" (the specialisation for that shape) or
+    "generic". The C entry `openr_relax_rows` makes the same choice."""
+    return "vec" if w in VEC_WIDTHS and b in VEC_WIDTHS else "generic"
 
 
-def _kernel():
-    global _FN
-    with _FN_LOCK:
-        if _FN is None:
+def _lib():
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
             from openr_tpu_torch.ops import cuda_build
 
-            fn = cuda_build.load("relax").openr_relax_rows
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            _FN = fn
-    return _FN
+            lib = cuda_build.load("relax")
+            for name, (argtypes, restype) in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _LIB = lib
+    return _LIB
 
 
 def build() -> None:
-    """Build and load the kernel now (it is otherwise built at first
+    """Build and load the kernels now (they are otherwise built at first
     launch)."""
-    _kernel()
+    _lib()
 
 
 def _rows(row0, n, src_rows, dst_rows, device):
@@ -81,18 +100,21 @@ def _rows(row0, n, src_rows, dst_rows, device):
     if src_rows is None:
         r = torch.arange(row0, row0 + n, device=device)
     else:
-        r = src_rows.long()
-    return r, (r if dst_rows is None else dst_rows.long())
+        r = src_rows[:n].long()
+    return r, (r if dst_rows is None else dst_rows[:n].long())
 
 
 def relax_rows_ref(
     dist_in, out, nbr, wgt, roots, over=None, *,
     row0=0, n=None, src_rows=None, dst_rows=None, changed=None,
+    row_flag=None, rows_changed=None,
 ):
     """Plain PyTorch version of the relax kernel, same signature and
-    result: min-scatters each listed row's candidate minimum into `out`
-    and adds the count of entries below `dist_in` to `changed`. All
-    candidates are computed from `dist_in` before `out` is written."""
+    result: min-scatters each listed row's candidate minimum into `out`,
+    adds the count of entries below `dist_in` to `changed`, sets
+    `row_flag[t]` for each target row the scatter lowered and adds the
+    newly set ones to `rows_changed`. All candidates are computed from
+    `dist_in` before `out` is written."""
     n = _count(nbr, row0, n, src_rows, dst_rows)
     r, t = _rows(row0, n, src_rows, dst_rows, dist_in.device)
     b = dist_in.shape[1]
@@ -113,9 +135,18 @@ def relax_rows_ref(
         acc = torch.minimum(acc, c)
     if changed is not None:
         changed += (acc < dist_in[t]).sum().to(torch.int32)
+    if row_flag is not None:
+        targets = torch.unique(t)
+        before = out[targets]  # a copy: advanced indexing gathers
     out.scatter_reduce_(
         0, t[:, None].expand(n, b), acc, reduce="amin", include_self=True
     )
+    if row_flag is not None:
+        lowered = (out[targets] < before).any(dim=1)
+        fresh = targets[lowered & (row_flag[targets] == 0)]
+        row_flag[fresh] = 1
+        if rows_changed is not None:
+            rows_changed += fresh.numel()
     return changed
 
 
@@ -130,21 +161,23 @@ def _count(nbr, row0, n, src_rows, dst_rows) -> int:
 
 
 def _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
-           dst_rows, changed):
-    dev = dist_in.device
-    named = [("dist_in", dist_in, torch.int32), ("out", out, torch.int32),
-             ("nbr", nbr, torch.int32), ("wgt", wgt, torch.int32),
-             ("roots", roots, torch.int32)]
-    if over is not None:
-        named.append(("over", over, torch.bool))
-    for nm, x in (("src_rows", src_rows), ("dst_rows", dst_rows)):
-        if x is not None:
-            named.append((nm, x, torch.int32))
-    if changed is not None:
-        named.append(("changed", changed, torch.int32))
-    for nm, x, dt in named:
-        if x.device != dev:
-            raise ValueError(f"relax_rows: {nm} on {x.device}, dist on {dev}")
+           dst_rows, changed, row_flag, rows_changed):
+    # one launch per sweep chunk: keep these checks cheap on the host
+    dev = dist_in.get_device()
+    i32 = torch.int32
+    for nm, x, dt in (
+        ("dist_in", dist_in, i32), ("out", out, i32), ("nbr", nbr, i32),
+        ("wgt", wgt, i32), ("roots", roots, i32), ("over", over, torch.bool),
+        ("src_rows", src_rows, i32), ("dst_rows", dst_rows, i32),
+        ("changed", changed, i32), ("row_flag", row_flag, i32),
+        ("rows_changed", rows_changed, i32),
+    ):
+        if x is None:
+            continue
+        if x.get_device() != dev:
+            raise ValueError(
+                f"relax_rows: {nm} on {x.device}, dist on {dist_in.device}"
+            )
         if x.dtype != dt:
             raise TypeError(f"relax_rows: {nm} is {x.dtype}, needs {dt}")
         if not x.is_contiguous():
@@ -171,11 +204,80 @@ def _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
         )
     if changed is not None and changed.numel() < 1:
         raise ValueError("relax_rows: changed needs one int32 slot")
+    if row_flag is not None and row_flag.shape != (dist_in.shape[0],):
+        raise ValueError(
+            f"relax_rows: row_flag must be [{dist_in.shape[0]}] (one per "
+            "dist row)"
+        )
+    if rows_changed is not None and (
+        row_flag is None or rows_changed.numel() < 1
+    ):
+        raise ValueError(
+            "relax_rows: rows_changed needs one int32 slot and a row_flag"
+        )
+
+
+def _check_aligned(dist_in, out, nbr, wgt, over):
+    """The vectorised kernel reads 16-byte vectors of dist and copies the
+    table in 16-byte (over: 8-byte) pieces."""
+    for nm, x, align in (("dist_in", dist_in, 16), ("out", out, 16),
+                         ("nbr", nbr, 16), ("wgt", wgt, 16),
+                         ("over", over, 8)):
+        if x is not None and x.data_ptr() % align:
+            raise ValueError(
+                f"relax_rows: {nm} must be {align}-byte aligned for the "
+                "vectorised kernel"
+            )
+
+
+def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
+           dst_rows, changed, row_flag, rows_changed):
+    global LAUNCHES
+    n = _count(nbr, row0, n, src_rows, dst_rows)
+    _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
+           dst_rows, changed, row_flag, rows_changed)
+    if dist_in.device.type == "cpu":
+        return relax_rows_ref(
+            dist_in, out, nbr, wgt, roots, over, row0=row0, n=n,
+            src_rows=src_rows, dst_rows=dst_rows, changed=changed,
+            row_flag=row_flag, rows_changed=rows_changed,
+        )
+    if dist_in.device.type != "cuda":
+        raise ValueError(f"relax_rows: no kernel for {dist_in.device}")
+    if n == 0:
+        return changed
+    w, b = nbr.shape[1], dist_in.shape[1]
+    design = "generic" if entry == "openr_relax_rows_generic" else (
+        design_for(w, b)
+    )
+    if design == "vec":
+        _check_aligned(dist_in, out, nbr, wgt, over)
+    lib = _lib()
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(dist_in.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            ptr(dist_in), ptr(out), b, ptr(nbr), ptr(wgt), ptr(over), w,
+            ptr(roots), ptr(src_rows), ptr(dst_rows), int(row0), n,
+            ptr(changed), ptr(row_flag), ptr(rows_changed), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"relax kernel launch failed: "
+            f"{lib.openr_cuda_error_string(err).decode()} ({err})"
+        )
+    LAUNCHES += 1
+    LAUNCHES_BY_DESIGN[design] += 1
+    return changed
 
 
 def relax_rows(
     dist_in, out, nbr, wgt, roots, over=None, *,
     row0=0, n=None, src_rows=None, dst_rows=None, changed=None,
+    row_flag=None, rows_changed=None,
 ):
     """Relax `n` rows of the table [R,W] (`nbr`, `wgt`, optional `over`
     bool mask of overloaded in-neighbors) against `dist_in` [vp,B],
@@ -184,53 +286,31 @@ def relax_rows(
     Row i reads table row `src_rows[i]` (default `row0 + i`) and writes
     dist row `dst_rows[i]` (default: the table row). With `changed` (an
     int32 [1] tensor), adds the count of entries where the candidate
-    beats `dist_in`. Neighbor ids must lie in [0, vp) — the kernel does
-    not check them. Returns `changed`.
+    beats `dist_in`. With `row_flag` (int32 [vp]), sets it to 1 for every
+    dist row the call lowered and adds the rows it newly set to
+    `rows_changed` (int32 [1]). Neighbor ids must lie in [0, vp) — the
+    kernel does not check them. Returns `changed`.
+
+    A CUDA tensor launches the kernel that `design_for(W, B)` names; a
+    CPU tensor runs `relax_rows_ref`.
     """
-    global LAUNCHES
-    n = _count(nbr, row0, n, src_rows, dst_rows)
-    _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
-           dst_rows, changed)
-    if dist_in.device.type == "cpu":
-        return relax_rows_ref(
-            dist_in, out, nbr, wgt, roots, over, row0=row0, n=n,
-            src_rows=src_rows, dst_rows=dst_rows, changed=changed,
-        )
-    if dist_in.device.type != "cuda":
-        raise ValueError(f"relax_rows: no kernel for {dist_in.device}")
-    if n == 0:
-        return changed
-    fn = _kernel()
+    return _relax(
+        "openr_relax_rows", dist_in, out, nbr, wgt, roots, over, row0, n,
+        src_rows, dst_rows, changed, row_flag, rows_changed,
+    )
 
-    def ptr(x):
-        return None if x is None else x.data_ptr()
 
-    with torch.cuda.device(dist_in.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        ev = None
-        if _PROFILE is not None:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        err = fn(
-            ptr(dist_in), ptr(out), dist_in.shape[1], ptr(nbr), ptr(wgt),
-            ptr(over), nbr.shape[1], ptr(roots), ptr(src_rows),
-            ptr(dst_rows), int(row0), n, ptr(changed), stream,
-        )
-        if err != 0:
-            from openr_tpu_torch.ops import cuda_build
-
-            msg = cuda_build.load("relax").openr_cuda_error_string
-            msg.restype = ctypes.c_char_p
-            msg.argtypes = [ctypes.c_int]
-            raise RuntimeError(
-                f"relax kernel launch failed: {msg(err).decode()} ({err})"
-            )
-        LAUNCHES += 1
-        if ev is not None:
-            ev[1].record()
-            _PROFILE.append(ev)
-    return changed
+def relax_rows_generic(
+    dist_in, out, nbr, wgt, roots, over=None, *,
+    row0=0, n=None, src_rows=None, dst_rows=None, changed=None,
+    row_flag=None, rows_changed=None,
+):
+    """`relax_rows` through the generic kernel at any shape, to measure
+    the two designs side by side; the solve never calls it."""
+    return _relax(
+        "openr_relax_rows_generic", dist_in, out, nbr, wgt, roots, over,
+        row0, n, src_rows, dst_rows, changed, row_flag, rows_changed,
+    )
 
 
 def relax_sweep(dist, nbr, wgt, roots, over=None):

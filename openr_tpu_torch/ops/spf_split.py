@@ -14,9 +14,11 @@ its three phases and their knobs:
      hit `tail_rounds_cap` with work left.
 
 Every relax is the hand-written kernel of `ops/relax.py` (the plain
-version when the tensors lie on the CPU). Loop conditions read one
-scalar back to the host per sweep or tail round (`.item()`); the
-count is reported in `stats["host_syncs"]`.
+version when the tensors lie on the CPU), and the kernel's row flags
+are the change detection: the rows a sweep or tail round lowered and
+their count. Loop conditions read one scalar back to the host per sweep
+or tail round (`.item()`); the count is reported in
+`stats["host_syncs"]`.
 
 Any update order reaches the same fixpoint of the monotone min system,
 so distances equal the JAX package's bit for bit even where the kernel's
@@ -179,34 +181,64 @@ def _first_of_runs(srt, keep):
     return first & keep
 
 
-def _make_dense_sweep(tables, over_base, over_ov, roots, gs):
+def _make_dense_sweep(tables, over_base, over_ov, roots, gs, flags):
     """Dense relax sweep over base + overflow tables, in place.
 
     With gs > 1 the base rows go in `gs` contiguous chunks, each reading
     the dist the earlier chunks updated; the overflow rows always read
     the pre-sweep dist, as `_make_dense_sweep` of the JAX package does.
-    Returns `sweep(dist) -> prev` (prev = the pre-sweep copy)."""
+    Returns `sweep(dist)`: it clears `flags` (int32 [vp + 1]) and leaves
+    in `flags[:vp]` the rows the sweep lowered and in `flags[vp]` their
+    count."""
     base_nbr, base_wgt = tables["base_nbr"], tables["base_wgt"]
     ov_ids, ov_nbr, ov_wgt = (
         tables["ov_ids"], tables["ov_nbr"], tables["ov_wgt"]
     )
     vp = base_nbr.shape[0]
     csz = vp // gs
+    fl = dict(row_flag=flags[:vp], rows_changed=flags[vp:])
 
     def dense_sweep(dist):
         prev = dist.clone()
         src = prev if gs == 1 else dist
+        flags.zero_()
         for c in range(gs):
             relax.relax_rows(
                 src, dist, base_nbr, base_wgt, roots, over_base,
-                row0=c * csz, n=csz,
+                row0=c * csz, n=csz, **fl,
             )
         relax.relax_rows(
-            prev, dist, ov_nbr, ov_wgt, roots, over_ov, dst_rows=ov_ids
+            prev, dist, ov_nbr, ov_wgt, roots, over_ov, dst_rows=ov_ids, **fl
         )
-        return prev
 
     return dense_sweep
+
+
+def _make_tail_relax(tables, over_base, over_ov, roots, flags):
+    """One compacted tail round's relax: the listed base rows and every
+    overflow row, all reading the pre-round dist (Jacobi), in place.
+    Returns `tail_relax(dist, rows)`, which clears `flags` and leaves the
+    rows it lowered and their count there, as `dense_sweep` does."""
+    base_nbr, base_wgt = tables["base_nbr"], tables["base_wgt"]
+    ov_ids, ov_nbr, ov_wgt = (
+        tables["ov_ids"], tables["ov_nbr"], tables["ov_wgt"]
+    )
+    vp = base_nbr.shape[0]
+    fl = dict(row_flag=flags[:vp], rows_changed=flags[vp:])
+
+    def tail_relax(dist, rows):
+        snap = dist.clone()
+        flags.zero_()
+        relax.relax_rows(
+            snap, dist, base_nbr, base_wgt, roots, over_base,
+            src_rows=rows, dst_rows=rows, **fl,
+        )
+        # overflow in-edges: the ov tables are tiny — relax them all
+        relax.relax_rows(
+            snap, dist, ov_nbr, ov_wgt, roots, over_ov, dst_rows=ov_ids, **fl
+        )
+
+    return tail_relax
 
 
 def batched_sssp_split(
@@ -227,7 +259,6 @@ def batched_sssp_split(
     host_syncs."""
     base_nbr = tables["base_nbr"]
     out_nbr, ov_ids = tables["out_nbr"], tables["ov_ids"]
-    ov_nbr, ov_wgt = tables["ov_nbr"], tables["ov_wgt"]
     dev = base_nbr.device
     vp = base_nbr.shape[0]
     b = roots.shape[0]
@@ -241,30 +272,37 @@ def batched_sssp_split(
     if has_overloads:
         over = tables["over"]
         over_base = over[base_nbr.long()].contiguous()
-        over_ov = over[ov_nbr.long()].contiguous()
+        over_ov = over[tables["ov_nbr"].long()].contiguous()
     else:
         over_base = over_ov = None
 
     gs = gs_chunks if gs_chunks is not None else pick_gs_chunks(vp)
     if vp % gs:  # explicit override that doesn't divide: no chunking
         gs = 1
-    dense_sweep = _make_dense_sweep(tables, over_base, over_ov, roots, gs)
+    # Change detection comes from the kernel: every sweep or tail round
+    # clears `flags` once and each of its launches sets row_flag[t] for
+    # the rows it lowered and counts them in rows_changed — the JAX
+    # package's `(new < dist).any(axis=1)` and its sum.
+    flags = torch.zeros(vp + 1, dtype=torch.int32, device=dev)
+    row_flag, rows_changed = flags[:vp], flags[vp:]
+    dense_sweep = _make_dense_sweep(
+        tables, over_base, over_ov, roots, gs, flags
+    )
+    tail_relax = _make_tail_relax(tables, over_base, over_ov, roots, flags)
 
     # ---- phase 1: dense sweeps while the changed set is large ----------
-    changed_mask = torch.zeros(vp, dtype=torch.bool, device=dev)
-    changed_mask[roots.long()] = True
+    row_flag[roots.long()] = 1  # the entry set before any sweep
     n_changed = tail_threshold + 1
     it = 0
     while n_changed > tail_threshold and it < vp:
-        prev = dense_sweep(dist)
-        changed_mask = (dist < prev).any(dim=1)
-        n_changed = int(changed_mask.sum().item())
+        dense_sweep(dist)
+        n_changed = int(rows_changed.item())
         st["host_syncs"] += 1
         st["sweeps"] += 1
         it += 1
 
     # ---- phase 2: compacted tail --------------------------------------
-    frontier = _compact_ids(torch.where(changed_mask, iota, vp), vp,
+    frontier = _compact_ids(torch.where(row_flag != 0, iota, vp), vp,
                             tail_cap, dead)
     spilled = n_changed > tail_cap  # the entry set itself may not fit
     pending = int(frontier[0].item()) != dead
@@ -276,18 +314,9 @@ def batched_sssp_split(
         first = _first_of_runs(exp, exp != dead)
         spill_dev = first.sum() > tail_cap
         rows = _compact_ids(torch.where(first, exp, vp), vp, tail_cap, dead)
-        snap = dist.clone()
-        relax.relax_rows(
-            snap, dist, base_nbr, tables["base_wgt"], roots, over_base,
-            src_rows=rows, dst_rows=rows,
-        )
-        # overflow in-edges: the ov tables are tiny — relax them all
-        relax.relax_rows(
-            snap, dist, ov_nbr, ov_wgt, roots, over_ov, dst_rows=ov_ids
-        )
-        rl, ol = rows.long(), ov_ids.long()
-        changed_rows = (dist[rl] < snap[rl]).any(dim=1)
-        ov_changed = (dist[ol] < snap[ol]).any(dim=1)
+        tail_relax(dist, rows)
+        changed_rows = row_flag[rows.long()] != 0
+        ov_changed = row_flag[ov_ids.long()] != 0
         both = torch.cat(
             [torch.where(changed_rows, rows, vp),
              torch.where(ov_changed, ov_ids, vp)]
@@ -311,8 +340,8 @@ def batched_sssp_split(
     changed = spilled or pending
     it = 0
     while changed and it < vp:
-        prev = dense_sweep(dist)
-        changed = bool((dist < prev).any().item())
+        dense_sweep(dist)
+        changed = int(rows_changed.item()) > 0
         st["host_syncs"] += 1
         st["sweeps"] += 1
         it += 1

@@ -1,7 +1,11 @@
 """The relax kernel's plain version (what the port runs on the CPU) is
 equal to the JAX package's Pallas kernel run in interpret mode, and its
 row-indirection modes are equal to `_relax_rows` on gathered rows
-followed by `.at[rows].min`."""
+followed by `.at[rows].min`; its row flags are the rows it lowered; and
+the Python bindings agree with the C entry points of `csrc/relax.cu`."""
+
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -133,3 +137,109 @@ def test_wrapper_checks_inputs():
     launches = relax.LAUNCHES
     relax.relax_rows(d, d.clone(), n, w, r)  # CPU: plain version
     assert relax.LAUNCHES == launches
+
+
+def _flag_case(mode, frac_over):
+    """(dist, table, kwargs) for one indirection form, as the solve calls
+    it: a dense chunk, the overflow table into repeated targets, and the
+    compacted tail rows."""
+    v, d, b = 512, 16, 8
+    nbr, wgt, roots, over, dist = _tables(v, d, b, 11, frac_over=frac_over)
+    over_t = over[nbr] if frac_over else None
+    rng = np.random.default_rng(12)
+    if mode == "row0":
+        kw = dict(row0=128, n=256)
+        tab = (nbr, wgt, over_t)
+    elif mode == "dst_rows":
+        ro = 64
+        dst = rng.integers(0, v, ro).astype(np.int32)
+        dst[ro // 2 :] = v - 1  # dead-slot padding: repeated targets
+        dst[:4] = dst[4]  # a live target repeated too
+        tab = (nbr[:ro], wgt[:ro], None if over_t is None else over_t[:ro])
+        kw = dict(dst_rows=_t(dst))
+    else:
+        rows = np.sort(rng.choice(v - 1, 100, replace=False)).astype(np.int32)
+        rows = _t(np.concatenate([rows, np.full(28, v - 1, np.int32)]))
+        tab = (nbr, wgt, over_t)
+        kw = dict(src_rows=rows, dst_rows=rows)
+    return dist, roots, tab, kw
+
+
+@pytest.mark.parametrize("preset", [False, True])
+@pytest.mark.parametrize("mode", ["row0", "dst_rows", "src_dst_rows"])
+@pytest.mark.parametrize("frac_over", [0.0, 0.2])
+def test_ref_row_flags_are_the_lowered_rows(mode, frac_over, preset):
+    dist, roots, tab, kw = _flag_case(mode, frac_over)
+    out = _t(dist).clone()
+    before = out.clone()
+    row_flag = torch.zeros(dist.shape[0], dtype=torch.int32)
+    if preset:  # a flag an earlier launch of the round set
+        row_flag[::7] = 1
+    set_before = row_flag.clone()
+    rows_changed = torch.zeros(1, dtype=torch.int32)
+    relax.relax_rows_ref(
+        _t(dist), out, _t(tab[0]), _t(tab[1]), _t(roots),
+        None if tab[2] is None else _t(tab[2]),
+        row_flag=row_flag, rows_changed=rows_changed, **kw,
+    )
+    lowered = (out < before).any(dim=1)
+    assert lowered.any()
+    np.testing.assert_array_equal(
+        row_flag.numpy(), (lowered | (set_before != 0)).int().numpy()
+    )
+    assert int(rows_changed.item()) == int((lowered & (set_before == 0)).sum())
+
+
+@pytest.mark.parametrize("w,b,design", [
+    (8, 8, "vec"), (16, 32, "vec"), (32, 32, "vec"), (64, 8, "vec"),
+    (64, 64, "vec"), (1, 32, "generic"), (4, 8, "generic"),
+    (128, 32, "generic"), (32, 128, "generic"), (128, 128, "generic"),
+    (24, 32, "generic"), (32, 48, "generic"),
+])
+def test_design_for_maps_shapes(w, b, design):
+    assert relax.design_for(w, b) == design
+
+
+CU_SRC = pathlib.Path(relax.__file__).resolve().parents[1] / "csrc/relax.cu"
+
+
+def test_extern_c_signatures_match_argtypes():
+    """Every C entry point of relax.cu has as many parameters as the
+    ctypes argtypes bound to it (the only check before a card)."""
+    src = CU_SRC.read_text()
+    sigs = {
+        m.group(1): m.group(2)
+        for m in re.finditer(r'extern "C"[^(]*?\b(\w+)\s*\(([^)]*)\)', src)
+    }
+    assert set(sigs) == set(relax.ENTRY_POINTS)
+    for name, params in sigs.items():
+        n_params = len([p for p in params.split(",") if p.strip()])
+        assert n_params == len(relax.ENTRY_POINTS[name][0]), name
+
+
+def test_c_dispatch_widths_match_design_for():
+    """The C dispatch specialises exactly the widths `design_for` names."""
+    src = CU_SRC.read_text()
+    body = src[src.index("int width_index(int x)"):]
+    body = body[: body.index("}\n}")]
+    cases = {int(x) for x in re.findall(r"case (\d+): return", body)}
+    assert cases == set(relax.VEC_WIDTHS)
+
+
+def test_wrapper_checks_flag_buffers():
+    nbr, wgt, roots, _over, dist = _tables(64, 8, 8, 0)
+    d, n, w, r = _t(dist), _t(nbr), _t(wgt), _t(roots)
+    flag = torch.zeros(64, dtype=torch.int32)
+    count = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):  # one flag per dist row
+        relax.relax_rows(d, d.clone(), n, w, r, row_flag=flag[:32])
+    with pytest.raises(TypeError):
+        relax.relax_rows(d, d.clone(), n, w, r, row_flag=flag.long())
+    with pytest.raises(ValueError):  # a count needs the flags it counts
+        relax.relax_rows(d, d.clone(), n, w, r, rows_changed=count)
+    relax.relax_rows(d, d.clone(), n, w, r, row_flag=flag, rows_changed=count)
+    assert int(count.item()) == int(flag.sum()) > 0
+    # the vectorised kernel's 16-byte vectors need aligned buffers
+    with pytest.raises(ValueError):
+        relax._check_aligned(d.reshape(-1)[1:], d, n, w, None)
+    relax._check_aligned(d, d, n, w, None)

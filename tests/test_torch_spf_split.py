@@ -1,7 +1,8 @@
 """The port's split solve is byte-equal to the JAX package's:
 `batched_sssp_split` distances and the `batched_sssp_split_rib` packed
 buffer, across overloads, LFA, a forced tail spill, Gauss-Seidel
-chunking and the uniform-metric regime."""
+chunking and the uniform-metric regime; and the row flags of one dense
+sweep or tail round are the JAX package's changed rows."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -105,3 +106,88 @@ def test_split_distances_and_rib_buffer_equal(case):
         assert stats["spilled"]
     if case == "tail_long":
         assert stats["tail_rounds"] > 0 and not stats["spilled"]
+
+
+def _mid_solve(frac_over, sweeps=2):
+    """A problem and a dist part-way to its fixpoint: `sweeps` JAX dense
+    sweeps from the roots, so the next round lowers some rows only."""
+    t, over, roots, *_ = _problem(n=1500, deg=8, mw=16, seed=3,
+                                  frac_over=frac_over)
+    has_over = frac_over > 0
+    j = {k: jnp.asarray(t[k]) for k in (
+        "base_nbr", "base_wgt", "ov_ids", "ov_nbr", "ov_wgt"
+    )}
+    jo = jnp.asarray(over)
+    over_base = jo[j["base_nbr"]] if has_over else None
+    over_ov = jo[j["ov_nbr"]] if has_over else None
+    vp, b = t["vp"], roots.shape[0]
+    dist = jnp.full((vp, b), INF, jnp.int32)
+    dist = dist.at[jnp.asarray(roots), jnp.arange(b)].set(0)
+    sweep1 = jsplit._make_dense_sweep(
+        j["base_nbr"], j["base_wgt"], j["ov_ids"], j["ov_nbr"], j["ov_wgt"],
+        over_base, over_ov, jnp.asarray(roots), has_over, 1,
+    )
+    for _ in range(sweeps):
+        dist = sweep1(dist)
+    return t, over, roots, j, over_base, over_ov, dist
+
+
+def _port_side(t, over, roots, has_over):
+    tables = split_tables_from_numpy(t, over, "cpu")
+    if has_over:
+        ob = tables["over"][tables["base_nbr"].long()].contiguous()
+        oo = tables["over"][tables["ov_nbr"].long()].contiguous()
+    else:
+        ob = oo = None
+    flags = torch.full((t["vp"] + 1,), 5, dtype=torch.int32)  # stale
+    return tables, ob, oo, flags
+
+
+@pytest.mark.parametrize("gs", [1, 4])
+@pytest.mark.parametrize("frac_over", [0.0, 0.1])
+def test_dense_sweep_flags_equal_jax_changed_rows(gs, frac_over):
+    t, over, roots, j, over_base, over_ov, dist = _mid_solve(frac_over)
+    has_over = frac_over > 0
+    ref = jsplit._make_dense_sweep(
+        j["base_nbr"], j["base_wgt"], j["ov_ids"], j["ov_nbr"], j["ov_wgt"],
+        over_base, over_ov, jnp.asarray(roots), has_over, gs,
+    )(dist)
+    ref_changed = np.asarray((ref < dist).any(axis=1))
+    assert 0 < ref_changed.sum() < t["vp"]
+    tables, ob, oo, flags = _port_side(t, over, roots, has_over)
+    got = torch.from_numpy(np.array(dist))
+    psplit._make_dense_sweep(
+        tables, ob, oo, torch.from_numpy(roots), gs, flags
+    )(got)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(flags[:-1].numpy() != 0, ref_changed)
+    assert int(flags[-1]) == int(ref_changed.sum())
+
+
+@pytest.mark.parametrize("frac_over", [0.0, 0.1])
+def test_tail_round_flags_equal_jax_changed_rows(frac_over):
+    t, over, roots, j, over_base, over_ov, dist = _mid_solve(frac_over)
+    has_over = frac_over > 0
+    vp = t["vp"]
+    rng = np.random.default_rng(21)
+    live = np.sort(rng.choice(vp - 1, 300, replace=False)).astype(np.int32)
+    rows = np.concatenate([live, np.full(212, vp - 1, np.int32)])
+    jr, jroots = jnp.asarray(rows), jnp.asarray(roots)
+    sub = jsplit._relax_rows(
+        dist, j["base_nbr"][jr], j["base_wgt"][jr],
+        over_base[jr] if has_over else None, jroots, has_over,
+    )
+    ov = jsplit._relax_rows(
+        dist, j["ov_nbr"], j["ov_wgt"], over_ov, jroots, has_over
+    )
+    ref = dist.at[jr].min(sub).at[j["ov_ids"]].min(ov)
+    ref_changed = np.asarray((ref < dist).any(axis=1))
+    assert ref_changed.sum() > 0
+    tables, ob, oo, flags = _port_side(t, over, roots, has_over)
+    got = torch.from_numpy(np.array(dist))
+    psplit._make_tail_relax(
+        tables, ob, oo, torch.from_numpy(roots), flags
+    )(got, torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(flags[:-1].numpy() != 0, ref_changed)
+    assert int(flags[-1]) == int(ref_changed.sum())
