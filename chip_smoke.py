@@ -32,8 +32,19 @@ Phases (any failure exits non-zero and prints no result line):
      then the same path at a shape outside the specialisation table:
      the hub of `hub_and_spoke(2, 100)` (101 neighbors, B = 128), which
      takes the generic kernel;
-  5. overloads + LFA on a small graph, the packed first-hop and LFA bits
-     checked against a NumPy recomputation from scipy distances.
+  5. the link-flap warm path on the same graph, built as a real
+     `LinkState` from its directed edges: 5 seeded rounds of 32 metric
+     changes (16 raised by +20, 16 lowered to 1, none root-incident)
+     through `update_adjacency_db_delta` and `warm_compute_routes`, each
+     round then reverted the same way; every warm RouteDatabase equal to
+     a cold `compute_routes` of a fresh solver, one warm solve against
+     scipy; warm and cold p50, the warm stats, the relax launches by
+     design and the relax kernel's CUPTI time in one profiled warm solve;
+  6. overloads + LFA on a small graph, the packed first-hop and LFA bits
+     checked against a NumPy recomputation from scipy distances;
+  7. the gather probe (`openr_tpu_torch.probe_gather`) at its full
+     shapes: both sweeps exact against the plain version and the probe's
+     check sum, CUPTI time of each kernel, the torch-ops sweep's time.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`;
 the last line is `{"ok": true, "device": {...}}`.
@@ -527,6 +538,254 @@ def phase4_hub(relax) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 5
+
+
+def er_linkstate(n: int, avg_degree: int, seed: int, max_metric: int):
+    """A real LinkState + PrefixState of `erdos_renyi_csr`'s directed
+    edges, through the topology generator's `_mk_dbs`: the names, node
+    labels and interface names of `erdos_renyi_lsdb`'s view."""
+    from openr_tpu_torch.decision.linkstate import LinkState, PrefixState
+    from openr_tpu_torch.utils.topogen import _mk_dbs, erdos_renyi_csr
+
+    src, dst, met, _vp, nn, e = erdos_renyi_csr(
+        n, avg_degree=avg_degree, seed=seed, max_metric=max_metric
+    )
+    adj, pfx = _mk_dbs(nn, list(zip(src[:e].tolist(), dst[:e].tolist(),
+                                    met[:e].tolist())))
+    ls, ps = LinkState(), PrefixState()
+    for db in adj:
+        ls.update_adjacency_db(db)
+    for db in pfx:
+        ps.update_prefix_db(db)
+    return ls, ps, e
+
+
+def flap_round(ls, rng, n_up: int, n_down: int):
+    """Metric changes on n_up + n_down directed adjacencies of distinct
+    nodes, none touching node-0: n_up raised by +20, n_down lowered to 1.
+    Returns (edge pairs, the replaced AdjacencyDatabases)."""
+    from dataclasses import replace
+
+    names = ls.nodes
+    picked: dict[str, tuple[int, int]] = {}
+    while len(picked) < n_up + n_down:
+        node = names[int(rng.integers(1, len(names)))]
+        if node == "node-0" or node in picked:
+            continue
+        adjs = ls.adjacency_db(node).adjacencies
+        k = int(rng.integers(len(adjs)))
+        if adjs[k].other_node_name == "node-0":
+            continue
+        new = adjs[k].metric + 20 if len(picked) < n_up else 1
+        if new == adjs[k].metric:
+            continue
+        picked[node] = (k, new)
+    pairs: set = set()
+    old_dbs = []
+    for node, (k, m) in picked.items():
+        db = ls.adjacency_db(node)
+        old_dbs.append(db)
+        adjs = list(db.adjacencies)
+        adjs[k] = replace(adjs[k], metric=m)
+        changed, got = ls.update_adjacency_db_delta(
+            replace(db, adjacencies=tuple(adjs)))
+        if not changed or got is None:
+            fail(f"warm: the flap on {node} was not metric-only")
+        pairs.update(got)
+    return pairs, old_dbs
+
+
+def revert_round(ls, old_dbs):
+    pairs: set = set()
+    for db in old_dbs:
+        changed, got = ls.update_adjacency_db_delta(db)
+        if not changed or got is None:
+            fail(f"warm: the revert of {db.this_node_name} was not "
+                 "metric-only")
+        pairs.update(got)
+    return pairs
+
+
+def phase5_warm(relax, shape4) -> dict:
+    """The link-flap warm path on the 100k graph; returns the relax
+    launches by design of its warm calls (counts set to 0 just before
+    each call and read just after)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    t0 = time.perf_counter()
+    ls, ps, e = er_linkstate(100_000, avg_degree=20, seed=0, max_metric=64)
+    t_dbs = time.perf_counter() - t0
+    csr = ls.to_csr()
+    t_csr = time.perf_counter() - t0 - t_dbs
+    solver = TorchSpfSolver(device=DEVICE)
+    tables = solver._device_arrays(csr)
+    shape = (tables["vp"], tables["base_nbr"].shape[1],
+             tuple(tables["ov_nbr"].shape))
+    if shape != shape4 or csr.num_edges != e:
+        fail(f"warm: the LinkState's CSR gives {shape}, {csr.num_edges} "
+             f"edges; phase 4 gave {shape4}, {e}")
+    log(f"[5] LinkState: {csr.num_nodes} nodes, {csr.num_edges} directed "
+        f"edges, vp {shape[0]}, W {shape[1]}, overflow {shape[2]}; set-up "
+        f"{t_dbs:.1f} s (AdjacencyDatabases) + {t_csr:.1f} s (CSR)")
+    rdb, art = solver.compute_routes(ls, ps, "node-0", return_artifact=True)
+    cold_solver = TorchSpfSolver(device=DEVICE)
+    cold_solver.compute_routes(ls, ps, "node-0")  # uploads its tables
+    rng = np.random.default_rng(20261017)
+    warm_ms, cold_ms, cold_gc, stats = [], [], [], []
+    launches = {"vec": 0, "generic": 0}
+
+    gc_ms = [0.0]
+    gc_t0 = [0.0]
+
+    def gc_timer(phase, _info):
+        # host time inside the garbage collector, which the timed calls
+        # include: millions of live objects make a full collection slow
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
+
+    def timed(fn):
+        gc_ms[0] = 0.0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3, gc_ms[0]
+
+    def warm(pairs, tag):
+        """One warm call, counts from 0; returns its result and times."""
+        nonlocal rdb, art
+        relax.reset_launches()
+        got, dt, g = timed(lambda: solver.warm_compute_routes(
+            art, ls, ps, "node-0", pairs, set(), rdb, 0.25))
+        for k, v in relax.LAUNCHES_BY_DESIGN.items():
+            launches[k] += v
+        if got is None:
+            fail(f"warm: {tag}: warm_compute_routes returned None on a "
+                 "flap set with no fallback trigger")
+        rdb, art = got[0], got[1]
+        stats.append(dict(solver.last_warm_stats, region=got[4],
+                          wall_ms=dt, gc_ms=g,
+                          by_design=dict(relax.LAUNCHES_BY_DESIGN)))
+        return dt
+
+    def check(tag, scipy_check=False):
+        """The warm RIB against a fresh solver's and the patched cold
+        solver's; returns the cold solver's wall ms."""
+        fresh = TorchSpfSolver(device=DEVICE).compute_routes(
+            ls, ps, "node-0")
+        cold, c_dt, g = timed(
+            lambda: cold_solver.compute_routes(ls, ps, "node-0"))
+        for ref, name in ((fresh, "a fresh solver"),
+                          (cold, "the patched cold solver")):
+            if (rdb.unicast_routes != ref.unicast_routes
+                    or rdb.mpls_routes != ref.mpls_routes):
+                fail(f"warm: {tag}: the warm RouteDatabase differs from "
+                     f"a cold compute_routes of {name}")
+        if scipy_check:
+            check_solve(art.solved[0], art.solved, rdb, cols=3,
+                        tag=f"warm {tag}")
+        cold_gc.append(g)
+        return c_dt
+
+    def warm_call(pairs, tag, scipy_check=False):
+        warm_ms.append(warm(pairs, tag))
+        cold_ms.append(check(tag, scipy_check))
+
+    import gc
+
+    gc.callbacks.append(gc_timer)
+    try:
+        for rnd in range(5):
+            pairs, old_dbs = flap_round(ls, rng, 16, 16)
+            warm_call(pairs, f"round {rnd} flap", scipy_check=rnd == 0)
+            warm_call(revert_round(ls, old_dbs), f"round {rnd} revert")
+        # one more flap, traced alone: the relax kernel's device time and
+        # the device's busy time in a warm call
+        pairs, old_dbs = flap_round(ls, rng, 16, 16)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced_ms = warm(pairs, "traced flap")
+        check("traced flap")
+        warm_call(revert_round(ls, old_dbs), "traced flap revert")
+    finally:
+        gc.callbacks.remove(gc_timer)
+    k_us, k_n = kernel_device_us(prof, tuple(relax.KERNEL_NAMES.values()))
+    dev_us, _n = kernel_device_us(prof, ("",))
+    log(f"[5] warm p50 {statistics.median(warm_ms):.3f} ms (samples "
+        f"{[round(x, 3) for x in warm_ms]}); cold p50 after the same flap "
+        f"{statistics.median(cold_ms):.3f} ms (samples "
+        f"{[round(x, 3) for x in cold_ms]}, of which in the garbage "
+        f"collector {[round(x, 1) for x in cold_gc]}); host wall, ms")
+    for i, st in enumerate(stats):
+        log(f"[5] warm call {i}: {st}")
+    st = stats[-2]  # the traced call
+    log(f"[5] traced warm call ({st['tail_rounds']} tail rounds, "
+        f"{st['sweeps']} sweeps, spilled {st['spilled']}, wall "
+        f"{traced_ms:.3f} ms under the profiler): relax kernel {k_n} "
+        f"launches, {k_us:.1f} us (CUPTI)"
+        + (f", {k_us / k_n:.2f} us per launch" if k_n else
+           " (not measured: the profiler saw no relax kernel)")
+        + f"; all device kernels {dev_us:.1f} us, busy share "
+        f"{dev_us / 1e3 / traced_ms:.3f} of the traced wall")
+    log(f"[5] {len(stats)} warm calls, none None, each equal to a fresh "
+        f"cold compute_routes; round 0 vs scipy: ok; solver "
+        f"warm_solves {solver.warm_solves}, solve_count "
+        f"{solver.solve_count}, device cache {solver.dev_cache_stats}")
+    for d in path_designs(relax, tables, art.solved[1].shape[1]):
+        if launches[d] == 0:
+            fail(f"warm: the warm path launched the {d} relax kernel no "
+                 "time")
+    return launches
+
+
+# ------------------------------------------------------------ phase 7
+
+
+def phase7_probe(relax) -> dict:
+    """`probe_gather` at the probe's shapes, counts from 0: both sweeps
+    exact, their CUPTI times, the torch-ops sweep's and the plain
+    version's times, and the sweep's bound."""
+    from openr_tpu_torch import probe_gather as pg
+
+    relax.reset_launches()
+    res = pg.measure(DEVICE, pg.VP, reps=20)
+    torch.cuda.synchronize()
+    launches = dict(relax.LAUNCHES_BY_DESIGN)
+    names = {name: fn.__name__ for name, fn, _k in pg.VARIANTS}
+    out = {names[k]: v for k, v in res.items()}
+    for fn, design in (("sweep_b1", "generic"), ("sweep_b2", "vec")):
+        row = out[fn]
+        if not row["sum_ok"] or row["max_abs_err"]:
+            fail(f"probe: {fn} is wrong (sum ok {row['sum_ok']}, max "
+                 f"|diff| vs plain {row['max_abs_err']})")
+        if launches[design] == 0:
+            fail(f"probe: {fn} launched the {design} kernel no time")
+    if not out["sweep_torch_ops"]["sum_ok"]:
+        fail("probe: the torch-ops sweep is wrong")
+    vp, d, b = pg.VP, pg.D, pg.B
+    nbytes = vp * d * 8 + 2 * vp * b * 4  # nbr+wgt, dist in, out
+    ops = vp * d * b * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    out.update(
+        launches=launches,
+        plain_ms=out["sweep_ref"]["us"] / 1e3,
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+    for name, row in res.items():
+        log(f"[7] {name}: {row['us']:.2f} us ({row['gbs']:.0f} GB/s eff, "
+            f"VP*D*B*4 logical bytes); sum ok {row['sum_ok']}, max |diff| "
+            f"vs plain {row['max_abs_err']}")
+    log(f"[7] probe VP {vp} D {d} B {b}: bound {out['bound_ms'] * 1e3:.3f} "
+        f"us by {out['bound_by']} ({nbytes} B, {ops} int ops); launches "
+        f"{launches}")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -591,6 +850,8 @@ def main() -> None:
     tables = solver._device_arrays(csr)
     torch.cuda.synchronize()
     vp = tables["vp"]
+    w_base = tables["base_nbr"].shape[1]
+    ov_shape = tuple(tables["ov_nbr"].shape)
     log(f"[4] LSDB: {csr.num_nodes} nodes, {int(csr.num_edges)} directed "
         f"edges, vp {vp}, W {tables['base_nbr'].shape[1]}, overflow "
         f"{tuple(tables['ov_nbr'].shape)} with "
@@ -655,8 +916,14 @@ def main() -> None:
         "neighbor columns and first hops: ok")
     hub_launches = phase4_hub(relax)
 
-    # ---- phase 5: overloads + LFA ----------------------------------------
-    phase5()
+    # ---- phase 5: the link-flap warm path ------------------------------
+    warm_launches = phase5_warm(relax, (vp, w_base, ov_shape))
+
+    # ---- phase 6: overloads + LFA ----------------------------------------
+    phase6()
+
+    # ---- phase 7: the gather probe ---------------------------------------
+    probe = phase7_probe(relax)
 
     d = timing["dense"]
     kernels = []
@@ -679,6 +946,23 @@ def main() -> None:
             "bound_by": d["bound_by"],
             "library_ms": None,
         })
+    for design, fn, line in (("generic", "sweep_b1", 81),
+                             ("vec", "sweep_b2", 102)):
+        row = probe[fn]
+        kernels.append({
+            "name": f"{relax.KERNEL_NAMES[design]} (probe {fn})",
+            "route": "cuda",
+            "source": "openr_tpu_torch/csrc/relax.cu",
+            "replaces": f"benchmarks/probe_pallas_gather.py:{line}",
+            "launches": probe["launches"][design],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["us"] / 1e3,
+            "plain_ms": probe["plain_ms"],
+            "bound_ms": probe["bound_ms"],
+            "bound_by": probe["bound_by"],
+            "library_ms": None,
+        })
+    log(f"[5] warm-path relax launches by design: {warm_launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -688,7 +972,7 @@ def main() -> None:
     }}), flush=True)
 
 
-def phase5() -> None:
+def phase6() -> None:
     """Overloaded nodes + LFA on a small WAN-like graph."""
     from dataclasses import replace
 
@@ -726,7 +1010,7 @@ def phase5() -> None:
     ref = np.stack([col(r) for r in roots])  # [1+N, n]
     got = np.asarray(dist)[:n, : len(roots)].T.astype(np.int64)
     if not np.array_equal(got, ref):
-        fail("phase 5: distances disagree with scipy dijkstra")
+        fail("phase 6: distances disagree with scipy dijkstra")
     d_root, d_n = ref[0], ref[1:]
     met = np.array([min(x[1] for x in csr.details(my_id, j)) for j in nbr_ids])
     ids = np.arange(n)
@@ -743,12 +1027,12 @@ def phase5() -> None:
     )
     k = len(nbr_ids)
     if not np.array_equal(fh[:k, :n], fh_ref):
-        fail("phase 5: first-hop bits disagree with the recomputation")
+        fail("phase 6: first-hop bits disagree with the recomputation")
     if not np.array_equal(lfa[:k, :n], lfa_ref):
-        fail("phase 5: LFA bits disagree with the recomputation")
+        fail("phase 6: LFA bits disagree with the recomputation")
     if fh[k:].any() or lfa[k:].any():
-        fail("phase 5: padding neighbor rows carry bits")
-    log(f"[5] overloads+LFA: {n} nodes, {len(over_names)} overloaded "
+        fail("phase 6: padding neighbor rows carry bits")
+    log(f"[6] overloads+LFA: {n} nodes, {len(over_names)} overloaded "
         f"(root among them), {k} neighbors; fh bits {int(fh.sum())}, "
         f"lfa bits {int(lfa.sum())}: distances, fh and LFA exact")
 

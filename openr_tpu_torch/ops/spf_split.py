@@ -1,5 +1,6 @@
 """Split-width dense relaxation with a compacted tail: the cold
-single-root RIB solve (port of `openr_tpu/ops/spf_split.py`).
+single-root RIB solve and its warm start after a metric-only delta
+(port of `openr_tpu/ops/spf_split.py`).
 
 Host builders (`tight_nodes`, `pick_base_width`, `build_split_tables`,
 `pick_gs_chunks`) are NumPy copies of the JAX package's. The solve keeps
@@ -12,6 +13,9 @@ its three phases and their knobs:
      flag fires when `tail_cap` would truncate a list;
   3. the exactness net: dense sweeps to fixpoint if the tail spilled or
      hit `tail_rounds_cap` with work left.
+
+The warm solve (`batched_sssp_split_warm_rib`) starts from the previous
+distances instead, skips phase 1 and runs phases 2-3 from a seed set.
 
 Every relax is the hand-written kernel of `ops/relax.py` (the plain
 version when the tensors lie on the CPU), and the kernel's row flags
@@ -241,6 +245,113 @@ def _make_tail_relax(tables, over_base, over_ov, roots, flags):
     return tail_relax
 
 
+class _Solve:
+    """What the cold and the warm solve share: the overload masks, the
+    Gauss-Seidel chunk count, the flag buffer (`row_flag` [vp] and
+    `rows_changed` [1] in one int32 [vp + 1] tensor), the dense sweep
+    and the tail relax, and the loop counters `st`."""
+
+    def __init__(self, tables, roots, has_overloads, gs_chunks):
+        base_nbr = tables["base_nbr"]
+        self.out_nbr, self.ov_ids = tables["out_nbr"], tables["ov_ids"]
+        self.dev = base_nbr.device
+        self.vp = vp = base_nbr.shape[0]
+        self.dead = vp - 1
+        self.iota = torch.arange(vp, dtype=torch.int32, device=self.dev)
+        self.st = {"sweeps": 0, "tail_rounds": 0, "spilled": False,
+                   "host_syncs": 0}
+        if has_overloads:
+            over = tables["over"]
+            over_base = over[base_nbr.long()].contiguous()
+            over_ov = over[tables["ov_nbr"].long()].contiguous()
+        else:
+            over_base = over_ov = None
+        gs = gs_chunks if gs_chunks is not None else pick_gs_chunks(vp)
+        if vp % gs:  # explicit override that doesn't divide: no chunking
+            gs = 1
+        # Change detection comes from the kernel: every sweep or tail
+        # round clears `flags` once and each of its launches sets
+        # row_flag[t] for the rows it lowered and counts them in
+        # rows_changed — the JAX package's `(new < dist).any(axis=1)` and
+        # its sum.
+        self.flags = torch.zeros(vp + 1, dtype=torch.int32, device=self.dev)
+        self.row_flag = self.flags[:vp]
+        self.rows_changed = self.flags[vp:]
+        self.dense_sweep = _make_dense_sweep(
+            tables, over_base, over_ov, roots, gs, self.flags
+        )
+        self.tail_relax = _make_tail_relax(
+            tables, over_base, over_ov, roots, self.flags
+        )
+
+    def compact(self, mask, cap):
+        """The ids where `mask` [vp] holds, sorted, dead-padded to `cap`."""
+        return _compact_ids(torch.where(mask, self.iota, self.vp), self.vp,
+                            cap, self.dead)
+
+    def tail(self, dist, frontier, spilled, tail_cap, tail_rounds_cap,
+             with_frontier):
+        """Compacted tail rounds from `frontier` until it empties, spills
+        or hits the round cap. Each round relaxes the sorted, deduplicated
+        out-neighbors of the frontier (and, `with_frontier`, the frontier
+        itself) plus every overflow row; the rows it lowered are the next
+        frontier. `spilled` may be a device bool, read back with the
+        frontier's head in one sync. Returns (pending, spilled)."""
+        vp, dead, st = self.vp, self.dead, self.st
+        out_nbr, ov_ids, row_flag = self.out_nbr, self.ov_ids, self.row_flag
+        if torch.is_tensor(spilled):
+            head, sp = torch.stack(
+                [frontier[0].to(torch.int64), spilled.to(torch.int64)]
+            ).tolist()
+            spilled = bool(sp)
+        else:
+            head = int(frontier[0].item())
+        pending = head != dead
+        st["host_syncs"] += 1
+        it = 0
+        while pending and not spilled and it < tail_rounds_cap:
+            exp = out_nbr[frontier.long()].reshape(-1)
+            if with_frontier:
+                exp = torch.cat([exp, frontier])
+            exp = torch.sort(exp).values
+            first = _first_of_runs(exp, exp != dead)
+            spill_dev = first.sum() > tail_cap
+            rows = _compact_ids(torch.where(first, exp, vp), vp, tail_cap,
+                                dead)
+            self.tail_relax(dist, rows)
+            changed_rows = row_flag[rows.long()] != 0
+            ov_changed = row_flag[ov_ids.long()] != 0
+            both = torch.cat(
+                [torch.where(changed_rows, rows, vp),
+                 torch.where(ov_changed, ov_ids, vp)]
+            )
+            srt = torch.sort(both).values
+            firstb = _first_of_runs(srt, srt < vp)
+            # a truncated next frontier would drop pending updates: spill
+            spill_dev = spill_dev | (firstb.sum() > tail_cap)
+            frontier = _compact_ids(torch.where(firstb, srt, vp), vp,
+                                    tail_cap, dead)
+            head, sp = torch.stack(
+                [frontier[0].to(torch.int64), spill_dev.to(torch.int64)]
+            ).tolist()
+            st["host_syncs"] += 1
+            st["tail_rounds"] += 1
+            pending, spilled = head != dead, bool(sp)
+            it += 1
+        st["spilled"] = bool(spilled)
+        return pending, spilled
+
+    def net(self, dist, changed):
+        """The exactness net: dense sweeps to fixpoint while `changed`."""
+        it = 0
+        while changed and it < self.vp:
+            self.dense_sweep(dist)
+            changed = int(self.rows_changed.item()) > 0
+            self.st["host_syncs"] += 1
+            self.st["sweeps"] += 1
+            it += 1
+
+
 def batched_sssp_split(
     tables: dict,
     roots,
@@ -257,94 +368,30 @@ def batched_sssp_split(
     (base_nbr, base_wgt, ov_ids, ov_nbr, ov_wgt, out_nbr, over). If
     `stats` is given it is filled with sweeps, tail_rounds, spilled and
     host_syncs."""
-    base_nbr = tables["base_nbr"]
-    out_nbr, ov_ids = tables["out_nbr"], tables["ov_ids"]
-    dev = base_nbr.device
-    vp = base_nbr.shape[0]
-    b = roots.shape[0]
-    dead = vp - 1
-    iota = torch.arange(vp, dtype=torch.int32, device=dev)
-    st = {"sweeps": 0, "tail_rounds": 0, "spilled": False, "host_syncs": 0}
-
-    dist = torch.full((vp, b), INF_DIST, dtype=DIST_DTYPE, device=dev)
-    dist[roots.long(), torch.arange(b, device=dev)] = 0
-
-    if has_overloads:
-        over = tables["over"]
-        over_base = over[base_nbr.long()].contiguous()
-        over_ov = over[tables["ov_nbr"].long()].contiguous()
-    else:
-        over_base = over_ov = None
-
-    gs = gs_chunks if gs_chunks is not None else pick_gs_chunks(vp)
-    if vp % gs:  # explicit override that doesn't divide: no chunking
-        gs = 1
-    # Change detection comes from the kernel: every sweep or tail round
-    # clears `flags` once and each of its launches sets row_flag[t] for
-    # the rows it lowered and counts them in rows_changed — the JAX
-    # package's `(new < dist).any(axis=1)` and its sum.
-    flags = torch.zeros(vp + 1, dtype=torch.int32, device=dev)
-    row_flag, rows_changed = flags[:vp], flags[vp:]
-    dense_sweep = _make_dense_sweep(
-        tables, over_base, over_ov, roots, gs, flags
-    )
-    tail_relax = _make_tail_relax(tables, over_base, over_ov, roots, flags)
+    sv = _Solve(tables, roots, has_overloads, gs_chunks)
+    vp, b, st = sv.vp, roots.shape[0], sv.st
+    dist = torch.full((vp, b), INF_DIST, dtype=DIST_DTYPE, device=sv.dev)
+    dist[roots.long(), torch.arange(b, device=sv.dev)] = 0
 
     # ---- phase 1: dense sweeps while the changed set is large ----------
-    row_flag[roots.long()] = 1  # the entry set before any sweep
+    sv.row_flag[roots.long()] = 1  # the entry set before any sweep
     n_changed = tail_threshold + 1
     it = 0
     while n_changed > tail_threshold and it < vp:
-        dense_sweep(dist)
-        n_changed = int(rows_changed.item())
+        sv.dense_sweep(dist)
+        n_changed = int(sv.rows_changed.item())
         st["host_syncs"] += 1
         st["sweeps"] += 1
         it += 1
 
     # ---- phase 2: compacted tail --------------------------------------
-    frontier = _compact_ids(torch.where(row_flag != 0, iota, vp), vp,
-                            tail_cap, dead)
-    spilled = n_changed > tail_cap  # the entry set itself may not fit
-    pending = int(frontier[0].item()) != dead
-    st["host_syncs"] += 1
-    it = 0
-    while pending and not spilled and it < tail_rounds_cap:
-        # rows whose pull could change = out-neighbors of the frontier
-        exp = torch.sort(out_nbr[frontier.long()].reshape(-1)).values
-        first = _first_of_runs(exp, exp != dead)
-        spill_dev = first.sum() > tail_cap
-        rows = _compact_ids(torch.where(first, exp, vp), vp, tail_cap, dead)
-        tail_relax(dist, rows)
-        changed_rows = row_flag[rows.long()] != 0
-        ov_changed = row_flag[ov_ids.long()] != 0
-        both = torch.cat(
-            [torch.where(changed_rows, rows, vp),
-             torch.where(ov_changed, ov_ids, vp)]
-        )
-        srt = torch.sort(both).values
-        firstb = _first_of_runs(srt, srt < vp)
-        # a truncated next frontier would drop pending updates: spill
-        spill_dev = spill_dev | (firstb.sum() > tail_cap)
-        frontier = _compact_ids(torch.where(firstb, srt, vp), vp,
-                                tail_cap, dead)
-        head, sp = torch.stack(
-            [frontier[0].to(torch.int64), spill_dev.to(torch.int64)]
-        ).tolist()
-        st["host_syncs"] += 1
-        st["tail_rounds"] += 1
-        pending, spilled = head != dead, bool(sp)
-        it += 1
+    frontier = sv.compact(sv.row_flag != 0, tail_cap)
+    # the entry set itself may not fit
+    pending, spilled = sv.tail(dist, frontier, n_changed > tail_cap,
+                               tail_cap, tail_rounds_cap, False)
 
     # ---- phase 3: exactness net — dense to fixpoint if the tail bailed
-    st["spilled"] = bool(spilled)
-    changed = spilled or pending
-    it = 0
-    while changed and it < vp:
-        dense_sweep(dist)
-        changed = int(rows_changed.item()) > 0
-        st["host_syncs"] += 1
-        st["sweeps"] += 1
-        it += 1
+    sv.net(dist, spilled or pending)
     if stats is not None:
         stats.update(st)
     return dist
@@ -392,6 +439,13 @@ def batched_sssp_split_rib(
         gs_chunks=gs_chunks,
         stats=stats,
     )
+    return dist, _rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, my_id,
+                             with_lfa)
+
+
+def _rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, my_id, with_lfa):
+    """The packed buffer `unpack_rib_buffer` decodes, from the solved
+    distances."""
     fh = first_hop_matrix(dist, nbr_metric, nbr_ids, nbr_over)
     parts = [
         dist[:, 0].contiguous().view(torch.uint8),
@@ -400,7 +454,47 @@ def batched_sssp_split_rib(
     if with_lfa:
         lfa = lfa_matrix(dist, my_id, nbr_ids, nbr_over)
         parts.append(packbits_rows(lfa).reshape(-1))
-    return dist, torch.cat(parts)
+    return torch.cat(parts)
+
+
+def batched_sssp_split_warm_rib(
+    tables: dict,
+    roots,          # [B]: col 0 = the RIB root, 1.. = neighbors
+    nbr_metric,     # [B-1] i32 metric(root -> neighbor i)
+    nbr_ids,        # [B-1] i32 (padding -> dead slot)
+    nbr_over,       # [B-1] bool (padding -> True)
+    dist0,          # [vp, B] i32 warm start, relaxed IN PLACE
+    seed_mask,      # [vp] bool: nodes whose distance may change
+    has_overloads: bool = False,
+    tail_cap: int = 8192,
+    tail_rounds_cap: int = 64,
+    gs_chunks: int | None = None,
+    stats: dict | None = None,
+):
+    """The warm-start solve after a bounded metric-only delta: same
+    fixpoint and packed buffer (without LFA) as `batched_sssp_split_rib`,
+    seeded from the previous solve.
+
+    `dist0` must be an entry-wise upper bound of the new distances with
+    0 at each root: the previous distance matrix with the raised edges'
+    increase cones set to INF. `seed_mask` is the cones plus the heads of
+    lowered edges. Tail rounds start from the seeds and relax the
+    frontier itself with its out-neighbors (cone rows must re-pull from
+    their unchanged in-neighbors); the dense net restores exactness if
+    the tail spills (already at entry when the seeds exceed `tail_cap`)
+    or hits its round cap. `dist0` is overwritten with the result and
+    returned as the distances, with the packed buffer: the caller owns
+    it, and must pass a copy where the old matrix is still read.
+    `stats` gets sweeps, tail_rounds, spilled and host_syncs."""
+    sv = _Solve(tables, roots, has_overloads, gs_chunks)
+    dist = dist0
+    frontier = sv.compact(seed_mask, tail_cap)
+    pending, spilled = sv.tail(dist, frontier, seed_mask.sum() > tail_cap,
+                               tail_cap, tail_rounds_cap, True)
+    sv.net(dist, spilled or pending)
+    if stats is not None:
+        stats.update(sv.st)
+    return dist, _rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, 0, False)
 
 
 _BYTE_ORDER_OK: dict[str, bool] = {}

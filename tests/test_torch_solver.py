@@ -143,8 +143,7 @@ def test_unported_shapes_raise():
     pls, pps = _states(ptopo, LinkState, PrefixState, "grid", (3, 3))
     pps.update_prefix_db(PrefixDatabase(
         this_node_name="node-8",
-        prefix_entries=(PrefixEntry(prefix=ptopo.loopback(8),
-                                    min_nexthop=2),),
+        prefix_entries=(PrefixEntry(prefix=ptopo.loopback(8), weight=2),),
     ))
     with pytest.raises(NotImplementedError, match="general"):
         TorchSpfSolver(device="cpu").compute_routes(pls, pps, "node-0")
@@ -153,3 +152,43 @@ def test_unported_shapes_raise():
         TorchSpfSolver(device="cpu", enable_lfa=True).compute_routes(
             pls, pps, "node-0"
         )
+
+
+def _general_prefixes(types, mod):
+    """Prefixes outside the plain shape that the general path serves:
+    min_nexthop met and unmet, and an advertiser not in the topology."""
+    return [
+        types.PrefixDatabase(
+            this_node_name="node-8",
+            prefix_entries=(types.PrefixEntry(
+                prefix=types.IpPrefix.make("10.77.0.0/16"), min_nexthop=2),),
+        ),
+        types.PrefixDatabase(
+            this_node_name="node-29",
+            prefix_entries=(types.PrefixEntry(
+                prefix=types.IpPrefix.make("10.78.0.0/16"), min_nexthop=3),),
+        ),
+        types.PrefixDatabase(
+            this_node_name="node-999",
+            prefix_entries=(types.PrefixEntry(
+                prefix=types.IpPrefix.make("10.79.0.0/16")),),
+        ),
+    ]
+
+
+@pytest.mark.parametrize("me", ["node-0", "node-14"])
+def test_general_path_prefixes_equal(me):
+    from openr_tpu import types as jtypes
+    from openr_tpu_torch import types as ptypes
+
+    jls, jps = _states(jtopo, JaxLinkState, JaxPrefixState, "grid", (6, 5))
+    pls, pps = _states(ptopo, LinkState, PrefixState, "grid", (6, 5))
+    for db in _general_prefixes(jtypes, jtopo):
+        jps.update_prefix_db(db)
+    for db in _general_prefixes(ptypes, ptopo):
+        pps.update_prefix_db(db)
+    ref = TpuSpfSolver(native_rib="off").compute_routes(jls, jps, me)
+    got = TorchSpfSolver(device="cpu").compute_routes(pls, pps, me)
+    assert canon(got) == canon(ref)
+    have = {p.prefix for p in got.unicast_routes}
+    assert "10.77.0.0/16" in have and "10.79.0.0/16" not in have
