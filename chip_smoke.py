@@ -2,16 +2,18 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand
 kernels from this checkout, holds each against its plain PyTorch
 version, times them on the device, drives the cold single-root RIB
-solve at full size and checks its answers.
+solve, the warm path and the RIB of every prefix shape at full size and
+checks their answers.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
 
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles csrc/relax.cu with nvcc and, at the same time, a
-     cubin with `-Xptxas -v`, whose registers, shared memory and spills
-     it prints per kernel; checks the C dispatch against `design_for`;
+  2. build: compiles csrc/relax.cu, election.cu and ksp.cu with one nvcc
+     each and, at the same time, a cubin of each with `-Xptxas -v`, whose
+     registers, shared memory and spills it prints per kernel; checks the
+     C dispatch against `design_for`;
   3. kernels vs plain on the card, exact int32 equality of dist, the
      changed count, row_flag and rows_changed: every vectorised
      specialisation (W, B in {8, 16, 32, 64}) and the generic kernel on
@@ -44,7 +46,29 @@ Phases (any failure exits non-zero and prints no result line):
      checked against a NumPy recomputation from scipy distances;
   7. the gather probe (`openr_tpu_torch.probe_gather`) at its full
      shapes: both sweeps exact against the plain version and the probe's
-     check sum, CUPTI time of each kernel, the torch-ops sweep's time.
+     check sum, CUPTI time of each kernel, the torch-ops sweep's time;
+  8. the election and KSP kernels (`csrc/election.cu`, `csrc/ksp.cu`):
+     (a) each exact against its plain version on random inputs (election
+     tables as `tests/test_prefix_scale.py` draws them and one of 100 000
+     slots; one KSP sweep and one walk round on random tables with random
+     bans, B in {8, 32, 128, 256}, overloads off/on; the whole
+     `ksp_edge_disjoint_dense` on the card against the CPU for k in
+     {2, 16}, with and without dist0), and one KSP sweep at the er100k
+     dense-table shape, timed; (b) BASELINE config 4 on `backbone(32,
+     32)` (+ one chord per site), `bench_ksp_lfa`'s prefix mix and one UCMP
+     anycast /24 per site, `TorchSpfSolver(enable_lfa=True, ksp_k=16)`
+     from bb1: the RouteDatabase equal to the CPU path's, with KSP PUSH,
+     LFA backup and unequal-weight UCMP routes; p50 of 5 calls, the KSP
+     kernels exact and timed at the path's first calls; (c) the 100k
+     RIB with `ramp_prefix_state(100 000, anycast_every=4)`, whose
+     election runs `elect_seg_kernel`, equal to the NumPy election's RIB;
+     p50 of 3 calls, the kernel timed beside `torch.segment_reduce`; the
+     solver's election on the device against NumPy at 64 to 50 000
+     slots, equal, host wall per call; (d) BASELINE config 4
+     at the size the JAX package measured (`backbone(626, 16)`: 10 016
+     nodes, 1 001 KSP prefixes in chunks of 256 jobs, k=16, LFA on):
+     p50 of 3 calls, the KSP stats and kernel times, its routes equal
+     to the CPU path's on the same states with 16 KSP prefixes kept.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`;
 the last line is `{"ok": true, "device": {...}}`.
@@ -131,9 +155,11 @@ def kernel_device_us(prof, names) -> tuple[float, int]:
     return us, count
 
 
-def cupti_us(launch, restore, name: str, reps: int) -> float | None:
+def cupti_us(launch, restore, name: str, reps: int = TIMING_REPS
+             ) -> float | None:
     """Mean CUPTI duration (µs) of kernel `name` over `reps` launches,
-    each after `restore()` (whose copy kernels are not counted)."""
+    each after `restore()` (whose copy kernels are not counted). CUPTI
+    may drop launches: the mean is over those it kept, None if none."""
     from torch.profiler import ProfilerActivity, profile
 
     restore()
@@ -147,9 +173,16 @@ def cupti_us(launch, restore, name: str, reps: int) -> float | None:
         torch.cuda.synchronize()
     us, count = kernel_device_us(prof, (name,))
     if count != reps:
-        log(f"[3]   CUPTI saw {count} launches of {name}, expected {reps}")
-        return None
-    return us / count
+        log(f"      CUPTI kept {count} of {reps} launches of {name}")
+    return us / count if count else None
+
+
+def kernel_us(launch, restore, name: str) -> float:
+    """`cupti_us`, failing the run when CUPTI kept no launch."""
+    us = cupti_us(launch, restore, name)
+    if us is None:
+        fail(f"the profiler saw no launch of {name}")
+    return us
 
 
 def graph_us(launch, restore, reps: int) -> float:
@@ -191,14 +224,22 @@ def graph_us(launch, restore, reps: int) -> float:
 # ------------------------------------------------------------ phase 2
 
 
-def start_ptxas_report(cuda_build):
-    """Start `nvcc -cubin -Xptxas -v` on relax.cu; returns (process, dir)."""
-    tmp = tempfile.mkdtemp(prefix="relax_ptxas_")
+#: the hand-kernel sources, each built by one nvcc (all started together)
+SOURCES = ("relax", "election", "ksp")
+#: kernels `-Xptxas -v` must report per source: relax's generic kernel and
+#: a vec kernel per (W, B, overload) specialisation
+PTXAS_KERNELS = {"relax": 1 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 2}
+
+
+def start_ptxas_report(cuda_build, name: str):
+    """Start `nvcc -cubin -Xptxas -v` on csrc/<name>.cu; returns
+    (process, dir)."""
+    tmp = tempfile.mkdtemp(prefix=f"{name}_ptxas_")
     cmd = [
         cuda_build.find_nvcc(), "-gencode=arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
-        "-o", str(Path(tmp) / "relax.cubin"),
-        str(cuda_build.CSRC_DIR / "relax.cu"),
+        "-o", str(Path(tmp) / f"{name}.cubin"),
+        str(cuda_build.CSRC_DIR / f"{name}.cu"),
     ]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp
@@ -213,7 +254,10 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
         if m:
             k = re.search(r"(relax_(?:vec|generic)_kernel)"
                           r"(?:ILi(\d+)ELi(\d+)ELb(\d)E)?", m.group(1))
-            cur = m.group(1) if k is None else k.group(1)
+            named = re.search(r"(elect_seg_kernel|ksp_relax_kernel|"
+                              r"ksp_walk_kernel)", m.group(1))
+            cur = (k.group(1) if k else named.group(1) if named
+                   else m.group(1))
             if k is not None and k.group(2):
                 over = "over" if k.group(4) == "1" else "no over"
                 cur += f"<{k.group(2)},{k.group(3)},{over}>"
@@ -229,6 +273,42 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
             rows.append((cur, int(m.group(1)), int(m.group(2) or 0), *spill))
             cur = None
     return rows
+
+
+def build_all(cuda_build, modules) -> None:
+    """Builds every kernel library and its `-Xptxas -v` cubin, one nvcc
+    per source and report, all started together; prints the report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    reports = {name: start_ptxas_report(cuda_build, name) for name in SOURCES}
+    try:
+        with ThreadPoolExecutor(len(modules)) as pool:
+            for fut in [pool.submit(m.build) for m in modules]:
+                fut.result()
+        outs = {name: proc.communicate(timeout=600)[0]
+                for name, (proc, _tmp) in reports.items()}
+    finally:
+        for proc, tmp in reports.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[2] build: {', '.join(s + '.cu' for s in SOURCES)} in "
+        f"{time.perf_counter() - t0:.3f} s (nvcc "
+        + ", ".join(f"{s} {cuda_build.BUILD_SECONDS.get(s, 0.0):.3f} s"
+                    for s in SOURCES)
+        + "; the -Xptxas -v cubins alongside)")
+    for name, (proc, _tmp) in reports.items():
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v failed for {name}.cu:\n{outs[name]}")
+        ptx = parse_ptxas(outs[name])
+        if len(ptx) != PTXAS_KERNELS[name]:
+            fail(f"ptxas reported {len(ptx)} kernels for {name}.cu:\n"
+                 f"{outs[name]}")
+        for kname, regs, smem, st, ld in ptx:
+            log(f"[2] ptxas {kname}: {regs} registers, {smem} B smem, spill "
+                f"stores {st} B, spill loads {ld} B")
 
 
 # ------------------------------------------------------------ phase 3
@@ -786,6 +866,682 @@ def phase7_probe(relax) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 8
+
+
+def max_diff(pairs) -> int:
+    """Max |a - b| over pairs of same-shape tensors (bools as ints)."""
+    return max((int((a.long() - b.long()).abs().max().item())
+                for a, b in pairs if a.numel()), default=0)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms on the card, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ksp_relax_work(wgt, b: int) -> tuple[int, int]:
+    """(bytes, operations) one KSP relax sweep of `b` jobs must spend on
+    dense tables `wgt` [V, D]: every weight is read to find the usable
+    slots; the neighbor id, blocked byte and ban word only of a slot with
+    a finite weight; each distance row once in and once out. Four
+    integer operations per usable slot and job."""
+    v, d = wgt.shape
+    valid = int((wgt < INF).sum().item())
+    nw = (b + 31) // 32
+    return (v * d * 4 + valid * (4 + 1 + 4 * nw) + 2 * v * b * 4,
+            valid * b * 4)
+
+
+def to_dev(a, dt):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(DEVICE)
+
+
+def elect_case(rng, seg, n_nodes):
+    """Election inputs on the card for slot owners `seg` (sorted) over
+    `n_nodes` nodes, drawn as `tests/test_prefix_scale.py` draws them."""
+    m = int(seg.max()) + 1 if len(seg) else 0
+    s = len(seg)
+    indptr = np.concatenate(([0], np.cumsum(np.bincount(seg, minlength=m))))
+    d_vec = np.where(rng.random(n_nodes) < 0.8,
+                     rng.integers(1, 100, n_nodes), INF)
+    reach = (d_vec < INF) & (rng.random(n_nodes) < 0.9)
+    return (to_dev(indptr, np.int32), to_dev(seg, np.int32),
+            to_dev(rng.integers(0, n_nodes - 2, s), np.int32),
+            to_dev(rng.random(s) < 0.9, bool),
+            to_dev(rng.integers(0, 8, s), np.int32),
+            to_dev(d_vec, np.int32), to_dev(reach, bool),
+            int(rng.integers(0, n_nodes - 2)))
+
+
+def elect_vs_plain(election_ops, args) -> int:
+    got = election_ops.elect_seg(*args)
+    ref = election_ops.elect_seg_ref(*args)
+    torch.cuda.synchronize()
+    return max_diff(zip(got, ref))
+
+
+def ksp_step_case(ksp_ops, g, v, d, b, with_over):
+    """Random dense tables [v, d] (INF padding) with random bans for b
+    jobs on the card: (tables, the distances after 2 plain sweeps and at
+    the plain fixpoint, dests with one dest == root, root)."""
+    nbr = torch.randint(0, v, (v, d), generator=g, dtype=torch.int32)
+    wgt = torch.randint(1, 20, (v, d), generator=g, dtype=torch.int32)
+    wgt[torch.rand(v, d, generator=g) < 0.25] = INF
+    root = 1
+    over = torch.rand(v, generator=g) < (0.05 if with_over else 0.0)
+    over[root] = with_over  # an overloaded root keeps its out-edges
+    blocked = over[nbr.long()] & (nbr != root)
+    bans = ksp_ops.pack_bans(torch.rand(v, d, b, generator=g) < 0.05)
+    dests = torch.randint(0, v, (b,), generator=g, dtype=torch.int32)
+    dests[0] = root
+    tab = [x.to(DEVICE) for x in (nbr, wgt, blocked, bans)]
+    dist = torch.full((v, b), INF, dtype=torch.int32, device=DEVICE)
+    dist[root] = 0
+    changed = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    mid = dist
+    for i in range(v):
+        out = torch.empty_like(dist)
+        ksp_ops.ksp_relax_ref(dist, out, *tab, changed)
+        dist = out
+        if i == 1:
+            mid = dist.clone()
+        if not int(changed.item()):
+            break
+    return tab, mid, dist, dests.to(DEVICE), root
+
+
+def relax_vs_plain(ksp_ops, dist_in, tab) -> tuple[int, int]:
+    """One sweep by the kernel and the plain version; (max |diff| over
+    dist_out and the changed flag, the plain changed flag)."""
+    res = []
+    for fn in (ksp_ops.ksp_relax, ksp_ops.ksp_relax_ref):
+        out = torch.empty_like(dist_in)
+        ch = torch.full((1,), 7, dtype=torch.int32, device=DEVICE)
+        fn(dist_in, out, *tab, ch)
+        res.append((out, ch))
+    torch.cuda.synchronize()
+    return max_diff(zip(*res)), int(res[1][1].item())
+
+
+def walk_vs_plain(ksp_ops, dist, tab, dests, root, max_hops):
+    """One round of walks by the kernel and the plain version, each on
+    its own copy of the bans; (max |diff| over cost, path, hops, bans and
+    any_ok, the plain outputs)."""
+    b = dests.shape[0]
+    res = []
+    for fn in (ksp_ops.ksp_walk, ksp_ops.ksp_walk_ref):
+        nbr, wgt, blocked, bans = tab
+        bans = bans.clone()
+        cost = torch.zeros(b, dtype=torch.int32, device=DEVICE)
+        path = torch.full((b, max_hops + 1), -1, dtype=torch.int32,
+                          device=DEVICE)
+        hops = torch.zeros(b, dtype=torch.int32, device=DEVICE)
+        ok = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+        fn(dist, nbr, wgt, blocked, bans, dests, root, max_hops, cost, path,
+           hops, ok)
+        res.append((cost, path, hops, bans, ok))
+    torch.cuda.synchronize()
+    return max_diff(zip(*res)), res[1]
+
+
+def ksp_graph(rng, n, extra):
+    """A connected random digraph (a ring plus `extra` random links, both
+    directions, asymmetric metrics) as dense tables; plus overload bits
+    and scipy's distances from root 0 under them."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    from openr_tpu_torch.ops.spf import build_dense_tables
+
+    edges = {}
+    pairs = [(i, (i + 1) % n) for i in range(n)] + [
+        tuple(int(x) for x in rng.integers(0, n, 2)) for _ in range(extra)]
+    for a, b in pairs:
+        if a != b:
+            edges[(a, b)] = int(rng.integers(1, 20))
+            edges[(b, a)] = int(rng.integers(1, 20))
+    items = sorted(edges.items(), key=lambda kv: (kv[0][1], kv[0][0]))
+    src = np.array([k[0] for k, _ in items], np.int32)
+    dst = np.array([k[1] for k, _ in items], np.int32)
+    met = np.array([m for _, m in items], np.int32)
+    nbr, wgt = build_dense_tables(src, dst, met, n)
+    over = rng.random(n) < 0.03
+    over[0] = False
+    keep = ~over[src] | (src == 0)
+    g = csr_matrix((met[keep].astype(np.float64), (src[keep], dst[keep])),
+                   shape=(n, n))
+    d0 = dijkstra(g, directed=True, indices=[0])[0]
+    dist0 = np.where(np.isinf(d0), INF, d0).astype(np.int32)
+    return nbr, wgt, over, dist0
+
+
+def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
+    """The three kernels against their plain versions on random inputs,
+    and one KSP relax sweep at the er100k dense-table shape, timed."""
+    rng = np.random.default_rng(3)
+    worst = {"elect": 0, "relax": 0, "walk": 0}
+    for _trial in range(5):
+        m = int(rng.integers(1, 40))
+        seg = np.repeat(np.arange(m), rng.integers(1, 6, m))
+        worst["elect"] = max(worst["elect"], elect_vs_plain(
+            election_ops, elect_case(rng, seg, 32)))
+    # 100 000 slots over 40 000 prefixes (some empty) on 100 000 nodes
+    seg = np.sort(rng.integers(0, 40_000, 100_000))
+    worst["elect"] = max(worst["elect"], elect_vs_plain(
+        election_ops, elect_case(rng, seg, 100_000)))
+    log(f"[8a] elect_seg_kernel vs plain: 5 random tables + one of 100 000 "
+        f"slots, max |diff| {worst['elect']}")
+
+    g = torch.Generator().manual_seed(20261018)
+    n_ok = 0
+    for b in (8, 32, 128, 256):
+        for with_over in (False, True):
+            tab, mid, fix, dests, root = ksp_step_case(
+                ksp_ops, g, 4096, 16, b, with_over)
+            err, ch = relax_vs_plain(ksp_ops, mid, tab)
+            if not ch:
+                fail(f"ksp relax case B={b} lowered nothing: untested")
+            worst["relax"] = max(worst["relax"], err)
+            err, ref = walk_vs_plain(ksp_ops, fix, tab, dests, root, 4095)
+            if not int(ref[4].item()):
+                fail(f"ksp walk case B={b} found no path: untested")
+            n_ok += int((ref[0] < INF).sum().item())
+            worst["walk"] = max(worst["walk"], err)
+    log(f"[8a] ksp_relax_kernel / ksp_walk_kernel vs plain: one sweep and "
+        f"one walk round on random 4096 x 16 tables with 5% bans, B in "
+        f"(8, 32, 128, 256), overloads off/on ({n_ok} paths walked): max "
+        f"|diff| {worst['relax']} / {worst['walk']}")
+
+    nbr, wgt, over, dist0 = ksp_graph(rng, 1024, 2048)
+    blocked = ksp_ops.build_ksp_blocked(nbr, over, 0)
+    dests = np.concatenate(([0], rng.choice(np.arange(1, 1024), 31,
+                                            replace=False))).astype(np.int32)
+    whole = 0
+    for k in (2, 16):
+        for d0 in (None, dist0):
+            outs = []
+            for dev in (DEVICE, "cpu"):
+                st: dict = {}
+                t = [torch.from_numpy(x).to(dev) for x in (nbr, wgt, blocked)]
+                outs.append(ksp_ops.ksp_edge_disjoint_dense(
+                    *t, 0, torch.from_numpy(dests).to(dev), k=k,
+                    max_hops=1023, stats=st,
+                    dist0=None if d0 is None else torch.from_numpy(d0).to(dev),
+                ))
+            torch.cuda.synchronize()
+            whole = max(whole, max_diff(
+                (a, b.to(DEVICE)) for a, b in zip(*outs)))
+            if not bool((outs[1][0] < INF).any()):
+                fail("ksp whole case found no path: untested")
+    worst["relax"] = max(worst["relax"], whole)
+    worst["walk"] = max(worst["walk"], whole)
+    log(f"[8a] ksp_edge_disjoint_dense on the card vs on the CPU (plain), "
+        f"1 024-node graph, 32 jobs, k in (2, 16), dist0 off/on: max |diff| "
+        f"{whole}")
+
+    # one sweep at the er100k dense-table shape, B = 32 (and 128, read
+    # for the design record only), ~3% bans
+    d_nbr, d_wgt = csr.dense_tables()
+    v, d = d_nbr.shape
+    nbr_t, wgt_t = to_dev(d_nbr, np.int32), to_dev(d_wgt, np.int32)
+    blocked_t = torch.zeros(v, d, dtype=torch.bool, device=DEVICE)
+    gd = torch.Generator(device=DEVICE).manual_seed(5)
+    er = {}
+    for b in (32, 128):
+        # ban words drawn on the card: the AND of 5 random words sets ~3%
+        # of the bits
+        bans_t = torch.full((v, d, ksp_ops.ban_words(b)), -1,
+                            dtype=torch.int32, device=DEVICE)
+        for _ in range(5):
+            bans_t &= torch.randint(-(1 << 31), (1 << 31) - 1, bans_t.shape,
+                                    generator=gd, device=DEVICE,
+                                    dtype=torch.int32)
+        # the distances of a sweep early in a fixpoint: each entry at most
+        # a few hundred above an unbanned distance, many INF
+        dist = torch.randint(0, 5000, (v, b), generator=g, dtype=torch.int32)
+        dist[torch.rand(v, b, generator=g) < 0.3] = INF
+        dist = dist.to(DEVICE)
+        tab = (nbr_t, wgt_t, blocked_t, bans_t)
+        err, ch = relax_vs_plain(ksp_ops, dist, tab)
+        worst["relax"] = max(worst["relax"], err)
+        out = torch.empty_like(dist)
+        flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+        us = kernel_us(lambda: ksp_ops.ksp_relax(dist, out, *tab, flag),
+                       lambda: None, ksp_ops.KERNEL_NAMES["relax"])
+        p_ms = cuda_ms(lambda: ksp_ops.ksp_relax_ref(dist, out, *tab, flag))
+        nbytes, ops = ksp_relax_work(wgt_t, b)
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"[8a] ksp_relax_kernel at the er100k dense shape (V {v}, D {d}, "
+            f"B {b}): max |diff| vs plain {err} (changed {ch}); {us:.2f} us, "
+            f"bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes} B), share "
+            f"{b_ms * 1e3 / us:.3f}; plain {p_ms:.4f} ms")
+        er[b] = dict(us=us, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                     bytes=nbytes)
+    for k_, val in worst.items():
+        if val:
+            fail(f"phase 8a: {k_} kernel disagrees with its plain version "
+                 f"({val})")
+    return {"worst": worst, "er100k_relax": er}
+
+
+def config4_states(rings: int = 32, size: int = 32, extras: bool = True,
+                   ksp_keep: int | None = None):
+    """BASELINE config 4: `backbone(rings, size)` with `bench_ksp_lfa`'s
+    prefix mix (a 10% share of the nodes' /24s KSP2_ED_ECMP over SR-MPLS,
+    `default_rng(0)`). With `extras`, one chord per site (positions 0 and
+    2, metric 10: the ring alone is bipartite with even metrics, so no
+    neighbor is ever a strict loop-free alternate) and one UCMP anycast
+    /24 per site from its positions 16 (weight 1) and 18 (weight 3),
+    which bb1 reaches at one IGP cost through different first hops.
+    `ksp_keep` = n keeps only the n lowest-numbered KSP nodes' prefixes
+    KSP (the others plain). Returns (ls, ps, the KSP node ids)."""
+    from dataclasses import replace
+
+    from openr_tpu_torch.decision.linkstate import LinkState, PrefixState
+    from openr_tpu_torch.types import (
+        Adjacency,
+        ForwardingAlgorithm,
+        ForwardingType,
+        IpPrefix,
+        PrefixDatabase,
+        PrefixEntry,
+        PrefixMetrics,
+    )
+    from openr_tpu_torch.utils.topogen import backbone
+
+    dbs = {db.this_node_name: db for db in backbone(rings, size)}
+    for r in range(rings if extras else 0):
+        a, b = r * size, r * size + 2
+        for x, y in ((a, b), (b, a)):
+            db = dbs[f"bb{x}"]
+            dbs[f"bb{x}"] = replace(db, adjacencies=db.adjacencies + (
+                Adjacency(other_node_name=f"bb{y}", if_name=f"if{x}-{y}",
+                          other_if_name=f"if{y}-{x}", metric=10),))
+    ls, ps = LinkState(), PrefixState()
+    for db in dbs.values():
+        ls.update_adjacency_db(db)
+    n = rings * size
+    rng = np.random.default_rng(0)
+    ksp_nodes = set(rng.choice(n, size=max(1, int(n * 0.1)),
+                               replace=False).tolist())
+    if ksp_keep is not None:
+        ksp_nodes = set(sorted(ksp_nodes)[:ksp_keep])
+    for i in range(n):
+        ksp = i in ksp_nodes
+        ps.update_prefix_db(PrefixDatabase(
+            this_node_name=f"bb{i}",
+            prefix_entries=(PrefixEntry(
+                prefix=IpPrefix.make(f"10.{(i >> 8) & 255}.{i & 255}.0/24"),
+                metrics=PrefixMetrics(),
+                forwarding_type=(ForwardingType.SR_MPLS if ksp
+                                 else ForwardingType.IP),
+                forwarding_algorithm=(ForwardingAlgorithm.KSP2_ED_ECMP if ksp
+                                      else ForwardingAlgorithm.SP_ECMP),
+            ),),
+        ))
+    for r in range(rings if extras else 0):
+        for pos, w in ((16, 1), (18, 3)):
+            ps.update_prefix_db(PrefixDatabase(
+                this_node_name=f"bb{r * size + pos}",
+                prefix_entries=(PrefixEntry(
+                    prefix=IpPrefix.make(f"20.{r}.0.0/24"), weight=w),),
+            ))
+    return ls, ps, ksp_nodes
+
+
+def ksp_path_run(ksp_ops, solver, ls, ps, me, reps: int) -> dict:
+    """`compute_routes` of a KSP configuration on the card: a warm-up
+    that uploads the tables and captures the inputs of the first
+    `ksp_relax` and `ksp_walk` calls, then `reps` timed calls with the
+    launch counts from 0, then one call under the profiler (CUPTI µs and
+    launches per KSP kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    captured: dict = {}
+    origs = {name: getattr(ksp_ops, name) for name in ("ksp_relax",
+                                                      "ksp_walk")}
+
+    def capturing(name):
+        def call(*args):
+            # the first call's inputs, copied before the call writes
+            captured.setdefault(name, [
+                x.clone() if isinstance(x, torch.Tensor) else x
+                for x in args])
+            return origs[name](*args)
+        return call
+
+    for name in origs:
+        setattr(ksp_ops, name, capturing(name))
+    try:
+        solver.compute_routes(ls, ps, me)  # warm-up: uploads, captures
+    finally:
+        for name, fn in origs.items():
+            setattr(ksp_ops, name, fn)
+    ksp_ops.reset_launches()
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        rdb = solver.compute_routes(ls, ps, me)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    launches = dict(ksp_ops.LAUNCHES)
+    st = dict(solver.last_ksp_stats)
+    phases = dict(solver.last_phase_ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver.compute_routes(ls, ps, me)
+        torch.cuda.synchronize()
+    cu = {k: kernel_device_us(prof, (n,))
+          for k, n in ksp_ops.KERNEL_NAMES.items()}
+    return dict(captured=captured, times=times, launches=launches, stats=st,
+                phases=phases, cu=cu, rdb=rdb)
+
+
+def relax_at_call(ksp_ops, rx) -> dict:
+    """`ksp_relax_kernel` against its plain version on the captured
+    inputs `rx` of a path's call, timed by CUPTI, with its bound."""
+    err, _ch = relax_vs_plain(ksp_ops, rx[0], rx[2:6])
+    dist_in, wgt = rx[0], rx[3]
+    out = torch.empty_like(dist_in)
+    flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    us = kernel_us(lambda: ksp_ops.ksp_relax(dist_in, out, *rx[2:6], flag),
+                   lambda: None, ksp_ops.KERNEL_NAMES["relax"])
+    plain = cuda_ms(lambda: ksp_ops.ksp_relax_ref(dist_in, out, *rx[2:6],
+                                                  flag))
+    nbytes, ops = ksp_relax_work(wgt, dist_in.shape[1])
+    return dict(err=err, us=us, plain_ms=plain, bytes=nbytes,
+                bound=bound(nbytes, ops), v=wgt.shape[0], d=wgt.shape[1],
+                b=dist_in.shape[1])
+
+
+def phase8b_config4(ksp_ops) -> dict:
+    """Config 4 (KSP k=16 + LFA + UCMP) through `compute_routes` on the
+    card, equal to the CPU path; the KSP kernels vs plain at the calls
+    the path made, timed. Launch counts from 0 around the timed calls."""
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    t0 = time.perf_counter()
+    ls, ps, ksp_nodes = config4_states()
+    n_ksp = len(ksp_nodes)
+    me = "bb1"
+    cpu = TorchSpfSolver(device="cpu", enable_lfa=True, ksp_k=16)
+    ref = cpu.compute_routes(ls, ps, me)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    solver = TorchSpfSolver(device=DEVICE, enable_lfa=True, ksp_k=16)
+    run = ksp_path_run(ksp_ops, solver, ls, ps, me, reps=5)
+    captured, times, launches = run["captured"], run["times"], run["launches"]
+    st, phases, cu, rdb = run["stats"], run["phases"], run["cu"], run["rdb"]
+    if (rdb.unicast_routes != ref.unicast_routes
+            or rdb.mpls_routes != ref.mpls_routes):
+        fail("config 4: the RouteDatabase on the card differs from the CPU "
+             "path's")
+    routes = rdb.unicast_routes.values()
+    n_push = sum(1 for e in routes for nh in e.nexthops
+                 if nh.mpls_action is not None and nh.mpls_action.push_labels)
+    n_backup = sum(1 for e in routes if e.backup_nexthops)
+    n_ucmp = sum(1 for e in routes if len({nh.weight for nh in e.nexthops}) > 1)
+    if not (n_push and n_backup and n_ucmp):
+        fail(f"config 4: KSP PUSH nexthops {n_push}, routes with backups "
+             f"{n_backup}, routes with unequal weights {n_ucmp}: each must "
+             "be > 0")
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"config 4: ksp {k} kernel launched no time")
+
+    # the kernels vs plain at the calls the path made, and their times
+    rel = relax_at_call(ksp_ops, captured["ksp_relax"])
+    err_r, b = rel["err"], rel["b"]
+
+    wk = captured["ksp_walk"]
+    w_dist, w_nbr, w_wgt, w_blocked, w_bans, w_dests, w_root, w_hops = wk[:8]
+    err_w, wref = walk_vs_plain(ksp_ops, w_dist, (w_nbr, w_wgt, w_blocked,
+                                                  w_bans), w_dests, w_root,
+                                w_hops)
+    bans_w = w_bans.clone()
+    path_w = torch.full((b, w_hops + 1), -1, dtype=torch.int32, device=DEVICE)
+    bufs = [torch.zeros(b, dtype=torch.int32, device=DEVICE) for _ in range(2)]
+    ok_w = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def w_restore():
+        bans_w.copy_(w_bans)
+        path_w.fill_(-1)
+
+    def w_call(fn):
+        fn(w_dist, w_nbr, w_wgt, w_blocked, bans_w, w_dests, w_root, w_hops,
+           bufs[0], path_w, bufs[1], ok_w)
+
+    w_us = kernel_us(lambda: w_call(ksp_ops.ksp_walk), w_restore,
+                     ksp_ops.KERNEL_NAMES["walk"])
+    w_plain = cuda_ms(lambda: (w_restore(), w_call(ksp_ops.ksp_walk_ref)))
+    hops = wref[2]
+    rows = int((hops + 1).sum().item())
+    w_bytes = rows * w_nbr.shape[1] * (4 + 4 + 1 + 4 + 4) + b * 16 + (
+        rows * 4)
+    w_bound = bound(w_bytes, rows * w_nbr.shape[1] * 4)
+    if err_r or err_w:
+        fail(f"config 4: ksp kernels disagree with plain at the path's calls "
+             f"(relax {err_r}, walk {err_w})")
+    p50 = statistics.median(times)
+    log(f"[8b] config 4: {len(ls.nodes)} nodes, {len(ps.prefixes)} prefixes "
+        f"({n_ksp} KSP, 32 UCMP anycast), root {me}, k=16, LFA on: "
+        f"compute_routes p50 {p50:.3f} ms (samples "
+        f"{[round(x, 3) for x in times]}); phases {phases}; KSP {st}; CPU "
+        f"path incl. set-up {cpu_ms:.0f} ms")
+    log(f"[8b] RouteDatabase on the card == CPU: {len(rdb.unicast_routes)} "
+        f"unicast + {len(rdb.mpls_routes)} mpls; PUSH nexthops {n_push}, "
+        f"routes with backups {n_backup}, with unequal UCMP weights {n_ucmp};"
+        f" launches {launches}")
+    for k, (us, n) in cu.items():
+        log(f"[8b] {ksp_ops.KERNEL_NAMES[k]} in one profiled compute_routes: "
+            f"{n} launches, {us:.1f} us (CUPTI)"
+            + (f", {us / n:.2f} us each" if n else ""))
+    log(f"[8b] at the path's first calls: relax (V {rel['v']}, D "
+        f"{rel['d']}, B {b}) {rel['us']:.2f} us, plain {rel['plain_ms']:.4f} "
+        f"ms, bound {rel['bound'][0] * 1e3:.3f} us by {rel['bound'][1]} "
+        f"({rel['bytes']} B), share {rel['bound'][0] * 1e3 / rel['us']:.3f}; walk "
+        f"({rows} rows walked) {w_us:.2f} us, plain {w_plain:.4f} ms, "
+        f"bound {w_bound[0] * 1e3:.3f} us by {w_bound[1]} ({w_bytes} B); max "
+        f"|diff| vs plain {err_r} / {err_w}")
+    return {
+        "launches": launches,
+        "relax": rel,
+        "walk": dict(us=w_us, plain_ms=w_plain, bound=w_bound),
+    }
+
+
+def phase8d_config4_ref(ksp_ops) -> dict:
+    """BASELINE config 4 at the size the JAX package measured it
+    (`bench_ksp_lfa.py --rings 626`: 10 016 nodes, 1 001 KSP prefixes,
+    k=16, LFA on, root bb1; BASELINE.md:78) through `compute_routes` on
+    the card: p50 of 3 calls, the KSP stats, CUPTI per kernel, the relax
+    kernel vs plain at the path's first call (B = 256). The CPU path
+    takes minutes for 1 001 KSP jobs, so it answers the same states with
+    only the 16 lowest-numbered KSP prefixes kept KSP: every route of a
+    prefix that is KSP in both, or plain in both, is equal, and every
+    KSP prefix of the card's RIB has a PUSH route."""
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    t0 = time.perf_counter()
+    ls, ps, ksp_nodes = config4_states(626, 16, extras=False)
+    me = "bb1"
+    solver = TorchSpfSolver(device=DEVICE, enable_lfa=True, ksp_k=16)
+    run = ksp_path_run(ksp_ops, solver, ls, ps, me, reps=3)
+    rdb = run["rdb"]
+    t_card = time.perf_counter()
+    _ls, ps_sub, kept = config4_states(626, 16, extras=False, ksp_keep=16)
+    ref = TorchSpfSolver(device="cpu", enable_lfa=True, ksp_k=16
+                         ).compute_routes(ls, ps_sub, me)
+    cpu_s = time.perf_counter() - t_card
+    only_card = {f"10.{(i >> 8) & 255}.{i & 255}.0/24"
+                 for i in ksp_nodes - kept}
+    if set(rdb.unicast_routes) != set(ref.unicast_routes):
+        fail("config 4 at 10k: the card's and the CPU's RIBs hold different "
+             "prefixes")
+    n_diff = sum(1 for p, e in rdb.unicast_routes.items()
+                 if p.prefix not in only_card and ref.unicast_routes[p] != e)
+    n_push = sum(1 for p, e in rdb.unicast_routes.items()
+                 if p.prefix in only_card and any(
+                     nh.mpls_action is not None and nh.mpls_action.push_labels
+                     for nh in e.nexthops))
+    if n_diff or rdb.mpls_routes != ref.mpls_routes:
+        fail(f"config 4 at 10k: {n_diff} routes differ from the CPU path's")
+    if n_push != len(only_card):
+        fail(f"config 4 at 10k: {n_push} of {len(only_card)} KSP prefixes "
+             "have PUSH routes")
+    for k, n in run["launches"].items():
+        if n == 0:
+            fail(f"config 4 at 10k: ksp {k} kernel launched no time")
+    rel = relax_at_call(ksp_ops, run["captured"]["ksp_relax"])
+    if rel["err"]:
+        fail(f"config 4 at 10k: relax kernel disagrees with plain ({rel['err']})")
+    p50 = statistics.median(run["times"])
+    log(f"[8d] config 4 at the reference's size: {len(ls.nodes)} nodes, "
+        f"{len(ksp_nodes)} KSP prefixes, root {me}, k=16, LFA on: "
+        f"compute_routes p50 {p50:.3f} ms (samples "
+        f"{[round(x, 3) for x in run['times']]}); phases {run['phases']}; "
+        f"KSP {run['stats']}; launches {run['launches']}; equal to the CPU "
+        f"path on {len(rdb.unicast_routes) - len(only_card)} routes (16 KSP), "
+        f"{n_push} PUSH routes for the rest; set-up + CPU "
+        f"{time.perf_counter() - t0:.1f} s (CPU {cpu_s:.1f} s)")
+    for k, (us, n) in run["cu"].items():
+        log(f"[8d] {ksp_ops.KERNEL_NAMES[k]} in one profiled compute_routes: "
+            f"{n} launches, {us:.1f} us (CUPTI)"
+            + (f", {us / n:.2f} us each" if n else ""))
+    log(f"[8d] relax at the path's first call (V {rel['v']}, D {rel['d']}, "
+        f"B {rel['b']}): {rel['us']:.2f} us, plain {rel['plain_ms']:.4f} ms, "
+        f"bound {rel['bound'][0] * 1e3:.3f} us by {rel['bound'][1]} "
+        f"({rel['bytes']} B), share {rel['bound'][0] * 1e3 / rel['us']:.3f}; "
+        f"max |diff| vs plain {rel['err']}")
+    return dict(p50=p50, relax=rel, stats=run["stats"])
+
+
+def phase8c_election(election_ops, solver, ls, csr) -> dict:
+    """The 100k RIB with 25 000 anycast /32s through `compute_routes`,
+    whose election runs `elect_seg_kernel`; equal to the NumPy election's
+    RIB. Launch count from 0 around the timed calls."""
+    from openr_tpu_torch.utils.topogen import ramp_prefix_state
+
+    t0 = time.perf_counter()
+    ps = ramp_prefix_state(csr.node_names, 100_000, anycast_every=4)
+    view = ps.election_view(csr.name_to_id, csr.base_version)
+    slots = len(view.multi.adv)
+    set_up = time.perf_counter() - t0
+    if slots < solver.elect_device_min:
+        fail(f"election: {slots} slots stay below elect_device_min")
+    solver.compute_routes(ls, ps, "node-0")  # warm-up: uploads the matrix
+    election_ops.reset_launches()
+    dev0 = solver.elect_stats["device_elections"]
+    times, elect_ms = [], []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        rdb = solver.compute_routes(ls, ps, "node-0")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        elect_ms.append(solver.last_phase_ms["election"])
+    launches = election_ops.LAUNCHES
+    n_dev = solver.elect_stats["device_elections"] - dev0
+    keep = solver.elect_device_min
+    solver.elect_device_min = slots + 1  # the NumPy election
+    try:
+        ref = solver.compute_routes(ls, ps, "node-0")
+    finally:
+        solver.elect_device_min = keep
+    if (rdb.unicast_routes != ref.unicast_routes
+            or rdb.mpls_routes != ref.mpls_routes):
+        fail("election: the RIB through the device election differs from "
+             "the NumPy election's")
+    if launches == 0 or n_dev == 0:
+        fail(f"election: elect_seg_kernel launches {launches}, device "
+             f"elections {n_dev}")
+
+    # the kernel vs plain at this shape, timed, with the library call
+    _c, dist, fh, _n, _l = solver.solve(ls, "node-0")
+    d_root = dist[:, 0]
+    reach = (d_root < INF) & fh.any(axis=0)
+    t = solver._elect_dev[view.gen]
+    my_id = csr.name_to_id["node-0"]
+    args = (t["indptr"], t["seg"], t["adv"], t["known"], t["rank"],
+            dist.device_tensor[:, 0].contiguous(), to_dev(reach, bool), my_id)
+    err = elect_vs_plain(election_ops, args)
+    if err:
+        fail(f"election: kernel disagrees with plain at the path's shape "
+             f"({err})")
+    us = kernel_us(lambda: election_ops.elect_seg(*args), lambda: None,
+                   election_ops.KERNEL_NAME)
+    p_ms = cuda_ms(lambda: election_ops.elect_seg_ref(*args))
+    lengths = (t["indptr"][1:] - t["indptr"][:-1]).long()
+    data_r = t["rank"].float()
+    data_d = args[5][t["adv"].long()].float()
+    lib_ms = cuda_ms(lambda: (
+        torch.segment_reduce(data_r, "max", lengths=lengths),
+        torch.segment_reduce(data_d, "min", lengths=lengths)))
+    m, s = len(view.multi.prefixes), slots
+    nbytes = s * (4 + 1 + 4 + 1 + 4 + 1 + 1) + m * (4 + 4 + 4 + 1)
+    b_ms, b_by = bound(nbytes, s * 8)
+    p50 = statistics.median(times)
+    cross = election_crossover(solver, csr, dist, fh.any(axis=0), my_id,
+                               view)
+    log(f"[8c] election at scale: er100k + ramp_prefix_state(100 000, "
+        f"anycast_every=4): {len(view.plain_p)} plain + {m} anycast "
+        f"prefixes, {s} advertiser slots (set-up {set_up:.1f} s); full RIB "
+        f"p50 {p50:.3f} ms (samples {[round(x, 3) for x in times]}), "
+        f"election phase {[round(x, 3) for x in elect_ms]} ms; "
+        f"{len(rdb.unicast_routes)} unicast routes == the NumPy "
+        f"election's; device elections {n_dev}, launches {launches}")
+    log(f"[8c] elect_seg_kernel (M {m}, S {s}): {us:.2f} us, plain {p_ms:.4f} ms, torch.segment_reduce max+min "
+        f"{lib_ms:.4f} ms, bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes} "
+        f"B); max |diff| vs plain {err}")
+    return dict(launches=launches, us=us, plain_ms=p_ms, lib_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, err=err, crossover=cross)
+
+
+def election_crossover(solver, csr, dist, fh_any, my_id, view_100k) -> dict:
+    """Host wall µs of the solver's election, on the device and in NumPy,
+    at 64 to 16 384 slots (`ramp_prefix_state(n, anycast_every=4)`) and
+    at [8c]'s 50 000, on the er100k solve from node-0; the two paths'
+    results equal. Median of 15 calls per path, the paths in turns."""
+    from openr_tpu_torch.utils.topogen import ramp_prefix_state
+
+    keep = solver.elect_device_min
+    res = {}
+    try:
+        for n in (128, 2048, 8192, 16384, 32768, 100_000):
+            view = view_100k if n == 100_000 else ramp_prefix_state(
+                csr.node_names, n, anycast_every=4).election_view(
+                    csr.name_to_id, csr.base_version)
+            multi, slots = view.multi, len(view.multi.adv)
+            t = {"device": [], "numpy": []}
+            got = {}
+            for path in ("device", "numpy", "numpy", "device"):
+                solver.elect_device_min = 0 if path == "device" else slots + 1
+                got[path] = solver._elect_multi(multi, dist, fh_any, my_id,
+                                                view.gen)  # warm-up
+                for _ in range(15):
+                    t0 = time.perf_counter()
+                    solver._elect_multi(multi, dist, fh_any, my_id, view.gen)
+                    t[path].append((time.perf_counter() - t0) * 1e6)
+            for f in ("survive", "local", "is_best", "chosen"):
+                if not np.array_equal(getattr(got["device"], f),
+                                      getattr(got["numpy"], f)):
+                    fail(f"election at {slots} slots: device and NumPy "
+                         f"differ in {f}")
+            sel = got["numpy"].survive
+            if not np.array_equal(got["device"].min_igp[sel],
+                                  got["numpy"].min_igp[sel]):
+                fail(f"election at {slots} slots: min_igp differs")
+            res[slots] = {k: statistics.median(v) for k, v in t.items()}
+            log(f"[8c] election at {slots} slots ({len(multi.prefixes)} "
+                f"prefixes): device {res[slots]['device']:.1f} us, NumPy "
+                f"{res[slots]['numpy']:.1f} us (host wall, median of 30); "
+                "equal")
+    finally:
+        solver.elect_device_min = keep
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -800,28 +1556,10 @@ def main() -> None:
 
     # ---- phase 2: build ------------------------------------------------
     from openr_tpu_torch.ops import cuda_build, relax
+    from openr_tpu_torch.ops import election as election_ops
+    from openr_tpu_torch.ops import ksp as ksp_ops
 
-    t0 = time.perf_counter()
-    proc, ptx_dir = start_ptxas_report(cuda_build)
-    try:
-        relax.build()
-        ptx_out, _ = proc.communicate(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        shutil.rmtree(ptx_dir, ignore_errors=True)
-    log(f"[2] build: relax.cu in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {cuda_build.BUILD_SECONDS.get('relax', 0.0):.3f} s, the "
-        "-Xptxas -v cubin alongside)")
-    if proc.returncode != 0:
-        fail(f"nvcc -Xptxas -v failed:\n{ptx_out}")
-    ptx = parse_ptxas(ptx_out)
-    if len(ptx) != 1 + 2 * len(WIDTHS) ** 2:  # generic + vec x over
-        fail(f"ptxas reported {len(ptx)} kernels:\n{ptx_out}")
-    for name, regs, smem, st, ld in ptx:
-        log(f"[2] ptxas {name}: {regs} registers, {smem} B smem, spill "
-            f"stores {st} B, spill loads {ld} B")
+    build_all(cuda_build, (relax, election_ops, ksp_ops))
     lib = relax._lib()
     grid = (1, 2, 4, 8, 16, 24, 32, 64, 128, 256)
     bad = [(w, b) for w in grid for b in grid
@@ -925,6 +1663,12 @@ def main() -> None:
     # ---- phase 7: the gather probe ---------------------------------------
     probe = phase7_probe(relax)
 
+    # ---- phase 8: election and KSP kernels, config 4, election at scale --
+    p8a = phase8a_kernels(election_ops, ksp_ops, csr)
+    p8b = phase8b_config4(ksp_ops)
+    p8c = phase8c_election(election_ops, solver, ls, csr)
+    phase8d_config4_ref(ksp_ops)
+
     d = timing["dense"]
     kernels = []
     for design, name, n_launch, worst in (
@@ -960,6 +1704,35 @@ def main() -> None:
             "plain_ms": probe["plain_ms"],
             "bound_ms": probe["bound_ms"],
             "bound_by": probe["bound_by"],
+            "library_ms": None,
+        })
+    worst8 = p8a["worst"]
+    kernels.append({
+        "name": election_ops.KERNEL_NAME,
+        "route": "cuda",
+        "source": "openr_tpu_torch/csrc/election.cu",
+        "replaces": "openr_tpu/ops/election.py:32",
+        "launches": p8c["launches"],
+        "max_abs_err": max(worst8["elect"], p8c["err"]),
+        "ms": p8c["us"] / 1e3,
+        "plain_ms": p8c["plain_ms"],
+        "bound_ms": p8c["bound_ms"],
+        "bound_by": p8c["bound_by"],
+        "library_ms": p8c["lib_ms"],
+    })
+    for step in ("relax", "walk"):
+        row = p8b[step]
+        kernels.append({
+            "name": ksp_ops.KERNEL_NAMES[step],
+            "route": "cuda",
+            "source": "openr_tpu_torch/csrc/ksp.cu",
+            "replaces": "openr_tpu/ops/ksp.py:57",
+            "launches": p8b["launches"][step],
+            "max_abs_err": worst8[step],
+            "ms": row["us"] / 1e3,
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound"][0],
+            "bound_by": row["bound"][1],
             "library_ms": None,
         })
     log(f"[5] warm-path relax launches by design: {warm_launches}")

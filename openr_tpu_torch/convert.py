@@ -62,6 +62,7 @@ def csr_from_numpy(
     edge_index: dict | None = None,
     patches=(),
     base_version: int | None = None,
+    dense_tables=None,
 ) -> CsrGraph:
     """A port `CsrGraph` from another CSR's arrays, names, adjacency
     details and, for a patched CSR, its details overrides, edge index
@@ -72,7 +73,11 @@ def csr_from_numpy(
     `base_version` of the port CSR that this one's journal patches
     (made by an earlier call from the other package's base), and a
     solver that cached the base scatters the journal instead of
-    rebuilding its tables."""
+    rebuilding its tables.
+
+    `dense_tables`, the other CSR's (nbr, wgt) dense in-neighbor tables,
+    are carried as int32 copies, so that both packages' KSP reads the
+    same arrays (else `dense_tables()` builds them from the edges)."""
     names = list(node_names)
     ver = next_csr_version()
 
@@ -104,5 +109,8 @@ def csr_from_numpy(
             MetricPatch(int(p.edge_idx), int(p.dense_row),
                         int(p.dense_col), int(p.metric))
             for p in patches
+        ),
+        _dense=None if dense_tables is None else tuple(
+            np.array(t, dtype=np.int32) for t in dense_tables
         ),
     )

@@ -4,8 +4,9 @@ The port's copy of the classification half of
 `openr_tpu/decision/election.py`: prefixes split into "plain" (one
 known advertiser, SP_ECMP, no constraints), "multi" (anycast ECMP: two
 or more advertisers, all plain-shaped, as a CSR prefix->advertiser
-matrix) and "complex" (everything else). Only the plain shape is
-assembled by this port slice; the solver refuses the others.
+matrix) and "complex" (everything else); and the scalar half of the
+multi-advertiser election over that matrix (`elect_multi_np`, the NumPy
+path; `ops/election.py` runs the same algebra on the device).
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from openr_tpu_torch.common.constants import DIST_INF
 from openr_tpu_torch.types.topology import ForwardingAlgorithm
+
+INF64 = np.int64(DIST_INF)
 
 
 @dataclass
@@ -43,6 +47,17 @@ class ElectView:
     multi: MultiTable | None
     complex_items: list  # [(prefix, {node: entry})]
     gen: tuple  # (lineage, rev, base_version)
+
+
+@dataclass
+class MultiElection:
+    """Per-prefix outcome arrays of one multi-table election."""
+
+    survive: np.ndarray  # bool [M] a route exists (reachable, not local)
+    local: np.ndarray  # bool [M] my node among the best advertisers
+    is_best: np.ndarray  # bool [S] slot in the best-metric-key set
+    chosen: np.ndarray  # bool [S] slot in the min-IGP chosen set
+    min_igp: np.ndarray  # int64 [M]
 
 
 def _entry_plain(e) -> bool:
@@ -134,3 +149,64 @@ def build_elect_view(entries: dict, name_to_id: dict, gen) -> ElectView:
         complex_items=complex_items,
         gen=gen,
     )
+
+
+def multi_items(t: MultiTable) -> list:
+    """The multi table as `(prefix, {node: entry})` rows, for the general
+    per-prefix path (LFA assembly)."""
+    return [
+        (
+            t.prefixes[i],
+            {
+                t.names[s]: t.entries[s]
+                for s in range(int(t.indptr[i]), int(t.indptr[i + 1]))
+            },
+        )
+        for i in range(len(t.prefixes))
+    ]
+
+
+def elect_multi_np(
+    t: MultiTable, d_vec: np.ndarray, reach_vec: np.ndarray, my_id: int
+) -> MultiElection:
+    """NumPy election over the multi table: eligible = reachable (finite
+    distance and a first hop) or self; best = masked argmax over the
+    metric-key ranks; local = self among the best; chosen = masked
+    argmin over `d_vec` within the best set."""
+    is_me = t.known & (t.adv == my_id)
+    elig = (t.known & reach_vec[t.adv]) | is_me
+    r_eff = np.where(elig, t.rank, np.int64(-1))
+    best_r = np.maximum.reduceat(r_eff, t.indptr[:-1])
+    has = best_r >= 0
+    is_best = elig & (r_eff == best_r[t.seg])
+    m = len(t.prefixes)
+    local = np.zeros(m, dtype=bool)
+    np.logical_or.at(local, t.seg[is_best & is_me], True)
+    d_adv = np.where(is_best, d_vec[t.adv].astype(np.int64), INF64)
+    min_igp = np.minimum.reduceat(d_adv, t.indptr[:-1])
+    chosen = is_best & (d_adv == min_igp[t.seg])
+    return MultiElection(
+        survive=has & ~local,
+        local=local,
+        is_best=is_best,
+        chosen=chosen,
+        min_igp=min_igp,
+    )
+
+
+def iter_multi_winners(t: MultiTable, res: MultiElection):
+    """Per surviving prefix: `(prefix, best_names, chosen_ids,
+    chosen_names, igp, best_entry)`, names in slot (name) order and
+    best_entry the first chosen slot's PrefixEntry."""
+    for i in np.nonzero(res.survive)[0].tolist():
+        lo, hi = int(t.indptr[i]), int(t.indptr[i + 1])
+        best_rows = [s for s in range(lo, hi) if res.is_best[s]]
+        chosen_rows = [s for s in best_rows if res.chosen[s]]
+        yield (
+            t.prefixes[i],
+            tuple(t.names[s] for s in best_rows),
+            t.adv[chosen_rows],
+            [t.names[s] for s in chosen_rows],
+            int(res.min_igp[i]),
+            t.entries[chosen_rows[0]],
+        )

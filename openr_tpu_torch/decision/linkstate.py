@@ -86,6 +86,9 @@ class CsrGraph:
     base_version: int = 0
     patches: tuple[MetricPatch, ...] = ()
     _row_start: np.ndarray | None = None
+    # dense in-neighbor tables (nbr, wgt), built on first use; a patched
+    # view carries its base's nbr and a patched copy of wgt
+    _dense: tuple[np.ndarray, np.ndarray] | None = None
 
     def details(self, u: int, v: int):
         """Adjacency details for edge (u, v), override-aware."""
@@ -119,6 +122,17 @@ class CsrGraph:
         """Dense-table column of edge slot `edge_idx`: its rank within
         its destination's run of the dst-sorted edge list."""
         return edge_idx - int(self.row_start()[dst])
+
+    def dense_tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """Cached dense in-neighbor tables (`ops.spf.build_dense_tables`)."""
+        if self._dense is None:
+            from openr_tpu_torch.ops.spf import build_dense_tables
+
+            self._dense = build_dense_tables(
+                self.edge_src, self.edge_dst, self.edge_metric,
+                self.padded_nodes,
+            )
+        return self._dense
 
 
 def _metric_only_delta(
@@ -305,6 +319,8 @@ class LinkState:
     ) -> CsrGraph:
         new_metric = base.edge_metric.copy()
         overrides = dict(base.adj_overrides)
+        dense = base._dense
+        wgt = dense[1].copy() if dense is not None else None
         touched: dict[tuple[int, int], list[list]] = {}
         for node, adj in pending:
             u = base.name_to_id.get(node)
@@ -326,13 +342,15 @@ class LinkState:
             m = min(min(d[1] for d in lst), METRIC_MAX)
             idx = base.edge_index[key]
             new_metric[idx] = m
-            journal.append(
-                MetricPatch(idx, key[1], base.dense_col(idx, key[1]), int(m))
-            )
+            col = base.dense_col(idx, key[1])
+            if wgt is not None:
+                wgt[key[1], col] = m
+            journal.append(MetricPatch(idx, key[1], col, int(m)))
         return replace(
             base,
             edge_metric=new_metric,
             adj_overrides=overrides,
+            _dense=(dense[0], wgt) if dense is not None else None,
             version=next_csr_version(),
             patches=tuple(journal),
         )

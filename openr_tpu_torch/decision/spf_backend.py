@@ -1,22 +1,24 @@
 """The port's SPF backend: the cold single-root RIB solve on the split
-path and its warm rebuild after a metric-only delta (port of
-`TpuSpfSolver` in `openr_tpu/decision/spf_backend.py`).
+path, the RIB assembly for every prefix shape, and the warm rebuild
+after a metric-only delta (port of `TpuSpfSolver` in
+`openr_tpu/decision/spf_backend.py`).
 
 The SPF batch for one node's RIB is {self} ∪ neighbors(self): the root
 column gives distances, the neighbor columns the ECMP first-hop matrix
 (and LFA). One solve on the device returns one packed uint8 buffer; the
-host decodes it and assembles the `RouteDatabase` for plain prefixes,
-MPLS node segments and MPLS adjacency labels. The device tables are
+host decodes it and assembles the `RouteDatabase`: plain prefixes by
+(first hop, distance) class, anycast prefixes through the
+multi-advertiser election (`ops/election.py`, on the device past
+`elect_device_min` advertiser slots), and UCMP, min_nexthop, LFA backup
+and KSP2_ED_ECMP prefixes through the general per-prefix path, whose KSP
+jobs run in one batch of k edge-disjoint path rounds on the device
+(`ops/ksp.py`); then MPLS node segments and adjacency labels. With
+`enable_lfa` every prefix takes the general path. The device tables are
 cached per topology base and kept current under metric churn by
 scattering the CSR's patch journal. `warm_compute_routes` re-solves from
 the previous solve's distances after a link flap and re-assembles only
 the routes whose (distance, first hop) changed, through the general
 per-prefix path (`assemble_prefix_routes`).
-
-What the port does not cover raises `NotImplementedError` naming its
-ROADMAP item rather than returning partial routes: multi-advertiser
-election in the cold assembly (item 6), and KSP, UCMP weights and
-LFA-driven route assembly (item 7).
 """
 
 from __future__ import annotations
@@ -29,7 +31,19 @@ import torch
 from openr_tpu_torch.common.constants import MPLS_LABEL_MIN
 from openr_tpu_torch.convert import split_tables_from_numpy
 from openr_tpu_torch.decision.artifact import SolveArtifact, metric_key
+from openr_tpu_torch.decision.election import (
+    elect_multi_np,
+    iter_multi_winners,
+    multi_items,
+)
+from openr_tpu_torch.decision.ksp import (
+    ksp_route_from_paths,
+    normalize_weights,
+    ucmp_weights,
+)
 from openr_tpu_torch.ops import relax
+from openr_tpu_torch.ops.election import elect_multi_device
+from openr_tpu_torch.ops.ksp import ksp_edge_disjoint_dense, paths_to_host
 from openr_tpu_torch.ops.spf import INF_DIST, METRIC_MAX, pad_batch
 from openr_tpu_torch.ops.spf_split import (
     batched_sssp_split_rib,
@@ -143,12 +157,16 @@ class TorchSpfSolver:
     """Computes a node's RouteDatabase from the padded CSR LSDB, on
     `device` (default: the CUDA card)."""
 
-    def __init__(self, device=None, enable_lfa: bool = False):
+    def __init__(self, device=None, enable_lfa: bool = False,
+                 ksp_k: int = 2):
         self.device = resolve_device(device)
         self.enable_lfa = enable_lfa
-        # base_version -> {"version", "journal_len", "tables"}: one device
-        # table set per topology base (small LRU), kept current under
-        # metric-only churn by scattering the CSR's patch journal
+        # edge-disjoint paths per KSP2_ED_ECMP prefix
+        self.ksp_k = ksp_k
+        # base_version -> {"version", "journal_len", "sets"}: the device
+        # table sets of one topology base ("split" for the solve, "dense"
+        # for KSP; small LRU), kept current under metric-only churn by
+        # scattering the CSR's patch journal into every set
         self._dev: dict[int, dict] = {}
         self._dev_lru_cap = 4
         # table set uploads vs patch scatters vs plain hits
@@ -171,37 +189,75 @@ class TorchSpfSolver:
         # the device solve (scatter to buffer decode) and the scoped
         # assembly
         self.last_warm_stats: dict = {}
+        # multi-advertiser election: on the device (`elect_seg_kernel`)
+        # once the advertiser matrix has at least this many slots, NumPy
+        # below; the two are equal (integer algebra). On an H100 the
+        # device path is the faster from 8 192 slots and NumPy up to
+        # 4 096 (`chip_smoke.py` [8c])
+        self.elect_device_min = 1 << 13
+        # election view gen -> the advertiser matrix on the device (LRU)
+        self._elect_dev: dict = {}
+        self.elect_stats = {
+            "plain": 0, "multi": 0, "complex": 0, "device_elections": 0,
+        }
+        # last full assembly, host wall ms: "election" (the multi
+        # election call), "assembly" (plain, anycast and general unicast
+        # with KSP), "mpls"
+        self.last_phase_ms: dict[str, float] = {}
+        # base_version -> (out, in) distinct-neighbor counts for the KSP
+        # k clamp (structural, so metric churn keeps them)
+        self._ksp_nbr_counts: dict[int, tuple] = {}
+        # last KSP batch: jobs, chunks, k_eff, rounds, sweeps (one host
+        # read per round and per sweep) and host wall ms
+        self.last_ksp_stats: dict = {}
 
     # ------------------------------------------------------------ device
 
-    def _device_arrays(self, csr) -> dict:
-        """Device split tables for `csr`. One cache entry per topology
-        base: a newer CSR of a cached base scatters the journal suffix
-        the entry has not applied; a CSR older than the entry (journals
-        cannot be applied backwards) or of an uncached base uploads."""
+    def _device_arrays(self, csr, want: str = "split") -> dict:
+        """Device table set `want` for `csr`: "split" (the split solve's
+        tables) or "dense" (`nbr`, `wgt` in-neighbor tables and the node
+        `over` bits, for KSP). One cache entry per topology base holds
+        every set built so far: a newer CSR of a cached base scatters the
+        journal suffix the entry has not applied into each set; a CSR
+        older than the entry (journals cannot be applied backwards) or of
+        an uncached base starts a new entry."""
         cache = self._dev.pop(csr.base_version, None)
         if cache is not None and csr.version >= cache["version"]:
             self._apply_patch_suffix(cache, csr)
-            self.dev_cache_stats["hits"] += 1
         else:
-            t = build_split_tables(
-                csr.edge_src, csr.edge_dst, csr.edge_metric, csr.num_nodes
-            )
             cache = {
                 "version": csr.version,
                 "journal_len": len(csr.patches),
-                "tables": split_tables_from_numpy(
-                    t, csr.node_overloaded, self.device
-                ),
+                "sets": {},
             }
-            self.dev_cache_stats["uploads"] += 1
         self._dev[csr.base_version] = cache  # refresh the LRU position
         while len(self._dev) > self._dev_lru_cap:
             self._dev.pop(next(iter(self._dev)))
-        return cache["tables"]
+        got = cache["sets"].get(want)
+        if got is not None:
+            self.dev_cache_stats["hits"] += 1
+            return got
+        self.dev_cache_stats["uploads"] += 1
+        if want == "split":
+            t = build_split_tables(
+                csr.edge_src, csr.edge_dst, csr.edge_metric, csr.num_nodes
+            )
+            got = split_tables_from_numpy(t, csr.node_overloaded, self.device)
+        elif want == "dense":
+            nbr, wgt = csr.dense_tables()
+            got = {
+                "nbr": self._to_dev(nbr),
+                "wgt": self._to_dev(wgt),
+                "over": self._to_dev(csr.node_overloaded),
+            }
+        else:
+            raise ValueError(f"unknown device table set {want!r}")
+        cache["sets"][want] = got
+        return got
 
     def _apply_patch_suffix(self, cache: dict, csr) -> None:
         """Scatter the journal entries the cache has not applied into
+        every resident set: the dense `wgt` at (row, column), the split
         `base_wgt` (columns < W) and `ov_wgt` (row `ov_pos[row]`, column
         - W), one index write each; clear `uniform_metric` if a patch
         breaks it."""
@@ -211,7 +267,8 @@ class TorchSpfSolver:
         if len(csr.patches) > done:
             self.dev_cache_stats["patches"] += 1
             # the last patch of a slot wins: one write per slot keeps the
-            # index write free of duplicate targets
+            # index write free of duplicate targets (whose winner CUDA
+            # leaves undefined)
             last = {
                 (p.dense_row, p.dense_col): p.metric
                 for p in csr.patches[done:]
@@ -219,21 +276,28 @@ class TorchSpfSolver:
             rows = np.fromiter((k[0] for k in last), np.int64, len(last))
             cols = np.fromiter((k[1] for k in last), np.int64, len(last))
             vals = np.fromiter(last.values(), np.int32, len(last))
-            tab = cache["tables"]
-            w, ov_pos = tab["host"]["base_w"], tab["host"]["ov_pos"]
-            if tab["uniform_metric"] and bool(
-                (vals != tab["uniform_metric"]).any()
-            ):
-                tab["uniform_metric"] = 0
-            for name, sel, r, c in (
-                ("base_wgt", cols < w, rows, cols),
-                ("ov_wgt", cols >= w, ov_pos[rows], cols - w),
-            ):
-                if sel.any():
-                    tab[name].index_put_(
-                        (self._to_dev(r[sel]), self._to_dev(c[sel])),
-                        self._to_dev(vals[sel]),
-                    )
+            dense = cache["sets"].get("dense")
+            if dense is not None:
+                dense["wgt"].index_put_(
+                    (self._to_dev(rows), self._to_dev(cols)),
+                    self._to_dev(vals),
+                )
+            tab = cache["sets"].get("split")
+            if tab is not None:
+                w, ov_pos = tab["host"]["base_w"], tab["host"]["ov_pos"]
+                if tab["uniform_metric"] and bool(
+                    (vals != tab["uniform_metric"]).any()
+                ):
+                    tab["uniform_metric"] = 0
+                for name, sel, r, c in (
+                    ("base_wgt", cols < w, rows, cols),
+                    ("ov_wgt", cols >= w, ov_pos[rows], cols - w),
+                ):
+                    if sel.any():
+                        tab[name].index_put_(
+                            (self._to_dev(r[sel]), self._to_dev(c[sel])),
+                            self._to_dev(vals[sel]),
+                        )
             cache["journal_len"] = len(csr.patches)
         cache["version"] = csr.version
 
@@ -323,11 +387,6 @@ class TorchSpfSolver:
         (rdb, SolveArtifact | None): the artifact wraps the solve tuple
         for `assemble_prefix_routes` and `warm_compute_routes`."""
         rdb = RouteDatabase(this_node_name=my_node)
-        if self.enable_lfa:
-            raise NotImplementedError(
-                "LFA-driven route assembly is not ported yet "
-                "(ROADMAP item 7: KSP and the general per-prefix path)"
-            )
         solved = self.solve(ls, my_node)
         if solved is None:
             return (rdb, None) if return_artifact else rdb
@@ -338,16 +397,20 @@ class TorchSpfSolver:
 
     def _artifact(self, my_node, ls, solved) -> SolveArtifact:
         return SolveArtifact(
-            my_node=my_node, ls=ls, solved=solved, nh_intern=self._nh_intern
+            my_node=my_node, ls=ls, ksp_k=self.ksp_k, solved=solved,
+            nh_intern=self._nh_intern,
         )
 
     def assemble_prefix_routes(self, art: SolveArtifact, ps, prefixes) -> dict:
         """Routes for `prefixes` only, against a cached artifact, with no
-        new solve: every prefix goes down the general per-prefix path. A
-        prefix absent from the result has no route."""
+        new solve: every prefix goes down the general per-prefix path
+        (KSP prefixes still batch into one device call). A prefix absent
+        from the result has no route."""
         csr, dist, fh, nbr_ids, lfa = art.solved
         ls, my_node = art.ls, art.my_node
         my_id = csr.name_to_id[my_node]
+        d_root = dist[:, 0]
+        fh_any = fh.any(axis=0)
         slot_cache = self._nbr_slot_cache(csr, my_id, nbr_ids)
         mk_nexthops_cached = self._mk_nexthops_cached_factory(
             fh, slot_cache, ls.area
@@ -358,24 +421,23 @@ class TorchSpfSolver:
             if per_node:
                 items.append((p, dict(per_node)))
         out: dict = {}
-        self._unicast_general(
-            csr, my_node, dist[:, 0], fh.any(axis=0), lfa,
-            mk_nexthops_cached, items, out,
+        ksp_jobs = self._unicast_general(
+            csr, ls, my_node, my_id, d_root, fh, fh_any, nbr_ids, lfa,
+            dist, slot_cache, mk_nexthops_cached, items, out,
         )
+        if ksp_jobs:
+            self._ksp_batch(csr, ls, my_node, my_id, d_root, ksp_jobs, out)
         return out
 
     def _unicast_general(
-        self, csr, my_node, d_root, fh_any, lfa, mk_nexthops_cached, items,
-        out: dict,
-    ) -> None:
-        """The general per-prefix unicast path for plain and ECMP
-        (anycast) prefixes, min_nexthop included: writes routes into
-        `out`. KSP, UCMP weights and LFA backups raise."""
-        if lfa is not None:
-            raise NotImplementedError(
-                "LFA backup nexthops are not ported yet (ROADMAP item 7: "
-                "KSP and the general per-prefix path)"
-            )
+        self, csr, ls, my_node, my_id, d_root, fh, fh_any, nbr_ids, lfa,
+        dist, slot_cache, mk_nexthops_cached, items, out: dict,
+    ) -> list[tuple]:
+        """The general per-prefix unicast path: anycast, UCMP weights,
+        min_nexthop, LFA backups, and plain prefixes on the scoped and
+        LFA paths. Writes routes into `out`; returns the KSP prefixes as
+        (prefix, reachable, best_nodes) jobs for one `_ksp_batch`."""
+        ksp_jobs: list[tuple] = []
         for prefix, per_node in items:
             reachable = {}
             for n, e in per_node.items():
@@ -396,10 +458,8 @@ class TorchSpfSolver:
                 reachable[best_nodes[0]].forwarding_algorithm
                 == ForwardingAlgorithm.KSP2_ED_ECMP
             ):
-                raise NotImplementedError(
-                    f"{prefix}: KSP prefixes are not ported yet (ROADMAP "
-                    "item 7: KSP and the general per-prefix path)"
-                )
+                ksp_jobs.append((prefix, reachable, best_nodes))
+                continue
             ids = np.array(
                 [csr.name_to_id[n] for n in best_nodes], dtype=np.int64
             )
@@ -407,17 +467,25 @@ class TorchSpfSolver:
             min_igp = int(igps.min())
             chosen = ids[igps == min_igp]
             chosen_names = sorted(csr.node_names[i] for i in chosen)
-            if any(reachable[n].weight > 0 for n in chosen_names):
-                raise NotImplementedError(
-                    f"{prefix}: UCMP weights are not ported yet (ROADMAP "
-                    "item 7: KSP and the general per-prefix path)"
+            weights = ucmp_weights({n: reachable[n] for n in chosen_names})
+            if weights is None:
+                nexthops = mk_nexthops_cached(chosen, min_igp)
+            else:
+                nexthops = self._mk_nexthops(
+                    fh, chosen, min_igp, ls.area, weights, csr.node_names,
+                    slot_cache,
                 )
-            nexthops = mk_nexthops_cached(chosen, min_igp)
             if not nexthops:
                 continue
             best_entry = reachable[chosen_names[0]]
             if best_entry.min_nexthop and len(nexthops) < best_entry.min_nexthop:
                 continue
+            backups: tuple[NextHop, ...] = ()
+            if lfa is not None:
+                backups = self._mk_backup_nexthops(
+                    csr, my_id, nbr_ids, fh, lfa, dist, chosen, ls.area,
+                    slot_cache,
+                )
             out[prefix] = RibEntry(
                 prefix=prefix,
                 nexthops=nexthops,
@@ -425,7 +493,88 @@ class TorchSpfSolver:
                 best_nodes=tuple(best_nodes),
                 best_entry=best_entry,
                 igp_cost=min_igp,
+                backup_nexthops=backups,
             )
+        return ksp_jobs
+
+    def _ksp_batch(self, csr, ls, my_node, my_id, d_root, jobs,
+                   out: dict) -> None:
+        """Every KSP prefix's paths in one batch of k edge-disjoint path
+        rounds on the device (`ops/ksp.py`), then its route.
+
+        The dense tables come from the patched device cache and the
+        blocked mask is derived on the device. Each job's destination is
+        its nearest best node (ties by id, which is name order). k is
+        clamped to the root's distinct out-neighbors and the most
+        distinct in-neighbors of any destination (every edge-disjoint
+        path leaves and enters through a different neighbor), rounded up
+        to a power of two as the reference does, and round 1 takes the
+        solve's own root distances. Jobs are chunked by a memory budget
+        of 2 GiB over the bytes one job holds on the device: its packed
+        ban bits, two [V] distance columns and its k_eff paths of V ids
+        (the reference budgets 13 bytes per slot and job for its bool
+        mask and temporaries); jobs are independent, so the chunking
+        cannot change the routes."""
+        t0 = time.perf_counter()
+        dev = self._device_arrays(csr, "dense")
+        d_nbr, d_wgt = dev["nbr"], dev["wgt"]
+        blocked = (dev["over"][d_nbr.long()] & (d_nbr != my_id)).contiguous()
+        dests = np.empty(len(jobs), dtype=np.int32)
+        for j, (_prefix, _reachable, best_nodes) in enumerate(jobs):
+            ids = np.array(
+                [csr.name_to_id[n] for n in best_nodes], dtype=np.int64
+            )
+            dests[j] = ids[np.argmin(d_root[ids])]  # ids ascending: first min
+        counts = self._ksp_nbr_counts.get(csr.base_version)
+        if counts is None:
+            valid = csr.edge_metric < INF_DIST
+            counts = (
+                np.bincount(csr.edge_src[valid], minlength=csr.padded_nodes),
+                np.bincount(csr.edge_dst[valid], minlength=csr.padded_nodes),
+            )
+            self._ksp_nbr_counts[csr.base_version] = counts
+            while len(self._ksp_nbr_counts) > self._dev_lru_cap:
+                self._ksp_nbr_counts.pop(next(iter(self._ksp_nbr_counts)))
+        out_counts, in_counts = counts
+        bound = int(max(1, min(
+            self.ksp_k,
+            out_counts[my_id],
+            int(in_counts[dests].max()) if len(dests) else 1,
+        )))
+        k_eff = min(self.ksp_k, 1 << (bound - 1).bit_length())
+        vp, d_width = int(d_nbr.shape[0]), int(d_nbr.shape[1])
+        max_hops = csr.padded_nodes - 1
+        bytes_per_job = vp * d_width // 8 + 2 * vp * 4 + k_eff * vp * 4
+        cap = max(8, min(256, (2 << 30) // bytes_per_job))
+        chunk = 1 << (cap.bit_length() - 1)  # floor power of two
+        dist0 = np.full(csr.padded_nodes, int(INF_DIST), np.int32)
+        m = min(len(d_root), csr.num_nodes)
+        dist0[:m] = np.minimum(
+            np.asarray(d_root[:m], dtype=np.int64), int(INF_DIST)
+        ).astype(np.int32)
+        dist0_dev = self._to_dev(dist0)
+        stats = {"jobs": len(jobs), "chunks": 0, "k_eff": k_eff}
+        for start in range(0, len(jobs), chunk):
+            sub = dests[start : start + chunk]
+            b = pad_batch(len(sub))
+            dsts = np.full(b, my_id, dtype=np.int32)  # padding: dest == root
+            dsts[: len(sub)] = sub
+            costs, paths, _hops = ksp_edge_disjoint_dense(
+                d_nbr, d_wgt, blocked, my_id, self._to_dev(dsts),
+                k=k_eff, max_hops=max_hops, dist0=dist0_dev, stats=stats,
+            )
+            costs, paths = costs.cpu().numpy(), paths.cpu().numpy()
+            stats["chunks"] += 1
+            for j in range(len(sub)):
+                prefix, reachable, best_nodes = jobs[start + j]
+                host_paths = paths_to_host(costs, paths, csr.node_names, j)
+                entry = ksp_route_from_paths(
+                    ls, my_node, prefix, reachable, best_nodes, host_paths
+                )
+                if entry is not None:
+                    out[prefix] = entry
+        stats["ms"] = (time.perf_counter() - t0) * 1e3
+        self.last_ksp_stats = stats
 
     # ------------------------------------------------ topology-delta warm
 
@@ -687,16 +836,6 @@ class TorchSpfSolver:
     def _assemble_routes(self, rdb, ls, ps, my_node, solved):
         csr, dist, fh, nbr_ids, lfa = solved
         view = ps.election_view(csr.name_to_id, csr.base_version)
-        if view.multi is not None:
-            raise NotImplementedError(
-                "multi-advertiser (anycast) election is not ported yet "
-                "(ROADMAP item 6: election, kernel E)"
-            )
-        if lfa is not None:
-            raise NotImplementedError(
-                "LFA-driven route assembly is not ported yet "
-                "(ROADMAP item 7: KSP and the general per-prefix path)"
-            )
         my_id = csr.name_to_id[my_node]
         d_root = dist[:, 0]
         fh_any = fh.any(axis=0)
@@ -707,9 +846,31 @@ class TorchSpfSolver:
         n_live = len(csr.node_names)
         dest_cls, _tokens = _dest_classes(fh, d_root, n_live)
 
-        # ---- unicast: plain prefixes, one NextHop set per class ----------
         plain_p, plain_n, plain_e = view.plain_p, view.plain_n, view.plain_e
-        orig = view.orig
+        orig, complex_items, multi = view.orig, view.complex_items, view.multi
+        if lfa is not None:
+            # LFA backups are per target, not per class: every prefix
+            # takes the general per-prefix path
+            merged = list(complex_items)
+            merged += [
+                (p, {plain_n[i]: plain_e[i]}) for i, p in enumerate(plain_p)
+            ]
+            if multi is not None:
+                merged += multi_items(multi)
+            complex_items = sorted(merged)
+            multi = None
+            plain_p = []
+        self.elect_stats["plain"] = len(plain_p)
+        self.elect_stats["multi"] = len(multi.prefixes) if multi else 0
+        self.elect_stats["complex"] = len(complex_items)
+        t0 = time.perf_counter()
+        mel = None
+        if multi is not None and len(multi.prefixes):
+            mel = self._elect_multi(multi, dist, fh_any, my_id, view.gen)
+        t_asm0 = time.perf_counter()
+        self.last_phase_ms = {"election": (t_asm0 - t0) * 1e3}
+
+        # ---- unicast: plain prefixes, one NextHop set per class ----------
         if len(plain_p):
             reach = (d_root[orig] < INF_DIST) & fh_any[orig] & (orig != my_id)
             igp = d_root[orig].astype(np.int64)
@@ -740,11 +901,35 @@ class TorchSpfSolver:
                         igp_cost=igp_c,
                     )
 
+        # ---- unicast: elected multi-advertiser (anycast ECMP) ------------
+        if mel is not None:
+            for p, best_names, chosen_ids, chosen_names, igp_c, best_e in (
+                iter_multi_winners(multi, mel)
+            ):
+                nhs = mk_nexthops_cached(chosen_ids, igp_c)
+                if not nhs:
+                    continue
+                rdb.unicast_routes[p] = RibEntry(
+                    prefix=p,
+                    nexthops=nhs,
+                    best_node=chosen_names[0],
+                    best_nodes=best_names,
+                    best_entry=best_e,
+                    igp_cost=igp_c,
+                )
+
         # ---- unicast: the general path for the complex shapes ------------
-        self._unicast_general(
-            csr, my_node, d_root, fh_any, lfa, mk_nexthops_cached,
-            view.complex_items, rdb.unicast_routes,
+        ksp_jobs = self._unicast_general(
+            csr, ls, my_node, my_id, d_root, fh, fh_any, nbr_ids, lfa,
+            dist, slot_cache, mk_nexthops_cached, complex_items,
+            rdb.unicast_routes,
         )
+        if ksp_jobs:
+            self._ksp_batch(
+                csr, ls, my_node, my_id, d_root, ksp_jobs, rdb.unicast_routes
+            )
+        t_mpls0 = time.perf_counter()
+        self.last_phase_ms["assembly"] = (t_mpls0 - t_asm0) * 1e3
 
         # ---- MPLS node segments ------------------------------------------
         names = csr.node_names
@@ -793,7 +978,32 @@ class TorchSpfSolver:
                         ),
                     ),
                 )
+        self.last_phase_ms["mpls"] = (time.perf_counter() - t_mpls0) * 1e3
         return rdb
+
+    def _elect_multi(self, multi, dist, fh_any, my_id, view_gen):
+        """The multi-advertiser election: `elect_seg` on the solver's
+        device once the matrix has `elect_device_min` slots, NumPy below;
+        the two are equal. The device election reads the solve's root
+        column where it stays on the device."""
+        d_root = np.asarray(dist[:, 0])
+        reach = (d_root < INF_DIST) & fh_any
+        if len(multi.adv) >= self.elect_device_min:
+            self.elect_stats["device_elections"] += 1
+            cached = self._elect_dev.pop(view_gen, None)
+            if cached is not None:  # keep it, at the LRU's newest end
+                self._elect_dev[view_gen] = cached
+            d_vec = d_root
+            if isinstance(dist, LazyDist):
+                d_vec = dist.device_tensor[:, 0].contiguous()
+            out = elect_multi_device(
+                multi, d_vec, reach, my_id,
+                dev_cache=self._elect_dev, gen=view_gen, device=self.device,
+            )
+            while len(self._elect_dev) > self._dev_lru_cap:
+                self._elect_dev.pop(next(iter(self._elect_dev)))
+            return out
+        return elect_multi_np(multi, d_root.astype(np.int64), reach, my_id)
 
     # ----------------------------------------------------------- helpers
 
@@ -884,3 +1094,64 @@ class TorchSpfSolver:
             for (fh_name, if_name) in slot_cache[int(n_idx)]
         ]
         return self._nh_intern.intern(sorted_nexthops(nhs))
+
+    @staticmethod
+    def _mk_nexthops(fh, targets, igp: int, area: str, weights,
+                     target_names, slot_cache) -> tuple[NextHop, ...]:
+        """UCMP nexthops toward `targets` (all at distance `igp`): every
+        min-metric parallel link of each valid first hop, weighted by the
+        gcd-normalized sum of the weights of the targets it serves."""
+        slots: dict[tuple[str, str], None] = {}
+        wsum: dict[tuple[str, str], int] = {}
+        for tgt in targets:
+            for n_idx in np.nonzero(fh[:, int(tgt)])[0]:
+                for key in slot_cache[int(n_idx)]:
+                    slots[key] = None
+                    wsum[key] = wsum.get(key, 0) + weights[
+                        target_names[int(tgt)]
+                    ]
+        wsum = normalize_weights(wsum)
+        return sorted_nexthops(
+            NextHop(
+                address=fh_name,
+                if_name=if_name,
+                metric=igp,
+                weight=wsum.get((fh_name, if_name), 0),
+                neighbor_node=fh_name,
+                area=area,
+            )
+            for (fh_name, if_name) in slots
+        )
+
+    @staticmethod
+    def _mk_backup_nexthops(csr, my_id, nbr_ids, fh, lfa, dist, targets,
+                            area: str, slot_cache) -> tuple[NextHop, ...]:
+        """LFA backups toward `targets`: loop-free neighbors that are not
+        primary first hops of any target, each at metric(root->n) + the
+        least dist_n(target) over the targets it is loop-free for."""
+        n_real = len(nbr_ids)
+        is_primary = fh[:n_real, targets].any(axis=1)
+        is_lfa = lfa[:n_real, targets].any(axis=1)
+        out: dict[tuple[str, str], int] = {}
+        for n_idx in np.nonzero(is_lfa & ~is_primary)[0]:
+            col = 1 + int(n_idx)
+            via = min(
+                int(dist[int(t), col])
+                for t in targets
+                if lfa[int(n_idx), int(t)]
+            )
+            link = min(d[1] for d in csr.details(my_id, nbr_ids[int(n_idx)]))
+            m = link + via
+            for key in slot_cache[int(n_idx)]:
+                if key not in out or m < out[key]:
+                    out[key] = m
+        return sorted_nexthops(
+            NextHop(
+                address=fh_name,
+                if_name=if_name,
+                metric=m,
+                neighbor_node=fh_name,
+                area=area,
+            )
+            for (fh_name, if_name), m in out.items()
+        )

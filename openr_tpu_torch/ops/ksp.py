@@ -1,0 +1,404 @@
+"""k edge-disjoint shortest paths (KSP) for a batch of jobs: the port of
+`openr_tpu/ops/ksp.py` (`build_ksp_blocked`, `ksp_edge_disjoint_dense`,
+`paths_to_host`).
+
+One call computes, for every job b (root -> dests[b]), up to k
+edge-disjoint shortest paths over the dense in-neighbor tables
+(`ops/spf.py` `build_dense_tables`). Each round runs a masked batched
+SSSP to fixpoint under the job's bans, then walks one path per job back
+from its dest, at each hop to the smallest-id predecessor p with
+dist[p] + w == dist[v] (ids are interned in name order, so this is the
+oracle's lexicographic rule), and bans every parallel slot of each
+walked link in both directions. A round in which no job finds a path
+ends the call: bans only grow, so every later round would fail the same
+way.
+
+The round loop runs on the host, one step at a time, on either device:
+`ksp_relax` (one Jacobi sweep of the masked relax) until its changed
+flag stays clear, one host read per sweep; then `ksp_walk` (every job's
+walk); then one read of its "any job ok" flag. Each step picks by
+`tensor.device.type` alone: a CUDA tensor launches `ksp_relax_kernel` /
+`ksp_walk_kernel` of `csrc/ksp.cu` (a build or launch failure raises), a
+CPU tensor runs the plain PyTorch version (`ksp_relax_ref`,
+`ksp_walk_ref`). The per-job bans are bits: int32 words [V, D, ceil(B/32)],
+bit b % 32 of word b // 32 for job b (the JAX kernel keeps [V, D, B]
+bools).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+from openr_tpu_torch.common.constants import DIST_INF
+
+INF_DIST = DIST_INF
+#: the kernel function of each step, as a profiler names it
+KERNEL_NAMES = {"relax": "ksp_relax_kernel", "walk": "ksp_walk_kernel"}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the C entry points of `csrc/ksp.cu` and the ctypes types bound to them
+ENTRY_POINTS = {
+    "openr_ksp_relax": (
+        [_P, _P, _P, _P, _P, _P, _P,  # dist_in, dist_out, nbr, wgt, blocked, bans, changed
+         _I, _I, _I, _P],  # V, D, B, stream
+        ctypes.c_int,
+    ),
+    "openr_ksp_walk": (
+        [_P, _P, _P, _P, _P, _P, _I,  # dist, nbr, wgt, blocked, bans, dests, root
+         _P, _P, _P, _P,  # cost, path, hops, any_ok
+         _I, _I, _I, _I, _P],  # V, D, B, max_hops, stream
+        ctypes.c_int,
+    ),
+    "openr_ksp_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+#: kernel launches made by the step wrappers (CUDA path only), by step
+LAUNCHES = {"relax": 0, "walk": 0}
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            from openr_tpu_torch.ops import cuda_build
+
+            lib = cuda_build.load("ksp")
+            for name, (argtypes, restype) in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _LIB = lib
+    return _LIB
+
+
+def build() -> None:
+    """Build and load the kernels now (they are otherwise built at first
+    launch)."""
+    _lib()
+
+
+def build_ksp_blocked(
+    nbr: np.ndarray, node_overloaded: np.ndarray, root_id: int
+) -> np.ndarray:
+    """Base mask [V, D]: slots whose in-neighbor may not carry transit
+    (overloaded), except the root's own out-edges."""
+    return node_overloaded[nbr] & (nbr != root_id)
+
+
+def ban_words(b: int) -> int:
+    """int32 words per (row, slot) of the packed ban mask for b jobs."""
+    return (b + 31) // 32
+
+
+def unpack_bans(bans: torch.Tensor, b: int) -> torch.Tensor:
+    """[V, D, NW] int32 ban words -> [V, D, b] bool."""
+    j = torch.arange(b, device=bans.device)
+    return ((bans[:, :, j // 32] >> (j % 32).to(torch.int32)) & 1).bool()
+
+
+def pack_bans(banned: torch.Tensor) -> torch.Tensor:
+    """[V, D, b] bool -> [V, D, NW] int32 ban words (bit j % 32 of word
+    j // 32 for job j)."""
+    v, d, b = banned.shape
+    nw = ban_words(b)
+    bits = torch.zeros((v, d, nw * 32), dtype=torch.int64, device=banned.device)
+    bits[:, :, :b] = banned.long()
+    weights = torch.ones(32, dtype=torch.int64, device=banned.device) << torch.arange(
+        32, device=banned.device
+    )
+    words = (bits.view(v, d, nw, 32) * weights).sum(dim=3)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+# ------------------------------------------------------------ the relax
+
+
+def ksp_relax_ref(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
+    """Plain PyTorch version of `ksp_relax_kernel`: one Jacobi sweep of
+    the masked relax from `dist_in` into `dist_out`; sets `changed` [1]
+    to 1 if some entry fell, else 0."""
+    v, d_width = nbr.shape
+    b = dist_in.shape[1]
+    j = torch.arange(b, device=dist_in.device)
+    word, shift = j // 32, (j % 32).to(torch.int32)
+    acc = torch.full((v, b), INF_DIST, dtype=torch.int32, device=dist_in.device)
+    for d in range(d_width):  # one [V, B] row gather per slot column
+        g = dist_in[nbr[:, d].long()]
+        w = wgt[:, d, None]
+        banned = ((bans[:, d, :][:, word] >> shift) & 1).bool()
+        usable = (
+            ~blocked[:, d, None] & ~banned & (w < INF_DIST) & (g < INF_DIST)
+        )
+        c = torch.where(usable, torch.clamp_max(g + w, INF_DIST), INF_DIST)
+        acc = torch.minimum(acc, c)
+    new = torch.minimum(acc, dist_in)
+    dist_out.copy_(new)
+    changed.fill_(int(bool((new < dist_in).any())))
+    return changed
+
+
+def _check(name, dev, tensors):
+    for nm, x, dt in tensors:
+        if x.get_device() != dev:
+            raise ValueError(f"{name}: {nm} on {x.device}")
+        if x.dtype != dt:
+            raise TypeError(f"{name}: {nm} is {x.dtype}, needs {dt}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {nm} is not contiguous")
+
+
+def _check_tables(name, nbr, wgt, blocked, bans, b):
+    if nbr.dim() != 2 or wgt.shape != nbr.shape or blocked.shape != nbr.shape:
+        raise ValueError(f"{name}: nbr/wgt/blocked must be one [V, D] shape")
+    if bans.shape != (*nbr.shape, ban_words(b)):
+        raise ValueError(
+            f"{name}: bans must be [V, D, {ban_words(b)}] words for {b} jobs"
+        )
+
+
+def _raise(lib, err, what):
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.openr_ksp_error_string(err).decode()} ({err})"
+        )
+
+
+def ksp_relax(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
+    """One Jacobi sweep of the masked relax over all rows (see
+    `ksp_relax_ref`). A CUDA tensor launches `ksp_relax_kernel`; a CPU
+    tensor runs `ksp_relax_ref`. Returns `changed` (int32 [1]), which is
+    cleared before the sweep. Neighbor ids must lie in [0, V)."""
+    i32 = torch.int32
+    _check("ksp_relax", dist_in.get_device(), (
+        ("dist_in", dist_in, i32), ("dist_out", dist_out, i32),
+        ("nbr", nbr, i32), ("wgt", wgt, i32), ("blocked", blocked, torch.bool),
+        ("bans", bans, i32), ("changed", changed, i32),
+    ))
+    v, b = dist_in.shape
+    if dist_out.shape != dist_in.shape or nbr.shape[0] != v:
+        raise ValueError("ksp_relax: dist_in/dist_out must be [V, B] of the table's V")
+    _check_tables("ksp_relax", nbr, wgt, blocked, bans, b)
+    if dist_in.device.type == "cpu":
+        return ksp_relax_ref(dist_in, dist_out, nbr, wgt, blocked, bans, changed)
+    if dist_in.device.type != "cuda":
+        raise ValueError(f"ksp_relax: no kernel for {dist_in.device}")
+    lib = _lib()
+    with torch.cuda.device(dist_in.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.openr_ksp_relax(
+            dist_in.data_ptr(), dist_out.data_ptr(), nbr.data_ptr(),
+            wgt.data_ptr(), blocked.data_ptr(), bans.data_ptr(),
+            changed.data_ptr(), v, nbr.shape[1], b, stream,
+        )
+    _raise(lib, err, "ksp_relax_kernel")
+    LAUNCHES["relax"] += 1
+    return changed
+
+
+# ------------------------------------------------------------- the walk
+
+
+def ksp_walk_ref(dist, nbr, wgt, blocked, bans, dests, root: int,
+                 max_hops: int, cost, path, hops, any_ok):
+    """Plain PyTorch version of `ksp_walk_kernel`: the reference's
+    lock-step walk of every job over this round's `dist` [V, B], writing
+    cost [B], path [B, max_hops+1] (walk order, -1 padded), hops [B], the
+    updated ban words, and `any_ok` [1] = 1 if some job found its path."""
+    v = nbr.shape[0]
+    b = dests.shape[0]
+    dev = dist.device
+    banned = unpack_bans(bans, b)  # [V, D, B]
+    j = torch.arange(b, device=dev)
+    nbr_l = nbr.long()
+    dests_l = dests.long()
+    c0 = dist[dests_l, j]
+    start_ok = (c0 < INF_DIST) & (dests_l != root)
+    cur = torch.where(start_ok, dests_l, root)
+    walk = torch.full((b, max_hops + 1), -1, dtype=torch.int32, device=dev)
+    walk[:, 0] = torch.where(start_ok, dests, -1)
+    alive = start_ok.clone()
+    failed = torch.zeros_like(start_ok)
+    h = 0
+    while h < max_hops and bool(alive.any()):
+        rows_n = nbr_l[cur]  # [B, D]
+        rows_w = wgt[cur]
+        d_cur = dist[cur, j]
+        d_pre = dist[rows_n, j[:, None]]
+        row_block = blocked[cur] | banned[cur, :, j]
+        valid = (
+            ~row_block
+            & (rows_w < INF_DIST)
+            & (d_pre < INF_DIST)
+            & (d_pre + rows_w == d_cur[:, None])
+            & alive[:, None]
+        )
+        pred = torch.where(valid, rows_n, v).min(dim=1).values
+        found = (pred < v) & alive
+        failed |= alive & ~found
+        pred = torch.where(found, pred, cur)
+        # ban pred->cur (row cur, slots nbr == pred) and cur->pred (row
+        # pred, slots nbr == cur): every parallel slot, both directions
+        banned[cur, :, j] = banned[cur, :, j] | (
+            (rows_n == pred[:, None]) & found[:, None]
+        )
+        banned[pred, :, j] = banned[pred, :, j] | (
+            (nbr_l[pred] == cur[:, None]) & found[:, None]
+        )
+        walk[:, h + 1] = torch.where(found, pred, -1).to(torch.int32)
+        cur = torch.where(found, pred, cur)
+        alive = found & (pred != root)
+        h += 1
+    failed |= alive  # ran out of max_hops mid-walk
+    ok = start_ok & ~failed
+    cost.copy_(torch.where(ok, c0, INF_DIST))
+    path.copy_(torch.where(ok[:, None], walk, -1))
+    hops.copy_(torch.where(ok, (walk >= 0).sum(dim=1) - 1, 0))
+    bans.copy_(pack_bans(banned))
+    any_ok.fill_(int(bool(ok.any())))
+    return any_ok
+
+
+def ksp_walk(dist, nbr, wgt, blocked, bans, dests, root: int, max_hops: int,
+             cost, path, hops, any_ok):
+    """Every job's walk of one round (see `ksp_walk_ref`). A CUDA tensor
+    launches `ksp_walk_kernel`, which expects `path` filled with -1; a CPU
+    tensor runs `ksp_walk_ref`. Returns `any_ok` (int32 [1])."""
+    i32 = torch.int32
+    _check("ksp_walk", dist.get_device(), (
+        ("dist", dist, i32), ("nbr", nbr, i32), ("wgt", wgt, i32),
+        ("blocked", blocked, torch.bool), ("bans", bans, i32),
+        ("dests", dests, i32), ("cost", cost, i32), ("path", path, i32),
+        ("hops", hops, i32), ("any_ok", any_ok, i32),
+    ))
+    v, b = dist.shape
+    if nbr.shape[0] != v or dests.shape != (b,) or cost.shape != (b,) or (
+        hops.shape != (b,) or path.shape != (b, max_hops + 1)
+    ):
+        raise ValueError("ksp_walk: shapes disagree with dist [V, B]")
+    _check_tables("ksp_walk", nbr, wgt, blocked, bans, b)
+    if dist.device.type == "cpu":
+        return ksp_walk_ref(dist, nbr, wgt, blocked, bans, dests, root,
+                            max_hops, cost, path, hops, any_ok)
+    if dist.device.type != "cuda":
+        raise ValueError(f"ksp_walk: no kernel for {dist.device}")
+    lib = _lib()
+    with torch.cuda.device(dist.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.openr_ksp_walk(
+            dist.data_ptr(), nbr.data_ptr(), wgt.data_ptr(),
+            blocked.data_ptr(), bans.data_ptr(), dests.data_ptr(), int(root),
+            cost.data_ptr(), path.data_ptr(), hops.data_ptr(),
+            any_ok.data_ptr(), v, nbr.shape[1], b, int(max_hops), stream,
+        )
+    _raise(lib, err, "ksp_walk_kernel")
+    LAUNCHES["walk"] += 1
+    return any_ok
+
+
+# ------------------------------------------------------------ the rounds
+
+
+def _as_tensor(x, dtype, device):
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=device, dtype=dtype).contiguous()
+
+
+def _sssp(nbr, wgt, blocked, bans, root: int, b: int, stats: dict):
+    """Masked batched SSSP from `root` to fixpoint, one sweep per host
+    read of the changed flag (at most V sweeps, as the reference)."""
+    v = nbr.shape[0]
+    dist = torch.full((v, b), INF_DIST, dtype=torch.int32, device=nbr.device)
+    dist[root] = 0
+    other = torch.empty_like(dist)
+    changed = torch.zeros(1, dtype=torch.int32, device=nbr.device)
+    for _ in range(v):
+        ksp_relax(dist, other, nbr, wgt, blocked, bans, changed)
+        dist, other = other, dist
+        stats["sweeps"] += 1
+        if not int(changed.item()):
+            break
+    return dist
+
+
+def ksp_edge_disjoint_dense(
+    nbr, wgt, blocked, root, dests, *, k: int, max_hops: int, dist0=None,
+    device=None, stats: dict | None = None,
+):
+    """Returns (costs [k, B] i32, paths [k, B, max_hops+1] i32, hops
+    [k, B] i32) on the tables' device: `paths[i, b]` is job b's i-th
+    edge-disjoint shortest path in walk order (dest first, root last), -1
+    padded; `costs[i, b]` is INF_DIST when no i-th path exists.
+
+    `nbr`, `wgt` [V, D] int32 and `blocked` [V, D] bool
+    (`build_ksp_blocked`) may be tensors or arrays; `dests` [B] holds
+    each job's destination (dest == root: no path). `dist0` [V], if
+    given, is the unbanned distance vector from `root` under the same
+    blocked semantics: round 1 has no bans, so it replaces that round's
+    SSSP. The call runs on `device`: by default `nbr`'s if it is a
+    tensor, else the CUDA card. With `stats`, adds `rounds` (each ends in
+    one host read) and `sweeps` (one host read each)."""
+    if device is None:
+        device = nbr.device if isinstance(nbr, torch.Tensor) else "cuda"
+    device = torch.device(device)
+    nbr = _as_tensor(nbr, torch.int32, device)
+    wgt = _as_tensor(wgt, torch.int32, device)
+    blocked = _as_tensor(blocked, torch.bool, device)
+    dests = _as_tensor(dests, torch.int32, device).reshape(-1)
+    root = int(root)
+    v, d_width = nbr.shape
+    b = dests.shape[0]
+    st = {"rounds": 0, "sweeps": 0}
+    costs = torch.full((k, b), INF_DIST, dtype=torch.int32, device=device)
+    paths = torch.full((k, b, max_hops + 1), -1, dtype=torch.int32, device=device)
+    hops = torch.zeros((k, b), dtype=torch.int32, device=device)
+    bans = torch.zeros((v, d_width, ban_words(b)), dtype=torch.int32, device=device)
+    any_ok = torch.zeros(1, dtype=torch.int32, device=device)
+    if dist0 is not None:
+        dist0 = _as_tensor(dist0, torch.int32, device).reshape(v)
+    for i in range(k):
+        if i == 0 and dist0 is not None:
+            dist = dist0[:, None].expand(v, b).contiguous()
+        else:
+            dist = _sssp(nbr, wgt, blocked, bans, root, b, st)
+        ksp_walk(dist, nbr, wgt, blocked, bans, dests, root, max_hops,
+                 costs[i], paths[i], hops[i], any_ok)
+        st["rounds"] += 1
+        if not int(any_ok.item()):
+            break
+    if stats is not None:
+        for key, val in st.items():
+            stats[key] = stats.get(key, 0) + val
+    return costs, paths, hops
+
+
+def paths_to_host(
+    costs: np.ndarray,  # [k, B]
+    paths: np.ndarray,  # [k, B, L] walk order (dest..root), -1 padded
+    node_names: list[str],
+    job: int,
+) -> list[tuple[int, list[str]]]:
+    """Device output -> the oracle's [(cost, [root..dest names]), ...]
+    sorted by (cost, path)."""
+    out: list[tuple[int, list[str]]] = []
+    for i in range(costs.shape[0]):
+        c = int(costs[i, job])
+        if c >= int(INF_DIST):
+            continue
+        row = paths[i, job]
+        ids = row[row >= 0][::-1].tolist()  # walk order is dest -> root
+        out.append((c, [node_names[n] for n in ids]))
+    out.sort(key=lambda cp: (cp[0], cp[1]))
+    return out

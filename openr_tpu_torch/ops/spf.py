@@ -1,5 +1,6 @@
-"""Numeric contract and the first-hop / LFA epilogue of the batched
-solve, as torch functions (port of `openr_tpu/ops/spf.py`).
+"""Numeric contract, the first-hop / LFA epilogue of the batched solve
+as torch functions, and the dense in-neighbor tables (port of
+`openr_tpu/ops/spf.py`).
 
 Distances are int32 with INF_DIST = 2^30 meaning unreachable; valid
 metrics are at most METRIC_MAX = 2^30-1, so a guarded `d + w` never
@@ -8,10 +9,11 @@ exceeds INT32_MAX.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from openr_tpu_torch.common import constants as _C
-from openr_tpu_torch.common.util import pad_bucket as pad_batch  # noqa: F401
+from openr_tpu_torch.common.util import pad_bucket as pad_batch
 
 INF_DIST = _C.DIST_INF
 METRIC_MAX = _C.METRIC_MAX
@@ -53,3 +55,34 @@ def lfa_matrix(dist, my_id, neighbor_ids, neighbor_overloaded):
     dest_is_nbr = ids[:, None] == neighbor_ids[None, :]
     allowed = ~neighbor_overloaded[None, :] | dest_is_nbr
     return (reach & loop_free & allowed).T
+
+
+def build_dense_tables(
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    edge_metric: np.ndarray,
+    num_nodes_padded: int,
+    min_width: int = 8,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Dense in-neighbor tables nbr [Vp, D] i32, wgt [Vp, D] i32 (INF
+    padding, neighbor 0), from dst-sorted edge arrays: edge i fills row
+    dst[i] at its rank among that row's edges. D is the next power of two
+    >= the max in-degree (at least `min_width`)."""
+    valid = edge_metric < int(INF_DIST)
+    src = edge_src[valid].astype(np.int64)
+    dst = edge_dst[valid].astype(np.int64)
+    met = edge_metric[valid]
+    e = src.shape[0]
+    indeg = np.bincount(dst, minlength=num_nodes_padded)
+    max_deg = int(indeg.max()) if e else 1
+    d_width = pad_batch(max_deg, minimum=min_width)
+    nbr = np.zeros((num_nodes_padded, d_width), dtype=np.int32)
+    wgt = np.full((num_nodes_padded, d_width), INF_DIST, dtype=np.int32)
+    if e:
+        row_start = np.zeros(num_nodes_padded + 1, dtype=np.int64)
+        np.add.at(row_start, dst + 1, 1)
+        row_start = np.cumsum(row_start)
+        col = np.arange(e, dtype=np.int64) - row_start[dst]
+        nbr[dst, col] = src.astype(np.int32)
+        wgt[dst, col] = met
+    return nbr, wgt

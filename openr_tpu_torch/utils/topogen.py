@@ -308,3 +308,83 @@ def erdos_renyi_lsdb(
         entry = PrefixEntry(prefix=loopback(i))
         ps._entries[entry.prefix] = {s: entry}
     return LsdbView(csr), ps, csr
+
+
+def _v4_str(addr: int) -> str:
+    return (
+        f"{(addr >> 24) & 0xFF}.{(addr >> 16) & 0xFF}."
+        f"{(addr >> 8) & 0xFF}.{addr & 0xFF}"
+    )
+
+
+def ramp_prefix_state(
+    names: list[str],
+    n_prefixes: int,
+    anycast_every: int = 0,
+    base: str = "16.0.0.0",
+):
+    """PrefixState with `n_prefixes` /32s from `base` up, advertised
+    round-robin across `names[1:]` (node 0 is the vantage point, so
+    routes == prefixes). With `anycast_every` = k > 0, every k-th prefix
+    gains a second advertiser, the next one in the round (an equal-metric
+    anycast pair)."""
+    import ipaddress
+
+    from openr_tpu_torch.decision.linkstate import PrefixState
+
+    base_int = int(ipaddress.IPv4Address(base))
+    if base_int + n_prefixes > 1 << 32:
+        raise ValueError("range overflows the v4 address space")
+    ps = PrefixState()
+    adv = names[1:] or names
+    n_adv = len(adv)
+    entries = ps._entries
+    for i in range(n_prefixes):
+        e = PrefixEntry(prefix=IpPrefix(prefix=f"{_v4_str(base_int + i)}/32"))
+        per = {adv[i % n_adv]: e}
+        if anycast_every and i % anycast_every == 0 and n_adv > 1:
+            per[adv[(i + 1) % n_adv]] = e
+        entries[e.prefix] = per
+    ps._rev += 1
+    return ps
+
+
+def backbone(rings: int, ring_size: int):
+    """Ring of rings (the WAN backbone of BASELINE config 4): `rings`
+    site rings of `ring_size` nodes `bb<i>` (metric 10), adjacent sites
+    joined by two inter-site links (metric 100) at ring positions 0 and
+    ring_size // 2, so edge-disjoint paths exist everywhere. Node labels
+    100000 + i. Returns the AdjacencyDatabases."""
+    n = rings * ring_size
+    edges: dict[tuple[int, int], int] = {}
+
+    def add(a, b, m):
+        edges[(a, b)] = m
+        edges[(b, a)] = m
+
+    for r in range(rings):
+        base = r * ring_size
+        for i in range(ring_size):
+            add(base + i, base + (i + 1) % ring_size, 10)
+        nxt = ((r + 1) % rings) * ring_size
+        add(base, nxt, 100)  # inter-site
+        add(base + ring_size // 2, nxt + ring_size // 2, 100)
+    by_src: dict[int, list] = {}
+    for (a, b), m in edges.items():
+        by_src.setdefault(a, []).append((b, m))
+    dbs = []
+    for a in range(n):
+        adjs = tuple(
+            Adjacency(
+                other_node_name=f"bb{b}", if_name=f"if{a}-{b}",
+                other_if_name=f"if{b}-{a}", metric=m,
+            )
+            for b, m in sorted(by_src.get(a, []))
+        )
+        dbs.append(
+            AdjacencyDatabase(
+                this_node_name=f"bb{a}", adjacencies=adjs,
+                node_label=100_000 + a,
+            )
+        )
+    return dbs

@@ -2,7 +2,9 @@
 package, and its solver runs on CUDA unless asked for the CPU."""
 
 import ast
+import importlib
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -46,10 +48,12 @@ def test_package_imports_without_jax_or_openr_tpu():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 17  # every submodule was imported
+    assert len(names) >= 20  # every submodule was imported
     assert {
         "openr_tpu_torch.probe_gather", "openr_tpu_torch.decision.artifact",
         "openr_tpu_torch.decision.linkstate", "openr_tpu_torch.ops.spf_split",
+        "openr_tpu_torch.ops.election", "openr_tpu_torch.ops.ksp",
+        "openr_tpu_torch.decision.ksp",
     } <= names
 
 
@@ -93,3 +97,20 @@ def test_chip_smoke_fails_without_a_card():
     )
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("name", ["election", "ksp"])
+def test_extern_c_signatures_match_argtypes(name):
+    """Every C entry point of csrc/<name>.cu has as many parameters as the
+    ctypes argtypes its wrapper module binds (the only check before a
+    card), and the module binds no other."""
+    mod = importlib.import_module(f"openr_tpu_torch.ops.{name}")
+    src = (PKG / "csrc" / f"{name}.cu").read_text()
+    sigs = {
+        m.group(1): m.group(2)
+        for m in re.finditer(r'extern "C"[^(]*?\b(\w+)\s*\(([^)]*)\)', src)
+    }
+    assert set(sigs) == set(mod.ENTRY_POINTS)
+    for fn, params in sigs.items():
+        n_params = len([p for p in params.split(",") if p.strip()])
+        assert n_params == len(mod.ENTRY_POINTS[fn][0]), fn

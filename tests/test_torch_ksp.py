@@ -1,0 +1,397 @@
+"""The port's KSP (`openr_tpu_torch/ops/ksp.py`, on the CPU through the
+plain versions of its two kernels) is byte-equal to the JAX package's
+`ksp_edge_disjoint_dense` (costs, paths, hops) on the cases of
+`tests/test_ksp_kernel.py`; its dense tables, path decoding and route
+construction equal the JAX ones; each kernel step's plain version is
+checked step by step against an unpacked recomputation; and the dense
+`wgt` after a patch-journal scatter equals fresh tables of the patched
+CSR."""
+
+import dataclasses
+import enum
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+from openr_tpu.decision.ksp import k_edge_disjoint_paths
+from openr_tpu.decision.ksp import ksp_route_from_paths as jax_route
+from openr_tpu.ops import ksp as jksp
+from openr_tpu.ops.spf import build_dense_tables as jax_dense
+from openr_tpu_torch import LinkState, TorchSpfSolver
+from openr_tpu_torch.decision.ksp import ksp_route_from_paths
+from openr_tpu_torch.ops import ksp
+from openr_tpu_torch.ops.spf import build_dense_tables, pad_batch
+
+INF = 1 << 30
+N = 24  # nodes of the random KSP graphs (`tests/test_ksp_kernel.py`'s)
+
+# one intra-op thread: the suite runs several test workers at once
+torch.set_num_threads(1)
+
+
+def random_graph(rng, n, p=0.25, max_metric=10):
+    """Random symmetric-connectivity digraph with asymmetric metrics:
+    (oracle adjacency, dst-sorted edge arrays, names)."""
+    names = [f"n{i:03d}" for i in range(n)]
+    adj = {nm: {} for nm in names}
+    edges = []
+    for i in range(n):
+        for j in range(i + 1, n):
+            if rng.random() < p:
+                w_ij = int(rng.integers(1, max_metric + 1))
+                w_ji = int(rng.integers(1, max_metric + 1))
+                adj[names[i]][names[j]] = w_ij
+                adj[names[j]][names[i]] = w_ji
+                edges.append((i, j, w_ij))
+                edges.append((j, i, w_ji))
+    edges.sort(key=lambda e: (e[1], e[0]))
+    arrs = tuple(
+        np.array([e[c] for e in edges], dtype=np.int32) for c in range(3)
+    )
+    return adj, arrs, names
+
+
+def _plain(x):
+    if isinstance(x, dict):
+        return tuple(sorted((_plain(k), _plain(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(_plain(v) for v in x)
+    if isinstance(x, enum.Enum):
+        return int(x.value)
+    return x
+
+
+def pad_dests(dests, root_id):
+    out = np.full(pad_batch(len(dests)), root_id, dtype=np.int32)
+    out[: len(dests)] = dests
+    return out
+
+
+def _case(seed):
+    rng = np.random.default_rng(seed)
+    adj, (src, dst, met), names = random_graph(rng, N)
+    nbr, wgt = build_dense_tables(src, dst, met, N)
+    over_ids = sorted(rng.choice(N, size=2, replace=False))
+    over = np.zeros(N, dtype=bool)
+    over[over_ids] = True
+    dests = np.array(
+        sorted(rng.choice(np.arange(1, N), size=8, replace=False)),
+        dtype=np.int32,
+    )
+    blocked = ksp.build_ksp_blocked(nbr, over, 0)
+    return adj, names, nbr, wgt, blocked, over, pad_dests(dests, 0), dests
+
+
+def _assert_equal(got, ref):
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_build_dense_tables_equals_jax(seed):
+    rng = np.random.default_rng(seed)
+    _adj, (src, dst, met), _names = random_graph(rng, 40, p=0.3)
+    for vp in (40, 64):
+        got = build_dense_tables(src, dst, met, vp)
+        ref = jax_dense(src, dst, met, vp)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r)
+    # no edges at all
+    empty = np.zeros(0, np.int32)
+    for g, r in zip(build_dense_tables(empty, empty, empty, 16),
+                    jax_dense(empty, empty, empty, 16)):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("dist0", [False, True])
+@pytest.mark.parametrize("k", [2, 4, 16])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ksp_equals_jax(k, seed, dist0):
+    adj, names, nbr, wgt, blocked, over, dests, real = _case(seed)
+    d0 = None
+    if dist0:
+        # the unbanned distances from root 0 (as the solve gives them)
+        c1, _p, _h = jksp.ksp_edge_disjoint_dense(
+            nbr, wgt, blocked, np.int32(0), np.arange(N, dtype=np.int32),
+            k=1, max_hops=N - 1,
+        )
+        d0 = np.asarray(c1[0]).astype(np.int32)
+        d0[0] = 0
+    ref = jksp.ksp_edge_disjoint_dense(
+        nbr, wgt, blocked, np.int32(0), dests, k=k, max_hops=N - 1,
+        dist0=d0,
+    )
+    stats: dict = {}
+    got = ksp.ksp_edge_disjoint_dense(
+        nbr, wgt, blocked, np.int32(0), dests, k=k, max_hops=N - 1,
+        dist0=d0, device="cpu", stats=stats,
+    )
+    _assert_equal(got, ref)
+    assert stats["rounds"] >= 1 and stats["sweeps"] >= (0 if dist0 else 1)
+    # and the oracle's successive host re-solves
+    overloaded = {names[i] for i in np.nonzero(over)[0]}
+    costs, paths = got[0].numpy(), got[1].numpy()
+    for b, dest_id in enumerate(real):
+        want = k_edge_disjoint_paths(adj, names[0], [names[dest_id]],
+                                     overloaded, k=k)
+        assert ksp.paths_to_host(costs, paths, names, b) == want
+
+
+def _line_tables(n, edges):
+    edges = sorted(edges, key=lambda e: (e[1], e[0]))
+    cols = [np.array([e[c] for e in edges], np.int32) for c in range(3)]
+    return build_dense_tables(*cols, n)
+
+
+def test_ksp_root_and_unreachable_equals_jax():
+    """dest == root and a dest in another component: no path."""
+    edges = []
+    for base in (0, 6):
+        for i in range(base, base + 5):
+            edges += [(i, i + 1, 1), (i + 1, i, 1)]
+    nbr, wgt = _line_tables(12, edges)
+    blocked = ksp.build_ksp_blocked(nbr, np.zeros(12, bool), 0)
+    dests = np.array([0, 8], dtype=np.int32)
+    ref = jksp.ksp_edge_disjoint_dense(
+        nbr, wgt, blocked, np.int32(0), dests, k=4, max_hops=11
+    )
+    got = ksp.ksp_edge_disjoint_dense(
+        nbr, wgt, blocked, 0, dests, k=4, max_hops=11, device="cpu"
+    )
+    _assert_equal(got, ref)
+    assert (got[0] >= INF).all()
+
+
+def test_ksp_parallel_capacity_line_equals_jax():
+    """A 4-node ladder: exactly 2 edge-disjoint paths; round 3 finds none
+    and ends the call."""
+    names = ["a", "b", "c", "d"]
+    edges = [(0, 1, 1), (0, 2, 1), (1, 0, 1), (1, 3, 1), (2, 0, 1),
+             (2, 3, 1), (3, 1, 1), (3, 2, 1)]
+    nbr, wgt = _line_tables(4, edges)
+    blocked = ksp.build_ksp_blocked(nbr, np.zeros(4, bool), 0)
+    args = (nbr, wgt, blocked, np.int32(0), np.array([3], np.int32))
+    ref = jksp.ksp_edge_disjoint_dense(*args, k=4, max_hops=3)
+    stats: dict = {}
+    got = ksp.ksp_edge_disjoint_dense(*args, k=4, max_hops=3, device="cpu",
+                                      stats=stats)
+    _assert_equal(got, ref)
+    assert stats["rounds"] == 3  # the early exit
+    got_h = ksp.paths_to_host(got[0].numpy(), got[1].numpy(), names, 0)
+    assert got_h == [(2, ["a", "b", "d"]), (2, ["a", "c", "d"])]
+    assert got_h == jksp.paths_to_host(
+        np.asarray(ref[0]), np.asarray(ref[1]), names, 0
+    )
+
+
+def test_ksp_max_hops_cut_equals_jax():
+    """A walk that runs out of max_hops fails, as the reference's."""
+    edges = []
+    for i in range(7):
+        edges += [(i, i + 1, 1), (i + 1, i, 1)]
+    nbr, wgt = _line_tables(8, edges)
+    blocked = ksp.build_ksp_blocked(nbr, np.zeros(8, bool), 0)
+    args = (nbr, wgt, blocked, np.int32(0), np.array([3, 7], np.int32))
+    _assert_equal(
+        ksp.ksp_edge_disjoint_dense(*args, k=2, max_hops=4, device="cpu"),
+        jksp.ksp_edge_disjoint_dense(*args, k=2, max_hops=4),
+    )
+
+
+def _step_case(seed, v=64, d=8, b=40):
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, v, (v, d)).astype(np.int32)
+    wgt = rng.integers(1, 9, (v, d)).astype(np.int32)
+    wgt[rng.random((v, d)) < 0.2] = INF
+    blocked = rng.random((v, d)) < 0.1
+    banned = rng.random((v, d, b)) < 0.15
+    dist = rng.integers(0, 60, (v, b)).astype(np.int32)
+    dist[rng.random((v, b)) < 0.3] = INF
+    return nbr, wgt, blocked, banned, dist
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_relax_sweep_ref_equals_unpacked_sweep(seed):
+    nbr, wgt, blocked, banned, dist = _step_case(seed)
+    t = torch.from_numpy
+    out = torch.empty_like(t(dist))
+    changed = torch.zeros(1, dtype=torch.int32)
+    bans = ksp.pack_bans(t(banned))
+    np.testing.assert_array_equal(ksp.unpack_bans(bans, 40).numpy(), banned)
+    ksp.ksp_relax(t(dist), out, t(nbr), t(wgt), t(blocked), bans, changed)
+    # the reference's one sweep on bools, in int64
+    g = dist.astype(np.int64)[nbr]  # [v, d, b]
+    usable = ~blocked[:, :, None] & ~banned & (wgt[:, :, None] < INF) & (
+        g < INF
+    )
+    cand = np.where(usable, np.minimum(g + wgt[:, :, None], INF), INF)
+    want = np.minimum(cand.min(axis=1), dist)
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert int(changed.item()) == int((want < dist).any()) == 1
+
+
+def test_ban_words_round_trip_every_bit():
+    banned = torch.zeros(2, 3, 70, dtype=torch.bool)
+    banned[0, 1, 31] = banned[1, 2, 32] = banned[1, 0, 69] = True
+    banned[0, 0, :] = True
+    words = ksp.pack_bans(banned)
+    assert words.shape == (2, 3, 3) and words.dtype == torch.int32
+    assert int(words[0, 1, 0]) == -(1 << 31)  # bit 31: the sign bit
+    assert int(words[0, 0, 2]) == (1 << 6) - 1
+    assert torch.equal(ksp.unpack_bans(words, 70), banned)
+
+
+def test_wrappers_check_inputs():
+    nbr, wgt, blocked, banned, dist = _step_case(0, b=8)
+    t = torch.from_numpy
+    bans = ksp.pack_bans(t(banned))
+    out = torch.empty_like(t(dist))
+    ch = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        ksp.ksp_relax(t(dist).long(), out, t(nbr), t(wgt), t(blocked), bans, ch)
+    with pytest.raises(ValueError):  # bans for the wrong job count
+        ksp.ksp_relax(t(dist), out, t(nbr), t(wgt), t(blocked),
+                      torch.zeros(64, 8, 2, dtype=torch.int32), ch)
+    with pytest.raises(ValueError):
+        ksp.ksp_walk(t(dist), t(nbr), t(wgt), t(blocked), bans,
+                     torch.zeros(4, dtype=torch.int32), 0, 5,
+                     torch.zeros(8, dtype=torch.int32),
+                     torch.zeros(8, 6, dtype=torch.int32),
+                     torch.zeros(8, dtype=torch.int32), ch)
+    before = dict(ksp.LAUNCHES)
+    ksp.ksp_relax(t(dist), out, t(nbr), t(wgt), t(blocked), bans, ch)
+    assert ksp.LAUNCHES == before  # CPU: the plain version, no kernel
+    # arrays, no device: the card, which this host lacks
+    with pytest.raises((RuntimeError, AssertionError)):
+        ksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, 0,
+                                    np.zeros(8, np.int32), k=1, max_hops=3)
+
+
+def test_paths_to_host_and_route_equal_jax():
+    from openr_tpu.decision.linkstate import LinkState as JaxLinkState
+    from openr_tpu.types import topology as jt
+    from openr_tpu.types.network import IpPrefix as JIp
+    from openr_tpu.utils import topogen as jtopo
+    from openr_tpu_torch.types import topology as pt
+    from openr_tpu_torch.types.network import IpPrefix as PIp
+    from openr_tpu_torch.utils import topogen as ptopo
+
+    adj_j, _ = jtopo.ring(6)
+    adj_p, _ = ptopo.ring(6)
+    jls, pls = JaxLinkState(), LinkState()
+    for db in adj_j:
+        jls.update_adjacency_db(db)
+    for db in adj_p:
+        pls.update_adjacency_db(db)
+    names = pls.to_csr().node_names
+    costs = np.array([[3, INF], [5, INF]], np.int32)
+    paths = np.full((2, 2, 6), -1, np.int32)
+    ids = {n: i for i, n in enumerate(names)}
+    paths[0, 0, :4] = [ids[n] for n in ("node-3", "node-2", "node-1", "node-0")]
+    paths[1, 0, :4] = [ids[n] for n in ("node-3", "node-4", "node-5", "node-0")]
+    got = ksp.paths_to_host(costs, paths, names, 0)
+    assert got == jksp.paths_to_host(costs, paths, names, 0)
+    assert ksp.paths_to_host(costs, paths, names, 1) == []
+    for min_nh in (0, 2, 3):
+        pe = pt.PrefixEntry(
+            prefix=PIp.make("10.9.0.0/16"),
+            forwarding_type=pt.ForwardingType.SR_MPLS,
+            forwarding_algorithm=pt.ForwardingAlgorithm.KSP2_ED_ECMP,
+            min_nexthop=min_nh,
+        )
+        je = jt.PrefixEntry(
+            prefix=JIp.make("10.9.0.0/16"),
+            forwarding_type=jt.ForwardingType.SR_MPLS,
+            forwarding_algorithm=jt.ForwardingAlgorithm.KSP2_ED_ECMP,
+            min_nexthop=min_nh,
+        )
+        a = ksp_route_from_paths(pls, "node-0", pe.prefix, {"node-3": pe},
+                                 ["node-3"], got)
+        b = jax_route(jls, "node-0", je.prefix, {"node-3": je}, ["node-3"],
+                      got)
+        assert (a is None) == (b is None) == (min_nh == 3)
+        if a is not None:
+            assert _plain(dataclasses.asdict(a)) == _plain(dataclasses.asdict(b))
+            assert len(a.nexthops) == 2
+
+
+def test_dense_wgt_after_patch_scatter_equals_fresh_tables():
+    """Metric-only churn: the solver's cached dense set, patched by the
+    journal suffix (duplicate slots included), equals the dense tables of
+    the patched CSR built from scratch; so does the CSR's own copy."""
+    from openr_tpu_torch.utils import topogen as ptopo
+
+    adj, _ = ptopo.wan_like(40, 3)
+    ls = LinkState()
+    for db in adj:
+        ls.update_adjacency_db(db)
+    solver = TorchSpfSolver(device="cpu")
+    base = ls.to_csr()
+    base.dense_tables()  # the base carries its tables into patched views
+    solver._device_arrays(base, "dense")
+    rng = np.random.default_rng(4)
+    for rnd in range(3):
+        for _ in range(3):
+            node = ls.nodes[int(rng.integers(len(ls.nodes)))]
+            db = ls.adjacency_db(node)
+            adjs = list(db.adjacencies)
+            i = int(rng.integers(len(adjs)))
+            adjs[i] = replace(
+                adjs[i], metric=adjs[i].metric + int(rng.integers(1, 20)))
+            changed, _pairs = ls.update_adjacency_db_delta(
+                replace(db, adjacencies=tuple(adjs)))
+            assert changed
+        csr = ls.to_csr()
+        assert csr.base_version == base.version and len(csr.patches) > 0
+        dev = solver._device_arrays(csr, "dense")
+        fresh = build_dense_tables(csr.edge_src, csr.edge_dst,
+                                   csr.edge_metric, csr.padded_nodes)
+        np.testing.assert_array_equal(dev["nbr"].numpy(), fresh[0])
+        np.testing.assert_array_equal(dev["wgt"].numpy(), fresh[1])
+        np.testing.assert_array_equal(csr.dense_tables()[1], fresh[1])
+    assert solver.dev_cache_stats["uploads"] == 1
+    assert solver.dev_cache_stats["patches"] == 3
+
+
+@pytest.mark.parametrize("topo", ["grid", "fat_tree"])
+def test_jax_csr_dense_tables_carried_across(topo):
+    """A JAX CsrGraph's dense tables, carried into the port's CsrGraph,
+    are the arrays both packages' KSP read, and the two KSPs agree on
+    them (overloads included)."""
+    from openr_tpu.decision.linkstate import LinkState as JaxLinkState
+    from openr_tpu.utils import topogen as jtopo
+    from openr_tpu_torch.convert import csr_from_numpy
+
+    adj, _ = getattr(jtopo, topo)(*((4, 4) if topo == "grid" else (4,)))
+    jls = JaxLinkState()
+    for i, db in enumerate(adj):
+        jls.update_adjacency_db(replace(db, is_overloaded=i == 5))
+    jcsr = jls.to_csr()
+    jnbr, jwgt = jcsr.dense_tables()
+    pcsr = csr_from_numpy(
+        num_nodes=jcsr.num_nodes, num_edges=jcsr.num_edges,
+        edge_src=jcsr.edge_src, edge_dst=jcsr.edge_dst,
+        edge_metric=jcsr.edge_metric, node_overloaded=jcsr.node_overloaded,
+        node_mask=jcsr.node_mask, node_names=jcsr.node_names,
+        adj_details=jcsr.adj_details, dense_tables=(jnbr, jwgt),
+    )
+    nbr, wgt = pcsr.dense_tables()
+    np.testing.assert_array_equal(nbr, jnbr)
+    np.testing.assert_array_equal(wgt, jwgt)
+    fresh = build_dense_tables(pcsr.edge_src, pcsr.edge_dst,
+                               pcsr.edge_metric, pcsr.padded_nodes)
+    np.testing.assert_array_equal(fresh[1], wgt)
+    blocked = ksp.build_ksp_blocked(nbr, pcsr.node_overloaded, 0)
+    dests = pad_dests(np.arange(1, jcsr.num_nodes, 3, dtype=np.int32), 0)
+    max_hops = jcsr.padded_nodes - 1
+    ref = jksp.ksp_edge_disjoint_dense(
+        jnbr, jwgt, jksp.build_ksp_blocked(jnbr, jcsr.node_overloaded, 0),
+        np.int32(0), dests, k=4, max_hops=max_hops,
+    )
+    got = ksp.ksp_edge_disjoint_dense(
+        nbr, wgt, blocked, 0, dests, k=4, max_hops=max_hops, device="cpu"
+    )
+    _assert_equal(got, ref)

@@ -1,6 +1,6 @@
 """`TorchSpfSolver(device="cpu").compute_routes` builds the same
 RouteDatabase as `TpuSpfSolver(native_rib="off").compute_routes` on the
-same topology, and refuses what this port slice does not cover."""
+same topology."""
 
 import dataclasses
 import enum
@@ -17,7 +17,6 @@ from openr_tpu.utils import topogen as jtopo
 from openr_tpu_torch import LinkState, PrefixState, TorchSpfSolver
 from openr_tpu_torch.convert import csr_from_numpy
 from openr_tpu_torch.decision.spf_backend import LazyDist
-from openr_tpu_torch.types import PrefixDatabase, PrefixEntry
 from openr_tpu_torch.utils import topogen as ptopo
 
 # one intra-op thread: the suite runs several test workers at once
@@ -131,27 +130,43 @@ def test_solve_returns_lazy_dist_and_lfa():
     assert TorchSpfSolver(device="cpu").solve(pls, "node-999") is None
 
 
-def test_unported_shapes_raise():
-    pls, pps = _states(ptopo, LinkState, PrefixState, "grid", (3, 3))
-    # a second advertiser of node-4's loopback: multi-advertiser election
-    pps.update_prefix_db(PrefixDatabase(
-        this_node_name="node-8",
-        prefix_entries=(PrefixEntry(prefix=ptopo.loopback(4)),),
-    ))
-    with pytest.raises(NotImplementedError, match="election"):
-        TorchSpfSolver(device="cpu").compute_routes(pls, pps, "node-0")
-    pls, pps = _states(ptopo, LinkState, PrefixState, "grid", (3, 3))
-    pps.update_prefix_db(PrefixDatabase(
-        this_node_name="node-8",
-        prefix_entries=(PrefixEntry(prefix=ptopo.loopback(8), weight=2),),
-    ))
-    with pytest.raises(NotImplementedError, match="general"):
-        TorchSpfSolver(device="cpu").compute_routes(pls, pps, "node-0")
-    pls, pps = _states(ptopo, LinkState, PrefixState, "grid", (3, 3))
-    with pytest.raises(NotImplementedError, match="LFA"):
-        TorchSpfSolver(device="cpu", enable_lfa=True).compute_routes(
-            pls, pps, "node-0"
-        )
+def _shape_state(types, mod, ls_cls, ps_cls, shape):
+    """grid(3,3) states with one prefix shape outside the plain one: a
+    second advertiser of node-4's loopback (multi-advertiser election), a
+    UCMP weight on node-8's loopback, or none (for LFA)."""
+    ls, ps = _states(mod, ls_cls, ps_cls, "grid", (3, 3))
+    if shape == "multi":
+        ps.update_prefix_db(types.PrefixDatabase(
+            this_node_name="node-8",
+            prefix_entries=(types.PrefixEntry(prefix=mod.loopback(4)),),
+        ))
+    elif shape == "ucmp":
+        ps.update_prefix_db(types.PrefixDatabase(
+            this_node_name="node-8",
+            prefix_entries=(types.PrefixEntry(
+                prefix=mod.loopback(8), weight=2),),
+        ))
+    return ls, ps
+
+
+@pytest.mark.parametrize("shape", ["multi", "ucmp", "lfa"])
+def test_formerly_refused_shapes_equal(shape):
+    """The three shapes the first port slices refused (multi-advertiser
+    election, UCMP weights, LFA assembly) give the reference's RIB."""
+    from openr_tpu import types as jtypes
+    from openr_tpu_torch import types as ptypes
+
+    lfa = shape == "lfa"
+    jls, jps = _shape_state(jtypes, jtopo, JaxLinkState, JaxPrefixState, shape)
+    pls, pps = _shape_state(ptypes, ptopo, LinkState, PrefixState, shape)
+    ref = TpuSpfSolver(native_rib="off", enable_lfa=lfa).compute_routes(
+        jls, jps, "node-0"
+    )
+    got = TorchSpfSolver(device="cpu", enable_lfa=lfa).compute_routes(
+        pls, pps, "node-0"
+    )
+    assert len(got.unicast_routes) == 8
+    assert canon(got) == canon(ref)
 
 
 def _general_prefixes(types, mod):
