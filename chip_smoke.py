@@ -50,16 +50,25 @@ Phases (any failure exits non-zero and prints no result line):
   8. the election and KSP kernels (`csrc/election.cu`, `csrc/ksp.cu`):
      (a) each exact against its plain version on random inputs (election
      tables as `tests/test_prefix_scale.py` draws them and one of 100 000
-     slots; one KSP sweep and one walk round on random tables with random
-     bans, B in {8, 32, 128, 256}, overloads off/on; the whole
-     `ksp_edge_disjoint_dense` on the card against the CPU for k in
-     {2, 16}, with and without dist0), and one KSP sweep at the er100k
-     dense-table shape, timed; (b) BASELINE config 4 on `backbone(32,
-     32)` (+ one chord per site), `bench_ksp_lfa`'s prefix mix and one UCMP
-     anycast /24 per site, `TorchSpfSolver(enable_lfa=True, ksp_k=16)`
-     from bb1: the RouteDatabase equal to the CPU path's, with KSP PUSH,
-     LFA backup and unequal-weight UCMP routes; p50 of 5 calls, the KSP
-     kernels exact and timed at the path's first calls; (c) the 100k
+     slots; on random tables with random bans, (V, D) in ((4096, 8),
+     (4096, 64), (32768, 64), (512, 512), (1024, 512), (512, 2048): hub
+     rows), B in {8, 40, 256}, overloads off/on, both table residencies
+     of `ksp_sssp_kernel` and rows wider than its staging (streamed in
+     chunks, read from its plan): one sweep, the fixpoint with an equal
+     sweep count, one
+     walk round incl. the ban words; the whole `ksp_edge_disjoint_dense`
+     on the card against the CPU for k in {2, 16}, with and without
+     dist0, rounds and sweeps equal), and one KSP sweep at the er100k
+     dense-table shape (streamed), timed; (b) BASELINE config 4 on
+     `backbone(32, 32)` (+ one chord per site), `bench_ksp_lfa`'s prefix
+     mix and one UCMP anycast /24 per site,
+     `TorchSpfSolver(enable_lfa=True, ksp_k=16)` from bb1: the
+     RouteDatabase equal to the CPU path's, with KSP PUSH, LFA backup and
+     unequal-weight UCMP routes, one KSP host read per chunk; p50 of 5
+     calls; host reads, launches and sweeps per RIB; at the path's first
+     calls both KSP kernels exact and timed, and the fixpoint of one
+     launch equal, with its sweep count, to the host-read loop of
+     one-sweep launches it replaced, both timed; (c) the 100k
      RIB with `ramp_prefix_state(100 000, anycast_every=4)`, whose
      election runs `elect_seg_kernel`, equal to the NumPy election's RIB;
      p50 of 3 calls, the kernel timed beside `torch.segment_reduce`; the
@@ -67,8 +76,9 @@ Phases (any failure exits non-zero and prints no result line):
      slots, equal, host wall per call; (d) BASELINE config 4
      at the size the JAX package measured (`backbone(626, 16)`: 10 016
      nodes, 1 001 KSP prefixes in chunks of 256 jobs, k=16, LFA on):
-     p50 of 3 calls, the KSP stats and kernel times, its routes equal
-     to the CPU path's on the same states with 16 KSP prefixes kept.
+     p50 of 3 calls, the KSP stats and kernel times and the same checks
+     at the path's first calls as (b), its routes equal to the CPU
+     path's on the same states with 16 KSP prefixes kept.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`;
 the last line is `{"ok": true, "device": {...}}`.
@@ -97,6 +107,12 @@ GENERIC_SHAPES = [(w, b) for w in (1, 4, 128) for b in (8, 32, 128)] + [
     (8, 128), (32, 128)
 ]
 TIMING_REPS = 30
+#: (V, D) of [8a]'s random KSP tables: resident, resident, streamed, then
+#: hub rows (D 512 and 2048: resident at small B, streamed in chunks of
+#: the staging at B 256, and at (512, 512) a tile too wide for one warp a
+#: row)
+KSP_CASES = ((4096, 8), (4096, 64), (32768, 64), (512, 512), (1024, 512),
+             (512, 2048))
 DEVICE = "cuda"  # every tensor and solver of the run lives here
 
 
@@ -227,8 +243,9 @@ def graph_us(launch, restore, reps: int) -> float:
 #: the hand-kernel sources, each built by one nvcc (all started together)
 SOURCES = ("relax", "election", "ksp")
 #: kernels `-Xptxas -v` must report per source: relax's generic kernel and
-#: a vec kernel per (W, B, overload) specialisation
-PTXAS_KERNELS = {"relax": 1 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 2}
+#: a vec kernel per (W, B, overload) specialisation; ksp's SSSP kernel, its
+#: wide-row twin and the walk
+PTXAS_KERNELS = {"relax": 1 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 3}
 
 
 def start_ptxas_report(cuda_build, name: str):
@@ -254,10 +271,12 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
         if m:
             k = re.search(r"(relax_(?:vec|generic)_kernel)"
                           r"(?:ILi(\d+)ELi(\d+)ELb(\d)E)?", m.group(1))
-            named = re.search(r"(elect_seg_kernel|ksp_relax_kernel|"
-                              r"ksp_walk_kernel)", m.group(1))
+            named = re.search(r"(elect_seg_kernel|ksp_sssp_kernel|"
+                              r"ksp_walk_kernel)(ILb1E)?", m.group(1))
             cur = (k.group(1) if k else named.group(1) if named
                    else m.group(1))
+            if named is not None and named.group(2):
+                cur += "<wide rows>"
             if k is not None and k.group(2):
                 over = "over" if k.group(4) == "1" else "no over"
                 cur += f"<{k.group(2)},{k.group(3)},{over}>"
@@ -926,31 +945,44 @@ def elect_vs_plain(election_ops, args) -> int:
 def ksp_step_case(ksp_ops, g, v, d, b, with_over):
     """Random dense tables [v, d] (INF padding) with random bans for b
     jobs on the card: (tables, the distances after 2 plain sweeps and at
-    the plain fixpoint, dests with one dest == root, root)."""
+    the plain fixpoint, its sweep count, dests with one dest == root,
+    root). Where d > 64 every 16th row is a hub with all d slots and the
+    others keep 8, as in a hub-and-spoke fabric."""
     nbr = torch.randint(0, v, (v, d), generator=g, dtype=torch.int32)
     wgt = torch.randint(1, 20, (v, d), generator=g, dtype=torch.int32)
     wgt[torch.rand(v, d, generator=g) < 0.25] = INF
+    if d > 64:
+        spoke = torch.arange(v) % 16 != 0
+        wgt[spoke[:, None] & (torch.arange(d) >= 8)[None, :]] = INF
     root = 1
     over = torch.rand(v, generator=g) < (0.05 if with_over else 0.0)
     over[root] = with_over  # an overloaded root keeps its out-edges
     blocked = over[nbr.long()] & (nbr != root)
-    bans = ksp_ops.pack_bans(torch.rand(v, d, b, generator=g) < 0.05)
+    bans = ksp_ops.pack_bans((torch.rand(v, d, b, generator=g) < 0.05)
+                             .to(DEVICE))
     dests = torch.randint(0, v, (b,), generator=g, dtype=torch.int32)
     dests[0] = root
     tab = [x.to(DEVICE) for x in (nbr, wgt, blocked, bans)]
     dist = torch.full((v, b), INF, dtype=torch.int32, device=DEVICE)
     dist[root] = 0
-    changed = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-    mid = dist
+    mid, sweeps = dist, 0
     for i in range(v):
-        out = torch.empty_like(dist)
-        ksp_ops.ksp_relax_ref(dist, out, *tab, changed)
-        dist = out
+        dist, ch = host_read_sweep(ksp_ops.ksp_relax_ref, dist, tab)
+        sweeps += 1
         if i == 1:
             mid = dist.clone()
-        if not int(changed.item()):
+        if not ch:
             break
-    return tab, mid, dist, dests.to(DEVICE), root
+    return tab, mid, dist, sweeps, dests.to(DEVICE), root
+
+
+def host_read_sweep(relax_fn, dist, tab):
+    """One sweep by `relax_fn` (`ksp_relax` or its plain version) and
+    one host read of its changed flag: (new dist, changed)."""
+    out = torch.empty_like(dist)
+    changed = torch.zeros(1, dtype=torch.int32, device=dist.device)
+    relax_fn(dist, out, *tab, changed)
+    return out, int(changed.item())
 
 
 def relax_vs_plain(ksp_ops, dist_in, tab) -> tuple[int, int]:
@@ -964,6 +996,23 @@ def relax_vs_plain(ksp_ops, dist_in, tab) -> tuple[int, int]:
         res.append((out, ch))
     torch.cuda.synchronize()
     return max_diff(zip(*res)), int(res[1][1].item())
+
+
+def sssp_vs_plain(ksp_ops, tab, root, b) -> tuple[int, int, int]:
+    """The fixpoint from `root` by the kernel (one launch) and the plain
+    version, sweeps counted on the device; (max |diff| over dist and the
+    sweep count, kernel sweeps, plain sweeps)."""
+    v = tab[0].shape[0]
+    res = []
+    for fn in (ksp_ops.ksp_sssp, ksp_ops.ksp_sssp_ref):
+        counters = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+        live = torch.ones(1, dtype=torch.int32, device=DEVICE)
+        dist = fn(None, *tab, root, b, max_sweeps=v, live=live,
+                  counters=counters)
+        res.append((dist, counters))
+    torch.cuda.synchronize()
+    return (max_diff(zip(*res)), int(res[0][1][1].item()),
+            int(res[1][1][1].item()))
 
 
 def walk_vs_plain(ksp_ops, dist, tab, dests, root, max_hops):
@@ -1022,7 +1071,7 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
     """The three kernels against their plain versions on random inputs,
     and one KSP relax sweep at the er100k dense-table shape, timed."""
     rng = np.random.default_rng(3)
-    worst = {"elect": 0, "relax": 0, "walk": 0}
+    worst = {"elect": 0, "sssp": 0, "walk": 0}
     for _trial in range(5):
         m = int(rng.integers(1, 40))
         seg = np.repeat(np.arange(m), rng.integers(1, 6, m))
@@ -1036,33 +1085,54 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
         f"slots, max |diff| {worst['elect']}")
 
     g = torch.Generator().manual_seed(20261018)
-    n_ok = 0
-    for b in (8, 32, 128, 256):
-        for with_over in (False, True):
-            tab, mid, fix, dests, root = ksp_step_case(
-                ksp_ops, g, 4096, 16, b, with_over)
+    n_ok, modes, n_sweeps, wide = 0, set(), [], []
+    for b in (8, 40, 256):
+        for i, (v, d) in enumerate(KSP_CASES):
+            tab, mid, fix, sweeps, dests, root = ksp_step_case(
+                ksp_ops, g, v, d, b, with_over=(b + i) % 2 == 1)
+            plan = ksp_ops.sssp_plan(v, d, b)
+            mode = "resident" if plan[0] else "streamed"
+            if plan[3] and plan[3] < d:
+                mode = "streamed in chunks"
+            modes.add(mode)
+            if d >= 512:
+                wide.append((d, b, mode, plan))
             err, ch = relax_vs_plain(ksp_ops, mid, tab)
             if not ch:
-                fail(f"ksp relax case B={b} lowered nothing: untested")
-            worst["relax"] = max(worst["relax"], err)
-            err, ref = walk_vs_plain(ksp_ops, fix, tab, dests, root, 4095)
+                fail(f"ksp sweep case V {v} D {d} B={b} lowered nothing: "
+                     "untested")
+            worst["sssp"] = max(worst["sssp"], err)
+            err, s_dev, s_ref = sssp_vs_plain(ksp_ops, tab, root, b)
+            if s_ref != sweeps or s_ref < 3:
+                fail(f"ksp fixpoint case V {v} D {d} B={b}: plain sweeps "
+                     f"{s_ref}, host loop {sweeps}")
+            n_sweeps.append(s_dev)
+            worst["sssp"] = max(worst["sssp"], err)
+            err, ref = walk_vs_plain(ksp_ops, fix, tab, dests, root, v - 1)
             if not int(ref[4].item()):
-                fail(f"ksp walk case B={b} found no path: untested")
+                fail(f"ksp walk case V {v} D {d} B={b} found no path: "
+                     "untested")
             n_ok += int((ref[0] < INF).sum().item())
             worst["walk"] = max(worst["walk"], err)
-    log(f"[8a] ksp_relax_kernel / ksp_walk_kernel vs plain: one sweep and "
-        f"one walk round on random 4096 x 16 tables with 5% bans, B in "
-        f"(8, 32, 128, 256), overloads off/on ({n_ok} paths walked): max "
-        f"|diff| {worst['relax']} / {worst['walk']}")
+    if modes != {"resident", "streamed", "streamed in chunks"}:
+        fail(f"ksp_sssp_kernel cases ran in {modes} only")
+    log(f"[8a] ksp_sssp_kernel plans (rows a block, blocks, smem B, staged "
+        f"slots) of the hub-row cases (D, B, mode, plan): {wide}")
+    log(f"[8a] ksp_sssp_kernel / ksp_walk_kernel vs plain on random tables "
+        f"with 5% bans, (V, D) in {KSP_CASES}, B in "
+        f"(8, 40, 256), overloads off/on, modes {sorted(modes)}: one sweep, the "
+        f"fixpoint with its sweep count ({n_sweeps} sweeps, each equal to "
+        f"the plain loop's), one walk round ({n_ok} paths walked): max |diff| "
+        f"{worst['sssp']} / {worst['walk']}")
 
     nbr, wgt, over, dist0 = ksp_graph(rng, 1024, 2048)
     blocked = ksp_ops.build_ksp_blocked(nbr, over, 0)
     dests = np.concatenate(([0], rng.choice(np.arange(1, 1024), 31,
                                             replace=False))).astype(np.int32)
-    whole = 0
+    whole, counts = 0, []
     for k in (2, 16):
         for d0 in (None, dist0):
-            outs = []
+            outs, sts = [], []
             for dev in (DEVICE, "cpu"):
                 st: dict = {}
                 t = [torch.from_numpy(x).to(dev) for x in (nbr, wgt, blocked)]
@@ -1071,16 +1141,20 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
                     max_hops=1023, stats=st,
                     dist0=None if d0 is None else torch.from_numpy(d0).to(dev),
                 ))
+                sts.append(st)
             torch.cuda.synchronize()
             whole = max(whole, max_diff(
                 (a, b.to(DEVICE)) for a, b in zip(*outs)))
+            if sts[0] != sts[1]:
+                fail(f"ksp whole case: card counters {sts[0]}, CPU {sts[1]}")
+            counts.append((sts[0]["rounds"], sts[0]["sweeps"]))
             if not bool((outs[1][0] < INF).any()):
                 fail("ksp whole case found no path: untested")
-    worst["relax"] = max(worst["relax"], whole)
+    worst["sssp"] = max(worst["sssp"], whole)
     worst["walk"] = max(worst["walk"], whole)
     log(f"[8a] ksp_edge_disjoint_dense on the card vs on the CPU (plain), "
         f"1 024-node graph, 32 jobs, k in (2, 16), dist0 off/on: max |diff| "
-        f"{whole}")
+        f"{whole}; (rounds, sweeps) {counts}, equal on both")
 
     # one sweep at the er100k dense-table shape, B = 32 (and 128, read
     # for the design record only), ~3% bans
@@ -1106,18 +1180,20 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
         dist = dist.to(DEVICE)
         tab = (nbr_t, wgt_t, blocked_t, bans_t)
         err, ch = relax_vs_plain(ksp_ops, dist, tab)
-        worst["relax"] = max(worst["relax"], err)
+        worst["sssp"] = max(worst["sssp"], err)
         out = torch.empty_like(dist)
         flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
         us = kernel_us(lambda: ksp_ops.ksp_relax(dist, out, *tab, flag),
-                       lambda: None, ksp_ops.KERNEL_NAMES["relax"])
+                       lambda: None, ksp_ops.KERNEL_NAMES["sssp"])
         p_ms = cuda_ms(lambda: ksp_ops.ksp_relax_ref(dist, out, *tab, flag))
         nbytes, ops = ksp_relax_work(wgt_t, b)
         b_ms, b_by = bound(nbytes, ops)
-        log(f"[8a] ksp_relax_kernel at the er100k dense shape (V {v}, D {d}, "
-            f"B {b}): max |diff| vs plain {err} (changed {ch}); {us:.2f} us, "
-            f"bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes} B), share "
-            f"{b_ms * 1e3 / us:.3f}; plain {p_ms:.4f} ms")
+        rows, grid, smem, _stage = ksp_ops.sssp_plan(v, d, b)
+        log(f"[8a] ksp_sssp_kernel, one sweep at the er100k dense shape (V "
+            f"{v}, D {d}, B {b}; {'resident' if rows else 'streamed'}, {grid} "
+            f"blocks, {smem} B smem): max |diff| vs plain {err} (changed "
+            f"{ch}); {us:.2f} us, bound {b_ms * 1e3:.3f} us by {b_by} "
+            f"({nbytes} B), share {b_ms * 1e3 / us:.3f}; plain {p_ms:.4f} ms")
         er[b] = dict(us=us, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                      bytes=nbytes)
     for k_, val in worst.items():
@@ -1195,22 +1271,25 @@ def config4_states(rings: int = 32, size: int = 32, extras: bool = True,
 def ksp_path_run(ksp_ops, solver, ls, ps, me, reps: int) -> dict:
     """`compute_routes` of a KSP configuration on the card: a warm-up
     that uploads the tables and captures the inputs of the first
-    `ksp_relax` and `ksp_walk` calls, then `reps` timed calls with the
+    `ksp_sssp` and `ksp_walk` calls, then `reps` timed calls with the
     launch counts from 0, then one call under the profiler (CUPTI µs and
     launches per KSP kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     captured: dict = {}
-    origs = {name: getattr(ksp_ops, name) for name in ("ksp_relax",
+    origs = {name: getattr(ksp_ops, name) for name in ("ksp_sssp",
                                                       "ksp_walk")}
 
     def capturing(name):
-        def call(*args):
-            # the first call's inputs, copied before the call writes
-            captured.setdefault(name, [
-                x.clone() if isinstance(x, torch.Tensor) else x
-                for x in args])
-            return origs[name](*args)
+        def call(*args, **kw):
+            # the first call's inputs, copied on the stream before the
+            # call writes
+            captured.setdefault(name, (
+                [x.clone() if isinstance(x, torch.Tensor) else x
+                 for x in args],
+                {k: x.clone() if isinstance(x, torch.Tensor) else x
+                 for k, x in kw.items()}))
+            return origs[name](*args, **kw)
         return call
 
     for name in origs:
@@ -1221,12 +1300,13 @@ def ksp_path_run(ksp_ops, solver, ls, ps, me, reps: int) -> dict:
         for name, fn in origs.items():
             setattr(ksp_ops, name, fn)
     ksp_ops.reset_launches()
-    times = []
+    times, ksp_ms = [], []
     for _ in range(reps):
         t1 = time.perf_counter()
         rdb = solver.compute_routes(ls, ps, me)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
+        ksp_ms.append(solver.last_ksp_stats["ms"])
     launches = dict(ksp_ops.LAUNCHES)
     st = dict(solver.last_ksp_stats)
     phases = dict(solver.last_phase_ms)
@@ -1236,25 +1316,175 @@ def ksp_path_run(ksp_ops, solver, ls, ps, me, reps: int) -> dict:
         torch.cuda.synchronize()
     cu = {k: kernel_device_us(prof, (n,))
           for k, n in ksp_ops.KERNEL_NAMES.items()}
-    return dict(captured=captured, times=times, launches=launches, stats=st,
-                phases=phases, cu=cu, rdb=rdb)
+    return dict(captured=captured, times=times, ksp_ms=ksp_ms,
+                launches=launches, stats=st, phases=phases, cu=cu, rdb=rdb,
+                reps=reps)
 
 
-def relax_at_call(ksp_ops, rx) -> dict:
-    """`ksp_relax_kernel` against its plain version on the captured
-    inputs `rx` of a path's call, timed by CUPTI, with its bound."""
-    err, _ch = relax_vs_plain(ksp_ops, rx[0], rx[2:6])
-    dist_in, wgt = rx[0], rx[3]
-    out = torch.empty_like(dist_in)
+def ksp_sssp_work(nbr, wgt, blocked, dist) -> tuple[int, int]:
+    """(bytes, operations) the masked SSSP of b jobs must spend, at the
+    least, to reach its fixpoint `dist` [V, b] on dense tables [V, D]:
+    each table byte read once (as `ksp_relax_work` counts them) and the
+    result written once (the start is made on the card); one relaxation,
+    four integer operations, of each usable slot (finite weight, not
+    blocked) out of each entry this run's result reaches, for the
+    entry's job: each entry settled once, as a label-setting solve does.
+    Jacobi sweeps do more, every slot of each job word that can change,
+    sweep after sweep."""
+    v, d = wgt.shape
+    b = dist.shape[1]
+    usable = (wgt < INF) & ~blocked
+    out_slots = torch.bincount(nbr[usable].long(), minlength=v)
+    reached = (dist < INF).sum(dim=1)
+    relax = int((out_slots.long() * reached.long()).sum().item())
+    valid = int((wgt < INF).sum().item())
+    nw = (b + 31) // 32
+    return (v * d * 4 + valid * (4 + 1 + 4 * nw) + v * b * 4, 4 * relax)
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host wall (ms) of `fn()` followed by a synchronize."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def fixpoint_at_call(ksp_ops, sx) -> dict:
+    """On the captured inputs `sx` of a path's first SSSP: one sweep of
+    `ksp_sssp_kernel` against its plain version (CUPTI-timed, with the
+    per-sweep bound), and the fixpoint by one launch against the
+    host-read loop it replaced (`ksp_relax` once per sweep, one read of
+    its flag each) and the plain fixpoint: the same distances and sweep
+    count, each timed."""
+    args, _kw = sx
+    _dist0, nbr, wgt, blocked, bans, root, b = args
+    tab = (nbr, wgt, blocked, bans)
+    v = nbr.shape[0]
+    start = torch.full((v, b), INF, dtype=torch.int32, device=DEVICE)
+    start[root] = 0
+    err1, _ch = relax_vs_plain(ksp_ops, start, tab)
+    out = torch.empty_like(start)
     flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-    us = kernel_us(lambda: ksp_ops.ksp_relax(dist_in, out, *rx[2:6], flag),
-                   lambda: None, ksp_ops.KERNEL_NAMES["relax"])
-    plain = cuda_ms(lambda: ksp_ops.ksp_relax_ref(dist_in, out, *rx[2:6],
-                                                  flag))
-    nbytes, ops = ksp_relax_work(wgt, dist_in.shape[1])
-    return dict(err=err, us=us, plain_ms=plain, bytes=nbytes,
-                bound=bound(nbytes, ops), v=wgt.shape[0], d=wgt.shape[1],
-                b=dist_in.shape[1])
+    sweep_us = kernel_us(lambda: ksp_ops.ksp_relax(start, out, *tab, flag),
+                         lambda: None, ksp_ops.KERNEL_NAMES["sssp"])
+    sweep_plain = cuda_ms(lambda: ksp_ops.ksp_relax_ref(start, out, *tab,
+                                                        flag))
+    s_bytes, s_ops = ksp_relax_work(wgt, b)
+
+    def device_fix(fn=ksp_ops.ksp_sssp):
+        counters = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+        return fn(None, *tab, root, b, max_sweeps=v, counters=counters), \
+            counters
+
+    def host_loop():
+        dist, n = start, 0
+        for _ in range(v):
+            dist, ch = host_read_sweep(ksp_ops.ksp_relax, dist, tab)
+            n += 1
+            if not ch:
+                break
+        return dist, n
+
+    fix, counters = device_fix()
+    plain, p_counters = device_fix(ksp_ops.ksp_sssp_ref)
+    host, host_sweeps = host_loop()
+    torch.cuda.synchronize()
+    sweeps = int(counters[1].item())
+    err = max(err1, max_diff([(fix, host), (fix, plain)]))
+    if sweeps != host_sweeps or int(p_counters[1].item()) != host_sweeps:
+        fail(f"device fixpoint ran {sweeps} sweeps, the host-read loop "
+             f"{host_sweeps}, the plain one {int(p_counters[1].item())}")
+    fix_us = kernel_us(lambda: device_fix(), lambda: None,
+                       ksp_ops.KERNEL_NAMES["sssp"])
+    f_bytes, f_ops = ksp_sssp_work(nbr, wgt, blocked, fix)
+    rows, grid, smem, _stage = ksp_ops.sssp_plan(v, nbr.shape[1], b)
+    return dict(
+        err=err, v=v, d=nbr.shape[1], b=b, sweeps=sweeps,
+        mode="resident" if rows else "streamed", grid=grid, smem=smem,
+        sweep_us=sweep_us, sweep_plain_ms=sweep_plain, sweep_bytes=s_bytes,
+        sweep_bound=bound(s_bytes, s_ops), us=fix_us,
+        dev_wall_ms=wall_ms(device_fix), host_wall_ms=wall_ms(host_loop),
+        plain_ms=wall_ms(lambda: device_fix(ksp_ops.ksp_sssp_ref), reps=1),
+        bytes=f_bytes, ops=f_ops, bound=bound(f_bytes, f_ops),
+    )
+
+
+def walk_at_call(ksp_ops, wk) -> dict:
+    """`ksp_walk_kernel` against its plain version on the captured
+    inputs `wk` of a path's first walk, timed by CUPTI, with its bytes
+    bound, the longest job's hops and µs per hop."""
+    w_dist, w_nbr, w_wgt, w_blocked, w_bans, w_dests, w_root, w_hops = wk[0][:8]
+    b = w_dests.shape[0]
+    err, wref = walk_vs_plain(ksp_ops, w_dist, (w_nbr, w_wgt, w_blocked,
+                                                w_bans), w_dests, w_root,
+                              w_hops)
+    bans_w = w_bans.clone()
+    path_w = torch.full((b, w_hops + 1), -1, dtype=torch.int32, device=DEVICE)
+    bufs = [torch.zeros(b, dtype=torch.int32, device=DEVICE) for _ in range(2)]
+    ok_w = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def w_restore():
+        bans_w.copy_(w_bans)
+        path_w.fill_(-1)
+
+    def w_call(fn):
+        fn(w_dist, w_nbr, w_wgt, w_blocked, bans_w, w_dests, w_root, w_hops,
+           bufs[0], path_w, bufs[1], ok_w)
+
+    us = kernel_us(lambda: w_call(ksp_ops.ksp_walk), w_restore,
+                   ksp_ops.KERNEL_NAMES["walk"])
+    plain = cuda_ms(lambda: (w_restore(), w_call(ksp_ops.ksp_walk_ref)))
+    hops = wref[2]
+    rows = int((hops + 1).sum().item())
+    longest = int(hops.max().item())
+    nbytes = rows * w_nbr.shape[1] * (4 + 4 + 1 + 4 + 4) + b * 16 + rows * 4
+    return dict(err=err, us=us, plain_ms=plain, rows=rows, longest=longest,
+                us_per_hop=us / max(longest, 1), bytes=nbytes,
+                bound=bound(nbytes, rows * w_nbr.shape[1] * 4), b=b,
+                d=w_nbr.shape[1])
+
+
+def log_ksp_run(ksp_ops, tag: str, run: dict, fx: dict, wk: dict) -> None:
+    """The KSP lines of [8b] / [8d]: per RIB, the kernels at the path's
+    first calls, the device fixpoint against the host-read loop."""
+    st, reps = run["stats"], run["reps"]
+    per_rib = {k: n / reps for k, n in run["launches"].items()}
+    log(f"[{tag}] per RIB: host reads {st['host_reads']}, launches "
+        f"{per_rib}, rounds {st['rounds']}, sweeps {st['sweeps']}; KSP phase "
+        f"{[round(x, 3) for x in run['ksp_ms']]} ms, compute_routes p50 "
+        f"{statistics.median(run['times']):.3f} ms")
+    for k, (us, n) in run["cu"].items():
+        per = ""
+        if n:
+            per = f", {us / n:.2f} us each"
+            if k == "sssp" and st["sweeps"]:
+                per += f", {us / st['sweeps']:.3f} us per sweep"
+        log(f"[{tag}] {ksp_ops.KERNEL_NAMES[k]} in one profiled compute_routes: {n} "
+            f"launches, {us:.1f} us (CUPTI){per}")
+    sb, fb = fx["sweep_bound"], fx["bound"]
+    log(f"[{tag}] ksp_sssp_kernel at the path's first SSSP (V {fx['v']}, D "
+        f"{fx['d']}, B {fx['b']}; {fx['mode']}, {fx['grid']} blocks, "
+        f"{fx['smem']} B smem): one sweep {fx['sweep_us']:.2f} us, plain "
+        f"{fx['sweep_plain_ms']:.4f} ms, sweep bound {sb[0] * 1e3:.3f} us by "
+        f"{sb[1]} ({fx['sweep_bytes']} B); fixpoint {fx['sweeps']} sweeps in "
+        f"one launch {fx['us']:.1f} us ({fx['us'] / fx['sweeps']:.3f} us per "
+        f"sweep), bound {fb[0] * 1e3:.3f} us by {fb[1]} ({fx['bytes']} B, "
+        f"{fx['ops']} ops), share {fb[0] * 1e3 / fx['us']:.4f}; host wall: one launch "
+        f"{fx['dev_wall_ms']:.3f} ms vs the host-read loop "
+        f"{fx['host_wall_ms']:.3f} ms (same fixpoint, same {fx['sweeps']} "
+        f"sweeps); plain fixpoint {fx['plain_ms']:.3f} ms; max |diff| "
+        f"{fx['err']}")
+    wb = wk["bound"]
+    log(f"[{tag}] ksp_walk_kernel at the path's first walk (B {wk['b']}, D "
+        f"{wk['d']}, {wk['rows']} rows walked, longest job {wk['longest']} "
+        f"hops): {wk['us']:.2f} us ({wk['us_per_hop']:.3f} us per hop of the "
+        f"longest), plain {wk['plain_ms']:.4f} ms, bytes bound "
+        f"{wb[0] * 1e3:.3f} us by {wb[1]} ({wk['bytes']} B); max |diff| "
+        f"{wk['err']}")
 
 
 def phase8b_config4(ksp_ops) -> dict:
@@ -1273,7 +1503,7 @@ def phase8b_config4(ksp_ops) -> dict:
     solver = TorchSpfSolver(device=DEVICE, enable_lfa=True, ksp_k=16)
     run = ksp_path_run(ksp_ops, solver, ls, ps, me, reps=5)
     captured, times, launches = run["captured"], run["times"], run["launches"]
-    st, phases, cu, rdb = run["stats"], run["phases"], run["cu"], run["rdb"]
+    st, phases, rdb = run["stats"], run["phases"], run["rdb"]
     if (rdb.unicast_routes != ref.unicast_routes
             or rdb.mpls_routes != ref.mpls_routes):
         fail("config 4: the RouteDatabase on the card differs from the CPU "
@@ -1290,40 +1520,16 @@ def phase8b_config4(ksp_ops) -> dict:
     for k, n in launches.items():
         if n == 0:
             fail(f"config 4: ksp {k} kernel launched no time")
+    if st["host_reads"] != st["chunks"]:
+        fail(f"config 4: {st['host_reads']} KSP host reads for "
+             f"{st['chunks']} chunks")
 
     # the kernels vs plain at the calls the path made, and their times
-    rel = relax_at_call(ksp_ops, captured["ksp_relax"])
-    err_r, b = rel["err"], rel["b"]
-
-    wk = captured["ksp_walk"]
-    w_dist, w_nbr, w_wgt, w_blocked, w_bans, w_dests, w_root, w_hops = wk[:8]
-    err_w, wref = walk_vs_plain(ksp_ops, w_dist, (w_nbr, w_wgt, w_blocked,
-                                                  w_bans), w_dests, w_root,
-                                w_hops)
-    bans_w = w_bans.clone()
-    path_w = torch.full((b, w_hops + 1), -1, dtype=torch.int32, device=DEVICE)
-    bufs = [torch.zeros(b, dtype=torch.int32, device=DEVICE) for _ in range(2)]
-    ok_w = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-
-    def w_restore():
-        bans_w.copy_(w_bans)
-        path_w.fill_(-1)
-
-    def w_call(fn):
-        fn(w_dist, w_nbr, w_wgt, w_blocked, bans_w, w_dests, w_root, w_hops,
-           bufs[0], path_w, bufs[1], ok_w)
-
-    w_us = kernel_us(lambda: w_call(ksp_ops.ksp_walk), w_restore,
-                     ksp_ops.KERNEL_NAMES["walk"])
-    w_plain = cuda_ms(lambda: (w_restore(), w_call(ksp_ops.ksp_walk_ref)))
-    hops = wref[2]
-    rows = int((hops + 1).sum().item())
-    w_bytes = rows * w_nbr.shape[1] * (4 + 4 + 1 + 4 + 4) + b * 16 + (
-        rows * 4)
-    w_bound = bound(w_bytes, rows * w_nbr.shape[1] * 4)
-    if err_r or err_w:
+    fx = fixpoint_at_call(ksp_ops, captured["ksp_sssp"])
+    wk = walk_at_call(ksp_ops, captured["ksp_walk"])
+    if fx["err"] or wk["err"]:
         fail(f"config 4: ksp kernels disagree with plain at the path's calls "
-             f"(relax {err_r}, walk {err_w})")
+             f"(sssp {fx['err']}, walk {wk['err']})")
     p50 = statistics.median(times)
     log(f"[8b] config 4: {len(ls.nodes)} nodes, {len(ps.prefixes)} prefixes "
         f"({n_ksp} KSP, 32 UCMP anycast), root {me}, k=16, LFA on: "
@@ -1334,34 +1540,21 @@ def phase8b_config4(ksp_ops) -> dict:
         f"unicast + {len(rdb.mpls_routes)} mpls; PUSH nexthops {n_push}, "
         f"routes with backups {n_backup}, with unequal UCMP weights {n_ucmp};"
         f" launches {launches}")
-    for k, (us, n) in cu.items():
-        log(f"[8b] {ksp_ops.KERNEL_NAMES[k]} in one profiled compute_routes: "
-            f"{n} launches, {us:.1f} us (CUPTI)"
-            + (f", {us / n:.2f} us each" if n else ""))
-    log(f"[8b] at the path's first calls: relax (V {rel['v']}, D "
-        f"{rel['d']}, B {b}) {rel['us']:.2f} us, plain {rel['plain_ms']:.4f} "
-        f"ms, bound {rel['bound'][0] * 1e3:.3f} us by {rel['bound'][1]} "
-        f"({rel['bytes']} B), share {rel['bound'][0] * 1e3 / rel['us']:.3f}; walk "
-        f"({rows} rows walked) {w_us:.2f} us, plain {w_plain:.4f} ms, "
-        f"bound {w_bound[0] * 1e3:.3f} us by {w_bound[1]} ({w_bytes} B); max "
-        f"|diff| vs plain {err_r} / {err_w}")
-    return {
-        "launches": launches,
-        "relax": rel,
-        "walk": dict(us=w_us, plain_ms=w_plain, bound=w_bound),
-    }
+    log_ksp_run(ksp_ops, "8b", run, fx, wk)
+    return {"launches": launches, "sssp": fx, "walk": wk}
 
 
 def phase8d_config4_ref(ksp_ops) -> dict:
     """BASELINE config 4 at the size the JAX package measured it
     (`bench_ksp_lfa.py --rings 626`: 10 016 nodes, 1 001 KSP prefixes,
     k=16, LFA on, root bb1; BASELINE.md:78) through `compute_routes` on
-    the card: p50 of 3 calls, the KSP stats, CUPTI per kernel, the relax
-    kernel vs plain at the path's first call (B = 256). The CPU path
-    takes minutes for 1 001 KSP jobs, so it answers the same states with
-    only the 16 lowest-numbered KSP prefixes kept KSP: every route of a
-    prefix that is KSP in both, or plain in both, is equal, and every
-    KSP prefix of the card's RIB has a PUSH route."""
+    the card: p50 of 3 calls, the KSP stats, CUPTI per kernel, both KSP
+    kernels vs plain at the path's first calls (B = 256), the device
+    fixpoint against the host-read loop. The CPU path takes minutes for
+    1 001 KSP jobs, so it answers the same states with only the 16
+    lowest-numbered KSP prefixes kept KSP: every route of a prefix that
+    is KSP in both, or plain in both, is equal, and every KSP prefix of
+    the card's RIB has a PUSH route."""
     from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
 
     t0 = time.perf_counter()
@@ -1394,28 +1587,26 @@ def phase8d_config4_ref(ksp_ops) -> dict:
     for k, n in run["launches"].items():
         if n == 0:
             fail(f"config 4 at 10k: ksp {k} kernel launched no time")
-    rel = relax_at_call(ksp_ops, run["captured"]["ksp_relax"])
-    if rel["err"]:
-        fail(f"config 4 at 10k: relax kernel disagrees with plain ({rel['err']})")
+    st = run["stats"]
+    if st["host_reads"] != st["chunks"]:
+        fail(f"config 4 at 10k: {st['host_reads']} KSP host reads for "
+             f"{st['chunks']} chunks")
+    fx = fixpoint_at_call(ksp_ops, run["captured"]["ksp_sssp"])
+    wk = walk_at_call(ksp_ops, run["captured"]["ksp_walk"])
+    if fx["err"] or wk["err"]:
+        fail(f"config 4 at 10k: ksp kernels disagree with plain (sssp "
+             f"{fx['err']}, walk {wk['err']})")
     p50 = statistics.median(run["times"])
     log(f"[8d] config 4 at the reference's size: {len(ls.nodes)} nodes, "
         f"{len(ksp_nodes)} KSP prefixes, root {me}, k=16, LFA on: "
         f"compute_routes p50 {p50:.3f} ms (samples "
         f"{[round(x, 3) for x in run['times']]}); phases {run['phases']}; "
-        f"KSP {run['stats']}; launches {run['launches']}; equal to the CPU "
+        f"KSP {st}; launches {run['launches']}; equal to the CPU "
         f"path on {len(rdb.unicast_routes) - len(only_card)} routes (16 KSP), "
         f"{n_push} PUSH routes for the rest; set-up + CPU "
         f"{time.perf_counter() - t0:.1f} s (CPU {cpu_s:.1f} s)")
-    for k, (us, n) in run["cu"].items():
-        log(f"[8d] {ksp_ops.KERNEL_NAMES[k]} in one profiled compute_routes: "
-            f"{n} launches, {us:.1f} us (CUPTI)"
-            + (f", {us / n:.2f} us each" if n else ""))
-    log(f"[8d] relax at the path's first call (V {rel['v']}, D {rel['d']}, "
-        f"B {rel['b']}): {rel['us']:.2f} us, plain {rel['plain_ms']:.4f} ms, "
-        f"bound {rel['bound'][0] * 1e3:.3f} us by {rel['bound'][1]} "
-        f"({rel['bytes']} B), share {rel['bound'][0] * 1e3 / rel['us']:.3f}; "
-        f"max |diff| vs plain {rel['err']}")
-    return dict(p50=p50, relax=rel, stats=run["stats"])
+    log_ksp_run(ksp_ops, "8d", run, fx, wk)
+    return dict(p50=p50, sssp=fx, walk=wk, stats=st)
 
 
 def phase8c_election(election_ops, solver, ls, csr) -> dict:
@@ -1720,7 +1911,7 @@ def main() -> None:
         "bound_by": p8c["bound_by"],
         "library_ms": p8c["lib_ms"],
     })
-    for step in ("relax", "walk"):
+    for step in ("sssp", "walk"):
         row = p8b[step]
         kernels.append({
             "name": ksp_ops.KERNEL_NAMES[step],
@@ -1728,7 +1919,7 @@ def main() -> None:
             "source": "openr_tpu_torch/csrc/ksp.cu",
             "replaces": "openr_tpu/ops/ksp.py:57",
             "launches": p8b["launches"][step],
-            "max_abs_err": worst8[step],
+            "max_abs_err": max(worst8[step], row["err"]),
             "ms": row["us"] / 1e3,
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound"][0],

@@ -514,7 +514,10 @@ class TorchSpfSolver:
         ban bits, two [V] distance columns and its k_eff paths of V ids
         (the reference budgets 13 bytes per slot and job for its bool
         mask and temporaries); jobs are independent, so the chunking
-        cannot change the routes."""
+        cannot change the routes. A chunk's costs, paths and KSP
+        counters come back in one copy, its only read from the device.
+        `last_ksp_stats["paths_ms"]` is the wall time of those calls
+        (enqueue, device, copy); the rest of `ms` builds the routes."""
         t0 = time.perf_counter()
         dev = self._device_arrays(csr, "dense")
         d_nbr, d_wgt = dev["nbr"], dev["wgt"]
@@ -553,17 +556,20 @@ class TorchSpfSolver:
             np.asarray(d_root[:m], dtype=np.int64), int(INF_DIST)
         ).astype(np.int32)
         dist0_dev = self._to_dev(dist0)
-        stats = {"jobs": len(jobs), "chunks": 0, "k_eff": k_eff}
+        stats = {"jobs": len(jobs), "chunks": 0, "k_eff": k_eff,
+                 "paths_ms": 0.0}
         for start in range(0, len(jobs), chunk):
             sub = dests[start : start + chunk]
             b = pad_batch(len(sub))
             dsts = np.full(b, my_id, dtype=np.int32)  # padding: dest == root
             dsts[: len(sub)] = sub
+            t1 = time.perf_counter()
             costs, paths, _hops = ksp_edge_disjoint_dense(
                 d_nbr, d_wgt, blocked, my_id, self._to_dev(dsts),
                 k=k_eff, max_hops=max_hops, dist0=dist0_dev, stats=stats,
+                to_host=True,
             )
-            costs, paths = costs.cpu().numpy(), paths.cpu().numpy()
+            stats["paths_ms"] += (time.perf_counter() - t1) * 1e3
             stats["chunks"] += 1
             for j in range(len(sub)):
                 prefix, reachable, best_nodes = jobs[start + j]

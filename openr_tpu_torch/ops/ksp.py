@@ -13,16 +13,20 @@ walked link in both directions. A round in which no job finds a path
 ends the call: bans only grow, so every later round would fail the same
 way.
 
-The round loop runs on the host, one step at a time, on either device:
-`ksp_relax` (one Jacobi sweep of the masked relax) until its changed
-flag stays clear, one host read per sweep; then `ksp_walk` (every job's
-walk); then one read of its "any job ok" flag. Each step picks by
-`tensor.device.type` alone: a CUDA tensor launches `ksp_relax_kernel` /
-`ksp_walk_kernel` of `csrc/ksp.cu` (a build or launch failure raises), a
-CPU tensor runs the plain PyTorch version (`ksp_relax_ref`,
-`ksp_walk_ref`). The per-job bans are bits: int32 words [V, D, ceil(B/32)],
-bit b % 32 of word b // 32 for job b (the JAX kernel keeps [V, D, B]
-bools).
+The host enqueues every round and reads nothing back until the end:
+per round, `ksp_sssp` (the masked SSSP to fixpoint, one launch) and
+`ksp_walk` (every job's walk). One int32 device word per round carries
+the early exit: the walk of round i sets word i+1 when some job found
+its path, and both steps of round i+1 return at once when it is clear,
+so a skipped round keeps its INF / -1 / 0 outputs. The rounds and sweeps
+are counted on the device and come back in the one copy that brings the
+paths to the host. Each step picks by `tensor.device.type` alone: a CUDA
+tensor launches `ksp_sssp_kernel` / `ksp_walk_kernel` of `csrc/ksp.cu`
+(a build or launch failure raises), a CPU tensor runs the plain PyTorch
+version (`ksp_sssp_ref`, `ksp_walk_ref`), which honours the same round
+words and counters. The per-job bans are bits: int32 words [V, D,
+ceil(B/32)], bit b % 32 of word b // 32 for job b (the JAX kernel keeps
+[V, D, B] bools).
 """
 
 from __future__ import annotations
@@ -37,19 +41,21 @@ from openr_tpu_torch.common.constants import DIST_INF
 
 INF_DIST = DIST_INF
 #: the kernel function of each step, as a profiler names it
-KERNEL_NAMES = {"relax": "ksp_relax_kernel", "walk": "ksp_walk_kernel"}
+KERNEL_NAMES = {"sssp": "ksp_sssp_kernel", "walk": "ksp_walk_kernel"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the C entry points of `csrc/ksp.cu` and the ctypes types bound to them
 ENTRY_POINTS = {
-    "openr_ksp_relax": (
-        [_P, _P, _P, _P, _P, _P, _P,  # dist_in, dist_out, nbr, wgt, blocked, bans, changed
-         _I, _I, _I, _P],  # V, D, B, stream
+    "openr_ksp_sssp_plan": ([_I, _I, _I, _P], ctypes.c_int),  # V, D, B, out[4]
+    "openr_ksp_sssp": (
+        [_P, _P, _P, _P, _P, _P,  # dist_in, dist_out, nbr, wgt, blocked, bans
+         _P, _P, _P, _P,  # live, counters, changed, flags
+         _I, _I, _I, _I, _I, _P],  # root, V, D, B, max_sweeps, stream
         ctypes.c_int,
     ),
     "openr_ksp_walk": (
         [_P, _P, _P, _P, _P, _P, _I,  # dist, nbr, wgt, blocked, bans, dests, root
-         _P, _P, _P, _P,  # cost, path, hops, any_ok
+         _P, _P, _P, _P, _P, _P,  # cost, path, hops, any_ok, live, counters
          _I, _I, _I, _I, _P],  # V, D, B, max_hops, stream
         ctypes.c_int,
     ),
@@ -57,7 +63,7 @@ ENTRY_POINTS = {
 }
 
 #: kernel launches made by the step wrappers (CUDA path only), by step
-LAUNCHES = {"relax": 0, "walk": 0}
+LAUNCHES = {"sssp": 0, "walk": 0}
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
@@ -121,13 +127,13 @@ def pack_bans(banned: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
-# ------------------------------------------------------------ the relax
+# ------------------------------------------------------------- the SSSP
 
 
 def ksp_relax_ref(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
-    """Plain PyTorch version of `ksp_relax_kernel`: one Jacobi sweep of
-    the masked relax from `dist_in` into `dist_out`; sets `changed` [1]
-    to 1 if some entry fell, else 0."""
+    """One Jacobi sweep of the masked relax from `dist_in` into
+    `dist_out` in plain PyTorch (a sweep of `ksp_sssp_kernel`); sets
+    `changed` [1] to 1 if some entry fell, else 0."""
     v, d_width = nbr.shape
     b = dist_in.shape[1]
     j = torch.arange(b, device=dist_in.device)
@@ -148,8 +154,39 @@ def ksp_relax_ref(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
     return changed
 
 
+def ksp_sssp_ref(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
+                 max_sweeps: int, live=None, counters=None):
+    """Plain PyTorch version of `ksp_sssp_kernel`: `ksp_relax_ref` from
+    `dist0` [V, b] (None: INF with row `root` at 0) until a sweep lowers
+    nothing or `max_sweeps` have run; adds the sweeps to `counters[1]`.
+    When `live` [1] is clear nothing runs and the result is unspecified."""
+    v = nbr.shape[0]
+    if live is not None and not int(live[0]):
+        return torch.empty((v, b), dtype=torch.int32, device=nbr.device)
+    if dist0 is not None:
+        dist = dist0.clone()
+    else:
+        dist = torch.full((v, b), INF_DIST, dtype=torch.int32,
+                          device=nbr.device)
+        dist[root] = 0
+    other = torch.empty_like(dist)
+    changed = torch.zeros(1, dtype=torch.int32, device=nbr.device)
+    sweeps = 0
+    for _ in range(max_sweeps):
+        ksp_relax_ref(dist, other, nbr, wgt, blocked, bans, changed)
+        dist, other = other, dist
+        sweeps += 1
+        if not int(changed[0]):
+            break
+    if counters is not None:
+        counters[1] += sweeps
+    return dist
+
+
 def _check(name, dev, tensors):
     for nm, x, dt in tensors:
+        if x is None:
+            continue
         if x.get_device() != dev:
             raise ValueError(f"{name}: {nm} on {x.device}")
         if x.dtype != dt:
@@ -167,6 +204,13 @@ def _check_tables(name, nbr, wgt, blocked, bans, b):
         )
 
 
+def _check_words(name, live, counters):
+    if live is not None and live.shape != (1,):
+        raise ValueError(f"{name}: live must be one int32 word")
+    if counters is not None and counters.shape != (2,):
+        raise ValueError(f"{name}: counters must be [rounds, sweeps]")
+
+
 def _raise(lib, err, what):
     if err != 0:
         raise RuntimeError(
@@ -175,11 +219,86 @@ def _raise(lib, err, what):
         )
 
 
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def sssp_plan(v: int, d: int, b: int) -> tuple[int, int, int, int]:
+    """(rows per block, 0 when streamed; blocks; shared-memory bytes;
+    slots a warp stages at a time, 0 when resident) of a
+    `ksp_sssp_kernel` launch at this shape on the current card: the
+    tables stay in shared memory ("resident") when one SM's share of the
+    rows fits, else each sweep stages a row ("streamed"), in chunks
+    where D is wider than the staging."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    _raise(lib, lib.openr_ksp_sssp_plan(v, d, b, ctypes.addressof(out)),
+           "ksp_sssp_kernel plan")
+    return out[0], out[1], out[2], out[3]
+
+
+def _sssp_launch(dist_in, dist_out, nbr, wgt, blocked, bans, root: int,
+                 max_sweeps: int, live, counters, changed) -> None:
+    lib = _lib()
+    v, b = dist_in.shape
+    with torch.cuda.device(dist_in.device):
+        # 3 flag words, then 2 x [V, NW] change bytes (csrc/ksp.cu)
+        flags = torch.empty(4 + -(-2 * v * ban_words(b) // 4),
+                            dtype=torch.int32, device=dist_in.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.openr_ksp_sssp(
+            dist_in.data_ptr(), dist_out.data_ptr(), nbr.data_ptr(),
+            wgt.data_ptr(), blocked.data_ptr(), bans.data_ptr(), _ptr(live),
+            _ptr(counters), _ptr(changed), flags.data_ptr(), int(root), v,
+            nbr.shape[1], b, int(max_sweeps), stream,
+        )
+    _raise(lib, err, "ksp_sssp_kernel")
+    LAUNCHES["sssp"] += 1
+
+
+def ksp_sssp(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
+             max_sweeps: int, live=None, counters=None):
+    """The masked batched SSSP of `b` jobs to fixpoint (see
+    `ksp_sssp_ref`), from `dist0` [V, b] (left as it is) or, if None,
+    from `root`; returns the distances [V, b]. `live` (int32 [1]), if
+    given, is the round's word: clear, nothing runs. `counters` (int32
+    [2], rounds and sweeps) gains the sweeps run. A CUDA tensor makes one
+    cooperative launch of `ksp_sssp_kernel`; a CPU tensor runs
+    `ksp_sssp_ref`. Neighbor ids must lie in [0, V)."""
+    i32 = torch.int32
+    _check("ksp_sssp", nbr.get_device(), (
+        ("dist0", dist0, i32), ("nbr", nbr, i32), ("wgt", wgt, i32),
+        ("blocked", blocked, torch.bool), ("bans", bans, i32),
+        ("live", live, i32), ("counters", counters, i32),
+    ))
+    v = nbr.shape[0]
+    if dist0 is not None and dist0.shape != (v, b):
+        raise ValueError(f"ksp_sssp: dist0 must be [{v}, {b}]")
+    if not 0 <= int(root) < v or max_sweeps < 1:
+        raise ValueError("ksp_sssp: root must lie in [0, V), max_sweeps >= 1")
+    _check_tables("ksp_sssp", nbr, wgt, blocked, bans, b)
+    _check_words("ksp_sssp", live, counters)
+    if nbr.device.type == "cpu":
+        return ksp_sssp_ref(dist0, nbr, wgt, blocked, bans, root, b,
+                            max_sweeps=max_sweeps, live=live,
+                            counters=counters)
+    if nbr.device.type != "cuda":
+        raise ValueError(f"ksp_sssp: no kernel for {nbr.device}")
+    start = (dist0.clone() if dist0 is not None
+             else torch.empty((v, b), dtype=i32, device=nbr.device))
+    out = torch.empty_like(start)
+    _sssp_launch(start, out, nbr, wgt, blocked, bans,
+                 -1 if dist0 is not None else int(root), max_sweeps, live,
+                 counters, None)
+    return out
+
+
 def ksp_relax(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
     """One Jacobi sweep of the masked relax over all rows (see
-    `ksp_relax_ref`). A CUDA tensor launches `ksp_relax_kernel`; a CPU
-    tensor runs `ksp_relax_ref`. Returns `changed` (int32 [1]), which is
-    cleared before the sweep. Neighbor ids must lie in [0, V)."""
+    `ksp_relax_ref`). A CUDA tensor launches `ksp_sssp_kernel` capped at
+    one sweep; a CPU tensor runs `ksp_relax_ref`. Returns `changed`
+    (int32 [1]), set to 1 if some entry fell, else 0. Neighbor ids must
+    lie in [0, V)."""
     i32 = torch.int32
     _check("ksp_relax", dist_in.get_device(), (
         ("dist_in", dist_in, i32), ("dist_out", dist_out, i32),
@@ -194,16 +313,8 @@ def ksp_relax(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
         return ksp_relax_ref(dist_in, dist_out, nbr, wgt, blocked, bans, changed)
     if dist_in.device.type != "cuda":
         raise ValueError(f"ksp_relax: no kernel for {dist_in.device}")
-    lib = _lib()
-    with torch.cuda.device(dist_in.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.openr_ksp_relax(
-            dist_in.data_ptr(), dist_out.data_ptr(), nbr.data_ptr(),
-            wgt.data_ptr(), blocked.data_ptr(), bans.data_ptr(),
-            changed.data_ptr(), v, nbr.shape[1], b, stream,
-        )
-    _raise(lib, err, "ksp_relax_kernel")
-    LAUNCHES["relax"] += 1
+    _sssp_launch(dist_in, dist_out, nbr, wgt, blocked, bans, -1, 1, None,
+                 None, changed)
     return changed
 
 
@@ -211,11 +322,19 @@ def ksp_relax(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
 
 
 def ksp_walk_ref(dist, nbr, wgt, blocked, bans, dests, root: int,
-                 max_hops: int, cost, path, hops, any_ok):
+                 max_hops: int, cost, path, hops, any_ok, *, live=None,
+                 counters=None):
     """Plain PyTorch version of `ksp_walk_kernel`: the reference's
     lock-step walk of every job over this round's `dist` [V, B], writing
     cost [B], path [B, max_hops+1] (walk order, -1 padded), hops [B], the
-    updated ban words, and `any_ok` [1] = 1 if some job found its path."""
+    updated ban words, and `any_ok` [1] = 1 if some job found its path.
+    When `live` [1] is clear it only clears `any_ok`; otherwise it adds 1
+    to `counters[0]` (rounds)."""
+    if live is not None and not int(live[0]):
+        any_ok.fill_(0)
+        return any_ok
+    if counters is not None:
+        counters[0] += 1
     v = nbr.shape[0]
     b = dests.shape[0]
     dev = dist.device
@@ -271,16 +390,19 @@ def ksp_walk_ref(dist, nbr, wgt, blocked, bans, dests, root: int,
 
 
 def ksp_walk(dist, nbr, wgt, blocked, bans, dests, root: int, max_hops: int,
-             cost, path, hops, any_ok):
-    """Every job's walk of one round (see `ksp_walk_ref`). A CUDA tensor
-    launches `ksp_walk_kernel`, which expects `path` filled with -1; a CPU
-    tensor runs `ksp_walk_ref`. Returns `any_ok` (int32 [1])."""
+             cost, path, hops, any_ok, *, live=None, counters=None):
+    """Every job's walk of one round (see `ksp_walk_ref`), a warp per job.
+    A CUDA tensor launches `ksp_walk_kernel`, which expects `path` filled
+    with -1; a CPU tensor runs `ksp_walk_ref`. `live` and `counters` as
+    in `ksp_sssp`; `any_ok` is the next round's word. Returns `any_ok`
+    (int32 [1])."""
     i32 = torch.int32
     _check("ksp_walk", dist.get_device(), (
         ("dist", dist, i32), ("nbr", nbr, i32), ("wgt", wgt, i32),
         ("blocked", blocked, torch.bool), ("bans", bans, i32),
         ("dests", dests, i32), ("cost", cost, i32), ("path", path, i32),
-        ("hops", hops, i32), ("any_ok", any_ok, i32),
+        ("hops", hops, i32), ("any_ok", any_ok, i32), ("live", live, i32),
+        ("counters", counters, i32),
     ))
     v, b = dist.shape
     if nbr.shape[0] != v or dests.shape != (b,) or cost.shape != (b,) or (
@@ -288,9 +410,11 @@ def ksp_walk(dist, nbr, wgt, blocked, bans, dests, root: int, max_hops: int,
     ):
         raise ValueError("ksp_walk: shapes disagree with dist [V, B]")
     _check_tables("ksp_walk", nbr, wgt, blocked, bans, b)
+    _check_words("ksp_walk", live, counters)
     if dist.device.type == "cpu":
         return ksp_walk_ref(dist, nbr, wgt, blocked, bans, dests, root,
-                            max_hops, cost, path, hops, any_ok)
+                            max_hops, cost, path, hops, any_ok, live=live,
+                            counters=counters)
     if dist.device.type != "cuda":
         raise ValueError(f"ksp_walk: no kernel for {dist.device}")
     lib = _lib()
@@ -300,7 +424,8 @@ def ksp_walk(dist, nbr, wgt, blocked, bans, dests, root: int, max_hops: int,
             dist.data_ptr(), nbr.data_ptr(), wgt.data_ptr(),
             blocked.data_ptr(), bans.data_ptr(), dests.data_ptr(), int(root),
             cost.data_ptr(), path.data_ptr(), hops.data_ptr(),
-            any_ok.data_ptr(), v, nbr.shape[1], b, int(max_hops), stream,
+            any_ok.data_ptr(), _ptr(live), _ptr(counters), v, nbr.shape[1],
+            b, int(max_hops), stream,
         )
     _raise(lib, err, "ksp_walk_kernel")
     LAUNCHES["walk"] += 1
@@ -316,26 +441,9 @@ def _as_tensor(x, dtype, device):
     return x.to(device=device, dtype=dtype).contiguous()
 
 
-def _sssp(nbr, wgt, blocked, bans, root: int, b: int, stats: dict):
-    """Masked batched SSSP from `root` to fixpoint, one sweep per host
-    read of the changed flag (at most V sweeps, as the reference)."""
-    v = nbr.shape[0]
-    dist = torch.full((v, b), INF_DIST, dtype=torch.int32, device=nbr.device)
-    dist[root] = 0
-    other = torch.empty_like(dist)
-    changed = torch.zeros(1, dtype=torch.int32, device=nbr.device)
-    for _ in range(v):
-        ksp_relax(dist, other, nbr, wgt, blocked, bans, changed)
-        dist, other = other, dist
-        stats["sweeps"] += 1
-        if not int(changed.item()):
-            break
-    return dist
-
-
 def ksp_edge_disjoint_dense(
     nbr, wgt, blocked, root, dests, *, k: int, max_hops: int, dist0=None,
-    device=None, stats: dict | None = None,
+    device=None, stats: dict | None = None, to_host: bool = False,
 ):
     """Returns (costs [k, B] i32, paths [k, B, max_hops+1] i32, hops
     [k, B] i32) on the tables' device: `paths[i, b]` is job b's i-th
@@ -348,8 +456,13 @@ def ksp_edge_disjoint_dense(
     given, is the unbanned distance vector from `root` under the same
     blocked semantics: round 1 has no bans, so it replaces that round's
     SSSP. The call runs on `device`: by default `nbr`'s if it is a
-    tensor, else the CUDA card. With `stats`, adds `rounds` (each ends in
-    one host read) and `sweeps` (one host read each)."""
+    tensor, else the CUDA card.
+
+    All k rounds are enqueued with no read back between them. With
+    `to_host`, the three results come back as NumPy arrays from one copy
+    of the buffer that holds them and the device counters; with `stats`,
+    adds `rounds` (walks run), `sweeps` (SSSP sweeps run) and
+    `host_reads` (1: that copy, or a copy of the counters alone)."""
     if device is None:
         device = nbr.device if isinstance(nbr, torch.Tensor) else "cuda"
     device = torch.device(device)
@@ -360,28 +473,47 @@ def ksp_edge_disjoint_dense(
     root = int(root)
     v, d_width = nbr.shape
     b = dests.shape[0]
-    st = {"rounds": 0, "sweeps": 0}
-    costs = torch.full((k, b), INF_DIST, dtype=torch.int32, device=device)
-    paths = torch.full((k, b, max_hops + 1), -1, dtype=torch.int32, device=device)
-    hops = torch.zeros((k, b), dtype=torch.int32, device=device)
+    n_len = max_hops + 1
+    # one buffer: paths | costs | hops | counters [rounds, sweeps] | the
+    # round words (word 0 set, word i+1 set by round i's walk)
+    n_paths, n_kb = k * b * n_len, k * b
+
+    def split(buf):  # (costs, paths, hops, counters) of a tensor or array
+        return (buf[n_paths : n_paths + n_kb].reshape(k, b),
+                buf[:n_paths].reshape(k, b, n_len),
+                buf[n_paths + n_kb : n_paths + 2 * n_kb].reshape(k, b),
+                buf[n_paths + 2 * n_kb : n_paths + 2 * n_kb + 2])
+
+    out = torch.full((n_paths + 2 * n_kb + 2 + k + 1,), -1, dtype=torch.int32,
+                     device=device)
+    out[n_paths : n_paths + n_kb].fill_(INF_DIST)
+    out[n_paths + n_kb :].zero_()
+    out[-(k + 1)].fill_(1)
+    costs, paths, hops, counters = split(out)
+    live = out[-(k + 1):]
     bans = torch.zeros((v, d_width, ban_words(b)), dtype=torch.int32, device=device)
-    any_ok = torch.zeros(1, dtype=torch.int32, device=device)
     if dist0 is not None:
         dist0 = _as_tensor(dist0, torch.int32, device).reshape(v)
     for i in range(k):
         if i == 0 and dist0 is not None:
             dist = dist0[:, None].expand(v, b).contiguous()
         else:
-            dist = _sssp(nbr, wgt, blocked, bans, root, b, st)
+            dist = ksp_sssp(None, nbr, wgt, blocked, bans, root, b,
+                            max_sweeps=v, live=live[i : i + 1],
+                            counters=counters)
         ksp_walk(dist, nbr, wgt, blocked, bans, dests, root, max_hops,
-                 costs[i], paths[i], hops[i], any_ok)
-        st["rounds"] += 1
-        if not int(any_ok.item()):
-            break
+                 costs[i], paths[i], hops[i], live[i + 1 : i + 2],
+                 live=live[i : i + 1], counters=counters)
+    if to_host:
+        *res, count = split(out.cpu().numpy())
+    else:
+        res = [costs, paths, hops]
+        count = counters.cpu().numpy() if stats is not None else None
     if stats is not None:
-        for key, val in st.items():
+        for key, val in (("rounds", int(count[0])), ("sweeps", int(count[1])),
+                         ("host_reads", 1)):
             stats[key] = stats.get(key, 0) + val
-    return costs, paths, hops
+    return tuple(res)
 
 
 def paths_to_host(

@@ -3,9 +3,12 @@ plain versions of its two kernels) is byte-equal to the JAX package's
 `ksp_edge_disjoint_dense` (costs, paths, hops) on the cases of
 `tests/test_ksp_kernel.py`; its dense tables, path decoding and route
 construction equal the JAX ones; each kernel step's plain version is
-checked step by step against an unpacked recomputation; and the dense
-`wgt` after a patch-journal scatter equals fresh tables of the patched
-CSR."""
+checked step by step against an unpacked recomputation; the SSSP to
+fixpoint equals the host-read loop of single sweeps (sweep count
+included) and scipy's Dijkstra on the masked graph; the device round
+words skip every round after an empty one, with rounds and sweeps
+counted as a host-read round loop counts them; and the dense `wgt`
+after a patch-journal scatter equals fresh tables of the patched CSR."""
 
 import dataclasses
 import enum
@@ -395,3 +398,302 @@ def test_jax_csr_dense_tables_carried_across(topo):
         nbr, wgt, blocked, 0, dests, k=4, max_hops=max_hops, device="cpu"
     )
     _assert_equal(got, ref)
+
+
+# ------------------------------------------------- the SSSP to fixpoint
+
+
+def _host_read_sssp(dist, nbr, wgt, blocked, bans, cap):
+    """The host-driven loop the device fixpoint replaces: one plain sweep
+    per step, one read of its changed flag; (fixpoint, sweeps)."""
+    other = torch.empty_like(dist)
+    changed = torch.zeros(1, dtype=torch.int32)
+    sweeps = 0
+    for _ in range(cap):
+        ksp.ksp_relax_ref(dist, other, nbr, wgt, blocked, bans, changed)
+        dist, other = other, dist
+        sweeps += 1
+        if not int(changed.item()):
+            break
+    return dist, sweeps
+
+
+def _scipy_masked(nbr, wgt, blocked, banned, root):
+    """scipy's Dijkstra from `root` per job on the graph of the slots
+    usable for that job (parallel slots: the lightest): [V, B] int."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    v, d = nbr.shape
+    out = np.empty((v, banned.shape[2]), np.int64)
+    for b in range(banned.shape[2]):
+        usable = (wgt < INF) & ~blocked & ~banned[:, :, b]
+        best = {}
+        for row, slot in zip(*np.nonzero(usable)):
+            key = (int(nbr[row, slot]), int(row))
+            best[key] = min(best.get(key, INF), int(wgt[row, slot]))
+        src = np.array([k[0] for k in best], np.int64)
+        dst = np.array([k[1] for k in best], np.int64)
+        w = np.array(list(best.values()), np.float64)
+        g = csr_matrix((w, (src, dst)), shape=(v, v))
+        dd = dijkstra(g, directed=True, indices=[root])[0]
+        out[:, b] = np.where(np.isinf(dd), INF, dd)
+    return out
+
+
+@pytest.mark.parametrize("d", [8, 40])
+@pytest.mark.parametrize("b", [8, 40, 64])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sssp_fixpoint_equals_host_loop_and_dijkstra(seed, b, d):
+    nbr, wgt, blocked, banned, _dist = _step_case(seed, v=64, d=d, b=b)
+    t = torch.from_numpy
+    tab = (t(nbr), t(wgt), t(blocked), ksp.pack_bans(t(banned)))
+    root = seed + 3
+    start = torch.full((64, b), INF, dtype=torch.int32)
+    start[root] = 0
+    want, want_sweeps = _host_read_sssp(start, *tab, cap=64)
+    counters = torch.zeros(2, dtype=torch.int32)
+    got = ksp.ksp_sssp(None, *tab, root, b, max_sweeps=64,
+                       live=torch.ones(1, dtype=torch.int32),
+                       counters=counters)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert counters.tolist() == [0, want_sweeps] and want_sweeps >= 2
+    np.testing.assert_array_equal(
+        got.numpy(), _scipy_masked(nbr, wgt, blocked, banned, root))
+
+
+@pytest.mark.parametrize("d", [512, 2048])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sssp_fixpoint_hub_rows_equals_host_loop_and_dijkstra(seed, d):
+    """Rows far wider than a warp's staging on the card (hubs of D 512
+    and 2048 slots, every 8th row; the others keep 8 slots): the
+    fixpoint equals the host-read loop, sweep count included, and
+    scipy's Dijkstra."""
+    b, v = 8, 64
+    nbr, wgt, blocked, banned, _dist = _step_case(seed, v=v, d=d, b=b)
+    wgt[(np.arange(v) % 8 != 0)[:, None] & (np.arange(d) >= 8)[None, :]] = INF
+    t = torch.from_numpy
+    tab = (t(nbr), t(wgt), t(blocked), ksp.pack_bans(t(banned)))
+    root = 2 * seed + 1
+    start = torch.full((v, b), INF, dtype=torch.int32)
+    start[root] = 0
+    want, want_sweeps = _host_read_sssp(start, *tab, cap=v)
+    counters = torch.zeros(2, dtype=torch.int32)
+    got = ksp.ksp_sssp(None, *tab, root, b, max_sweeps=v, counters=counters)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert counters.tolist() == [0, want_sweeps] and want_sweeps >= 2
+    np.testing.assert_array_equal(
+        got.numpy(), _scipy_masked(nbr, wgt, blocked, banned, root))
+
+
+@pytest.mark.parametrize("k", [2, 16])
+def test_ksp_hub_rows_equal_jax(k):
+    """`hub_and_spoke(2, 300)`: each hub's row has 301 slots (D 512), wider
+    than a warp's staging on the card at 40 jobs; from a spoke to 40
+    spokes, k rounds (2 edge-disjoint paths, so round 3 ends a k = 16
+    call), equal to the JAX package's."""
+    from openr_tpu.decision.linkstate import LinkState as JaxLinkState
+    from openr_tpu.utils import topogen as jtopo
+
+    adj, _ = jtopo.hub_and_spoke(2, 300)
+    jls = JaxLinkState()
+    for db in adj:
+        jls.update_adjacency_db(db)
+    csr = jls.to_csr()
+    nbr, wgt = csr.dense_tables()
+    assert nbr.shape[1] == 512
+    root = csr.name_to_id[adj[5].this_node_name]
+    blocked = ksp.build_ksp_blocked(nbr, csr.node_overloaded, root)
+    dests = pad_dests(np.arange(10, 290, 7, dtype=np.int32), root)
+    max_hops = csr.padded_nodes - 1
+    ref = jksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, np.int32(root),
+                                       dests, k=k, max_hops=max_hops)
+    stats: dict = {}
+    got = ksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, root, dests, k=k,
+                                      max_hops=max_hops, device="cpu",
+                                      stats=stats)
+    _assert_equal(got, ref)
+    assert stats["rounds"] == min(k, 3)
+    assert int((got[0][1] < INF).sum()) == 40
+
+
+def _line(n):
+    """A line 0 - 1 - ... - n-1 of unit metrics as dense tables."""
+    edges = []
+    for i in range(n - 1):
+        edges += [(i, i + 1, 1), (i + 1, i, 1)]
+    return _line_tables(n, edges)
+
+
+@pytest.mark.parametrize("from_dist0", [False, True])
+@pytest.mark.parametrize("max_sweeps", [1, 2, 3])
+def test_sssp_max_sweeps_runs_exactly_that_many(max_sweeps, from_dist0):
+    """A cap below the fixpoint's sweep count: exactly `max_sweeps`
+    Jacobi sweeps of `ksp_relax_ref`, counted."""
+    nbr, wgt = _line(12)
+    t = torch.from_numpy
+    blocked = torch.zeros(nbr.shape, dtype=torch.bool)
+    bans = torch.zeros((*nbr.shape, 1), dtype=torch.int32)
+    tab = (t(nbr), t(wgt), blocked, bans)
+    dist = torch.full((12, 8), INF, dtype=torch.int32)
+    dist[0] = 0
+    dist0 = None
+    if from_dist0:  # one sweep in already, a job that started elsewhere
+        dist[1] = 1
+        dist[5, 3] = 0
+        dist0 = dist.clone()
+    want = dist.clone()
+    changed = torch.zeros(1, dtype=torch.int32)
+    for _ in range(max_sweeps):
+        out = torch.empty_like(want)
+        ksp.ksp_relax_ref(want, out, *tab, changed)
+        assert int(changed.item()) == 1
+        want = out
+    counters = torch.zeros(2, dtype=torch.int32)
+    got = ksp.ksp_sssp(dist0, *tab, 0, 8, max_sweeps=max_sweeps,
+                       counters=counters)
+    assert torch.equal(got, want) and int(counters[1]) == max_sweeps
+    if dist0 is not None:
+        assert torch.equal(dist0, dist)  # the start is left as it is
+
+
+def _host_read_rounds(nbr, wgt, blocked, root, dests, k, max_hops, dist0):
+    """The host-driven round loop: each SSSP by `_host_read_sssp`, one
+    read of the walk's flag per round; (costs, paths, hops, rounds,
+    sweeps)."""
+    t = torch.from_numpy
+    nbr, wgt, blocked, dests = t(nbr), t(wgt), t(blocked), t(dests)
+    v, b = nbr.shape[0], dests.shape[0]
+    bans = torch.zeros((v, nbr.shape[1], ksp.ban_words(b)), dtype=torch.int32)
+    costs = torch.full((k, b), INF, dtype=torch.int32)
+    paths = torch.full((k, b, max_hops + 1), -1, dtype=torch.int32)
+    hops = torch.zeros((k, b), dtype=torch.int32)
+    ok = torch.zeros(1, dtype=torch.int32)
+    rounds = sweeps = 0
+    for i in range(k):
+        if i == 0 and dist0 is not None:
+            dist = t(dist0)[:, None].expand(v, b).contiguous()
+        else:
+            start = torch.full((v, b), INF, dtype=torch.int32)
+            start[root] = 0
+            dist, n = _host_read_sssp(start, nbr, wgt, blocked, bans, v)
+            sweeps += n
+        ksp.ksp_walk_ref(dist, nbr, wgt, blocked, bans, dests, root,
+                         max_hops, costs[i], paths[i], hops[i], ok)
+        rounds += 1
+        if not int(ok.item()):
+            break
+    return costs, paths, hops, rounds, sweeps
+
+
+@pytest.mark.parametrize("dist0", [False, True])
+@pytest.mark.parametrize("case", ["line", "ladder"])
+def test_round_words_skip_every_round_after_an_empty_one(case, dist0,
+                                                         monkeypatch):
+    """k = 16 on graphs with 1 (a line: round 2 finds nothing) and 2 (the
+    parallel-capacity ladder: round 3 finds nothing) edge-disjoint paths:
+    no sweep runs after the empty round, the device counters equal the
+    host-read loop's rounds and sweeps, and the outputs equal it and the
+    JAX package's."""
+    if case == "line":
+        nbr, wgt = _line(5)
+        dests, n_paths = np.array([4, 2], np.int32), 1
+    else:
+        nbr, wgt = _line_tables(4, [
+            (0, 1, 1), (0, 2, 1), (1, 0, 1), (1, 3, 1), (2, 0, 1),
+            (2, 3, 1), (3, 1, 1), (3, 2, 1)])
+        dests, n_paths = np.array([3], np.int32), 2
+    v = nbr.shape[0]
+    blocked = ksp.build_ksp_blocked(nbr, np.zeros(v, bool), 0)
+    d0 = None
+    if dist0:
+        start = torch.full((v, 1), INF, dtype=torch.int32)
+        start[0] = 0
+        fix, _n = _host_read_sssp(start, torch.from_numpy(nbr),
+                                  torch.from_numpy(wgt),
+                                  torch.from_numpy(blocked),
+                                  torch.zeros((*nbr.shape, 1),
+                                              dtype=torch.int32), v)
+        d0 = fix[:, 0].numpy().copy()
+    args = (nbr, wgt, blocked, np.int32(0), dests)
+    want = _host_read_rounds(*args[:3], 0, dests, 16, v - 1, d0)
+    assert want[3] == n_paths + 1  # the empty round ends the loop
+    sweeps_run = []
+    plain = ksp.ksp_relax_ref
+
+    def counted(*a):
+        sweeps_run.append(1)
+        return plain(*a)
+
+    monkeypatch.setattr(ksp, "ksp_relax_ref", counted)
+    stats: dict = {}
+    got = ksp.ksp_edge_disjoint_dense(*args, k=16, max_hops=v - 1,
+                                      dist0=d0, device="cpu", stats=stats)
+    assert stats == {"rounds": want[3], "sweeps": want[4], "host_reads": 1}
+    assert len(sweeps_run) == want[4]
+    _assert_equal(got, want[:3])
+    _assert_equal(got, jksp.ksp_edge_disjoint_dense(
+        *args, k=16, max_hops=v - 1, dist0=d0))
+
+
+def test_host_reads_one_per_call_and_to_host():
+    _adj, _names, nbr, wgt, blocked, _over, dests, _real = _case(0)
+    kw = dict(k=4, max_hops=N - 1, device="cpu")
+    stats: dict = {}
+    dev = ksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, 0, dests,
+                                      stats=stats, **kw)
+    assert stats["host_reads"] == 1
+    host = ksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, 0, dests,
+                                       stats=stats, to_host=True, **kw)
+    assert stats["host_reads"] == 2 and stats["rounds"] >= 2
+    for g, h in zip(dev, host):
+        assert isinstance(h, np.ndarray) and h.dtype == np.int32
+        np.testing.assert_array_equal(g.numpy(), h)
+    none: dict = {}
+    ksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, 0, dests, **kw)
+    assert none == {}
+
+
+def test_walk_ref_honours_its_round_word():
+    nbr, wgt, blocked, banned, _dist = _step_case(3, b=8)
+    t = torch.from_numpy
+    bans = ksp.pack_bans(t(banned))
+    dist, _n = _host_read_sssp(
+        torch.where(torch.arange(64)[:, None] == 2, 0, INF).to(torch.int32)
+        .expand(64, 8).contiguous(), t(nbr), t(wgt), t(blocked), bans, 64)
+    dests = torch.arange(8, dtype=torch.int32) + 10
+    outs = [torch.full((8,), 5, dtype=torch.int32),
+            torch.full((8, 64), -1, dtype=torch.int32),
+            torch.full((8,), 5, dtype=torch.int32)]
+    counters = torch.zeros(2, dtype=torch.int32)
+    ok = torch.ones(1, dtype=torch.int32)
+    before = bans.clone()
+    ksp.ksp_walk(dist, t(nbr), t(wgt), t(blocked), bans, dests, 2, 63, *outs,
+                 ok, live=torch.zeros(1, dtype=torch.int32), counters=counters)
+    assert int(ok) == 0 and counters.tolist() == [0, 0]
+    assert torch.equal(bans, before) and int(outs[0][0]) == 5
+    ksp.ksp_walk(dist, t(nbr), t(wgt), t(blocked), bans, dests, 2, 63, *outs,
+                 ok, live=torch.ones(1, dtype=torch.int32), counters=counters)
+    assert int(ok) == 1 and counters.tolist() == [1, 0]
+    assert not torch.equal(bans, before) and (outs[0] < INF).any()
+
+
+def test_sssp_wrapper_checks_inputs():
+    nbr, wgt, blocked, banned, dist = _step_case(0, b=8)
+    t = torch.from_numpy
+    tab = (t(nbr), t(wgt), t(blocked), ksp.pack_bans(t(banned)))
+    with pytest.raises(ValueError):  # dist0 of the wrong width
+        ksp.ksp_sssp(t(dist)[:, :4].contiguous(), *tab, 0, 8, max_sweeps=3)
+    with pytest.raises(ValueError):
+        ksp.ksp_sssp(None, *tab, 64, 8, max_sweeps=3)  # root outside V
+    with pytest.raises(ValueError):
+        ksp.ksp_sssp(None, *tab, 0, 8, max_sweeps=0)
+    with pytest.raises(ValueError):  # counters must be [rounds, sweeps]
+        ksp.ksp_sssp(None, *tab, 0, 8, max_sweeps=3,
+                     counters=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        ksp.ksp_sssp(None, *tab, 0, 8, max_sweeps=3,
+                     live=torch.ones(1, dtype=torch.int64))
+    before = dict(ksp.LAUNCHES)
+    ksp.ksp_sssp(None, *tab, 0, 8, max_sweeps=3)
+    assert ksp.LAUNCHES == before  # CPU: the plain version, no kernel
