@@ -6,6 +6,13 @@ solve, the warm path and the RIB of every prefix shape at full size and
 checks their answers.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --old PARENT/openr_tpu_torch/csrc
+
+With `--old`, the relax and election kernels built from another
+checkout's sources (the parent commit's, unpacked with `git archive`)
+are timed beside this checkout's at the same calls, in turns (old, new,
+new, old): [3]'s er100k calls, the hub root's calls, the probe's B1
+sweep, [8c]'s and [9]'s elections and [9]'s three relax calls.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -17,7 +24,9 @@ Phases (any failure exits non-zero and prints no result line):
   3. kernels vs plain on the card, exact int32 equality of dist, the
      changed count, row_flag and rows_changed: every vectorised
      specialisation (W, B in {8, 16, 32, 64}) and the generic kernel on
-     shapes outside that table (W in {1, 4, 128}, B = 128), on random
+     shapes outside that table (W 1 to 512, B 8 to 512, both of its
+     paths: 16-byte strips and the scalar edge for B or W not a multiple
+     of 4), on random
      tables (dense row0 chunks, a Jacobi sweep, dst_rows with dead-slot
      repeats, src_rows indirection, overload mask on/off, INF padding,
      flags an earlier launch set); then both designs at the main path's
@@ -78,7 +87,20 @@ Phases (any failure exits non-zero and prints no result line):
      nodes, 1 001 KSP prefixes in chunks of 256 jobs, k=16, LFA on):
      p50 of 3 calls, the KSP stats and kernel times and the same checks
      at the path's first calls as (b), its routes equal to the CPU
-     path's on the same states with 16 KSP prefixes kept.
+     path's on the same states with 16 KSP prefixes kept;
+  9. BASELINE config 2 at full width: `fat_tree(90, metric=10)` (10 125
+     nodes, 729 000 directed adjacencies, a real `LinkState`) with
+     `ramp_prefix_state(names, 40 000, anycast_every=4)` (20 000
+     election slots), the loopbacks and one UCMP /24 per pod (ToRs 0 and
+     1 at weights 1 and 3), from a core (node-0) and an aggregation
+     switch (node-2025), both of 90 neighbors (B = 128): every relax
+     launch on the generic kernel, the election on `elect_seg_kernel`;
+     per root the columns of the root and two neighbors against scipy,
+     the first hops against NumPy, the RouteDatabase equal to the CPU
+     path's, the device election equal to NumPy's; solve and
+     compute_routes p50, phases, sweeps; the generic kernel at the
+     path's dense, overflow and tail calls and the election at 20 000
+     slots, timed with their bounds.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`;
 the last line is `{"ok": true, "device": {...}}`.
@@ -105,6 +127,9 @@ INF = 1 << 30
 WIDTHS = (8, 16, 32, 64)
 GENERIC_SHAPES = [(w, b) for w in (1, 4, 128) for b in (8, 32, 128)] + [
     (8, 128), (32, 128)
+] + [  # a fabric's wide shapes, and the scalar edge path's odd ones
+    (64, 256), (256, 256), (512, 128), (128, 512), (512, 512), (24, 48),
+    (6, 12), (8, 10),
 ]
 TIMING_REPS = 30
 #: (V, D) of [8a]'s random KSP tables: resident, resident, streamed, then
@@ -242,10 +267,11 @@ def graph_us(launch, restore, reps: int) -> float:
 
 #: the hand-kernel sources, each built by one nvcc (all started together)
 SOURCES = ("relax", "election", "ksp")
-#: kernels `-Xptxas -v` must report per source: relax's generic kernel and
-#: a vec kernel per (W, B, overload) specialisation; ksp's SSSP kernel, its
-#: wide-row twin and the walk
-PTXAS_KERNELS = {"relax": 1 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 3}
+#: kernels `-Xptxas -v` must report per source: relax's generic kernel
+#: (strips 0, 1, 2, 4, overload off/on) and a vec kernel per (W, B,
+#: overload) specialisation; ksp's SSSP kernel, its wide-row twin and the
+#: walk
+PTXAS_KERNELS = {"relax": 8 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 3}
 
 
 def start_ptxas_report(cuda_build, name: str):
@@ -270,7 +296,7 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(relax_(?:vec|generic)_kernel)"
-                          r"(?:ILi(\d+)ELi(\d+)ELb(\d)E)?", m.group(1))
+                          r"(?:ILi(\d+)E(?:Li(\d+)E)?Lb(\d)E)?", m.group(1))
             named = re.search(r"(elect_seg_kernel|ksp_sssp_kernel|"
                               r"ksp_walk_kernel)(ILb1E)?", m.group(1))
             cur = (k.group(1) if k else named.group(1) if named
@@ -279,7 +305,9 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
                 cur += "<wide rows>"
             if k is not None and k.group(2):
                 over = "over" if k.group(4) == "1" else "no over"
-                cur += f"<{k.group(2)},{k.group(3)},{over}>"
+                shape = (f"{k.group(2)},{k.group(3)}" if k.group(3)
+                         else f"strips {k.group(2)}")
+                cur += f"<{shape},{over}>"
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -294,21 +322,78 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
     return rows
 
 
-def build_all(cuda_build, modules) -> None:
+#: the sources `--old` builds from another checkout, by wrapper module
+OLD_SOURCES = ("relax", "election")
+
+
+def start_old_build(cuda_build, src: Path):
+    """Start nvcc on another checkout's `src` into a shared library, with
+    the flags of this checkout's builds; returns (process, library, dir)."""
+    tmp = tempfile.mkdtemp(prefix=f"old_{src.stem}_")
+    out = Path(tmp) / f"libold_{src.stem}.so"
+    cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+           str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out, tmp
+
+
+def load_old(module, path: Path):
+    """The other checkout's library, its entry points bound with this
+    checkout's ctypes types (those it has)."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in module.ENTRY_POINTS.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+    return lib
+
+
+class using_lib:
+    """Within the block, `module`'s wrappers launch the kernels of `lib`
+    (an `--old` build); None leaves this checkout's."""
+
+    def __init__(self, module, lib):
+        self.module, self.lib, self.keep = module, lib, None
+
+    def __enter__(self):
+        if self.lib is not None:
+            self.keep, self.module._LIB = self.module._LIB, self.lib
+
+    def __exit__(self, *exc):
+        if self.lib is not None:
+            self.module._LIB = self.keep
+
+
+def build_all(cuda_build, modules, old_dir: Path | None = None) -> dict:
     """Builds every kernel library and its `-Xptxas -v` cubin, one nvcc
-    per source and report, all started together; prints the report."""
+    per source and report (and per `--old` source), all started
+    together; prints the report. Returns the `--old` libraries by
+    source name (none without `old_dir`)."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
     reports = {name: start_ptxas_report(cuda_build, name) for name in SOURCES}
+    olds = {name: start_old_build(cuda_build, old_dir / f"{name}.cu")
+            for name in (OLD_SOURCES if old_dir else ())}
+    old_libs = {}
     try:
         with ThreadPoolExecutor(len(modules)) as pool:
             for fut in [pool.submit(m.build) for m in modules]:
                 fut.result()
         outs = {name: proc.communicate(timeout=600)[0]
                 for name, (proc, _tmp) in reports.items()}
+        by_name = {m.__name__.rsplit(".", 1)[-1]: m for m in modules}
+        for name, (proc, lib, _tmp) in olds.items():
+            text = proc.communicate(timeout=600)[0]
+            if proc.returncode != 0:
+                fail(f"nvcc failed for the --old {name}.cu:\n{text}")
+            old_libs[name] = load_old(by_name[name], lib)
     finally:
-        for proc, tmp in reports.values():
+        for proc, tmp in list(reports.values()) + [
+                (p, t) for p, _l, t in olds.values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -328,6 +413,10 @@ def build_all(cuda_build, modules) -> None:
         for kname, regs, smem, st, ld in ptx:
             log(f"[2] ptxas {kname}: {regs} registers, {smem} B smem, spill "
                 f"stores {st} B, spill loads {ld} B")
+    if old_libs:
+        log(f"[2] --old {', '.join(n + '.cu' for n in old_libs)} built from "
+            f"{old_dir}")
+    return old_libs
 
 
 # ------------------------------------------------------------ phase 3
@@ -428,31 +517,34 @@ def relax_bytes(w, kind, n, b, dist_rows_read):
     return bytes_
 
 
-def main_path_calls(relax, solver, ls, tables):
-    """Both designs at the main path's three calls on the 100k tables:
-    exact against the plain version, then timed on the device. Returns
-    ({kind: numbers}, worst |diff| by design)."""
+def path_calls(solver, ls, tables, me: str = "node-0"):
+    """The main path's three relax calls from root `me` on `tables`: a
+    dense Gauss-Seidel chunk (the last), the overflow table, and 8 192
+    compacted tail rows (random, dead-padded), on the final distances
+    with every reachable entry raised by up to 200, so each call lowers
+    most of its rows, as the early sweeps of the main path do. Returns
+    (dist_in, roots, {kind: (nbr, wgt, kwargs)})."""
+    from openr_tpu_torch.ops.spf_split import pick_gs_chunks
+
     vp = tables["vp"]
-    first = solver.solve(ls, "node-0")
+    first = solver.solve(ls, me)
     dist_final = first[1].device_tensor
     b = dist_final.shape[1]
     g = torch.Generator(device=DEVICE).manual_seed(7)
     bump = torch.randint(0, 200, dist_final.shape, generator=g,
                          device=DEVICE, dtype=torch.int32)
-    # every reachable entry raised: each launch lowers most of its rows,
-    # as the early sweeps of the main path do
     dist_in = torch.clamp_max(dist_final + bump, INF).contiguous()
+    my_id = first[0].name_to_id[me]
     roots = torch.tensor(
-        [0] + list(first[3]) + [0] * (b - 1 - len(first[3])),
+        [my_id] + list(first[3]) + [my_id] * (b - 1 - len(first[3])),
         dtype=torch.int32, device=DEVICE,
     )
-    from openr_tpu_torch.ops.spf_split import pick_gs_chunks
-
     csz = vp // pick_gs_chunks(vp)
+    n_tail = min(8192, vp)
     rows = torch.unique(
-        torch.randint(0, vp - 1, (8192,), generator=g, device=DEVICE)
+        torch.randint(0, vp - 1, (n_tail,), generator=g, device=DEVICE)
     ).to(torch.int32)
-    rows = torch.cat([rows, torch.full((8192 - rows.numel(),), vp - 1,
+    rows = torch.cat([rows, torch.full((n_tail - rows.numel(),), vp - 1,
                                        dtype=torch.int32, device=DEVICE)])
     calls = {
         "dense": (tables["base_nbr"], tables["base_wgt"],
@@ -462,24 +554,56 @@ def main_path_calls(relax, solver, ls, tables):
         "tail": (tables["base_nbr"], tables["base_wgt"],
                  dict(src_rows=rows, dst_rows=rows)),
     }
-    worst = {"vec": 0, "generic": 0}
+    return dist_in, roots, calls
+
+
+def check_calls(relax, dist_in, roots, calls, wrappers) -> dict:
+    """Each wrapper (label -> (fn, lib)) against the plain version at
+    each call: worst |diff| by label."""
+    vp = dist_in.shape[0]
+    worst = {label: 0 for label in wrappers}
     zero_flags = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
     for kind, (nbr, wgt, kw) in calls.items():
-        for fn, design in ((relax.relax_rows,
-                            relax.design_for(nbr.shape[1], b)),
-                           (relax.relax_rows_generic, "generic")):
-            err, newly = compare(fn, relax, dist_in, dist_in, nbr, wgt,
-                                 roots, None, zero_flags, **kw)
-            worst[design] = max(worst[design], err)
+        for label, (fn, lib) in wrappers.items():
+            with using_lib(relax, lib):
+                err, newly = compare(fn, relax, dist_in, dist_in, nbr, wgt,
+                                     roots, None, zero_flags, **kw)
+            worst[label] = max(worst[label], err)
             if newly == 0:
                 fail(f"main-path call {kind} lowered no row")
-    log(f"[3] both designs vs plain at the main path's calls: max |diff| "
-        f"{worst}")
-    if any(worst.values()):
-        fail(f"relax kernels disagree at main-path shapes ({worst})")
+    return worst
 
-    log(f"[3] clocks before timing (sm MHz, W, C): "
-        f"{smi('clocks.sm,power.draw,temperature.gpu')}")
+
+def call_work(nbr, wgt, kw, b):
+    """(rows n, bytes, operations, L2 gather bytes) of one relax call:
+    `relax_bytes` with each distinct gathered dist row once; four
+    integer operations, and one gathered B-wide row, per finite slot."""
+    w = nbr.shape[1]
+    kind = ("dense" if "row0" in kw else
+            "tail" if "src_rows" in kw else "overflow")
+    n = kw.get("n") or next(
+        v.shape[0] for k, v in kw.items() if k.endswith("rows"))
+    if "src_rows" in kw:
+        sel = nbr[kw["src_rows"].long()]
+        swgt = wgt[kw["src_rows"].long()]
+    else:
+        r0 = kw.get("row0", 0)
+        sel, swgt = nbr[r0:r0 + n], wgt[r0:r0 + n]
+    valid = swgt < INF
+    distinct = int(torch.unique(sel[valid]).numel())
+    n_valid = int(valid.sum().item())
+    return n, relax_bytes(w, kind, n, b, distinct), n_valid * b * 4, \
+        n_valid * b * 4
+
+
+def time_calls(relax, dist_in, roots, calls, variants, tag) -> dict:
+    """Each variant (label -> (wrapper, profiler name, lib)) at each
+    call, in turns (the labels, then the same reversed), timed by CUPTI
+    and by CUDA-graph replay with `out` and the flags restored before
+    every launch; with the call's bound and the plain version's time.
+    The dense chunk relaxes in place; overflow and tail read a pre-round
+    snapshot, as on the main path."""
+    vp, b = dist_in.shape
     work = dist_in.clone()
     flags = torch.zeros(vp + 1, dtype=torch.int32, device=DEVICE)
     fl = dict(row_flag=flags[:vp], rows_changed=flags[vp:])
@@ -488,89 +612,111 @@ def main_path_calls(relax, solver, ls, tables):
         work.copy_(dist_in)
         flags.zero_()
 
+    labels = list(variants)
     out = {}
     for kind, (nbr, wgt, kw) in calls.items():
         w = nbr.shape[1]
-        # the dense chunk relaxes in place; overflow and tail read a
-        # pre-round snapshot, as on the main path
         src = work if kind == "dense" else dist_in
-        wrappers = {"vec": relax.relax_rows,
-                    "generic": relax.relax_rows_generic}
-        if relax.design_for(w, b) != "vec":
-            fail(f"main-path call {kind} (W={w}, B={b}) has no "
-                 "specialisation to time")
-        t = {"vec": [], "generic": [], "vec_graph": [], "generic_graph": []}
-        for design in ("generic", "vec", "vec", "generic"):
-            fn = wrappers[design]
+        t = {lb: [] for lb in labels}
+        tg = {lb: [] for lb in labels}
+        for lb in labels + labels[::-1]:
+            fn, kname, lib = variants[lb]
 
             def launch(fn=fn):
                 fn(src, work, nbr, wgt, roots, None, **fl, **kw)
 
-            t[design].append(cupti_us(
-                launch, restore, relax.KERNEL_NAMES[design], TIMING_REPS))
-            t[design + "_graph"].append(
-                graph_us(launch, restore, TIMING_REPS))
+            with using_lib(relax, lib):
+                t[lb].append(cupti_us(launch, restore, kname, TIMING_REPS))
+                tg[lb].append(graph_us(launch, restore, TIMING_REPS))
         p_ms = cuda_ms(lambda: relax.relax_rows_ref(
             src, work, nbr, wgt, roots, None, **fl, **kw))
-        n = kw.get("n") or next(
-            v.shape[0] for k, v in kw.items() if k.endswith("rows"))
-        if "src_rows" in kw:
-            sel = nbr[kw["src_rows"].long()]
-            swgt = wgt[kw["src_rows"].long()]
-        else:
-            r0 = kw.get("row0", 0)
-            sel, swgt = nbr[r0:r0 + n], wgt[r0:r0 + n]
-        valid = swgt < INF
-        distinct = int(torch.unique(sel[valid]).numel())
-        nbytes = relax_bytes(w, kind, n, b, distinct)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-        ops = int(valid.sum().item()) * b * 4
-        t_ops = ops / INT32_OPS_PER_S * 1e6
-        bound_us = max(t_bytes, t_ops)
-        res = dict(n=n, w=w, b=b, bytes=nbytes, ops=ops, bound_us=bound_us,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   plain_ms=p_ms)
-        for design in ("vec", "generic"):
-            cu = [x for x in t[design] if x is not None]
-            gr = statistics.fmean(t[design + "_graph"])
-            res[design] = dict(
-                cupti_us=statistics.fmean(cu) if cu else None,
-                graph_us=gr, samples=t[design],
-                graph_samples=t[design + "_graph"],
-            )
-            res[design]["us"] = res[design]["cupti_us"] or gr
-            res[design]["bound_share"] = bound_us / res[design]["us"]
+        n, nbytes, ops, l2 = call_work(nbr, wgt, kw, b)
+        b_ms, b_by = bound(nbytes, ops)
+        res = dict(n=n, w=w, b=b, bytes=nbytes, ops=ops, l2_bytes=l2,
+                   bound_us=b_ms * 1e3, bound_by=b_by, plain_ms=p_ms)
+        for lb in labels:
+            cu = [x for x in t[lb] if x is not None]
+            gr = statistics.fmean(tg[lb])
+            us = statistics.fmean(cu) if cu else gr
+            res[lb] = dict(cupti_us=statistics.fmean(cu) if cu else None,
+                           graph_us=gr, samples=t[lb], graph_samples=tg[lb],
+                           us=us, bound_share=b_ms * 1e3 / us,
+                           l2_tbs=l2 / us / 1e6)
         out[kind] = res
-        v, gn = res["vec"], res["generic"]
-        log(f"[3] {kind}: n={n} W={w} B={b}; generic "
-            f"{gn['cupti_us']} us CUPTI ({gn['graph_us']:.3f} graph); vec "
-            f"{v['cupti_us']} us CUPTI ({v['graph_us']:.3f} graph); bound "
-            f"{bound_us:.3f} us by {res['bound_by']} ({nbytes} B, {ops} "
-            f"int ops); share of bound generic {gn['bound_share']:.3f}, "
-            f"vec {v['bound_share']:.3f}; vec/generic "
-            f"{v['us'] / gn['us']:.3f}; plain {p_ms:.4f} ms")
-        log(f"[3]   samples (generic, vec, vec, generic order) CUPTI "
-            f"generic {t['generic']}, vec {t['vec']}; graph generic "
-            f"{t['generic_graph']}, vec {t['vec_graph']}")
+        log(f"[{tag}] {kind}: n={n} W={w} B={b}; bound {b_ms * 1e3:.3f} us "
+            f"by {b_by} ({nbytes} B, {ops} int ops); L2 gathers {l2} B; "
+            f"plain {p_ms:.4f} ms")
+        for lb in labels:
+            r = res[lb]
+            log(f"[{tag}]   {lb}: {r['cupti_us']} us CUPTI "
+                f"({r['graph_us']:.3f} graph), share of bound "
+                f"{r['bound_share']:.3f}, L2 gathers {r['l2_tbs']:.2f} TB/s;"
+                f" samples in turns CUPTI {t[lb]}, graph "
+                f"{[round(x, 3) for x in tg[lb]]}")
+    return out
+
+
+def generic_variants(relax, old_libs) -> dict:
+    """The generic kernel of this checkout and, with `--old`, the other
+    checkout's, as `time_calls` variants."""
+    name = relax.KERNEL_NAMES["generic"]
+    out = {"generic": (relax.relax_rows_generic, name, None)}
+    if "relax" in old_libs:
+        out["old generic"] = (relax.relax_rows_generic, name,
+                              old_libs["relax"])
+    return out
+
+
+def main_path_calls(relax, solver, ls, tables, old_libs):
+    """Both designs (and the `--old` generic kernel) at the main path's
+    three calls on the 100k tables: exact against the plain version,
+    then timed on the device. Returns ({kind: numbers}, worst |diff| by
+    design)."""
+    dist_in, roots, calls = path_calls(solver, ls, tables)
+    b = dist_in.shape[1]
+    for kind, (nbr, _wgt, _kw) in calls.items():
+        if relax.design_for(nbr.shape[1], b) != "vec":
+            fail(f"main-path call {kind} (W={nbr.shape[1]}, B={b}) has no "
+                 "specialisation to time")
+    wrappers = {"vec": (relax.relax_rows, None),
+                "generic": (relax.relax_rows_generic, None)}
+    if "relax" in old_libs:
+        wrappers["old generic"] = (relax.relax_rows_generic,
+                                   old_libs["relax"])
+    worst = check_calls(relax, dist_in, roots, calls, wrappers)
+    log(f"[3] both designs vs plain at the main path's calls: max |diff| "
+        f"{worst}")
+    if any(worst.values()):
+        fail(f"relax kernels disagree at main-path shapes ({worst})")
+    log(f"[3] clocks before timing (sm MHz, W, C): "
+        f"{smi('clocks.sm,power.draw,temperature.gpu')}")
+    variants = dict(generic_variants(relax, old_libs),
+                    vec=(relax.relax_rows, relax.KERNEL_NAMES["vec"], None))
+    out = time_calls(relax, dist_in, roots, calls, variants, "3")
+    for kind, res in out.items():
+        log(f"[3] {kind}: vec/generic "
+            f"{res['vec']['us'] / res['generic']['us']:.3f}")
     log(f"[3] clocks after timing (sm MHz, W, C): "
         f"{smi('clocks.sm,power.draw,temperature.gpu')}")
+    worst.pop("old generic", None)
     return out, worst
 
 
 # ------------------------------------------------------------ phase 4
 
 
-def check_solve(csr, solved, rdb, cols: int, tag: str) -> None:
-    """The root and its first `cols - 1` neighbor columns against scipy's
-    Dijkstra, their first hops against a NumPy recomputation, and one
-    unicast route per other node."""
+def check_solve(csr, solved, rdb, cols: int, tag: str,
+                me: str = "node-0", n_routes: int | None = None) -> None:
+    """The root `me` and its first `cols - 1` neighbor columns against
+    scipy's Dijkstra, their first hops against a NumPy recomputation, and
+    `n_routes` unicast routes (default: one per other node)."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
 
     _csr, dist, fh, nbr_ids, _lfa = solved
     n_live = csr.num_nodes
     e = int(csr.num_edges)
-    my_id = _csr.name_to_id["node-0"]
+    my_id = _csr.name_to_id[me]
     src_ids = [my_id] + list(nbr_ids[: cols - 1])
     graph = csr_matrix(
         (csr.edge_metric[:e].astype(np.float64),
@@ -592,9 +738,10 @@ def check_solve(csr, solved, rdb, cols: int, tag: str) -> None:
     )
     if not np.array_equal(fh[: len(src_ids) - 1, :n_live], fh_ref):
         fail(f"{tag}: first-hop bits disagree with the NumPy recomputation")
-    if len(rdb.unicast_routes) != n_live - 1:
+    want = n_live - 1 if n_routes is None else n_routes
+    if len(rdb.unicast_routes) != want:
         fail(f"{tag}: {len(rdb.unicast_routes)} unicast routes, expected "
-             f"{n_live - 1}")
+             f"{want}")
 
 
 def path_designs(relax, tables, b) -> set[str]:
@@ -603,10 +750,11 @@ def path_designs(relax, tables, b) -> set[str]:
             relax.design_for(tables["ov_nbr"].shape[1], b)}
 
 
-def phase4_hub(relax) -> dict:
+def phase4_hub(relax, old_libs) -> dict:
     """The main path at a shape outside the specialisation table: a hub
     router's RIB (101 neighbors, B = 128). Returns the launches by
-    design from this run (counts set to 0 just before it)."""
+    design from this run (counts set to 0 just before it); with `--old`,
+    then times both generic kernels at the hub's calls."""
     from openr_tpu_torch import LinkState, PrefixState, TorchSpfSolver
     from openr_tpu_torch.utils.topogen import hub_and_spoke
 
@@ -634,6 +782,15 @@ def phase4_hub(relax) -> dict:
     log(f"[4] hub root: {csr.num_nodes} nodes, B={b}, designs {designs}; "
         f"launches {launches}; all {len(solved[3]) + 1} columns vs scipy, "
         f"first hops and {len(rdb.unicast_routes)} routes: ok")
+    if "relax" in old_libs:
+        tables = solver._device_arrays(csr)
+        dist_in, roots, calls = path_calls(solver, ls, tables)
+        variants = generic_variants(relax, old_libs)
+        worst = check_calls(relax, dist_in, roots, calls,
+                            {k: (v[0], v[2]) for k, v in variants.items()})
+        if any(worst.values()):
+            fail(f"hub root: generic kernels disagree with plain ({worst})")
+        time_calls(relax, dist_in, roots, calls, variants, "4 hub")
     return launches
 
 
@@ -844,16 +1001,32 @@ def phase5_warm(relax, shape4) -> dict:
 # ------------------------------------------------------------ phase 7
 
 
-def phase7_probe(relax) -> dict:
+def phase7_probe(relax, old_libs) -> dict:
     """`probe_gather` at the probe's shapes, counts from 0: both sweeps
     exact, their CUPTI times, the torch-ops sweep's and the plain
-    version's times, and the sweep's bound."""
+    version's times, and the sweep's bound; with `--old`, then B1 on
+    both generic kernels in turns."""
     from openr_tpu_torch import probe_gather as pg
 
     relax.reset_launches()
     res = pg.measure(DEVICE, pg.VP, reps=20)
     torch.cuda.synchronize()
     launches = dict(relax.LAUNCHES_BY_DESIGN)
+    if "relax" in old_libs:
+        nbr, wgt, dist = pg.make_inputs(pg.VP, pg.D, pg.B, 0, DEVICE)
+        ref = pg.sweep_ref(nbr, wgt, dist)
+        turns = {"old generic": [], "generic": []}
+        for lb in ("old generic", "generic", "generic", "old generic"):
+            with using_lib(relax, old_libs["relax"] if lb.startswith("old")
+                           else None):
+                err = max_diff([(pg.sweep_b1(nbr, wgt, dist), ref)])
+                if err:
+                    fail(f"probe: B1 on the {lb} kernel is wrong ({err})")
+                turns[lb].append(kernel_us(
+                    lambda: pg.sweep_b1(nbr, wgt, dist), lambda: None,
+                    relax.KERNEL_NAMES["generic"]))
+        log(f"[7] B1 in turns (old, new, new, old), CUPTI us: old generic "
+            f"{turns['old generic']}, generic {turns['generic']}")
     names = {name: fn.__name__ for name, fn, _k in pg.VARIANTS}
     out = {names[k]: v for k, v in res.items()}
     for fn, design in (("sweep_b1", "generic"), ("sweep_b2", "vec")):
@@ -1081,8 +1254,20 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
     seg = np.sort(rng.integers(0, 40_000, 100_000))
     worst["elect"] = max(worst["elect"], elect_vs_plain(
         election_ops, elect_case(rng, seg, 100_000)))
-    log(f"[8a] elect_seg_kernel vs plain: 5 random tables + one of 100 000 "
-        f"slots, max |diff| {worst['elect']}")
+    # long and empty segments: the lengths each side of a warp and of the
+    # kernel's one-thread limit, prefixes of 300 advertisers, several
+    # long segments in one warp; and lengths drawn from 0 to 70
+    lengths = [np.tile([0, 1, 2, 31, 32, 33, 300, 2, 9, 8, 0, 2], 40),
+               rng.integers(0, 71, 3000)]
+    for ln in lengths:
+        ln[-1] = max(ln[-1], 1)  # the last prefix owns a slot
+        seg = np.repeat(np.arange(len(ln)), ln)
+        worst["elect"] = max(worst["elect"], elect_vs_plain(
+            election_ops, elect_case(rng, seg, 1000)))
+    log(f"[8a] elect_seg_kernel vs plain: 5 random tables, one of 100 000 "
+        f"slots, two of long and empty segments ({len(lengths[0])} prefixes "
+        f"of 0-300 slots, {len(lengths[1])} of 0-70): max |diff| "
+        f"{worst['elect']}")
 
     g = torch.Generator().manual_seed(20261018)
     n_ok, modes, n_sweeps, wide = 0, set(), [], []
@@ -1609,7 +1794,7 @@ def phase8d_config4_ref(ksp_ops) -> dict:
     return dict(p50=p50, sssp=fx, walk=wk, stats=st)
 
 
-def phase8c_election(election_ops, solver, ls, csr) -> dict:
+def phase8c_election(election_ops, solver, ls, csr, old_libs) -> dict:
     """The 100k RIB with 25 000 anycast /32s through `compute_routes`,
     whose election runs `elect_seg_kernel`; equal to the NumPy election's
     RIB. Launch count from 0 around the timed calls."""
@@ -1650,18 +1835,48 @@ def phase8c_election(election_ops, solver, ls, csr) -> dict:
 
     # the kernel vs plain at this shape, timed, with the library call
     _c, dist, fh, _n, _l = solver.solve(ls, "node-0")
+    my_id = csr.name_to_id["node-0"]
+    tm = elect_at_call(election_ops, solver, view, dist, fh, my_id,
+                       old_libs, "8c")
+    p50 = statistics.median(times)
+    cross = election_crossover(solver, csr, dist, fh.any(axis=0), my_id,
+                               view)
+    log(f"[8c] election at scale: er100k + ramp_prefix_state(100 000, "
+        f"anycast_every=4): {len(view.plain_p)} plain + "
+        f"{len(view.multi.prefixes)} anycast prefixes, {slots} advertiser "
+        f"slots (set-up {set_up:.1f} s); full RIB "
+        f"p50 {p50:.3f} ms (samples {[round(x, 3) for x in times]}), "
+        f"election phase {[round(x, 3) for x in elect_ms]} ms; "
+        f"{len(rdb.unicast_routes)} unicast routes == the NumPy "
+        f"election's; device elections {n_dev}, launches {launches}")
+    return dict(tm, launches=launches, crossover=cross)
+
+
+def elect_at_call(election_ops, solver, view, dist, fh, my_id, old_libs,
+                  tag) -> dict:
+    """`elect_seg_kernel` on the solver's cached advertiser matrix of
+    `view` and the solve's root column: exact against the plain version,
+    timed by CUPTI (with `--old`, beside the other checkout's kernel in
+    turns), the plain version and `torch.segment_reduce` max + min (the
+    library yardstick) timed, and the bytes bound."""
     d_root = dist[:, 0]
     reach = (d_root < INF) & fh.any(axis=0)
     t = solver._elect_dev[view.gen]
-    my_id = csr.name_to_id["node-0"]
     args = (t["indptr"], t["seg"], t["adv"], t["known"], t["rank"],
             dist.device_tensor[:, 0].contiguous(), to_dev(reach, bool), my_id)
-    err = elect_vs_plain(election_ops, args)
+    labels = ["new"] + (["old"] if "election" in old_libs else [])
+    turns = {lb: [] for lb in labels}
+    err = 0
+    for lb in labels + labels[::-1]:
+        with using_lib(election_ops,
+                       old_libs.get("election") if lb == "old" else None):
+            err = max(err, elect_vs_plain(election_ops, args))
+            turns[lb].append(kernel_us(lambda: election_ops.elect_seg(*args),
+                                       lambda: None, election_ops.KERNEL_NAME))
     if err:
         fail(f"election: kernel disagrees with plain at the path's shape "
              f"({err})")
-    us = kernel_us(lambda: election_ops.elect_seg(*args), lambda: None,
-                   election_ops.KERNEL_NAME)
+    us = statistics.fmean(turns["new"])
     p_ms = cuda_ms(lambda: election_ops.elect_seg_ref(*args))
     lengths = (t["indptr"][1:] - t["indptr"][:-1]).long()
     data_r = t["rank"].float()
@@ -1669,24 +1884,27 @@ def phase8c_election(election_ops, solver, ls, csr) -> dict:
     lib_ms = cuda_ms(lambda: (
         torch.segment_reduce(data_r, "max", lengths=lengths),
         torch.segment_reduce(data_d, "min", lengths=lengths)))
-    m, s = len(view.multi.prefixes), slots
+    m, s = len(view.multi.prefixes), len(view.multi.adv)
     nbytes = s * (4 + 1 + 4 + 1 + 4 + 1 + 1) + m * (4 + 4 + 4 + 1)
     b_ms, b_by = bound(nbytes, s * 8)
-    p50 = statistics.median(times)
-    cross = election_crossover(solver, csr, dist, fh.any(axis=0), my_id,
-                               view)
-    log(f"[8c] election at scale: er100k + ramp_prefix_state(100 000, "
-        f"anycast_every=4): {len(view.plain_p)} plain + {m} anycast "
-        f"prefixes, {s} advertiser slots (set-up {set_up:.1f} s); full RIB "
-        f"p50 {p50:.3f} ms (samples {[round(x, 3) for x in times]}), "
-        f"election phase {[round(x, 3) for x in elect_ms]} ms; "
-        f"{len(rdb.unicast_routes)} unicast routes == the NumPy "
-        f"election's; device elections {n_dev}, launches {launches}")
-    log(f"[8c] elect_seg_kernel (M {m}, S {s}): {us:.2f} us, plain {p_ms:.4f} ms, torch.segment_reduce max+min "
-        f"{lib_ms:.4f} ms, bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes} "
-        f"B); max |diff| vs plain {err}")
-    return dict(launches=launches, us=us, plain_ms=p_ms, lib_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, err=err, crossover=cross)
+    log(f"[{tag}] elect_seg_kernel (M {m}, S {s}): {us:.2f} us, plain "
+        f"{p_ms:.4f} ms, torch.segment_reduce max+min {lib_ms:.4f} ms, bound "
+        f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes} B), share "
+        f"{b_ms * 1e3 / us:.3f}; max |diff| vs plain {err}; CUPTI in turns "
+        f"{turns}")
+    return dict(us=us, plain_ms=p_ms, lib_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, err=err, turns=turns)
+
+
+def elections_equal(dev, ref, tag: str) -> None:
+    """Two `MultiElection`s agree: every mask, and min_igp wherever a
+    prefix survives."""
+    for f in ("survive", "local", "is_best", "chosen"):
+        if not np.array_equal(getattr(dev, f), getattr(ref, f)):
+            fail(f"election at {tag}: device and NumPy differ in {f}")
+    sel = ref.survive
+    if not np.array_equal(dev.min_igp[sel], ref.min_igp[sel]):
+        fail(f"election at {tag}: min_igp differs")
 
 
 def election_crossover(solver, csr, dist, fh_any, my_id, view_100k) -> dict:
@@ -1714,15 +1932,7 @@ def election_crossover(solver, csr, dist, fh_any, my_id, view_100k) -> dict:
                     t0 = time.perf_counter()
                     solver._elect_multi(multi, dist, fh_any, my_id, view.gen)
                     t[path].append((time.perf_counter() - t0) * 1e6)
-            for f in ("survive", "local", "is_best", "chosen"):
-                if not np.array_equal(getattr(got["device"], f),
-                                      getattr(got["numpy"], f)):
-                    fail(f"election at {slots} slots: device and NumPy "
-                         f"differ in {f}")
-            sel = got["numpy"].survive
-            if not np.array_equal(got["device"].min_igp[sel],
-                                  got["numpy"].min_igp[sel]):
-                fail(f"election at {slots} slots: min_igp differs")
+            elections_equal(got["device"], got["numpy"], f"{slots} slots")
             res[slots] = {k: statistics.median(v) for k, v in t.items()}
             log(f"[8c] election at {slots} slots ({len(multi.prefixes)} "
                 f"prefixes): device {res[slots]['device']:.1f} us, NumPy "
@@ -1733,10 +1943,219 @@ def election_crossover(solver, csr, dist, fh_any, my_id, view_100k) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 9
+
+#: BASELINE config 2 (BASELINE.md:40, "10k-node Clos fabric, ECMP +
+#: per-prefix UCMP weights") as the JAX package ran it: `fat_tree(90)`,
+#: metric 10 (`benchmarks/bench_churn.py:281`); what its split tables must
+#: be (checked on a CPU copy and again on the card)
+CONFIG2 = dict(k=90, n_ramp=40_000, nodes=10_125, edges=729_000,
+               vp=10_240, w=64, ov=(8192, 32), uniform=10, slots=20_000)
+
+
+def config2_states(k: int, n_ramp: int):
+    """BASELINE config 2's states: `fat_tree(k, metric=10)` as a real
+    `LinkState`; one `PrefixState` with `ramp_prefix_state(names,
+    n_ramp, anycast_every=4)` (every 4th /32 anycast from two nodes),
+    the topology's loopbacks, and one UCMP anycast /24 per pod from its
+    ToRs 0 and 1 at weights 1 and 3, all added with
+    `update_prefix_db`."""
+    from openr_tpu_torch.decision.linkstate import LinkState
+    from openr_tpu_torch.types import IpPrefix, PrefixDatabase, PrefixEntry
+    from openr_tpu_torch.utils.topogen import fat_tree, ramp_prefix_state
+
+    adj, pfx = fat_tree(k, metric=10)
+    ls = LinkState()
+    for db in adj:
+        ls.update_adjacency_db(db)
+    names = [db.this_node_name for db in adj]
+    ps = ramp_prefix_state(names, n_ramp, anycast_every=4)
+    for db in pfx:
+        ps.update_prefix_db(db)
+    half = k // 2
+    tor0 = half * half + k * half
+    for pod in range(k):
+        for t, w in ((0, 1), (1, 3)):
+            ps.update_prefix_db(PrefixDatabase(
+                this_node_name=names[tor0 + pod * half + t],
+                prefix_entries=(PrefixEntry(
+                    prefix=IpPrefix.make(f"20.{pod}.0.0/24"), weight=w),),
+            ))
+    return ls, ps
+
+
+def phase9_config2(relax, election_ops, old_libs, k: int = CONFIG2["k"],
+                   n_ramp: int = CONFIG2["n_ramp"]) -> dict:
+    """BASELINE config 2 through `TorchSpfSolver(device="cuda")` from a
+    core and an aggregation switch (both of k neighbors, B =
+    pad(k + 1)): counts from 0 around each root's 5 solves and 3
+    compute_routes; every relax launch generic, the election on the
+    card; checked against scipy, NumPy and the CPU path. Then the generic
+    kernel at the core root's three calls and the election at this
+    view, timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.ops.spf_split import build_split_tables
+
+    t0 = time.perf_counter()
+    ls, ps = config2_states(k, n_ramp)
+    csr = ls.to_csr()
+    host = build_split_tables(csr.edge_src, csr.edge_dst, csr.edge_metric,
+                              csr.num_nodes)
+    view = ps.election_view(csr.name_to_id, csr.base_version)
+    slots = len(view.multi.adv)
+    got = dict(nodes=csr.num_nodes, edges=int(csr.num_edges), vp=host["vp"],
+               w=host["base_nbr"].shape[1], ov=tuple(host["ov_nbr"].shape),
+               uniform=host["uniform_metric"], slots=slots)
+    if k == CONFIG2["k"] and n_ramp == CONFIG2["n_ramp"]:
+        want = {key: CONFIG2[key] for key in got}
+        if got != want:
+            fail(f"config 2: states give {got}, expected {want}")
+    set_up = time.perf_counter() - t0
+    half = k // 2
+    roots = ("node-0", f"node-{half * half}")  # a core, an aggregation
+    t1 = time.perf_counter()
+    cpu = TorchSpfSolver(device="cpu")
+    refs = {me: cpu.compute_routes(ls, ps, me) for me in roots}
+    cpu_s = time.perf_counter() - t1
+
+    solver = TorchSpfSolver(device=DEVICE)
+    tables = solver._device_arrays(csr)
+    dev_shape = (tables["vp"], tables["base_nbr"].shape[1],
+                 tuple(tables["ov_nbr"].shape), tables["uniform_metric"])
+    if dev_shape != (got["vp"], got["w"], got["ov"], got["uniform"]):
+        fail(f"config 2: device tables {dev_shape}, host copy {got}")
+    mb = {name: tables[name].numel() * tables[name].element_size() / 1e6
+          for name in ("base_nbr", "base_wgt", "ov_nbr", "ov_wgt")}
+    if slots < solver.elect_device_min:
+        fail(f"config 2: {slots} election slots stay below "
+             f"elect_device_min {solver.elect_device_min}")
+    log(f"[9] config 2: fat_tree({k}, metric=10): {got['nodes']} nodes, "
+        f"{got['edges']} directed adjacencies; {len(ps.prefixes)} prefixes "
+        f"(ramp {n_ramp} with every 4th anycast, {csr.num_nodes} loopbacks, "
+        f"{k} UCMP /24s), {slots} election slots; tables vp {got['vp']}, W "
+        f"{got['w']} ({mb['base_nbr'] + mb['base_wgt']:.2f} MB nbr+wgt), "
+        f"overflow {got['ov']} ({mb['ov_nbr'] + mb['ov_wgt']:.2f} MB), "
+        f"uniform metric {got['uniform']} (host copy and card agree); "
+        f"set-up {set_up:.1f} s, CPU path's two RIBs {cpu_s:.1f} s")
+
+    out = {"roots": {}, "generic_launches": 0, "elect_launches": 0}
+    for me in roots:
+        my_id = csr.name_to_id[me]
+        solver.solve(ls, me)  # warm-up
+        relax.reset_launches()
+        election_ops.reset_launches()
+        dev0 = solver.elect_stats["device_elections"]
+        solve_ms, rib_ms = [], []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            solved = solver.solve(ls, me)
+            solve_ms.append((time.perf_counter() - t1) * 1e3)
+        st = dict(solver.last_solve_stats)
+        for _ in range(3):
+            t1 = time.perf_counter()
+            rdb = solver.compute_routes(ls, ps, me)
+            torch.cuda.synchronize()
+            rib_ms.append((time.perf_counter() - t1) * 1e3)
+        launches = dict(relax.LAUNCHES_BY_DESIGN)
+        e_launches = election_ops.LAUNCHES
+        n_dev = solver.elect_stats["device_elections"] - dev0
+        phases = dict(solver.last_phase_ms)
+        b = solved[1].device_tensor.shape[1]
+        if launches["vec"] or not launches["generic"]:
+            fail(f"config 2 {me}: relax launches {launches}; every one must "
+                 "be generic")
+        if e_launches < 3 or n_dev < 3:
+            fail(f"config 2 {me}: elect_seg_kernel launches {e_launches}, "
+                 f"device elections {n_dev}, for 3 RIBs")
+        ref = refs[me]
+        check_solve(csr, solved, rdb, cols=3, tag=f"config 2 {me}", me=me,
+                    n_routes=len(ref.unicast_routes))
+        if (rdb.unicast_routes != ref.unicast_routes
+                or rdb.mpls_routes != ref.mpls_routes):
+            fail(f"config 2 {me}: the RouteDatabase on the card differs from "
+                 "the CPU path's")
+        n_ucmp = sum(1 for p, e in rdb.unicast_routes.items()
+                     if p.prefix.startswith("20."))
+        if n_ucmp != k:
+            fail(f"config 2 {me}: {n_ucmp} UCMP /24 routes of {k}")
+        _c, dist, fh, _n, _l = solved
+        fh_any = fh.any(axis=0)
+        keep = solver.elect_device_min
+        try:
+            pair = {}
+            for path, floor in (("device", 0), ("numpy", slots + 1)):
+                solver.elect_device_min = floor
+                pair[path] = solver._elect_multi(view.multi, dist, fh_any,
+                                                 my_id, view.gen)
+        finally:
+            solver.elect_device_min = keep
+        elections_equal(pair["device"], pair["numpy"], f"config 2 {me}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            solver.solve(ls, me)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t1) * 1e3
+        prof_st = dict(solver.last_solve_stats)
+        k_us, k_n = kernel_device_us(prof, (relax.KERNEL_NAMES["generic"],))
+        dev_us, _ = kernel_device_us(prof, ("",))
+        row = dict(b=b, solve_p50=statistics.median(solve_ms),
+                   rib_p50=statistics.median(rib_ms), solve_ms=solve_ms,
+                   rib_ms=rib_ms, stats=st, phases=phases,
+                   launches=launches, elect_launches=e_launches,
+                   kernel_us=k_us, kernel_n=k_n, busy=dev_us / 1e3 / traced_ms)
+        out["roots"][me] = row
+        out["generic_launches"] += launches["generic"]
+        out["elect_launches"] += e_launches
+        log(f"[9] {me} (B={b}): solve p50 {row['solve_p50']:.3f} ms (samples "
+            f"{[round(x, 3) for x in solve_ms]}); compute_routes p50 "
+            f"{row['rib_p50']:.3f} ms (samples "
+            f"{[round(x, 3) for x in rib_ms]}); last_phase_ms {phases}; "
+            f"per solve: sweeps {st['sweeps']}, tail rounds "
+            f"{st['tail_rounds']}, spilled {st['spilled']}, host syncs "
+            f"{st['host_syncs']}, relax launches {st['relax_launches']}")
+        log(f"[9] {me}: launches in 5 solves + 3 RIBs {launches}, "
+            f"elect_seg_kernel {e_launches}; {len(rdb.unicast_routes)} "
+            f"unicast + {len(rdb.mpls_routes)} mpls routes == the CPU path's "
+            f"({k} UCMP); root + 2 neighbor columns vs scipy, first hops vs "
+            f"NumPy, the device election == NumPy's: ok; one profiled solve "
+            f"({prof_st['sweeps']} sweeps, {prof_st['tail_rounds']} tail "
+            f"rounds, {traced_ms:.3f} ms): relax_generic_kernel {k_n} launches"
+            f", {k_us:.1f} us (CUPTI), all kernels {dev_us:.1f} us, busy "
+            f"share {row['busy']:.3f}")
+
+    # the generic kernel at the core root's three calls, and the election
+    dist_in, roots_t, calls = path_calls(solver, ls, tables, roots[0])
+    variants = generic_variants(relax, old_libs)
+    worst = check_calls(relax, dist_in, roots_t, calls,
+                        {lb: (v[0], v[2]) for lb, v in variants.items()})
+    if any(worst.values()):
+        fail(f"config 2: generic kernels disagree with plain at the path's "
+             f"calls ({worst})")
+    log(f"[9] clocks before timing (sm MHz, W, C): "
+        f"{smi('clocks.sm,power.draw,temperature.gpu')}")
+    out["calls"] = time_calls(relax, dist_in, roots_t, calls, variants, "9")
+    out["worst"] = worst["generic"]
+    solved = solver.solve(ls, roots[0])
+    out["elect"] = elect_at_call(election_ops, solver, view, solved[1],
+                                 solved[2], csr.name_to_id[roots[0]],
+                                 old_libs, "9")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", type=Path, default=None,
+                    help="csrc/ of another checkout: time its relax and "
+                    "election kernels beside this checkout's, in turns")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     card = smi("name,power.limit")
@@ -1750,14 +2169,16 @@ def main() -> None:
     from openr_tpu_torch.ops import election as election_ops
     from openr_tpu_torch.ops import ksp as ksp_ops
 
-    build_all(cuda_build, (relax, election_ops, ksp_ops))
+    old_libs = build_all(cuda_build, (relax, election_ops, ksp_ops),
+                         args.old)
     lib = relax._lib()
-    grid = (1, 2, 4, 8, 16, 24, 32, 64, 128, 256)
+    grid = (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 128, 256, 512, 1024)
     bad = [(w, b) for w in grid for b in grid
            if bool(lib.openr_relax_vec_shape(w, b))
-           != (relax.design_for(w, b) == "vec")]
+           != (relax.design_for(w, b) == "vec")
+           or lib.openr_relax_generic_np(w, b) != relax.generic_np(w, b)]
     if bad:
-        fail(f"C dispatch and design_for disagree at {bad}")
+        fail(f"C dispatch and design_for / generic_np disagree at {bad}")
 
     dev = torch.device(DEVICE)
     # ---- phase 3a: kernels vs plain on random tables ---------------------
@@ -1788,7 +2209,7 @@ def main() -> None:
         f"set-up {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3b: both designs at the main path's calls ---------------
-    timing, worst_m = main_path_calls(relax, solver, ls, tables)
+    timing, worst_m = main_path_calls(relax, solver, ls, tables, old_libs)
 
     # ---- phase 4: the main path, counts from 0 -----------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -1843,7 +2264,7 @@ def main() -> None:
     log(f"[4] main-path relax launches by design (solves + RIBs): "
         f"{launches}; designs of its shapes {designs}; scipy root+2 "
         "neighbor columns and first hops: ok")
-    hub_launches = phase4_hub(relax)
+    phase4_hub(relax, old_libs)
 
     # ---- phase 5: the link-flap warm path ------------------------------
     warm_launches = phase5_warm(relax, (vp, w_base, ov_shape))
@@ -1852,21 +2273,25 @@ def main() -> None:
     phase6()
 
     # ---- phase 7: the gather probe ---------------------------------------
-    probe = phase7_probe(relax)
+    probe = phase7_probe(relax, old_libs)
 
     # ---- phase 8: election and KSP kernels, config 4, election at scale --
     p8a = phase8a_kernels(election_ops, ksp_ops, csr)
     p8b = phase8b_config4(ksp_ops)
-    p8c = phase8c_election(election_ops, solver, ls, csr)
+    p8c = phase8c_election(election_ops, solver, ls, csr, old_libs)
     phase8d_config4_ref(ksp_ops)
 
-    d = timing["dense"]
+    # ---- phase 9: BASELINE config 2 at full width -----------------------
+    p9 = phase9_config2(relax, election_ops, old_libs)
+
     kernels = []
-    for design, name, n_launch, worst in (
-        ("vec", relax.KERNEL_NAMES["vec"], launches["vec"],
+    # vec: the er100k dense chunk; generic: config 2's, its main path
+    for design, d, name, n_launch, worst in (
+        ("vec", timing["dense"], relax.KERNEL_NAMES["vec"], launches["vec"],
          max(worst_r["vec"], worst_m["vec"])),
-        ("generic", relax.KERNEL_NAMES["generic"], hub_launches["generic"],
-         max(worst_r["generic"], worst_m["generic"])),
+        ("generic", p9["calls"]["dense"], relax.KERNEL_NAMES["generic"],
+         p9["generic_launches"],
+         max(worst_r["generic"], worst_m["generic"], p9["worst"])),
     ):
         kernels.append({
             "name": name,
@@ -1903,8 +2328,8 @@ def main() -> None:
         "route": "cuda",
         "source": "openr_tpu_torch/csrc/election.cu",
         "replaces": "openr_tpu/ops/election.py:32",
-        "launches": p8c["launches"],
-        "max_abs_err": max(worst8["elect"], p8c["err"]),
+        "launches": p8c["launches"] + p9["elect_launches"],
+        "max_abs_err": max(worst8["elect"], p8c["err"], p9["elect"]["err"]),
         "ms": p8c["us"] / 1e3,
         "plain_ms": p8c["plain_ms"],
         "bound_ms": p8c["bound_ms"],

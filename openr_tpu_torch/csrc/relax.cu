@@ -36,7 +36,10 @@
 // four integer ops; a dense chunk of the 100k benchmark does 56.6 M such
 // ops, under 1 us at 67 Tops/s, while it must move ~26 MB (table rows,
 // distinct gathered dist rows, target rows). No tensor core helps: wgmma
-// multiplies and adds, and this is a min-plus over int32.
+// multiplies and adds, and this is a min-plus over int32. Where the whole
+// dist matrix fits in the 50 MB L2 (a 10k-node fabric at B = 128: 5.2 MB),
+// a row is gathered once per in-edge from L2, so the L2 gather traffic
+// (rows x slots x B x 4 bytes) is what the wide shapes wait on.
 //
 // Two designs, chosen by shape alone in openr_relax_rows:
 //
@@ -56,9 +59,22 @@
 //   nbr/wgt/over slab in shared memory with cp.async (and loads the row
 //   indices two groups ahead into registers), so the table's latency hides
 //   behind the current group's gathers.
-// * relax_generic_kernel for every other shape: one warp per row, lanes
-//   over the B columns, 32 table slots loaded at once and broadcast with
-//   __shfl_sync (the first design, kept for odd widths such as B=128).
+// * relax_generic_kernel<NP, OVER> for every other shape, above all the
+//   wide ones that fabrics produce (a core or aggregation switch of a
+//   90-ary Clos: W 64 with an overflow of 32, B 128; hubs: W and B of 256
+//   and more). The same ingredients with the shape read at run time: a
+//   warp per row, a strip of up to 32 lanes over the row's column quads
+//   with 16-byte loads (NP strips per lane: B 128 is one warp instruction
+//   per gathered 512-byte row, B 256 two strips, B 512 four), the other
+//   lanes over slots; kBatch = 8 / NP slots' gathers issued before the
+//   first min; the table staged in shared memory in slabs of 128 slots by
+//   cp.async, double-buffered across slabs, column windows and rows, so a
+//   hub's overflow row of 512 slots streams through four slabs; the row
+//   indices read two rows ahead; a persistent grid; the min written with
+//   red.global.min; the counts summed per block. Where B or W is not a
+//   multiple of 4 (no aligned 16-byte piece), NP = 0 runs the scalar edge
+//   path: a warp per row, lanes over the columns, 32 slots loaded at once
+//   and broadcast with __shfl_sync, 4-byte gathers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,70 +114,6 @@ __device__ __forceinline__ void block_add(int* dst, int v, int* s_sum) {
 // One candidate: INF guard before the add, INF where the slot is blocked.
 __device__ __forceinline__ int cand(int g, int w, unsigned blocked) {
   return blocked ? kInf : (g < kInf ? min(g + w, kInf) : kInf);
-}
-
-// ------------------------------------------------------------- generic
-
-__global__ void __launch_bounds__(kThreads)
-    relax_generic_kernel(const RelaxArgs a) {
-  const int lane = threadIdx.x & 31;
-  const long long i =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  int n_rows = 0;
-  if (i < a.n) {  // uniform across the warp
-    int n_better = 0;
-    const int B = a.B, W = a.W;
-    const int r = a.src_rows ? a.src_rows[i] : a.row0 + (int)i;
-    const int t = a.dst_rows ? a.dst_rows[i] : r;
-    const int* nrow = a.nbr + (size_t)r * W;
-    const int* wrow = a.wgt + (size_t)r * W;
-    const uint8_t* orow = a.over ? a.over + (size_t)r * W : nullptr;
-    bool lowered = false;
-    for (int b0 = 0; b0 < B; b0 += 32) {
-      const int b = b0 + lane;
-      const bool active = b < B;
-      const int root_b = (active && orow) ? a.roots[b] : -1;
-      int acc = kInf;
-      for (int d0 = 0; d0 < W; d0 += 32) {
-        const int dl = d0 + lane;
-        int my_u = 0, my_w = kInf, my_o = 0;
-        if (dl < W) {
-          my_u = nrow[dl];
-          my_w = wrow[dl];
-          my_o = orow ? (int)orow[dl] : 0;
-        }
-        const int cnt = min(32, W - d0);
-        for (int k = 0; k < cnt; ++k) {
-          const int w = __shfl_sync(kFull, my_w, k);
-          const int u = __shfl_sync(kFull, my_u, k);
-          const int o = __shfl_sync(kFull, my_o, k);
-          // padding slot: d + INF >= INF, so the candidate is INF
-          if (w >= kInf || !active) continue;
-          if (o && u != root_b) continue;  // overloaded transit, not root
-          const int g = a.dist_in[(size_t)u * B + b];
-          if (g < kInf) acc = min(acc, min(g + w, kInf));  // guard, then add
-        }
-      }
-      bool better = false;
-      if (active) {
-        const size_t o_idx = (size_t)t * B + b;
-        if (a.changed) better = acc < a.dist_in[o_idx];
-        if (acc < a.out[o_idx]) {
-          atomicMin(a.out + o_idx, acc);
-          lowered = true;
-        }
-      }
-      if (a.changed) n_better += __popc(__ballot_sync(kFull, better));
-    }
-    if (a.changed && lane == 0 && n_better) atomicAdd(a.changed, n_better);
-    if (a.row_flag && __any_sync(kFull, lowered) && lane == 0 &&
-        __ldcg(a.row_flag + t) == 0 && atomicExch(a.row_flag + t, 1) == 0)
-      n_rows = 1;
-  }
-  if (a.rows_changed) {  // one atomic per block of 8 rows
-    const int nr = __syncthreads_count(n_rows);
-    if (threadIdx.x == 0 && nr) atomicAdd(a.rows_changed, nr);
-  }
 }
 
 // -------------------------------------------------------- vectorised
@@ -409,23 +361,346 @@ __global__ void __launch_bounds__(kThreads)
   if (a.rows_changed) block_add(a.rows_changed, n_rows, s_sum + 1);
 }
 
+// ------------------------------------------------------------- generic
+
+constexpr int kSlab = 128;  // table slots a warp stages per unit
+
+// The generic kernel's shape, worked out on the host from (W, B).
+struct GenShape {
+  int Q;        // column quads, B / 4
+  int L;        // lanes over one strip of quads (a power of two <= 32)
+  int S;        // slot lanes, 32 / L
+  int windows;  // column windows per row (each NP strips of L quads)
+  int chunks;   // table slabs of kSlab slots per row
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ int row_of(const RelaxArgs& a, long long i) {
+  return a.src_rows ? __ldg(a.src_rows + i) : a.row0 + (int)i;
+}
+
+__device__ __forceinline__ int target_of(const RelaxArgs& a, long long i,
+                                         int r) {
+  return a.dst_rows ? __ldg(a.dst_rows + i) : r;
+}
+
+// Starts the copy of slots [c * kSlab, c * kSlab + len) of table row r
+// into shared memory: nbr and wgt in 16-byte pieces, over in 4-byte ones
+// (W is a multiple of 4 on this path, so every piece is aligned).
+template <bool OVER>
+__device__ __forceinline__ void issue_chunk(const RelaxArgs& a, int r, int c,
+                                            int* sn, int* sw, uint8_t* so,
+                                            int lane) {
+  const int d0 = c * kSlab;
+  const int q = min(kSlab, a.W - d0) / 4;  // pieces per table
+  const size_t off = (size_t)r * a.W + d0;
+  for (int j = lane; j < (OVER ? 3 : 2) * q; j += 32) {
+    if (j < q)
+      cp_async16(sn + 4 * j, a.nbr + off + 4 * j);
+    else if (j < 2 * q)
+      cp_async16(sw + 4 * (j - q), a.wgt + off + 4 * (j - q));
+    else
+      cp_async4(so + 4 * (j - 2 * q), a.over + off + 4 * (j - 2 * q));
+  }
+}
+
+// Wide path: one warp per table row, its lanes over a strip of L column
+// quads (16-byte loads of the gathered dist rows) and S = 32 / L slot
+// lanes; NP strips per window, so a lane carries NP quads (B 128: one
+// strip of 32 quads, a warp instruction gathers a whole 512-byte row; B
+// 256: two). A row is walked in units (column window, slab of kSlab
+// slots); each unit's slab is staged in shared memory with cp.async while
+// the one before it is relaxed (double buffer), and the row indices are
+// read two rows ahead. A unit issues kBatch slots x NP gathers before the
+// first min. The last unit of a window reads the target row (out, and
+// dist_in for `changed`) and its flag ahead of its gathers, folds the slot
+// lanes with __shfl_xor_sync and writes with a fire-and-forget min.
+template <int NP, bool OVER>
+__device__ __forceinline__ void relax_generic_wide(const RelaxArgs& a,
+                                                   const GenShape& g) {
+  constexpr int kBatch = 8 / NP;  // slots a lane gathers at once
+  __shared__ __align__(16) int s_nbr[kWarpsPerBlock][2][kSlab];
+  __shared__ __align__(16) int s_wgt[kWarpsPerBlock][2][kSlab];
+  __shared__ __align__(16) uint8_t s_over[kWarpsPerBlock][2][kSlab];
+  __shared__ int s_sum[2];
+  if (threadIdx.x < 2) s_sum[threadIdx.x] = 0;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cl = lane % g.L;  // quad of the strip
+  const int s = lane / g.L;   // slot lane
+  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
+  long long i = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  const int4* dist4 = reinterpret_cast<const int4*>(a.dist_in);
+  const int4* out4 = reinterpret_cast<const int4*>(a.out);
+  int n_better = 0, n_rows = 0;
+  if (i < a.n) {  // uniform across the warp
+    int r = row_of(a, i), t = target_of(a, i, r);
+    int nr = 0, nt = 0, ar = 0, at = 0;  // rows i + stride, i + 2 stride
+    if (i + stride < a.n) {
+      nr = row_of(a, i + stride);
+      nt = target_of(a, i + stride, nr);
+    }
+    int w = 0, c = 0, st = 0, roots_w = -1;
+    int rt[NP][4];
+    int4 acc[NP];
+    issue_chunk<OVER>(a, r, 0, s_nbr[warp][0], s_wgt[warp][0],
+                      s_over[warp][0], lane);
+    cp_async_commit();
+    while (true) {
+      if (w == 0 && c == 0 && i + 2 * stride < a.n) {
+        ar = row_of(a, i + 2 * stride);
+        at = target_of(a, i + 2 * stride, ar);
+      }
+      // the next unit: the next slab, window or row
+      int nw = w, nc = c + 1;
+      bool same_row = true;
+      if (nc == g.chunks) {
+        nc = 0;
+        if (++nw == g.windows) {
+          nw = 0;
+          same_row = false;
+        }
+      }
+      const bool has_next = same_row || i + stride < a.n;
+      if (has_next)
+        issue_chunk<OVER>(a, same_row ? r : nr, nc, s_nbr[warp][st ^ 1],
+                          s_wgt[warp][st ^ 1], s_over[warp][st ^ 1], lane);
+      cp_async_commit();
+
+      const bool last = c == g.chunks - 1;
+      const int qb = w * NP * g.L + cl;  // this lane's first quad
+      if (c == 0) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) acc[p] = make_int4(kInf, kInf, kInf, kInf);
+      }
+      if (OVER && roots_w != w) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = qb + p * g.L;
+            rt[p][e] = q < g.Q ? __ldg(a.roots + 4 * q + e) : -1;
+          }
+        roots_w = w;
+      }
+      // the target row's reads go out with the last unit's gathers
+      const bool writer = last && s == 0;
+      int4 cur[NP], din[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int q = qb + p * g.L;
+        cur[p] = din[p] = make_int4(kInf, kInf, kInf, kInf);
+        if (writer && q < g.Q) {
+          cur[p] = __ldcg(out4 + (size_t)t * g.Q + q);
+          if (a.changed) din[p] = __ldcg(dist4 + (size_t)t * g.Q + q);
+        }
+      }
+      const int flag0 =
+          last && lane == 0 && a.row_flag ? __ldcg(a.row_flag + t) : 1;
+
+      cp_async_wait<1>();  // this lane's copies of the current slab landed
+      __syncwarp();        // ... and every other lane's
+      const int* sn = s_nbr[warp][st];
+      const int* sw = s_wgt[warp][st];
+      const uint8_t* so = s_over[warp][st];
+      const int len = min(kSlab, a.W - c * kSlab);
+      for (int d0 = 0; d0 < len; d0 += kBatch * g.S) {
+        int4 v[kBatch][NP];
+        int wv[kBatch];
+        unsigned blk[kBatch][NP];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {  // issue every gather first
+          const int d = d0 + k * g.S + s;
+          const bool in = d < len;
+          const int u = in ? sn[d] : 0;
+          const int wt = in ? sw[d] : kInf;
+          const bool o = OVER && in && so[d];
+          wv[k] = wt;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const int q = qb + p * g.L;
+            unsigned m = 0;
+            if (o)
+              m = (unsigned)(u != rt[p][0]) | (unsigned)(u != rt[p][1]) << 1 |
+                  (unsigned)(u != rt[p][2]) << 2 |
+                  (unsigned)(u != rt[p][3]) << 3;
+            blk[k][p] = m;
+            v[k][p] = make_int4(kInf, kInf, kInf, kInf);
+            if (wt < kInf && q < g.Q && m != 0xFu)
+              v[k][p] = __ldcg(dist4 + (size_t)u * g.Q + q);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)  // then take the mins
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const unsigned m = blk[k][p];
+            acc[p].x = min(acc[p].x, cand(v[k][p].x, wv[k], m & 1u));
+            acc[p].y = min(acc[p].y, cand(v[k][p].y, wv[k], m & 2u));
+            acc[p].z = min(acc[p].z, cand(v[k][p].z, wv[k], m & 4u));
+            acc[p].w = min(acc[p].w, cand(v[k][p].w, wv[k], m & 8u));
+          }
+      }
+      __syncwarp();  // the slab is read before it is refilled
+
+      if (last) {
+        // fold the slot lanes (lane = s * L + cl)
+        for (int off = g.L; off < 32; off <<= 1)
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            acc[p].x = min(acc[p].x, __shfl_xor_sync(kFull, acc[p].x, off));
+            acc[p].y = min(acc[p].y, __shfl_xor_sync(kFull, acc[p].y, off));
+            acc[p].z = min(acc[p].z, __shfl_xor_sync(kFull, acc[p].z, off));
+            acc[p].w = min(acc[p].w, __shfl_xor_sync(kFull, acc[p].w, off));
+          }
+        bool lowered = false;
+        if (writer) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const int q = qb + p * g.L;
+            if (q >= g.Q) continue;
+            const int val[4] = {acc[p].x, acc[p].y, acc[p].z, acc[p].w};
+            const int cv[4] = {cur[p].x, cur[p].y, cur[p].z, cur[p].w};
+            const int dv[4] = {din[p].x, din[p].y, din[p].z, din[p].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (a.changed && val[e] < dv[e]) ++n_better;
+              if (val[e] < cv[e]) {
+                atomicMin(a.out + (size_t)t * (4 * g.Q) + 4 * q + e, val[e]);
+                lowered = true;
+              }
+            }
+          }
+        }
+        if (a.row_flag && __any_sync(kFull, lowered) && lane == 0 &&
+            flag0 == 0 && atomicExch(a.row_flag + t, 1) == 0)
+          ++n_rows;
+      }
+      if (!has_next) break;
+      if (!same_row) {
+        i += stride;
+        r = nr;
+        t = nt;
+        nr = ar;
+        nt = at;
+      }
+      w = nw;
+      c = nc;
+      st ^= 1;
+    }
+    cp_async_wait<0>();
+  }
+  if (a.changed) block_add(a.changed, n_better, s_sum);
+  if (a.rows_changed) block_add(a.rows_changed, n_rows, s_sum + 1);
+}
+
+// Scalar edge path, for B or W not a multiple of 4: one warp per row,
+// lanes over the B columns, 32 table slots loaded at once and broadcast
+// with __shfl_sync, 4-byte gathers.
+template <bool OVER>
+__device__ __forceinline__ void relax_generic_scalar(const RelaxArgs& a) {
+  const int lane = threadIdx.x & 31;
+  const long long i =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  int n_rows = 0;
+  if (i < a.n) {  // uniform across the warp
+    int n_better = 0;
+    const int B = a.B, W = a.W;
+    const int r = row_of(a, i);
+    const int t = target_of(a, i, r);
+    const int* nrow = a.nbr + (size_t)r * W;
+    const int* wrow = a.wgt + (size_t)r * W;
+    const uint8_t* orow = OVER ? a.over + (size_t)r * W : nullptr;
+    bool lowered = false;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const int b = b0 + lane;
+      const bool active = b < B;
+      const int root_b = (OVER && active) ? a.roots[b] : -1;
+      int acc = kInf;
+      for (int d0 = 0; d0 < W; d0 += 32) {
+        const int dl = d0 + lane;
+        int my_u = 0, my_w = kInf, my_o = 0;
+        if (dl < W) {
+          my_u = nrow[dl];
+          my_w = wrow[dl];
+          my_o = OVER ? (int)orow[dl] : 0;
+        }
+        const int cnt = min(32, W - d0);
+        for (int k = 0; k < cnt; ++k) {
+          const int w = __shfl_sync(kFull, my_w, k);
+          const int u = __shfl_sync(kFull, my_u, k);
+          const int o = __shfl_sync(kFull, my_o, k);
+          // padding slot: d + INF >= INF, so the candidate is INF
+          if (w >= kInf || !active) continue;
+          if (o && u != root_b) continue;  // overloaded transit, not root
+          const int g = a.dist_in[(size_t)u * B + b];
+          if (g < kInf) acc = min(acc, min(g + w, kInf));  // guard, then add
+        }
+      }
+      bool better = false;
+      if (active) {
+        const size_t o_idx = (size_t)t * B + b;
+        if (a.changed) better = acc < a.dist_in[o_idx];
+        if (acc < a.out[o_idx]) {
+          atomicMin(a.out + o_idx, acc);
+          lowered = true;
+        }
+      }
+      if (a.changed) n_better += __popc(__ballot_sync(kFull, better));
+    }
+    if (a.changed && lane == 0 && n_better) atomicAdd(a.changed, n_better);
+    if (a.row_flag && __any_sync(kFull, lowered) && lane == 0 &&
+        __ldcg(a.row_flag + t) == 0 && atomicExch(a.row_flag + t, 1) == 0)
+      n_rows = 1;
+  }
+  if (a.rows_changed) {  // one atomic per block of 8 rows
+    const int nr = __syncthreads_count(n_rows);
+    if (threadIdx.x == 0 && nr) atomicAdd(a.rows_changed, nr);
+  }
+}
+
+// The generic kernel family: NP int4 strips per lane (1, 2, 4) on the
+// wide path, 0 for the scalar edge path.
+template <int NP, bool OVER>
+__global__ void __launch_bounds__(kThreads)
+    relax_generic_kernel(const RelaxArgs a, const GenShape g) {
+  if constexpr (NP == 0)
+    relax_generic_scalar<OVER>(a);
+  else
+    relax_generic_wide<NP, OVER>(a, g);
+}
+
 using Launcher = int (*)(const RelaxArgs&, cudaStream_t);
+
+// The blocks of `kernel` the card holds at once (a persistent grid's
+// size), cached per device in `cache`.
+template <class Kernel>
+int resident_blocks(Kernel kernel, int (&cache)[kMaxDevices]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int mb = dev < kMaxDevices ? cache[dev] : 0;
+  if (mb == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    mb = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+    if (dev < kMaxDevices) cache[dev] = mb;
+  }
+  return mb;
+}
 
 template <int W, int B, bool OVER>
 int launch_vec_over(const RelaxArgs& a, cudaStream_t stream) {
   using S = VecShape<W, B>;
-  static int max_blocks[kMaxDevices];  // resident blocks on the card
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int mb = dev < kMaxDevices ? max_blocks[dev] : 0;
-  if (mb == 0) {
-    int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, relax_vec_kernel<W, B, OVER>, kThreads, 0);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    mb = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
-    if (dev < kMaxDevices) max_blocks[dev] = mb;
-  }
+  static int max_blocks[kMaxDevices];
+  const int mb = resident_blocks(relax_vec_kernel<W, B, OVER>, max_blocks);
   const long long groups = ((long long)a.n + S::kG - 1) / S::kG;
   const long long want = (groups + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const int blocks = (int)(want < mb ? want : mb);
@@ -441,10 +716,55 @@ int launch_vec(const RelaxArgs& a, cudaStream_t stream) {
                 : launch_vec_over<W, B, false>(a, stream);
 }
 
-int launch_generic(const RelaxArgs& a, cudaStream_t stream) {
-  const int blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  relax_generic_kernel<<<blocks, kThreads, 0, stream>>>(a);
+// The generic family's strips per lane for (W, B): 0 (the scalar edge
+// path) where B or W is not a multiple of 4, else 1 up to 32 column quads
+// (B 128), 2 up to 64 (B 256), 4 beyond (B 512, and windows of 512
+// columns past it). ops/relax.py `generic_np` mirrors this.
+int generic_np(int W, int B) {
+  if (B % 4 || W % 4) return 0;
+  const int q = B / 4;
+  return q <= 32 ? 1 : q <= 64 ? 2 : 4;
+}
+
+GenShape gen_shape(int W, int B, int np) {
+  GenShape g;
+  g.Q = B / 4;
+  g.L = 32;
+  if (np == 1)
+    while (g.L / 2 >= g.Q) g.L /= 2;  // the least power of two >= Q
+  g.S = 32 / g.L;
+  const int per_window = (np > 0 ? np : 1) * g.L;  // np 0: not read
+  g.windows = (g.Q + per_window - 1) / per_window;
+  g.chunks = (W + kSlab - 1) / kSlab;
+  return g;
+}
+
+template <int NP, bool OVER>
+int launch_generic_np(const RelaxArgs& a, cudaStream_t stream) {
+  long long want = ((long long)a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (NP > 0) {  // the wide path strides a persistent grid over the rows
+    static int max_blocks[kMaxDevices];
+    const int mb = resident_blocks(relax_generic_kernel<NP, OVER>, max_blocks);
+    if (want > mb) want = mb;
+  }
+  relax_generic_kernel<NP, OVER><<<(unsigned)want, kThreads, 0, stream>>>(
+      a, gen_shape(a.W, a.B, NP));
   return (int)cudaGetLastError();
+}
+
+template <bool OVER>
+int launch_generic_over(const RelaxArgs& a, cudaStream_t stream) {
+  switch (generic_np(a.W, a.B)) {
+    case 1: return launch_generic_np<1, OVER>(a, stream);
+    case 2: return launch_generic_np<2, OVER>(a, stream);
+    case 4: return launch_generic_np<4, OVER>(a, stream);
+    default: return launch_generic_np<0, OVER>(a, stream);
+  }
+}
+
+int launch_generic(const RelaxArgs& a, cudaStream_t stream) {
+  return a.over ? launch_generic_over<true>(a, stream)
+                : launch_generic_over<false>(a, stream);
 }
 
 int width_index(int x) {
@@ -510,6 +830,12 @@ extern "C" int openr_relax_vec_shape(int W, int B) {
   return vec_launcher(W, B) != nullptr;
 }
 
+// The generic kernel's strips per lane at (W, B): 0 for its scalar edge
+// path, else 1, 2 or 4 (`generic_np`).
+extern "C" int openr_relax_generic_np(int W, int B) {
+  return generic_np(W, B);
+}
+
 // The kernel for this shape: the vectorised specialisation where one
 // exists, else the generic kernel.
 extern "C" int openr_relax_rows(
@@ -518,7 +844,7 @@ extern "C" int openr_relax_rows(
     const void* roots, const void* src_rows, const void* dst_rows,
     int row0, int n, void* changed, void* row_flag, void* rows_changed,
     void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0 || W <= 0 || B <= 0) return 0;  // nothing to relax
   const RelaxArgs a = make_args(dist_in, out, B, nbr, wgt, over, W, roots,
                                 src_rows, dst_rows, row0, n, changed,
                                 row_flag, rows_changed);
@@ -534,7 +860,7 @@ extern "C" int openr_relax_rows_generic(
     const void* roots, const void* src_rows, const void* dst_rows,
     int row0, int n, void* changed, void* row_flag, void* rows_changed,
     void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0 || W <= 0 || B <= 0) return 0;  // nothing to relax
   return launch_generic(
       make_args(dist_in, out, B, nbr, wgt, over, W, roots, src_rows,
                 dst_rows, row0, n, changed, row_flag, rows_changed),

@@ -207,8 +207,9 @@ class TorchSpfSolver:
         # base_version -> (out, in) distinct-neighbor counts for the KSP
         # k clamp (structural, so metric churn keeps them)
         self._ksp_nbr_counts: dict[int, tuple] = {}
-        # last KSP batch: jobs, chunks, k_eff, rounds, sweeps (one host
-        # read per round and per sweep) and host wall ms
+        # last KSP batch: jobs, chunks, k_eff, rounds, sweeps, host_reads
+        # (one host read per chunk), and host wall ms of the device calls
+        # (paths_ms) and of the whole batch (ms)
         self.last_ksp_stats: dict = {}
 
     # ------------------------------------------------------------ device

@@ -13,6 +13,9 @@ header for the semantics and the design.
 hand kernel, the vectorised specialisation where `design_for(W, B)` says
 "vec" and the generic kernel otherwise (a build or launch failure
 raises); a CPU tensor runs the plain PyTorch version `relax_rows_ref`.
+The generic kernel picks its path by shape too (`generic_np`): 16-byte
+strips of column quads where B and W are multiples of 4, its scalar
+edge path elsewhere.
 Given a `row_flag` buffer, every version also reports the dist rows it
 lowered, which the split solve reads as its change detection.
 """
@@ -49,6 +52,7 @@ ENTRY_POINTS = {
     "openr_relax_rows": (_ROWS_ARGTYPES, ctypes.c_int),
     "openr_relax_rows_generic": (_ROWS_ARGTYPES, ctypes.c_int),
     "openr_relax_vec_shape": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "openr_relax_generic_np": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
     "openr_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -72,6 +76,17 @@ def design_for(w: int, b: int) -> str:
     distance columns: "vec" (the specialisation for that shape) or
     "generic". The C entry `openr_relax_rows` makes the same choice."""
     return "vec" if w in VEC_WIDTHS and b in VEC_WIDTHS else "generic"
+
+
+def generic_np(w: int, b: int) -> int:
+    """The generic kernel's path at (W, B), as `csrc/relax.cu`
+    `generic_np` chooses it: 0 for the scalar edge path (B or W not a
+    multiple of 4), else the 16-byte column strips each lane carries: 1
+    up to B = 128, 2 up to B = 256, 4 beyond."""
+    if b % 4 or w % 4:
+        return 0
+    q = b // 4
+    return 1 if q <= 32 else 2 if q <= 64 else 4
 
 
 def _lib():
@@ -217,16 +232,17 @@ def _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
         )
 
 
-def _check_aligned(dist_in, out, nbr, wgt, over):
-    """The vectorised kernel reads 16-byte vectors of dist and copies the
-    table in 16-byte (over: 8-byte) pieces."""
+def _check_aligned(dist_in, out, nbr, wgt, over, over_align=8):
+    """The vectorised kernel and the generic kernel's strip path read
+    16-byte vectors of dist and copy the table in 16-byte pieces (over:
+    8-byte pieces, 4-byte ones on the generic path)."""
     for nm, x, align in (("dist_in", dist_in, 16), ("out", out, 16),
                          ("nbr", nbr, 16), ("wgt", wgt, 16),
-                         ("over", over, 8)):
+                         ("over", over, over_align)):
         if x is not None and x.data_ptr() % align:
             raise ValueError(
                 f"relax_rows: {nm} must be {align}-byte aligned for the "
-                "vectorised kernel"
+                "relax kernel's 16-byte loads"
             )
 
 
@@ -252,6 +268,8 @@ def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
     )
     if design == "vec":
         _check_aligned(dist_in, out, nbr, wgt, over)
+    elif generic_np(w, b):
+        _check_aligned(dist_in, out, nbr, wgt, over, over_align=4)
     lib = _lib()
 
     def ptr(x):

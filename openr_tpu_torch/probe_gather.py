@@ -11,9 +11,10 @@ overloads, so the kernel's INF guard changes nothing).
 The probe's two TPU formulations have Hopper counterparts in the port's
 two relax designs (`csrc/relax.cu`):
 
-  * `sweep_b1`, the d-loop of one [VP, B] gather per slot, is
-    `relax_generic_kernel`: a warp per row, lanes over B, the slots
-    walked one by one;
+  * `sweep_b1`, the d-loop of one [VP, B] gather per slot, runs on
+    `relax_generic_kernel` (the shape read at run time): a warp per row,
+    B/4 = 8 lanes per dist row with 16-byte loads and 4 slot lanes, the
+    table staged in shared memory;
   * `sweep_b2`, four slots packed into one 128-lane gather, is
     `relax_vec_kernel<64, 32>`: B/4 = 8 lanes per dist row with 16-byte
     loads, so one warp load serves 4 slots.

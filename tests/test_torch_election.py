@@ -129,6 +129,43 @@ def test_elect_seg_ref_equals_jax_elect_seg(trial, empty, inelig):
                                       err_msg=name)
 
 
+@pytest.mark.parametrize("inelig", [False, True])
+def test_elect_seg_ref_equals_jax_on_long_and_empty_segments(inelig):
+    """Segments of 0, 1, 2, 31, 32, 33 and 300 slots mixed in one table
+    (the lengths on each side of a warp, and a prefix with hundreds of
+    advertisers): the plain version equals JAX's `_elect_seg`."""
+    rng = np.random.default_rng(77 + inelig)
+    lengths = np.array([0, 1, 2, 31, 32, 33, 300, 2, 0, 33, 1, 300, 2, 0])
+    m, s = len(lengths), int(lengths.sum())
+    indptr = np.concatenate(([0], np.cumsum(lengths))).astype(np.int32)
+    seg = np.repeat(np.arange(m), lengths).astype(np.int32)
+    n_nodes = 64
+    adv = rng.integers(0, n_nodes, s).astype(np.int32)
+    known = rng.random(s) < 0.9
+    rank = rng.integers(0, 4, s).astype(np.int32)  # many rank ties
+    d_vec = np.where(rng.random(n_nodes) < 0.8,
+                     rng.integers(1, 20, n_nodes), INF).astype(np.int32)
+    reach = (d_vec < INF) & (rng.random(n_nodes) < 0.9)
+    if inelig:
+        reach[:] = False
+    my_id = int(adv[indptr[6]])  # an advertiser of the 300-slot segment
+    ref = _elect_seg(seg, adv, known, rank, d_vec, reach, np.int32(my_id),
+                     num_segments=MAX_SEGMENTS)
+    got = pops.elect_seg(
+        _t(indptr, np.int32), _t(seg, np.int32), _t(adv, np.int32),
+        _t(known, bool), _t(rank, np.int32), _t(d_vec, np.int32),
+        _t(reach, bool), my_id,
+    )
+    for name, g, r, cut in zip(
+        ("best_r", "min_igp", "is_best", "chosen", "local"), got, ref,
+        (m, m, None, None, m),
+    ):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r)[:cut],
+                                      err_msg=name)
+    assert bool(got[4].any())  # this node's own slot wins somewhere
+    assert int(got[0][0]) == -(1 << 31) and int(got[1][0]) == (1 << 31) - 1
+
+
 @pytest.mark.parametrize("trial", range(5))
 def test_elect_multi_device_equals_jax(trial):
     rng = np.random.default_rng(3 + 100 * trial)

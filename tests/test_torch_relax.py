@@ -243,3 +243,117 @@ def test_wrapper_checks_flag_buffers():
     with pytest.raises(ValueError):
         relax._check_aligned(d.reshape(-1)[1:], d, n, w, None)
     relax._check_aligned(d, d, n, w, None)
+
+
+# ------------------------------------------------------- wide shapes
+
+
+@pytest.mark.parametrize("w,b,design,np_", [
+    (64, 128, "generic", 1), (32, 128, "generic", 1),
+    (128, 256, "generic", 2), (512, 128, "generic", 1),
+    (64, 512, "generic", 4), (256, 1024, "generic", 4),
+    (64, 32, "vec", 1), (24, 48, "generic", 1), (4, 8, "generic", 1),
+    (1, 32, "generic", 0), (6, 12, "generic", 0), (8, 10, "generic", 0),
+])
+def test_design_for_and_generic_path_at_wide_and_odd_shapes(w, b, design,
+                                                             np_):
+    """A fabric's shapes (B 128 and up, overflow tables of 32 to 512
+    slots) take the generic kernel; its 16-byte strip path needs B and W
+    multiples of 4, and takes 1, 2 or 4 strips a lane by B."""
+    assert relax.design_for(w, b) == design
+    assert relax.generic_np(w, b) == np_
+
+
+@pytest.mark.parametrize("mode", ["row0", "dst_rows", "src_dst_rows"])
+@pytest.mark.parametrize("frac_over", [0.0, 0.2])
+@pytest.mark.parametrize("w,b", [(128, 128), (128, 256), (256, 128),
+                                 (256, 256)])
+def test_wide_shapes_equal_jax_relax_rows(mode, frac_over, w, b):
+    """The plain version at the generic kernel's wide shapes (W and B of
+    128 and 256) in every indirection form, overloads off and on, equals
+    `_relax_rows` + `.at[rows].min`; its row flags are the rows it
+    lowered."""
+    v = 384
+    nbr, wgt, roots, over, dist = _tables(v, w, b, 21, frac_over=frac_over)
+    has_over = frac_over > 0
+    over_t = over[nbr]
+    rng = np.random.default_rng(22)
+    tab = (nbr, wgt, over_t)
+    if mode == "row0":
+        src = dst = np.arange(96, 288)
+        kw = dict(row0=96, n=192)
+    elif mode == "dst_rows":
+        ro = 48
+        dst = rng.integers(0, v, ro).astype(np.int32)
+        dst[ro // 2 :] = v - 1
+        dst[:4] = dst[4]
+        src = np.arange(ro)
+        tab = tuple(x[:ro] for x in tab)
+        kw = dict(dst_rows=_t(dst))
+    else:
+        rows = np.sort(rng.choice(v - 1, 80, replace=False)).astype(np.int32)
+        rows = np.concatenate([rows, np.full(16, v - 1, np.int32)])
+        src = dst = rows
+        kw = dict(src_rows=_t(rows), dst_rows=_t(rows))
+    ref = _jax_rows(dist, tab[0], tab[1], tab[2], roots, src, dst, has_over)
+    out = _t(dist).clone()
+    flag = torch.zeros(v, dtype=torch.int32)
+    count = torch.zeros(1, dtype=torch.int32)
+    relax.relax_rows(
+        _t(dist), out, _t(tab[0]), _t(tab[1]), _t(roots),
+        _t(tab[2]) if has_over else None, row_flag=flag,
+        rows_changed=count, **kw,
+    )
+    np.testing.assert_array_equal(out.numpy(), ref)
+    lowered = (ref < dist).any(axis=1)
+    assert lowered.any()
+    np.testing.assert_array_equal(flag.numpy(), lowered.astype(np.int32))
+    assert int(count.item()) == int(lowered.sum())
+
+
+@pytest.mark.parametrize("frac_over", [0.0, 0.15])
+def test_wide_sweep_equals_pallas_interpret(frac_over):
+    """One dense sweep at B = 128 over a table of 128 slots (a hub's
+    shape on the generic kernel) equals the Pallas kernel in interpret
+    mode, changed count included."""
+    v, d, b = 128, 128, 128
+    nbr, wgt, roots, over, dist = _tables(v, d, b, 3, frac_over=frac_over)
+    has_over = frac_over > 0
+    over_t = over[nbr]
+    ref, ref_changed = _relax_once(
+        jnp.asarray(nbr), jnp.asarray(wgt), jnp.asarray(over_t),
+        jnp.asarray(roots), jnp.asarray(dist), 64, has_over, True,
+    )
+    got, changed = relax.relax_sweep(
+        _t(dist), _t(nbr), _t(wgt), _t(roots),
+        _t(over_t) if has_over else None,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(changed.item()) == int(ref_changed)
+
+
+def test_c_generic_dispatch_matches_generic_np():
+    """The C choice of the generic kernel's path (`generic_np` in
+    relax.cu) is the one `relax.generic_np` mirrors, on a grid of
+    shapes."""
+    src = CU_SRC.read_text()
+    body = src[src.index("int generic_np(int W, int B)"):]
+    body = body[: body.index("\n}\n")]
+    align = re.search(r"if \(B % (\d+) \|\| W % (\d+)\) return 0;", body)
+    steps = re.search(r"q <= (\d+) \? (\d) : q <= (\d+) \? (\d) : (\d);",
+                      body)
+    assert align and steps and "const int q = B / 4;" in body
+    am, aw = int(align.group(1)), int(align.group(2))
+    q1, n1, q2, n2, n3 = (int(x) for x in steps.groups())
+
+    def c_np(w, b):
+        if b % am or w % aw:
+            return 0
+        q = b // 4
+        return n1 if q <= q1 else n2 if q <= q2 else n3
+
+    grid = (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 96, 128, 129, 256,
+            384, 512, 1024)
+    for w in grid:
+        for b in grid:
+            assert c_np(w, b) == relax.generic_np(w, b), (w, b)
