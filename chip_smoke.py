@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand
 kernels from this checkout, holds each against its plain PyTorch
 version, times them on the device, drives the cold single-root RIB
-solve, the warm path and the RIB of every prefix shape at full size and
-checks their answers.
+solve, the warm path, the RIB of every prefix shape and the batched
+multi-root solves (every table kind, all-sources, fleet) at full size
+and checks their answers.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --old PARENT/openr_tpu_torch/csrc
@@ -12,15 +13,16 @@ With `--old`, the relax and election kernels built from another
 checkout's sources (the parent commit's, unpacked with `git archive`)
 are timed beside this checkout's at the same calls, in turns (old, new,
 new, old): [3]'s er100k calls, the hub root's calls, the probe's B1
-sweep, [8c]'s and [9]'s elections and [9]'s three relax calls.
+sweep, [8c]'s and [9]'s elections and [9]'s three relax calls. The
+edge-list kernels have no counterpart there and are timed alone.
 
 Phases (any failure exits non-zero and prints no result line):
 
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles csrc/relax.cu, election.cu and ksp.cu with one nvcc
-     each and, at the same time, a cubin of each with `-Xptxas -v`, whose
-     registers, shared memory and spills it prints per kernel; checks the
-     C dispatch against `design_for`;
+  2. build: compiles csrc/relax.cu, election.cu, ksp.cu and edge_relax.cu
+     with one nvcc each and, at the same time, a cubin of each with
+     `-Xptxas -v`, whose registers, shared memory and spills it prints per
+     kernel; checks the C dispatch against `design_for`;
   3. kernels vs plain on the card, exact int32 equality of dist, the
      changed count, row_flag and rows_changed: every vectorised
      specialisation (W, B in {8, 16, 32, 64}) and the generic kernel on
@@ -100,10 +102,34 @@ Phases (any failure exits non-zero and prints no result line):
      path's, the device election equal to NumPy's; solve and
      compute_routes p50, phases, sweeps; the generic kernel at the
      path's dense, overflow and tail calls and the election at 20 000
-     slots, timed with their bounds.
+     slots, timed with their bounds;
+ 10. the batched multi-root paths: (a) `csrc/edge_relax.cu`'s init and
+     round kernels exact against their plain versions on random edge
+     lists (padding, parallel edges, unreachable and overloaded nodes,
+     overloaded and repeated roots, a 4 096-edge hub run; B in {1, 8,
+     32, 256, 300}): the init, single rounds with the changed word, and
+     the fixpoint with its round count; (b) BASELINE config 3 at full
+     width: `_solve_dist(csr, arange(256) % V)` on [4]'s er100k on the
+     split, dense, use_pallas and edge tables (counts from 0 around each
+     kind and around an edge-table RIB): the four matrices equal on the
+     100 000 live rows, three columns equal scipy, the edge-table RIB
+     from node-0 equal to [4]'s; per kind p50 of 3 calls, sources/s,
+     sweeps or rounds, host reads, CUPTI per kernel, busy share and peak
+     device memory; (c) the edge init, an edge round and kernel A's
+     dense sweep at config 3's calls, exact and timed with their bounds;
+     (d) `all_sources_sssp` on a 4 000-node ER equal to scipy's all
+     pairs (chunks of 256, and of 384 with a padded tail), and with 2%
+     overloaded nodes its first chunk equal to the split and dense
+     paths; (e) `compute_fleet_ribs` on `fat_tree(16, metric=10)`, every
+     RIB equal to its node's `compute_routes`, wall and routes/s, and on
+     config 2's two roots equal to [9]'s RIBs; (f) `kernel_impl="dense"`
+     on `hub_and_spoke(2, 100)` takes the edge list through the waste
+     check, its RIB equal to the split path's.
 
-The line before the card's name is a JSON object `{"kernels": [...]}`;
-the last line is `{"ok": true, "device": {...}}`.
+The line before the card's name is a JSON object `{"kernels": [...]}`,
+each row's `timed_by` saying whether its `ms` is a CUPTI duration
+("cupti") or, where CUPTI kept no launch, a CUDA-graph replay time
+("graph"); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -196,34 +222,56 @@ def kernel_device_us(prof, names) -> tuple[float, int]:
     return us, count
 
 
-def cupti_us(launch, restore, name: str, reps: int = TIMING_REPS
-             ) -> float | None:
+def cupti_us(launch, restore, name: str, reps: int = TIMING_REPS,
+             attempts: int = 3) -> float | None:
     """Mean CUPTI duration (µs) of kernel `name` over `reps` launches,
     each after `restore()` (whose copy kernels are not counted). CUPTI
-    may drop launches: the mean is over those it kept, None if none."""
+    may drop launches (more of them late in a long run): the mean is
+    over those it kept; a profile that kept none is taken again, up to
+    `attempts` profiles; None if none kept any."""
     from torch.profiler import ProfilerActivity, profile
 
     restore()
     launch()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            restore()
-            launch()
-        torch.cuda.synchronize()
-    us, count = kernel_device_us(prof, (name,))
-    if count != reps:
-        log(f"      CUPTI kept {count} of {reps} launches of {name}")
-    return us / count if count else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                restore()
+                launch()
+            torch.cuda.synchronize()
+        us, count = kernel_device_us(prof, (name,))
+        if count != reps:
+            log(f"      CUPTI kept {count} of {reps} launches of {name}")
+        if count:
+            return us / count
+    return None
 
 
-def kernel_us(launch, restore, name: str) -> float:
-    """`cupti_us`, failing the run when CUPTI kept no launch."""
+def kernel_us(launch, restore, name: str) -> tuple[float, str]:
+    """(µs, "cupti") from `cupti_us`; where CUPTI kept no launch in any
+    profile, (µs, "graph") from the CUDA-graph replay time (`graph_us`,
+    with a 4-byte memset beside `restore` so that neither graph is
+    empty). The kernels line carries the source as `timed_by`."""
     us = cupti_us(launch, restore, name)
-    if us is None:
-        fail(f"the profiler saw no launch of {name}")
-    return us
+    if us is not None:
+        return us, "cupti"
+    pad = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def restore_pad():
+        restore()
+        pad.zero_()
+
+    us = graph_us(launch, restore_pad, TIMING_REPS)
+    log(f"      {name}: CUPTI kept no launch; CUDA-graph replay "
+        f"{us:.3f} us per launch")
+    return us, "graph"
+
+
+def timed_by(sources) -> str:
+    """One `timed_by` for a mean over timings from `sources`."""
+    return "+".join(sorted(set(sources)))
 
 
 def graph_us(launch, restore, reps: int) -> float:
@@ -266,12 +314,13 @@ def graph_us(launch, restore, reps: int) -> float:
 
 
 #: the hand-kernel sources, each built by one nvcc (all started together)
-SOURCES = ("relax", "election", "ksp")
+SOURCES = ("relax", "election", "ksp", "edge_relax")
 #: kernels `-Xptxas -v` must report per source: relax's generic kernel
 #: (strips 0, 1, 2, 4, overload off/on) and a vec kernel per (W, B,
 #: overload) specialisation; ksp's SSSP kernel, its wide-row twin and the
-#: walk
-PTXAS_KERNELS = {"relax": 8 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 3}
+#: walk; edge_relax's init and round kernels at 4 and 1 columns a thread
+PTXAS_KERNELS = {"relax": 8 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 3,
+                 "edge_relax": 4}
 
 
 def start_ptxas_report(cuda_build, name: str):
@@ -299,7 +348,10 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
                           r"(?:ILi(\d+)E(?:Li(\d+)E)?Lb(\d)E)?", m.group(1))
             named = re.search(r"(elect_seg_kernel|ksp_sssp_kernel|"
                               r"ksp_walk_kernel)(ILb1E)?", m.group(1))
+            edge = re.search(r"(edge_(?:init|relax)_kernel)ILi(\d)E",
+                             m.group(1))
             cur = (k.group(1) if k else named.group(1) if named
+                   else f"{edge.group(1)}<{edge.group(2)} cols>" if edge
                    else m.group(1))
             if named is not None and named.group(2):
                 cur += "<wide rows>"
@@ -639,7 +691,7 @@ def time_calls(relax, dist_in, roots, calls, variants, tag) -> dict:
             gr = statistics.fmean(tg[lb])
             us = statistics.fmean(cu) if cu else gr
             res[lb] = dict(cupti_us=statistics.fmean(cu) if cu else None,
-                           graph_us=gr, samples=t[lb], graph_samples=tg[lb],
+                           timed_by="cupti" if cu else "graph", graph_us=gr, samples=t[lb], graph_samples=tg[lb],
                            us=us, bound_share=b_ms * 1e3 / us,
                            l2_tbs=l2 / us / 1e6)
         out[kind] = res
@@ -1025,7 +1077,7 @@ def phase7_probe(relax, old_libs) -> dict:
                 turns[lb].append(kernel_us(
                     lambda: pg.sweep_b1(nbr, wgt, dist), lambda: None,
                     relax.KERNEL_NAMES["generic"]))
-        log(f"[7] B1 in turns (old, new, new, old), CUPTI us: old generic "
+        log(f"[7] B1 in turns (old, new, new, old), (us, timed by): old generic "
             f"{turns['old generic']}, generic {turns['generic']}")
     names = {name: fn.__name__ for name, fn, _k in pg.VARIANTS}
     out = {names[k]: v for k, v in res.items()}
@@ -1368,8 +1420,8 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
         worst["sssp"] = max(worst["sssp"], err)
         out = torch.empty_like(dist)
         flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-        us = kernel_us(lambda: ksp_ops.ksp_relax(dist, out, *tab, flag),
-                       lambda: None, ksp_ops.KERNEL_NAMES["sssp"])
+        us, by = kernel_us(lambda: ksp_ops.ksp_relax(dist, out, *tab, flag),
+                           lambda: None, ksp_ops.KERNEL_NAMES["sssp"])
         p_ms = cuda_ms(lambda: ksp_ops.ksp_relax_ref(dist, out, *tab, flag))
         nbytes, ops = ksp_relax_work(wgt_t, b)
         b_ms, b_by = bound(nbytes, ops)
@@ -1377,7 +1429,7 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
         log(f"[8a] ksp_sssp_kernel, one sweep at the er100k dense shape (V "
             f"{v}, D {d}, B {b}; {'resident' if rows else 'streamed'}, {grid} "
             f"blocks, {smem} B smem): max |diff| vs plain {err} (changed "
-            f"{ch}); {us:.2f} us, bound {b_ms * 1e3:.3f} us by {b_by} "
+            f"{ch}); {us:.2f} us ({by}), bound {b_ms * 1e3:.3f} us by {b_by} "
             f"({nbytes} B), share {b_ms * 1e3 / us:.3f}; plain {p_ms:.4f} ms")
         er[b] = dict(us=us, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                      bytes=nbytes)
@@ -1554,8 +1606,9 @@ def fixpoint_at_call(ksp_ops, sx) -> dict:
     err1, _ch = relax_vs_plain(ksp_ops, start, tab)
     out = torch.empty_like(start)
     flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-    sweep_us = kernel_us(lambda: ksp_ops.ksp_relax(start, out, *tab, flag),
-                         lambda: None, ksp_ops.KERNEL_NAMES["sssp"])
+    sweep_us, _by = kernel_us(
+        lambda: ksp_ops.ksp_relax(start, out, *tab, flag), lambda: None,
+        ksp_ops.KERNEL_NAMES["sssp"])
     sweep_plain = cuda_ms(lambda: ksp_ops.ksp_relax_ref(start, out, *tab,
                                                         flag))
     s_bytes, s_ops = ksp_relax_work(wgt, b)
@@ -1583,15 +1636,15 @@ def fixpoint_at_call(ksp_ops, sx) -> dict:
     if sweeps != host_sweeps or int(p_counters[1].item()) != host_sweeps:
         fail(f"device fixpoint ran {sweeps} sweeps, the host-read loop "
              f"{host_sweeps}, the plain one {int(p_counters[1].item())}")
-    fix_us = kernel_us(lambda: device_fix(), lambda: None,
-                       ksp_ops.KERNEL_NAMES["sssp"])
+    fix_us, fix_by = kernel_us(lambda: device_fix(), lambda: None,
+                               ksp_ops.KERNEL_NAMES["sssp"])
     f_bytes, f_ops = ksp_sssp_work(nbr, wgt, blocked, fix)
     rows, grid, smem, _stage = ksp_ops.sssp_plan(v, nbr.shape[1], b)
     return dict(
         err=err, v=v, d=nbr.shape[1], b=b, sweeps=sweeps,
         mode="resident" if rows else "streamed", grid=grid, smem=smem,
         sweep_us=sweep_us, sweep_plain_ms=sweep_plain, sweep_bytes=s_bytes,
-        sweep_bound=bound(s_bytes, s_ops), us=fix_us,
+        sweep_bound=bound(s_bytes, s_ops), us=fix_us, timed_by=fix_by,
         dev_wall_ms=wall_ms(device_fix), host_wall_ms=wall_ms(host_loop),
         plain_ms=wall_ms(lambda: device_fix(ksp_ops.ksp_sssp_ref), reps=1),
         bytes=f_bytes, ops=f_ops, bound=bound(f_bytes, f_ops),
@@ -1620,14 +1673,15 @@ def walk_at_call(ksp_ops, wk) -> dict:
         fn(w_dist, w_nbr, w_wgt, w_blocked, bans_w, w_dests, w_root, w_hops,
            bufs[0], path_w, bufs[1], ok_w)
 
-    us = kernel_us(lambda: w_call(ksp_ops.ksp_walk), w_restore,
-                   ksp_ops.KERNEL_NAMES["walk"])
+    us, by = kernel_us(lambda: w_call(ksp_ops.ksp_walk), w_restore,
+                       ksp_ops.KERNEL_NAMES["walk"])
     plain = cuda_ms(lambda: (w_restore(), w_call(ksp_ops.ksp_walk_ref)))
     hops = wref[2]
     rows = int((hops + 1).sum().item())
     longest = int(hops.max().item())
     nbytes = rows * w_nbr.shape[1] * (4 + 4 + 1 + 4 + 4) + b * 16 + rows * 4
-    return dict(err=err, us=us, plain_ms=plain, rows=rows, longest=longest,
+    return dict(err=err, us=us, timed_by=by, plain_ms=plain, rows=rows,
+                longest=longest,
                 us_per_hop=us / max(longest, 1), bytes=nbytes,
                 bound=bound(nbytes, rows * w_nbr.shape[1] * 4), b=b,
                 d=w_nbr.shape[1])
@@ -1876,7 +1930,8 @@ def elect_at_call(election_ops, solver, view, dist, fh, my_id, old_libs,
     if err:
         fail(f"election: kernel disagrees with plain at the path's shape "
              f"({err})")
-    us = statistics.fmean(turns["new"])
+    us = statistics.fmean(x for x, _by in turns["new"])
+    by = timed_by(b for _x, b in turns["new"])
     p_ms = cuda_ms(lambda: election_ops.elect_seg_ref(*args))
     lengths = (t["indptr"][1:] - t["indptr"][:-1]).long()
     data_r = t["rank"].float()
@@ -1892,8 +1947,8 @@ def elect_at_call(election_ops, solver, view, dist, fh, my_id, old_libs,
         f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes} B), share "
         f"{b_ms * 1e3 / us:.3f}; max |diff| vs plain {err}; CUPTI in turns "
         f"{turns}")
-    return dict(us=us, plain_ms=p_ms, lib_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, err=err, turns=turns)
+    return dict(us=us, timed_by=by, plain_ms=p_ms, lib_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, err=err, turns=turns)
 
 
 def elections_equal(dev, ref, tag: str) -> None:
@@ -2040,7 +2095,8 @@ def phase9_config2(relax, election_ops, old_libs, k: int = CONFIG2["k"],
         f"uniform metric {got['uniform']} (host copy and card agree); "
         f"set-up {set_up:.1f} s, CPU path's two RIBs {cpu_s:.1f} s")
 
-    out = {"roots": {}, "generic_launches": 0, "elect_launches": 0}
+    out = {"roots": {}, "generic_launches": 0, "elect_launches": 0,
+           "states": (ls, ps), "ribs": {}}
     for me in roots:
         my_id = csr.name_to_id[me]
         solver.solve(ls, me)  # warm-up
@@ -2107,6 +2163,7 @@ def phase9_config2(relax, election_ops, old_libs, k: int = CONFIG2["k"],
                    launches=launches, elect_launches=e_launches,
                    kernel_us=k_us, kernel_n=k_n, busy=dev_us / 1e3 / traced_ms)
         out["roots"][me] = row
+        out["ribs"][me] = rdb
         out["generic_launches"] += launches["generic"]
         out["elect_launches"] += e_launches
         log(f"[9] {me} (B={b}): solve p50 {row['solve_p50']:.3f} ms (samples "
@@ -2145,6 +2202,585 @@ def phase9_config2(relax, election_ops, old_libs, k: int = CONFIG2["k"],
     return out
 
 
+# ----------------------------------------------------------- phase 10
+
+#: (V, average out-degree, extra in-edges of hub node 0) of [10a]'s
+#: random edge lists: a plain graph, and one with a 4 096-edge hub run
+EDGE_CASES = ((3000, 6, 0), (6000, 3, 4096))
+EDGE_B = (1, 8, 32, 256, 300)
+#: BASELINE config 3 ("100k-node Erdős–Rényi graph, batched all-sources
+#: SSSP", BASELINE.md) as `bench.py:933-954` runs it: 256 roots on the
+#: er100k LSDB, `np.arange(256) % num_nodes`
+CONFIG3_B = 256
+#: [10b]'s table kinds: TorchSpfSolver knobs and the table each picks
+TABLE_KINDS = {
+    "split": ({}, "split"),
+    "dense": (dict(use_dense=True), "dense"),
+    "pallas": (dict(use_pallas=True), "dense"),
+    "edge": (dict(use_dense=False), "edge"),
+}
+#: [10d]: all_sources_sssp's ER (4 000 nodes in 4 096 slots: 16 chunks of
+#: 256, the last of 160 live roots) and the fleet's fat tree
+#: (`benchmarks/bench_fleet.py:28,50`: k 16, metric 10, 320 nodes)
+ALL_SOURCES_N = 4000
+FLEET_K = 16
+
+
+def edge_arrays(rng, n, deg, hub_in, over_frac=0.05):
+    """A random directed edge list in the CsrGraph layout: dst-sorted,
+    padded with blocked INF edges into the dead slot; parallel edges,
+    unreachable nodes (the last 3), overloaded nodes and a hub (node 0,
+    `hub_in` extra in-edges). Returns (src, dst, metric, over, vp) as
+    NumPy arrays."""
+    live = n - 3
+    e = n * deg
+    src = rng.integers(0, live, e)
+    dst = rng.integers(0, live, e)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    dup = rng.random(len(src)) < 0.05
+    src = np.concatenate([src, src[dup], rng.integers(1, live, hub_in)])
+    dst = np.concatenate([dst, dst[dup], np.zeros(hub_in, np.int64)])
+    met = rng.integers(1, 65, len(src))
+    order = np.argsort(dst, kind="stable")
+    vp = 1 << int(n).bit_length()
+    ep = 1 << int(len(src) + 64).bit_length()
+    es = np.zeros(ep, np.int32)
+    ed = np.full(ep, vp - 1, np.int32)
+    em = np.full(ep, INF, np.int32)
+    es[: len(src)], ed[: len(src)] = src[order], dst[order]
+    em[: len(src)] = met[order]
+    over = np.zeros(vp, bool)
+    over[rng.choice(live, max(1, int(over_frac * live)), replace=False)] = True
+    return es, ed, em, over, vp
+
+
+def edge_tensors(edge_ops, es, ed, em, over, vp) -> dict:
+    from openr_tpu_torch.ops.spf import build_blocked
+
+    return dict(src=to_dev(es, np.int32), dst=to_dev(ed, np.int32),
+                metric=to_dev(em, np.int32),
+                blocked=to_dev(build_blocked(em, es, over), np.bool_),
+                row_start=to_dev(edge_ops.edge_row_start(ed, vp, em),
+                                 np.int32))
+
+
+def edge_args(t, with_blocked=True):
+    keys = ("src", "dst", "metric") + (("blocked",) if with_blocked else ())
+    return [t[k] for k in keys]
+
+
+def plain_edge_sssp(edge_ops, t, roots, vp):
+    """`batched_sssp`'s loop on the plain versions, on the card: (dist,
+    rounds)."""
+    cur = torch.empty((vp, roots.shape[0]), dtype=torch.int32, device=DEVICE)
+    nxt = torch.empty_like(cur)
+    ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    edge_ops.edge_init_ref(cur, *edge_args(t, False), roots)
+    rounds = 0
+    for _ in range(vp):
+        edge_ops.edge_round_ref(cur, nxt, *edge_args(t), ch)
+        rounds += 1
+        cur, nxt = nxt, cur
+        if int(ch.item()) == 0:
+            break
+    return cur, rounds
+
+
+def edge_steps_vs_plain(edge_ops, t, roots, vp, rounds: int = 2) -> int:
+    """The init and `rounds` single rounds, kernel against plain on the
+    same inputs (dist and the changed word): max |diff|."""
+    b = roots.shape[0]
+    pairs = []
+    k = torch.empty((vp, b), dtype=torch.int32, device=DEVICE)
+    p = torch.empty_like(k)
+    edge_ops.edge_init(k, *edge_args(t, False), roots, t["row_start"])
+    edge_ops.edge_init_ref(p, *edge_args(t, False), roots)
+    pairs.append((k, p))
+    cur = p
+    for _ in range(rounds):
+        outs = []
+        for fn, extra in ((edge_ops.edge_round, (t["row_start"],)),
+                          (edge_ops.edge_round_ref, ())):
+            out = torch.full_like(cur, -7)
+            ch = torch.full((1,), 5, dtype=torch.int32, device=DEVICE)
+            fn(cur, out, *edge_args(t), *extra, ch)
+            outs.append((out, ch))
+        pairs += [(outs[0][0], outs[1][0]), (outs[0][1], outs[1][1])]
+        cur = outs[1][0]
+    torch.cuda.synchronize()
+    return max_diff(pairs)
+
+
+def phase10a_edge(edge_ops) -> dict:
+    """`csrc/edge_relax.cu` against its plain version on random edge
+    lists (padding, parallel edges, unreachable and overloaded nodes,
+    overloaded and repeated roots, a 4 096-edge hub run) at every B of
+    EDGE_B: the init and single rounds, then the fixpoint and its round
+    count."""
+    rng = np.random.default_rng(10)
+    worst, cases = 0, 0
+    for n, deg, hub in EDGE_CASES:
+        es, ed, em, over, vp = edge_arrays(rng, n, deg, hub)
+        t = edge_tensors(edge_ops, es, ed, em, over, vp)
+        for b in EDGE_B:
+            r = rng.integers(0, n, b).astype(np.int32)
+            if b >= 3:
+                r[1] = r[0]  # repeated
+                r[2] = np.flatnonzero(over)[0]  # overloaded
+            if hub and b >= 4:
+                r[3] = 0  # the hub itself
+            roots = to_dev(r, np.int32)
+            worst = max(worst, edge_steps_vs_plain(edge_ops, t, roots, vp))
+            st = {}
+            got = edge_ops.batched_sssp(*edge_args(t), roots, vp,
+                                        row_start=t["row_start"], stats=st)
+            ref, ref_rounds = plain_edge_sssp(edge_ops, t, roots, vp)
+            worst = max(worst, max_diff([(got, ref)]))
+            if st["rounds"] != ref_rounds:
+                fail(f"phase 10a: {st['rounds']} kernel rounds, {ref_rounds} "
+                     f"plain (V {n}, B {b})")
+            if not bool((ref == INF).any()):
+                fail("phase 10a: no unreachable entry in the check")
+            cases += 1
+    log(f"[10a] edge_init_kernel / edge_relax_kernel vs plain: {cases} "
+        f"cases (V {[c[0] for c in EDGE_CASES]}, hub run "
+        f"{max(c[2] for c in EDGE_CASES)}, B {EDGE_B}), init + 2 rounds + "
+        f"fixpoint with its round count, max |diff| {worst}")
+    if worst:
+        fail(f"phase 10a: edge kernels disagree with plain ({worst})")
+    return dict(worst=worst, cases=cases)
+
+
+def scipy_columns(csr, roots) -> np.ndarray:
+    """[len(roots), num_nodes] scipy Dijkstra distances on `csr`'s live
+    edges, INF for unreachable (no overloaded node)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    n, e = csr.num_nodes, int(csr.num_edges)
+    g = csr_matrix((csr.edge_metric[:e].astype(np.float64),
+                    (csr.edge_src[:e], csr.edge_dst[:e])), shape=(n, n))
+    d = dijkstra(g, directed=True, indices=list(roots))
+    return np.where(np.isinf(d), INF, d).astype(np.int64)
+
+
+def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
+                     b: int = CONFIG3_B) -> dict:
+    """BASELINE config 3 at full width: `_solve_dist(csr, arange(256) %
+    V)` on every table kind, counts from 0 around each kind's run and
+    around an edge-table compute_routes; the four dist matrices equal,
+    three columns equal scipy, the edge RIB equal to [4]'s split RIB;
+    per kind p50 of 3 calls, sources/s, sweeps or rounds, host reads,
+    launches, CUPTI per kernel and peak device memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    n = csr.num_nodes
+    roots = (np.arange(b) % n).astype(np.int32)
+    names = (relax.KERNEL_NAMES["vec"], relax.KERNEL_NAMES["generic"],
+             edge_ops.KERNEL_NAMES["init"], edge_ops.KERNEL_NAMES["round"])
+    dense_design = relax.design_for(csr.dense_width(), b)
+    rows, live = {}, {}
+    for kind, (knobs, table) in TABLE_KINDS.items():
+        solver = TorchSpfSolver(device=DEVICE, **knobs)
+        if solver._pick_table(csr) != table:
+            fail(f"config 3 {kind}: picked {solver._pick_table(csr)}, "
+                 f"expected {table}")
+        torch.cuda.synchronize()
+        relax.reset_launches()
+        edge_ops.reset_launches()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        d = solver._solve_dist(csr, roots)  # warm-up: builds the tables
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            d = solver._solve_dist(csr, roots)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        st = dict(solver.last_solve_stats)
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solver._solve_dist(csr, roots)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        kind_launches = dict(relax=dict(relax.LAUNCHES_BY_DESIGN),
+                             edge=dict(edge_ops.LAUNCHES))
+        if table == "split":
+            want = sum(kind_launches["relax"].values())
+        elif table == "edge":
+            want = min(kind_launches["edge"].values())
+        else:
+            want = kind_launches["relax"][dense_design]
+        if not want:
+            fail(f"config 3 {kind}: launches {kind_launches}: a kernel of "
+                 "its path was launched no time")
+        per = {nm: kernel_device_us(prof, (nm,)) for nm in names}
+        dev_us, _ = kernel_device_us(prof, ("",))
+        live[kind] = d[:n].clone()
+        p50 = statistics.median(times)
+        rows[kind] = dict(
+            rows=int(d.shape[0]), p50_ms=p50, times=times, first_ms=first_ms,
+            sources_per_s=b / (p50 / 1e3), stats=st,
+            kernels={nm: v for nm, v in per.items() if v[1]},
+            busy=dev_us / 1e3 / traced_ms, peak_bytes=peak,
+            peak_over_base=peak - base, launches=kind_launches,
+        )
+        del solver, d
+    ref = live["split"]
+    for kind, d in live.items():
+        if not torch.equal(d, ref):
+            bad = int((d != ref).sum().item())
+            fail(f"config 3: the {kind} distances differ from split's at "
+                 f"{bad} entries")
+    cols = (0, b // 2, b - 1)
+    want = scipy_columns(csr, roots[list(cols)])
+    got = ref[:, list(cols)].T.long().cpu().numpy()
+    if not np.array_equal(got, want):
+        fail("config 3: distances disagree with scipy dijkstra")
+    edge_solver = TorchSpfSolver(device=DEVICE, use_dense=False)
+    edge_ops.reset_launches()
+    rdb = edge_solver.compute_routes(ls, ps, "node-0")
+    torch.cuda.synchronize()
+    rib_stats = dict(edge_solver.last_solve_stats)
+    rib_launches = dict(edge_ops.LAUNCHES)
+    if (rdb.unicast_routes != rdb_split.unicast_routes
+            or rdb.mpls_routes != rdb_split.mpls_routes):
+        fail("config 3: the edge-table RouteDatabase differs from the split "
+             "path's")
+    if not all(rib_launches.values()):
+        fail(f"config 3: edge launches {rib_launches} in the edge-table "
+             "RIB: a kernel of the path was launched no time")
+    # the kernels line's launches: kernel A's dense design in the dense
+    # and use_pallas kinds, the edge kernels in the edge kind and its RIB
+    dense_launches = sum(rows[k]["launches"]["relax"][dense_design]
+                         for k in ("dense", "pallas"))
+    e_launches = {st: rows["edge"]["launches"]["edge"][st] + n
+                  for st, n in rib_launches.items()}
+    card = smi("name,power.limit")
+    for kind, r in rows.items():
+        st = r["stats"]
+        steps = (f"sweeps {st['sweeps']}" if "sweeps" in st
+                 else f"rounds {st['rounds']}")
+        reads = st.get("host_reads", st.get("host_syncs"))
+        kern = "; ".join(f"{nm} {v[1]} launches {v[0]:.1f} us "
+                         f"({v[0] / v[1]:.2f} us each)"
+                         for nm, v in r["kernels"].items())
+        log(f"[10b] config 3 {kind} ({TABLE_KINDS[kind][1]} tables, "
+            f"{r['rows']} rows x {b}): p50 {r['p50_ms']:.3f} ms (samples "
+            f"{[round(x, 3) for x in r['times']]}, first call with the "
+            f"table build {r['first_ms']:.1f} ms); sources/s "
+            f"{r['sources_per_s']:.1f}; {steps}, host reads {reads}; "
+            f"launches in its 5 calls {r['launches']}; CUPTI "
+            f"(one profiled call): {kern}; busy share {r['busy']:.3f}; peak "
+            f"device memory {r['peak_bytes'] / 2**20:.1f} MiB "
+            f"({r['peak_over_base'] / 2**20:.1f} MiB over the run's "
+            f"{(r['peak_bytes'] - r['peak_over_base']) / 2**20:.1f}); "
+            f"card {card}")
+    log(f"[10b] config 3: the four kinds' {n} x {b} distances equal; "
+        f"columns {cols} == scipy; the edge RIB (solve {rib_stats}, edge "
+        f"launches {rib_launches}) == [4]'s split RIB "
+        f"({len(rdb.unicast_routes)} unicast + {len(rdb.mpls_routes)} "
+        f"mpls); {dense_design} launches in the dense + pallas kinds "
+        f"{dense_launches}, edge launches in the edge kind + its RIB "
+        f"{e_launches}")
+    return dict(rows=rows, dense_launches=dense_launches,
+                edge_launches=e_launches, roots=roots)
+
+
+def edge_work(t, v, b, kind) -> tuple[int, int, int]:
+    """(bytes, operations, gather bytes) of one edge kernel call, over
+    the edges the kernels walk: the runs of `row_start`, which end at
+    the last finite slot (the padding past it is never read). The init
+    writes dist and reads src, metric, roots and row_start, one compare
+    per walked edge and column; a round reads dist and writes it, reads
+    src, metric and blocked of each walked edge and row_start once, and
+    does four integer operations per usable walked edge and column,
+    whose B-wide source row it gathers."""
+    e = int(t["row_start"][-1].item())
+    usable = int((~t["blocked"][:e]).sum().item())
+    if kind == "init":
+        return v * b * 4 + e * 8 + b * 4 + (v + 1) * 4, e * b, 0
+    return (2 * v * b * 4 + e * 9 + (v + 1) * 4, usable * b * 4,
+            usable * b * 4)
+
+
+def phase10c_kernels_at_config3(relax, edge_ops, csr, roots) -> dict:
+    """The edge kernels and the dense sweep of kernel A at config 3's
+    calls, each on a mid-solve state (after the init and 3 rounds or
+    sweeps): exact against the plain version, CUPTI time, the plain
+    version's time and the bound."""
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.ops.spf import build_blocked
+
+    v, b = csr.padded_nodes, roots.shape[0]
+    rt = to_dev(roots, np.int32)
+    t = dict(src=to_dev(csr.edge_src, np.int32),
+             dst=to_dev(csr.edge_dst, np.int32),
+             metric=to_dev(csr.edge_metric, np.int32),
+             blocked=to_dev(build_blocked(csr.edge_metric, csr.edge_src,
+                                          csr.node_overloaded), np.bool_),
+             row_start=to_dev(edge_ops.edge_row_start(
+                 csr.edge_dst, v, csr.edge_metric), np.int32))
+    out = {}
+    # ---- edge_init_kernel ------------------------------------------------
+    k0 = torch.empty((v, b), dtype=torch.int32, device=DEVICE)
+    p0 = torch.empty_like(k0)
+    edge_ops.edge_init(k0, *edge_args(t, False), rt, t["row_start"])
+    edge_ops.edge_init_ref(p0, *edge_args(t, False), rt)
+    err_init = max_diff([(k0, p0)])
+    us, by = kernel_us(lambda: edge_ops.edge_init(
+        k0, *edge_args(t, False), rt, t["row_start"]), lambda: None,
+        edge_ops.KERNEL_NAMES["init"])
+    p_ms = cuda_ms(lambda: edge_ops.edge_init_ref(p0, *edge_args(t, False),
+                                                  rt))
+    nbytes, ops, _g = edge_work(t, v, b, "init")
+    b_ms, b_by = bound(nbytes, ops)
+    out["init"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=b_ms,
+                       bound_by=b_by, err=err_init, bytes=nbytes, ops=ops)
+    # ---- edge_relax_kernel: a round from the state after 3 rounds --------
+    cur, nxt = p0.clone(), torch.empty_like(p0)
+    ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    for _ in range(3):
+        edge_ops.edge_round(cur, nxt, *edge_args(t), t["row_start"], ch)
+        cur, nxt = nxt, cur
+    ko, po = torch.empty_like(cur), torch.empty_like(cur)
+    kc, pc = torch.zeros_like(ch), torch.zeros_like(ch)
+    edge_ops.edge_round(cur, ko, *edge_args(t), t["row_start"], kc)
+    edge_ops.edge_round_ref(cur, po, *edge_args(t), pc)
+    err_round = max_diff([(ko, po), (kc, pc)])
+    lowered = int((po < cur).sum().item())
+    us, by = kernel_us(lambda: edge_ops.edge_round(
+        cur, ko, *edge_args(t), t["row_start"], kc), lambda: None,
+        edge_ops.KERNEL_NAMES["round"])
+    p_ms = cuda_ms(lambda: edge_ops.edge_round_ref(cur, po, *edge_args(t),
+                                                   pc))
+    nbytes, ops, gath = edge_work(t, v, b, "round")
+    b_ms, b_by = bound(nbytes, ops)
+    out["round"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by=b_by, err=err_round, bytes=nbytes, ops=ops, gather=gath,
+                        lowered=lowered)
+    # ---- kernel A's dense sweep (W = D, B = 256) ---------------------------
+    solver = TorchSpfSolver(device=DEVICE, use_dense=True)
+    tab = solver._device_arrays(csr, "dense")
+    nbr, wgt = tab["nbr"], tab["wgt"]
+    dist = torch.full((v, b), INF, dtype=torch.int32, device=DEVICE)
+    dist[rt.long(), torch.arange(b, device=DEVICE)] = 0
+    for _ in range(3):
+        dist, _c = relax.relax_sweep(dist, nbr, wgt, rt, None)
+    kw = dict(row0=0, n=v)
+    zero_flags = torch.zeros(v, dtype=torch.int32, device=DEVICE)
+    err_a, _newly = compare(relax.relax_rows, relax, dist, dist, nbr, wgt,
+                            rt, None, zero_flags, **kw)
+    work = dist.clone()
+    chg = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def restore():
+        work.copy_(dist)
+
+    design = relax.design_for(nbr.shape[1], b)
+    us, by = kernel_us(lambda: relax.relax_rows(dist, work, nbr, wgt, rt,
+                                                None, changed=chg, **kw),
+                       restore, relax.KERNEL_NAMES[design])
+    p_ms = cuda_ms(lambda: relax.relax_rows_ref(dist, work, nbr, wgt, rt,
+                                                None, changed=chg, **kw))
+    _n, nbytes, ops, l2 = call_work(nbr, wgt, kw, b)
+    b_ms, b_by = bound(nbytes, ops)
+    out["dense"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by=b_by, err=err_a, bytes=nbytes, ops=ops, gather=l2,
+                        design=design, w=int(nbr.shape[1]))
+    card = smi("name,power.limit")
+    for kind, r in out.items():
+        extra = (f", gathers {r['gather']} B "
+                 f"({r['gather'] / r['us'] / 1e6:.2f} TB/s)"
+                 if r.get("gather") else "")
+        log(f"[10c] config 3 {kind} call (B {b}"
+            + (f", W {r['w']}, {r['design']}" if kind == "dense" else "")
+            + (f", {r['lowered']} entries lowered" if kind == "round" else "")
+            + f"): {r['us']:.2f} us ({r['timed_by']}); bound "
+            f"{r['bound_ms'] * 1e3:.3f} "
+            f"us by {r['bound_by']} ({r['bytes']} B, {r['ops']} int ops; "
+            f"share {r['bound_ms'] * 1e3 / r['us']:.3f}){extra}; plain "
+            f"{r['plain_ms']:.3f} ms; max |diff| {r['err']}; card {card}")
+        if r["err"]:
+            fail(f"phase 10c: the {kind} call disagrees with plain "
+                 f"({r['err']})")
+    log(f"[10c] the edge kernels walk {int(t['row_start'][-1].item())} of "
+        f"{t['src'].shape[0]} edge slots (the padding past the last finite "
+        "slot is never read); the bounds count the walked ones")
+    return out
+
+
+def phase10d_all_sources(edge_ops, n: int = ALL_SOURCES_N) -> dict:
+    """`all_sources_sssp` on the card: every row of an ER of `n` nodes
+    against scipy (chunks of 256; and chunks of 384, whose tail pads,
+    equal to it); then, with 2% of the nodes overloaded, one chunk equal
+    to the split and dense paths' `_solve_dist`."""
+    from openr_tpu_torch.convert import csr_from_numpy
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.ops.spf import all_sources_sssp, build_blocked
+    from openr_tpu_torch.utils.topogen import erdos_renyi_csr, node_name
+
+    es, ed, em, vp, nn, e = erdos_renyi_csr(n, avg_degree=20, seed=0,
+                                            max_metric=64)
+    over = np.zeros(vp, bool)
+    t = edge_tensors(edge_ops, es, ed, em, over, vp)
+    edge_ops.reset_launches()
+    t0 = time.perf_counter()
+    st = {}
+    got = all_sources_sssp(*edge_args(t), vp, chunk=256,
+                           row_start=t["row_start"], stats=st)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(edge_ops.LAUNCHES)
+    got2 = all_sources_sssp(*edge_args(t), vp, chunk=384,
+                            row_start=t["row_start"])
+    t0 = time.perf_counter()
+    csr = csr_from_numpy(
+        num_nodes=nn, num_edges=e, edge_src=es, edge_dst=ed, edge_metric=em,
+        node_overloaded=over, node_mask=np.arange(vp) < nn,
+        node_names=[node_name(i) for i in range(nn)], adj_details={},
+    )
+    want = scipy_columns(csr, range(nn))
+    scipy_s = time.perf_counter() - t0
+    pad = np.full((vp - nn, vp), INF, np.int64)
+    pad[np.arange(vp - nn), np.arange(nn, vp)] = 0  # a slot reaches itself
+    if not np.array_equal(got[:nn, :nn], want) or (got[:nn, nn:] != INF).any():
+        fail("phase 10d: all_sources_sssp disagrees with scipy's all pairs")
+    if not np.array_equal(got[nn:], pad) or not np.array_equal(got, got2):
+        fail("phase 10d: all_sources_sssp's padding rows or its padded "
+             "tail chunk are wrong")
+    if not all(launches.values()):
+        fail(f"phase 10d: edge launches {launches}")
+    # overloads: one chunk against the split and dense paths
+    rng = np.random.default_rng(4)
+    over[rng.choice(nn, nn // 50, replace=False)] = True
+    csr_o = csr_from_numpy(
+        num_nodes=nn, num_edges=e, edge_src=es, edge_dst=ed, edge_metric=em,
+        node_overloaded=over, node_mask=np.arange(vp) < nn,
+        node_names=[node_name(i) for i in range(nn)], adj_details={},
+    )
+    blocked = to_dev(build_blocked(em, es, over), np.bool_)
+    got_o = all_sources_sssp(t["src"], t["dst"], t["metric"], blocked, vp,
+                             chunk=256, row_start=t["row_start"])
+    roots = np.arange(256, dtype=np.int32)
+    for knobs in ({}, dict(use_dense=True)):
+        d = TorchSpfSolver(device=DEVICE, **knobs)._solve_dist(csr_o, roots)
+        d = d[:nn].T.cpu().numpy()
+        if not np.array_equal(d, got_o[:256, :nn]):
+            fail(f"phase 10d: with overloads, all_sources_sssp's first chunk "
+                 f"differs from the {knobs or 'split'} path")
+    log(f"[10d] all_sources_sssp: ER {nn} nodes ({vp} slots, {e} edges), "
+        f"{-(-vp // 256)} chunks of 256 in {wall:.1f} ms ({st['rounds']} "
+        f"rounds, {st['host_reads']} host reads; edge launches {launches}); every "
+        f"row == scipy's all pairs ({scipy_s:.1f} s on the host), padding "
+        f"rows exact, chunks of 384 (tail padded) equal; with "
+        f"{int(over.sum())} overloaded nodes the first chunk == split and "
+        f"dense _solve_dist; card {smi('name,power.limit')}")
+    return dict(wall_ms=wall, launches=launches)
+
+
+def phase10e_fleet(relax, edge_ops, p9, k: int = FLEET_K) -> dict:
+    """`compute_fleet_ribs` on the card: `fat_tree(k, metric=10)`, every
+    node's RIB equal to its own `compute_routes` on the card, wall and
+    routes/s (counts from 0 around the fleet call); then config 2's two
+    roots from [9]'s states, equal to [9]'s RIBs."""
+    from openr_tpu_torch import LinkState, PrefixState, TorchSpfSolver
+    from openr_tpu_torch.decision.fleet import compute_fleet_ribs
+    from openr_tpu_torch.utils.topogen import fat_tree
+
+    adj, pfx = fat_tree(k, metric=10)
+    ls, ps = LinkState(), PrefixState()
+    for db in adj:
+        ls.update_adjacency_db(db)
+    for db in pfx:
+        ps.update_prefix_db(db)
+    solver = TorchSpfSolver(device=DEVICE)
+    compute_fleet_ribs(ls, ps, nodes=[ls.nodes[0]], solver=solver)  # warm
+    relax.reset_launches()
+    t0 = time.perf_counter()
+    fleet = compute_fleet_ribs(ls, ps, solver=solver)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(relax.LAUNCHES_BY_DESIGN)
+    if not sum(launches.values()):
+        fail("phase 10e: the fleet solve launched no relax kernel")
+    n_routes = sum(len(r.unicast_routes) + len(r.mpls_routes)
+                   for r in fleet.values())
+    per = TorchSpfSolver(device=DEVICE)
+    t0 = time.perf_counter()
+    for node in ls.nodes:
+        want = per.compute_routes(ls, ps, node)
+        got = fleet[node]
+        if (got.unicast_routes != want.unicast_routes
+                or got.mpls_routes != want.mpls_routes):
+            fail(f"phase 10e: the fleet RIB of {node} differs from its own "
+                 "compute_routes")
+    per_s = time.perf_counter() - t0
+    log(f"[10e] fleet: fat_tree({k}, metric=10), {len(fleet)} nodes: "
+        f"compute_fleet_ribs {wall:.1f} ms for {n_routes} routes "
+        f"({n_routes / (wall / 1e3):.0f} routes/s; relax launches "
+        f"{launches}); every RIB == its node's own compute_routes on the "
+        f"card ({per_s:.1f} s for the {len(fleet)} of them); card "
+        f"{smi('name,power.limit')}")
+    ls2, ps2 = p9["states"]
+    roots = list(p9["ribs"])
+    relax.reset_launches()
+    t0 = time.perf_counter()
+    got2 = compute_fleet_ribs(ls2, ps2, nodes=roots,
+                              solver=TorchSpfSolver(device=DEVICE))
+    wall2 = (time.perf_counter() - t0) * 1e3
+    for me in roots:
+        want = p9["ribs"][me]
+        if (got2[me].unicast_routes != want.unicast_routes
+                or got2[me].mpls_routes != want.mpls_routes):
+            fail(f"phase 10e: config 2's fleet RIB of {me} differs from [9]'s")
+    log(f"[10e] fleet on config 2, nodes {roots}: one chunk, "
+        f"{wall2:.1f} ms, relax launches {dict(relax.LAUNCHES_BY_DESIGN)}; "
+        f"both RIBs == [9]'s")
+    return dict(wall_ms=wall, routes=n_routes, launches=launches)
+
+
+def phase10f_hub(edge_ops) -> None:
+    """The table knobs on a hub: `kernel_impl="dense"` on
+    `hub_and_spoke(2, 100)` picks the edge list through the waste check,
+    and its RIB equals the split path's."""
+    from openr_tpu_torch import LinkState, PrefixState, TorchSpfSolver
+    from openr_tpu_torch.utils.topogen import hub_and_spoke
+
+    adj, pfx = hub_and_spoke(hubs=2, spokes=100)
+    ls, ps = LinkState(), PrefixState()
+    for db in adj:
+        ls.update_adjacency_db(db)
+    for db in pfx:
+        ps.update_prefix_db(db)
+    solver = TorchSpfSolver(device=DEVICE, kernel_impl="dense")
+    csr = ls.to_csr()
+    if solver._pick_table(csr) != "edge":
+        fail(f"phase 10f: kernel_impl='dense' on the hub picked "
+             f"{solver._pick_table(csr)}, not edge")
+    edge_ops.reset_launches()
+    rdb = solver.compute_routes(ls, ps, "node-0")
+    torch.cuda.synchronize()
+    launches = dict(edge_ops.LAUNCHES)
+    want = TorchSpfSolver(device=DEVICE).compute_routes(ls, ps, "node-0")
+    if (rdb.unicast_routes != want.unicast_routes
+            or rdb.mpls_routes != want.mpls_routes or not all(
+                launches.values())):
+        fail(f"phase 10f: the hub's edge-table RIB differs from split's "
+             f"(edge launches {launches})")
+    log(f"[10f] hub_and_spoke(2, 100), kernel_impl='dense': D "
+        f"{csr.dense_width()} x {csr.padded_nodes} slots > 8 x "
+        f"{csr.num_edges} edges, so the edge list; edge launches "
+        f"{launches}; RIB ({len(rdb.unicast_routes)} routes) == split's")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2166,10 +2802,11 @@ def main(argv=None) -> None:
 
     # ---- phase 2: build ------------------------------------------------
     from openr_tpu_torch.ops import cuda_build, relax
+    from openr_tpu_torch.ops import edge_relax as edge_ops
     from openr_tpu_torch.ops import election as election_ops
     from openr_tpu_torch.ops import ksp as ksp_ops
 
-    old_libs = build_all(cuda_build, (relax, election_ops, ksp_ops),
+    old_libs = build_all(cuda_build, (relax, election_ops, ksp_ops, edge_ops),
                          args.old)
     lib = relax._lib()
     grid = (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 128, 256, 512, 1024)
@@ -2284,6 +2921,14 @@ def main(argv=None) -> None:
     # ---- phase 9: BASELINE config 2 at full width -----------------------
     p9 = phase9_config2(relax, election_ops, old_libs)
 
+    # ---- phase 10: the batched multi-root paths, config 3, fleet ---------
+    p10a = phase10a_edge(edge_ops)
+    p10b = phase10b_config3(relax, edge_ops, ls, ps, csr, rdb)
+    p10c = phase10c_kernels_at_config3(relax, edge_ops, csr, p10b["roots"])
+    phase10d_all_sources(edge_ops)
+    phase10e_fleet(relax, edge_ops, p9)
+    phase10f_hub(edge_ops)
+
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path
     for design, d, name, n_launch, worst in (
@@ -2305,6 +2950,7 @@ def main(argv=None) -> None:
             "bound_ms": d["bound_us"] / 1e3,
             "bound_by": d["bound_by"],
             "library_ms": None,
+            "timed_by": d[design]["timed_by"],
         })
     for design, fn, line in (("generic", "sweep_b1", 81),
                              ("vec", "sweep_b2", 102)):
@@ -2321,6 +2967,7 @@ def main(argv=None) -> None:
             "bound_ms": probe["bound_ms"],
             "bound_by": probe["bound_by"],
             "library_ms": None,
+            "timed_by": "cupti",  # probe_gather raises without a launch
         })
     worst8 = p8a["worst"]
     kernels.append({
@@ -2335,6 +2982,7 @@ def main(argv=None) -> None:
         "bound_ms": p8c["bound_ms"],
         "bound_by": p8c["bound_by"],
         "library_ms": p8c["lib_ms"],
+        "timed_by": p8c["timed_by"],
     })
     for step in ("sssp", "walk"):
         row = p8b[step]
@@ -2350,6 +2998,39 @@ def main(argv=None) -> None:
             "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1],
             "library_ms": None,
+            "timed_by": row["timed_by"],
+        })
+    dense3 = p10c["dense"]
+    kernels.append({
+        "name": f"{relax.KERNEL_NAMES[dense3['design']]} (config 3 dense "
+                "sweep)",
+        "route": "cuda",
+        "source": "openr_tpu_torch/csrc/relax.cu",
+        "replaces": "openr_tpu/ops/spf_pallas.py:90",
+        "launches": p10b["dense_launches"],
+        "max_abs_err": dense3["err"],
+        "ms": dense3["us"] / 1e3,
+        "plain_ms": dense3["plain_ms"],
+        "bound_ms": dense3["bound_ms"],
+        "bound_by": dense3["bound_by"],
+        "library_ms": None,
+        "timed_by": dense3["timed_by"],
+    })
+    for step, line in (("round", 86), ("init", 73)):
+        row = p10c[step]
+        kernels.append({
+            "name": edge_ops.KERNEL_NAMES[step],
+            "route": "cuda",
+            "source": "openr_tpu_torch/csrc/edge_relax.cu",
+            "replaces": f"openr_tpu/ops/spf.py:{line}",
+            "launches": p10b["edge_launches"][step],
+            "max_abs_err": max(p10a["worst"], row["err"]),
+            "ms": row["us"] / 1e3,
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "timed_by": row["timed_by"],
         })
     log(f"[5] warm-path relax launches by design: {warm_launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

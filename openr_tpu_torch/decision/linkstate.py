@@ -89,6 +89,8 @@ class CsrGraph:
     # dense in-neighbor tables (nbr, wgt), built on first use; a patched
     # view carries its base's nbr and a patched copy of wgt
     _dense: tuple[np.ndarray, np.ndarray] | None = None
+    # D of the dense tables, known before (or without) building them
+    _dense_width: int | None = None
 
     def details(self, u: int, v: int):
         """Adjacency details for edge (u, v), override-aware."""
@@ -104,6 +106,23 @@ class CsrGraph:
     @property
     def padded_nodes(self) -> int:
         return len(self.node_mask)
+
+    def dense_width(self) -> int:
+        """D of the dense tables without building them (an O(E) bincount,
+        cached): the dense-or-edge-list choice is made before the tables'
+        memory is spent. The valid edge set never changes within a
+        CsrGraph's base (patches only move metrics below INF)."""
+        if self._dense_width is None:
+            valid = self.edge_metric < DIST_INF
+            if not valid.any():
+                self._dense_width = 8
+            else:
+                indeg = np.bincount(
+                    self.edge_dst[valid].astype(np.int64),
+                    minlength=self.padded_nodes,
+                )
+                self._dense_width = pad_bucket(int(indeg.max()), minimum=8)
+        return self._dense_width
 
     def row_start(self) -> np.ndarray:
         """First dst-sorted edge slot per destination node (cached: the

@@ -1,7 +1,18 @@
-"""The port's SPF backend: the cold single-root RIB solve on the split
-path, the RIB assembly for every prefix shape, and the warm rebuild
-after a metric-only delta (port of `TpuSpfSolver` in
-`openr_tpu/decision/spf_backend.py`).
+"""The port's SPF backend: the cold single-root RIB solve, the batched
+multi-root solve on each table kind, the RIB assembly for every prefix
+shape, and the warm rebuild after a metric-only delta (port of
+`TpuSpfSolver` in `openr_tpu/decision/spf_backend.py`).
+
+Three device table sets serve the batched solve, chosen per topology by
+`_pick_table` with the reference's knobs and precedence: "split" (the
+default: `ops/spf_split.py`, relax kernel A), "dense" (the in-neighbor
+tables swept to the fixpoint by kernel A, `ops/relax.py`
+`batched_sssp_relax`, for `use_dense=True` and `use_pallas`) and "edge"
+(the edge-list Bellman-Ford, `ops/edge_relax.py`, for `use_dense=False`
+or where the dense tables' padding would exceed `dense_waste_limit` x
+the edge count). `_solve_dist` runs one of them for any roots; the
+single-root RIB solve takes a fused packed-buffer path on "split" and
+the first-hop / LFA matrices over `_solve_dist`'s distances otherwise.
 
 The SPF batch for one node's RIB is {self} ∪ neighbors(self): the root
 column gives distances, the neighbor columns the ECMP first-hop matrix
@@ -41,15 +52,24 @@ from openr_tpu_torch.decision.ksp import (
     normalize_weights,
     ucmp_weights,
 )
-from openr_tpu_torch.ops import relax
+from openr_tpu_torch.ops import edge_relax, relax
 from openr_tpu_torch.ops.election import elect_multi_device
 from openr_tpu_torch.ops.ksp import ksp_edge_disjoint_dense, paths_to_host
-from openr_tpu_torch.ops.spf import INF_DIST, METRIC_MAX, pad_batch
+from openr_tpu_torch.ops.spf import (
+    INF_DIST,
+    METRIC_MAX,
+    build_blocked,
+    first_hop_matrix,
+    lfa_matrix,
+    pad_batch,
+)
 from openr_tpu_torch.ops.spf_split import (
+    batched_sssp_split,
     batched_sssp_split_rib,
     batched_sssp_split_warm_rib,
     build_split_tables,
     check_byte_order,
+    pick_gs_chunks,
     tight_nodes,
     unpack_rib_buffer,
 )
@@ -155,22 +175,50 @@ def resolve_device(device) -> torch.device:
 
 class TorchSpfSolver:
     """Computes a node's RouteDatabase from the padded CSR LSDB, on
-    `device` (default: the CUDA card)."""
+    `device` (default: the CUDA card).
+
+    The table knobs are the reference's, with its defaults:
+    `use_dense=None` follows `kernel_impl` ("split", or any other value
+    for the dense tables unless their padding exceeds `dense_waste_limit`
+    x the edge count, where the edge list serves); `use_dense=True` or
+    `use_pallas` force the dense tables, `use_dense=False` the edge list.
+    On the port `use_pallas` is kernel A itself, so it runs on any
+    device. `mesh` (a multi-device solve) is not ported yet and raises.
+    """
 
     def __init__(self, device=None, enable_lfa: bool = False,
-                 ksp_k: int = 2):
+                 ksp_k: int = 2, *, use_dense: bool | None = None,
+                 dense_waste_limit: int = 8, use_pallas: bool = False,
+                 kernel_impl: str = "split", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "TorchSpfSolver: a mesh-sharded solve is not ported yet "
+                "(ROADMAP M4); leave mesh=None for the single-device solve"
+            )
         self.device = resolve_device(device)
         self.enable_lfa = enable_lfa
         # edge-disjoint paths per KSP2_ED_ECMP prefix
         self.ksp_k = ksp_k
+        self.use_dense = use_dense
+        self.dense_waste_limit = dense_waste_limit
+        self.use_pallas = use_pallas
+        self.kernel_impl = kernel_impl
         # base_version -> {"version", "journal_len", "sets"}: the device
-        # table sets of one topology base ("split" for the solve, "dense"
-        # for KSP; small LRU), kept current under metric-only churn by
-        # scattering the CSR's patch journal into every set
+        # table sets of one topology base ("split", "dense" for the dense
+        # solve and KSP, "edge"; small LRU), kept current under
+        # metric-only churn by scattering the CSR's patch journal into
+        # every set
         self._dev: dict[int, dict] = {}
         self._dev_lru_cap = 4
         # table set uploads vs patch scatters vs plain hits
         self.dev_cache_stats = {"uploads": 0, "patches": 0, "hits": 0}
+        # split-path solves by Gauss-Seidel chunking (gs_active: chunked
+        # dense sweeps, gs_disabled: one chunk) and in the uniform-metric
+        # regime, counted as the reference counts them (Decision reads
+        # them)
+        self.spf_kernel_stats = {
+            "gs_active": 0, "gs_disabled": 0, "uniform_metric": 0,
+        }
         self._nbr_cache: dict[tuple[int, int], list[int]] = {}
         self._labels_cache: dict[tuple, np.ndarray] = {}
         # base_version -> (src-sorted edge order, row starts) for the warm
@@ -181,7 +229,9 @@ class TorchSpfSolver:
         self.solve_count = 0
         self.warm_solves = 0
         # last solve: sweeps, tail_rounds, spilled, host_syncs,
-        # relax_launches
+        # relax_launches (split); or the table kind with sweeps (dense) or
+        # rounds (edge), host_reads and the launches of relax_launches /
+        # edge_launches (`_solve_dist`)
         self.last_solve_stats: dict = {}
         # last warm rebuild: changes, cone_cells, seeds, sweeps,
         # tail_rounds, spilled, host_syncs, relax_launches, and host wall
@@ -216,8 +266,11 @@ class TorchSpfSolver:
 
     def _device_arrays(self, csr, want: str = "split") -> dict:
         """Device table set `want` for `csr`: "split" (the split solve's
-        tables) or "dense" (`nbr`, `wgt` in-neighbor tables and the node
-        `over` bits, for KSP). One cache entry per topology base holds
+        tables), "dense" (`nbr`, `wgt` in-neighbor tables and the node
+        `over` bits, for the dense solve and KSP) or "edge" (the
+        dst-sorted `src`, `dst`, `metric`, the `blocked` mask of
+        `build_blocked` and the node runs' `row_start`, for the edge-list
+        solve). One cache entry per topology base holds
         every set built so far: a newer CSR of a cached base scatters the
         journal suffix the entry has not applied into each set; a CSR
         older than the entry (journals cannot be applied backwards) or of
@@ -251,6 +304,19 @@ class TorchSpfSolver:
                 "wgt": self._to_dev(wgt),
                 "over": self._to_dev(csr.node_overloaded),
             }
+        elif want == "edge":
+            blocked = build_blocked(
+                csr.edge_metric, csr.edge_src, csr.node_overloaded
+            )
+            got = {
+                "src": self._to_dev(csr.edge_src),
+                "dst": self._to_dev(csr.edge_dst),
+                "metric": self._to_dev(csr.edge_metric),
+                "blocked": self._to_dev(blocked),
+                "row_start": self._to_dev(edge_relax.edge_row_start(
+                    csr.edge_dst, csr.padded_nodes, csr.edge_metric
+                )),
+            }
         else:
             raise ValueError(f"unknown device table set {want!r}")
         cache["sets"][want] = got
@@ -258,10 +324,10 @@ class TorchSpfSolver:
 
     def _apply_patch_suffix(self, cache: dict, csr) -> None:
         """Scatter the journal entries the cache has not applied into
-        every resident set: the dense `wgt` at (row, column), the split
-        `base_wgt` (columns < W) and `ov_wgt` (row `ov_pos[row]`, column
-        - W), one index write each; clear `uniform_metric` if a patch
-        breaks it."""
+        every resident set: the dense `wgt` at (row, column), the edge
+        `metric` at the edge slot, the split `base_wgt` (columns < W) and
+        `ov_wgt` (row `ov_pos[row]`, column - W), one index write each;
+        clear `uniform_metric` if a patch breaks it."""
         if cache["version"] == csr.version:
             return
         done = cache["journal_len"]
@@ -271,17 +337,26 @@ class TorchSpfSolver:
             # index write free of duplicate targets (whose winner CUDA
             # leaves undefined)
             last = {
-                (p.dense_row, p.dense_col): p.metric
+                (p.dense_row, p.dense_col): (p.edge_idx, p.metric)
                 for p in csr.patches[done:]
             }
             rows = np.fromiter((k[0] for k in last), np.int64, len(last))
             cols = np.fromiter((k[1] for k in last), np.int64, len(last))
-            vals = np.fromiter(last.values(), np.int32, len(last))
+            idxs = np.fromiter((v[0] for v in last.values()), np.int64,
+                               len(last))
+            vals = np.fromiter((v[1] for v in last.values()), np.int32,
+                               len(last))
             dense = cache["sets"].get("dense")
             if dense is not None:
                 dense["wgt"].index_put_(
                     (self._to_dev(rows), self._to_dev(cols)),
                     self._to_dev(vals),
+                )
+            edge = cache["sets"].get("edge")
+            if edge is not None:
+                # (row, column) and the edge slot name one edge each way
+                edge["metric"].index_put_(
+                    (self._to_dev(idxs),), self._to_dev(vals)
                 )
             tab = cache["sets"].get("split")
             if tab is not None:
@@ -305,14 +380,102 @@ class TorchSpfSolver:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def trim_caches(self) -> None:
+        """Reclaim cache memory (Decision calls this after a fleet pass
+        on a shared solver): the warm start's host index and the device
+        advertiser matrices, both rebuilt on demand. The reference also
+        trims its RibEntry caches to a fingerprint cap; the port has
+        none yet, and takes the cap with them (ROADMAP M2)."""
+        self._warm_out.clear()
+        self._elect_dev.clear()
+
+    def _pick_table(self, csr) -> str:
+        """The table set the batched solve uses for `csr`. The explicit
+        knobs outrank `kernel_impl`: use_dense=False is the edge list,
+        use_dense=True or use_pallas the dense tables; with use_dense
+        None, "split" is the split tables, and any other kernel_impl the
+        dense tables unless their slots (padded nodes x `dense_width()`,
+        checked before building them) exceed `dense_waste_limit` x the
+        edge count, where the edge list serves."""
+        if self.use_dense is False:
+            return "edge"
+        if self.use_pallas or self.use_dense is True:
+            return "dense"
+        if self.kernel_impl == "split":
+            return "split"
+        table_slots = csr.padded_nodes * csr.dense_width()
+        if table_slots > self.dense_waste_limit * max(csr.num_edges, 1):
+            return "edge"
+        return "dense"
+
     def solve_vp(self, csr) -> int:
-        return tight_nodes(csr.num_nodes)
+        """Rows of the distance matrix the solve returns: the split
+        tables' tight padding, else the CSR's padded node count."""
+        if self._pick_table(csr) == "split":
+            return tight_nodes(csr.num_nodes)
+        return csr.padded_nodes
+
+    def _dispatch(self, csr) -> tuple[str, dict, bool]:
+        """(table kind, its device set, whether any node is overloaded),
+        shared by every batched-solve entry point."""
+        table = self._pick_table(csr)
+        dev = self._device_arrays(csr, table)
+        return table, dev, bool(csr.node_overloaded.any())
+
+    def _pick_gs_and_count(self, dev: dict) -> int:
+        """The split solve's Gauss-Seidel chunk count, and the regime
+        counters of `spf_kernel_stats`."""
+        if dev.get("uniform_metric"):
+            self.spf_kernel_stats["uniform_metric"] += 1
+        gs = pick_gs_chunks(dev["vp"])
+        self.spf_kernel_stats["gs_active" if gs > 1 else "gs_disabled"] += 1
+        return gs
+
+    def _solve_dist(self, csr, roots, _dispatched: tuple | None = None
+                    ) -> torch.Tensor:
+        """Distances [solve_vp(csr), B] int32 from each of `roots` (ids,
+        repeats allowed), a tensor on the solver's device, on the table
+        set `_pick_table` names: the split solve, the dense tables swept
+        to the fixpoint by kernel A (with or without use_pallas: the
+        reference's Pallas-or-XLA choice by `fits_vmem` is a TPU memory
+        limit), or the edge-list solve. Sets `last_solve_stats`."""
+        table, dev, has_over = _dispatched or self._dispatch(csr)
+        roots_t = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(roots, dtype=np.int32))
+        ).to(self.device)
+        stats: dict = {"table": table}
+        relax0 = relax.LAUNCHES
+        edge0 = sum(edge_relax.LAUNCHES.values())
+        if table == "split":
+            gs = self._pick_gs_and_count(dev)
+            out = batched_sssp_split(
+                dev, roots_t, has_overloads=has_over, gs_chunks=gs,
+                stats=stats,
+            )
+        elif table == "dense":
+            out = relax.batched_sssp_relax(
+                dev["nbr"], dev["wgt"], dev["over"], roots_t,
+                has_overloads=has_over, stats=stats,
+            )
+        else:
+            out = edge_relax.batched_sssp(
+                dev["src"], dev["dst"], dev["metric"], dev["blocked"],
+                roots_t, csr.padded_nodes, row_start=dev["row_start"],
+                stats=stats,
+            )
+        stats["relax_launches"] = relax.LAUNCHES - relax0
+        stats["edge_launches"] = sum(edge_relax.LAUNCHES.values()) - edge0
+        self.last_solve_stats = stats
+        return out
 
     def solve(self, ls, my_node: str):
         """Distances + the ECMP first-hop matrix for my_node's RIB:
-        returns (csr, dist, fh, neighbor_ids, lfa) — dist a `LazyDist`,
-        fh/lfa host bool [B-1, vp] (lfa None unless enable_lfa) — or
-        None if my_node is not in the topology."""
+        returns (csr, dist, fh, neighbor_ids, lfa), fh/lfa host bool
+        [B-1, vp] (lfa None unless enable_lfa), or None if my_node is not
+        in the topology. On the split tables, one fused solve returns a
+        packed buffer and dist is a `LazyDist`; on the dense or edge
+        tables, `_solve_dist` then the first-hop / LFA matrices, and dist
+        is a host array, as in the reference."""
         csr = ls.to_csr()
         my_id = csr.name_to_id.get(my_node)
         if my_id is None:
@@ -336,11 +499,25 @@ class TorchSpfSolver:
             csr, my_id, nbr_ids, nbr_metric_real, b
         )
 
-        dev = self._device_arrays(csr)
-        vp = dev["vp"]
-        has_over = bool(csr.node_overloaded.any())
+        table, dev, has_over = self._dispatch(csr)
         d = self.device
         self.solve_count += 1
+        if table != "split":
+            dist = self._solve_dist(
+                csr, roots, _dispatched=(table, dev, has_over)
+            )
+            nbr_ids_t = self._to_dev(nbr_ids_p)
+            nbr_over_t = self._to_dev(nbr_over)
+            fh = first_hop_matrix(
+                dist, self._to_dev(nbr_metric), nbr_ids_t, nbr_over_t
+            ).cpu().numpy()
+            lfa = None
+            if self.enable_lfa:
+                lfa = lfa_matrix(dist, my_id, nbr_ids_t, nbr_over_t)
+                lfa = lfa.cpu().numpy()
+            return csr, dist.cpu().numpy(), fh, nbr_ids, lfa
+        vp = dev["vp"]
+        gs = self._pick_gs_and_count(dev)
         stats: dict = {}
         launches0 = relax.LAUNCHES
         dist_dev, packed = batched_sssp_split_rib(
@@ -352,6 +529,7 @@ class TorchSpfSolver:
             my_id,
             has_overloads=has_over,
             with_lfa=self.enable_lfa,
+            gs_chunks=gs,
             stats=stats,
         )
         check_byte_order(d)
@@ -680,8 +858,9 @@ class TorchSpfSolver:
 
         Returns (rdb, new artifact, touched prefixes, touched MPLS
         labels, region size), or None to demand a cold solve: LFA on, an
-        artifact without distance columns, a structural change (new CSR
-        base), an unknown endpoint, a root-incident change, more changed
+        artifact without distance columns (a dense- or edge-table solve),
+        a structural change (new CSR base), a table choice other than
+        "split", an unknown endpoint, a root-incident change, more changed
         edges than `max_frac` of the graph (at least 16), or a cone walk
         over its cell budget. The artifact's distances are left as they
         were: the warm solve relaxes a copy."""
@@ -693,6 +872,8 @@ class TorchSpfSolver:
         csr = ls.to_csr()
         if csr.base_version != old_csr.base_version:
             return None  # structural change: interning/base moved
+        if self._pick_table(csr) != "split":
+            return None  # the warm solve runs on the split tables only
         my_id = csr.name_to_id.get(my_node)
         if my_id is None:
             return None

@@ -341,17 +341,24 @@ def relax_sweep(dist, nbr, wgt, roots, over=None):
 
 
 def batched_sssp_relax(nbr, wgt, node_overloaded, roots,
-                       has_overloads=True):
+                       has_overloads=True, stats: dict | None = None):
     """Dense-table batched SSSP to fixpoint on the relax kernel: the
-    port of `openr_tpu/ops/spf_pallas.py` `batched_sssp_pallas`. One
-    changed-count readback per sweep."""
+    port of `openr_tpu/ops/spf_pallas.py` `batched_sssp_pallas` and of
+    `openr_tpu/ops/spf.py` `batched_sssp_dense` (the same function). One
+    changed-count readback per sweep; with `stats`, adds sweeps and
+    host_reads."""
     vp = nbr.shape[0]
     b = roots.shape[0]
     dist = torch.full((vp, b), INF_DIST, dtype=torch.int32, device=nbr.device)
     dist[roots.long(), torch.arange(b, device=nbr.device)] = 0
     over = node_overloaded[nbr.long()].contiguous() if has_overloads else None
+    sweeps = 0
     for _ in range(vp):
         dist, changed = relax_sweep(dist, nbr, wgt, roots, over)
+        sweeps += 1
         if int(changed.item()) == 0:
             break
+    if stats is not None:
+        stats["sweeps"] = stats.get("sweeps", 0) + sweeps
+        stats["host_reads"] = stats.get("host_reads", 0) + sweeps
     return dist

@@ -1,6 +1,7 @@
 """Numeric contract, the first-hop / LFA epilogue of the batched solve
-as torch functions, and the dense in-neighbor tables (port of
-`openr_tpu/ops/spf.py`).
+as torch functions, the dense in-neighbor tables, the blocked-edge mask
+and the chunked all-sources solve (port of `openr_tpu/ops/spf.py`; its
+edge-list `batched_sssp` is `ops/edge_relax.py`).
 
 Distances are int32 with INF_DIST = 2^30 meaning unreachable; valid
 metrics are at most METRIC_MAX = 2^30-1, so a guarded `d + w` never
@@ -86,3 +87,78 @@ def build_dense_tables(
         nbr[dst, col] = src.astype(np.int32)
         wgt[dst, col] = met
     return nbr, wgt
+
+
+def build_blocked(
+    edge_metric: np.ndarray,
+    edge_src: np.ndarray,
+    node_overloaded: np.ndarray,
+) -> np.ndarray:
+    """Host-side: edges that never carry transit traffic: padding and
+    invalid slots, and every edge leaving an overloaded node (the
+    per-root exemption happens at the edge-list solve's init)."""
+    return (edge_metric >= int(INF_DIST)) | node_overloaded[edge_src]
+
+
+class HostRows:
+    """A host [rows, cols] int32 result filled from device chunks: each
+    `put` copies a chunk's first columns, transposed, into the next rows
+    on a side stream into pinned memory, so that the copy overlaps
+    whatever the device runs next; `result()` waits for every copy. On
+    the CPU the copies are plain."""
+
+    def __init__(self, rows: int, cols: int, device):
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        self.out = torch.empty((rows, cols), dtype=DIST_DTYPE,
+                               pin_memory=cuda)
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+
+    def put(self, row0: int, dist: torch.Tensor, n: int) -> None:
+        """Rows row0 .. row0+n-1 = columns 0 .. n-1 of `dist` [cols, B]."""
+        t = dist[:, :n].t().contiguous()
+        if self.stream is None:
+            self.out[row0 : row0 + n].copy_(t)
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            self.out[row0 : row0 + n].copy_(t, non_blocking=True)
+        t.record_stream(self.stream)  # kept until the copy has read it
+
+    def result(self) -> np.ndarray:
+        if self.stream is not None:
+            self.stream.synchronize()
+        return self.out.numpy()
+
+
+def all_sources_sssp(
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_metric: torch.Tensor,
+    edge_blocked: torch.Tensor,
+    num_nodes: int,
+    chunk: int = 256,
+    row_start: torch.Tensor | None = None,
+    stats: dict | None = None,
+) -> np.ndarray:
+    """Distances from every node slot (BASELINE config 3) on the
+    edge-list solve, in chunks of `chunk` roots; the tail chunk is padded
+    with root 0, as the reference pads it. Returns host [V, V] int32
+    (row = source). Each chunk's copy to the host runs on a side stream
+    while the next chunk computes (`HostRows`)."""
+    from openr_tpu_torch.ops.edge_relax import batched_sssp, device_row_start
+
+    dev = edge_src.device
+    if row_start is None:  # built once, for every chunk
+        row_start = device_row_start(edge_dst, num_nodes, edge_metric)
+    sink = HostRows(num_nodes, num_nodes, dev)
+    for start in range(0, num_nodes, chunk):
+        b = min(chunk, num_nodes - start)
+        roots = torch.zeros(chunk, dtype=torch.int32)
+        roots[:b] = torch.arange(start, start + b, dtype=torch.int32)
+        d = batched_sssp(
+            edge_src, edge_dst, edge_metric, edge_blocked, roots.to(dev),
+            num_nodes, row_start=row_start, stats=stats,
+        )
+        sink.put(start, d, b)
+    return sink.result()

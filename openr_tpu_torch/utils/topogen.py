@@ -169,6 +169,36 @@ def hub_and_spoke(
     return _mk_dbs(hubs + spokes, edges)
 
 
+def erdos_renyi(n: int, avg_degree: int = 10, seed: int = 0,
+                max_metric: int = 16):
+    """Random graph with ~n*avg_degree/2 undirected edges (BASELINE
+    config 3's shape at LinkState scale): a backbone ring for
+    connectivity plus random chords, metrics uniform in [1, max_metric]."""
+    rng = np.random.default_rng(seed)
+    seen = set()
+    edges = []
+
+    def add(u, v, m):
+        if u == v or (u, v) in seen:
+            return
+        seen.add((u, v))
+        seen.add((v, u))
+        edges.append((u, v, m))
+        edges.append((v, u, m))
+
+    for i in range(n):
+        add(i, (i + 1) % n, int(rng.integers(1, max_metric + 1)))
+    target = n * avg_degree // 2
+    us = rng.integers(0, n, size=3 * target)
+    vs = rng.integers(0, n, size=3 * target)
+    ms = rng.integers(1, max_metric + 1, size=3 * target)
+    for u, v, m in zip(us, vs, ms):
+        if len(seen) // 2 >= target:
+            break
+        add(int(u), int(v), int(m))
+    return _mk_dbs(n, edges)
+
+
 def erdos_renyi_csr(
     n: int, avg_degree: int = 10, seed: int = 0, max_metric: int = 16
 ):
