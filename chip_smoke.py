@@ -9,12 +9,14 @@ and checks their answers.
     python3 chip_smoke.py
     python3 chip_smoke.py --old PARENT/openr_tpu_torch/csrc
 
-With `--old`, the relax and election kernels built from another
-checkout's sources (the parent commit's, unpacked with `git archive`)
-are timed beside this checkout's at the same calls, in turns (old, new,
-new, old): [3]'s er100k calls, the hub root's calls, the probe's B1
-sweep, [8c]'s and [9]'s elections and [9]'s three relax calls. The
-edge-list kernels have no counterpart there and are timed alone.
+With `--old`, the relax, election and edge-list kernels built from
+another checkout's sources (the parent commit's, unpacked with `git
+archive`) are timed beside this checkout's at the same calls, in turns
+(old, new, new, old): [3]'s er100k calls, the hub root's calls, the
+probe's B1 sweep, [8c]'s and [9]'s elections, [9]'s three relax calls
+and [10c]'s edge init, full round and whole edge solve (the parent's
+edge library driven through its own C entry points: a launch a round and
+a host read each).
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -104,21 +106,32 @@ Phases (any failure exits non-zero and prints no result line):
      path's dense, overflow and tail calls and the election at 20 000
      slots, timed with their bounds;
  10. the batched multi-root paths: (a) `csrc/edge_relax.cu`'s init and
-     round kernels exact against their plain versions on random edge
+     fixpoint kernels exact against their plain versions on random edge
      lists (padding, parallel edges, unreachable and overloaded nodes,
-     overloaded and repeated roots, a 4 096-edge hub run; B in {1, 8,
-     32, 256, 300}): the init, single rounds with the changed word, and
-     the fixpoint with its round count; (b) BASELINE config 3 at full
+     overloaded and repeated roots, a hub run of ~300 slots just past
+     the split threshold and a 4 096-edge one; B in {1, 8, 32, 33, 256,
+     300}): the init with its row marks, single full rounds with the
+     changed word, the fixpoint at the rule's tiles, at tiles of 8 and
+     capped at 2 and 3 rounds with its round count and gathered edges,
+     and `batched_sssp` with one host read and the reference loop's
+     round count; (b) BASELINE config 3 at full
      width: `_solve_dist(csr, arange(256) % V)` on [4]'s er100k on the
      split, dense, use_pallas and edge tables (counts from 0 around each
      kind and around an edge-table RIB): the four matrices equal on the
      100 000 live rows, three columns equal scipy, the edge-table RIB
      from node-0 equal to [4]'s; per kind p50 of 3 calls, sources/s,
-     sweeps or rounds, host reads, CUPTI per kernel, busy share and peak
-     device memory; (c) the edge init, an edge round and kernel A's
-     dense sweep at config 3's calls, exact and timed with their bounds;
+     sweeps or rounds, host reads (the edge kind: 1 a solve), CUPTI per
+     kernel (30 calls in one profile), busy share and peak device
+     memory; (c) at config 3's calls, exact and timed with their bounds:
+     the edge init, one full round (the fixpoint kernel capped at one
+     round) after 3 rounds, the fixpoint launch (bound: the start read
+     and the result written once, the edges read once) also at tiles of
+     32, the whole edge solve (init + fixpoint launch, also as a share of
+     (b)'s p50), and kernel A's dense sweep; with `--old` the parent's edge
+     init, round and whole solve in turns, and its round at B 16 to 256;
      (d) `all_sources_sssp` on a 4 000-node ER equal to scipy's all
-     pairs (chunks of 256, and of 384 with a padded tail), and with 2%
+     pairs (chunks of 256, one host read each, and of 384 with a padded
+     tail), and with 2%
      overloaded nodes its first chunk equal to the split and dense
      paths; (e) `compute_fleet_ribs` on `fat_tree(16, metric=10)`, every
      RIB equal to its node's `compute_routes`, wall and routes/s, and on
@@ -134,6 +147,7 @@ each row's `timed_by` saying whether its `ms` is a CUPTI duration
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import shutil
@@ -318,9 +332,9 @@ SOURCES = ("relax", "election", "ksp", "edge_relax")
 #: kernels `-Xptxas -v` must report per source: relax's generic kernel
 #: (strips 0, 1, 2, 4, overload off/on) and a vec kernel per (W, B,
 #: overload) specialisation; ksp's SSSP kernel, its wide-row twin and the
-#: walk; edge_relax's init and round kernels at 4 and 1 columns a thread
+#: walk; edge_relax's init and fixpoint kernels
 PTXAS_KERNELS = {"relax": 8 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 3,
-                 "edge_relax": 4}
+                 "edge_relax": 2}
 
 
 def start_ptxas_report(cuda_build, name: str):
@@ -348,11 +362,9 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
                           r"(?:ILi(\d+)E(?:Li(\d+)E)?Lb(\d)E)?", m.group(1))
             named = re.search(r"(elect_seg_kernel|ksp_sssp_kernel|"
                               r"ksp_walk_kernel)(ILb1E)?", m.group(1))
-            edge = re.search(r"(edge_(?:init|relax)_kernel)ILi(\d)E",
-                             m.group(1))
+            edge = re.search(r"edge_(?:init|relax)_kernel", m.group(1))
             cur = (k.group(1) if k else named.group(1) if named
-                   else f"{edge.group(1)}<{edge.group(2)} cols>" if edge
-                   else m.group(1))
+                   else edge.group(0) if edge else m.group(1))
             if named is not None and named.group(2):
                 cur += "<wide rows>"
             if k is not None and k.group(2):
@@ -375,7 +387,7 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
 
 
 #: the sources `--old` builds from another checkout, by wrapper module
-OLD_SOURCES = ("relax", "election")
+OLD_SOURCES = ("relax", "election", "edge_relax")
 
 
 def start_old_build(cuda_build, src: Path):
@@ -391,11 +403,14 @@ def start_old_build(cuda_build, src: Path):
 
 def load_old(module, path: Path):
     """The other checkout's library, its entry points bound with this
-    checkout's ctypes types (those it has)."""
-    import ctypes
-
+    checkout's ctypes types (those it has); edge_relax's with the round
+    design's own (`ROUND_EDGE_ENTRY_POINTS`: this checkout's C entry
+    points differ)."""
     lib = ctypes.CDLL(str(path))
-    for name, (argtypes, restype) in module.ENTRY_POINTS.items():
+    entry_points = (ROUND_EDGE_ENTRY_POINTS
+                    if path.stem.endswith("edge_relax")
+                    else module.ENTRY_POINTS)
+    for name, (argtypes, restype) in entry_points.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -2205,13 +2220,33 @@ def phase9_config2(relax, election_ops, old_libs, k: int = CONFIG2["k"],
 # ----------------------------------------------------------- phase 10
 
 #: (V, average out-degree, extra in-edges of hub node 0) of [10a]'s
-#: random edge lists: a plain graph, and one with a 4 096-edge hub run
-EDGE_CASES = ((3000, 6, 0), (6000, 3, 4096))
-EDGE_B = (1, 8, 32, 256, 300)
+#: random edge lists: a plain graph, one whose hub run (~300 slots) is
+#: just past the split threshold (`edge_relax.SEG_EDGES`, 256: two
+#: segments), and one with a 4 096-edge hub run (17 segments)
+EDGE_CASES = ((3000, 6, 0), (2000, 3, 300), (6000, 3, 4096))
+EDGE_B = (1, 8, 32, 33, 256, 300)
+#: [10a]: a graph whose row bitmap is too wide for the kernel's shared
+#: memory (V past 196 480), so its rounds read and set the bits in global
+#: memory; at these B
+EDGE_WIDE_V = ((250_000, 3, 0), (8, 36))
+#: [10a]: the fixpoint again at this tile width where B is wider (more
+#: tiles, the last ragged), and capped at these round counts (an even
+#: count leaves a tile's result in the first buffer, which the kernel
+#: copies out)
+EDGE_SMALL_TILE = 8
+EDGE_CAPS = (2, 3)
 #: BASELINE config 3 ("100k-node Erdős–Rényi graph, batched all-sources
 #: SSSP", BASELINE.md) as `bench.py:933-954` runs it: 256 roots on the
 #: er100k LSDB, `np.arange(256) % num_nodes`
 CONFIG3_B = 256
+#: [10c]: the fixpoint at config 3 again at this tile width, whose slabs
+#: fit L2 (the rule takes 128), and, with `--old`, the parent's full round
+#: at these B (the L2 sweep)
+CONFIG3_NARROW_TILE = 32
+OLD_ROUND_B = (16, 32, 64, 128, 256)
+#: [10b]: the solves of each kind in its one profile: CUPTI drops more
+#: launches late in a long run, and kept none of 4 edge solves' 8
+PROFILED_CALLS = 30
 #: [10b]'s table kinds: TorchSpfSolver knobs and the table each picks
 TABLE_KINDS = {
     "split": ({}, "split"),
@@ -2256,13 +2291,15 @@ def edge_arrays(rng, n, deg, hub_in, over_frac=0.05):
 
 
 def edge_tensors(edge_ops, es, ed, em, over, vp) -> dict:
+    """The edge arrays, `build_blocked`'s mask and the `EdgeIndex` on the
+    card."""
     from openr_tpu_torch.ops.spf import build_blocked
 
+    index = edge_ops.index_to(edge_ops.edge_index(es, ed, em, vp), DEVICE)
     return dict(src=to_dev(es, np.int32), dst=to_dev(ed, np.int32),
                 metric=to_dev(em, np.int32),
                 blocked=to_dev(build_blocked(em, es, over), np.bool_),
-                row_start=to_dev(edge_ops.edge_row_start(ed, vp, em),
-                                 np.int32))
+                row_start=index.row_start, index=index)
 
 
 def edge_args(t, with_blocked=True):
@@ -2270,9 +2307,15 @@ def edge_args(t, with_blocked=True):
     return [t[k] for k in keys]
 
 
+def walked(t) -> int:
+    """The slots the runs walk (the padding past the last finite slot is
+    never read)."""
+    return int(t["row_start"][-1].item())
+
+
 def plain_edge_sssp(edge_ops, t, roots, vp):
-    """`batched_sssp`'s loop on the plain versions, on the card: (dist,
-    rounds)."""
+    """The reference's loop of full rounds on the plain versions, on the
+    card: (dist, rounds)."""
     cur = torch.empty((vp, roots.shape[0]), dtype=torch.int32, device=DEVICE)
     nxt = torch.empty_like(cur)
     ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
@@ -2287,24 +2330,54 @@ def plain_edge_sssp(edge_ops, t, roots, vp):
     return cur, rounds
 
 
-def edge_steps_vs_plain(edge_ops, t, roots, vp, rounds: int = 2) -> int:
-    """The init and `rounds` single rounds, kernel against plain on the
-    same inputs (dist and the changed word): max |diff|."""
-    b = roots.shape[0]
-    pairs = []
-    k = torch.empty((vp, b), dtype=torch.int32, device=DEVICE)
+def plain_marks(dist, tile: int) -> torch.Tensor:
+    """The init's row marks from its result: per tile of `tile` columns,
+    int32 words of the rows with a finite entry, bit v % 32 of word
+    v // 32."""
+    v = dist.shape[0]
+    w = -(-v // 128) * 4  # `edge_relax.bitmap_words`
+    words = []
+    for c0 in range(0, dist.shape[1], tile):
+        fin = torch.zeros(w * 32, dtype=torch.int64, device=dist.device)
+        fin[:v] = (dist[:, c0 : c0 + tile] < INF).any(1).long()
+        shift = torch.arange(32, device=dist.device, dtype=torch.int64)
+        x = (fin.view(w, 32) << shift).sum(1)
+        words.append(torch.where(x >= 1 << 31, x - (1 << 32), x))
+    return torch.cat(words).to(torch.int32)
+
+
+def edge_init_vs_plain(edge_ops, t, roots, vp, tile) -> int:
+    """The init kernel against `edge_init_ref` on [vp, B rounded up to
+    4] (padding columns INF), its row marks against `plain_marks`: max
+    |diff|."""
+    bp = -(-roots.shape[0] // 4) * 4
+    k = torch.full((vp, bp), -7, dtype=torch.int32, device=DEVICE)
     p = torch.empty_like(k)
-    edge_ops.edge_init(k, *edge_args(t, False), roots, t["row_start"])
+    marks = torch.full((-(-bp // tile) * edge_ops.bitmap_words(vp),), -1,
+                       dtype=torch.int32, device=DEVICE)
+    edge_ops.edge_init(k, *edge_args(t, False), roots, t["index"], tile,
+                       marks)
     edge_ops.edge_init_ref(p, *edge_args(t, False), roots)
-    pairs.append((k, p))
-    cur = p
+    torch.cuda.synchronize()
+    return max_diff([(k, p), (marks, plain_marks(p, tile))])
+
+
+def edge_rounds_vs_plain(edge_ops, t, roots, vp, rounds: int = 2) -> int:
+    """`rounds` single full rounds from the init, the kernel capped at
+    one round against `edge_round_ref` on the same inputs (dist and the
+    changed word): max |diff|."""
+    bp = -(-roots.shape[0] // 4) * 4
+    cur = torch.empty((vp, bp), dtype=torch.int32, device=DEVICE)
+    edge_ops.edge_init_ref(cur, *edge_args(t, False), roots)
+    pairs = []
     for _ in range(rounds):
         outs = []
         for fn, extra in ((edge_ops.edge_round, (t["row_start"],)),
                           (edge_ops.edge_round_ref, ())):
             out = torch.full_like(cur, -7)
             ch = torch.full((1,), 5, dtype=torch.int32, device=DEVICE)
-            fn(cur, out, *edge_args(t), *extra, ch)
+            fn(cur, out, *edge_args(t), *extra, ch,
+               **({"index": t["index"]} if extra else {}))
             outs.append((out, ch))
         pairs += [(outs[0][0], outs[1][0]), (outs[0][1], outs[1][1])]
         cur = outs[1][0]
@@ -2312,18 +2385,42 @@ def edge_steps_vs_plain(edge_ops, t, roots, vp, rounds: int = 2) -> int:
     return max_diff(pairs)
 
 
-def phase10a_edge(edge_ops) -> dict:
-    """`csrc/edge_relax.cu` against its plain version on random edge
-    lists (padding, parallel edges, unreachable and overloaded nodes,
-    overloaded and repeated roots, a 4 096-edge hub run) at every B of
-    EDGE_B: the init and single rounds, then the fixpoint and its round
+def edge_fix_vs_plain(edge_ops, t, roots, vp, tile, cap=None) -> int:
+    """The init and the fixpoint launch at tile width `tile` (capped at
+    `cap` rounds) against `batched_sssp_ref` at the same tiles: max
+    |diff| of dist; fails on a different round count or gathered-edge
     count."""
+    got, st = edge_ops._solve_cuda(*edge_args(t), roots, vp, t["index"],
+                                   tile, max_rounds=cap)
+    ref_st = {}
+    ref = edge_ops.batched_sssp_ref(*edge_args(t), roots, vp, tile,
+                                    walked(t), max_rounds=cap, stats=ref_st)
+    rounds, _last, gathered = st.tolist()
+    if (rounds, gathered) != (ref_st["rounds"], ref_st["gathered_edges"]):
+        fail(f"phase 10a: kernel rounds {rounds}, gathered {gathered}; plain "
+             f"{ref_st['rounds']}, {ref_st['gathered_edges']} (V {vp}, B "
+             f"{roots.shape[0]}, tile {tile}, cap {cap})")
+    return max_diff([(got, ref)])
+
+
+def phase10a_edge(edge_ops) -> dict:
+    """`csrc/edge_relax.cu` against its plain versions on random edge
+    lists (padding, parallel edges, unreachable and overloaded nodes,
+    overloaded and repeated roots, a hub run past the split threshold and
+    a 4 096-edge one) at every B of EDGE_B: the init with its row marks,
+    single full rounds, and the fixpoint (the rule's tiles, tiles of
+    EDGE_SMALL_TILE, and capped at EDGE_CAPS rounds) with its round and
+    gathered-edge counts; `batched_sssp` with one host read and the
+    reference loop's round count."""
     rng = np.random.default_rng(10)
-    worst, cases = 0, 0
-    for n, deg, hub in EDGE_CASES:
+    worst, cases, segs = 0, 0, []
+    wide, wide_b = EDGE_WIDE_V
+    for (n, deg, hub), widths in [(c, EDGE_B) for c in EDGE_CASES] + [
+            (wide, wide_b)]:
         es, ed, em, over, vp = edge_arrays(rng, n, deg, hub)
         t = edge_tensors(edge_ops, es, ed, em, over, vp)
-        for b in EDGE_B:
+        segs.append(int(t["index"].seg_node.shape[0]))
+        for b in widths:
             r = rng.integers(0, n, b).astype(np.int32)
             if b >= 3:
                 r[1] = r[0]  # repeated
@@ -2331,22 +2428,37 @@ def phase10a_edge(edge_ops) -> dict:
             if hub and b >= 4:
                 r[3] = 0  # the hub itself
             roots = to_dev(r, np.int32)
-            worst = max(worst, edge_steps_vs_plain(edge_ops, t, roots, vp))
+            tile = edge_ops.tile_cols(b)
+            worst = max(worst, edge_init_vs_plain(edge_ops, t, roots, vp,
+                                                  tile),
+                        edge_rounds_vs_plain(edge_ops, t, roots, vp))
+            runs = [(tile, None)] + [(tile, c) for c in EDGE_CAPS]
+            if b > EDGE_SMALL_TILE:
+                runs.append((EDGE_SMALL_TILE, None))
+            for tl, cap in runs:
+                worst = max(worst, edge_fix_vs_plain(edge_ops, t, roots, vp,
+                                                     tl, cap))
             st = {}
-            got = edge_ops.batched_sssp(*edge_args(t), roots, vp,
-                                        row_start=t["row_start"], stats=st)
+            got = edge_ops.batched_sssp(*edge_args(t), roots, vp, stats=st,
+                                        index=t["index"])
             ref, ref_rounds = plain_edge_sssp(edge_ops, t, roots, vp)
             worst = max(worst, max_diff([(got, ref)]))
-            if st["rounds"] != ref_rounds:
-                fail(f"phase 10a: {st['rounds']} kernel rounds, {ref_rounds} "
-                     f"plain (V {n}, B {b})")
+            if st["rounds"] != ref_rounds or st["host_reads"] != 1:
+                fail(f"phase 10a: {st['rounds']} kernel rounds and "
+                     f"{st['host_reads']} host reads, {ref_rounds} rounds "
+                     f"of the reference loop (V {n}, B {b})")
             if not bool((ref == INF).any()):
                 fail("phase 10a: no unreachable entry in the check")
             cases += 1
     log(f"[10a] edge_init_kernel / edge_relax_kernel vs plain: {cases} "
-        f"cases (V {[c[0] for c in EDGE_CASES]}, hub run "
-        f"{max(c[2] for c in EDGE_CASES)}, B {EDGE_B}), init + 2 rounds + "
-        f"fixpoint with its round count, max |diff| {worst}")
+        f"cases (V {[c[0] for c in EDGE_CASES]}, hub runs "
+        f"{[c[2] for c in EDGE_CASES]}, segments {segs}, B {EDGE_B}; V "
+        f"{wide[0]}, its bitmaps in global memory, B {wide_b}): the "
+        f"init with its row marks, 2 full rounds, the fixpoint at the "
+        f"rule's tiles, at tiles of {EDGE_SMALL_TILE} and capped at "
+        f"{EDGE_CAPS} rounds, rounds and gathered edges equal, "
+        f"batched_sssp with 1 host read and the reference loop's rounds; "
+        f"max |diff| {worst}")
     if worst:
         fail(f"phase 10a: edge kernels disagree with plain ({worst})")
     return dict(worst=worst, cases=cases)
@@ -2405,12 +2517,15 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
             times.append((time.perf_counter() - t0) * 1e3)
         st = dict(solver.last_solve_stats)
         peak = torch.cuda.max_memory_allocated()
+        before = kernel_launches(relax, edge_ops)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            solver._solve_dist(csr, roots)
+            for _ in range(PROFILED_CALLS):
+                solver._solve_dist(csr, roots)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
+        after = kernel_launches(relax, edge_ops)
         kind_launches = dict(relax=dict(relax.LAUNCHES_BY_DESIGN),
                              edge=dict(edge_ops.LAUNCHES))
         if table == "split":
@@ -2422,15 +2537,21 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
         if not want:
             fail(f"config 3 {kind}: launches {kind_launches}: a kernel of "
                  "its path was launched no time")
+        if table == "edge" and st["host_reads"] != 1:
+            fail(f"config 3 edge: {st['host_reads']} host reads a solve, "
+                 "not 1")
         per = {nm: kernel_device_us(prof, (nm,)) for nm in names}
-        dev_us, _ = kernel_device_us(prof, ("",))
+        launched = {nm: after[nm] - before[nm] for nm in names}
+        busy = busy_share(prof, per, launched, traced_ms)
         live[kind] = d[:n].clone()
         p50 = statistics.median(times)
         rows[kind] = dict(
             rows=int(d.shape[0]), p50_ms=p50, times=times, first_ms=first_ms,
             sources_per_s=b / (p50 / 1e3), stats=st,
-            kernels={nm: v for nm, v in per.items() if v[1]},
-            busy=dev_us / 1e3 / traced_ms, peak_bytes=peak,
+            kernels={nm: (v[0], v[1], launched[nm])
+                     for nm, v in per.items() if launched[nm]},
+            busy=busy,
+            peak_bytes=peak,
             peak_over_base=peak - base, launches=kind_launches,
         )
         del solver, d
@@ -2468,18 +2589,24 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
     for kind, r in rows.items():
         st = r["stats"]
         steps = (f"sweeps {st['sweeps']}" if "sweeps" in st
-                 else f"rounds {st['rounds']}")
+                 else f"rounds {st['rounds']} ({st['tiles']} tiles of "
+                 f"{st['tile_cols']} columns, {st['gathered_edges']} "
+                 "gathered edges)")
         reads = st.get("host_reads", st.get("host_syncs"))
-        kern = "; ".join(f"{nm} {v[1]} launches {v[0]:.1f} us "
-                         f"({v[0] / v[1]:.2f} us each)"
+        kern = "; ".join(f"{nm} {v[1]} of {v[2]} launches kept, "
+                         + (f"{v[0] / v[1]:.2f} us each" if v[1]
+                            else "not measured")
                          for nm, v in r["kernels"].items())
         log(f"[10b] config 3 {kind} ({TABLE_KINDS[kind][1]} tables, "
             f"{r['rows']} rows x {b}): p50 {r['p50_ms']:.3f} ms (samples "
             f"{[round(x, 3) for x in r['times']]}, first call with the "
             f"table build {r['first_ms']:.1f} ms); sources/s "
             f"{r['sources_per_s']:.1f}; {steps}, host reads {reads}; "
-            f"launches in its 5 calls {r['launches']}; CUPTI "
-            f"(one profiled call): {kern}; busy share {r['busy']:.3f}; peak "
+            f"launches in its {4 + PROFILED_CALLS} calls {r['launches']}; "
+            f"CUPTI ({PROFILED_CALLS} calls in one profile): "
+            f"{kern or 'not measured'}; busy share "
+            f"{'not measured' if r['busy'] is None else round(r['busy'], 3)}"
+            "; peak "
             f"device memory {r['peak_bytes'] / 2**20:.1f} MiB "
             f"({r['peak_over_base'] / 2**20:.1f} MiB over the run's "
             f"{(r['peak_bytes'] - r['peak_over_base']) / 2**20:.1f}); "
@@ -2495,78 +2622,310 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
                 edge_launches=e_launches, roots=roots)
 
 
-def edge_work(t, v, b, kind) -> tuple[int, int, int]:
+def kernel_launches(relax, edge_ops) -> dict:
+    """The wrappers' launch counts, by kernel name."""
+    return {relax.KERNEL_NAMES[d]: n
+            for d, n in relax.LAUNCHES_BY_DESIGN.items()} | {
+        edge_ops.KERNEL_NAMES[st]: n for st, n in edge_ops.LAUNCHES.items()}
+
+
+def busy_share(prof, per, launched, traced_ms) -> float | None:
+    """The device's busy share of a profiled window of `traced_ms`: every
+    kernel CUPTI kept, plus, for each named kernel of `per` ((µs, kept)
+    by name) of which CUPTI kept fewer than the wrappers `launched`, its
+    mean kept time for each launch it dropped. None where a named kernel
+    was launched and CUPTI kept none of it."""
+    dev_us, _ = kernel_device_us(prof, ("",))
+    for nm, (us, kept) in per.items():
+        if launched[nm] and not kept:
+            return None
+        if kept:
+            dev_us += us / kept * max(0, launched[nm] - kept)
+    return dev_us / 1e3 / traced_ms
+
+
+def edge_work(t, v, b, kind, roots=None, tile=None) -> tuple[int, int, int]:
     """(bytes, operations, gather bytes) of one edge kernel call, over
     the edges the kernels walk: the runs of `row_start`, which end at
     the last finite slot (the padding past it is never read). The init
-    writes dist and reads src, metric, roots and row_start, one compare
-    per walked edge and column; a round reads dist and writes it, reads
-    src, metric and blocked of each walked edge and row_start once, and
-    does four integer operations per usable walked edge and column,
-    whose B-wide source row it gathers."""
-    e = int(t["row_start"][-1].item())
-    usable = int((~t["blocked"][:e]).sum().item())
+    writes dist and its row marks (a bit per row and tile of `tile`
+    columns), reads roots, two out_start words a root and the
+    slot, metric and dst of each root's out-edges, one min per out-edge;
+    a full round reads dist and writes it, reads src, metric and blocked
+    of each walked edge and row_start once, and does four integer
+    operations per usable walked edge and column, whose B-wide source
+    row it gathers."""
     if kind == "init":
-        return v * b * 4 + e * 8 + b * 4 + (v + 1) * 4, e * b, 0
+        r_bytes, r_ops = edge_root_work(t, roots)
+        return v * b * 4 + -(-b // tile) * -(-v // 8) + r_bytes, r_ops, 0
+    e = walked(t)
+    usable = int((~t["blocked"][:e]).sum().item())
     return (2 * v * b * 4 + e * 9 + (v + 1) * 4, usable * b * 4,
             usable * b * 4)
 
 
-def phase10c_kernels_at_config3(relax, edge_ops, csr, roots) -> dict:
+def edge_root_work(t, roots) -> tuple[int, int]:
+    """(bytes, operations) of the init's reads past the dist it writes:
+    the roots, two out_start words a root and the slot, metric and dst
+    of each root's out-edges; one min per out-edge and root."""
+    os_ = t["index"].out_start.long()
+    r = roots.long()
+    deg = int((os_[r + 1] - os_[r]).sum().item())
+    b = roots.shape[0]
+    return b * 12 + deg * 12, deg + b
+
+
+def edge_fix_work(t, v, dist) -> tuple[int, int]:
+    """(bytes, operations) the fixpoint launch must spend, at the least,
+    to take the init's start [V, B] to its fixpoint `dist`, counted as
+    `ksp_sssp_work` counts them: the start read once and the result
+    written once; src, metric and blocked of each walked edge, row_start
+    and the segments read once; one relaxation, four integer operations,
+    of each usable walked edge out of each entry the result reaches, for
+    that entry's column: each entry settled once, as a label-setting
+    solve does. Jacobi rounds do more: each walks every slot and gathers
+    the rows that changed in the round before (the gathered edges)."""
+    e = walked(t)
+    b = dist.shape[1]
+    usable = ~t["blocked"][:e]
+    out_edges = torch.bincount(t["src"][:e][usable].long(), minlength=v)
+    reached = (dist[:v] < INF).sum(dim=1)
+    relax = int((out_edges[:v].long() * reached.long()).sum().item())
+    n_seg = int(t["index"].seg_node.shape[0])
+    return 2 * v * b * 4 + e * 9 + (v + 1) * 4 + n_seg * 8, 4 * relax
+
+
+#: The C entry points of csrc/edge_relax.cu's round design (an init
+#: launch, then a launch a round whose changed word the host reads back),
+#: for an `--old` checkout that has it
+ROUND_EDGE_ENTRY_POINTS = {
+    "openr_edge_init": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                        + [ctypes.c_void_p], ctypes.c_int),
+    "openr_edge_relax": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p] * 2, ctypes.c_int),
+    "openr_edge_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def old_edge_call(lib, name, *args) -> None:
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the --old {name} failed: "
+             f"{lib.openr_edge_error_string(err).decode()} ({err})")
+
+
+def old_edge_init(lib, out, t, roots) -> None:
+    old_edge_call(lib, "openr_edge_init", out.data_ptr(),
+                  t["row_start"].data_ptr(), t["src"].data_ptr(),
+                  t["metric"].data_ptr(), roots.data_ptr(), *out.shape)
+
+
+def old_edge_round(lib, din, dout, t, changed) -> None:
+    old_edge_call(lib, "openr_edge_relax", din.data_ptr(), dout.data_ptr(),
+                  t["row_start"].data_ptr(), t["src"].data_ptr(),
+                  t["metric"].data_ptr(), t["blocked"].data_ptr(),
+                  *din.shape, changed.data_ptr())
+
+
+def old_edge_solve(lib, t, roots, vp):
+    """The round design's `batched_sssp` through its own C entry points
+    (an `--old` library): the init,
+    then a launch a round, the changed word read back after each:
+    (dist, rounds)."""
+    cur = torch.empty((vp, roots.shape[0]), dtype=torch.int32, device=DEVICE)
+    nxt = torch.empty_like(cur)
+    ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    old_edge_init(lib, cur, t, roots)
+    rounds = 0
+    for _ in range(vp):
+        old_edge_round(lib, cur, nxt, t, ch)
+        rounds += 1
+        cur, nxt = nxt, cur
+        if int(ch.item()) == 0:
+            break
+    return cur, rounds
+
+
+def profiled_us(fn, names, launches: int) -> float | None:
+    """CUPTI µs of the kernels named `names` in one profiled call of
+    `fn`, which launches them `launches` times; a profile that kept
+    fewer is taken again, up to 3; None if none kept them all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us, count = kernel_device_us(prof, names)
+        if count == launches:
+            return us
+    return None
+
+
+def state_after(edge_ops, t, roots, vp, rounds: int = 3):
+    """The init and `rounds` full rounds on the plain versions."""
+    cur = torch.empty((vp, roots.shape[0]), dtype=torch.int32, device=DEVICE)
+    nxt = torch.empty_like(cur)
+    ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    edge_ops.edge_init_ref(cur, *edge_args(t, False), roots)
+    for _ in range(rounds):
+        edge_ops.edge_round_ref(cur, nxt, *edge_args(t), ch)
+        cur, nxt = nxt, cur
+    return cur
+
+
+def fix_at(edge_ops, t, rt, v, tile) -> dict:
+    """The init and the fixpoint launch at config 3's call with tiles of
+    `tile` columns: the result, its stats, and the fixpoint launch's
+    time (CUPTI; buf0 restored to the init before each launch)."""
+    b = rt.shape[0]
+    start = torch.empty((v, b), dtype=torch.int32, device=DEVICE)
+    marks = torch.empty(-(-b // tile) * edge_ops.bitmap_words(v),
+                        dtype=torch.int32, device=DEVICE)
+    edge_ops.edge_init(start, *edge_args(t, False), rt, t["index"], tile,
+                       marks)
+    buf0, buf1 = torch.empty_like(start), torch.empty_like(start)
+    fargs = (t["src"], t["metric"], t["blocked"], t["index"], tile, marks, v)
+    buf0.copy_(start)
+    st = edge_ops._fix(buf0, buf1, *fargs).tolist()
+    res = buf1.clone()
+    us, by = kernel_us(lambda: edge_ops._fix(buf0, buf1, *fargs),
+                       lambda: buf0.copy_(start),
+                       edge_ops.KERNEL_NAMES["round"])
+    return dict(dist=res, rounds=st[0], gathered=st[2], us=us, timed_by=by,
+                tile=tile)
+
+
+def phase10c_kernels_at_config3(relax, edge_ops, csr, roots,
+                                old_lib=None, p50_ms=None) -> dict:
     """The edge kernels and the dense sweep of kernel A at config 3's
-    calls, each on a mid-solve state (after the init and 3 rounds or
-    sweeps): exact against the plain version, CUPTI time, the plain
-    version's time and the bound."""
+    calls: the init, one full round (the fixpoint kernel capped at one
+    round, every row marked) at the state after the init and 3 rounds,
+    and the whole solve (init, then the fixpoint launch), each exact
+    against its plain version, timed (CUPTI) with its bound (the whole
+    solve's also as a share of `p50_ms`, [10b]'s edge p50); the fixpoint
+    at CONFIG3_NARROW_TILE columns too; with `old_lib` (the
+    round design's `edge_relax.cu`, through its own C entry points) its
+    init, its round and its whole solve (a launch a round, a host read
+    each) at the same calls, in turns with this checkout's (old, new,
+    new, old), and its round at the widths of OLD_ROUND_B; kernel A's
+    dense sweep after 3 sweeps."""
     from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
-    from openr_tpu_torch.ops.spf import build_blocked
 
     v, b = csr.padded_nodes, roots.shape[0]
     rt = to_dev(roots, np.int32)
-    t = dict(src=to_dev(csr.edge_src, np.int32),
-             dst=to_dev(csr.edge_dst, np.int32),
-             metric=to_dev(csr.edge_metric, np.int32),
-             blocked=to_dev(build_blocked(csr.edge_metric, csr.edge_src,
-                                          csr.node_overloaded), np.bool_),
-             row_start=to_dev(edge_ops.edge_row_start(
-                 csr.edge_dst, v, csr.edge_metric), np.int32))
+    t = edge_tensors(edge_ops, csr.edge_src, csr.edge_dst, csr.edge_metric,
+                     csr.node_overloaded, v)
+    tile = edge_ops.tile_cols(b)
     out = {}
     # ---- edge_init_kernel ------------------------------------------------
+    err_init = edge_init_vs_plain(edge_ops, t, rt, v, tile)
     k0 = torch.empty((v, b), dtype=torch.int32, device=DEVICE)
-    p0 = torch.empty_like(k0)
-    edge_ops.edge_init(k0, *edge_args(t, False), rt, t["row_start"])
-    edge_ops.edge_init_ref(p0, *edge_args(t, False), rt)
-    err_init = max_diff([(k0, p0)])
+    marks = torch.empty(-(-b // tile) * edge_ops.bitmap_words(v),
+                        dtype=torch.int32, device=DEVICE)
     us, by = kernel_us(lambda: edge_ops.edge_init(
-        k0, *edge_args(t, False), rt, t["row_start"]), lambda: None,
+        k0, *edge_args(t, False), rt, t["index"], tile, marks), lambda: None,
         edge_ops.KERNEL_NAMES["init"])
+    p0 = torch.empty_like(k0)
     p_ms = cuda_ms(lambda: edge_ops.edge_init_ref(p0, *edge_args(t, False),
                                                   rt))
-    nbytes, ops, _g = edge_work(t, v, b, "init")
+    nbytes, ops, _g = edge_work(t, v, b, "init", rt, tile)
     b_ms, b_by = bound(nbytes, ops)
     out["init"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=b_ms,
                        bound_by=b_by, err=err_init, bytes=nbytes, ops=ops)
-    # ---- edge_relax_kernel: a round from the state after 3 rounds --------
-    cur, nxt = p0.clone(), torch.empty_like(p0)
-    ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-    for _ in range(3):
-        edge_ops.edge_round(cur, nxt, *edge_args(t), t["row_start"], ch)
-        cur, nxt = nxt, cur
+    # ---- one full round from the state after 3 rounds --------------------
+    cur = state_after(edge_ops, t, rt, v)
     ko, po = torch.empty_like(cur), torch.empty_like(cur)
-    kc, pc = torch.zeros_like(ch), torch.zeros_like(ch)
-    edge_ops.edge_round(cur, ko, *edge_args(t), t["row_start"], kc)
+    kc = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    pc = torch.zeros_like(kc)
+    edge_ops.edge_round(cur, ko, *edge_args(t), t["row_start"], kc,
+                        index=t["index"])
     edge_ops.edge_round_ref(cur, po, *edge_args(t), pc)
     err_round = max_diff([(ko, po), (kc, pc)])
     lowered = int((po < cur).sum().item())
     us, by = kernel_us(lambda: edge_ops.edge_round(
-        cur, ko, *edge_args(t), t["row_start"], kc), lambda: None,
-        edge_ops.KERNEL_NAMES["round"])
+        cur, ko, *edge_args(t), t["row_start"], kc, index=t["index"]),
+        lambda: None, edge_ops.KERNEL_NAMES["round"])
     p_ms = cuda_ms(lambda: edge_ops.edge_round_ref(cur, po, *edge_args(t),
                                                    pc))
     nbytes, ops, gath = edge_work(t, v, b, "round")
-    b_ms, b_by = bound(nbytes, ops)
-    out["round"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=b_ms,
-                        bound_by=b_by, err=err_round, bytes=nbytes, ops=ops, gather=gath,
-                        lowered=lowered)
+    round_ms, b_by = bound(nbytes, ops)
+    out["round"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=round_ms,
+                        bound_by=b_by, err=err_round, bytes=nbytes, ops=ops,
+                        gather=gath, lowered=lowered)
+    # ---- the whole solve: the init, then the fixpoint launch --------------
+    ref_st = {}
+    t0 = time.perf_counter()
+    ref = edge_ops.batched_sssp_ref(*edge_args(t), rt, v, tile, walked(t),
+                                    stats=ref_st)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    fx = fix_at(edge_ops, t, rt, v, tile)
+    narrow = fix_at(edge_ops, t, rt, v, CONFIG3_NARROW_TILE)
+    if (fx["rounds"], fx["gathered"]) != (ref_st["rounds"],
+                                          ref_st["gathered_edges"]):
+        fail(f"phase 10c: the fixpoint's rounds / gathered edges "
+             f"{fx['rounds']} / {fx['gathered']}, plain {ref_st['rounds']} "
+             f"/ {ref_st['gathered_edges']}")
+    err_fix = max_diff([(fx["dist"], ref), (narrow["dist"], ref)])
+    rounds = fx["rounds"]
+    f_bytes, f_ops = edge_fix_work(t, v, ref)
+    fix_bound, f_by = bound(f_bytes, f_ops)
+    out["fix"] = dict(us=fx["us"], timed_by=fx["timed_by"], plain_ms=ref_ms,
+                      bound_ms=fix_bound, bound_by=f_by, err=err_fix,
+                      bytes=f_bytes, ops=f_ops,
+                      gather=fx["gathered"] * tile * 4, rounds=rounds,
+                      gathered=fx["gathered"], tile=tile)
+    solve_us = out["init"]["us"] + fx["us"]
+    # the whole solve, roots to result: no start matrix to read
+    r_bytes, r_ops = edge_root_work(t, rt)
+    solve_bytes, solve_ops = f_bytes - v * b * 4 + r_bytes, f_ops + r_ops
+    solve_bound, solve_by = bound(solve_bytes, solve_ops)
+    # ---- the --old kernels, in turns with this checkout's -------------------
+    old = None
+    if old_lib is not None:
+        old = dict(init=[], round=[], solve=[], solve_dev=[], new_solve=[],
+                   sweep={})
+        ok0 = torch.empty_like(k0)
+        oko = torch.empty_like(cur)
+        och = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+        old_edge_init(old_lib, ok0, t, rt)
+        old_edge_round(old_lib, cur, oko, t, och)
+        od, o_rounds = old_edge_solve(old_lib, t, rt, v)
+        err_old = max_diff([(ok0, p0), (oko, po), (od, ref)])
+        if err_old or o_rounds != rounds:
+            fail(f"phase 10c: the --old kernels disagree ({err_old}, rounds "
+                 f"{o_rounds} against {rounds})")
+        edge_names = tuple(edge_ops.KERNEL_NAMES.values())
+
+        def new_solve():
+            edge_ops._solve_cuda(*edge_args(t), rt, v, t["index"], tile)
+
+        for lb in ("old", "new", "new", "old"):
+            if lb == "new":
+                old["new_solve"].append(wall_ms(new_solve))
+                continue
+            old["init"].append(kernel_us(
+                lambda: old_edge_init(old_lib, ok0, t, rt), lambda: None,
+                edge_ops.KERNEL_NAMES["init"])[0])
+            old["round"].append(kernel_us(
+                lambda: old_edge_round(old_lib, cur, oko, t, och),
+                lambda: None, edge_ops.KERNEL_NAMES["round"])[0])
+            old["solve"].append(wall_ms(
+                lambda: old_edge_solve(old_lib, t, rt, v)))
+            old["solve_dev"].append(profiled_us(
+                lambda: old_edge_solve(old_lib, t, rt, v), edge_names,
+                1 + rounds))
+        for ob in OLD_ROUND_B:
+            r_b = to_dev(np.arange(ob, dtype=np.int32), np.int32)
+            s_b = state_after(edge_ops, t, r_b, v)
+            o_b = torch.empty_like(s_b)
+            us_b, _by = kernel_us(
+                lambda: old_edge_round(old_lib, s_b, o_b, t, och),
+                lambda: None, edge_ops.KERNEL_NAMES["round"])
+            old["sweep"][ob] = us_b
+            del s_b, o_b
     # ---- kernel A's dense sweep (W = D, B = 256) ---------------------------
     solver = TorchSpfSolver(device=DEVICE, use_dense=True)
     tab = solver._device_arrays(csr, "dense")
@@ -2594,16 +2953,20 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots) -> dict:
     _n, nbytes, ops, l2 = call_work(nbr, wgt, kw, b)
     b_ms, b_by = bound(nbytes, ops)
     out["dense"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=b_ms,
-                        bound_by=b_by, err=err_a, bytes=nbytes, ops=ops, gather=l2,
-                        design=design, w=int(nbr.shape[1]))
+                        bound_by=b_by, err=err_a, bytes=nbytes, ops=ops,
+                        gather=l2, design=design, w=int(nbr.shape[1]))
     card = smi("name,power.limit")
     for kind, r in out.items():
         extra = (f", gathers {r['gather']} B "
                  f"({r['gather'] / r['us'] / 1e6:.2f} TB/s)"
                  if r.get("gather") else "")
-        log(f"[10c] config 3 {kind} call (B {b}"
+        label = {"round": "full round", "fix": "fixpoint launch"}.get(kind,
+                                                                      kind)
+        log(f"[10c] config 3 {label} call (B {b}"
             + (f", W {r['w']}, {r['design']}" if kind == "dense" else "")
             + (f", {r['lowered']} entries lowered" if kind == "round" else "")
+            + (f", {r['rounds']} rounds in tiles of {r['tile']}, "
+               f"{r['gathered']} gathered edges" if kind == "fix" else "")
             + f"): {r['us']:.2f} us ({r['timed_by']}); bound "
             f"{r['bound_ms'] * 1e3:.3f} "
             f"us by {r['bound_by']} ({r['bytes']} B, {r['ops']} int ops; "
@@ -2612,9 +2975,58 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots) -> dict:
         if r["err"]:
             fail(f"phase 10c: the {kind} call disagrees with plain "
                  f"({r['err']})")
-    log(f"[10c] the edge kernels walk {int(t['row_start'][-1].item())} of "
-        f"{t['src'].shape[0]} edge slots (the padding past the last finite "
-        "slot is never read); the bounds count the walked ones")
+    fx_r = out["fix"]
+    log(f"[10c] config 3 fixpoint launch beside its bound: the Jacobi "
+        f"design's floor, {rounds} rounds x a full round's bound "
+        f"{round_ms * 1e3:.3f} us = {rounds * round_ms * 1e3:.3f} us "
+        f"(share {rounds * round_ms * 1e3 / fx_r['us']:.3f}); the skip "
+        f"gathered {fx_r['gather']} B, {fx_r['gather'] / (rounds * gath):.3f}"
+        f" of {rounds} full rounds' {rounds * gath} B")
+    share = (f"; {solve_us / 1e3 / p50_ms:.3f} of [10b]'s edge p50 "
+             f"{p50_ms:.3f} ms" if p50_ms else "")
+    log(f"[10c] config 3 whole edge solve (init + fixpoint launch): "
+        f"{solve_us:.2f} us of device time{share}; bound "
+        f"{solve_bound * 1e3:.3f} us by {solve_by} ({solve_bytes} B, "
+        f"{solve_ops} int ops: the result written once, the edges and the "
+        f"roots' out-edges read once); share "
+        f"{solve_bound * 1e3 / solve_us:.3f}; card {card}")
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    log(f"[10c] config 3 fixpoint launch by tile width: the rule's {tile} "
+        f"columns {fx['us']:.2f} us against {narrow['tile']} columns "
+        f"{narrow['us']:.2f} us ({narrow['timed_by']}; {narrow['rounds']} "
+        f"rounds, {narrow['gathered']} gathered edges, slab "
+        f"{v * narrow['tile'] * 4 / l2:.3f} of L2 {l2} B), "
+        f"{narrow['us'] / fx['us']:.3f}x")
+    if old is not None:
+        mean = statistics.mean
+
+        def dev_ratio():  # this checkout's: its two kernels' CUPTI means
+            o = [x for x in old["solve_dev"] if x is not None]
+            return (f"{mean(o) / solve_us:.3f}x" if o
+                    else "not measured (CUPTI dropped launches)")
+
+        log(f"[10c] the --old edge_relax.cu in turns (old, new, new, old): "
+            f"init {[round(x, 2) for x in old['init']]} us against "
+            f"{out['init']['us']:.2f}; full round "
+            f"{[round(x, 2) for x in old['round']]} us against "
+            f"{out['round']['us']:.2f}; whole solve wall "
+            f"{[round(x, 3) for x in old['solve']]} ms (device, one "
+            f"profiled solve each: {old['solve_dev']} us) against "
+            f"{[round(x, 3) for x in old['new_solve']]} ms (device "
+            f"{solve_us:.2f} us, its init and fixpoint launch above): "
+            f"{mean(old['solve']) / mean(old['new_solve']):.3f}x by wall, "
+            f"{dev_ratio()} by device time; card {card}")
+        log("[10c] the --old full round by B (state after 3 rounds): "
+            + "; ".join(f"B {ob}: {us_b:.2f} us ({us_b / ob:.3f} us a "
+                        "column)" for ob, us_b in old["sweep"].items()))
+        if mean(old["new_solve"]) >= mean(old["solve"]):
+            fail("phase 10c: the edge solve is not faster than the --old "
+                 "one")
+    log(f"[10c] the edge kernels walk {walked(t)} of {t['src'].shape[0]} "
+        "edge slots (the padding past the last finite slot is never read); "
+        "the bounds count the walked ones")
+    out["solve_us"], out["solve_bound_ms"], out["old"] = (solve_us,
+                                                         solve_bound, old)
     return out
 
 
@@ -2635,12 +3047,11 @@ def phase10d_all_sources(edge_ops, n: int = ALL_SOURCES_N) -> dict:
     edge_ops.reset_launches()
     t0 = time.perf_counter()
     st = {}
-    got = all_sources_sssp(*edge_args(t), vp, chunk=256,
-                           row_start=t["row_start"], stats=st)
+    got = all_sources_sssp(*edge_args(t), vp, chunk=256, stats=st,
+                           index=t["index"])
     wall = (time.perf_counter() - t0) * 1e3
     launches = dict(edge_ops.LAUNCHES)
-    got2 = all_sources_sssp(*edge_args(t), vp, chunk=384,
-                            row_start=t["row_start"])
+    got2 = all_sources_sssp(*edge_args(t), vp, chunk=384, index=t["index"])
     t0 = time.perf_counter()
     csr = csr_from_numpy(
         num_nodes=nn, num_edges=e, edge_src=es, edge_dst=ed, edge_metric=em,
@@ -2658,6 +3069,9 @@ def phase10d_all_sources(edge_ops, n: int = ALL_SOURCES_N) -> dict:
              "tail chunk are wrong")
     if not all(launches.values()):
         fail(f"phase 10d: edge launches {launches}")
+    if st["host_reads"] != -(-vp // 256):
+        fail(f"phase 10d: {st['host_reads']} host reads for "
+             f"{-(-vp // 256)} chunks")
     # overloads: one chunk against the split and dense paths
     rng = np.random.default_rng(4)
     over[rng.choice(nn, nn // 50, replace=False)] = True
@@ -2668,7 +3082,7 @@ def phase10d_all_sources(edge_ops, n: int = ALL_SOURCES_N) -> dict:
     )
     blocked = to_dev(build_blocked(em, es, over), np.bool_)
     got_o = all_sources_sssp(t["src"], t["dst"], t["metric"], blocked, vp,
-                             chunk=256, row_start=t["row_start"])
+                             chunk=256, index=t["index"])
     roots = np.arange(256, dtype=np.int32)
     for knobs in ({}, dict(use_dense=True)):
         d = TorchSpfSolver(device=DEVICE, **knobs)._solve_dist(csr_o, roots)
@@ -2789,8 +3203,9 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, default=None,
-                    help="csrc/ of another checkout: time its relax and "
-                    "election kernels beside this checkout's, in turns")
+                    help="csrc/ of another checkout: time its relax, "
+                    "election and edge kernels beside this checkout's, in "
+                    "turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -2924,7 +3339,9 @@ def main(argv=None) -> None:
     # ---- phase 10: the batched multi-root paths, config 3, fleet ---------
     p10a = phase10a_edge(edge_ops)
     p10b = phase10b_config3(relax, edge_ops, ls, ps, csr, rdb)
-    p10c = phase10c_kernels_at_config3(relax, edge_ops, csr, p10b["roots"])
+    p10c = phase10c_kernels_at_config3(relax, edge_ops, csr, p10b["roots"],
+                                       old_libs.get("edge_relax"),
+                                       p10b["rows"]["edge"]["p50_ms"])
     phase10d_all_sources(edge_ops)
     phase10e_fleet(relax, edge_ops, p9)
     phase10f_hub(edge_ops)
@@ -3016,8 +3433,8 @@ def main(argv=None) -> None:
         "library_ms": None,
         "timed_by": dense3["timed_by"],
     })
-    for step, line in (("round", 86), ("init", 73)):
-        row = p10c[step]
+    for step, row_key, line in (("round", "fix", 86), ("init", "init", 73)):
+        row = p10c[row_key]
         kernels.append({
             "name": edge_ops.KERNEL_NAMES[step],
             "route": "cuda",

@@ -269,8 +269,9 @@ class TorchSpfSolver:
         tables), "dense" (`nbr`, `wgt` in-neighbor tables and the node
         `over` bits, for the dense solve and KSP) or "edge" (the
         dst-sorted `src`, `dst`, `metric`, the `blocked` mask of
-        `build_blocked` and the node runs' `row_start`, for the edge-list
-        solve). One cache entry per topology base holds
+        `build_blocked` and the `edge_relax.EdgeIndex` of the node runs,
+        the init's out-edge index and the long runs' segments, for the
+        edge-list solve). One cache entry per topology base holds
         every set built so far: a newer CSR of a cached base scatters the
         journal suffix the entry has not applied into each set; a CSR
         older than the entry (journals cannot be applied backwards) or of
@@ -313,9 +314,10 @@ class TorchSpfSolver:
                 "dst": self._to_dev(csr.edge_dst),
                 "metric": self._to_dev(csr.edge_metric),
                 "blocked": self._to_dev(blocked),
-                "row_start": self._to_dev(edge_relax.edge_row_start(
-                    csr.edge_dst, csr.padded_nodes, csr.edge_metric
-                )),
+                "index": edge_relax.index_to(edge_relax.edge_index(
+                    csr.edge_src, csr.edge_dst, csr.edge_metric,
+                    csr.padded_nodes,
+                ), self.device),
             }
         else:
             raise ValueError(f"unknown device table set {want!r}")
@@ -460,8 +462,7 @@ class TorchSpfSolver:
         else:
             out = edge_relax.batched_sssp(
                 dev["src"], dev["dst"], dev["metric"], dev["blocked"],
-                roots_t, csr.padded_nodes, row_start=dev["row_start"],
-                stats=stats,
+                roots_t, csr.padded_nodes, stats=stats, index=dev["index"],
             )
         stats["relax_launches"] = relax.LAUNCHES - relax0
         stats["edge_launches"] = sum(edge_relax.LAUNCHES.values()) - edge0

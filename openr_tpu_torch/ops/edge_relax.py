@@ -3,24 +3,34 @@ CSR edge list, the port of `openr_tpu/ops/spf.py` `batched_sssp`.
 
 `batched_sssp` starts from `edge_init` (each root's own out-edges relaxed
 with no penalty, blocked ones included: the overloaded-root exemption;
-then 0 at the root) and runs `edge_round` (a Jacobi round over the
-unblocked edges) until a round lowers nothing, at most `num_nodes`
-rounds, reading the changed word back once a round. The edge arrays are
-sorted by destination, as `CsrGraph` keeps them; `edge_row_start` gives
-each node's run of them, which the kernels walk.
+then 0 at the root) and runs Jacobi rounds over the unblocked edges until
+a round lowers nothing, at most `num_nodes` rounds. The columns are
+independent SSSPs, cut into tiles of `tile_cols` columns that run one
+after another to their own fixpoints, and a round gathers only from the
+rows that changed in the round before (`csrc/edge_relax.cu` says why both
+leave the distances and the round count as the reference's).
 
-`edge_init` and `edge_round` pick by `tensor.device.type` alone: a CUDA
-tensor launches `edge_init_kernel` / `edge_relax_kernel` of
-`csrc/edge_relax.cu` (a build or launch failure raises), a CPU tensor
-runs the plain PyTorch version, `edge_init_ref` / `edge_round_ref`: a
-gather, an add and a `scatter_reduce_` "amin" by destination, in chunks
-of edges so that no [E, B] tensor is built whole.
+The edge arrays are sorted by destination, as `CsrGraph` keeps them.
+`EdgeIndex` holds what the kernels walk, built on the host once per table
+set (`edge_index`): each node's run of the dst-sorted slots
+(`edge_row_start`), the out-edge index of the init (`edge_out_index`) and
+the segments of the long runs (`edge_segments`).
+
+The wrappers pick by `tensor.device.type` alone: a CUDA tensor launches
+`edge_init_kernel` / `edge_relax_kernel` (one cooperative launch each per
+solve, one host read per solve for the stats; a build, launch or
+cooperative-launch failure raises), a CPU tensor runs the plain PyTorch
+version of the same algorithm, `batched_sssp_ref` (tiles, per-tile
+fixpoint, the skip), on `edge_init_ref` and a chunked gather, add and
+`scatter_reduce_` "amin" by destination; `edge_round_ref` is one full
+round.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,30 +40,39 @@ from openr_tpu_torch.common.constants import DIST_INF
 INF_DIST = DIST_INF
 #: the kernel functions, as a profiler names them
 KERNEL_NAMES = {"init": "edge_init_kernel", "round": "edge_relax_kernel"}
+#: runs longer than this many slots are walked as segments of this many
+#: slots by separate thread groups (`csrc/edge_relax.cu`)
+SEG_EDGES = 256
+#: the widest column tile: a warp of 32 lanes a row, 4 columns a lane
+MAX_TILE = 128
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 #: the C entry points of `csrc/edge_relax.cu` and the ctypes types bound
 #: to them
 ENTRY_POINTS = {
     "openr_edge_init": (
         [
-            ctypes.c_void_p, ctypes.c_void_p,  # dist_out, row_start
-            ctypes.c_void_p, ctypes.c_void_p,  # src, metric
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # roots, V, B
-            ctypes.c_void_p,  # stream
+            _P, _P,  # dist, roots
+            _P, _P,  # out_start, out_slot
+            _P, _P, _P,  # dst, metric, marks
+            _I, _I, _I, _I,  # V, B, Bp, Bt
+            _P,  # stream
         ],
-        ctypes.c_int,
+        _I,
     ),
-    "openr_edge_relax": (
+    "openr_edge_fix": (
         [
-            ctypes.c_void_p, ctypes.c_void_p,  # dist_in, dist_out
-            ctypes.c_void_p, ctypes.c_void_p,  # row_start, src
-            ctypes.c_void_p, ctypes.c_void_p,  # metric, blocked
-            ctypes.c_int, ctypes.c_int,  # V, B
-            ctypes.c_void_p, ctypes.c_void_p,  # changed, stream
+            _P, _P,  # buf0, buf1
+            _P, _P, _P, _P,  # row_start, src, metric, blocked
+            _P, _P, _I, _I,  # seg_node, seg_lo, n_seg, seg_edges
+            _P, _P, _P,  # marks, scratch, stats
+            _I, _I, _I, _I,  # V, Bp, Bt, max_rounds
+            _P,  # stream
         ],
-        ctypes.c_int,
+        _I,
     ),
-    "openr_edge_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "openr_edge_error_string": ([_I], ctypes.c_char_p),
 }
 
 #: kernel launches made by the wrappers (CUDA path only), by kernel
@@ -90,6 +109,16 @@ def build() -> None:
     _lib()
 
 
+def tile_cols(b: int) -> int:
+    """Columns of one tile of the fixpoint: B rounded up to a multiple of
+    4, up to `MAX_TILE`. Every tile walks every edge slot once a round,
+    so the widest tile is the cheapest: on an H100 at BASELINE config 3
+    a solve in tiles of 128 took half the time of one in tiles of 32,
+    whose slabs (V x 32 x 4 bytes) stay in L2 (`chip_smoke.py` [10c]
+    times both)."""
+    return min(-(-b // 4) * 4, MAX_TILE)
+
+
 def edge_row_start(edge_dst: np.ndarray, num_nodes: int,
                    edge_metric: np.ndarray) -> np.ndarray:
     """int32 [num_nodes + 1]: the first slot of each node's run of the
@@ -115,13 +144,84 @@ def edge_row_start(edge_dst: np.ndarray, num_nodes: int,
     return np.searchsorted(dst, np.arange(num_nodes + 1)).astype(np.int32)
 
 
-def device_row_start(edge_dst: torch.Tensor, num_nodes: int,
-                     edge_metric: torch.Tensor) -> torch.Tensor:
-    """`edge_row_start` of the edge tensors, on their device (one round
-    trip to the host)."""
-    return torch.from_numpy(edge_row_start(
-        edge_dst.cpu().numpy(), num_nodes, edge_metric.cpu().numpy()
-    )).to(edge_dst.device)
+def edge_out_index(edge_src: np.ndarray, row_start: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """The init's out-edge index: (out_start int32 [V + 1], out_slot
+    int32 [walked]), the walked slots (those of `row_start`'s runs)
+    sorted by src, stably, and where each src's slots start. Slot ids,
+    not metrics, so metric patches stay visible. Raises if a walked
+    slot's src is outside [0, V)."""
+    v = len(row_start) - 1
+    src = np.asarray(edge_src)[: int(row_start[-1])]
+    if len(src) and (int(src.min()) < 0 or int(src.max()) >= v):
+        raise ValueError("edge_src of a walked slot is outside [0, V)")
+    order = np.argsort(src, kind="stable")
+    start = np.searchsorted(src[order], np.arange(v + 1))
+    return start.astype(np.int32), order.astype(np.int32)
+
+
+def edge_segments(row_start: np.ndarray, seg_edges: int = SEG_EDGES
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """The segments of the runs longer than `seg_edges` slots: (seg_node,
+    seg_lo) int32, one entry per segment of `seg_edges` slots (the last
+    of a run shorter), in node order; the kernel ends a segment at
+    min(seg_lo + seg_edges, the run's end)."""
+    rs = np.asarray(row_start, dtype=np.int64)
+    lens = np.diff(rs)
+    long = np.flatnonzero(lens > seg_edges)
+    n = -(-lens[long] // seg_edges)
+    node = np.repeat(long, n)
+    k = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    return node.astype(np.int32), (rs[node] + k * seg_edges).astype(np.int32)
+
+
+class EdgeIndex(NamedTuple):
+    """What the kernels walk, per table set: the runs (`row_start`), the
+    init's out-edge index and the long runs' segments."""
+
+    row_start: object
+    out_start: object
+    out_slot: object
+    seg_node: object
+    seg_lo: object
+
+
+def edge_index(edge_src, edge_dst, edge_metric, num_nodes: int,
+               row_start=None) -> EdgeIndex:
+    """`EdgeIndex` of host arrays (NumPy int32); `row_start` is built
+    from the dst and the metrics unless given."""
+    if row_start is None:
+        row_start = edge_row_start(edge_dst, num_nodes, edge_metric)
+    row_start = np.asarray(row_start, dtype=np.int32)
+    return EdgeIndex(row_start, *edge_out_index(edge_src, row_start),
+                     *edge_segments(row_start))
+
+
+def index_to(index: EdgeIndex, device) -> EdgeIndex:
+    """The index's arrays as int32 tensors on `device`."""
+    return EdgeIndex(*(
+        torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32)
+        .to(device) for x in index
+    ))
+
+
+def device_edge_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                      edge_metric: torch.Tensor, num_nodes: int,
+                      row_start=None) -> EdgeIndex:
+    """`edge_index` of the edge tensors, on their device (one round trip
+    to the host)."""
+    rs = None if row_start is None else torch.as_tensor(row_start).cpu()
+    return index_to(edge_index(
+        edge_src.cpu().numpy(), edge_dst.cpu().numpy(),
+        edge_metric.cpu().numpy(), num_nodes,
+        None if rs is None else rs.numpy(),
+    ), edge_src.device)
+
+
+def bitmap_words(num_nodes: int) -> int:
+    """Words of a row bitmap of the kernels: a bit a row, rounded up to
+    16 bytes (`csrc/edge_relax.cu` `bitmap_words`)."""
+    return -(-num_nodes // 128) * 4
 
 
 def _check(name, tensors, ref_device):
@@ -136,26 +236,28 @@ def _check(name, tensors, ref_device):
             raise ValueError(f"{name}: {nm} is not contiguous")
 
 
-def _check_shapes(name, dist, row_start, src, metric, extra, b_cols):
-    v = dist.shape[0]
-    if dist.dim() != 2:
-        raise ValueError(f"{name}: dist must be [V, B]")
-    if row_start.shape != (v + 1,):
-        raise ValueError(f"{name}: row_start must be [{v + 1}]")
+def _check_index(name, index: EdgeIndex, v: int, dev) -> None:
+    _check(name, [(nm, x, torch.int32)
+                  for nm, x in zip(EdgeIndex._fields, index)], dev)
+    if index.row_start.shape != (v + 1,) or index.out_start.shape != (v + 1,):
+        raise ValueError(f"{name}: row_start and out_start must be [{v + 1}]")
+
+
+def _check_edges(name, src, extra):
     e = src.shape[0]
-    for nm, x in (("metric", metric), *extra):
+    for nm, x in extra:
         if x.shape != (e,):
             raise ValueError(f"{name}: {nm} must be [{e}] like src")
-    if b_cols is not None and b_cols != dist.shape[1]:
-        raise ValueError(f"{name}: roots must be [{dist.shape[1]}]")
 
 
-def _check_aligned(name, b, tensors):
-    """Where `b` is a multiple of 4, a kernel thread carries 4 columns
-    (`csrc/edge_relax.cu` `cols_per_thread`) and loads 16-byte vectors
-    of dist (and of roots)."""
-    if b % 4:
-        return
+def _check_cuda_width(name, dist, tensors):
+    """The kernels carry 4 columns a lane in 16-byte loads: the row
+    width must be a multiple of 4 and the buffers 16-byte aligned."""
+    if dist.shape[1] % 4:
+        raise ValueError(
+            f"{name}: the kernel takes [V, B] with B a multiple of 4 "
+            "(batched_sssp pads)"
+        )
     for nm, x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(
@@ -173,11 +275,13 @@ def _launch_error(lib, err: int, what: str):
 
 
 def edge_init_ref(out, src, dst, metric, roots):
-    """Plain PyTorch version of the init: `out` [V, B] = the per-column
-    min of the metrics of the root's own out-edges into each node
-    (blocked ones too), at most INF, and 0 at the root."""
-    v, b = out.shape
+    """Plain PyTorch version of the init: `out` [V, B'] (B' >= B) = per
+    column b < B the min of the metrics of roots[b]'s own out-edges into
+    each node (blocked ones too), at most INF, and 0 at the root; INF in
+    the columns past B."""
+    b = roots.shape[0]
     out.fill_(INF_DIST)
+    cols = out[:, :b]
     step = max(1, _REF_CHUNK // max(b, 1))
     for c0 in range(0, src.shape[0], step):
         s = src[c0 : c0 + step]
@@ -186,76 +290,178 @@ def edge_init_ref(out, src, dst, metric, roots):
             metric[c0 : c0 + step, None],
             INF_DIST,
         )
-        out.scatter_reduce_(
+        cols.scatter_reduce_(
             0, dst[c0 : c0 + step, None].long().expand_as(cand), cand,
             reduce="amin", include_self=True,
         )
-    out.clamp_max_(INF_DIST)
-    out[roots.long(), torch.arange(b, device=out.device)] = 0
+    cols.clamp_max_(INF_DIST)
+    cols[roots.long(), torch.arange(b, device=out.device)] = 0
+    return out
+
+
+def _round_ref(dist_in, out, src, dst, metric, sel):
+    """`out` = min(dist_in, the guarded candidates of the slots `sel`
+    (int64 ids), min-scattered by destination)."""
+    out.copy_(dist_in)
+    b = dist_in.shape[1]
+    step = max(1, _REF_CHUNK // max(b, 1))
+    for c0 in range(0, sel.shape[0], step):
+        e = sel[c0 : c0 + step]
+        d = dist_in[src[e].long()]
+        cand = torch.where(
+            d < INF_DIST,
+            torch.clamp_max(d + metric[e, None], INF_DIST),
+            INF_DIST,
+        )
+        out.scatter_reduce_(
+            0, dst[e, None].long().expand_as(cand), cand,
+            reduce="amin", include_self=True,
+        )
     return out
 
 
 def edge_round_ref(dist_in, out, src, dst, metric, blocked, changed):
-    """Plain PyTorch version of one round: `out` = min(dist_in, the
+    """Plain PyTorch version of one full round: `out` = min(dist_in, the
     unblocked edges' guarded candidates, min-scattered by destination),
     all taken from `dist_in`; `changed` [1] set to 1 if an entry fell,
     else 0."""
-    out.copy_(dist_in)
-    b = dist_in.shape[1]
-    step = max(1, _REF_CHUNK // max(b, 1))
-    for c0 in range(0, src.shape[0], step):
-        d = dist_in[src[c0 : c0 + step].long()]
-        ok = ~blocked[c0 : c0 + step, None] & (d < INF_DIST)
-        cand = torch.where(
-            ok,
-            torch.clamp_max(d + metric[c0 : c0 + step, None], INF_DIST),
-            INF_DIST,
-        )
-        out.scatter_reduce_(
-            0, dst[c0 : c0 + step, None].long().expand_as(cand), cand,
-            reduce="amin", include_self=True,
-        )
+    sel = torch.nonzero(~blocked).flatten()
+    _round_ref(dist_in, out, src, dst, metric, sel)
     changed.fill_(int(bool((out < dist_in).any())))
     return changed
 
 
-def edge_init(out, src, dst, metric, roots, row_start):
-    """The init into `out` [V, B] int32: `edge_init_kernel` on a CUDA
-    tensor, `edge_init_ref` on a CPU one. `row_start` [V+1] int32
-    (`edge_row_start`) must describe `dst` (the runs may leave out
-    trailing INF slots); ids in `src` of unblocked edges must lie in
-    [0, V)."""
+def batched_sssp_ref(src, dst, metric, blocked, roots, num_nodes: int,
+                     tile: int, walked: int | None = None,
+                     max_rounds: int | None = None,
+                     stats: dict | None = None):
+    """Plain PyTorch version of the kernels' algorithm: the columns in
+    tiles of `tile`, each from `edge_init_ref` to its own fixpoint (at
+    most `max_rounds`, default `num_nodes`), a round relaxing only the
+    unblocked slots below `walked` (the runs' end, `row_start[-1]`)
+    whose source row changed in the round before (for the first round:
+    was set finite by the init). Returns dist [num_nodes, B]; with
+    `stats`, adds rounds (the maximum over the tiles), gathered_edges
+    (the slots relaxed, summed over rounds and tiles) and host_reads
+    (one read of the changed rows a round)."""
+    dev = src.device
+    b = roots.shape[0]
+    walked = src.shape[0] if walked is None else walked
+    cap = num_nodes if max_rounds is None else max_rounds
+    s = src[:walked].long()
+    usable = ~blocked[:walked]
+    out = torch.empty((num_nodes, b), dtype=torch.int32, device=dev)
+    rounds = gathered = reads = 0
+    for c0 in range(0, b, tile):
+        rt = roots[c0 : c0 + tile]
+        cur = torch.empty((num_nodes, rt.shape[0]), dtype=torch.int32,
+                          device=dev)
+        edge_init_ref(cur, src, dst, metric, rt)
+        chg = (cur < INF_DIST).any(1)
+        n = 0
+        while n < cap:
+            sel = torch.nonzero(usable & chg[s]).flatten()
+            gathered += int(sel.shape[0])
+            nxt = _round_ref(cur, torch.empty_like(cur), src, dst, metric,
+                             sel)
+            n += 1
+            chg = (nxt < cur).any(1)
+            cur = nxt
+            reads += 1
+            if not bool(chg.any()):
+                break
+        out[:, c0 : c0 + rt.shape[0]] = cur
+        rounds = max(rounds, n)
+    if stats is not None:
+        _add_stats(stats, rounds=rounds, host_reads=reads,
+                   gathered_edges=gathered)
+    return out
+
+
+def _add_stats(stats, **counts) -> None:
+    for k, x in counts.items():
+        stats[k] = stats.get(k, 0) + x
+
+
+def edge_init(out, src, dst, metric, roots, index: EdgeIndex,
+              tile: int | None = None, marks=None):
+    """The init into `out` [V, B'] int32 (B' >= B = len(roots); columns
+    past B stay INF): `edge_init_kernel` on a CUDA tensor (B' a multiple
+    of 4), `edge_init_ref` on a CPU one. On CUDA `marks` (int32
+    [ceil(B' / tile) * bitmap_words(V)], default scratch) receives, per
+    tile of `tile` columns (default B'), the rows set finite."""
     i32 = torch.int32
     _check("edge_init", (
         ("out", out, i32), ("src", src, i32), ("dst", dst, i32),
         ("metric", metric, i32), ("roots", roots, i32),
-        ("row_start", row_start, i32),
     ), out.device)
-    _check_shapes("edge_init", out, row_start, src, metric,
-                  (("dst", dst),), roots.shape[0])
+    v, bp = out.shape
+    _check_edges("edge_init", src, (("dst", dst), ("metric", metric)))
+    _check_index("edge_init", index, v, out.device)
+    b = roots.shape[0]
+    if b > bp:
+        raise ValueError(f"edge_init: {b} roots, out has {bp} columns")
     if out.device.type == "cpu":
         return edge_init_ref(out, src, dst, metric, roots)
     if out.device.type != "cuda":
         raise ValueError(f"edge_init: no kernel for {out.device}")
-    v, b = out.shape
-    _check_aligned("edge_init", b, (("out", out), ("roots", roots)))
+    _check_cuda_width("edge_init", out, (("out", out),))
+    tile = bp if tile is None else tile
+    n_marks = -(-bp // tile) * bitmap_words(v)
+    if marks is None:
+        marks = torch.empty(n_marks, dtype=i32, device=out.device)
+    _check("edge_init", (("marks", marks, i32),), out.device)
+    if marks.numel() < n_marks:
+        raise ValueError(f"edge_init: marks needs {n_marks} words")
     lib = _lib()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.openr_edge_init(
-            out.data_ptr(), row_start.data_ptr(), src.data_ptr(),
-            metric.data_ptr(), roots.data_ptr(), v, b, stream,
+            out.data_ptr(), roots.data_ptr(), index.out_start.data_ptr(),
+            index.out_slot.data_ptr(), dst.data_ptr(), metric.data_ptr(),
+            marks.data_ptr(), v, b, bp, tile, stream,
         )
     _launch_error(lib, err, "edge_init_kernel")
     LAUNCHES["init"] += 1
     return out
 
 
-def edge_round(dist_in, out, src, dst, metric, blocked, row_start, changed):
-    """One Jacobi round from `dist_in` into `out` (distinct [V, B] int32
-    buffers), `changed` [1] int32 set to 1 if an entry fell, else 0:
-    `edge_relax_kernel` on a CUDA tensor, `edge_round_ref` on a CPU
-    one."""
+def _fix(buf0, buf1, src, metric, blocked, index: EdgeIndex, tile: int,
+         marks, max_rounds: int) -> torch.Tensor:
+    """One launch of `edge_relax_kernel`: rounds from `buf0` to each
+    tile's fixpoint (at most `max_rounds`), the result in `buf1`; `marks`
+    the init's row marks or None (every row changed). Returns the device
+    stats, int64 [3]: rounds (the maximum over the tiles), whether the
+    last round of some tile lowered anything, gathered edges."""
+    v, bp = buf0.shape
+    dev = buf0.device
+    scratch = torch.empty(3 * bitmap_words(v) + 4, dtype=torch.int32,
+                          device=dev)
+    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.openr_edge_fix(
+            buf0.data_ptr(), buf1.data_ptr(), index.row_start.data_ptr(),
+            src.data_ptr(), metric.data_ptr(), blocked.data_ptr(),
+            index.seg_node.data_ptr(), index.seg_lo.data_ptr(),
+            index.seg_node.shape[0], SEG_EDGES,
+            0 if marks is None else marks.data_ptr(), scratch.data_ptr(),
+            stats.data_ptr(), v, bp, tile, max_rounds, stream,
+        )
+    _launch_error(lib, err, "edge_relax_kernel")
+    LAUNCHES["round"] += 1
+    return stats
+
+
+def edge_round(dist_in, out, src, dst, metric, blocked, row_start, changed,
+               index: EdgeIndex | None = None):
+    """One full Jacobi round from `dist_in` into `out` (distinct [V, B]
+    int32 buffers), `changed` [1] int32 set to 1 if an entry fell, else
+    0: on a CUDA tensor `edge_relax_kernel` capped at one round with
+    every row marked changed (B a multiple of 4; `index`, built from
+    `row_start` when not given, brings the long runs' segments), on a
+    CPU one `edge_round_ref`."""
     i32 = torch.int32
     _check("edge_round", (
         ("dist_in", dist_in, i32), ("out", out, i32), ("src", src, i32),
@@ -263,8 +469,11 @@ def edge_round(dist_in, out, src, dst, metric, blocked, row_start, changed):
         ("blocked", blocked, torch.bool), ("row_start", row_start, i32),
         ("changed", changed, i32),
     ), dist_in.device)
-    _check_shapes("edge_round", dist_in, row_start, src, metric,
-                  (("dst", dst), ("blocked", blocked)), None)
+    v, b = dist_in.shape
+    if row_start.shape != (v + 1,):
+        raise ValueError(f"edge_round: row_start must be [{v + 1}]")
+    _check_edges("edge_round", src,
+                 (("dst", dst), ("metric", metric), ("blocked", blocked)))
     if out.shape != dist_in.shape:
         raise ValueError("edge_round: out must have dist_in's shape")
     if out.data_ptr() == dist_in.data_ptr():
@@ -276,49 +485,70 @@ def edge_round(dist_in, out, src, dst, metric, blocked, row_start, changed):
                               changed)
     if dist_in.device.type != "cuda":
         raise ValueError(f"edge_round: no kernel for {dist_in.device}")
-    v, b = dist_in.shape
-    _check_aligned("edge_round", b, (("dist_in", dist_in), ("out", out)))
-    lib = _lib()
-    with torch.cuda.device(dist_in.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.openr_edge_relax(
-            dist_in.data_ptr(), out.data_ptr(), row_start.data_ptr(),
-            src.data_ptr(), metric.data_ptr(), blocked.data_ptr(), v, b,
-            changed.data_ptr(), stream,
-        )
-    _launch_error(lib, err, "edge_relax_kernel")
-    LAUNCHES["round"] += 1
+    _check_cuda_width("edge_round", dist_in,
+                      (("dist_in", dist_in), ("out", out)))
+    if index is None:
+        index = device_edge_index(src, dst, metric, v, row_start)
+    _check_index("edge_round", index, v, dist_in.device)
+    tile = tile_cols(b)
+    st = _fix(dist_in, out, src, metric, blocked, index, tile, None, 1)
+    changed.view(-1)[:1].copy_(st[1:2])
     return changed
 
 
+def _solve_cuda(src, dst, metric, blocked, roots, num_nodes, index, tile,
+                max_rounds: int | None = None):
+    """The init and the fixpoint launch at tile width `tile` (at most
+    `max_rounds` a tile, default `num_nodes`): (dist [V, B], device stats
+    int64 [3])."""
+    b = roots.shape[0]
+    bp = -(-b // 4) * 4
+    buf0 = torch.empty((num_nodes, bp), dtype=torch.int32, device=src.device)
+    buf1 = torch.empty_like(buf0)
+    marks = torch.empty(-(-bp // tile) * bitmap_words(num_nodes),
+                        dtype=torch.int32, device=src.device)
+    edge_init(buf0, src, dst, metric, roots, index, tile, marks)
+    st = _fix(buf0, buf1, src, metric, blocked, index, tile, marks,
+              num_nodes if max_rounds is None else max_rounds)
+    return (buf1 if bp == b else buf1[:, :b].contiguous()), st
+
+
 def batched_sssp(edge_src, edge_dst, edge_metric, edge_blocked, roots,
-                 num_nodes: int, row_start=None, stats: dict | None = None):
+                 num_nodes: int, row_start=None, stats: dict | None = None,
+                 index: EdgeIndex | None = None):
     """Distances [num_nodes, B] int32 from each root (INF_DIST =
     unreachable), on the edge arrays' device.
 
     `edge_blocked` must already hold the overloaded-transit edges
     (`ops.spf.build_blocked`); the root exemption happens at init.
-    `row_start` (`device_row_start`) is built here when not given. Repeated roots each get their own column. With
-    `stats`, adds rounds and host_reads (one changed-word read a
-    round)."""
+    `index` (`device_edge_index`, from `row_start` where that is given)
+    is built here when not given. Repeated roots each get their own
+    column. With `stats`, adds rounds (the reference loop's count),
+    host_reads (1 a solve on CUDA: the stats), tiles and gathered_edges
+    (source rows gathered, over rounds and tiles), and sets tile_cols.
+    Without `stats`, a CUDA solve reads nothing back."""
     dev = edge_src.device
-    if row_start is None:
-        row_start = device_row_start(edge_dst, num_nodes, edge_metric)
+    if index is None:
+        index = device_edge_index(edge_src, edge_dst, edge_metric,
+                                  num_nodes, row_start)
     roots = roots.to(device=dev, dtype=torch.int32).contiguous()
     b = roots.shape[0]
-    cur = torch.empty((num_nodes, b), dtype=torch.int32, device=dev)
-    nxt = torch.empty_like(cur)
-    changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    edge_init(cur, edge_src, edge_dst, edge_metric, roots, row_start)
-    rounds = 0
-    for _ in range(num_nodes):
-        edge_round(cur, nxt, edge_src, edge_dst, edge_metric, edge_blocked,
-                   row_start, changed)
-        rounds += 1
-        cur, nxt = nxt, cur
-        if int(changed.item()) == 0:
-            break
+    tile = tile_cols(b)
     if stats is not None:
-        stats["rounds"] = stats.get("rounds", 0) + rounds
-        stats["host_reads"] = stats.get("host_reads", 0) + rounds
-    return cur
+        _add_stats(stats, tiles=-(-b // tile))
+        stats["tile_cols"] = tile
+    if dev.type == "cpu":
+        return batched_sssp_ref(
+            edge_src, edge_dst, edge_metric, edge_blocked, roots, num_nodes,
+            tile, int(index.row_start[-1]), stats=stats,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"batched_sssp: no kernel for {dev}")
+    _check("batched_sssp", (("blocked", edge_blocked, torch.bool),), dev)
+    dist, st = _solve_cuda(edge_src, edge_dst, edge_metric, edge_blocked,
+                           roots, num_nodes, index, tile)
+    if stats is not None:
+        rounds, _last, gathered = st.tolist()  # the solve's one host read
+        _add_stats(stats, rounds=rounds, host_reads=1,
+                   gathered_edges=gathered)
+    return dist

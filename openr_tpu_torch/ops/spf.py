@@ -138,19 +138,22 @@ def all_sources_sssp(
     edge_blocked: torch.Tensor,
     num_nodes: int,
     chunk: int = 256,
-    row_start: torch.Tensor | None = None,
     stats: dict | None = None,
+    index=None,
 ) -> np.ndarray:
     """Distances from every node slot (BASELINE config 3) on the
     edge-list solve, in chunks of `chunk` roots; the tail chunk is padded
     with root 0, as the reference pads it. Returns host [V, V] int32
     (row = source). Each chunk's copy to the host runs on a side stream
-    while the next chunk computes (`HostRows`)."""
-    from openr_tpu_torch.ops.edge_relax import batched_sssp, device_row_start
+    while the next chunk computes (`HostRows`). The edge index
+    (`edge_relax.EdgeIndex`) is built once, for every chunk, where
+    `index` does not give it."""
+    from openr_tpu_torch.ops.edge_relax import batched_sssp, device_edge_index
 
     dev = edge_src.device
-    if row_start is None:  # built once, for every chunk
-        row_start = device_row_start(edge_dst, num_nodes, edge_metric)
+    if index is None:
+        index = device_edge_index(edge_src, edge_dst, edge_metric,
+                                  num_nodes)
     sink = HostRows(num_nodes, num_nodes, dev)
     for start in range(0, num_nodes, chunk):
         b = min(chunk, num_nodes - start)
@@ -158,7 +161,7 @@ def all_sources_sssp(
         roots[:b] = torch.arange(start, start + b, dtype=torch.int32)
         d = batched_sssp(
             edge_src, edge_dst, edge_metric, edge_blocked, roots.to(dev),
-            num_nodes, row_start=row_start, stats=stats,
+            num_nodes, stats=stats, index=index,
         )
         sink.put(start, d, b)
     return sink.result()
