@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand
 kernels from this checkout, holds each against its plain PyTorch
 version, times them on the device, drives the cold single-root RIB
-solve, the warm path, the RIB of every prefix shape and the batched
-multi-root solves (every table kind, all-sources, fleet) at full size
-and checks their answers.
+solve, the warm path, the RIB of every prefix shape, the batched
+multi-root solves (every table kind, all-sources, fleet) and the rebuild
+sequence a Decision runs through the route caches at full size, and
+checks their answers.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --old PARENT/openr_tpu_torch/csrc
@@ -137,7 +138,22 @@ Phases (any failure exits non-zero and prints no result line):
      RIB equal to its node's `compute_routes`, wall and routes/s, and on
      config 2's two roots equal to [9]'s RIBs; (f) `kernel_impl="dense"`
      on `hub_and_spoke(2, 100)` takes the edge list through the waste
-     check, its RIB equal to the split path's.
+     check, its RIB equal to the split path's;
+ 11. the rebuild sequence a Decision runs, on [5]'s and [9]'s states,
+     through the cross-rebuild route caches (counts from 0 around each
+     part): (a) er100k from node-0: cold `compute_routes` (the caches
+     keeping nothing, then filling them), hot calls on the unchanged view
+     equal to the cold RIB with every plain and node-segment entry the
+     cold call's object, then 32-metric flaps each answered by a hot
+     `compute_routes` (equal to a fresh solver's) and a
+     `warm_compute_routes` (equal to both), and their reverts; the
+     entries reused, p50s and span times; (b) config 2 from the
+     aggregation root, the same checks against [9]'s RIB, 100 ramp /32s
+     withdrawn and re-added through `assemble_prefix_routes`, the
+     artifact's warm state measured and dropped, `trim_caches(2)` on
+     three fingerprints, and [10e]'s config-2 fleet call twice on one
+     solver; (c) the Decision hook's converter on both RIBs, cold and
+     hot memo.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
 each row's `timed_by` saying whether its `ms` is a CUPTI duration
@@ -148,6 +164,7 @@ each row's `timed_by` saying whether its `ms` is a CUPTI duration
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import re
 import shutil
@@ -199,6 +216,32 @@ def smi(query: str) -> str:
     )
     lines = res.stdout.strip().splitlines()
     return lines[0] if res.returncode == 0 and lines else ""
+
+
+class GcClock:
+    """Host ms spent in the garbage collector while entered, and the full
+    (generation 2) collections among them."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self.full = 0
+        self._t0 = 0.0
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.full += info["generation"] == 2
+
+    def __enter__(self):
+        self.ms, self.full = 0.0, 0
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+        return False
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -933,7 +976,8 @@ def revert_round(ls, old_dbs):
 def phase5_warm(relax, shape4) -> dict:
     """The link-flap warm path on the 100k graph; returns the relax
     launches by design of its warm calls (counts set to 0 just before
-    each call and read just after)."""
+    each call and read just after) and the (LinkState, PrefixState) it
+    ran on, for [11]."""
     from torch.profiler import ProfilerActivity, profile
 
     from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
@@ -960,23 +1004,16 @@ def phase5_warm(relax, shape4) -> dict:
     warm_ms, cold_ms, cold_gc, stats = [], [], [], []
     launches = {"vec": 0, "generic": 0}
 
-    gc_ms = [0.0]
-    gc_t0 = [0.0]
-
-    def gc_timer(phase, _info):
-        # host time inside the garbage collector, which the timed calls
-        # include: millions of live objects make a full collection slow
-        if phase == "start":
-            gc_t0[0] = time.perf_counter()
-        else:
-            gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
-
     def timed(fn):
-        gc_ms[0] = 0.0
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3, gc_ms[0]
+        # with the host time inside the garbage collector, which the
+        # timed calls include: millions of live objects make a full
+        # collection slow
+        with GcClock() as g:
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        return out, ms, g.ms
 
     def warm(pairs, tag):
         """One warm call, counts from 0; returns its result and times."""
@@ -1018,24 +1055,18 @@ def phase5_warm(relax, shape4) -> dict:
         warm_ms.append(warm(pairs, tag))
         cold_ms.append(check(tag, scipy_check))
 
-    import gc
-
-    gc.callbacks.append(gc_timer)
-    try:
-        for rnd in range(5):
-            pairs, old_dbs = flap_round(ls, rng, 16, 16)
-            warm_call(pairs, f"round {rnd} flap", scipy_check=rnd == 0)
-            warm_call(revert_round(ls, old_dbs), f"round {rnd} revert")
-        # one more flap, traced alone: the relax kernel's device time and
-        # the device's busy time in a warm call
+    for rnd in range(5):
         pairs, old_dbs = flap_round(ls, rng, 16, 16)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            traced_ms = warm(pairs, "traced flap")
-        check("traced flap")
-        warm_call(revert_round(ls, old_dbs), "traced flap revert")
-    finally:
-        gc.callbacks.remove(gc_timer)
+        warm_call(pairs, f"round {rnd} flap", scipy_check=rnd == 0)
+        warm_call(revert_round(ls, old_dbs), f"round {rnd} revert")
+    # one more flap, traced alone: the relax kernel's device time and the
+    # device's busy time in a warm call
+    pairs, old_dbs = flap_round(ls, rng, 16, 16)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_ms = warm(pairs, "traced flap")
+    check("traced flap")
+    warm_call(revert_round(ls, old_dbs), "traced flap revert")
     k_us, k_n = kernel_device_us(prof, tuple(relax.KERNEL_NAMES.values()))
     dev_us, _n = kernel_device_us(prof, ("",))
     log(f"[5] warm p50 {statistics.median(warm_ms):.3f} ms (samples "
@@ -1062,7 +1093,7 @@ def phase5_warm(relax, shape4) -> dict:
         if launches[d] == 0:
             fail(f"warm: the warm path launched the {d} relax kernel no "
                  "time")
-    return launches
+    return dict(launches=launches, states=(ls, ps))
 
 
 # ------------------------------------------------------------ phase 7
@@ -3158,7 +3189,8 @@ def phase10e_fleet(relax, edge_ops, p9, k: int = FLEET_K) -> dict:
     log(f"[10e] fleet on config 2, nodes {roots}: one chunk, "
         f"{wall2:.1f} ms, relax launches {dict(relax.LAUNCHES_BY_DESIGN)}; "
         f"both RIBs == [9]'s")
-    return dict(wall_ms=wall, routes=n_routes, launches=launches)
+    return dict(wall_ms=wall, routes=n_routes, launches=launches,
+                config2_ms=wall2)
 
 
 def phase10f_hub(edge_ops) -> None:
@@ -3196,6 +3228,366 @@ def phase10f_hub(edge_ops) -> None:
 
 
 # ------------------------------------------------------------------ main
+
+
+# ----------------------------------------------------------- phase 11
+
+#: [11]: cold samples (the first with the route caches keeping nothing,
+#: the last filling them), hot calls on an unchanged view, flap rounds
+#: at er100k, ramp /32s withdrawn and re-added at config 2, extra roots
+#: before the trim, the trim's cap
+DECISION_COLD = 2
+DECISION_HOT = 3
+DECISION_FLAPS = 2
+DECISION_PREFIXES = 100
+DECISION_EXTRA_ROOTS = ("node-1", "node-2")
+DECISION_TRIM = 2
+
+
+def timed_call(fn, gc_ms: list | None = None):
+    """(fn(), host wall ms); appends the ms it spent in the collector to
+    `gc_ms`."""
+    with GcClock() as g:
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+    if gc_ms is not None:
+        gc_ms.append(round(g.ms, 1))
+    return out, ms
+
+
+class SpanStats:
+    """A stand-in for a counters registry: `add_value` samples by name."""
+
+    def __init__(self):
+        self.samples: dict[str, list[float]] = {}
+
+    def add_value(self, key: str, value: float) -> None:
+        self.samples.setdefault(key, []).append(value)
+
+    def p50s(self) -> dict:
+        return {k: round(statistics.median(v), 3)
+                for k, v in sorted(self.samples.items())}
+
+
+def node_sections(rdb, adj_labels) -> tuple[dict, dict]:
+    """The routes the caches hand back as the same objects on an
+    unchanged view: unicast routes off the general path (no UCMP /24s,
+    the `20.` prefixes of config 2) and the node-segment labels."""
+    uni = {p: e for p, e in rdb.unicast_routes.items()
+           if not p.prefix.startswith("20.")}
+    mpls = {k: e for k, e in rdb.mpls_routes.items() if k not in adj_labels}
+    return uni, mpls
+
+
+def reused(new: dict, old: dict) -> float:
+    """The share of `new`'s entries that are `old`'s objects."""
+    return sum(1 for k, e in new.items() if old.get(k) is e) / max(len(new), 1)
+
+
+def same_rib(a, b, tag: str) -> None:
+    if a.unicast_routes != b.unicast_routes or a.mpls_routes != b.mpls_routes:
+        fail(f"[11] {tag}: the RouteDatabases differ")
+
+
+def cold_and_hot(solver, ls, ps, me, adj_labels, tag):
+    """`DECISION_COLD` cold calls (all but the last with a fingerprint cap
+    of 0, so the caches keep nothing; the last fills them and returns an
+    artifact), then `DECISION_HOT` calls on the unchanged view, each equal
+    to the cold RIB with its plain, anycast and node-segment entries the
+    cold call's objects. Returns (cold RIB, artifact, cold ms, hot ms,
+    ms in the garbage collector per call)."""
+    cold_ms, hot_ms, gc_ms = [], [], []
+    solver.solve(ls, me)  # uploads the tables: the cold calls time routes
+    for i in range(DECISION_COLD):
+        solver.trim_caches(0 if i < DECISION_COLD - 1 else 8)
+        (rdb, art), ms = timed_call(lambda: solver.compute_routes(
+            ls, ps, me, return_artifact=True), gc_ms)
+        cold_ms.append(ms)
+    for i in range(DECISION_HOT):
+        hot, ms = timed_call(lambda: solver.compute_routes(ls, ps, me), gc_ms)
+        hot_ms.append(ms)
+        same_rib(hot, rdb, f"{tag} hot call {i}")
+        for a, b in zip(node_sections(rdb, adj_labels),
+                        node_sections(hot, adj_labels)):
+            if not a or reused(b, a) != 1.0:
+                fail(f"[11] {tag} hot call {i}: {reused(b, a):.4f} of "
+                     f"{len(b)} entries are the cold call's objects, not all")
+    return rdb, art, cold_ms, hot_ms, gc_ms
+
+
+def own_adj_labels(ls, me) -> set:
+    db = ls.adjacency_db(me)
+    return {a.adj_label for a in db.adjacencies} if db else set()
+
+
+def phase11a_er100k(relax, states) -> dict:
+    """The rebuild sequence Decision runs, at er100k on [5]'s `LinkState`
+    (counts from 0 around it): cold, hot on an unchanged view, then
+    `DECISION_FLAPS` rounds of a 32-metric flap, each answered by a hot
+    `compute_routes` (equal to a fresh solver's in the first round) and a
+    `warm_compute_routes` from the cold artifact (equal to both), then
+    reverted, whose hot RIB is the cold RIB again."""
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    ls, ps = states
+    me = "node-0"
+    spans = SpanStats()
+    solver = TorchSpfSolver(device=DEVICE, counters=spans)
+    adj_labels = own_adj_labels(ls, me)
+    relax.reset_launches()
+    rdb0, art, cold_ms, hot_ms, gc_ms = cold_and_hot(
+        solver, ls, ps, me, adj_labels, "11a er100k")
+    phases = dict(solver.last_phase_ms)
+    rng = np.random.default_rng(20261017)
+    flap_ms, warm_ms, revert_ms, shares = [], [], [], []
+    base = rdb0  # the RIB and artifact a warm call starts from
+    for rnd in range(DECISION_FLAPS):
+        pairs, old_dbs = flap_round(ls, rng, 16, 16)
+        t0 = time.perf_counter()
+        rdb1 = solver.compute_routes(ls, ps, me)
+        flap_ms.append((time.perf_counter() - t0) * 1e3)
+        if rnd == 0:
+            fresh = TorchSpfSolver(device=DEVICE).compute_routes(ls, ps, me)
+            same_rib(rdb1, fresh, "11a er100k after the flap: hot vs fresh")
+        shares.append((reused(rdb1.unicast_routes, rdb0.unicast_routes),
+                       reused(rdb1.mpls_routes, rdb0.mpls_routes)))
+        t0 = time.perf_counter()
+        got = solver.warm_compute_routes(art, ls, ps, me, pairs, set(), base,
+                                         0.25)
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+        if got is None:
+            fail("[11] 11a er100k: warm_compute_routes declined a 32-metric "
+                 "flap")
+        same_rib(got[0], rdb1, f"11a er100k flap {rnd}: warm vs hot")
+        revert_round(ls, old_dbs)
+        t0 = time.perf_counter()
+        rdb2, art = solver.compute_routes(ls, ps, me, return_artifact=True)
+        revert_ms.append((time.perf_counter() - t0) * 1e3)
+        base = rdb2
+        same_rib(rdb2, rdb0, f"11a er100k revert {rnd}")
+        back = [reused(b, a) for a, b in zip(node_sections(rdb0, adj_labels),
+                                             node_sections(rdb2, adj_labels))]
+        shares.append(tuple(back))
+    torch.cuda.synchronize()
+    launches = dict(relax.LAUNCHES_BY_DESIGN)
+    if not launches["vec"]:
+        fail(f"[11] 11a er100k: relax launches {launches}; the vec kernel "
+             "must run")
+    out = dict(cold_ms=cold_ms, hot_ms=hot_ms, flap_ms=flap_ms,
+               warm_ms=warm_ms, revert_ms=revert_ms, shares=shares,
+               rdb=rdb0, launches=launches)
+    log(f"[11a] er100k from {me}: {len(rdb0.unicast_routes)} unicast + "
+        f"{len(rdb0.mpls_routes)} mpls routes; compute_routes cold p50 "
+        f"{statistics.median(cold_ms):.3f} ms (samples "
+        f"{[round(x, 3) for x in cold_ms]}), hot on the unchanged view p50 "
+        f"{statistics.median(hot_ms):.3f} ms ({[round(x, 3) for x in hot_ms]}"
+        f"; every plain and node-segment entry the cold call's object), "
+        f"after a 32-metric flap p50 {statistics.median(flap_ms):.3f} ms "
+        f"({[round(x, 3) for x in flap_ms]}), warm_compute_routes p50 "
+        f"{statistics.median(warm_ms):.3f} ms "
+        f"({[round(x, 3) for x in warm_ms]}), after the revert p50 "
+        f"{statistics.median(revert_ms):.3f} ms "
+        f"({[round(x, 3) for x in revert_ms]}); host wall; in the garbage "
+        f"collector, cold and hot calls: {gc_ms} ms")
+    log(f"[11a] entries reused (unicast, mpls): after each flap and after "
+        f"its revert {[tuple(round(x, 4) for x in s) for s in shares]}; "
+        f"the flap's hot RIB == a fresh solver's == the warm RIB; relax "
+        f"launches {launches}; last_phase_ms of the cold call {phases}; "
+        f"span p50s (ms) {spans.p50s()}")
+    return out
+
+
+def phase11b_config2(relax, election_ops, p9, p10e) -> dict:
+    """The same at config 2 from the aggregation root (node-2025, its
+    MPLS labels of 45 ECMP next hops each) on [9]'s states, equal to [9]'s
+    RIB; a prefix-only change through `assemble_prefix_routes`; the
+    artifact's warm state; `trim_caches`; and the fleet call of [10e]
+    twice on one solver, the second from its caches."""
+    from openr_tpu_torch.decision.fleet import compute_fleet_ribs
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.types import PrefixDatabase
+
+    ls, ps = p9["states"]
+    roots = list(p9["ribs"])
+    me = roots[1]
+    want = p9["ribs"][me]
+    spans = SpanStats()
+    solver = TorchSpfSolver(device=DEVICE, counters=spans)
+    adj_labels = own_adj_labels(ls, me)
+    relax.reset_launches()
+    election_ops.reset_launches()
+    rdb0, art, cold_ms, hot_ms, gc_ms = cold_and_hot(
+        solver, ls, ps, me, adj_labels, "11b config2")
+    phases = dict(solver.last_phase_ms)
+    same_rib(rdb0, want, "11b config2 cold vs [9]'s RIB")
+
+    # a prefix-only change: ramp /32s withdrawn, then re-added
+    picked = [(p, dict(per)) for p, per in ps.prefixes.items()
+              if p.prefix.startswith("16.") and len(per) == 1
+              and p in want.unicast_routes]
+    picked = picked[:DECISION_PREFIXES]
+    scope = {p for p, _per in picked}
+    for p, per in picked:
+        for node in per:
+            ps.withdraw(node, p)
+    t0 = time.perf_counter()
+    gone = solver.assemble_prefix_routes(art, ps, scope)
+    withdraw_ms = (time.perf_counter() - t0) * 1e3
+    if gone:
+        fail(f"[11] 11b: {len(gone)} withdrawn prefixes still have routes")
+    for p, per in picked:
+        for node, e in per.items():
+            ps.update_prefix_db(PrefixDatabase(this_node_name=node,
+                                               prefix_entries=(e,)))
+    t0 = time.perf_counter()
+    back = solver.assemble_prefix_routes(art, ps, scope)
+    readd_ms = (time.perf_counter() - t0) * 1e3
+    if back != {p: want.unicast_routes[p] for p in scope}:
+        fail("[11] 11b: the re-added prefixes' entries differ from [9]'s")
+    t0 = time.perf_counter()
+    new_view = solver.compute_routes(ls, ps, me)
+    new_view_ms = (time.perf_counter() - t0) * 1e3
+    same_rib(new_view, want, "11b config2 after the prefix change")
+    uni_share = reused(new_view.unicast_routes, rdb0.unicast_routes)
+    mpls_share = reused(new_view.mpls_routes, rdb0.mpls_routes)
+
+    # the artifact's warm state
+    w0 = art.warm_state_bytes()
+    np.asarray(art.solved[1])
+    w1 = art.warm_state_bytes()
+    art.drop_warm_state()
+    w2 = art.warm_state_bytes()
+    if not (w1 > 0 and w2 == 0):
+        fail(f"[11] 11b: warm_state_bytes {w0} -> {w1} (mirror) -> {w2} "
+             "(dropped)")
+    if solver.assemble_prefix_routes(art, ps, scope) != back:
+        fail("[11] 11b: assemble_prefix_routes changed after the drop")
+
+    # trim: more fingerprints than the cap, then the cap
+    for root in DECISION_EXTRA_ROOTS:
+        solver.compute_routes(ls, ps, root)
+    caches = (solver._uni_cache, solver._mpls_cache, solver._mpls_cls_cache)
+    before = [len(c) for c in caches]
+    solver.trim_caches(DECISION_TRIM)
+    after = [len(c) for c in caches]
+    if max(after) > DECISION_TRIM or max(before) <= DECISION_TRIM:
+        fail(f"[11] 11b: fingerprints {before} -> {after} after "
+             f"trim_caches({DECISION_TRIM})")
+    torch.cuda.synchronize()
+    launches = dict(relax.LAUNCHES_BY_DESIGN)
+    e_launches = election_ops.LAUNCHES
+    if not launches["generic"] or not e_launches:
+        fail(f"[11] 11b: relax launches {launches}, elect_seg_kernel "
+             f"{e_launches}; both kernels must run")
+
+    # [10e]'s fleet call, twice on one solver
+    fleet_solver = TorchSpfSolver(device=DEVICE)
+    fleet_ms = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        got = compute_fleet_ribs(ls, ps, nodes=roots, solver=fleet_solver)
+        fleet_ms.append((time.perf_counter() - t0) * 1e3)
+        for root in roots:
+            same_rib(got[root], p9["ribs"][root],
+                     f"11b fleet pass {i} {root} vs [9]")
+    cap = fleet_solver._mpls_fingerprint_cap
+    if cap < len(roots) + 1 or len(fleet_solver._mpls_cache) != len(roots):
+        fail(f"[11] 11b: the fleet's fingerprint cap {cap}, fingerprints "
+             f"{len(fleet_solver._mpls_cache)}")
+    out = dict(me=me, cold_ms=[round(x, 3) for x in cold_ms], hot_ms=hot_ms,
+               rdb=rdb0, fleet_ms=fleet_ms, solver=solver,
+               launches=launches, elect_launches=e_launches)
+    log(f"[11b] config 2 from {me}: {len(rdb0.unicast_routes)} unicast + "
+        f"{len(rdb0.mpls_routes)} mpls routes == [9]'s; compute_routes cold "
+        f"p50 {statistics.median(cold_ms):.3f} ms "
+        f"({[round(x, 3) for x in cold_ms]}), hot on the unchanged view p50 "
+        f"{statistics.median(hot_ms):.3f} ms ({[round(x, 3) for x in hot_ms]}"
+        f"; every plain, anycast and node-segment entry the cold call's "
+        f"object); last_phase_ms of the cold call {phases}; host wall; in "
+        f"the garbage collector, cold and hot calls: {gc_ms} ms")
+    log(f"[11b] {len(scope)} ramp /32s withdrawn: assemble_prefix_routes "
+        f"{withdraw_ms:.3f} ms, no route; re-added: {readd_ms:.3f} ms, == "
+        f"[9]'s entries; then compute_routes on the new view "
+        f"{new_view_ms:.3f} ms == [9]'s RIB, entries reused (unicast "
+        f"{uni_share:.4f}, mpls {mpls_share:.4f}); warm_state_bytes {w0} -> "
+        f"{w1} (host mirror) -> {w2} (dropped), the scoped routes unchanged "
+        f"after the drop; fingerprints {before} -> {after} after "
+        f"trim_caches({DECISION_TRIM}); relax launches {launches}, "
+        f"elect_seg_kernel {e_launches}; span p50s (ms) {spans.p50s()}")
+    log(f"[11b] fleet on config 2, nodes {roots}, one solver: "
+        f"{[round(x, 1) for x in fleet_ms]} ms (first pass, second pass "
+        f"from the caches; [10e]'s call on a fresh solver "
+        f"{p10e['config2_ms']:.1f} ms); fingerprint cap {cap}; RIBs == [9]'s")
+    return out
+
+
+def phase11c_convert(ribs: dict) -> None:
+    """The hook's converter on full RIBs, with the port's own route types
+    as the target modules (this script imports nothing of the JAX
+    package): cold memo, then hot memo; each converted RIB equals its
+    source with one new object per entry."""
+    from openr_tpu_torch.decision.hook import RouteConverter
+    from openr_tpu_torch.types import network, routes
+
+    for tag, rdb in ribs.items():
+        conv = RouteConverter(routes, network)
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = conv.route_db(rdb)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        same_rib(got, rdb, f"11c {tag}: converted vs source")
+        n = len(rdb.unicast_routes) + len(rdb.mpls_routes)
+        fresh = sum(1 for k, e in got.unicast_routes.items()
+                    if e is not rdb.unicast_routes[k])
+        fresh += sum(1 for k, e in got.mpls_routes.items()
+                     if e is not rdb.mpls_routes[k])
+        if fresh != n:
+            fail(f"[11] 11c {tag}: {fresh} of {n} entries converted")
+        nhs = sum(len(e.nexthops) for e in rdb.mpls_routes.values())
+        log(f"[11c] convert {tag}: {len(rdb.unicast_routes)} unicast + "
+            f"{len(rdb.mpls_routes)} mpls entries ({nhs} mpls next hops), "
+            f"{len(conv)} objects memoised: cold memo {ms[0]:.3f} ms, hot "
+            f"memo {ms[1]:.3f} ms per full RIB; host wall")
+
+
+def phase11_er100k(relax, states) -> None:
+    """[11a] and its RIB's conversion, run right after [5] so that [5]'s
+    100k `LinkState` (millions of live objects, which every later full
+    collection would walk) is freed before [6]."""
+    t0 = time.perf_counter()
+    a = phase11a_er100k(relax, states)
+    phase11c_convert({"er100k": a["rdb"]})
+    log(f"[11a] {time.perf_counter() - t0:.1f} s in all")
+
+
+def phase11_config2(relax, election_ops, p9, p10e) -> None:
+    """[11b] and its RIB's conversion; then, with every object alive so
+    far frozen out of the collector, one more cold call."""
+    t0 = time.perf_counter()
+    b = phase11b_config2(relax, election_ops, p9, p10e)
+    phase11c_convert({f"config2-10k {b['me']}": b["rdb"]})
+    ls, ps = p9["states"]
+    solver = b["solver"]
+    solver.trim_caches(0)  # cold calls: the caches keep nothing
+    gc.freeze()
+    frozen = gc.get_freeze_count()
+    try:
+        cold = []
+        for _ in range(2):
+            with GcClock() as g:
+                t1 = time.perf_counter()
+                solver.compute_routes(ls, ps, b["me"])
+                ms = (time.perf_counter() - t1) * 1e3
+            cold.append((round(ms, 3), round(g.ms, 1), g.full))
+    finally:
+        gc.unfreeze()
+    log(f"[11b] cold compute_routes with the {frozen} live objects frozen "
+        f"out of the collector (`gc.freeze()`): (ms, ms in the collector, "
+        f"full collections) {cold}; not frozen, above: {b['cold_ms']} ms")
+    log(f"[11b] {time.perf_counter() - t0:.1f} s in all; card "
+        f"{smi('name,power.limit')}")
 
 
 def main(argv=None) -> None:
@@ -3319,7 +3711,10 @@ def main(argv=None) -> None:
     phase4_hub(relax, old_libs)
 
     # ---- phase 5: the link-flap warm path ------------------------------
-    warm_launches = phase5_warm(relax, (vp, w_base, ov_shape))
+    p5 = phase5_warm(relax, (vp, w_base, ov_shape))
+    warm_launches = p5["launches"]
+    # ---- phase 11a: the rebuild sequence Decision runs, on [5]'s states --
+    phase11_er100k(relax, p5.pop("states"))
 
     # ---- phase 6: overloads + LFA ----------------------------------------
     phase6()
@@ -3343,8 +3738,11 @@ def main(argv=None) -> None:
                                        old_libs.get("edge_relax"),
                                        p10b["rows"]["edge"]["p50_ms"])
     phase10d_all_sources(edge_ops)
-    phase10e_fleet(relax, edge_ops, p9)
+    p10e = phase10e_fleet(relax, edge_ops, p9)
     phase10f_hub(edge_ops)
+
+    # ---- phase 11b: the same on config 2's states, and the hook's cost --
+    phase11_config2(relax, election_ops, p9, p10e)
 
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path

@@ -23,6 +23,25 @@ class SolveArtifact:
     solved: tuple | None = None
     nh_intern: NexthopIntern | None = None
 
+    def warm_state_bytes(self) -> int:
+        """Host bytes of the warm-start-only state (what `drop_warm_state`
+        reclaims): the `LazyDist` host mirror of the [vp, B] distances,
+        once something has read it. The device-resident matrix does not
+        count, as in the reference, whose number is host memory only
+        (Decision's soak watermark reads it as such); it stays, since the
+        warm solve relaxes a copy of it."""
+        if self.solved is None:
+            return 0
+        mirror = getattr(self.solved[1], "_np", None)
+        return 0 if mirror is None else int(mirror.nbytes)
+
+    def drop_warm_state(self) -> None:
+        """Release the host mirror. The root column, the first hops and the
+        device matrix stay, so `assemble_prefix_routes` needs nothing
+        back and the next warm round copies the matrix again on demand."""
+        if self.solved is not None and hasattr(self.solved[1], "_np"):
+            self.solved[1]._np = None
+
 
 def metric_key(e) -> tuple[int, int, int]:
     """Lexicographic best-route key of a PrefixEntry, larger is better:

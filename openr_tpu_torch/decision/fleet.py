@@ -6,9 +6,7 @@ neighbors) come from `TorchSpfSolver._solve_dist` in chunks of `chunk`
 roots; each node's ECMP first hops then follow on the host from the
 shared matrix by the identity `first_hop_matrix` uses, and its routes
 from the solver's own assembly. The result equals each node's own
-`compute_routes`. (The reference also raises its solver's MPLS
-fingerprint cap to the target count, for its cross-rebuild RibEntry
-caches; the port has none yet, ROADMAP M2.)
+`compute_routes`.
 """
 
 from __future__ import annotations
@@ -68,6 +66,12 @@ def compute_fleet_ribs(ls, ps, nodes: list[str] | None = None, solver=None,
         d = solver._solve_dist(csr, roots)
         sink.put(start, d, min(chunk, n_roots - start))
     dist_all = sink.result().T  # [vp, roots]
+    # one fingerprint of the route caches per root: raise the cap for
+    # good, so a second pass on a shared solver reuses every root's
+    # entries (`trim_caches` sets it back)
+    solver._mpls_fingerprint_cap = max(
+        solver._mpls_fingerprint_cap, len(targets) + 1
+    )
     return _assemble_all(solver, ls, ps, csr, targets, nbrs_of, col_of,
                          dist_all)
 

@@ -52,6 +52,7 @@ from openr_tpu_torch.decision.ksp import (
     normalize_weights,
     ucmp_weights,
 )
+from openr_tpu_torch.monitor.profiling import annotate
 from openr_tpu_torch.ops import edge_relax, relax
 from openr_tpu_torch.ops.election import elect_multi_device
 from openr_tpu_torch.ops.ksp import ksp_edge_disjoint_dense, paths_to_host
@@ -97,21 +98,41 @@ def _class_groups(cls_arr: np.ndarray):
     return np.split(order, bounds)
 
 
-def _dest_classes(fh: np.ndarray, d_root: np.ndarray, n_live: int):
-    """(class id per live node, token per class) for the (first-hop
-    column, igp) equivalence relation."""
-    packed = np.packbits(fh[:, :n_live], axis=0)  # [P, n_live]
-    igp32 = np.ascontiguousarray(d_root[:n_live].astype(np.int32))
+def _class_keys(fh: np.ndarray, d_root: np.ndarray, ids) -> np.ndarray:
+    """One row per node of `ids` (a slice or an index array): its packed
+    first-hop column, then its igp as int32 bytes, zero-padded to 8 bytes
+    where that fits."""
+    packed = np.packbits(fh[:, ids], axis=0)  # [P, n]
+    n = packed.shape[1]
+    igp32 = np.ascontiguousarray(np.asarray(d_root[ids]).astype(np.int32))
     p = packed.shape[0]
     width = p + 4
-    key = np.zeros((n_live, 8 if width <= 8 else width), np.uint8)
+    key = np.zeros((n, 8 if width <= 8 else width), np.uint8)
     key[:, :p] = packed.T
-    key[:, p : p + 4] = igp32.view(np.uint8).reshape(n_live, 4)
-    if width <= 8:
-        tokens, inv = np.unique(key.view(np.int64).ravel(), return_inverse=True)
+    key[:, p : p + 4] = igp32.view(np.uint8).reshape(n, 4)
+    return key
+
+
+def _dest_classes(fh: np.ndarray, d_root: np.ndarray, n_live: int):
+    """(class id per live node, token per class) for the (first-hop
+    column, igp) equivalence relation. A token is the class's content
+    (an int of its 8 key bytes, else the bytes), so it survives
+    rebuilds and the cross-rebuild caches key on it."""
+    key = _class_keys(fh, d_root, slice(0, n_live))
+    if key.shape[1] == 8:
+        tokens, inv = np.unique(key.view(np.int64).ravel(),
+                                return_inverse=True)
         return inv, [int(t) for t in tokens]
     ucls, inv = np.unique(key, axis=0, return_inverse=True)
     return inv, [u.tobytes() for u in ucls]
+
+
+def _node_tokens(fh: np.ndarray, d_root: np.ndarray, ids) -> list:
+    """The `_dest_classes` token of each node in `ids`."""
+    key = _class_keys(fh, d_root, np.asarray(ids, dtype=np.int64))
+    if key.shape[1] == 8:
+        return [int(t) for t in key.view(np.int64).ravel()]
+    return [row.tobytes() for row in key]
 
 
 class LazyDist:
@@ -184,17 +205,32 @@ class TorchSpfSolver:
     `use_pallas` force the dense tables, `use_dense=False` the edge list.
     On the port `use_pallas` is kernel A itself, so it runs on any
     device. `mesh` (a multi-device solve) is not ported yet and raises.
+
+    `native_rib` takes the reference's values: "auto" and "off" both
+    solve on the solver's device, and "on" (the reference's host C++
+    Dijkstra, which the port does not have) raises. `counters` (anything
+    with `add_value`) receives the wall ms of the solver's named spans as
+    `profile.<span>_ms` stats.
     """
 
     def __init__(self, device=None, enable_lfa: bool = False,
                  ksp_k: int = 2, *, use_dense: bool | None = None,
                  dense_waste_limit: int = 8, use_pallas: bool = False,
-                 kernel_impl: str = "split", mesh=None):
+                 kernel_impl: str = "split", native_rib: str = "auto",
+                 mesh=None, counters=None):
         if mesh is not None:
             raise NotImplementedError(
                 "TorchSpfSolver: a mesh-sharded solve is not ported yet "
                 "(ROADMAP M4); leave mesh=None for the single-device solve"
             )
+        if native_rib not in ("auto", "off"):
+            raise ValueError(
+                f"TorchSpfSolver: native_rib={native_rib!r}: the host C++ "
+                "SPF engine is not part of the port, which solves on its "
+                "device; use 'auto' or 'off'"
+            )
+        self.native_rib = native_rib
+        self.counters = counters
         self.device = resolve_device(device)
         self.enable_lfa = enable_lfa
         # edge-disjoint paths per KSP2_ED_ECMP prefix
@@ -225,6 +261,25 @@ class TorchSpfSolver:
         # start's host-side cone walk (structural, so churn keeps it)
         self._warm_out: dict[int, tuple] = {}
         self._nh_intern = NexthopIntern()
+        # cross-rebuild route caches, as the reference keeps them: each
+        # maps a slot fingerprint (the area and my own adjacency slots,
+        # which the first-hop bits alone cannot see) to a cell, in LRU
+        # order over at most `_mpls_fingerprint_cap` fingerprints (one
+        # root needs one; `compute_fleet_ribs` raises the cap to its root
+        # count and `trim_caches` sets it back):
+        #   _uni_cache: {"gen": view gen, "entries": (view row, class
+        #     token) -> RibEntry, "classdicts": (token, member rows) ->
+        #     {prefix: RibEntry}, "plain" / "multi": (content signature,
+        #     the whole section)}
+        #   _mpls_cache: (label, node, class token, igp) -> RibMplsEntry
+        #   _mpls_cls_cache: {"groups": (base_version, token, member
+        #     rows, labels) -> {label: RibMplsEntry}, "total"}
+        # An unchanged route comes back as the same frozen object, so a
+        # caller's RIB diff short-circuits on identity.
+        self._uni_cache: dict = {}
+        self._mpls_cache: dict = {}
+        self._mpls_cls_cache: dict = {}
+        self._mpls_fingerprint_cap = 8
         # solves on the device (cold or warm), and of those the warm ones
         self.solve_count = 0
         self.warm_solves = 0
@@ -382,14 +437,33 @@ class TorchSpfSolver:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def trim_caches(self) -> None:
-        """Reclaim cache memory (Decision calls this after a fleet pass
-        on a shared solver): the warm start's host index and the device
-        advertiser matrices, both rebuilt on demand. The reference also
-        trims its RibEntry caches to a fingerprint cap; the port has
-        none yet, and takes the cap with them (ROADMAP M2)."""
+    def trim_caches(self, fingerprint_cap: int = 8) -> None:
+        """Reclaim cache memory (Decision calls this when it trims its
+        warm state; a caller may after a fleet pass on a shared solver):
+        set the fingerprint cap of the route caches to `fingerprint_cap`
+        and evict their least recently used fingerprints beyond it; drop
+        the warm start's host index and the device advertiser matrices,
+        both rebuilt on demand."""
+        self._mpls_fingerprint_cap = fingerprint_cap
+        for cache in (self._mpls_cache, self._uni_cache,
+                      self._mpls_cls_cache):
+            while len(cache) > fingerprint_cap:
+                cache.pop(next(iter(cache)))
         self._warm_out.clear()
         self._elect_dev.clear()
+
+    def _fingerprint_cell(self, cache: dict, key, new):
+        """The cell of fingerprint `key` in `cache`, made by `new()` if
+        absent, moved to the LRU's newest end (pop, then set); then the
+        oldest fingerprints beyond the cap are evicted. With a cap of 0
+        the cell serves this call only."""
+        cell = cache.pop(key, None)
+        if cell is None:
+            cell = new()
+        cache[key] = cell
+        while len(cache) > self._mpls_fingerprint_cap:
+            cache.pop(next(iter(cache)))
+        return cell
 
     def _pick_table(self, csr) -> str:
         """The table set the batched solve uses for `csr`. The explicit
@@ -504,9 +578,12 @@ class TorchSpfSolver:
         d = self.device
         self.solve_count += 1
         if table != "split":
-            dist = self._solve_dist(
-                csr, roots, _dispatched=(table, dev, has_over)
-            )
+            # the reference's span for this path ends where the solve's
+            # call returns; the first-hop matrices below read it back
+            with annotate("spf:batched_dist", self.counters):
+                dist = self._solve_dist(
+                    csr, roots, _dispatched=(table, dev, has_over)
+                )
             nbr_ids_t = self._to_dev(nbr_ids_p)
             nbr_over_t = self._to_dev(nbr_over)
             fh = first_hop_matrix(
@@ -521,20 +598,21 @@ class TorchSpfSolver:
         gs = self._pick_gs_and_count(dev)
         stats: dict = {}
         launches0 = relax.LAUNCHES
-        dist_dev, packed = batched_sssp_split_rib(
-            dev,
-            torch.from_numpy(roots).to(d),
-            torch.from_numpy(nbr_metric).to(d),
-            torch.from_numpy(nbr_ids_p).to(d),
-            torch.from_numpy(nbr_over).to(d),
-            my_id,
-            has_overloads=has_over,
-            with_lfa=self.enable_lfa,
-            gs_chunks=gs,
-            stats=stats,
-        )
-        check_byte_order(d)
-        buf = packed.cpu().numpy()
+        with annotate("spf:batched_solve", self.counters):
+            dist_dev, packed = batched_sssp_split_rib(
+                dev,
+                torch.from_numpy(roots).to(d),
+                torch.from_numpy(nbr_metric).to(d),
+                torch.from_numpy(nbr_ids_p).to(d),
+                torch.from_numpy(nbr_over).to(d),
+                my_id,
+                has_overloads=has_over,
+                with_lfa=self.enable_lfa,
+                gs_chunks=gs,
+                stats=stats,
+            )
+            check_byte_order(d)
+            buf = packed.cpu().numpy()
         stats["relax_launches"] = relax.LAUNCHES - launches0
         self.last_solve_stats = stats
         d_root, fh, lfa = unpack_rib_buffer(buf, vp, b, self.enable_lfa)
@@ -570,7 +648,8 @@ class TorchSpfSolver:
         solved = self.solve(ls, my_node)
         if solved is None:
             return (rdb, None) if return_artifact else rdb
-        rdb = self._assemble_routes(rdb, ls, ps, my_node, solved)
+        with annotate("spf:rib_assembly", self.counters):
+            rdb = self._assemble_routes(rdb, ls, ps, my_node, solved)
         if return_artifact:
             return rdb, self._artifact(my_node, ls, solved)
         return rdb
@@ -586,6 +665,17 @@ class TorchSpfSolver:
         new solve: every prefix goes down the general per-prefix path
         (KSP prefixes still batch into one device call). A prefix absent
         from the result has no route."""
+        return self._assemble_scoped(art, ps, prefixes)
+
+    def _assemble_scoped(self, art: SolveArtifact, ps, prefixes, view=None,
+                         plain_rows=()) -> dict:
+        """`assemble_prefix_routes`; the warm path also passes the
+        election view and the view rows of the plain prefixes it touched.
+        Where the unicast cache cell of this fingerprint belongs to that
+        view's generation, those rows come from its (row, class token)
+        entries, or go into them: the entry the full assembly builds for
+        the same class, so a route a flap moved and the revert moved back
+        is the object it was."""
         csr, dist, fh, nbr_ids, lfa = art.solved
         ls, my_node = art.ls, art.my_node
         my_id = csr.name_to_id[my_node]
@@ -595,12 +685,41 @@ class TorchSpfSolver:
         mk_nexthops_cached = self._mk_nexthops_cached_factory(
             fh, slot_cache, ls.area
         )
+        out: dict = {}
+        cell = None
+        if view is not None and len(plain_rows):
+            cell = self._uni_cache.get(self._slot_gen(ls, slot_cache))
+        if cell is not None and cell.get("gen") == view.gen:
+            prefixes = set(prefixes)
+            entries = cell["entries"]
+            nodes = np.asarray(view.orig)[np.asarray(plain_rows, np.int64)]
+            tokens = _node_tokens(fh, d_root, nodes)
+            for i, o, token in zip(np.asarray(plain_rows).tolist(),
+                                   nodes.tolist(), tokens):
+                p = view.plain_p[i]
+                prefixes.discard(p)
+                if o == my_id or d_root[o] >= INF_DIST or not fh_any[o]:
+                    continue  # local or unreachable: no route
+                e = entries.get((i, token))
+                if e is None:
+                    igp = int(d_root[o])
+                    nhs = mk_nexthops_cached(np.array([o]), igp)
+                    if not nhs:
+                        continue
+                    e = entries[(i, token)] = RibEntry(
+                        prefix=p,
+                        nexthops=nhs,
+                        best_node=view.plain_n[i],
+                        best_nodes=(view.plain_n[i],),
+                        best_entry=view.plain_e[i],
+                        igp_cost=igp,
+                    )
+                out[p] = e
         items = []
         for p in sorted(prefixes):
             per_node = ps.prefixes.get(p)
             if per_node:
                 items.append((p, dict(per_node)))
-        out: dict = {}
         ksp_jobs = self._unicast_general(
             csr, ls, my_node, my_id, d_root, fh, fh_any, nbr_ids, lfa,
             dist, slot_cache, mk_nexthops_cached, items, out,
@@ -738,27 +857,30 @@ class TorchSpfSolver:
         dist0_dev = self._to_dev(dist0)
         stats = {"jobs": len(jobs), "chunks": 0, "k_eff": k_eff,
                  "paths_ms": 0.0}
-        for start in range(0, len(jobs), chunk):
-            sub = dests[start : start + chunk]
-            b = pad_batch(len(sub))
-            dsts = np.full(b, my_id, dtype=np.int32)  # padding: dest == root
-            dsts[: len(sub)] = sub
-            t1 = time.perf_counter()
-            costs, paths, _hops = ksp_edge_disjoint_dense(
-                d_nbr, d_wgt, blocked, my_id, self._to_dev(dsts),
-                k=k_eff, max_hops=max_hops, dist0=dist0_dev, stats=stats,
-                to_host=True,
-            )
-            stats["paths_ms"] += (time.perf_counter() - t1) * 1e3
-            stats["chunks"] += 1
-            for j in range(len(sub)):
-                prefix, reachable, best_nodes = jobs[start + j]
-                host_paths = paths_to_host(costs, paths, csr.node_names, j)
-                entry = ksp_route_from_paths(
-                    ls, my_node, prefix, reachable, best_nodes, host_paths
+        # one span over the batch's device calls and route building
+        with annotate("spf:ksp", self.counters):
+            for start in range(0, len(jobs), chunk):
+                sub = dests[start : start + chunk]
+                b = pad_batch(len(sub))
+                # padding: dest == root
+                dsts = np.full(b, my_id, dtype=np.int32)
+                dsts[: len(sub)] = sub
+                t1 = time.perf_counter()
+                costs, paths, _hops = ksp_edge_disjoint_dense(
+                    d_nbr, d_wgt, blocked, my_id, self._to_dev(dsts),
+                    k=k_eff, max_hops=max_hops, dist0=dist0_dev, stats=stats,
+                    to_host=True,
                 )
-                if entry is not None:
-                    out[prefix] = entry
+                stats["paths_ms"] += (time.perf_counter() - t1) * 1e3
+                stats["chunks"] += 1
+                for j in range(len(sub)):
+                    prefix, reachable, best_nodes = jobs[start + j]
+                    host_paths = paths_to_host(costs, paths, csr.node_names, j)
+                    entry = ksp_route_from_paths(
+                        ls, my_node, prefix, reachable, best_nodes, host_paths
+                    )
+                    if entry is not None:
+                        out[prefix] = entry
         stats["ms"] = (time.perf_counter() - t0) * 1e3
         self.last_ksp_stats = stats
 
@@ -935,15 +1057,16 @@ class TorchSpfSolver:
                       self._to_dev(np.asarray(cols_all, np.int64))] = INF_DIST
             stats: dict = {}
             launches0 = relax.LAUNCHES
-            dist2, packed = batched_sssp_split_warm_rib(
-                dev, self._to_dev(roots), self._to_dev(nbr_metric),
-                self._to_dev(nbr_ids_p), self._to_dev(nbr_over), dist0,
-                self._to_dev(seed),
-                has_overloads=bool(csr.node_overloaded.any()),
-                stats=stats,
-            )
-            check_byte_order(self.device)
-            buf = packed.cpu().numpy()
+            with annotate("spf:warm_solve", self.counters):
+                dist2, packed = batched_sssp_split_warm_rib(
+                    dev, self._to_dev(roots), self._to_dev(nbr_metric),
+                    self._to_dev(nbr_ids_p), self._to_dev(nbr_over), dist0,
+                    self._to_dev(seed),
+                    has_overloads=bool(csr.node_overloaded.any()),
+                    stats=stats,
+                )
+                check_byte_order(self.device)
+                buf = packed.cpu().numpy()
             stats["relax_launches"] = relax.LAUNCHES - launches0
             d_root, fh, _ = unpack_rib_buffer(buf, vp, bb, False)
             self.solve_count += 1
@@ -972,8 +1095,10 @@ class TorchSpfSolver:
         changed_mask[changed_ids] = True
         view = ps.election_view(csr.name_to_id, csr.base_version)
         touched = set(prefix_dirt)
+        plain_rows = ()
         if len(view.plain_p):
-            for i in np.nonzero(changed_mask[view.orig])[0]:
+            plain_rows = np.nonzero(changed_mask[view.orig])[0]
+            for i in plain_rows:
                 touched.add(view.plain_p[int(i)])
         if view.multi is not None:
             # anycast: the election depends only on its advertisers'
@@ -984,7 +1109,7 @@ class TorchSpfSolver:
                 touched.add(t.prefixes[i])
         for p, _per in view.complex_items:
             touched.add(p)  # cheap, always re-assembled (exact)
-        entries = self.assemble_prefix_routes(art2, ps, touched)
+        entries = self._assemble_scoped(art2, ps, touched, view, plain_rows)
         rdb = RouteDatabase(this_node_name=my_node)
         rdb.unicast_routes = dict(cached_rdb.unicast_routes)
         rdb.mpls_routes = dict(cached_rdb.mpls_routes)
@@ -996,29 +1121,31 @@ class TorchSpfSolver:
                 rdb.unicast_routes[p] = e
         touched_labels: set[int] = set()
         if len(changed_ids):
+            # node segments through the full assembly's entry cache
             labels_v = self._node_labels(ls, csr, n_live)
             slot_cache = self._nbr_slot_cache(csr, my_id, nbr_ids)
             mk = self._mk_nexthops_cached_factory(fh2, slot_cache, ls.area)
-            for i in changed_ids.tolist():
+            mpls_cache = self._mpls_entry_cache(
+                self._slot_gen(ls, slot_cache), n_live
+            )
+            tokens = _node_tokens(fh2, d_root2, changed_ids)
+            for i, token in zip(changed_ids.tolist(), tokens):
                 if i == my_id:
                     continue
                 label = int(labels_v[i])
                 if label < MPLS_LABEL_MIN:
                     continue
                 touched_labels.add(label)
-                if d_root2[i] >= INF_DIST or not fh2[:, i].any():
-                    rdb.mpls_routes.pop(label, None)
-                    continue
-                nhs = self._mpls_wrap(
-                    mk(np.array([i]), int(d_root2[i])), csr.node_names[i],
-                    label,
-                )
-                if nhs:
-                    rdb.mpls_routes[label] = RibMplsEntry(
-                        label=label, nexthops=nhs
+                entry = None
+                if d_root2[i] < INF_DIST and fh2[:, i].any():
+                    entry = self._mpls_node_entry(
+                        mpls_cache, label, csr.node_names[i], token,
+                        int(d_root2[i]), i, mk,
                     )
-                else:
+                if entry is None:
                     rdb.mpls_routes.pop(label, None)
+                else:
+                    rdb.mpls_routes[label] = entry
         self.last_warm_stats["assembly_ms"] = (time.perf_counter() - t0) * 1e3
         return rdb, art2, touched, touched_labels, region
 
@@ -1033,7 +1160,8 @@ class TorchSpfSolver:
             fh, slot_cache, ls.area
         )
         n_live = len(csr.node_names)
-        dest_cls, _tokens = _dest_classes(fh, d_root, n_live)
+        dest_cls, dest_tokens = _dest_classes(fh, d_root, n_live)
+        slot_gen = self._slot_gen(ls, slot_cache)
 
         plain_p, plain_n, plain_e = view.plain_p, view.plain_n, view.plain_e
         orig, complex_items, multi = view.orig, view.complex_items, view.multi
@@ -1058,6 +1186,14 @@ class TorchSpfSolver:
             mel = self._elect_multi(multi, dist, fh_any, my_id, view.gen)
         t_asm0 = time.perf_counter()
         self.last_phase_ms = {"election": (t_asm0 - t0) * 1e3}
+        cell = None
+        if len(plain_p) or mel is not None:
+            # the unicast cell of this fingerprint, reset when the view
+            # (whose rows its keys index) is a new generation
+            cell = self._fingerprint_cell(self._uni_cache, slot_gen, dict)
+            if cell.get("gen") != view.gen:
+                cell.clear()
+                cell.update(gen=view.gen, entries={}, classdicts={})
 
         # ---- unicast: plain prefixes, one NextHop set per class ----------
         if len(plain_p):
@@ -1065,47 +1201,97 @@ class TorchSpfSolver:
             igp = d_root[orig].astype(np.int64)
             idxs = np.nonzero(reach)[0]
             cls = dest_cls[orig[idxs]]
-            ucls, uidx = np.unique(cls, return_index=True)
-            class_nhs = {}
-            for c, u in zip(ucls.tolist(), uidx.tolist()):
-                i = idxs[u]
-                class_nhs[c] = self._mk_nexthops_union(
-                    slot_cache, fh[:, orig[i]], int(igp[i]), ls.area
-                )
-            unicast = rdb.unicast_routes
-            for g in _class_groups(cls):
-                nhs = class_nhs[int(cls[g[0]])]
-                if not nhs:
-                    continue
-                rows = idxs[g]
-                igp_c = int(igp[rows[0]])
-                for i in rows.tolist():
-                    p = plain_p[i]
-                    unicast[p] = RibEntry(
-                        prefix=p,
-                        nexthops=nhs,
-                        best_node=plain_n[i],
-                        best_nodes=(plain_n[i],),
-                        best_entry=plain_e[i],
-                        igp_cost=igp_c,
-                    )
+            ucls = np.unique(cls)
+            entries, classdicts = cell["entries"], cell["classdicts"]
+            if len(entries) > max(8192, 4 * len(plain_p)):
+                entries.clear()
+                classdicts.clear()
+                cell.pop("plain", None)
+                cell["cd_total"] = 0
+            # the whole section's content: its member rows, their classes
+            # and each used class's token (first-hop bits and igp)
+            sig = (
+                idxs.tobytes(),
+                cls.tobytes(),
+                tuple(dest_tokens[int(c)] for c in ucls),
+            )
+            cached_plain = cell.get("plain")
+            if cached_plain is not None and cached_plain[0] == sig:
+                rdb.unicast_routes.update(cached_plain[1])
+            else:
+                plain_dict: dict = {}
+                for g in _class_groups(cls):
+                    rows = idxs[g]
+                    token = dest_tokens[int(cls[g[0]])]
+                    # members by their bytes, not a hash of them: a hash
+                    # collision would install another class's routes
+                    gkey = (token, rows.tobytes())
+                    sub = classdicts.get(gkey)
+                    if sub is None:
+                        # one NextHop set per class; the token fixes it,
+                        # so a cached sub-dict never needs it
+                        igp_c = int(igp[rows[0]])
+                        nhs = self._mk_nexthops_union(
+                            slot_cache, fh[:, orig[rows[0]]], igp_c, ls.area
+                        )
+                        if not nhs:
+                            continue
+                        sub = {}
+                        for i in rows.tolist():
+                            e = entries.get((i, token))
+                            if e is None:
+                                e = entries[(i, token)] = RibEntry(
+                                    prefix=plain_p[i],
+                                    nexthops=nhs,
+                                    best_node=plain_n[i],
+                                    best_nodes=(plain_n[i],),
+                                    best_entry=plain_e[i],
+                                    igp_cost=igp_c,
+                                )
+                            sub[e.prefix] = e
+                        # bounded by the routes the sub-dicts hold: every
+                        # rebuild under churn mints new keys
+                        cell["cd_total"] = cell.get("cd_total", 0) + len(sub)
+                        if cell["cd_total"] > 4 * max(len(plain_p), 4096):
+                            classdicts.clear()
+                            cell["cd_total"] = len(sub)
+                        classdicts[gkey] = sub
+                    plain_dict.update(sub)
+                cell["plain"] = (sig, plain_dict)
+                rdb.unicast_routes.update(plain_dict)
 
         # ---- unicast: elected multi-advertiser (anycast ECMP) ------------
         if mel is not None:
-            for p, best_names, chosen_ids, chosen_names, igp_c, best_e in (
-                iter_multi_winners(multi, mel)
-            ):
-                nhs = mk_nexthops_cached(chosen_ids, igp_c)
-                if not nhs:
-                    continue
-                rdb.unicast_routes[p] = RibEntry(
-                    prefix=p,
-                    nexthops=nhs,
-                    best_node=chosen_names[0],
-                    best_nodes=best_names,
-                    best_entry=best_e,
-                    igp_cost=igp_c,
-                )
+            # the election's outcome and the advertisers' first-hop
+            # columns: a remote change can drop one of two equal-cost
+            # paths without moving d_root or the chosen set
+            sig_m = (
+                mel.is_best.tobytes(),
+                mel.chosen.tobytes(),
+                mel.min_igp.tobytes(),
+                fh[:, multi.adv].tobytes(),
+            )
+            cached_m = cell.get("multi")
+            if cached_m is not None and cached_m[0] == sig_m:
+                rdb.unicast_routes.update(cached_m[1])
+            else:
+                mdict: dict = {}
+                for p, best_names, chosen_ids, chosen_names, igp_c, best_e in (
+                    iter_multi_winners(multi, mel)
+                ):
+                    nhs = mk_nexthops_cached(chosen_ids, igp_c)
+                    if not nhs:
+                        continue
+                    mdict[p] = RibEntry(
+                        prefix=p,
+                        nexthops=nhs,
+                        best_node=chosen_names[0],
+                        best_nodes=best_names,
+                        best_entry=best_e,
+                        igp_cost=igp_c,
+                    )
+                cell["multi"] = (sig_m, mdict)
+                rdb.unicast_routes.update(mdict)
 
         # ---- unicast: the general path for the complex shapes ------------
         ksp_jobs = self._unicast_general(
@@ -1121,6 +1307,7 @@ class TorchSpfSolver:
         self.last_phase_ms["assembly"] = (t_mpls0 - t_asm0) * 1e3
 
         # ---- MPLS node segments ------------------------------------------
+        mpls_cache = self._mpls_entry_cache(slot_gen, n_live)
         names = csr.node_names
         ids = np.arange(n_live, dtype=np.int64)
         labels_v = self._node_labels(ls, csr, n_live)
@@ -1132,17 +1319,36 @@ class TorchSpfSolver:
         )
         sel = np.nonzero(elig)[0]
         mpls_routes = rdb.mpls_routes
+        # class sub-dicts: a class whose members, labels and token are
+        # unchanged is one dict update. base_version is in the key because
+        # the rows are node ids, which a new topology base renumbers
+        mcell = self._fingerprint_cell(
+            self._mpls_cls_cache, slot_gen, lambda: {"groups": {}, "total": 0}
+        )
+        mcls = mcell["groups"]
         cls_sel = dest_cls[sel]
         for g in _class_groups(cls_sel):
             rows = sel[g]
-            igp = int(d_root[rows[0]])
-            for i in rows.tolist():
-                label = int(labels_v[i])
-                nhs = self._mpls_wrap(
-                    mk_nexthops_cached(np.array([i]), igp), names[i], label
-                )
-                if nhs:
-                    mpls_routes[label] = RibMplsEntry(label=label, nexthops=nhs)
+            token = dest_tokens[int(cls_sel[g[0]])]
+            gkey = (csr.base_version, token, rows.tobytes(),
+                    labels_v[rows].tobytes())
+            sub = mcls.get(gkey)
+            if sub is None:
+                sub = {}
+                igp = int(d_root[rows[0]])
+                for i in rows.tolist():
+                    entry = self._mpls_node_entry(
+                        mpls_cache, int(labels_v[i]), names[i], token, igp,
+                        i, mk_nexthops_cached,
+                    )
+                    if entry is not None:
+                        sub[entry.label] = entry
+                mcell["total"] += len(sub)
+                if mcell["total"] > 4 * max(n_live, 4096):
+                    mcls.clear()
+                    mcell["total"] = len(sub)
+                mcls[gkey] = sub
+            mpls_routes.update(sub)
 
         # ---- MPLS adjacency labels ---------------------------------------
         my_db = ls.adjacency_db(my_node)
@@ -1185,16 +1391,48 @@ class TorchSpfSolver:
             d_vec = d_root
             if isinstance(dist, LazyDist):
                 d_vec = dist.device_tensor[:, 0].contiguous()
-            out = elect_multi_device(
-                multi, d_vec, reach, my_id,
-                dev_cache=self._elect_dev, gen=view_gen, device=self.device,
-            )
+            with annotate("spf:election", self.counters):
+                out = elect_multi_device(
+                    multi, d_vec, reach, my_id, dev_cache=self._elect_dev,
+                    gen=view_gen, device=self.device,
+                )
             while len(self._elect_dev) > self._dev_lru_cap:
                 self._elect_dev.pop(next(iter(self._elect_dev)))
             return out
         return elect_multi_np(multi, d_root.astype(np.int64), reach, my_id)
 
     # ----------------------------------------------------------- helpers
+
+    @staticmethod
+    def _slot_gen(ls, slot_cache) -> tuple:
+        """The route caches' fingerprint: the area and my own adjacency
+        slots (neighbor and interface names of the min-metric parallel
+        links), which the first-hop bits alone cannot see."""
+        return (ls.area, tuple(tuple(s) for s in slot_cache))
+
+    def _mpls_entry_cache(self, slot_gen, n_live: int) -> dict:
+        """The MPLS node-segment entries of fingerprint `slot_gen`,
+        cleared once it holds more than max(4096, 4 x the live nodes)."""
+        cache = self._fingerprint_cell(self._mpls_cache, slot_gen, dict)
+        if len(cache) > max(4096, 4 * n_live):
+            cache.clear()
+        return cache
+
+    def _mpls_node_entry(self, cache: dict, label: int, node: str, token,
+                         igp: int, i: int, mk_nexthops_cached):
+        """The node segment's RibMplsEntry toward node id `i` (class
+        `token` at distance `igp`) from `cache`, built and kept there on a
+        miss; None where it has no next hop."""
+        key = (label, node, token, igp)
+        entry = cache.get(key)
+        if entry is None:
+            nhs = self._mpls_wrap(
+                mk_nexthops_cached(np.array([i]), igp), node, label
+            )
+            if not nhs:
+                return None
+            entry = cache[key] = RibMplsEntry(label=label, nexthops=nhs)
+        return entry
 
     @staticmethod
     def _mpls_wrap(base, node: str, label: int) -> tuple[NextHop, ...]:
