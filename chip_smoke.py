@@ -153,7 +153,26 @@ Phases (any failure exits non-zero and prints no result line):
      artifact's warm state measured and dropped, `trim_caches(2)` on
      three fingerprints, and [10e]'s config-2 fleet call twice on one
      solver; (c) the Decision hook's converter on both RIBs, cold and
-     hot memo.
+     hot memo; the solvers' spans land in the port's `Counters`;
+ 12. the telemetry plane (`openr_tpu_torch/monitor/`), on [11a]'s and
+     [11b]'s solvers: (a) er100k: one `nvcc` build a source in a fresh
+     `_build/` and none after [2]'s warm mark; host reads and bytes per
+     cold, filling and hot `compute_routes`; the cost rows of the split
+     RIB solve, the warm solve, `_solve_dist` on the split, dense and
+     edge tables at B = 8, one sweep (`_relax_once`), a KSP call
+     (`ksp_edge_disjoint_dense`, k = 2, 8 jobs) and the first-hop
+     matrix, each kernel's row equal to the kernels line's count
+     (`relax.launch_work`, `ksp.sssp_work` / `walk_work`,
+     `edge_relax.init_work` / `fix_work`) summed over the same call's
+     launches by a spy on the wrappers; the efficiency join; the HBM
+     gauges equal to `torch.cuda.memory_allocated` /
+     `max_memory_allocated` / `total_memory` read right after; [4]'s
+     solve and a hot `compute_routes` timed with the telemetry's
+     `enabled` flags off and on, in turns, and the cost of one steady
+     probe, one transfer count and one HBM sample; (b) config 2: one hot
+     `compute_routes`'s rows (the split RIB on the generic kernel, the
+     election at 20 000 slots) against the same count, the join, the
+     gauges.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
 each row's `timed_by` saying whether its `ms` is a CUPTI duration
@@ -178,8 +197,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
-INT32_OPS_PER_S = 67e12  # non-tensor-core 32-bit rate (fp32 peak), data sheet
 INF = 1 << 30
 WIDTHS = (8, 16, 32, 64)
 GENERIC_SHAPES = [(w, b) for w in (1, 4, 128) for b in (8, 32, 128)] + [
@@ -484,6 +501,8 @@ def build_all(cuda_build, modules, old_dir: Path | None = None) -> dict:
     source name (none without `old_dir`)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from openr_tpu_torch.monitor import compile_ledger
+
     t0 = time.perf_counter()
     reports = {name: start_ptxas_report(cuda_build, name) for name in SOURCES}
     olds = {name: start_old_build(cuda_build, old_dir / f"{name}.cu")
@@ -508,9 +527,10 @@ def build_all(cuda_build, modules, old_dir: Path | None = None) -> dict:
                 proc.kill()
                 proc.wait()
             shutil.rmtree(tmp, ignore_errors=True)
+    build_s = compile_ledger.ledger().build_seconds()
     log(f"[2] build: {', '.join(s + '.cu' for s in SOURCES)} in "
         f"{time.perf_counter() - t0:.3f} s (nvcc "
-        + ", ".join(f"{s} {cuda_build.BUILD_SECONDS.get(s, 0.0):.3f} s"
+        + ", ".join(f"{s} {build_s.get(s, 0.0):.3f} s"
                     for s in SOURCES)
         + "; the -Xptxas -v cubins alongside)")
     for name, (proc, _tmp) in reports.items():
@@ -616,17 +636,6 @@ def phase3_random(relax, dev) -> tuple[dict, dict]:
     return worst, cases
 
 
-def relax_bytes(w, kind, n, b, dist_rows_read):
-    """Bytes one relax call must move: the n table rows (nbr + wgt), each
-    distinct gathered dist row once, the n target rows read and written,
-    their row flags written, roots and the row-index lists."""
-    bytes_ = n * w * 8 + dist_rows_read * b * 4 + 2 * n * b * 4 + b * 4
-    bytes_ += n * 4
-    if kind != "dense":
-        bytes_ += n * 4 * (2 if kind == "tail" else 1)
-    return bytes_
-
-
 def path_calls(solver, ls, tables, me: str = "node-0"):
     """The main path's three relax calls from root `me` on `tables`: a
     dense Gauss-Seidel chunk (the last), the overflow table, and 8 192
@@ -684,28 +693,6 @@ def check_calls(relax, dist_in, roots, calls, wrappers) -> dict:
     return worst
 
 
-def call_work(nbr, wgt, kw, b):
-    """(rows n, bytes, operations, L2 gather bytes) of one relax call:
-    `relax_bytes` with each distinct gathered dist row once; four
-    integer operations, and one gathered B-wide row, per finite slot."""
-    w = nbr.shape[1]
-    kind = ("dense" if "row0" in kw else
-            "tail" if "src_rows" in kw else "overflow")
-    n = kw.get("n") or next(
-        v.shape[0] for k, v in kw.items() if k.endswith("rows"))
-    if "src_rows" in kw:
-        sel = nbr[kw["src_rows"].long()]
-        swgt = wgt[kw["src_rows"].long()]
-    else:
-        r0 = kw.get("row0", 0)
-        sel, swgt = nbr[r0:r0 + n], wgt[r0:r0 + n]
-    valid = swgt < INF
-    distinct = int(torch.unique(sel[valid]).numel())
-    n_valid = int(valid.sum().item())
-    return n, relax_bytes(w, kind, n, b, distinct), n_valid * b * 4, \
-        n_valid * b * 4
-
-
 def time_calls(relax, dist_in, roots, calls, variants, tag) -> dict:
     """Each variant (label -> (wrapper, profiler name, lib)) at each
     call, in turns (the labels, then the same reversed), timed by CUPTI
@@ -740,7 +727,7 @@ def time_calls(relax, dist_in, roots, calls, variants, tag) -> dict:
                 tg[lb].append(graph_us(launch, restore, TIMING_REPS))
         p_ms = cuda_ms(lambda: relax.relax_rows_ref(
             src, work, nbr, wgt, roots, None, **fl, **kw))
-        n, nbytes, ops, l2 = call_work(nbr, wgt, kw, b)
+        n, nbytes, ops, l2 = relax.launch_work(nbr, wgt, b, **kw)
         b_ms, b_by = bound(nbytes, ops)
         res = dict(n=n, w=w, b=b, bytes=nbytes, ops=ops, l2_bytes=l2,
                    bound_us=b_ms * 1e3, bound_by=b_by, plain_ms=p_ms)
@@ -1137,14 +1124,13 @@ def phase7_probe(relax, old_libs) -> dict:
     if not out["sweep_torch_ops"]["sum_ok"]:
         fail("probe: the torch-ops sweep is wrong")
     vp, d, b = pg.VP, pg.D, pg.B
-    nbytes = vp * d * 8 + 2 * vp * b * 4  # nbr+wgt, dist in, out
-    ops = vp * d * b * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    nbytes, ops = pg.sweep_work(vp, d, b)
+    b_ms, b_by = bound(nbytes, ops)
     out.update(
         launches=launches,
         plain_ms=out["sweep_ref"]["us"] / 1e3,
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms=b_ms,
+        bound_by=b_by,
     )
     for name, row in res.items():
         log(f"[7] {name}: {row['us']:.2f} us ({row['gbs']:.0f} GB/s eff, "
@@ -1166,23 +1152,11 @@ def max_diff(pairs) -> int:
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least ms on the card, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """(least ms on the card, "bytes" or "operations"): the package's
+    count (`monitor/device.py`), which the kernel cost rows use too."""
+    from openr_tpu_torch.monitor import device
 
-
-def ksp_relax_work(wgt, b: int) -> tuple[int, int]:
-    """(bytes, operations) one KSP relax sweep of `b` jobs must spend on
-    dense tables `wgt` [V, D]: every weight is read to find the usable
-    slots; the neighbor id, blocked byte and ban word only of a slot with
-    a finite weight; each distance row once in and once out. Four
-    integer operations per usable slot and job."""
-    v, d = wgt.shape
-    valid = int((wgt < INF).sum().item())
-    nw = (b + 31) // 32
-    return (v * d * 4 + valid * (4 + 1 + 4 * nw) + 2 * v * b * 4,
-            valid * b * 4)
+    return device.bound(nbytes, ops)
 
 
 def to_dev(a, dt):
@@ -1469,7 +1443,7 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
         us, by = kernel_us(lambda: ksp_ops.ksp_relax(dist, out, *tab, flag),
                            lambda: None, ksp_ops.KERNEL_NAMES["sssp"])
         p_ms = cuda_ms(lambda: ksp_ops.ksp_relax_ref(dist, out, *tab, flag))
-        nbytes, ops = ksp_relax_work(wgt_t, b)
+        nbytes, ops = ksp_ops.relax_work(wgt_t, b)
         b_ms, b_by = bound(nbytes, ops)
         rows, grid, smem, _stage = ksp_ops.sssp_plan(v, d, b)
         log(f"[8a] ksp_sssp_kernel, one sweep at the er100k dense shape (V "
@@ -1604,27 +1578,6 @@ def ksp_path_run(ksp_ops, solver, ls, ps, me, reps: int) -> dict:
                 reps=reps)
 
 
-def ksp_sssp_work(nbr, wgt, blocked, dist) -> tuple[int, int]:
-    """(bytes, operations) the masked SSSP of b jobs must spend, at the
-    least, to reach its fixpoint `dist` [V, b] on dense tables [V, D]:
-    each table byte read once (as `ksp_relax_work` counts them) and the
-    result written once (the start is made on the card); one relaxation,
-    four integer operations, of each usable slot (finite weight, not
-    blocked) out of each entry this run's result reaches, for the
-    entry's job: each entry settled once, as a label-setting solve does.
-    Jacobi sweeps do more, every slot of each job word that can change,
-    sweep after sweep."""
-    v, d = wgt.shape
-    b = dist.shape[1]
-    usable = (wgt < INF) & ~blocked
-    out_slots = torch.bincount(nbr[usable].long(), minlength=v)
-    reached = (dist < INF).sum(dim=1)
-    relax = int((out_slots.long() * reached.long()).sum().item())
-    valid = int((wgt < INF).sum().item())
-    nw = (b + 31) // 32
-    return (v * d * 4 + valid * (4 + 1 + 4 * nw) + v * b * 4, 4 * relax)
-
-
 def wall_ms(fn, reps: int = 3) -> float:
     """Median host wall (ms) of `fn()` followed by a synchronize."""
     out = []
@@ -1657,7 +1610,7 @@ def fixpoint_at_call(ksp_ops, sx) -> dict:
         ksp_ops.KERNEL_NAMES["sssp"])
     sweep_plain = cuda_ms(lambda: ksp_ops.ksp_relax_ref(start, out, *tab,
                                                         flag))
-    s_bytes, s_ops = ksp_relax_work(wgt, b)
+    s_bytes, s_ops = ksp_ops.relax_work(wgt, b)
 
     def device_fix(fn=ksp_ops.ksp_sssp):
         counters = torch.zeros(2, dtype=torch.int32, device=DEVICE)
@@ -1684,7 +1637,7 @@ def fixpoint_at_call(ksp_ops, sx) -> dict:
              f"{host_sweeps}, the plain one {int(p_counters[1].item())}")
     fix_us, fix_by = kernel_us(lambda: device_fix(), lambda: None,
                                ksp_ops.KERNEL_NAMES["sssp"])
-    f_bytes, f_ops = ksp_sssp_work(nbr, wgt, blocked, fix)
+    f_bytes, f_ops = ksp_ops.sssp_work(nbr, wgt, blocked, fix)
     rows, grid, smem, _stage = ksp_ops.sssp_plan(v, nbr.shape[1], b)
     return dict(
         err=err, v=v, d=nbr.shape[1], b=b, sweeps=sweeps,
@@ -1725,11 +1678,11 @@ def walk_at_call(ksp_ops, wk) -> dict:
     hops = wref[2]
     rows = int((hops + 1).sum().item())
     longest = int(hops.max().item())
-    nbytes = rows * w_nbr.shape[1] * (4 + 4 + 1 + 4 + 4) + b * 16 + rows * 4
+    nbytes, ops = ksp_ops.walk_work(w_nbr.shape[1], hops)
     return dict(err=err, us=us, timed_by=by, plain_ms=plain, rows=rows,
                 longest=longest,
                 us_per_hop=us / max(longest, 1), bytes=nbytes,
-                bound=bound(nbytes, rows * w_nbr.shape[1] * 4), b=b,
+                bound=bound(nbytes, ops), b=b,
                 d=w_nbr.shape[1])
 
 
@@ -1986,8 +1939,8 @@ def elect_at_call(election_ops, solver, view, dist, fh, my_id, old_libs,
         torch.segment_reduce(data_r, "max", lengths=lengths),
         torch.segment_reduce(data_d, "min", lengths=lengths)))
     m, s = len(view.multi.prefixes), len(view.multi.adv)
-    nbytes = s * (4 + 1 + 4 + 1 + 4 + 1 + 1) + m * (4 + 4 + 4 + 1)
-    b_ms, b_by = bound(nbytes, s * 8)
+    nbytes, ops = election_ops.elect_work(m, s)
+    b_ms, b_by = bound(nbytes, ops)
     log(f"[{tag}] elect_seg_kernel (M {m}, S {s}): {us:.2f} us, plain "
         f"{p_ms:.4f} ms, torch.segment_reduce max+min {lib_ms:.4f} ms, bound "
         f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes} B), share "
@@ -2338,12 +2291,6 @@ def edge_args(t, with_blocked=True):
     return [t[k] for k in keys]
 
 
-def walked(t) -> int:
-    """The slots the runs walk (the padding past the last finite slot is
-    never read)."""
-    return int(t["row_start"][-1].item())
-
-
 def plain_edge_sssp(edge_ops, t, roots, vp):
     """The reference's loop of full rounds on the plain versions, on the
     card: (dist, rounds)."""
@@ -2425,7 +2372,8 @@ def edge_fix_vs_plain(edge_ops, t, roots, vp, tile, cap=None) -> int:
                                    tile, max_rounds=cap)
     ref_st = {}
     ref = edge_ops.batched_sssp_ref(*edge_args(t), roots, vp, tile,
-                                    walked(t), max_rounds=cap, stats=ref_st)
+                                    edge_ops.walked_slots(t["index"]),
+                                    max_rounds=cap, stats=ref_st)
     rounds, _last, gathered = st.tolist()
     if (rounds, gathered) != (ref_st["rounds"], ref_st["gathered_edges"]):
         fail(f"phase 10a: kernel rounds {rounds}, gathered {gathered}; plain "
@@ -2675,57 +2623,6 @@ def busy_share(prof, per, launched, traced_ms) -> float | None:
     return dev_us / 1e3 / traced_ms
 
 
-def edge_work(t, v, b, kind, roots=None, tile=None) -> tuple[int, int, int]:
-    """(bytes, operations, gather bytes) of one edge kernel call, over
-    the edges the kernels walk: the runs of `row_start`, which end at
-    the last finite slot (the padding past it is never read). The init
-    writes dist and its row marks (a bit per row and tile of `tile`
-    columns), reads roots, two out_start words a root and the
-    slot, metric and dst of each root's out-edges, one min per out-edge;
-    a full round reads dist and writes it, reads src, metric and blocked
-    of each walked edge and row_start once, and does four integer
-    operations per usable walked edge and column, whose B-wide source
-    row it gathers."""
-    if kind == "init":
-        r_bytes, r_ops = edge_root_work(t, roots)
-        return v * b * 4 + -(-b // tile) * -(-v // 8) + r_bytes, r_ops, 0
-    e = walked(t)
-    usable = int((~t["blocked"][:e]).sum().item())
-    return (2 * v * b * 4 + e * 9 + (v + 1) * 4, usable * b * 4,
-            usable * b * 4)
-
-
-def edge_root_work(t, roots) -> tuple[int, int]:
-    """(bytes, operations) of the init's reads past the dist it writes:
-    the roots, two out_start words a root and the slot, metric and dst
-    of each root's out-edges; one min per out-edge and root."""
-    os_ = t["index"].out_start.long()
-    r = roots.long()
-    deg = int((os_[r + 1] - os_[r]).sum().item())
-    b = roots.shape[0]
-    return b * 12 + deg * 12, deg + b
-
-
-def edge_fix_work(t, v, dist) -> tuple[int, int]:
-    """(bytes, operations) the fixpoint launch must spend, at the least,
-    to take the init's start [V, B] to its fixpoint `dist`, counted as
-    `ksp_sssp_work` counts them: the start read once and the result
-    written once; src, metric and blocked of each walked edge, row_start
-    and the segments read once; one relaxation, four integer operations,
-    of each usable walked edge out of each entry the result reaches, for
-    that entry's column: each entry settled once, as a label-setting
-    solve does. Jacobi rounds do more: each walks every slot and gathers
-    the rows that changed in the round before (the gathered edges)."""
-    e = walked(t)
-    b = dist.shape[1]
-    usable = ~t["blocked"][:e]
-    out_edges = torch.bincount(t["src"][:e][usable].long(), minlength=v)
-    reached = (dist[:v] < INF).sum(dim=1)
-    relax = int((out_edges[:v].long() * reached.long()).sum().item())
-    n_seg = int(t["index"].seg_node.shape[0])
-    return 2 * v * b * 4 + e * 9 + (v + 1) * 4 + n_seg * 8, 4 * relax
-
-
 #: The C entry points of csrc/edge_relax.cu's round design (an init
 #: launch, then a launch a round whose changed word the host reads back),
 #: for an `--old` checkout that has it
@@ -2861,7 +2758,7 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots,
     p0 = torch.empty_like(k0)
     p_ms = cuda_ms(lambda: edge_ops.edge_init_ref(p0, *edge_args(t, False),
                                                   rt))
-    nbytes, ops, _g = edge_work(t, v, b, "init", rt, tile)
+    nbytes, ops = edge_ops.init_work(t["index"], v, b, tile, rt)
     b_ms, b_by = bound(nbytes, ops)
     out["init"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=b_ms,
                        bound_by=b_by, err=err_init, bytes=nbytes, ops=ops)
@@ -2880,7 +2777,8 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots,
         lambda: None, edge_ops.KERNEL_NAMES["round"])
     p_ms = cuda_ms(lambda: edge_ops.edge_round_ref(cur, po, *edge_args(t),
                                                    pc))
-    nbytes, ops, gath = edge_work(t, v, b, "round")
+    nbytes, ops, gath = edge_ops.round_work(t["src"], t["blocked"],
+                                            t["index"], v, b)
     round_ms, b_by = bound(nbytes, ops)
     out["round"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=round_ms,
                         bound_by=b_by, err=err_round, bytes=nbytes, ops=ops,
@@ -2888,7 +2786,8 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots,
     # ---- the whole solve: the init, then the fixpoint launch --------------
     ref_st = {}
     t0 = time.perf_counter()
-    ref = edge_ops.batched_sssp_ref(*edge_args(t), rt, v, tile, walked(t),
+    ref = edge_ops.batched_sssp_ref(*edge_args(t), rt, v, tile,
+                                    edge_ops.walked_slots(t["index"]),
                                     stats=ref_st)
     torch.cuda.synchronize()
     ref_ms = (time.perf_counter() - t0) * 1e3
@@ -2901,7 +2800,8 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots,
              f"/ {ref_st['gathered_edges']}")
     err_fix = max_diff([(fx["dist"], ref), (narrow["dist"], ref)])
     rounds = fx["rounds"]
-    f_bytes, f_ops = edge_fix_work(t, v, ref)
+    f_bytes, f_ops = edge_ops.fix_work(t["src"], t["blocked"], t["index"],
+                                       v, ref)
     fix_bound, f_by = bound(f_bytes, f_ops)
     out["fix"] = dict(us=fx["us"], timed_by=fx["timed_by"], plain_ms=ref_ms,
                       bound_ms=fix_bound, bound_by=f_by, err=err_fix,
@@ -2910,7 +2810,7 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots,
                       gathered=fx["gathered"], tile=tile)
     solve_us = out["init"]["us"] + fx["us"]
     # the whole solve, roots to result: no start matrix to read
-    r_bytes, r_ops = edge_root_work(t, rt)
+    r_bytes, r_ops = edge_ops.root_work(t["index"], rt)
     solve_bytes, solve_ops = f_bytes - v * b * 4 + r_bytes, f_ops + r_ops
     solve_bound, solve_by = bound(solve_bytes, solve_ops)
     # ---- the --old kernels, in turns with this checkout's -------------------
@@ -2981,7 +2881,7 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots,
                        restore, relax.KERNEL_NAMES[design])
     p_ms = cuda_ms(lambda: relax.relax_rows_ref(dist, work, nbr, wgt, rt,
                                                 None, changed=chg, **kw))
-    _n, nbytes, ops, l2 = call_work(nbr, wgt, kw, b)
+    _n, nbytes, ops, l2 = relax.launch_work(nbr, wgt, b, **kw)
     b_ms, b_by = bound(nbytes, ops)
     out["dense"] = dict(us=us, timed_by=by, plain_ms=p_ms, bound_ms=b_ms,
                         bound_by=b_by, err=err_a, bytes=nbytes, ops=ops,
@@ -3053,7 +2953,8 @@ def phase10c_kernels_at_config3(relax, edge_ops, csr, roots,
         if mean(old["new_solve"]) >= mean(old["solve"]):
             fail("phase 10c: the edge solve is not faster than the --old "
                  "one")
-    log(f"[10c] the edge kernels walk {walked(t)} of {t['src'].shape[0]} "
+    log(f"[10c] the edge kernels walk {edge_ops.walked_slots(t['index'])} "
+        f"of {t['src'].shape[0]} "
         "edge slots (the padding past the last finite slot is never read); "
         "the bounds count the walked ones")
     out["solve_us"], out["solve_bound_ms"], out["old"] = (solve_us,
@@ -3256,20 +3157,6 @@ def timed_call(fn, gc_ms: list | None = None):
     return out, ms
 
 
-class SpanStats:
-    """A stand-in for a counters registry: `add_value` samples by name."""
-
-    def __init__(self):
-        self.samples: dict[str, list[float]] = {}
-
-    def add_value(self, key: str, value: float) -> None:
-        self.samples.setdefault(key, []).append(value)
-
-    def p50s(self) -> dict:
-        return {k: round(statistics.median(v), 3)
-                for k, v in sorted(self.samples.items())}
-
-
 def node_sections(rdb, adj_labels) -> tuple[dict, dict]:
     """The routes the caches hand back as the same objects on an
     unchanged view: unicast routes off the general path (no UCMP /24s,
@@ -3329,10 +3216,11 @@ def phase11a_er100k(relax, states) -> dict:
     `warm_compute_routes` from the cold artifact (equal to both), then
     reverted, whose hot RIB is the cold RIB again."""
     from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.monitor import Counters
 
     ls, ps = states
     me = "node-0"
-    spans = SpanStats()
+    spans = Counters()
     solver = TorchSpfSolver(device=DEVICE, counters=spans)
     adj_labels = own_adj_labels(ls, me)
     relax.reset_launches()
@@ -3376,7 +3264,7 @@ def phase11a_er100k(relax, states) -> dict:
              "must run")
     out = dict(cold_ms=cold_ms, hot_ms=hot_ms, flap_ms=flap_ms,
                warm_ms=warm_ms, revert_ms=revert_ms, shares=shares,
-               rdb=rdb0, launches=launches)
+               rdb=rdb0, launches=launches, solver=solver, me=me)
     log(f"[11a] er100k from {me}: {len(rdb0.unicast_routes)} unicast + "
         f"{len(rdb0.mpls_routes)} mpls routes; compute_routes cold p50 "
         f"{statistics.median(cold_ms):.3f} ms (samples "
@@ -3394,7 +3282,7 @@ def phase11a_er100k(relax, states) -> dict:
         f"its revert {[tuple(round(x, 4) for x in s) for s in shares]}; "
         f"the flap's hot RIB == a fresh solver's == the warm RIB; relax "
         f"launches {launches}; last_phase_ms of the cold call {phases}; "
-        f"span p50s (ms) {spans.p50s()}")
+        f"span p50s (ms) {span_p50s(spans)}")
     return out
 
 
@@ -3406,13 +3294,14 @@ def phase11b_config2(relax, election_ops, p9, p10e) -> dict:
     twice on one solver, the second from its caches."""
     from openr_tpu_torch.decision.fleet import compute_fleet_ribs
     from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.monitor import Counters
     from openr_tpu_torch.types import PrefixDatabase
 
     ls, ps = p9["states"]
     roots = list(p9["ribs"])
     me = roots[1]
     want = p9["ribs"][me]
-    spans = SpanStats()
+    spans = Counters()
     solver = TorchSpfSolver(device=DEVICE, counters=spans)
     adj_labels = own_adj_labels(ls, me)
     relax.reset_launches()
@@ -3514,7 +3403,7 @@ def phase11b_config2(relax, election_ops, p9, p10e) -> dict:
         f"{w1} (host mirror) -> {w2} (dropped), the scoped routes unchanged "
         f"after the drop; fingerprints {before} -> {after} after "
         f"trim_caches({DECISION_TRIM}); relax launches {launches}, "
-        f"elect_seg_kernel {e_launches}; span p50s (ms) {spans.p50s()}")
+        f"elect_seg_kernel {e_launches}; span p50s (ms) {span_p50s(spans)}")
     log(f"[11b] fleet on config 2, nodes {roots}, one solver: "
         f"{[round(x, 1) for x in fleet_ms]} ms (first pass, second pass "
         f"from the caches; [10e]'s call on a fresh solver "
@@ -3552,21 +3441,22 @@ def phase11c_convert(ribs: dict) -> None:
             f"memo {ms[1]:.3f} ms per full RIB; host wall")
 
 
-def phase11_er100k(relax, states) -> None:
-    """[11a] and its RIB's conversion, run right after [5] so that [5]'s
-    100k `LinkState` (millions of live objects, which every later full
-    collection would walk) is freed before [6]."""
+def phase11_er100k(mods, states, p4, fresh: bool) -> None:
+    """[11a], its RIB's conversion and [12a] on its solver, run right
+    after [5] so that [5]'s 100k `LinkState` (millions of live objects,
+    which every later full collection would walk) is freed before [6]."""
     t0 = time.perf_counter()
-    a = phase11a_er100k(relax, states)
+    a = phase11a_er100k(mods[0], states)
     phase11c_convert({"er100k": a["rdb"]})
     log(f"[11a] {time.perf_counter() - t0:.1f} s in all")
+    phase12a_er100k(mods, a["solver"], *states, a["me"], p4, fresh)
 
 
-def phase11_config2(relax, election_ops, p9, p10e) -> None:
+def phase11_config2(mods, p9, p10e) -> None:
     """[11b] and its RIB's conversion; then, with every object alive so
     far frozen out of the collector, one more cold call."""
     t0 = time.perf_counter()
-    b = phase11b_config2(relax, election_ops, p9, p10e)
+    b = phase11b_config2(mods[0], mods[1], p9, p10e)
     phase11c_convert({f"config2-10k {b['me']}": b["rdb"]})
     ls, ps = p9["states"]
     solver = b["solver"]
@@ -3588,6 +3478,357 @@ def phase11_config2(relax, election_ops, p9, p10e) -> None:
         f"full collections) {cold}; not frozen, above: {b['cold_ms']} ms")
     log(f"[11b] {time.perf_counter() - t0:.1f} s in all; card "
         f"{smi('name,power.limit')}")
+    phase12b_config2(mods, solver, ls, ps, b["me"])
+
+
+# ------------------------------------------------------------ phase 12
+
+#: timed calls per mode in the overhead turns (off, on, on, off, ...):
+#: [4]'s solve, then a hot compute_routes
+TELEMETRY_TURNS = (31, 11)
+#: roots of [12a]'s `_solve_dist` rows (one per table kind)
+TELEMETRY_B = 8
+
+
+class LaunchWork:
+    """Within the block, every launch of the wrappers the main paths use
+    (the relax rows, the election, the KSP fixpoint and walk, the edge
+    solve) adds its count, as the kernels line counts it, to `bytes` and
+    `ops`: a spy on the wrappers, apart from the cost rows' own sink."""
+
+    def __init__(self, relax, election_ops, ksp_ops, edge_ops):
+        self.mods = (relax, election_ops, ksp_ops, edge_ops)
+        self.bytes = self.ops = self.launches = 0
+        self.keep = []
+
+    def add(self, nbytes, ops):
+        self.bytes += int(nbytes)
+        self.ops += int(ops)
+        self.launches += 1
+
+    def __enter__(self):
+        relax, election_ops, ksp_ops, edge_ops = self.mods
+        orig_relax, orig_elect = relax._relax, election_ops.elect_seg
+        orig_sssp, orig_walk = ksp_ops.ksp_sssp, ksp_ops.ksp_walk
+        orig_edge = edge_ops.batched_sssp
+
+        def spy_relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n,
+                      src_rows, dst_rows, *rest):
+            if relax._count(nbr, row0, n, src_rows, dst_rows):
+                self.add(*relax.launch_work(
+                    nbr, wgt, dist_in.shape[1], over=over, row0=row0, n=n,
+                    src_rows=src_rows, dst_rows=dst_rows)[1:3])
+            return orig_relax(entry, dist_in, out, nbr, wgt, roots, over,
+                              row0, n, src_rows, dst_rows, *rest)
+
+        def spy_elect(indptr, seg, adv, *a, **kw):
+            if indptr.shape[0] > 1:
+                self.add(*election_ops.elect_work(indptr.shape[0] - 1,
+                                                  adv.shape[0]))
+            return orig_elect(indptr, seg, adv, *a, **kw)
+
+        def alive(live):
+            return live is None or bool(int(live[0]))
+
+        def spy_sssp(dist0, nbr, wgt, blocked, *a, live=None, **kw):
+            on = alive(live)
+            out = orig_sssp(dist0, nbr, wgt, blocked, *a, live=live, **kw)
+            self.add(*(ksp_ops.sssp_work(nbr, wgt, blocked, out) if on
+                       else (0, 0)))
+            return out
+
+        def spy_walk(dist, nbr, wgt, blocked, bans, dests, root, max_hops,
+                     cost, path, hops, any_ok, *, live=None, counters=None):
+            on = alive(live)
+            got = orig_walk(dist, nbr, wgt, blocked, bans, dests, root,
+                            max_hops, cost, path, hops, any_ok, live=live,
+                            counters=counters)
+            self.add(*(ksp_ops.walk_work(nbr.shape[1], hops) if on
+                       else (0, 0)))
+            return got
+
+        def spy_edge(src, dst, metric, blocked, roots, v, row_start=None,
+                     stats=None, index=None):
+            dist = orig_edge(src, dst, metric, blocked, roots, v, row_start,
+                             stats=stats, index=index)
+            b = roots.shape[0]
+            self.add(*edge_ops.init_work(index, v, b, edge_ops.tile_cols(b),
+                                         roots))
+            self.add(*edge_ops.fix_work(src, blocked, index, v, dist))
+            return dist
+
+        self.keep = [(relax, "_relax", orig_relax),
+                     (election_ops, "elect_seg", orig_elect),
+                     (ksp_ops, "ksp_sssp", orig_sssp),
+                     (ksp_ops, "ksp_walk", orig_walk),
+                     (edge_ops, "batched_sssp", orig_edge)]
+        relax._relax, election_ops.elect_seg = spy_relax, spy_elect
+        ksp_ops.ksp_sssp, ksp_ops.ksp_walk = spy_sssp, spy_walk
+        edge_ops.batched_sssp = spy_edge
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.keep:
+            setattr(mod, name, fn)
+
+
+def span_p50s(counters) -> dict:
+    """The spans' p50 ms from a `Counters` snapshot (its histogram's,
+    within ~12%)."""
+    return {k[len("profile."):-len(".p50")]: round(v, 3)
+            for k, v in sorted(counters.snapshot().items())
+            if k.startswith("profile.") and k.endswith("_ms.p50")}
+
+
+def row_vs_spy(mods, fn: str, call, tag: str) -> dict:
+    """`call()` with the telemetry's rows dropped first and the launch
+    spy on: the cost row `fn` it captures must hold the spy's bytes,
+    operations and launches. Returns the row."""
+    from openr_tpu_torch.monitor import device
+
+    device.telemetry().reset()
+    with LaunchWork(*mods) as spy:
+        call()
+        torch.cuda.synchronize()
+    row = device.kernel_rows().get(fn)
+    if row is None:
+        fail(f"[12] {tag}: no cost row {fn}")
+    if (row.bytes_accessed, row.flops, row.launches) != (
+            spy.bytes, spy.ops, spy.launches):
+        fail(f"[12] {tag}: cost row {fn} holds {row.bytes_accessed:.0f} B, "
+             f"{row.flops:.0f} ops, {row.launches} launches; the kernels "
+             f"line's count over the same call {spy.bytes} B, {spy.ops} "
+             f"ops, {spy.launches} launches")
+    return row
+
+
+def check_hbm(counters, tag: str) -> tuple[int, int, int]:
+    """The gauges `sample_hbm` writes against torch's allocator read
+    right after; returns (in use, peak, limit)."""
+    from openr_tpu_torch.monitor import device
+
+    torch.cuda.synchronize()
+    if device.sample_hbm(counters) is None:
+        fail(f"[12] {tag}: sample_hbm returned None on the card")
+    want = (torch.cuda.memory_allocated(0), torch.cuda.max_memory_allocated(0),
+            torch.cuda.get_device_properties(0).total_memory)
+    got = tuple(int(counters.get(f"device.0.hbm_{k}", -1))
+                for k in ("bytes_in_use", "peak_bytes", "limit_bytes"))
+    if got != want:
+        fail(f"[12] {tag}: HBM gauges {got} != torch's allocator {want}")
+    return got
+
+
+def telemetry_turns(fn, turns: int) -> dict:
+    """Host wall ms of `fn()` with the telemetry's own flags (the device
+    telemetry's and the work ledger's `enabled`) off and on, in turns
+    (off, on, on, off, ...): p50 and mean per mode, and the p50s'
+    difference."""
+    from openr_tpu_torch.monitor import device, work_ledger
+
+    ms = {False: [], True: []}
+    try:
+        for i in range(turns):
+            for on in ((False, True) if i % 2 == 0 else (True, False)):
+                device.telemetry().enabled = on
+                work_ledger.ledger().enabled = on
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms[on].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        device.telemetry().enabled = True
+        work_ledger.ledger().enabled = True
+    off, on = statistics.median(ms[False]), statistics.median(ms[True])
+    return dict(off=off, on=on, diff_us=(on - off) * 1e3,
+                share=(on - off) / off, samples=ms,
+                means=[statistics.fmean(ms[False]), statistics.fmean(ms[True])])
+
+
+def micro_us(fn, reps: int) -> float:
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def phase12a_er100k(mods, solver, ls, ps, me, p4, fresh: bool) -> None:
+    """The telemetry plane at er100k on [11a]'s solver (its `Counters`):
+    the build ledger (one build a source in a fresh `_build/`, none after
+    the warm mark of [2]), host reads per cold and hot `compute_routes`,
+    each cost row of the single-root, warm and batched paths and of a KSP
+    call against the kernels line's count of the same call, the HBM
+    gauges against torch's allocator, the efficiency join, and the
+    telemetry's cost: [4]'s solve and a hot `compute_routes` with its
+    flags off and on, in turns."""
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.monitor import compile_ledger, device
+
+    relax, election_ops, ksp_ops, edge_ops = mods
+    t_start = time.perf_counter()
+    led = compile_ledger.ledger()
+    builds, loads = led.builds(), led.loads()
+    if fresh and builds != {s: 1 for s in SOURCES}:
+        fail(f"[12] builds in a fresh _build/: {builds}, one a source wanted")
+    if not set(SOURCES) <= set(builds) | set(loads):
+        fail(f"[12] builds {builds}, loads {loads}: a source is missing")
+    if led.builds_since_warm():
+        fail(f"[12] builds after the warm mark: {led.builds_since_warm()}")
+    counters = solver.counters
+
+    # ---- host reads per cold and hot compute_routes ------------------------
+    reads = {}
+    for tag, cap in (("cold", 0), ("fill", 8), ("hot", 8)):
+        solver.trim_caches(cap)
+        r0 = led.transfers()
+        solver.compute_routes(ls, ps, me)
+        r1 = led.transfers()
+        reads[tag] = (r1[0] - r0[0], r1[1] - r0[1])
+    if not all(n for n, _b in reads.values()):
+        fail(f"[12] host reads per compute_routes {reads}: none counted")
+
+    # ---- the cost rows against the kernels line's count -------------------
+    rows = {}
+    rows["batched_sssp_split_rib"] = row_vs_spy(
+        mods, "batched_sssp_split_rib", lambda: solver.solve(ls, me),
+        "er100k solve")
+    _rdb, art = solver.compute_routes(ls, ps, me, return_artifact=True)
+    rng = np.random.default_rng(12)
+    pairs, old_dbs = flap_round(ls, rng, 16, 16)
+    got = []
+    rows["batched_sssp_split_warm_rib"] = row_vs_spy(
+        mods, "batched_sssp_split_warm_rib",
+        lambda: got.append(solver.warm_compute_routes(
+            art, ls, ps, me, pairs, set(), _rdb, 0.25)), "er100k warm")
+    if got[0] is None:
+        fail("[12] the warm path declined the flap")
+    revert_round(ls, old_dbs)
+    csr = ls.to_csr()
+    roots = np.arange(TELEMETRY_B, dtype=np.int32)
+    dense = TorchSpfSolver(device=DEVICE, use_dense=True, counters=counters)
+    edge = TorchSpfSolver(device=DEVICE, use_dense=False, counters=counters)
+    for fn, s in (("batched_sssp_split", solver),
+                  ("batched_sssp_dense", dense), ("batched_sssp", edge)):
+        rows[fn] = row_vs_spy(mods, fn, lambda s=s: s._solve_dist(csr, roots),
+                              f"er100k {fn} B {TELEMETRY_B}")
+    dense.use_pallas = True  # the same tables; the row of one sweep
+    device.telemetry().reset()
+    dense._solve_dist(csr, roots)
+    rows["_relax_once"] = once = device.kernel_rows()["_relax_once"]
+    dense.use_pallas = False
+    full = rows["batched_sssp_dense"]
+    if once.bytes_accessed * full.launches != full.bytes_accessed:
+        fail(f"[12] _relax_once {once.bytes_accessed:.0f} B x "
+             f"{full.launches} sweeps != batched_sssp_dense "
+             f"{full.bytes_accessed:.0f} B")
+    my_id = csr.name_to_id[me]
+    t = dense._device_arrays(csr, "dense")
+    blocked = (t["over"][t["nbr"].long()] & (t["nbr"] != my_id)).contiguous()
+    dests = torch.arange(1, 1 + TELEMETRY_B, dtype=torch.int32, device=DEVICE)
+    rows["_ksp_edge_disjoint_dense_jit"] = row_vs_spy(
+        mods, "_ksp_edge_disjoint_dense_jit",
+        lambda: ksp_ops.ksp_edge_disjoint_dense(
+            t["nbr"], t["wgt"], blocked, my_id, dests, k=2,
+            max_hops=csr.padded_nodes - 1, to_host=True),
+        "er100k KSP")
+    device.telemetry().reset()
+    dense.solve(ls, me)
+    rows["first_hop_matrix"] = device.kernel_rows()["first_hop_matrix"]
+    for fn, row in rows.items():
+        log(f"[12a] cost row {fn}: {row.bytes_accessed:.0f} B, "
+            f"{row.flops:.0f} integer ops, {row.launches} launches "
+            f"({', '.join(row.sources) or 'torch ops'}), args "
+            f"{row.arg_bytes} B, outs {row.out_bytes} B, code "
+            f"{row.code_bytes} B, shape {row.shapes}, span {row.span} "
+            f"(complete {row.span_complete}); least time "
+            f"{bound(row.bytes_accessed, row.flops)[0] * 1e3:.3f} us")
+    # the join needs the rows and the spans of one solver: the split RIB's
+    device.telemetry().reset()
+    solver.solve(ls, me)
+    for r in device.efficiency_rows(device.kernel_rows(), counters.snapshot()):
+        log(f"[12a] efficiency {r['fn']}: span {r['span']} p50 "
+            f"{r['span_p50_ms']} ms over {r['span_count']} samples, "
+            f"achieved {r['achieved_gbs']} GB/s of least bytes, "
+            f"{r['achieved_gflops']} G integer ops/s")
+    in_use, peak, limit = check_hbm(counters, "er100k")
+
+    # ---- the telemetry's cost ------------------------------------------------
+    s4, ls4 = p4["solver"], p4["ls"]
+    s4.solve(ls4, "node-0")
+    launches = s4.last_solve_stats["relax_launches"]
+    solve_t = telemetry_turns(lambda: s4.solve(ls4, "node-0"),
+                              TELEMETRY_TURNS[0])
+    hot_t = telemetry_turns(lambda: solver.compute_routes(ls, ps, me),
+                            TELEMETRY_TURNS[1])
+    scratch_tel, key = device.DeviceTelemetry(), (1, 2, 3)
+    with scratch_tel.observe("probe", key):
+        pass
+    probe_us = micro_us(lambda: scratch_tel.observe("probe", key), 20_000)
+    scratch = compile_ledger.CompileLedger()
+    transfer_us = micro_us(lambda: scratch.record_transfer(64), 20_000)
+    hbm_us = micro_us(lambda: device.sample_hbm(counters), 2_000)
+    sink_us = micro_us(device.sink, 200_000)
+    scratch_led = type(solver.work_ledger)()
+    commit_us = micro_us(lambda: scratch_led.commit("election", 9, 3), 20_000)
+    # what the telemetry adds to one call, from the costs above: a solve
+    # probes once, counts one transfer and checks the sink at each relax
+    # launch; a hot RIB adds two HBM samples (its two spans) and a commit
+    solve_acc = probe_us + transfer_us + launches * sink_us
+    hot_acc = solve_acc + 2 * hbm_us + commit_us
+    log(f"[12a] builds {builds} (fresh _build/: {fresh}), loads {loads}, "
+        f"seconds {led.build_seconds()}; none after the warm mark; host "
+        f"reads (reads, bytes) per compute_routes: cold {reads['cold']}, "
+        f"filling {reads['fill']}, hot {reads['hot']}")
+    log(f"[12a] HBM gauges == torch's allocator: in use {in_use} B, peak "
+        f"{peak} B, limit {limit} B")
+    for tag, tt, acc in (("[4] solve", solve_t, solve_acc),
+                         ("[11a] hot compute_routes", hot_t, hot_acc)):
+        log(f"[12a] telemetry cost on {tag}, flags off / on in turns: p50 "
+            f"{tt['off']:.3f} / {tt['on']:.3f} ms ({tt['diff_us']:.1f} us, "
+            f"{tt['share']:.4%}), mean {tt['means'][0]:.3f} / "
+            f"{tt['means'][1]:.3f} ms; by the per-call costs below "
+            f"{acc:.2f} us ({acc / 1e3 / tt['off']:.4%} of the off p50); "
+            f"samples off / on "
+            f"{[[round(x, 3) for x in v] for v in tt['samples'].values()]}")
+    log(f"[12a] per call: a steady observe() probe {probe_us:.3f} us, "
+        f"record_transfer {transfer_us:.3f} us, a sink check {sink_us:.3f} "
+        f"us ({launches} a solve), sample_hbm {hbm_us:.3f} us, a work "
+        f"commit {commit_us:.3f} us; [12a] "
+        f"{time.perf_counter() - t_start:.1f} s; card "
+        f"{smi('name,power.limit')}")
+
+
+def phase12b_config2(mods, solver, ls, ps, me) -> None:
+    """The same at config 2 on [11b]'s solver: the split RIB's row on the
+    generic kernel and the election's at 20 000 slots against the
+    kernels line's count of one hot `compute_routes`, the efficiency
+    join, the HBM gauges."""
+    from openr_tpu_torch.monitor import device
+
+    t_start = time.perf_counter()
+    solver.trim_caches(8)
+    solver.compute_routes(ls, ps, me)
+    device.telemetry().reset()
+    with LaunchWork(*mods) as spy:
+        solver.compute_routes(ls, ps, me)
+        torch.cuda.synchronize()
+    rows = device.kernel_rows()
+    if set(rows) != {"batched_sssp_split_rib", "_elect_seg"}:
+        fail(f"[12] config 2: cost rows {sorted(rows)}")
+    total = [sum(getattr(r, f) for r in rows.values())
+             for f in ("bytes_accessed", "flops", "launches")]
+    if total != [spy.bytes, spy.ops, spy.launches]:
+        fail(f"[12] config 2: the rows hold {total} (bytes, ops, launches), "
+             f"the kernels line's count {[spy.bytes, spy.ops, spy.launches]}")
+    for r in device.efficiency_rows(rows, solver.counters.snapshot()):
+        log(f"[12b] cost row {r['fn']}: {r['bytes_accessed']:.0f} B, "
+            f"{r['flops']:.0f} integer ops, {r['launches']} launches, shape "
+            f"{r['shapes']}; span {r['span']} p50 {r['span_p50_ms']} ms: "
+            f"achieved {r['achieved_gbs']} GB/s of least bytes")
+    in_use, peak, limit = check_hbm(solver.counters, "config 2")
+    log(f"[12b] HBM gauges == torch's allocator: in use {in_use} B, peak "
+        f"{peak} B, limit {limit} B; the rows' sum == the kernels line's "
+        f"count; {time.perf_counter() - t_start:.1f} s")
 
 
 def main(argv=None) -> None:
@@ -3613,8 +3854,12 @@ def main(argv=None) -> None:
     from openr_tpu_torch.ops import election as election_ops
     from openr_tpu_torch.ops import ksp as ksp_ops
 
-    old_libs = build_all(cuda_build, (relax, election_ops, ksp_ops, edge_ops),
-                         args.old)
+    from openr_tpu_torch.monitor import compile_ledger
+
+    fresh = not any(cuda_build.BUILD_DIR.glob("lib*.so"))
+    mods = (relax, election_ops, ksp_ops, edge_ops)
+    old_libs = build_all(cuda_build, mods, args.old)
+    compile_ledger.mark_warm()  # no build after this ([12] checks)
     lib = relax._lib()
     grid = (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 128, 256, 512, 1024)
     bad = [(w, b) for w in grid for b in grid
@@ -3714,7 +3959,7 @@ def main(argv=None) -> None:
     p5 = phase5_warm(relax, (vp, w_base, ov_shape))
     warm_launches = p5["launches"]
     # ---- phase 11a: the rebuild sequence Decision runs, on [5]'s states --
-    phase11_er100k(relax, p5.pop("states"))
+    phase11_er100k(mods, p5.pop("states"), dict(solver=solver, ls=ls), fresh)
 
     # ---- phase 6: overloads + LFA ----------------------------------------
     phase6()
@@ -3742,7 +3987,7 @@ def main(argv=None) -> None:
     phase10f_hub(edge_ops)
 
     # ---- phase 11b: the same on config 2's states, and the hook's cost --
-    phase11_config2(relax, election_ops, p9, p10e)
+    phase11_config2(mods, p9, p10e)
 
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path

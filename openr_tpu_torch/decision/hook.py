@@ -10,7 +10,19 @@ and sets it, wrapped in a `DecisionAdapter`, as the Decision's solver.
 
 A Decision branches on its solver attribute (`_tpu`) being set, not on
 its class, so a Decision built with the "cpu" backend then rebuilds
-through the port. The hook is duck-typed: the port imports nothing of
+through the port.
+
+The port's telemetry reaches the Decision's counters at every rebuild
+edge (the end of each `compute_routes`, `warm_compute_routes` and
+`assemble_prefix_routes`): the build and transfer ledger (`cuda.builds.*`,
+`cuda.transfers.*`), the kernel cost rows (`cuda.kernel.<fn>.*`), the HBM
+gauges (`device.<i>.hbm_*`) and the solver's work ledger (`work.*`). The
+Decision's own exports run after the adapter's and write the `jax.*`
+names; `device.<i>.hbm_*` are the only shared names, and the JAX sampler
+writes none without a JAX accelerator. Pass `work_ledger` (the JAX
+package's `openr_tpu.monitor.work_ledger` module) to make the solver's
+`election` rounds land in the ledger the Decision, ctrl `get_work_ledger`
+and the soak invariant read. The hook is duck-typed: the port imports nothing of
 the Decision's package, and the caller hands in the modules whose
 `RouteDatabase`, `RibEntry`, `RibMplsEntry`, `NexthopGroup`, `NextHop`,
 `MplsAction` and `MplsActionType` the Decision compares. Every route the
@@ -21,14 +33,20 @@ own classes never compare equal to them.
 from __future__ import annotations
 
 from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+from openr_tpu_torch.monitor import compile_ledger
+from openr_tpu_torch.monitor import device as telemetry
 
 
-def attach(decision, route_types, network_types, device=None):
+def attach(decision, route_types, network_types, device=None,
+           work_ledger=None):
     """Build the solver from `decision.config.node.decision` as the
     Decision builds its own (the table knobs, LFA, KSP paths,
     `native_rib`, and the Decision's counters), set the adapter as
-    `decision._tpu` and return it. `mesh_sources > 0` (a sharded solve)
-    raises NotImplementedError; `native_rib="on"` raises ValueError."""
+    `decision._tpu` and return it. `work_ledger`, anything with
+    `commit(stage, touched, delta)` and `export_to(counters)`, receives
+    the solver's work rounds (default: the port's process ledger).
+    `mesh_sources > 0` (a sharded solve) raises NotImplementedError;
+    `native_rib="on"` raises ValueError."""
     dcfg = decision.config.node.decision
     if dcfg.mesh_sources > 0:
         raise NotImplementedError(
@@ -44,6 +62,7 @@ def attach(decision, route_types, network_types, device=None):
         kernel_impl=dcfg.spf_kernel,
         native_rib=dcfg.native_rib,
         counters=decision.counters,
+        work_ledger=work_ledger,
     )
     adapter = DecisionAdapter(solver, route_types, network_types)
     decision._tpu = adapter
@@ -185,17 +204,48 @@ class DecisionAdapter:
     def solve_count(self) -> int:
         return self.solver.solve_count
 
+    @property
+    def last_shard_rows(self) -> list[dict]:
+        return self.solver.last_shard_rows
+
+    def export_telemetry(self) -> None:
+        """The port's ledgers, cost rows and HBM gauges into the
+        solver's counters (the Decision's): the rebuild edge."""
+        counters = self.solver.counters
+        if counters is None:
+            return
+        compile_ledger.export_to(counters)
+        telemetry.export_to(counters)
+        telemetry.sample_hbm(counters)
+        self.solver.work_ledger.export_to(counters)
+
+    def device_telemetry(self) -> dict:
+        """What ctrl `get_device_telemetry` returns, from the port's
+        planes: the cost rows joined with the counters' span stats, the
+        HBM rows, whether the gauges are live, and the shard rows."""
+        counters = self.solver.counters
+        snap = counters.snapshot() if counters is not None else {}
+        return {
+            "kernels": telemetry.efficiency_rows(telemetry.kernel_rows(),
+                                                 snap),
+            "devices": telemetry.sample_hbm() or [],
+            "hbm_available": bool(telemetry.telemetry().hbm_available),
+            "shards": list(self.last_shard_rows),
+        }
+
     def compute_routes(self, ls, ps, my_node: str,
                        return_artifact: bool = False):
         res = self.solver.compute_routes(
             ls, ps, my_node, return_artifact=return_artifact
         )
+        self.export_telemetry()
         if return_artifact:
             return self.convert.route_db(res[0]), res[1]
         return self.convert.route_db(res)
 
     def assemble_prefix_routes(self, art, ps, prefixes) -> dict:
         entries = self.solver.assemble_prefix_routes(art, ps, prefixes)
+        self.export_telemetry()
         return {p: self.convert.entry(e) for p, e in entries.items()}
 
     def warm_compute_routes(self, art, ls, ps, my_node: str, edge_pairs,
@@ -208,6 +258,7 @@ class DecisionAdapter:
             art, ls, ps, my_node, edge_pairs, prefix_dirt, cached_rdb,
             max_frac,
         )
+        self.export_telemetry()
         if got is None:
             return None
         rdb, art2, touched, touched_labels, region = got

@@ -52,6 +52,9 @@ from openr_tpu_torch.decision.ksp import (
     normalize_weights,
     ucmp_weights,
 )
+from openr_tpu_torch.monitor import compile_ledger
+from openr_tpu_torch.monitor import device as telemetry
+from openr_tpu_torch.monitor import work_ledger as _work_ledger
 from openr_tpu_torch.monitor.profiling import annotate
 from openr_tpu_torch.ops import edge_relax, relax
 from openr_tpu_torch.ops.election import elect_multi_device
@@ -61,6 +64,7 @@ from openr_tpu_torch.ops.spf import (
     METRIC_MAX,
     build_blocked,
     first_hop_matrix,
+    first_hop_work,
     lfa_matrix,
     pad_batch,
 )
@@ -162,6 +166,7 @@ class LazyDist:
     def _materialize(self) -> np.ndarray:
         if self._np is None:
             self._np = self._dev.cpu().numpy()
+            compile_ledger.record_transfer(self._np.nbytes)
         return self._np
 
     def __array__(self, dtype=None, copy=None):
@@ -181,6 +186,24 @@ class LazyDist:
         ):
             return self._d_root[key[0]]
         return self._materialize()[key]
+
+
+def _tensors(table_set: dict) -> list:
+    """The tensors of a device table set (and of its edge index)."""
+    out = []
+    for x in table_set.values():
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, tuple):
+            out.extend(t for t in x if isinstance(t, torch.Tensor))
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """`t` copied to the host, counted as a transfer."""
+    a = t.cpu().numpy()
+    compile_ledger.record_transfer(a.nbytes)
+    return a
 
 
 def resolve_device(device) -> torch.device:
@@ -209,15 +232,18 @@ class TorchSpfSolver:
     `native_rib` takes the reference's values: "auto" and "off" both
     solve on the solver's device, and "on" (the reference's host C++
     Dijkstra, which the port does not have) raises. `counters` (anything
-    with `add_value`) receives the wall ms of the solver's named spans as
-    `profile.<span>_ms` stats.
+    with `add_value` and `set`) receives the wall ms of the solver's named
+    spans as `profile.<span>_ms` stats and the HBM gauges sampled at their
+    ends. `work_ledger` (anything with `commit(stage, touched, delta)`;
+    default the port's process ledger, `monitor/work_ledger.py`) receives
+    the `election` stage's rounds.
     """
 
     def __init__(self, device=None, enable_lfa: bool = False,
                  ksp_k: int = 2, *, use_dense: bool | None = None,
                  dense_waste_limit: int = 8, use_pallas: bool = False,
                  kernel_impl: str = "split", native_rib: str = "auto",
-                 mesh=None, counters=None):
+                 mesh=None, counters=None, work_ledger=None):
         if mesh is not None:
             raise NotImplementedError(
                 "TorchSpfSolver: a mesh-sharded solve is not ported yet "
@@ -231,6 +257,13 @@ class TorchSpfSolver:
             )
         self.native_rib = native_rib
         self.counters = counters
+        self.work_ledger = (work_ledger if work_ledger is not None
+                            else _work_ledger.ledger())
+        # per-device layout of the last sharded solve, which ctrl
+        # `get_device_telemetry` reads: the port has no sharded solve
+        # yet (ROADMAP M4), so it stays empty, as the reference's does
+        # without a mesh
+        self.last_shard_rows: list[dict] = []
         self.device = resolve_device(device)
         self.enable_lfa = enable_lfa
         # edge-disjoint paths per KSP2_ED_ECMP prefix
@@ -522,22 +555,43 @@ class TorchSpfSolver:
         stats: dict = {"table": table}
         relax0 = relax.LAUNCHES
         edge0 = sum(edge_relax.LAUNCHES.values())
+        b = roots_t.shape[0]
+        # every kind reads its loop's state back, so the solve is
+        # complete when it returns; use_pallas keeps one sweep's row
         if table == "split":
             gs = self._pick_gs_and_count(dev)
-            out = batched_sssp_split(
-                dev, roots_t, has_overloads=has_over, gs_chunks=gs,
-                stats=stats,
-            )
+            name = "batched_sssp_split"
+            key = (dev["vp"], *dev["base_nbr"].shape[1:],
+                   *dev["ov_nbr"].shape, b, gs, has_over)
         elif table == "dense":
-            out = relax.batched_sssp_relax(
-                dev["nbr"], dev["wgt"], dev["over"], roots_t,
-                has_overloads=has_over, stats=stats,
-            )
+            name = "_relax_once" if self.use_pallas else "batched_sssp_dense"
+            key = (*dev["nbr"].shape, b, has_over)
         else:
-            out = edge_relax.batched_sssp(
-                dev["src"], dev["dst"], dev["metric"], dev["blocked"],
-                roots_t, csr.padded_nodes, stats=stats, index=dev["index"],
-            )
+            name = "batched_sssp"
+            key = (csr.padded_nodes, dev["src"].shape[0], b)
+        with telemetry.observe(name, key, span="spf:batched_dist",
+                               span_complete=not self.use_pallas
+                               or table != "dense",
+                               first_launch_only=name == "_relax_once"
+                               ) as cap:
+            if table == "split":
+                out = batched_sssp_split(
+                    dev, roots_t, has_overloads=has_over, gs_chunks=gs,
+                    stats=stats,
+                )
+            elif table == "dense":
+                out = relax.batched_sssp_relax(
+                    dev["nbr"], dev["wgt"], dev["over"], roots_t,
+                    has_overloads=has_over, stats=stats,
+                )
+            else:
+                out = edge_relax.batched_sssp(
+                    dev["src"], dev["dst"], dev["metric"], dev["blocked"],
+                    roots_t, csr.padded_nodes, stats=stats,
+                    index=dev["index"],
+                )
+            if cap:
+                cap.io(args=(*_tensors(dev), roots_t), outs=(out,))
         stats["relax_launches"] = relax.LAUNCHES - relax0
         stats["edge_launches"] = sum(edge_relax.LAUNCHES.values()) - edge0
         self.last_solve_stats = stats
@@ -586,33 +640,48 @@ class TorchSpfSolver:
                 )
             nbr_ids_t = self._to_dev(nbr_ids_p)
             nbr_over_t = self._to_dev(nbr_over)
-            fh = first_hop_matrix(
-                dist, self._to_dev(nbr_metric), nbr_ids_t, nbr_over_t
-            ).cpu().numpy()
+            nbr_metric_t = self._to_dev(nbr_metric)
+            # torch ops, no hand kernel: the row is their own count; it
+            # runs after the span it is joined with has ended
+            with telemetry.observe(
+                "first_hop_matrix", tuple(dist.shape),
+                span="spf:batched_dist", span_complete=False,
+            ) as cap:
+                fh_t = first_hop_matrix(dist, nbr_metric_t, nbr_ids_t,
+                                        nbr_over_t)
+                if cap:
+                    cap.add(None, *first_hop_work(*dist.shape), launches=0)
+                    cap.io(args=(dist, nbr_metric_t, nbr_ids_t, nbr_over_t),
+                           outs=(fh_t,))
+            fh = _host(fh_t)
             lfa = None
             if self.enable_lfa:
-                lfa = lfa_matrix(dist, my_id, nbr_ids_t, nbr_over_t)
-                lfa = lfa.cpu().numpy()
-            return csr, dist.cpu().numpy(), fh, nbr_ids, lfa
+                lfa = _host(lfa_matrix(dist, my_id, nbr_ids_t, nbr_over_t))
+            return csr, _host(dist), fh, nbr_ids, lfa
         vp = dev["vp"]
         gs = self._pick_gs_and_count(dev)
         stats: dict = {}
         launches0 = relax.LAUNCHES
-        with annotate("spf:batched_solve", self.counters):
+        key = (vp, *dev["base_nbr"].shape[1:], *dev["ov_nbr"].shape, b, gs,
+               has_over, self.enable_lfa)
+        with annotate("spf:batched_solve", self.counters), telemetry.observe(
+            "batched_sssp_split_rib", key, span="spf:batched_solve",
+        ) as cap:
+            args = (torch.from_numpy(roots).to(d),
+                    torch.from_numpy(nbr_metric).to(d),
+                    torch.from_numpy(nbr_ids_p).to(d),
+                    torch.from_numpy(nbr_over).to(d))
             dist_dev, packed = batched_sssp_split_rib(
-                dev,
-                torch.from_numpy(roots).to(d),
-                torch.from_numpy(nbr_metric).to(d),
-                torch.from_numpy(nbr_ids_p).to(d),
-                torch.from_numpy(nbr_over).to(d),
-                my_id,
+                dev, *args, my_id,
                 has_overloads=has_over,
                 with_lfa=self.enable_lfa,
                 gs_chunks=gs,
                 stats=stats,
             )
             check_byte_order(d)
-            buf = packed.cpu().numpy()
+            buf = _host(packed)
+            if cap:
+                cap.io(args=(*_tensors(dev), *args), outs=(dist_dev, packed))
         stats["relax_launches"] = relax.LAUNCHES - launches0
         self.last_solve_stats = stats
         d_root, fh, lfa = unpack_rib_buffer(buf, vp, b, self.enable_lfa)
@@ -678,6 +747,13 @@ class TorchSpfSolver:
         is the object it was."""
         csr, dist, fh, nbr_ids, lfa = art.solved
         ls, my_node = art.ls, art.my_node
+        # scoped election: the candidates of the scoped prefixes against
+        # the prefixes, as the reference counts them
+        self.work_ledger.commit(
+            "election",
+            sum(len(ps.prefixes.get(p) or ()) for p in prefixes),
+            len(prefixes),
+        )
         my_id = csr.name_to_id[my_node]
         d_root = dist[:, 0]
         fh_any = fh.any(axis=0)
@@ -1057,16 +1133,24 @@ class TorchSpfSolver:
                       self._to_dev(np.asarray(cols_all, np.int64))] = INF_DIST
             stats: dict = {}
             launches0 = relax.LAUNCHES
-            with annotate("spf:warm_solve", self.counters):
+            has_over = bool(csr.node_overloaded.any())
+            key = (vp, *dev["base_nbr"].shape[1:], *dev["ov_nbr"].shape, bb,
+                   has_over)
+            with annotate("spf:warm_solve", self.counters), \
+                    telemetry.observe("batched_sssp_split_warm_rib", key,
+                                      span="spf:warm_solve") as cap:
+                args = (self._to_dev(roots), self._to_dev(nbr_metric),
+                        self._to_dev(nbr_ids_p), self._to_dev(nbr_over))
+                seed_t = self._to_dev(seed)
                 dist2, packed = batched_sssp_split_warm_rib(
-                    dev, self._to_dev(roots), self._to_dev(nbr_metric),
-                    self._to_dev(nbr_ids_p), self._to_dev(nbr_over), dist0,
-                    self._to_dev(seed),
-                    has_overloads=bool(csr.node_overloaded.any()),
+                    dev, *args, dist0, seed_t, has_overloads=has_over,
                     stats=stats,
                 )
                 check_byte_order(self.device)
-                buf = packed.cpu().numpy()
+                buf = _host(packed)
+                if cap:
+                    cap.io(args=(*_tensors(dev), *args, seed_t),
+                           outs=(dist2, packed))
             stats["relax_launches"] = relax.LAUNCHES - launches0
             d_root, fh, _ = unpack_rib_buffer(buf, vp, bb, False)
             self.solve_count += 1
@@ -1180,6 +1264,13 @@ class TorchSpfSolver:
         self.elect_stats["plain"] = len(plain_p)
         self.elect_stats["multi"] = len(multi.prefixes) if multi else 0
         self.elect_stats["complex"] = len(complex_items)
+        # the full election: candidate slots against electable prefixes
+        self.work_ledger.commit(
+            "election",
+            len(plain_p) + (len(multi.adv) if multi is not None else 0)
+            + sum(len(pn) for _p, pn in complex_items),
+            len(plain_p) + self.elect_stats["multi"] + len(complex_items),
+        )
         t0 = time.perf_counter()
         mel = None
         if multi is not None and len(multi.prefixes):

@@ -8,10 +8,13 @@ in `openr_tpu/monitor/profiling.py`).
 
 The span is a `torch.profiler.record_function`, so a `torch.profiler`
 trace shows it as a row above the kernels it launched. With `counters`
-(anything with `add_value(name, value)`, such as the JAX package's
-`Counters`), the span's host wall time is recorded on exit. No device
-sync is added: the time is the host's, as in the reference, and it
-covers the device work only where the wrapped code reads a result back.
+(anything with `add_value(name, value)` and `set`, such as
+`monitor/counters.py` `Counters` or the JAX package's), the span's host
+wall time is recorded on exit, and the HBM gauges are sampled there
+(`monitor/device.py` `sample_hbm`: on a host without CUDA the first
+sample latches off and later ones are a flag test). No device sync is
+added: the time is the host's, as in the reference, and it covers the
+device work only where the wrapped code reads a result back.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 import time
 
 import torch
+
+from openr_tpu_torch.monitor import device
 
 
 def annotate(name: str, counters=None):
@@ -53,4 +58,5 @@ class _TimedSpan:
             f"profile.{self.name}_ms",
             (time.perf_counter() - self._t0) * 1e3,
         )
+        device.sample_hbm(self.counters)
         return False

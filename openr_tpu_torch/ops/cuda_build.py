@@ -23,6 +23,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from openr_tpu_torch.monitor import compile_ledger
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -36,9 +38,10 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-#: seconds each library took to build in this process (0.0 = loaded
-#: from an earlier build in the same checkout)
-BUILD_SECONDS: dict[str, float] = {}
+#: the library file each loaded source came from (the build ledger,
+#: `monitor/compile_ledger.py`, counts builds with their seconds and
+#: loads per source)
+_PATHS: dict[str, Path] = {}
 
 
 def find_nvcc() -> str:
@@ -68,7 +71,7 @@ def build(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     out = _lib_path(name, src)
     if out.exists():
-        BUILD_SECONDS.setdefault(name, 0.0)
+        compile_ledger.record_load(name)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -83,7 +86,7 @@ def build(name: str) -> Path:
             f"{res.stdout}\n{res.stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-    BUILD_SECONDS[name] = time.perf_counter() - t0
+    compile_ledger.record_build(name, time.perf_counter() - t0)
     return out
 
 
@@ -91,6 +94,15 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        path = build(name)
+        lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
+        _PATHS[name] = path
     return lib
+
+
+def library_bytes(name: str) -> int:
+    """Size of the loaded library of `csrc/<name>.cu`, 0 if none is
+    loaded in this process."""
+    path = _PATHS.get(name)
+    return path.stat().st_size if path is not None else 0

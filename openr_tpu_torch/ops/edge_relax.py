@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.common.constants import DIST_INF
+from openr_tpu_torch.monitor import device as _telemetry
 
 INF_DIST = DIST_INF
 #: the kernel functions, as a profiler names them
@@ -216,6 +217,65 @@ def device_edge_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
         edge_metric.cpu().numpy(), num_nodes,
         None if rs is None else rs.numpy(),
     ), edge_src.device)
+
+
+def walked_slots(index: EdgeIndex) -> int:
+    """The slots the runs walk (the padding past the last finite slot is
+    never read)."""
+    return int(index.row_start[-1].item())
+
+
+def root_work(index: EdgeIndex, roots) -> tuple[int, int]:
+    """(bytes, operations) of the init's reads past the dist it writes:
+    the roots, two out_start words a root and the slot, metric and dst
+    of each root's out-edges; one min per out-edge and root."""
+    os_ = index.out_start.long()
+    r = roots.long()
+    deg = int((os_[r + 1] - os_[r]).sum().item())
+    b = roots.shape[0]
+    return b * 12 + deg * 12, deg + b
+
+
+def init_work(index: EdgeIndex, v: int, b: int, tile: int,
+              roots) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) of the init of `b` roots
+    over `v` rows: dist and its row marks (a bit per row and tile of
+    `tile` columns) written, and `root_work`."""
+    r_bytes, r_ops = root_work(index, roots)
+    return v * b * 4 + -(-b // tile) * -(-v // 8) + r_bytes, r_ops
+
+
+def round_work(src, blocked, index: EdgeIndex, v: int,
+               b: int) -> tuple[int, int, int]:
+    """(least DRAM bytes, integer operations, gathered bytes) of one
+    full round over the slots the runs walk: dist read and written, src,
+    metric and blocked of each walked slot and row_start read once, four
+    operations per usable walked edge and column, whose B-wide source row
+    it gathers."""
+    e = walked_slots(index)
+    usable = int((~blocked[:e]).sum().item())
+    return (2 * v * b * 4 + e * 9 + (v + 1) * 4, usable * b * 4,
+            usable * b * 4)
+
+
+def fix_work(src, blocked, index: EdgeIndex, v: int,
+             dist) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) the fixpoint launch must
+    spend to take the init's start [V, B] to its fixpoint `dist`: the
+    start read once and the result written once; src, metric and blocked
+    of each walked slot, row_start and the segments read once; one
+    relaxation, four operations, of each usable walked edge out of each
+    entry the result reaches, for that entry's column: each entry settled
+    once, as a label-setting solve does. Jacobi rounds do more."""
+    e = walked_slots(index)
+    b = dist.shape[1]
+    usable = ~blocked[:e]
+    out_edges = torch.bincount(src[:e][usable].long(), minlength=v)
+    reached = (dist[:v] < INF_DIST).sum(dim=1)
+    relaxations = int((out_edges[:v].long() * reached.long()).sum().item())
+    n_seg = int(index.seg_node.shape[0])
+    return (2 * v * b * 4 + e * 9 + (v + 1) * 4 + n_seg * 8,
+            4 * relaxations)
 
 
 def bitmap_words(num_nodes: int) -> int:
@@ -538,17 +598,23 @@ def batched_sssp(edge_src, edge_dst, edge_metric, edge_blocked, roots,
         _add_stats(stats, tiles=-(-b // tile))
         stats["tile_cols"] = tile
     if dev.type == "cpu":
-        return batched_sssp_ref(
+        dist = batched_sssp_ref(
             edge_src, edge_dst, edge_metric, edge_blocked, roots, num_nodes,
             tile, int(index.row_start[-1]), stats=stats,
         )
-    if dev.type != "cuda":
+    elif dev.type != "cuda":
         raise ValueError(f"batched_sssp: no kernel for {dev}")
-    _check("batched_sssp", (("blocked", edge_blocked, torch.bool),), dev)
-    dist, st = _solve_cuda(edge_src, edge_dst, edge_metric, edge_blocked,
-                           roots, num_nodes, index, tile)
-    if stats is not None:
-        rounds, _last, gathered = st.tolist()  # the solve's one host read
-        _add_stats(stats, rounds=rounds, host_reads=1,
-                   gathered_edges=gathered)
+    else:
+        _check("batched_sssp", (("blocked", edge_blocked, torch.bool),), dev)
+        dist, st = _solve_cuda(edge_src, edge_dst, edge_metric, edge_blocked,
+                               roots, num_nodes, index, tile)
+        if stats is not None:
+            rounds, _last, gathered = st.tolist()  # the solve's one host read
+            _add_stats(stats, rounds=rounds, host_reads=1,
+                       gathered_edges=gathered)
+    sink = _telemetry.sink()
+    if sink is not None:  # the init and the fixpoint launch
+        sink.add("edge_relax", *init_work(index, num_nodes, b, tile, roots))
+        sink.add("edge_relax", *fix_work(edge_src, edge_blocked, index,
+                                         num_nodes, dist))
     return dist

@@ -31,6 +31,8 @@ import torch
 
 from openr_tpu_torch.common.constants import DIST_INF
 from openr_tpu_torch.decision.election import MultiElection, MultiTable
+from openr_tpu_torch.monitor import compile_ledger
+from openr_tpu_torch.monitor import device as _telemetry
 
 INF_DIST = DIST_INF
 I32_MIN = -(1 << 31)
@@ -133,6 +135,15 @@ def _check(indptr, seg, adv, known, rank, d_vec, reach):
         raise ValueError("elect_seg: indptr needs M+1 entries, reach d_vec's shape")
 
 
+def elect_work(m: int, s: int) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) of one election of M
+    prefixes over S slots: each slot's seg, known, adv, reach byte and
+    rank read and its two result bytes written; each prefix's indptr word
+    read and its best rank, least IGP and local byte written; eight
+    operations a slot."""
+    return s * (4 + 1 + 4 + 1 + 4 + 1 + 1) + m * (4 + 4 + 4 + 1), s * 8
+
+
 def out_nbytes(m: int, s: int) -> int:
     """Bytes of the packed result buffer for M prefixes and S slots:
     [best_r i32 M | min_igp i32 M | local u8 M | is_best u8 S | chosen u8 S]."""
@@ -170,6 +181,9 @@ def elect_seg(indptr, seg, adv, known, rank, d_vec, reach, my_id: int,
         raise ValueError(f"elect_seg: out must be uint8 [{out_nbytes(m, s)}] "
                          f"on {dev}")
     views = _out_views(out, m, s)
+    sink = _telemetry.sink()
+    if sink is not None and m:
+        sink.add("election", *elect_work(m, s))
     if dev.type == "cpu":
         ref = elect_seg_ref(indptr, seg, adv, known, rank, d_vec, reach, my_id)
         for v, r in zip(views, ref):
@@ -229,12 +243,16 @@ def elect_multi_device(
     m, s = len(t.indptr) - 1, len(t.adv)
     buf = torch.empty(out_nbytes(m, s), dtype=torch.uint8,
                       device=cached["adv"].device)
-    elect_seg(
-        cached["indptr"], cached["seg"], cached["adv"], cached["known"],
-        cached["rank"], up(d_vec, np.int32), up(reach_vec, bool), my_id,
-        out=buf,
-    )
+    d_t, reach_t = up(d_vec, np.int32), up(reach_vec, bool)
+    with _telemetry.observe("_elect_seg", (m, s), span="spf:election") as cap:
+        elect_seg(
+            cached["indptr"], cached["seg"], cached["adv"], cached["known"],
+            cached["rank"], d_t, reach_t, my_id, out=buf,
+        )
+        if cap:
+            cap.io(args=(*cached.values(), d_t, reach_t), outs=(buf,))
     host = buf.cpu().numpy()
+    compile_ledger.record_transfer(host.nbytes)
     best_r = host[: 4 * m].view(np.int32)
     local = host[8 * m : 9 * m].view(bool)
     return MultiElection(

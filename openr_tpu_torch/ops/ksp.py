@@ -38,6 +38,8 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.common.constants import DIST_INF
+from openr_tpu_torch.monitor import compile_ledger
+from openr_tpu_torch.monitor import device as _telemetry
 
 INF_DIST = DIST_INF
 #: the kernel function of each step, as a profiler names it
@@ -183,6 +185,53 @@ def ksp_sssp_ref(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
     return dist
 
 
+def relax_work(wgt, b: int) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) of one masked relax sweep
+    of `b` jobs on dense tables `wgt` [V, D]: every weight read to find
+    the usable slots; the neighbor id, blocked byte and ban words only of
+    a slot with a finite weight; each distance row once in and once out.
+    Four operations per usable slot and job."""
+    v, d = wgt.shape
+    valid = int((wgt < INF_DIST).sum().item())
+    nw = ban_words(b)
+    return (v * d * 4 + valid * (4 + 1 + 4 * nw) + 2 * v * b * 4,
+            valid * b * 4)
+
+
+def sssp_work(nbr, wgt, blocked, dist) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) of the masked SSSP of b
+    jobs that reached the fixpoint `dist` [V, b] on dense tables [V, D]:
+    each table byte read once (as `relax_work` counts them) and the
+    result written once (the start is made on the card); one
+    relaxation, four operations, of each usable slot (finite weight, not
+    blocked) out of each entry the result reaches, for that entry's job:
+    each entry settled once, as a label-setting solve does. Jacobi sweeps
+    do more: every slot of each job word that can change, sweep after
+    sweep."""
+    v, d = wgt.shape
+    b = dist.shape[1]
+    usable = (wgt < INF_DIST) & ~blocked
+    out_slots = torch.bincount(nbr[usable].long(), minlength=v)
+    reached = (dist < INF_DIST).sum(dim=1)
+    relaxations = int((out_slots.long() * reached.long()).sum().item())
+    valid = int((wgt < INF_DIST).sum().item())
+    nw = ban_words(b)
+    return (v * d * 4 + valid * (4 + 1 + 4 * nw) + v * b * 4,
+            4 * relaxations)
+
+
+def walk_work(d: int, hops) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) of one walk round of
+    `hops.shape[0]` jobs over tables of width `d`, `hops` [B] the path
+    lengths it found: each visited row's neighbor ids, weights, blocked
+    bytes, ban words and its predecessors' distances read once, a word of
+    path written per visited row, and each job's dest, cost, hops and
+    word; four operations a slot of a visited row."""
+    rows = int((hops.long() + 1).sum().item())
+    b = hops.shape[0]
+    return rows * d * (4 + 4 + 1 + 4 + 4) + b * 16 + rows * 4, rows * d * 4
+
+
 def _check(name, dev, tensors):
     for nm, x, dt in tensors:
         if x is None:
@@ -278,18 +327,25 @@ def ksp_sssp(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
         raise ValueError("ksp_sssp: root must lie in [0, V), max_sweeps >= 1")
     _check_tables("ksp_sssp", nbr, wgt, blocked, bans, b)
     _check_words("ksp_sssp", live, counters)
+    sink = _telemetry.sink()
+    alive = sink is not None and (live is None or bool(int(live[0])))
     if nbr.device.type == "cpu":
-        return ksp_sssp_ref(dist0, nbr, wgt, blocked, bans, root, b,
-                            max_sweeps=max_sweeps, live=live,
-                            counters=counters)
-    if nbr.device.type != "cuda":
+        out = ksp_sssp_ref(dist0, nbr, wgt, blocked, bans, root, b,
+                           max_sweeps=max_sweeps, live=live,
+                           counters=counters)
+    elif nbr.device.type != "cuda":
         raise ValueError(f"ksp_sssp: no kernel for {nbr.device}")
-    start = (dist0.clone() if dist0 is not None
-             else torch.empty((v, b), dtype=i32, device=nbr.device))
-    out = torch.empty_like(start)
-    _sssp_launch(start, out, nbr, wgt, blocked, bans,
-                 -1 if dist0 is not None else int(root), max_sweeps, live,
-                 counters, None)
+    else:
+        start = (dist0.clone() if dist0 is not None
+                 else torch.empty((v, b), dtype=i32, device=nbr.device))
+        out = torch.empty_like(start)
+        _sssp_launch(start, out, nbr, wgt, blocked, bans,
+                     -1 if dist0 is not None else int(root), max_sweeps,
+                     live, counters, None)
+    if sink is not None:
+        # a round whose word is clear returns at once: no work
+        sink.add("ksp", *(sssp_work(nbr, wgt, blocked, out) if alive
+                          else (0, 0)))
     return out
 
 
@@ -309,6 +365,9 @@ def ksp_relax(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
     if dist_out.shape != dist_in.shape or nbr.shape[0] != v:
         raise ValueError("ksp_relax: dist_in/dist_out must be [V, B] of the table's V")
     _check_tables("ksp_relax", nbr, wgt, blocked, bans, b)
+    sink = _telemetry.sink()
+    if sink is not None:
+        sink.add("ksp", *relax_work(wgt, b))
     if dist_in.device.type == "cpu":
         return ksp_relax_ref(dist_in, dist_out, nbr, wgt, blocked, bans, changed)
     if dist_in.device.type != "cuda":
@@ -411,6 +470,19 @@ def ksp_walk(dist, nbr, wgt, blocked, bans, dests, root: int, max_hops: int,
         raise ValueError("ksp_walk: shapes disagree with dist [V, B]")
     _check_tables("ksp_walk", nbr, wgt, blocked, bans, b)
     _check_words("ksp_walk", live, counters)
+    sink = _telemetry.sink()
+    alive = sink is not None and (live is None or bool(int(live[0])))
+    _walk(dist, nbr, wgt, blocked, bans, dests, root, max_hops, cost, path,
+          hops, any_ok, live, counters)
+    if sink is not None:
+        sink.add("ksp", *(walk_work(nbr.shape[1], hops) if alive
+                          else (0, 0)))
+    return any_ok
+
+
+def _walk(dist, nbr, wgt, blocked, bans, dests, root, max_hops, cost, path,
+          hops, any_ok, live, counters):
+    v, b = dist.shape
     if dist.device.type == "cpu":
         return ksp_walk_ref(dist, nbr, wgt, blocked, bans, dests, root,
                             max_hops, cost, path, hops, any_ok, live=live,
@@ -494,21 +566,34 @@ def ksp_edge_disjoint_dense(
     bans = torch.zeros((v, d_width, ban_words(b)), dtype=torch.int32, device=device)
     if dist0 is not None:
         dist0 = _as_tensor(dist0, torch.int32, device).reshape(v)
-    for i in range(k):
-        if i == 0 and dist0 is not None:
-            dist = dist0[:, None].expand(v, b).contiguous()
+    key = (v, d_width, b, k, max_hops, dist0 is None)
+    with _telemetry.observe("_ksp_edge_disjoint_dense_jit", key,
+                            span="spf:ksp",
+                            span_complete=to_host or stats is not None
+                            ) as cap:
+        for i in range(k):
+            if i == 0 and dist0 is not None:
+                dist = dist0[:, None].expand(v, b).contiguous()
+            else:
+                dist = ksp_sssp(None, nbr, wgt, blocked, bans, root, b,
+                                max_sweeps=v, live=live[i : i + 1],
+                                counters=counters)
+            ksp_walk(dist, nbr, wgt, blocked, bans, dests, root, max_hops,
+                     costs[i], paths[i], hops[i], live[i + 1 : i + 2],
+                     live=live[i : i + 1], counters=counters)
+        if to_host:
+            host = out.cpu().numpy()
+            compile_ledger.record_transfer(host.nbytes)
+            *res, count = split(host)
         else:
-            dist = ksp_sssp(None, nbr, wgt, blocked, bans, root, b,
-                            max_sweeps=v, live=live[i : i + 1],
-                            counters=counters)
-        ksp_walk(dist, nbr, wgt, blocked, bans, dests, root, max_hops,
-                 costs[i], paths[i], hops[i], live[i + 1 : i + 2],
-                 live=live[i : i + 1], counters=counters)
-    if to_host:
-        *res, count = split(out.cpu().numpy())
-    else:
-        res = [costs, paths, hops]
-        count = counters.cpu().numpy() if stats is not None else None
+            res = [costs, paths, hops]
+            count = None
+            if stats is not None:
+                count = counters.cpu().numpy()
+                compile_ledger.record_transfer(count.nbytes)
+        if cap:
+            cap.io(args=(nbr, wgt, blocked, dests, dist0), outs=(out,),
+                   temps=(bans,))
     if stats is not None:
         for key, val in (("rounds", int(count[0])), ("sweeps", int(count[1])),
                          ("host_reads", 1)):

@@ -28,6 +28,7 @@ import threading
 import torch
 
 from openr_tpu_torch.common.constants import DIST_INF
+from openr_tpu_torch.monitor import device as _telemetry
 
 INF_DIST = DIST_INF
 
@@ -165,6 +166,45 @@ def relax_rows_ref(
     return changed
 
 
+def relax_bytes(w: int, kind: str, n: int, b: int, dist_rows_read: int,
+                with_over: bool = False) -> int:
+    """Least DRAM bytes of one relax call: the n table rows (nbr + wgt,
+    and the overload mask where given), each distinct gathered dist row
+    once, the n target rows read and written, their row flags written,
+    the roots and the row-index lists (a "tail" call has two, an
+    "overflow" call one, a "dense" call none)."""
+    bytes_ = n * w * 8 + dist_rows_read * b * 4 + 2 * n * b * 4 + b * 4
+    bytes_ += n * 4
+    if with_over:
+        bytes_ += n * w
+    if kind != "dense":
+        bytes_ += n * 4 * (2 if kind == "tail" else 1)
+    return bytes_
+
+
+def launch_work(nbr, wgt, b: int, *, over=None, row0=0, n=None,
+                src_rows=None, dst_rows=None) -> tuple[int, int, int, int]:
+    """(rows n, bytes, operations, gathered bytes) of one relax call at
+    `b` distance columns: `relax_bytes` with each distinct gathered dist
+    row counted once; four integer operations, and one gathered B-wide
+    row, per finite slot. Reads the call's table rows (a device sync on
+    CUDA): the kernel cost rows count it only while capturing."""
+    w = nbr.shape[1]
+    kind = ("tail" if src_rows is not None else
+            "overflow" if dst_rows is not None else "dense")
+    n = _count(nbr, row0, n, src_rows, dst_rows)
+    if src_rows is not None:
+        r = src_rows[:n].long()
+        sel, swgt = nbr[r], wgt[r]
+    else:
+        sel, swgt = nbr[row0:row0 + n], wgt[row0:row0 + n]
+    valid = swgt < INF_DIST
+    distinct = int(torch.unique(sel[valid]).numel())
+    n_valid = int(valid.sum().item())
+    nbytes = relax_bytes(w, kind, n, b, distinct, over is not None)
+    return n, nbytes, n_valid * b * 4, n_valid * b * 4
+
+
 def _count(nbr, row0, n, src_rows, dst_rows) -> int:
     if n is not None:
         return int(n)
@@ -252,6 +292,12 @@ def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
     n = _count(nbr, row0, n, src_rows, dst_rows)
     _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
            dst_rows, changed, row_flag, rows_changed)
+    sink = _telemetry.sink()
+    if sink is not None and n:
+        _n, nbytes, ops, _g = launch_work(
+            nbr, wgt, dist_in.shape[1], over=over, row0=row0, n=n,
+            src_rows=src_rows, dst_rows=dst_rows)
+        sink.add("relax", nbytes, ops)
     if dist_in.device.type == "cpu":
         return relax_rows_ref(
             dist_in, out, nbr, wgt, roots, over, row0=row0, n=n,

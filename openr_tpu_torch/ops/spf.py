@@ -15,6 +15,7 @@ import torch
 
 from openr_tpu_torch.common import constants as _C
 from openr_tpu_torch.common.util import pad_bucket as pad_batch
+from openr_tpu_torch.monitor import compile_ledger
 
 INF_DIST = _C.DIST_INF
 METRIC_MAX = _C.METRIC_MAX
@@ -34,6 +35,15 @@ def first_hop_matrix(dist, neighbor_metric, neighbor_ids, neighbor_overloaded):
     dest_is_nbr = ids[:, None] == neighbor_ids[None, :]
     allowed = ~neighbor_overloaded[None, :] | dest_is_nbr
     return (on_spt & allowed).T
+
+
+def first_hop_work(vp: int, b: int) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) of `first_hop_matrix` on
+    a [vp, b] distance matrix: the matrix read once, the b - 1 neighbors'
+    metric, id and overload flag read, the [b - 1, vp] bits written as
+    bytes; an add, two compares and two ands per bit."""
+    n = b - 1
+    return vp * b * 4 + n * 9 + n * vp, 5 * n * vp
 
 
 def lfa_matrix(dist, my_id, neighbor_ids, neighbor_overloaded):
@@ -117,6 +127,7 @@ class HostRows:
     def put(self, row0: int, dist: torch.Tensor, n: int) -> None:
         """Rows row0 .. row0+n-1 = columns 0 .. n-1 of `dist` [cols, B]."""
         t = dist[:, :n].t().contiguous()
+        compile_ledger.record_transfer(t.nbytes)
         if self.stream is None:
             self.out[row0 : row0 + n].copy_(t)
             return

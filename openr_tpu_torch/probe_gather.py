@@ -59,6 +59,14 @@ def make_inputs(vp: int = VP, d: int = D, b: int = B, seed: int = 0,
     return tuple(torch.from_numpy(x).to(device) for x in (nbr, wgt, dist))
 
 
+def sweep_work(vp: int = VP, d: int = D, b: int = B) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) of one probe sweep: the
+    tables (nbr + wgt) read, dist read and written once (its random
+    gathers hit every row, each counted once); four operations a slot
+    and column."""
+    return vp * d * 8 + 2 * vp * b * 4, vp * d * b * 4
+
+
 def _roots(dist):
     # no overload mask: the roots are never read
     return torch.zeros(dist.shape[1], dtype=torch.int32, device=dist.device)
