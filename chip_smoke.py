@@ -172,7 +172,21 @@ Phases (any failure exits non-zero and prints no result line):
      probe, one transfer count and one HBM sample; (b) config 2: one hot
      `compute_routes`'s rows (the split RIB on the generic kernel, the
      election at 20 000 slots) against the same count, the join, the
-     gauges.
+     gauges;
+ 13. the sharded solve (`openr_tpu_torch/parallel/`) at config 3's
+     width, on positions that all sit on this one card: `_solve_dist(csr,
+     arange(256) % V)` on [4]'s er100k through `TorchSpfSolver(mesh=...)`
+     on meshes 1x1, 4x2 and 2x4 (kernel A on each position's rows and the
+     overflow rows), each equal to the unmeshed split solve; then
+     `sharded_sssp_padded` on config 3's edge arrays on 4x2 (kernel H's
+     init and single rounds on each edge slice), equal to kernel H's
+     `batched_sssp`; then both again on a 4x2 mesh of a NCCL group of one
+     process (`distributed.initialize` / `global_mesh`), whose exchanges
+     are NCCL's all_gather and all_reduce MIN; counts from 0 around each
+     run: the shard rows, per mesh the p50 of 3 calls beside the
+     unmeshed split's, sweeps or rounds, relax and edge launches, host
+     syncs, peak device memory. This measures the sharding logic and the
+     collectives at full width, not multi-card speed.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
 each row's `timed_by` saying whether its `ms` is a CUPTI duration
@@ -3989,6 +4003,9 @@ def main(argv=None) -> None:
     # ---- phase 11b: the same on config 2's states, and the hook's cost --
     phase11_config2(mods, p9, p10e)
 
+    # ---- phase 13: the sharded solve at config 3's width ------------------
+    phase13_sharded(relax, edge_ops, csr, p10b["roots"])
+
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path
     for design, d, name, n_launch, worst in (
@@ -4100,6 +4117,211 @@ def main(argv=None) -> None:
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+# ----------------------------------------------------------- phase 13
+
+#: [13]'s meshes: (label, sources, graph, through a NCCL group)
+MESHES = (("1x1", 1, 1, False), ("4x2", 4, 2, False), ("2x4", 2, 4, False),
+          ("nccl 4x2", 4, 2, True))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def timed_dist(solver, csr, roots, reps: int = 3):
+    """(dist, wall ms of `reps` calls after a warm-up, the last call's
+    stats, relax launches, host syncs of the ledger) of
+    `solver._solve_dist(csr, roots)`, counts from 0 before the warm-up."""
+    from openr_tpu_torch.monitor import compile_ledger
+    from openr_tpu_torch.ops import edge_relax, relax
+
+    led = compile_ledger.ledger()
+    relax.reset_launches()
+    edge_relax.reset_launches()
+    syncs0 = led.host_syncs
+    d = solver._solve_dist(csr, roots)  # warm-up: tables and their parts
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        d = solver._solve_dist(csr, roots)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (d, times, dict(solver.last_solve_stats), relax.LAUNCHES,
+            led.host_syncs - syncs0)
+
+
+def sharded_edge_run(edge_ops, sharded_sssp_padded, mesh, args, roots_t, v,
+                     want, tag: str) -> dict:
+    """`sharded_sssp_padded` on config 3's edge arrays, counts from 0:
+    equal to kernel H's `batched_sssp` (`want`), else the run fails."""
+    from openr_tpu_torch.monitor import compile_ledger
+
+    led = compile_ledger.ledger()
+    edge_ops.reset_launches()
+    syncs0 = led.host_syncs
+    times, index_ms = [], []
+    for _ in range(3):
+        st: dict = {}
+        t0 = time.perf_counter()
+        got = sharded_sssp_padded(*args, roots_t, mesh, v, stats=st)
+        full = got.full(roots_t.device)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        index_ms.append(st["index_ms"])
+        if not torch.equal(full, want):
+            bad = int((full != want).sum().item())
+            fail(f"phase 13: {tag} sharded edge solve differs from "
+                 f"batched_sssp at {bad} entries")
+    launches = dict(edge_ops.LAUNCHES)
+    if not all(launches.values()):
+        fail(f"phase 13: {tag} edge launches {launches}: a kernel of the "
+             "path was launched no time")
+    return dict(times=times, index_ms=index_ms, rounds=st["rounds"],
+                launches=launches, syncs=led.host_syncs - syncs0)
+
+
+def j_bounds(edge_ops, csr, args, roots_t, dist, tables) -> dict:
+    """The least time of J's two functions at config 3 on this card
+    (`monitor/device.py` `bound`): the integer work of `fix_work` (one
+    relaxation, four operations, of each usable edge out of each entry
+    the result reaches), against the bytes of the inputs read once and
+    the result written once: for the edge version the init and the
+    fixpoint's count (`init_work` + `fix_work`), for the split version
+    the split tables, the roots and the [vp, B] result."""
+    from openr_tpu_torch.monitor import device
+
+    src, dst, met, blk = args
+    v, b = csr.padded_nodes, roots_t.shape[0]
+    index = edge_ops.index_to(edge_ops.edge_index(
+        csr.edge_src, csr.edge_dst, csr.edge_metric, v), src.device)
+    tile = edge_ops.tile_cols(b)
+    ib, io = edge_ops.init_work(index, v, b, tile, roots_t)
+    fb, fo = edge_ops.fix_work(src, blk, index, v, dist)
+    t_bytes = sum(int(tables[k].nbytes) for k in (
+        "base_nbr", "base_wgt", "ov_ids", "ov_nbr", "ov_wgt", "over"))
+    s_bytes = t_bytes + b * 4 + tables["vp"] * b * 4
+    return dict(edge=device.bound(ib + fb, io + fo), edge_bytes=ib + fb,
+                split=device.bound(s_bytes, fo), split_bytes=s_bytes,
+                ops=fo)
+
+
+def phase13_sharded(relax, edge_ops, csr, roots) -> None:
+    """[13] (see the module docstring)."""
+    import os
+
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.ops.spf import build_blocked
+    from openr_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+        sharded_sssp_padded,
+    )
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    pos = torch.device(DEVICE)  # every position of every mesh
+    n = csr.num_nodes
+    torch.cuda.synchronize()
+    plain = TorchSpfSolver(device=DEVICE)
+    ref, t_plain, st_plain, n_plain, sync_plain = timed_dist(plain, csr, roots)
+    p50_plain = statistics.median(t_plain)
+    log(f"[13] config 3 unmeshed split: p50 {p50_plain:.3f} ms (samples "
+        f"{[round(x, 3) for x in t_plain]}); sweeps {st_plain['sweeps']}, "
+        f"relax launches {n_plain} in 4 calls, host syncs {sync_plain} in 4 "
+        f"calls; card {card}")
+    del plain
+    blocked = build_blocked(csr.edge_metric, csr.edge_src,
+                            csr.node_overloaded)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE) for a in (
+        csr.edge_src, csr.edge_dst, csr.edge_metric, blocked)]
+    roots_t = torch.from_numpy(roots).to(DEVICE)
+    v = csr.padded_nodes
+    want_edge = edge_ops.batched_sssp(*args, roots_t, v)
+    jb = j_bounds(edge_ops, csr, args, roots_t, want_edge,
+                  TorchSpfSolver(device=DEVICE)._device_arrays(csr))
+    log(f"[13] J's least time at config 3 on this card: the split version "
+        f"{jb['split'][0] * 1e3:.2f} us by {jb['split'][1]} "
+        f"({jb['split_bytes']} B, {jb['ops']} integer ops), the edge version "
+        f"{jb['edge'][0] * 1e3:.2f} us by {jb['edge'][1]} "
+        f"({jb['edge_bytes']} B); no single PyTorch call computes either")
+    env = dict(OPENR_COORDINATOR=f"127.0.0.1:{free_port()}",
+               OPENR_NUM_PROCESSES="1", OPENR_PROCESS_ID="0")
+    try:
+        for label, s_n, g_n, nccl in MESHES:
+            if nccl:
+                os.environ.update(env)
+                if not distributed.initialize():
+                    fail("phase 13: distributed.initialize() did not start "
+                         "the process group")
+                mesh = distributed.global_mesh(
+                    n_graph=g_n, local_devices=[pos] * (s_n * g_n))
+                if mesh.groups is None or len(mesh.groups) != s_n:
+                    fail(f"phase 13: global_mesh made {mesh}, no groups")
+            else:
+                mesh = make_mesh(s_n, g_n, devices=[pos] * (s_n * g_n))
+            solver = TorchSpfSolver(device=DEVICE, mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            d, times, st, n_relax, syncs = timed_dist(solver, csr, roots)
+            peak = torch.cuda.max_memory_allocated()
+            if not n_relax:
+                fail(f"phase 13: mesh {label} launched the relax kernel no "
+                     "time")
+            if st.get("mesh") != dict(mesh.shape):
+                fail(f"phase 13: mesh {label} did not take the sharded "
+                     f"solve ({st})")
+            if not torch.equal(d[:n], ref[:n]):
+                bad = int((d[:n] != ref[:n]).sum().item())
+                fail(f"phase 13: mesh {label} differs from the unmeshed "
+                     f"split solve at {bad} entries")
+            rows = solver.last_shard_rows
+            if len(rows) != s_n * g_n:
+                fail(f"phase 13: mesh {label} has {len(rows)} shard rows")
+            log(f"[13] mesh {label}: shard rows " + "; ".join(
+                f"{r['device']} {r['platform']} cols {r['index'][1]} "
+                f"{r['shard_bytes']} B" for r in rows))
+            log(f"[13] mesh {label} split: p50 "
+                f"{statistics.median(times):.3f} ms (samples "
+                f"{[round(x, 3) for x in times]}) beside the unmeshed "
+                f"{p50_plain:.3f} ms; sweeps {st['sweeps']}, relax launches "
+                f"{n_relax} in 4 calls ({st['relax_launches']} in the last), "
+                f"host syncs {syncs} in 4 calls ({st['host_syncs']} in the "
+                f"last); peak device memory {peak / 2**20:.1f} MiB "
+                f"({(peak - base) / 2**20:.1f} over the "
+                f"{base / 2**20:.1f} held before); equal to the unmeshed "
+                f"split on {n} x {len(roots)}; card {card}")
+            del solver, d
+            if g_n == 2 and s_n == 4:
+                torch.cuda.reset_peak_memory_stats()
+                er = sharded_edge_run(edge_ops, sharded_sssp_padded, mesh,
+                                      args, roots_t, v, want_edge, label)
+                log(f"[13] mesh {label} edge (sharded_sssp_padded): p50 "
+                    f"{statistics.median(er['times']):.3f} ms (samples "
+                    f"{[round(x, 3) for x in er['times']]}; of which the "
+                    f"host builds the slice indexes "
+                    f"{[round(x, 3) for x in er['index_ms']]}), rounds "
+                    f"{er['rounds']} a call, edge launches "
+                    f"{er['launches']} in 3 calls, host syncs {er['syncs']} "
+                    "in 3 calls; peak "
+                    f"device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+                    f"equal to batched_sssp on {v} x {len(roots)}; card "
+                    f"{card}")
+    finally:
+        distributed.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    log(f"[13] {time.perf_counter() - t_phase:.1f} s in all; the positions "
+        "share one card: a correctness path for the sharding and the "
+        "collectives, no multi-card speed")
 
 
 def phase6() -> None:

@@ -14,8 +14,11 @@ of the split and dense tables runs the hand-written Hopper kernel
 `csrc/relax.cu` on a CUDA device and its plain PyTorch version on the
 CPU; the edge list runs `csrc/edge_relax.cu`, the anycast election
 `csrc/election.cu` and KSP `csrc/ksp.cu` the same way; `probe_gather`
-holds the relax kernel's two designs against the TPU gather probe. The
-package imports torch, numpy and the standard library only.
+holds the relax kernel's two designs against the TPU gather probe.
+`parallel` shards the batched solve over a mesh of positions (one or
+more cards, or processes joined by `torch.distributed`), on the same
+kernels. The package imports torch, numpy and the standard library
+only.
 """
 
 from openr_tpu_torch.decision.linkstate import (  # noqa: F401

@@ -22,7 +22,15 @@ names; `device.<i>.hbm_*` are the only shared names, and the JAX sampler
 writes none without a JAX accelerator. Pass `work_ledger` (the JAX
 package's `openr_tpu.monitor.work_ledger` module) to make the solver's
 `election` rounds land in the ledger the Decision, ctrl `get_work_ledger`
-and the soak invariant read. The hook is duck-typed: the port imports nothing of
+and the soak invariant read, and `device_telemetry` (its
+`openr_tpu.monitor.device` module) to make ctrl `get_device_telemetry`
+answer from the port's cost rows and HBM gauges: `attach` points that
+module's `kernel_rows`, `sample_hbm` and `telemetry` at the port's
+`monitor/device.py` functions of the same names and shapes (the port's
+`KernelCostRow` has the reference's field names, so ctrl's join reads
+it), and `DecisionAdapter.detach` puts the module's own back. A Decision configured with `mesh_sources >
+0` gets a meshed solver, as the reference builds one, over `mesh_devices`
+(default: every CUDA device). The hook is duck-typed: the port imports nothing of
 the Decision's package, and the caller hands in the modules whose
 `RouteDatabase`, `RibEntry`, `RibMplsEntry`, `NexthopGroup`, `NextHop`,
 `MplsAction` and `MplsActionType` the Decision compares. Every route the
@@ -38,21 +46,25 @@ from openr_tpu_torch.monitor import device as telemetry
 
 
 def attach(decision, route_types, network_types, device=None,
-           work_ledger=None):
+           work_ledger=None, device_telemetry=None, mesh_devices=None):
     """Build the solver from `decision.config.node.decision` as the
     Decision builds its own (the table knobs, LFA, KSP paths,
-    `native_rib`, and the Decision's counters), set the adapter as
-    `decision._tpu` and return it. `work_ledger`, anything with
-    `commit(stage, touched, delta)` and `export_to(counters)`, receives
-    the solver's work rounds (default: the port's process ledger).
-    `mesh_sources > 0` (a sharded solve) raises NotImplementedError;
-    `native_rib="on"` raises ValueError."""
+    `native_rib`, the mesh of `mesh_sources` x `mesh_graph` positions
+    over `mesh_devices` when `mesh_sources > 0`, and the Decision's
+    counters), set the adapter as `decision._tpu` and return it.
+    `work_ledger`, anything with `commit(stage, touched, delta)` and
+    `export_to(counters)`, receives the solver's work rounds (default:
+    the port's process ledger). `device_telemetry`, a module whose
+    `kernel_rows`, `sample_hbm` and `telemetry` ctrl reads, gets the
+    port's stand-ins until `detach()`. `native_rib="on"` raises
+    ValueError, and a mesh larger than `mesh_devices` ValueError."""
     dcfg = decision.config.node.decision
+    mesh = None
     if dcfg.mesh_sources > 0:
-        raise NotImplementedError(
-            "hook.attach: mesh_sources > 0 asks for a sharded solve, which "
-            "is not ported yet (ROADMAP M4)"
-        )
+        from openr_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_sources=dcfg.mesh_sources,
+                         n_graph=dcfg.mesh_graph, devices=mesh_devices)
     solver = TorchSpfSolver(
         device=device,
         use_dense=dcfg.use_dense_kernel,
@@ -61,10 +73,13 @@ def attach(decision, route_types, network_types, device=None,
         ksp_k=dcfg.ksp_paths,
         kernel_impl=dcfg.spf_kernel,
         native_rib=dcfg.native_rib,
+        mesh=mesh,
         counters=decision.counters,
         work_ledger=work_ledger,
     )
     adapter = DecisionAdapter(solver, route_types, network_types)
+    if device_telemetry is not None:
+        adapter.install_telemetry(device_telemetry)
     decision._tpu = adapter
     return adapter
 
@@ -178,6 +193,31 @@ class DecisionAdapter:
     def __init__(self, solver: TorchSpfSolver, route_types, network_types):
         self.solver = solver
         self.convert = RouteConverter(route_types, network_types)
+        # (module, its functions that `install_telemetry` replaced)
+        self._displaced = None
+
+    #: the functions of the caller's telemetry module ctrl reads
+    TELEMETRY_NAMES = ("kernel_rows", "sample_hbm", "telemetry")
+
+    def install_telemetry(self, module) -> None:
+        """Point `module`'s `kernel_rows`, `sample_hbm` and `telemetry`
+        at the port's, keeping what they were for `detach`."""
+        if self._displaced is not None:
+            raise RuntimeError("install_telemetry: already installed")
+        self._displaced = (module, {
+            n: getattr(module, n) for n in self.TELEMETRY_NAMES})
+        for n in self.TELEMETRY_NAMES:
+            setattr(module, n, getattr(telemetry, n))
+
+    def detach(self) -> None:
+        """Give the telemetry module `attach` was handed its own
+        functions back (adapters attached to one module detach in the
+        reverse order)."""
+        if self._displaced is not None:
+            module, saved = self._displaced
+            for n, fn in saved.items():
+                setattr(module, n, fn)
+            self._displaced = None
 
     # the solver's counters and stats, as the Decision exports them
     @property

@@ -34,6 +34,7 @@ per-prefix path (`assemble_prefix_routes`).
 
 from __future__ import annotations
 
+import logging
 import time
 
 import numpy as np
@@ -91,6 +92,8 @@ from openr_tpu_torch.types.routes import (
     RouteDatabase,
 )
 from openr_tpu_torch.types.topology import ForwardingAlgorithm
+
+log = logging.getLogger(__name__)
 
 
 def _class_groups(cls_arr: np.ndarray):
@@ -227,7 +230,11 @@ class TorchSpfSolver:
     x the edge count, where the edge list serves); `use_dense=True` or
     `use_pallas` force the dense tables, `use_dense=False` the edge list.
     On the port `use_pallas` is kernel A itself, so it runs on any
-    device. `mesh` (a multi-device solve) is not ported yet and raises.
+    device. `mesh` (a `parallel.mesh.Mesh`) shards the batched solves on
+    the split tables over its positions (`parallel/sharded_spf.py`); the
+    single-root RIB solve stays on the solver's device, and a dense or
+    edge table, or a shape the mesh does not divide, solves there too,
+    with a warning the first time.
 
     `native_rib` takes the reference's values: "auto" and "off" both
     solve on the solver's device, and "on" (the reference's host C++
@@ -244,11 +251,6 @@ class TorchSpfSolver:
                  dense_waste_limit: int = 8, use_pallas: bool = False,
                  kernel_impl: str = "split", native_rib: str = "auto",
                  mesh=None, counters=None, work_ledger=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TorchSpfSolver: a mesh-sharded solve is not ported yet "
-                "(ROADMAP M4); leave mesh=None for the single-device solve"
-            )
         if native_rib not in ("auto", "off"):
             raise ValueError(
                 f"TorchSpfSolver: native_rib={native_rib!r}: the host C++ "
@@ -259,10 +261,10 @@ class TorchSpfSolver:
         self.counters = counters
         self.work_ledger = (work_ledger if work_ledger is not None
                             else _work_ledger.ledger())
-        # per-device layout of the last sharded solve, which ctrl
-        # `get_device_telemetry` reads: the port has no sharded solve
-        # yet (ROADMAP M4), so it stays empty, as the reference's does
-        # without a mesh
+        self.mesh = mesh
+        self._mesh_fallback_warned = False
+        # per-position layout of the last sharded solve, which ctrl
+        # `get_device_telemetry` reads (empty without a mesh)
         self.last_shard_rows: list[dict] = []
         self.device = resolve_device(device)
         self.enable_lfa = enable_lfa
@@ -450,6 +452,9 @@ class TorchSpfSolver:
                 )
             tab = cache["sets"].get("split")
             if tab is not None:
+                # a mesh's copies of these tables on other devices
+                # (`_mesh_parts`) are cut again at the next revision
+                tab["rev"] = tab.get("rev", 0) + 1
                 w, ov_pos = tab["host"]["base_w"], tab["host"]["ov_pos"]
                 if tab["uniform_metric"] and bool(
                     (vals != tab["uniform_metric"]).any()
@@ -552,6 +557,23 @@ class TorchSpfSolver:
         roots_t = torch.from_numpy(
             np.ascontiguousarray(np.asarray(roots, dtype=np.int32))
         ).to(self.device)
+        if self.mesh is not None:
+            if table != "split":
+                self._warn_mesh_once(
+                    "configured mesh is only used by the split kernel; "
+                    "%r-table solve runs on the solver's device (leave "
+                    "use_dense unset with spf_kernel='split' to shard)",
+                    table,
+                )
+            elif self._mesh_fits(dev, roots_t.shape[0]):
+                return self._sharded_dist(dev, roots_t, has_over)
+            else:
+                self._warn_mesh_once(
+                    "configured mesh %s does not divide the solve shape "
+                    "(vp=%d, b=%d): solving on the solver's device (use "
+                    "power-of-two axis sizes)",
+                    dict(self.mesh.shape), dev["vp"], roots_t.shape[0],
+                )
         stats: dict = {"table": table}
         relax0 = relax.LAUNCHES
         edge0 = sum(edge_relax.LAUNCHES.values())
@@ -596,6 +618,69 @@ class TorchSpfSolver:
         stats["edge_launches"] = sum(edge_relax.LAUNCHES.values()) - edge0
         self.last_solve_stats = stats
         return out
+
+    def _warn_mesh_once(self, msg: str, *args) -> None:
+        if not self._mesh_fallback_warned:
+            self._mesh_fallback_warned = True
+            log.warning(msg, *args)
+
+    def _mesh_fits(self, dev: dict, b: int) -> bool:
+        """Whether the split tables' rows divide by the mesh's graph axis
+        and the `b` roots by its sources axis. `tight_nodes` pads to
+        multiples of 512 and `pad_batch` to powers of two, so meshes of
+        2, 4 or 8 a side always fit."""
+        from openr_tpu_torch.parallel.mesh import GRAPH_AXIS, SOURCES_AXIS
+
+        return (dev["vp"] % self.mesh.shape[GRAPH_AXIS] == 0
+                and b % self.mesh.shape[SOURCES_AXIS] == 0)
+
+    def _mesh_parts(self, dev: dict) -> dict:
+        """The split tables cut over the mesh, kept with the table set:
+        a position on the tables' device holds views, which the patch
+        scatter updates in place; a copy on another device is cut again
+        when the set's revision moves."""
+        from openr_tpu_torch.parallel.mesh import GRAPH_AXIS, shard
+
+        got = dev.get("mesh_parts")
+        rev = dev.get("rev", 0)
+        if got is None or got[0] is not self.mesh or got[1] != rev:
+            rows = (GRAPH_AXIS, None)
+            parts = {k: shard(dev[k], self.mesh, rows)
+                     for k in ("base_nbr", "base_wgt")}
+            for k in ("ov_ids", "ov_nbr", "ov_wgt", "over"):
+                parts[k] = shard(dev[k], self.mesh, ())
+            got = dev["mesh_parts"] = (self.mesh, rev, parts)
+        return got[2]
+
+    def _sharded_dist(self, dev: dict, roots_t: torch.Tensor,
+                      has_over: bool) -> torch.Tensor:
+        """`_solve_dist` on the mesh: `sharded_sssp_split` over the
+        table parts, its per-position layout kept in `last_shard_rows`,
+        the result assembled [vp, B] on the solver's device."""
+        from openr_tpu_torch.parallel.sharded_spf import sharded_sssp_split
+
+        parts = self._mesh_parts(dev)
+        b = roots_t.shape[0]
+        stats: dict = {"table": "split", "mesh": dict(self.mesh.shape)}
+        relax0 = relax.LAUNCHES
+        key = (dev["vp"], *dev["base_nbr"].shape[1:], *dev["ov_nbr"].shape,
+               b, has_over, tuple(self.mesh.shape.values()))
+        with annotate("spf:sharded_solve", self.counters), telemetry.observe(
+            "sharded_sssp_split", key, span="spf:sharded_solve"
+        ) as cap:
+            out = sharded_sssp_split(
+                parts["base_nbr"], parts["base_wgt"], parts["ov_ids"],
+                parts["ov_nbr"], parts["ov_wgt"], parts["over"], roots_t,
+                self.mesh, has_overloads=has_over, stats=stats,
+            )
+            full = out.full(self.device)
+            if cap:
+                cap.io(args=(*_tensors(dev), roots_t), outs=(full,))
+        self.last_shard_rows = telemetry.shard_rows(out)
+        stats["relax_launches"] = relax.LAUNCHES - relax0
+        stats["edge_launches"] = 0
+        self.last_solve_stats = stats
+        return full
 
     def solve(self, ls, my_node: str):
         """Distances + the ECMP first-hop matrix for my_node's RIB:

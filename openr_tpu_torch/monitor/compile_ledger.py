@@ -13,12 +13,18 @@ library; a kernel takes any shape after that. So the ledger counts:
     lazy distance matrix, the first-hop / LFA / distance copies off the
     split tables, the election's result buffer, the KSP copy, the
     all-sources and fleet chunks). On the CPU the same seams count, as
-    the JAX package counts them on its CPU backend.
+    the JAX package counts them on its CPU backend;
+  * **host syncs**: `record_sync()` at every scalar read of a loop's
+    exit state that the host waits for (the split solve's per-sweep and
+    per-tail-round reads, the sharded solve's per-sweep flag). They move
+    a few bytes each but stall the host until the device drains, so
+    they are counted apart from the transfers.
 
 `mark_warm()` then `builds_since_warm()` is the steady-state rule: no
 build after warm-up (the counterpart of "no compile after warm-up").
 `export_to(counters)` writes `cuda.builds.<source>`, `cuda.builds.total`,
-`cuda.transfers.host_reads` and `cuda.transfers.host_bytes`: names of
+`cuda.transfers.host_reads`, `cuda.transfers.host_bytes` and
+`cuda.transfers.host_syncs`: names of
 their own, since a Decision's export of the JAX ledger writes the
 `jax.*` names after every rebuild. Process-wide and thread-safe: kernels
 build from worker threads and a Decision computes in them.
@@ -41,6 +47,7 @@ class CompileLedger:
         self._warm: dict[str, int] | None = None
         self.host_reads = 0
         self.host_bytes = 0
+        self.host_syncs = 0
 
     # ----------------------------------------------------------- recording
 
@@ -61,6 +68,12 @@ class CompileLedger:
         with self._lock:
             self.host_reads += 1
             self.host_bytes += int(nbytes)
+
+    def record_sync(self) -> None:
+        """One scalar read of a loop's exit state (see the module
+        docstring)."""
+        with self._lock:
+            self.host_syncs += 1
 
     # ------------------------------------------------------------- queries
 
@@ -102,6 +115,7 @@ class CompileLedger:
             self._warm = None
             self.host_reads = 0
             self.host_bytes = 0
+            self.host_syncs = 0
 
     # -------------------------------------------------------------- export
 
@@ -115,6 +129,7 @@ class CompileLedger:
         counters.set("cuda.builds.total", sum(builds.values()))
         counters.set("cuda.transfers.host_reads", reads)
         counters.set("cuda.transfers.host_bytes", nbytes)
+        counters.set("cuda.transfers.host_syncs", self.host_syncs)
 
 
 #: the process ledger every consumer shares
@@ -135,6 +150,10 @@ def record_load(source: str) -> None:
 
 def record_transfer(nbytes: int) -> None:
     _LEDGER.record_transfer(nbytes)
+
+
+def record_sync() -> None:
+    _LEDGER.record_sync()
 
 
 def mark_warm() -> None:

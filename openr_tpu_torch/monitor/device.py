@@ -40,7 +40,8 @@ captures and the sampling (the overhead control).
 
 `efficiency_rows(rows, snapshot)` is the JAX package's pure join: each
 row with a completed span's `profile.<span>_ms` p50 gets its achieved
-rate.
+rate. `shard_rows(arr)` is the per-position layout of a sharded solve's
+result, from its layout alone (never a read of a piece).
 """
 
 from __future__ import annotations
@@ -390,6 +391,36 @@ def efficiency_rows(rows: dict[str, KernelCostRow],
             d["achieved_gbs"] = None
         out.append(d)
     return out
+
+
+def shard_rows(arr) -> list[dict]:
+    """One row per mesh position of a `parallel.mesh.ShardedArray`, with
+    the reference's keys: `device` (the position's index in sources-major
+    order, which equals a JAX mesh's device id over the same grid of
+    devices 0..n-1), `platform` (the position's device type), `index`
+    ([start, stop] per dimension), `shard_shape` and `shard_bytes`. Read
+    from the layout only: no piece is touched, so nothing syncs. [] for
+    anything without a mesh layout."""
+    indices = getattr(arr, "indices", None)
+    mesh = getattr(arr, "mesh", None)
+    if indices is None or mesh is None:
+        return []
+    itemsize = arr.dtype.itemsize
+    rows = []
+    for (s, g), idx in indices.items():
+        shape = [b - a for a, b in idx]
+        nbytes = itemsize
+        for n in shape:
+            nbytes *= n
+        rows.append({
+            "device": mesh.flat(s, g),
+            "platform": mesh.device(s, g).type,
+            "index": [[a, b] for a, b in idx],
+            "shard_shape": shape,
+            "shard_bytes": nbytes,
+        })
+    rows.sort(key=lambda r: r["device"])
+    return rows
 
 
 #: the process telemetry every consumer shares

@@ -22,7 +22,8 @@ version when the tensors lie on the CPU), and the kernel's row flags
 are the change detection: the rows a sweep or tail round lowered and
 their count. Loop conditions read one scalar back to the host per sweep
 or tail round (`.item()`); the count is reported in
-`stats["host_syncs"]`.
+`stats["host_syncs"]` and in the ledger's `cuda.transfers.host_syncs`
+(`monitor/compile_ledger.py`).
 
 Any update order reaches the same fixpoint of the monotone min system,
 so distances equal the JAX package's bit for bit even where the kernel's
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.common import constants as _C
+from openr_tpu_torch.monitor import compile_ledger
 from openr_tpu_torch.ops import relax
 from openr_tpu_torch.ops.spf import first_hop_matrix, lfa_matrix
 
@@ -284,6 +286,11 @@ class _Solve:
             tables, over_base, over_ov, roots, self.flags
         )
 
+    def synced(self) -> None:
+        """Count one read of the loop's state back to the host."""
+        self.st["host_syncs"] += 1
+        compile_ledger.record_sync()
+
     def compact(self, mask, cap):
         """The ids where `mask` [vp] holds, sorted, dead-padded to `cap`."""
         return _compact_ids(torch.where(mask, self.iota, self.vp), self.vp,
@@ -307,7 +314,7 @@ class _Solve:
         else:
             head = int(frontier[0].item())
         pending = head != dead
-        st["host_syncs"] += 1
+        self.synced()
         it = 0
         while pending and not spilled and it < tail_rounds_cap:
             exp = out_nbr[frontier.long()].reshape(-1)
@@ -334,7 +341,7 @@ class _Solve:
             head, sp = torch.stack(
                 [frontier[0].to(torch.int64), spill_dev.to(torch.int64)]
             ).tolist()
-            st["host_syncs"] += 1
+            self.synced()
             st["tail_rounds"] += 1
             pending, spilled = head != dead, bool(sp)
             it += 1
@@ -347,7 +354,7 @@ class _Solve:
         while changed and it < self.vp:
             self.dense_sweep(dist)
             changed = int(self.rows_changed.item()) > 0
-            self.st["host_syncs"] += 1
+            self.synced()
             self.st["sweeps"] += 1
             it += 1
 
@@ -380,7 +387,7 @@ def batched_sssp_split(
     while n_changed > tail_threshold and it < vp:
         sv.dense_sweep(dist)
         n_changed = int(sv.rows_changed.item())
-        st["host_syncs"] += 1
+        sv.synced()
         st["sweeps"] += 1
         it += 1
 

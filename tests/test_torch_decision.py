@@ -30,6 +30,11 @@ torch.set_num_threads(1)
 
 
 def mk(backend, port=False, **dcfg):
+    if backend == "tpu":
+        # the reference solves on its device, never in the host C++
+        # engine, so its RouteUpdate deletion order follows the same
+        # path as the port's
+        dcfg.setdefault("native_rib", "off")
     cfg = Config(NodeConfig(node_name="node-0",
                             decision=DecisionConfig(**dcfg)))
     routes = ReplicateQueue(name="routes")
@@ -227,6 +232,7 @@ def test_attach_raises_for_what_the_port_lacks():
         hook.attach(d, ref_routes, ref_network, device="cpu")
     d, _ = mk("cpu")
     d.config.node.decision.mesh_sources = 2
-    with pytest.raises(NotImplementedError, match="M4"):
-        hook.attach(d, ref_routes, ref_network, device="cpu")
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        hook.attach(d, ref_routes, ref_network, device="cpu",
+                    mesh_devices=["cpu"])
     assert d._tpu is None

@@ -233,8 +233,15 @@ def test_edge_patch_writes_each_slot_once():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="M4"):
-        TorchSpfSolver(device="cpu", mesh=object())
+    """The mesh knob takes a mesh; one larger than its devices raises
+    ValueError, as the reference's `make_mesh` does."""
+    from openr_tpu_torch.parallel import make_mesh
+
+    cpu8 = [torch.device("cpu")] * 8
+    mesh = make_mesh(4, 2, devices=cpu8)
+    assert TorchSpfSolver(device="cpu", mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="needs 16 devices"):
+        make_mesh(8, 2, devices=cpu8)
 
 
 def test_trim_caches_clears_warm_index_and_elections():

@@ -503,6 +503,26 @@ def test_host_transfers_count_the_seams():
     assert led.transfers() == (chunks, csr.padded_nodes ** 2 * 4)
 
 
+def test_host_syncs_count_the_split_loop():
+    """`cuda.transfers.host_syncs` counts every read of the split loop's
+    state: one solve moves it by that solve's `host_syncs`, on the RIB
+    path and on the batched one; `host_reads` keeps counting only the
+    transfers."""
+    led = compile_ledger.ledger()
+    ls, _ps, csr = erdos_renyi_lsdb(150, avg_degree=4, seed=4, max_metric=9)
+    solver = TorchSpfSolver(device="cpu")
+    for call in (lambda: solver.solve(ls, "node-0"),
+                 lambda: solver._solve_dist(csr, np.arange(16) % 150)):
+        led.reset()
+        call()
+        n = solver.last_solve_stats["host_syncs"]
+        assert n >= 2 and led.host_syncs == n
+        assert led.transfers()[0] <= 1
+    c = Counters()
+    led.export_to(c)
+    assert c.get("cuda.transfers.host_syncs") == n
+
+
 def test_election_and_ksp_transfers():
     led = compile_ledger.ledger()
     ls, ps = build(PORT, "fat_tree4")
@@ -713,6 +733,57 @@ def test_ctrl_get_device_telemetry_on_a_port_backed_node():
     assert res["shards"] == []
     assert res["hbm_available"] is False
     assert adapter.last_shard_rows == []
+
+
+def test_ctrl_get_device_telemetry_serves_the_port():
+    """With `device_telemetry=` the reference module ctrl reads serves
+    the port's planes: ctrl's kernels, devices, hbm_available and shards
+    (of a meshed attach's sharded solve) equal the adapter's own answer,
+    and `detach` gives the module its functions back."""
+    from openr_tpu.emulator import Cluster
+    from openr_tpu.rpc import RpcClient
+
+    names = hook.DecisionAdapter.TELEMETRY_NAMES
+    originals = {n: getattr(ref_device, n) for n in names}
+    _ls, _ps, csr = erdos_renyi_lsdb(40, avg_degree=4, seed=3, max_metric=9)
+
+    async def body():
+        c = Cluster.from_edges([("a", "b")], enable_ctrl=True)
+        await c.start()
+        adapter = None
+        try:
+            await c.wait_converged(timeout=30)
+            dec = c.nodes["a"].decision
+            dcfg = dec.config.node.decision
+            dcfg.mesh_sources, dcfg.mesh_graph = 4, 2
+            adapter = hook.attach(dec, ref_routes, ref_network,
+                                  device="cpu", device_telemetry=ref_device,
+                                  mesh_devices=[torch.device("cpu")] * 8)
+            assert all(getattr(ref_device, n) is not originals[n]
+                       for n in names)
+            adapter.solver._solve_dist(csr, np.arange(8, dtype=np.int32))
+            cli = RpcClient(port=c.nodes["a"].ctrl.port)
+            await cli.connect()
+            try:
+                res = await cli.call("get_device_telemetry", {})
+            finally:
+                await cli.close()
+            return res, adapter.device_telemetry()
+        finally:
+            if adapter is not None:
+                adapter.detach()
+            await c.stop()
+
+    try:
+        res, want = run(body())
+        detached = {n: getattr(ref_device, n) is originals[n] for n in names}
+    finally:  # the workers share the module: never leave a stand-in
+        for n, fn in originals.items():
+            setattr(ref_device, n, fn)
+    assert {k: res[k] for k in want} == want
+    assert len(res["shards"]) == 8 and res["hbm_available"] is False
+    assert "sharded_sssp_split" in {k["fn"] for k in res["kernels"]}
+    assert all(detached.values()), detached
 
 
 def test_hook_attach_default_ledger():
