@@ -22,8 +22,9 @@ a host read each).
 Phases (any failure exits non-zero and prints no result line):
 
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles csrc/relax.cu, election.cu, ksp.cu and edge_relax.cu
-     with one nvcc each and, at the same time, a cubin of each with
+  2. build: compiles csrc/relax.cu, election.cu, ksp.cu, edge_relax.cu,
+     split_loop.cu and rib_epilogue.cu with one nvcc each and, at the
+     same time, a cubin of each with
      `-Xptxas -v`, whose registers, shared memory and spills it prints per
      kernel; checks the C dispatch against `design_for`;
   3. kernels vs plain on the card, exact int32 equality of dist, the
@@ -186,7 +187,28 @@ Phases (any failure exits non-zero and prints no result line):
      run: the shard rows, per mesh the p50 of 3 calls beside the
      unmeshed split's, sweeps or rounds, relax and edge launches, host
      syncs, peak device memory. This measures the sharding logic and the
-     collectives at full width, not multi-card speed.
+     collectives at full width, not multi-card speed;
+ 14. the split solve's loop on the card and the RIB epilogue
+     (`csrc/split_loop.cu`, `csrc/rib_epilogue.cu`): (a) each kernel
+     against its twin at er100k's shapes and on random inputs (the
+     compaction at 0, 1, cap and cap + 1 marks and more, the dead slot, a
+     ragged length, clear off and on; the mark with and without the
+     frontier; the snapshot and the decisions in every phase; kernel A
+     under the loop guard with a live count; the epilogue on the solve's
+     distances and INF-holed ones, LFA off and on, overloads flipped),
+     every guarded launch of another phase writing nothing, each timed
+     (CUPTI) with its bound, its plain twin and, for the compaction,
+     `torch.nonzero` on the same flags; (b) the whole program on a
+     20 000-node ER, eager and then replayed from its CUDA graphs, equal to
+     the CPU twins' distances and buffer: cold, one step a block, a
+     spilled tail, a long tail with LFA, overloads with LFA, and warm from
+     a sparse and a dense cone; (c) at er100k through the solver, a block
+     replayed with the loop done (the no-op steps' cost) and the
+     device-idle share of one traced solve (`profiling.trace`). [4]
+     and [10b] print each solve's host syncs, replays, steps and useful
+     relax launches, and the idle share of one traced call.
+
+`--only 14` runs the build and [14] alone, with no result line.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
 each row's `timed_by` saying whether its `ms` is a CUPTI duration
@@ -402,13 +424,16 @@ def graph_us(launch, restore, reps: int) -> float:
 
 
 #: the hand-kernel sources, each built by one nvcc (all started together)
-SOURCES = ("relax", "election", "ksp", "edge_relax")
+SOURCES = ("relax", "election", "ksp", "edge_relax", "split_loop",
+           "rib_epilogue")
 #: kernels `-Xptxas -v` must report per source: relax's generic kernel
 #: (strips 0, 1, 2, 4, overload off/on) and a vec kernel per (W, B,
-#: overload) specialisation; ksp's SSSP kernel, its wide-row twin and the
-#: walk; edge_relax's init and fixpoint kernels
-PTXAS_KERNELS = {"relax": 8 + 2 * len(WIDTHS) ** 2, "election": 1, "ksp": 3,
-                 "edge_relax": 2}
+#: overload) specialisation, each with and without the split loop's
+#: guard; ksp's SSSP kernel, its wide-row twin and the walk; edge_relax's
+#: init and fixpoint kernels; split_loop's four; rib_epilogue's one
+PTXAS_KERNELS = {"relax": 2 * (8 + 2 * len(WIDTHS) ** 2), "election": 1,
+                 "ksp": 3, "edge_relax": 2, "split_loop": 4,
+                 "rib_epilogue": 1}
 
 
 def start_ptxas_report(cuda_build, name: str):
@@ -433,9 +458,13 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(relax_(?:vec|generic)_kernel)"
-                          r"(?:ILi(\d+)E(?:Li(\d+)E)?Lb(\d)E)?", m.group(1))
+                          r"(?:ILi(\d+)E(?:Li(\d+)E)?Lb(\d)ELb(\d)E)?",
+                          m.group(1))
             named = re.search(r"(elect_seg_kernel|ksp_sssp_kernel|"
-                              r"ksp_walk_kernel)(ILb1E)?", m.group(1))
+                              r"ksp_walk_kernel|split_snap_kernel|"
+                              r"frontier_mark_kernel|flag_compact_kernel|"
+                              r"split_ctl_kernel|rib_epilogue_kernel)"
+                              r"(ILb1E)?", m.group(1))
             edge = re.search(r"edge_(?:init|relax)_kernel", m.group(1))
             cur = (k.group(1) if k else named.group(1) if named
                    else edge.group(0) if edge else m.group(1))
@@ -443,9 +472,10 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
                 cur += "<wide rows>"
             if k is not None and k.group(2):
                 over = "over" if k.group(4) == "1" else "no over"
+                guard = ",guarded" if k.group(5) == "1" else ""
                 shape = (f"{k.group(2)},{k.group(3)}" if k.group(3)
                          else f"strips {k.group(2)}")
-                cur += f"<{shape},{over}>"
+                cur += f"<{shape},{over}{guard}>"
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -534,6 +564,10 @@ def build_all(cuda_build, modules, old_dir: Path | None = None) -> dict:
             if proc.returncode != 0:
                 fail(f"nvcc failed for the --old {name}.cu:\n{text}")
             old_libs[name] = load_old(by_name[name], lib)
+        if not hasattr(old_libs.get("edge_relax"), "openr_edge_relax"):
+            # the other checkout's edge kernels are this one's design: the
+            # turns of [10c] drive the round design's entry points only
+            old_libs.pop("edge_relax", None)
     finally:
         for proc, tmp in list(reports.values()) + [
                 (p, t) for p, _l, t in olds.values()]:
@@ -2112,9 +2146,12 @@ def phase9_config2(relax, election_ops, old_libs, k: int = CONFIG2["k"],
            "states": (ls, ps), "ribs": {}}
     for me in roots:
         my_id = csr.name_to_id[me]
-        solver.solve(ls, me)  # warm-up
         relax.reset_launches()
         election_ops.reset_launches()
+        # the warm-up solve runs eagerly (its kernels launched by their
+        # wrappers) and captures the program the timed solves replay
+        solver._programs.clear()
+        solver.solve(ls, me)  # warm-up
         dev0 = solver.elect_stats["device_elections"]
         solve_ms, rib_ms = [], []
         for _ in range(5):
@@ -2502,12 +2539,13 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
         d = solver._solve_dist(csr, roots)  # warm-up: builds the tables
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
-        times = []
+        times, calls_st = [], []
         for _ in range(3):
             t0 = time.perf_counter()
             d = solver._solve_dist(csr, roots)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+            calls_st.append(dict(solver.last_solve_stats))
         st = dict(solver.last_solve_stats)
         peak = torch.cuda.max_memory_allocated()
         before = kernel_launches(relax, edge_ops)
@@ -2537,12 +2575,30 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
         launched = {nm: after[nm] - before[nm] for nm in names}
         busy = busy_share(prof, per, launched, traced_ms)
         live[kind] = d[:n].clone()
+        if table == "split":
+            from openr_tpu_torch.monitor.profiling import annotate
+
+            def traced_call():
+                with annotate("chip_smoke:config3_split"):
+                    solver._solve_dist(csr, roots)
+                    torch.cuda.synchronize()
+
+            idle, span = trace_idle_share(traced_call,
+                                          "chip_smoke:config3_split")
+            log(f"[10b] config 3 split per call: host syncs "
+                f"{[x['host_syncs'] for x in calls_st]}, replays "
+                f"{[x['replays'] for x in calls_st]}, steps "
+                f"{[x['steps'] for x in calls_st]}, useful relax launches "
+                f"{[x['relax_launches'] for x in calls_st]}, graph nodes "
+                f"{st['graph_nodes']}; device-idle share of one traced call "
+                f"{'not measured' if idle is None else round(idle, 4)} over "
+                f"its {span:.3f} ms span (profiling.trace)")
         p50 = statistics.median(times)
         rows[kind] = dict(
             rows=int(d.shape[0]), p50_ms=p50, times=times, first_ms=first_ms,
             sources_per_s=b / (p50 / 1e3), stats=st,
             kernels={nm: (v[0], v[1], launched[nm])
-                     for nm, v in per.items() if launched[nm]},
+                     for nm, v in per.items() if launched[nm] or v[1]},
             busy=busy,
             peak_bytes=peak,
             peak_over_base=peak - base, launches=kind_launches,
@@ -2586,7 +2642,10 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
                  f"{st['tile_cols']} columns, {st['gathered_edges']} "
                  "gathered edges)")
         reads = st.get("host_reads", st.get("host_syncs"))
-        kern = "; ".join(f"{nm} {v[1]} of {v[2]} launches kept, "
+        # a replayed split call launches through its graph: no wrapper
+        # counts it, CUPTI does
+        kern = "; ".join(f"{nm} {v[1]} kept by CUPTI ({v[2]} launched by "
+                         "its wrapper), "
                          + (f"{v[0] / v[1]:.2f} us each" if v[1]
                             else "not measured")
                          for nm, v in r["kernels"].items())
@@ -2595,7 +2654,8 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
             f"{[round(x, 3) for x in r['times']]}, first call with the "
             f"table build {r['first_ms']:.1f} ms); sources/s "
             f"{r['sources_per_s']:.1f}; {steps}, host reads {reads}; "
-            f"launches in its {4 + PROFILED_CALLS} calls {r['launches']}; "
+            f"wrapper launches in its {4 + PROFILED_CALLS} calls (a "
+            f"replayed split call's not among them) {r['launches']}; "
             f"CUPTI ({PROFILED_CALLS} calls in one profile): "
             f"{kern or 'not measured'}; busy share "
             f"{'not measured' if r['busy'] is None else round(r['busy'], 3)}"
@@ -3528,10 +3588,20 @@ class LaunchWork:
 
         def spy_relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n,
                       src_rows, dst_rows, *rest):
-            if relax._count(nbr, row0, n, src_rows, dst_rows):
+            # rest: changed, row_flag, rows_changed and the loop guard
+            # (ctl, phase_mask, n_live), read as the launch finds it
+            if torch.cuda.is_current_stream_capturing():
+                # recorded into a CUDA graph: launches nothing
+                return orig_relax(entry, dist_in, out, nbr, wgt, roots, over,
+                                  row0, n, src_rows, dst_rows, *rest)
+            live = relax._count(nbr, row0, n, src_rows, dst_rows)
+            guard = rest[3:6]
+            if guard and (guard[0] is not None or guard[2] is not None):
+                live = relax.live_rows(*guard, live)
+            if live:
                 self.add(*relax.launch_work(
-                    nbr, wgt, dist_in.shape[1], over=over, row0=row0, n=n,
-                    src_rows=src_rows, dst_rows=dst_rows)[1:3])
+                    nbr, wgt, dist_in.shape[1], over=over, row0=row0,
+                    n=live, src_rows=src_rows, dst_rows=dst_rows)[1:3])
             return orig_relax(entry, dist_in, out, nbr, wgt, roots, over,
                               row0, n, src_rows, dst_rows, *rest)
 
@@ -3571,7 +3641,44 @@ class LaunchWork:
             self.add(*edge_ops.fix_work(src, blocked, index, v, dist))
             return dist
 
-        self.keep = [(relax, "_relax", orig_relax),
+        from openr_tpu_torch.ops import rib_epilogue, split_loop as sl
+
+        def spy_loop(name, ctl_at, mask_at, work):
+            orig = getattr(sl, name)
+
+            def call(*a):
+                if (not torch.cuda.is_current_stream_capturing()
+                        and sl.runs(a[ctl_at], a[mask_at])):
+                    self.add(*work(*a))
+                return orig(*a)
+
+            self.keep.append((sl, name, orig))
+            setattr(sl, name, call)
+
+        def mark_work(frontier, out_nbr, _m, ctl, _k, with_frontier, dead):
+            f = frontier[: int(ctl[sl.N_FRONT])].long()
+            return sl.mark_work(f.shape[0], out_nbr.shape[1],
+                                int((out_nbr[f] != dead).sum()),
+                                with_frontier)
+
+        self.keep = []
+        spy_loop("snap", 3, 4, lambda d, s_, rf, *_: sl.snap_work(
+            d.numel(), rf.numel()))
+        spy_loop("frontier_mark", 3, 4, mark_work)
+        spy_loop("flag_compact", 2, 3, lambda f, o, c, k, s1, s2, dd, clear:
+                 sl.compact_work(f.shape[0], o.shape[0],
+                                 int((f != 0).sum()), clear))
+        spy_loop("split_ctl", 0, 2, lambda *a: sl.ctl_work())
+        orig_buf = rib_epilogue.rib_buffer
+
+        def spy_buf(dist, metric, ids, over, my_id, with_lfa):
+            self.add(*rib_epilogue.epilogue_work(dist.shape[0],
+                                                 ids.shape[0] + 1, with_lfa))
+            return orig_buf(dist, metric, ids, over, my_id, with_lfa)
+
+        self.keep.append((rib_epilogue, "rib_buffer", orig_buf))
+        rib_epilogue.rib_buffer = spy_buf
+        self.keep += [(relax, "_relax", orig_relax),
                      (election_ops, "elect_seg", orig_elect),
                      (ksp_ops, "ksp_sssp", orig_sssp),
                      (ksp_ops, "ksp_walk", orig_walk),
@@ -3853,6 +3960,9 @@ def main(argv=None) -> None:
                     help="csrc/ of another checkout: time its relax, "
                     "election and edge kernels beside this checkout's, in "
                     "turns")
+    ap.add_argument("--only", choices=("14",), default=None,
+                    help="run the build and phase 14 alone (no result "
+                    "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -3863,7 +3973,7 @@ def main(argv=None) -> None:
         f"{torch.version.cuda}; count {torch.cuda.device_count()}")
 
     # ---- phase 2: build ------------------------------------------------
-    from openr_tpu_torch.ops import cuda_build, relax
+    from openr_tpu_torch.ops import cuda_build, relax, rib_epilogue, split_loop
     from openr_tpu_torch.ops import edge_relax as edge_ops
     from openr_tpu_torch.ops import election as election_ops
     from openr_tpu_torch.ops import ksp as ksp_ops
@@ -3872,7 +3982,8 @@ def main(argv=None) -> None:
 
     fresh = not any(cuda_build.BUILD_DIR.glob("lib*.so"))
     mods = (relax, election_ops, ksp_ops, edge_ops)
-    old_libs = build_all(cuda_build, mods, args.old)
+    old_libs = build_all(cuda_build, mods + (split_loop, rib_epilogue),
+                         args.old)
     compile_ledger.mark_warm()  # no build after this ([12] checks)
     lib = relax._lib()
     grid = (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 48, 64, 128, 256, 512, 1024)
@@ -3884,6 +3995,16 @@ def main(argv=None) -> None:
         fail(f"C dispatch and design_for / generic_np disagree at {bad}")
 
     dev = torch.device(DEVICE)
+    if args.only == "14":
+        from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+        from openr_tpu_torch.utils.topogen import erdos_renyi_lsdb
+
+        ls, _ps, csr = erdos_renyi_lsdb(100_000, avg_degree=20, seed=0,
+                                        max_metric=64)
+        solver = TorchSpfSolver(device=DEVICE)
+        tables = solver._device_arrays(csr)
+        phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables)
+        return
     # ---- phase 3a: kernels vs plain on random tables ---------------------
     worst_r, cases = phase3_random(relax, dev)
     log(f"[3] kernels vs plain, random tables: {cases} cases, max |diff| "
@@ -3918,27 +4039,55 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     relax.reset_launches()
+    split_loop.reset_launches()
+    rib_epilogue.reset_launches()
+    # [3b] left a captured program: drop it, so that the warm-up solve
+    # runs eagerly and its kernels are launched by their wrappers; the
+    # later solves replay its graphs, which no wrapper counts
+    solver._programs.clear()
+    run_stats = []  # every solve's and RIB's stats in the counted run
     solver.solve(ls, "node-0")  # warm-up
-    solve_ms = []
+    run_stats.append(dict(solver.last_solve_stats))
+    solve_ms, solve_stats = [], []
     for _ in range(5):
         t0 = time.perf_counter()
         solved = solver.solve(ls, "node-0")
         solve_ms.append((time.perf_counter() - t0) * 1e3)
+        solve_stats.append(dict(solver.last_solve_stats))
+    run_stats += solve_stats
     st = dict(solver.last_solve_stats)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         solver.solve(ls, "node-0")
         torch.cuda.synchronize()
     prof_st = dict(solver.last_solve_stats)
+    run_stats.append(prof_st)
     k_us, k_n = kernel_device_us(prof, tuple(relax.KERNEL_NAMES.values()))
+    # each of the loop's kernels as CUPTI saw it in that replayed solve
+    loop_cupti = {k: kernel_device_us(prof, (nm,))[1] for k, nm in dict(
+        split_loop.KERNEL_NAMES, epilogue=rib_epilogue.KERNEL_NAME).items()}
     solver.compute_routes(ls, ps, "node-0")  # warm-up
+    run_stats.append(dict(solver.last_solve_stats))
     rib_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
         rdb = solver.compute_routes(ls, ps, "node-0")
         rib_ms.append((time.perf_counter() - t0) * 1e3)
+        run_stats.append(dict(solver.last_solve_stats))
     torch.cuda.synchronize()
     launches = dict(relax.LAUNCHES_BY_DESIGN)
+    loop_launches = dict(split_loop.LAUNCHES,
+                         epilogue=rib_epilogue.LAUNCHES)
+    # the blocks the counted run replayed as a graph (a run with graph
+    # nodes replayed each of its blocks), read from each call's stats
+    graph_replays = sum(x["replays"] for x in run_stats
+                        if x.get("graph_nodes"))
+    for k, n in loop_launches.items():
+        if n == 0:
+            fail(f"the main path launched the loop's {k} kernel no time "
+                 f"({loop_launches})")
+    idle4, span4 = trace_idle_share(lambda: solver.solve(ls, "node-0"),
+                                    "spf:batched_solve")
     b = solved[1].device_tensor.shape[1]
     designs = path_designs(relax, tables, b)
     for d in designs:
@@ -3955,16 +4104,32 @@ def main(argv=None) -> None:
         f"{n_routes / (rib_p50 / 1e3):.0f}")
     log(f"[4] per solve: sweeps {st['sweeps']}, tail rounds "
         f"{st['tail_rounds']}, spilled {st['spilled']}, host syncs "
-        f"{st['host_syncs']}, relax launches {st['relax_launches']}")
+        f"{st['host_syncs']}, replays {st['replays']}, steps "
+        f"{st['steps']}, useful relax launches {st['relax_launches']}, "
+        f"graph nodes {st['graph_nodes']}; over the 5 timed solves: host "
+        f"syncs {[x['host_syncs'] for x in solve_stats]}, steps "
+        f"{[x['steps'] for x in solve_stats]}, sweeps "
+        f"{[x['sweeps'] for x in solve_stats]}, tail rounds "
+        f"{[x['tail_rounds'] for x in solve_stats]}; the loop's and the "
+        f"epilogue's launches by their wrappers (solves + RIBs; the "
+        f"warm-up solve's eager blocks and every epilogue) "
+        f"{loop_launches}, beside {graph_replays} replayed blocks of "
+        f"{st['graph_nodes']} graph nodes; CUPTI's count of each in the "
+        f"profiled solve {loop_cupti}; device-idle share of one traced solve "
+        f"{'not measured' if idle4 is None else round(idle4, 4)} over its "
+        f"{span4:.3f} ms span (profiling.trace)")
     if k_n:
         log(f"[4] relax kernel on the main path (CUPTI, one profiled solve "
             f"of {prof_st['sweeps']} sweeps / {prof_st['tail_rounds']} tail "
-            f"rounds): {k_n} launches, {k_us:.1f} us in all, "
+            f"rounds, {prof_st['relax_launches']} launches that did work): "
+            f"{k_n} launches (every launch of the replayed block, the "
+            f"guarded no-ops included), {k_us:.1f} us in all, "
             f"{k_us / k_n:.2f} us per launch")
     else:
         log("[4] relax kernel on the main path (CUPTI): not measured "
             "(the profiler saw no relax kernel)")
-    log(f"[4] main-path relax launches by design (solves + RIBs): "
+    log(f"[4] main-path relax launches by design by the wrappers (solves "
+        f"+ RIBs; replayed blocks not counted): "
         f"{launches}; designs of its shapes {designs}; scipy root+2 "
         "neighbor columns and first hops: ok")
     phase4_hub(relax, old_libs)
@@ -4005,6 +4170,9 @@ def main(argv=None) -> None:
 
     # ---- phase 13: the sharded solve at config 3's width ------------------
     phase13_sharded(relax, edge_ops, csr, p10b["roots"])
+
+    # ---- phase 14: the split loop on the card and the RIB epilogue -------
+    p14 = phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables)
 
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path
@@ -4107,6 +4275,35 @@ def main(argv=None) -> None:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
+            "timed_by": row["timed_by"],
+        })
+    for kind, fn, line in (
+            ("snap", "batched_sssp_split", 393),
+            ("mark", "batched_sssp_split", 414),
+            ("compact", "_compact_ids", 250),
+            ("ctl", "batched_sssp_split", 383),
+            ("epilogue", "batched_sssp_split_rib", 524)):
+        row = p14["a"]["timing"][kind]
+        kname = (rib_epilogue.KERNEL_NAME if kind == "epilogue"
+                 else split_loop.KERNEL_NAMES[kind])
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": ("openr_tpu_torch/csrc/rib_epilogue.cu"
+                       if kind == "epilogue"
+                       else "openr_tpu_torch/csrc/split_loop.cu"),
+            "replaces": f"openr_tpu/ops/spf_split.py:{line} ({fn})",
+            # by the wrappers in [4]'s run: the warm-up solve's eager
+            # blocks (and every epilogue); the replayed blocks beside it
+            "launches": loop_launches[kind],
+            "graph_replays": graph_replays,
+            "cupti_launches_one_solve": loop_cupti[kind],
+            "max_abs_err": row["err"],
+            "ms": row["us"] / 1e3,
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["lib_ms"],
             "timed_by": row["timed_by"],
         })
     log(f"[5] warm-path relax launches by design: {warm_launches}")
@@ -4234,7 +4431,8 @@ def phase13_sharded(relax, edge_ops, csr, roots) -> None:
     p50_plain = statistics.median(t_plain)
     log(f"[13] config 3 unmeshed split: p50 {p50_plain:.3f} ms (samples "
         f"{[round(x, 3) for x in t_plain]}); sweeps {st_plain['sweeps']}, "
-        f"relax launches {n_plain} in 4 calls, host syncs {sync_plain} in 4 "
+        f"relax launches by the wrapper {n_plain} in 4 calls (the first "
+        f"eager, then replays), host syncs {sync_plain} in 4 "
         f"calls; card {card}")
     del plain
     blocked = build_blocked(csr.edge_metric, csr.edge_src,
@@ -4387,6 +4585,458 @@ def phase6() -> None:
     log(f"[6] overloads+LFA: {n} nodes, {len(over_names)} overloaded "
         f"(root among them), {k} neighbors; fh bits {int(fh.sum())}, "
         f"lfa bits {int(lfa.sum())}: distances, fh and LFA exact")
+
+
+# ----------------------------------------------------------- phase 14
+
+#: [14]'s whole-program cases on a 20 000-node ER (its CPU twin runs in
+#: seconds): (label, solve knobs, LFA, overload share, steps a block)
+LOOP_CASES = (
+    ("cold", {}, False, 0.0, None),
+    ("cold K=1", {}, False, 0.0, 1),
+    ("spill", dict(tail_cap=256, tail_rounds_cap=4), False, 0.0, None),
+    ("long tail", dict(tail_threshold=20_000, tail_cap=20_480,
+                       tail_rounds_cap=512), True, 0.0, 64),
+    ("overloads+LFA", {}, True, 0.02, None),
+)
+LOOP_N = 20_000
+
+
+def trace_idle_share(fn, span: str) -> tuple[float | None, float]:
+    """(device-idle share, span ms) of one call of `fn` traced with the
+    port's `profiling.trace`: 1 - the union of the card's kernel and copy
+    intervals inside the `span` annotation over the span's length, read
+    from the exported Chrome trace. None where the trace holds no device
+    event inside the span."""
+    from openr_tpu_torch.monitor.profiling import trace
+
+    out = Path(tempfile.mkdtemp(prefix="trace_"))
+    try:
+        with trace(str(out)):
+            fn()
+            torch.cuda.synchronize()
+        files = sorted(out.glob("*.json"))
+        if not files:
+            fail(f"profiling.trace wrote no trace into {out}")
+        events = json.loads(files[-1].read_text()).get("traceEvents", [])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    spans = [e for e in events if e.get("name") == span and "dur" in e]
+    if not spans:
+        fail(f"the trace holds no {span!r} span")
+    t0 = min(e["ts"] for e in spans)
+    t1 = max(e["ts"] + e["dur"] for e in spans)
+    dev = sorted(
+        (max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in events
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+        and "dur" in e and e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    if not dev:
+        return None, (t1 - t0) / 1e3
+    busy, cur_a, cur_b = 0.0, *dev[0]
+    for a, b in dev[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    return 1.0 - busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def loop_ctl(split_loop, phase, **words):
+    ctl = split_loop.new_ctl(phase, 1024, 64, 1 << 20, DEVICE)
+    for k, v in words.items():
+        ctl[getattr(split_loop, k)] = v
+    return ctl
+
+
+def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
+                     nbr) -> dict:
+    """The loop's kernels and the epilogue against their twins on the card
+    at er100k's shapes (the solve's tables, its distances `dist` and its
+    neighbor arrays `nbr`), and on random inputs; each timed (CUPTI)
+    with its bound, its plain twin, and for the compaction
+    `torch.nonzero` on the same flags."""
+    from openr_tpu_torch.monitor.device import bound
+
+    sl = split_loop
+    vp, b = dist.shape
+    dead, cap = vp - 1, 8192
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    worst = {k: 0 for k in ("snap", "mark", "compact", "ctl", "relax",
+                            "epilogue")}
+
+    def differ(a, b_):
+        return int((a.long() - b_.long()).abs().max().item()) if a.numel() \
+            else 0
+
+    # ---- the compaction: 0, 1, cap, cap + 1 marks, random, dead slot
+    cases = []
+    for marks in (0, 1, cap, cap + 1, 3000, 50_000, vp):
+        flags = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
+        if marks:
+            pick = torch.randperm(vp, generator=g, device=DEVICE)[:marks]
+            flags[pick] = 1 + torch.randint(0, 5, (pick.numel(),),
+                                            generator=g, device=DEVICE,
+                                            dtype=torch.int32)
+        cases.append((f"{marks} marks", flags))
+    dflag = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
+    dflag[[3, 17, dead]] = 1
+    cases.append(("dead slot", dflag))
+    odd = torch.zeros(vp - 5, dtype=torch.int32, device=DEVICE)
+    odd[-3:] = 1
+    cases.append(("ragged length", odd))
+    for label, flags in cases:
+        for clear in (False, True):
+            outs = []
+            for fn in (sl.flag_compact, sl.flag_compact_ref):
+                f = flags.clone()
+                out = torch.full((cap,), 7, dtype=torch.int32, device=DEVICE)
+                ctl = loop_ctl(sl, sl.TAIL)
+                fn(f, out, ctl, sl.M_TAIL, sl.N_FRONT, sl.RAW_FRONT, dead,
+                   clear)
+                outs.append((out, ctl, f))
+            (o1, c1, f1), (o2, c2, f2) = outs
+            torch.cuda.synchronize()
+            worst["compact"] = max(worst["compact"], differ(o1, o2),
+                                   differ(c1, c2), differ(f1, f2))
+        # the guard: another phase's launch touches nothing
+        f, out = flags.clone(), torch.full((cap,), 7, dtype=torch.int32,
+                                           device=DEVICE)
+        ctl = loop_ctl(sl, sl.DENSE)
+        sl.flag_compact(f, out, ctl, sl.M_TAIL, sl.N_FRONT, sl.RAW_FRONT,
+                        dead, True)
+        if not (bool((out == 7).all()) and torch.equal(f, flags)
+                and torch.equal(ctl, loop_ctl(sl, sl.DENSE))):
+            fail(f"[14] flag_compact_kernel ({label}): a guarded launch "
+                 "wrote")
+    # ---- the mark, on the solve's out-neighbor table
+    out_nbr = tables["out_nbr"]
+    for n_front in (0, 1, 500, min(cap, vp - 1)):
+        frontier = torch.full((cap,), dead, dtype=torch.int32, device=DEVICE)
+        frontier[:n_front] = torch.randperm(
+            vp - 1, generator=g, device=DEVICE)[:n_front].to(torch.int32)
+        for warm in (False, True):
+            marks = []
+            for fn in (sl.frontier_mark, sl.frontier_mark_ref):
+                m = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
+                ctl = loop_ctl(sl, sl.TAIL, N_FRONT=n_front)
+                fn(frontier, out_nbr, m, ctl, sl.M_TAIL, warm, dead)
+                marks.append(m)
+            torch.cuda.synchronize()
+            worst["mark"] = max(worst["mark"], differ(*marks))
+    # ---- the snapshot and the decisions
+    for phase in (sl.DONE, sl.DENSE, sl.TAIL, sl.NET):
+        res = []
+        d = torch.randint(0, 100, (vp, b), generator=g, device=DEVICE,
+                          dtype=torch.int32)
+        for fn in (sl.snap, sl.snap_ref):
+            s = torch.zeros_like(d)
+            rf = torch.ones(vp, dtype=torch.int32, device=DEVICE)
+            ctl = loop_ctl(sl, phase, ROWS_CHANGED=9)
+            fn(d, s, rf, ctl, sl.M_ALL)
+            res.append(torch.cat([s.reshape(-1), rf, ctl]))
+        worst["snap"] = max(worst["snap"], differ(*res))
+    rng = np.random.default_rng(14)
+    for _ in range(400):
+        words = {k: int(rng.integers(0, 4)) for k in (
+            "IT", "ROWS_CHANGED", "RAW_FRONT", "SPILL")}
+        words["SPILL"] = int(words["SPILL"] == 3)
+        phase, stage = int(rng.integers(0, 4)), int(rng.integers(0, 2))
+        ctls = []
+        for fn in (sl.split_ctl, sl.split_ctl_ref):
+            ctl = loop_ctl(sl, phase, **words)
+            ctl[sl.THRESHOLD], ctl[sl.ROUNDS_CAP], ctl[sl.IT_CAP] = 1, 2, 3
+            fn(ctl, stage, sl.M_ALL if stage == 0 else sl.M_TAIL)
+            ctls.append(ctl)
+        worst["ctl"] = max(worst["ctl"], differ(*ctls))
+    # ---- kernel A under the guard, a tail call with a live count
+    roots = nbr["roots"]
+    rows = torch.full((cap,), dead, dtype=torch.int32, device=DEVICE)
+    live = torch.unique(torch.randint(0, vp - 1, (3000,), generator=g,
+                                      device=DEVICE)).to(torch.int32)
+    rows[: live.numel()] = live
+    bump = torch.randint(0, 200, dist.shape, generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    din = torch.clamp_max(dist + bump, INF).contiguous()
+    for phase in (sl.TAIL, sl.DENSE):
+        for n_live in (0, 1, live.numel() // 2, live.numel()):
+            res = []
+            for fn in (relax.relax_rows, relax.relax_rows_ref):
+                out = din.clone()
+                rf = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
+                ctl = loop_ctl(sl, phase, N_ROWS=n_live)
+                fn(din, out, tables["base_nbr"], tables["base_wgt"], roots,
+                   src_rows=rows, dst_rows=rows, row_flag=rf,
+                   rows_changed=ctl[sl.ROWS_CHANGED:sl.ROWS_CHANGED + 1],
+                   ctl=ctl, phase_mask=sl.M_TAIL,
+                   n_live=ctl[sl.N_ROWS:sl.N_ROWS + 1])
+                res.append(torch.cat([out.reshape(-1), rf, ctl]))
+            worst["relax"] = max(worst["relax"], differ(*res))
+    # ---- the epilogue: the solve's distances, and INF rows / columns
+    rand = dist.clone()
+    rand[torch.randperm(vp, generator=g, device=DEVICE)[:5000]] = INF
+    rand[:, 5] = INF
+    for dd in (dist, rand):
+        for with_lfa in (False, True):
+            for over in (nbr["over"], ~nbr["over"]):
+                bufs = [fn(dd, nbr["metric"], nbr["ids"], over, nbr["my_id"],
+                           with_lfa)
+                        for fn in (rib_epilogue.rib_buffer,
+                                   rib_epilogue.rib_buffer_ref)]
+                worst["epilogue"] = max(worst["epilogue"], differ(*bufs))
+    if any(worst.values()):
+        fail(f"[14] the loop's kernels disagree with their twins: {worst}")
+
+    # ---- timing at the main path's shapes, with bounds
+    timing = {}
+    flags = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
+    flags[torch.randperm(vp, generator=g, device=DEVICE)[:2000]] = 1
+    out = torch.empty(cap, dtype=torch.int32, device=DEVICE)
+    ctl_t = loop_ctl(sl, sl.TAIL, N_FRONT=300)
+    frontier = torch.nonzero(flags).reshape(-1)[:cap].to(torch.int32)
+    frontier = torch.cat([frontier, torch.full(
+        (cap - frontier.numel(),), dead, dtype=torch.int32, device=DEVICE)])
+    mark = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
+    snap_buf = torch.empty_like(dist)
+    rf = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
+    live_slots = int((out_nbr[frontier[:300].long()] != dead).sum())
+    calls = {
+        "compact": (
+            lambda: sl.flag_compact(flags, out, ctl_t, sl.M_TAIL, sl.N_ROWS,
+                                    sl.RAW_ROWS, dead, False),
+            lambda: sl.flag_compact_ref(flags, out, ctl_t, sl.M_TAIL,
+                                        sl.N_ROWS, sl.RAW_ROWS, dead, False),
+            sl.compact_work(vp, cap, 2000, False),
+            lambda: torch.nonzero(flags)),
+        "mark": (
+            lambda: sl.frontier_mark(frontier, out_nbr, mark, ctl_t,
+                                     sl.M_TAIL, False, dead),
+            lambda: sl.frontier_mark_ref(frontier, out_nbr, mark, ctl_t,
+                                         sl.M_TAIL, False, dead),
+            sl.mark_work(300, out_nbr.shape[1], live_slots, False), None),
+        "snap": (
+            lambda: sl.snap(dist, snap_buf, rf, ctl_t, sl.M_ALL),
+            lambda: sl.snap_ref(dist, snap_buf, rf, ctl_t, sl.M_ALL),
+            sl.snap_work(dist.numel(), vp), None),
+        "ctl": (
+            lambda: sl.split_ctl(ctl_t, 0, sl.M_DENSE),
+            lambda: sl.split_ctl_ref(ctl_t, 0, sl.M_DENSE),
+            sl.ctl_work(), None),
+        "epilogue": (
+            lambda: rib_epilogue.rib_buffer(dist, nbr["metric"], nbr["ids"],
+                                            nbr["over"], nbr["my_id"], False),
+            lambda: rib_epilogue.rib_buffer_ref(
+                dist, nbr["metric"], nbr["ids"], nbr["over"], nbr["my_id"],
+                False),
+            rib_epilogue.epilogue_work(vp, b, False), None),
+    }
+    names = dict(sl.KERNEL_NAMES, epilogue=rib_epilogue.KERNEL_NAME)
+    ctl_save = ctl_t.clone()
+    card = smi("name,power.limit")
+    for kind, (launch, plain, work, lib) in calls.items():
+        restore = (lambda: ctl_t.copy_(ctl_save)) if kind == "ctl" else (
+            lambda: None)
+        us, how = kernel_us(launch, restore, names[kind])
+        ctl_t.copy_(ctl_save)
+        plain_ms = cuda_ms(plain)
+        ctl_t.copy_(ctl_save)
+        lib_ms = cuda_ms(lib) if lib is not None else None
+        bms, by = bound(*work)
+        timing[kind] = dict(us=us, timed_by=how, plain_ms=plain_ms,
+                            lib_ms=lib_ms, bound_ms=bms, bound_by=by,
+                            err=worst["relax" if kind == "relax" else kind])
+        log(f"[14] {names[kind]} at er100k ({vp} x {b}): {us:.3f} us "
+            f"({how}); bound {bms * 1e3:.3f} us by {by} ({work[0]} B, "
+            f"{work[1]} ops), share {bms * 1e3 / us:.3f}; plain twin "
+            f"{plain_ms:.4f} ms"
+            + (f"; torch.nonzero {lib_ms:.4f} ms" if lib_ms is not None
+               else "") + f"; card {card}")
+    log(f"[14] kernels vs twins on the card: max |diff| {worst} (compaction "
+        "at 0, 1, cap, cap + 1 marks and more, with the dead slot and a "
+        "ragged length, clear off/on, guarded; mark warm off/on; snapshot "
+        "and decisions in every phase; kernel A under the guard; epilogue "
+        "on the solve's and INF-holed distances, LFA off/on, overloads "
+        "flipped)")
+    return dict(worst=worst, timing=timing)
+
+
+def loop_problem(n: int, over_share: float, seed: int = 3):
+    """A seeded ER graph of `n` nodes as split tables on the card and the
+    CPU, a root with its neighbors, and the RIB's neighbor arrays."""
+    from openr_tpu_torch.convert import split_tables_from_numpy
+    from openr_tpu_torch.ops.spf_split import build_split_tables
+    from openr_tpu_torch.utils.topogen import erdos_renyi_csr
+
+    es, ed, em, _vp, nn, e = erdos_renyi_csr(n, avg_degree=20, seed=seed,
+                                             max_metric=64)
+    t = build_split_tables(es, ed, em, nn)
+    vp = t["vp"]
+    rng = np.random.default_rng(seed)
+    over = np.zeros(vp, bool)
+    if over_share:
+        over[:nn] = rng.random(nn) < over_share
+    root = 0
+    nbrs = np.unique(ed[:e][es[:e] == root])
+    b = 8
+    while b < 1 + len(nbrs):
+        b <<= 1
+    roots = np.full(b, root, np.int32)
+    roots[1:1 + len(nbrs)] = nbrs
+    ids = np.full(b - 1, vp - 1, np.int32)
+    ids[:len(nbrs)] = nbrs
+    met = np.full(b - 1, (1 << 30) - 1, np.int32)
+    met[:len(nbrs)] = [em[:e][(es[:e] == root) & (ed[:e] == j)].min()
+                       for j in nbrs]
+    nover = np.ones(b - 1, bool)
+    nover[:len(nbrs)] = over[nbrs]
+    host = (roots, met, ids, nover)
+    return {dev: (split_tables_from_numpy(t, over, dev),
+                  [torch.from_numpy(x).to(dev) for x in host])
+            for dev in ("cpu", DEVICE)}, over.any()
+
+
+def phase14b_program(split_loop) -> dict:
+    """The whole guarded program on the card (eager, then replayed from
+    its CUDA graphs) against the CPU twins' distances and buffer, cold
+    and warm, on `LOOP_CASES`."""
+    from openr_tpu_torch.ops import spf_split
+
+    out = {}
+    for label, knobs, lfa, over_share, steps in LOOP_CASES:
+        probs, has_over = loop_problem(LOOP_N, over_share)
+        res = {}
+        for dev, (tables, (roots, met, ids, nover)) in probs.items():
+            progs = (spf_split.ProgramCache(steps=steps) if dev != "cpu"
+                     else None)
+            runs = []
+            for _ in range(2 if progs is not None else 1):
+                st = {}
+                d, buf = spf_split.batched_sssp_split_rib(
+                    tables, roots, met, ids, nover, int(roots[0]),
+                    has_overloads=bool(has_over), with_lfa=lfa, stats=st,
+                    programs=progs, **knobs)
+                runs.append((d.cpu(), buf.cpu(), st))
+            res[dev] = runs
+        (dc, bc, stc), = res["cpu"]
+        for i, (dg, bg, stg) in enumerate(res[DEVICE]):
+            if not (torch.equal(dc, dg) and torch.equal(bc, bg)):
+                fail(f"[14] program {label} (run {i}, "
+                     f"{'graph' if i else 'eager'}): the card's distances "
+                     "or buffer differ from the CPU twins'")
+            if stg["host_syncs"] != stg["replays"]:
+                fail(f"[14] program {label}: host syncs {stg}")
+        out[label] = dict(cpu=stc, eager=res[DEVICE][0][2],
+                          graph=res[DEVICE][1][2])
+        log(f"[14] program {label}: card == CPU twins (dist and buffer), "
+            f"eager {res[DEVICE][0][2]}, graph {res[DEVICE][1][2]}, CPU "
+            f"{stc}")
+    # warm: a cold solve, a cone of INF cells (the seeds: their rows),
+    # then the warm program; a dense cone spills at entry
+    probs, _ = loop_problem(LOOP_N, 0.0)
+    for share in (0.0005, 0.02):
+        res = {}
+        for dev, (tables, (roots, met, ids, nover)) in probs.items():
+            cold = spf_split.batched_sssp_split(tables, roots)
+            vp, b = cold.shape
+            rng = np.random.default_rng(41)  # one cone on both devices
+            cone = torch.from_numpy(rng.random((vp, b)) < share).to(dev)
+            cone[roots.long(), torch.arange(b, device=dev)] = False
+            cone[vp - 1] = False
+            dist0 = torch.where(cone, INF, cold)
+            seed = cone.any(dim=1)
+            progs = spf_split.ProgramCache() if dev != "cpu" else None
+            runs = []
+            for _ in range(2 if progs is not None else 1):
+                st = {}
+                d, buf = spf_split.batched_sssp_split_warm_rib(
+                    tables, roots, met, ids, nover, dist0, seed, stats=st,
+                    programs=progs)
+                runs.append((d.cpu(), buf.cpu(), st, cold.cpu()))
+            res[dev] = runs
+        (dc, bc, stc, cold_c), = res["cpu"]
+        for i, (dg, bg, stg, _c) in enumerate(res[DEVICE]):
+            if not (torch.equal(dc, dg) and torch.equal(bc, bg)
+                    and torch.equal(dc, cold_c)):
+                fail(f"[14] warm program, cone {share} (run {i}): the "
+                     "card's distances or buffer differ from the CPU "
+                     "twins' or the cold solve's")
+        log(f"[14] warm program, cone share {share}: card == CPU twins == "
+            f"cold, eager {res[DEVICE][0][2]}, graph {res[DEVICE][1][2]}, "
+            f"CPU {stc}")
+        out[f"warm {share}"] = dict(cpu=stc, graph=res[DEVICE][1][2])
+    return out
+
+
+def events_us(fn, reps: int) -> float:
+    """Mean µs of `fn()` between two CUDA events over `reps` calls, after
+    one."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps * 1e3
+
+
+def phase14c_replay(solver, ls, split_loop) -> dict:
+    """At er100k through the solver: the cost of a replayed block's
+    no-op steps (the graph replayed once more with the loop done), the
+    solve's host syncs, replays and steps, and the device-idle share of
+    one traced solve (`profiling.trace`)."""
+    from openr_tpu_torch.ops.spf_split import SplitProgram
+
+    solver.solve(ls, "node-0")
+    progs = [p for p in solver._programs._progs.values()
+             if isinstance(p, SplitProgram) and not p.warm]
+    prog = progs[-1]
+    if prog._graphs is None:
+        fail("[14] the solver's program was not captured")
+    st = dict(solver.last_solve_stats)
+    noop_us = events_us(prog._graphs[1].replay, 10)  # ctl says done
+    idle, span_ms = trace_idle_share(lambda: solver.solve(ls, "node-0"),
+                                     "spf:batched_solve")
+    noop_steps = prog.steps * st["replays"] - st["steps"]
+    log(f"[14] er100k: {st['steps']} useful steps in {st['replays']} "
+        f"replayed block(s) of {prog.steps} ({st['graph_nodes']} graph "
+        f"nodes), host syncs {st['host_syncs']}; a block replayed with the "
+        f"loop done {noop_us:.1f} us ({noop_us / prog.steps:.2f} us a "
+        f"no-op step), so this solve's {noop_steps} no-op steps cost "
+        f"~{noop_us / prog.steps * noop_steps:.1f} us; device-idle share "
+        f"of one traced solve "
+        f"{'not measured' if idle is None else round(idle, 4)} over its "
+        f"{span_ms:.3f} ms span; card {smi('name,power.limit')}")
+    return dict(noop_us=noop_us, idle=idle, span_ms=span_ms, stats=st)
+
+
+def phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables):
+    """[14]: the loop's kernels and the epilogue against their twins and
+    timed, the whole program against the CPU twins, the replay's cost."""
+    t0 = time.perf_counter()
+    solved = solver.solve(ls, "node-0")
+    csr, dist_l, _fh, nbr_ids, _lfa = solved
+    dist = dist_l.device_tensor
+    vp, b = dist.shape
+    my_id = csr.name_to_id["node-0"]
+    roots, ids, met, over = solver._rib_pad_arrays(
+        csr, my_id, nbr_ids,
+        np.array([min(x[1] for x in csr.details(my_id, j)) for j in nbr_ids],
+                 np.int32), b)
+    nbr = dict(
+        roots=torch.from_numpy(roots).to(DEVICE),
+        ids=torch.from_numpy(ids).to(DEVICE),
+        metric=torch.from_numpy(met).to(DEVICE),
+        over=torch.from_numpy(over).to(DEVICE), my_id=my_id)
+    p14a = phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
+                            nbr)
+    p14b = phase14b_program(split_loop)
+    p14c = phase14c_replay(solver, ls, split_loop)
+    log(f"[14] done in {time.perf_counter() - t0:.1f} s")
+    return dict(a=p14a, b=p14b, c=p14c)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,12 @@
 //   row_flag[t] = 1 if some acc < cur; the write that sets it first adds 1
 //   to *rows_changed                                (if row_flag != nullptr)
 //
+// Under the split solve's loop on the card (csrc/split_loop.cu), a launch
+// through openr_relax_rows_guarded first reads the loop's phase, ctl[0],
+// and returns at once unless bit ctl[0] of its phase mask is set; a tail
+// round's launch, sized for the list's capacity, relaxes only the first
+// *n_live rows. So one captured sequence of launches serves every phase.
+//
 // Targets may repeat (the dead slot vp-1 pads ov_ids and the tail lists),
 // hence the atomicMin into an `out` the caller prepared. `out` may alias
 // `dist_in` (the Gauss-Seidel chunks update dist in place): every value
@@ -43,8 +49,9 @@
 //
 // Two designs, chosen by shape alone in openr_relax_rows:
 //
-// * relax_vec_kernel<W, B> for W, B in {8, 16, 32, 64} (the widths the
-//   split solve's builders produce). B/4 lanes cover one gathered dist row
+// * relax_vec_kernel<W, B, OVER, GUARD> for W, B in {8, 16, 32, 64} (the
+//   widths the split solve's builders produce). B/4 lanes cover one
+//   gathered dist row
 //   with 16-byte ld.global.cg loads (L2, no L1 allocation: the in-place
 //   writes are L2 atomics and L1 would give little reuse), so one load
 //   instruction of the warp serves 32/(B/4) table slots. The slot loop is
@@ -59,8 +66,8 @@
 //   nbr/wgt/over slab in shared memory with cp.async (and loads the row
 //   indices two groups ahead into registers), so the table's latency hides
 //   behind the current group's gathers.
-// * relax_generic_kernel<NP, OVER> for every other shape, above all the
-//   wide ones that fabrics produce (a core or aggregation switch of a
+// * relax_generic_kernel<NP, OVER, GUARD> for every other shape, above all
+//   the wide ones that fabrics produce (a core or aggregation switch of a
 //   90-ary Clos: W 64 with an overflow of 32, B 128; hubs: W and B of 256
 //   and more). The same ingredients with the shape read at run time: a
 //   warp per row, a strip of up to 32 lanes over the row's column quads
@@ -99,8 +106,22 @@ struct RelaxArgs {
   int* changed;
   int* row_flag;
   int* rows_changed;
+  // the split solve's loop guard (csrc/split_loop.cu): with ctl, the
+  // launch returns at once unless bit ctl[0] of phase_mask is set; with
+  // n_live, only the first *n_live listed rows are relaxed
+  const int* ctl;
+  const int* n_live;
+  int phase_mask;
   int B, W, row0, n;
 };
+
+// The rows this launch relaxes under the loop guard: 0 when the loop's
+// phase is not in its mask, else n capped at *n_live. (The arguments stay
+// in parameter space; only this count is a register.)
+__device__ __forceinline__ int live_rows(const RelaxArgs& a) {
+  if (a.ctl && !((a.phase_mask >> __ldcg(a.ctl)) & 1)) return 0;
+  return a.n_live ? min(a.n, __ldcg(a.n_live)) : a.n;
+}
 
 // Adds each block's sums of `v` into *dst: one atomic per block, not one
 // per row. Every thread of the block calls it (s_sum: one shared int).
@@ -145,14 +166,14 @@ __device__ __forceinline__ int pick(const int (&x)[G], int g) {
 }
 
 template <int G>
-__device__ __forceinline__ Rows<G> load_rows(const RelaxArgs& a,
+__device__ __forceinline__ Rows<G> load_rows(const RelaxArgs& a, int n,
                                              long long grp) {
   Rows<G> x;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const long long i = grp * G + g;
     int r = 0, t = 0;
-    if (i < a.n) {
+    if (i < n) {
       r = a.src_rows ? __ldg(a.src_rows + i) : a.row0 + (int)i;
       t = a.dst_rows ? __ldg(a.dst_rows + i) : r;
     }
@@ -187,7 +208,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Starts the copy of row group `grp`'s table slab into shared memory.
 template <int W, int B>
-__device__ __forceinline__ void issue_slab(const RelaxArgs& a,
+__device__ __forceinline__ void issue_slab(const RelaxArgs& a, int n,
                                            const Rows<VecShape<W, B>::kG>& x,
                                            long long grp, int* sn, int* sw,
                                            uint8_t* so, int lane) {
@@ -197,7 +218,7 @@ __device__ __forceinline__ void issue_slab(const RelaxArgs& a,
   if (lane < 2 * kChunks) {
     const int q = lane % kChunks;
     const int g = q / kCh, c = q % kCh;
-    if (grp * S::kG + g < a.n) {
+    if (grp * S::kG + g < n) {
       const size_t off = (size_t)pick(x.r, g) * W + c * 4;
       if (lane < kChunks)
         cp_async16(sn + g * W + c * 4, a.nbr + off);
@@ -209,7 +230,7 @@ __device__ __forceinline__ void issue_slab(const RelaxArgs& a,
     constexpr int kCo = W / 8;  // 8-byte chunks per over row
     if (lane < S::kG * kCo) {
       const int g = lane / kCo, c = lane % kCo;
-      if (grp * S::kG + g < a.n)
+      if (grp * S::kG + g < n)
         cp_async8(so + g * W + c * 8,
                   a.over + (size_t)pick(x.r, g) * W + c * 8);
     }
@@ -220,15 +241,15 @@ __device__ __forceinline__ void issue_slab(const RelaxArgs& a,
 // adds to this lane's counts of better entries and newly flagged rows.
 template <int W, int B, bool OVER>
 __device__ __forceinline__ void relax_group(
-    const RelaxArgs& a, const Rows<VecShape<W, B>::kG>& x, long long grp,
-    const int* sn, const int* sw, const uint8_t* so, int lane,
+    const RelaxArgs& a, int n, const Rows<VecShape<W, B>::kG>& x,
+    long long grp, const int* sn, const int* sw, const uint8_t* so, int lane,
     int& n_better, int& n_rows) {
   using S = VecShape<W, B>;
   const int c = lane % S::kL;  // column quad: columns 4c .. 4c+3
   const int s = lane / S::kL;
   const int g = s / S::kSR;    // row of the group
   const int ds = s % S::kSR;   // first slot of this lane
-  const bool valid = grp * S::kG + g < a.n;
+  const bool valid = grp * S::kG + g < n;
   const int t = pick(x.t, g);
   // the target row's reads go out first, with the gathers below
   const bool writer = valid && ds < S::kNW;  // writes columns 4c + j
@@ -318,10 +339,12 @@ __device__ __forceinline__ void relax_group(
   }
 }
 
-template <int W, int B, bool OVER>
+template <int W, int B, bool OVER, bool GUARD>
 __global__ void __launch_bounds__(kThreads)
     relax_vec_kernel(const RelaxArgs a) {
   using S = VecShape<W, B>;
+  const int n = GUARD ? live_rows(a) : a.n;
+  if (GUARD && n == 0) return;
   __shared__ __align__(16) int s_nbr[kWarpsPerBlock][2][S::kSlots];
   __shared__ __align__(16) int s_wgt[kWarpsPerBlock][2][S::kSlots];
   __shared__ __align__(16) uint8_t s_over[kWarpsPerBlock][2][S::kSlots];
@@ -329,26 +352,26 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x < 2) s_sum[threadIdx.x] = 0;
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long n_groups = ((long long)a.n + S::kG - 1) / S::kG;
+  const long long n_groups = ((long long)n + S::kG - 1) / S::kG;
   const long long stride = (long long)gridDim.x * kWarpsPerBlock;
   long long grp = (long long)blockIdx.x * kWarpsPerBlock + warp;
   int n_better = 0, n_rows = 0;
   if (grp < n_groups) {  // uniform across the warp
-    Rows<S::kG> cur = load_rows<S::kG>(a, grp);
-    Rows<S::kG> nxt = load_rows<S::kG>(a, grp + stride);
-    issue_slab<W, B>(a, cur, grp, s_nbr[warp][0], s_wgt[warp][0],
+    Rows<S::kG> cur = load_rows<S::kG>(a, n, grp);
+    Rows<S::kG> nxt = load_rows<S::kG>(a, n, grp + stride);
+    issue_slab<W, B>(a, n, cur, grp, s_nbr[warp][0], s_wgt[warp][0],
                      s_over[warp][0], lane);
     cp_async_commit();
     int st = 0;
     for (; grp < n_groups; grp += stride) {
-      const Rows<S::kG> after = load_rows<S::kG>(a, grp + 2 * stride);
+      const Rows<S::kG> after = load_rows<S::kG>(a, n, grp + 2 * stride);
       if (grp + stride < n_groups)
-        issue_slab<W, B>(a, nxt, grp + stride, s_nbr[warp][st ^ 1],
+        issue_slab<W, B>(a, n, nxt, grp + stride, s_nbr[warp][st ^ 1],
                          s_wgt[warp][st ^ 1], s_over[warp][st ^ 1], lane);
       cp_async_commit();
       cp_async_wait<1>();  // this lane's copies of the current slab landed
       __syncwarp();        // ... and every other lane's
-      relax_group<W, B, OVER>(a, cur, grp, s_nbr[warp][st], s_wgt[warp][st],
+      relax_group<W, B, OVER>(a, n, cur, grp, s_nbr[warp][st], s_wgt[warp][st],
                         s_over[warp][st], lane, n_better, n_rows);
       __syncwarp();  // the slab is read before it is refilled
       cur = nxt;
@@ -423,7 +446,7 @@ __device__ __forceinline__ void issue_chunk(const RelaxArgs& a, int r, int c,
 // lanes with __shfl_xor_sync and writes with a fire-and-forget min.
 template <int NP, bool OVER>
 __device__ __forceinline__ void relax_generic_wide(const RelaxArgs& a,
-                                                   const GenShape& g) {
+                                                   int n, const GenShape& g) {
   constexpr int kBatch = 8 / NP;  // slots a lane gathers at once
   __shared__ __align__(16) int s_nbr[kWarpsPerBlock][2][kSlab];
   __shared__ __align__(16) int s_wgt[kWarpsPerBlock][2][kSlab];
@@ -439,10 +462,10 @@ __device__ __forceinline__ void relax_generic_wide(const RelaxArgs& a,
   const int4* dist4 = reinterpret_cast<const int4*>(a.dist_in);
   const int4* out4 = reinterpret_cast<const int4*>(a.out);
   int n_better = 0, n_rows = 0;
-  if (i < a.n) {  // uniform across the warp
+  if (i < n) {  // uniform across the warp
     int r = row_of(a, i), t = target_of(a, i, r);
     int nr = 0, nt = 0, ar = 0, at = 0;  // rows i + stride, i + 2 stride
-    if (i + stride < a.n) {
+    if (i + stride < n) {
       nr = row_of(a, i + stride);
       nt = target_of(a, i + stride, nr);
     }
@@ -453,7 +476,7 @@ __device__ __forceinline__ void relax_generic_wide(const RelaxArgs& a,
                       s_over[warp][0], lane);
     cp_async_commit();
     while (true) {
-      if (w == 0 && c == 0 && i + 2 * stride < a.n) {
+      if (w == 0 && c == 0 && i + 2 * stride < n) {
         ar = row_of(a, i + 2 * stride);
         at = target_of(a, i + 2 * stride, ar);
       }
@@ -467,7 +490,7 @@ __device__ __forceinline__ void relax_generic_wide(const RelaxArgs& a,
           same_row = false;
         }
       }
-      const bool has_next = same_row || i + stride < a.n;
+      const bool has_next = same_row || i + stride < n;
       if (has_next)
         issue_chunk<OVER>(a, same_row ? r : nr, nc, s_nbr[warp][st ^ 1],
                           s_wgt[warp][st ^ 1], s_over[warp][st ^ 1], lane);
@@ -604,12 +627,13 @@ __device__ __forceinline__ void relax_generic_wide(const RelaxArgs& a,
 // lanes over the B columns, 32 table slots loaded at once and broadcast
 // with __shfl_sync, 4-byte gathers.
 template <bool OVER>
-__device__ __forceinline__ void relax_generic_scalar(const RelaxArgs& a) {
+__device__ __forceinline__ void relax_generic_scalar(const RelaxArgs& a,
+                                                     int n) {
   const int lane = threadIdx.x & 31;
   const long long i =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   int n_rows = 0;
-  if (i < a.n) {  // uniform across the warp
+  if (i < n) {  // uniform across the warp
     int n_better = 0;
     const int B = a.B, W = a.W;
     const int r = row_of(a, i);
@@ -667,13 +691,15 @@ __device__ __forceinline__ void relax_generic_scalar(const RelaxArgs& a) {
 
 // The generic kernel family: NP int4 strips per lane (1, 2, 4) on the
 // wide path, 0 for the scalar edge path.
-template <int NP, bool OVER>
+template <int NP, bool OVER, bool GUARD>
 __global__ void __launch_bounds__(kThreads)
     relax_generic_kernel(const RelaxArgs a, const GenShape g) {
+  const int n = GUARD ? live_rows(a) : a.n;
+  if (GUARD && n == 0) return;
   if constexpr (NP == 0)
-    relax_generic_scalar<OVER>(a);
+    relax_generic_scalar<OVER>(a, n);
   else
-    relax_generic_wide<NP, OVER>(a, g);
+    relax_generic_wide<NP, OVER>(a, n, g);
 }
 
 using Launcher = int (*)(const RelaxArgs&, cudaStream_t);
@@ -696,24 +722,31 @@ int resident_blocks(Kernel kernel, int (&cache)[kMaxDevices]) {
   return mb;
 }
 
-template <int W, int B, bool OVER>
+template <int W, int B, bool OVER, bool GUARD>
 int launch_vec_over(const RelaxArgs& a, cudaStream_t stream) {
   using S = VecShape<W, B>;
   static int max_blocks[kMaxDevices];
-  const int mb = resident_blocks(relax_vec_kernel<W, B, OVER>, max_blocks);
+  const int mb =
+      resident_blocks(relax_vec_kernel<W, B, OVER, GUARD>, max_blocks);
   const long long groups = ((long long)a.n + S::kG - 1) / S::kG;
   const long long want = (groups + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const int blocks = (int)(want < mb ? want : mb);
-  relax_vec_kernel<W, B, OVER><<<blocks, kThreads, 0, stream>>>(a);
+  relax_vec_kernel<W, B, OVER, GUARD><<<blocks, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The overload mask is a template argument: without it (the common
-// case) the kernel keeps no roots or per-slot mask in registers.
+// The overload mask and the loop guard are template arguments: without
+// them (the common case, and every launch outside the split loop) the
+// kernel keeps no roots, per-slot mask or live count in registers; a
+// row count held in a register costs the generic kernel a block per SM.
 template <int W, int B>
 int launch_vec(const RelaxArgs& a, cudaStream_t stream) {
-  return a.over ? launch_vec_over<W, B, true>(a, stream)
-                : launch_vec_over<W, B, false>(a, stream);
+  const bool guard = a.ctl || a.n_live;
+  if (a.over)
+    return guard ? launch_vec_over<W, B, true, true>(a, stream)
+                 : launch_vec_over<W, B, true, false>(a, stream);
+  return guard ? launch_vec_over<W, B, false, true>(a, stream)
+               : launch_vec_over<W, B, false, false>(a, stream);
 }
 
 // The generic family's strips per lane for (W, B): 0 (the scalar edge
@@ -739,32 +772,37 @@ GenShape gen_shape(int W, int B, int np) {
   return g;
 }
 
-template <int NP, bool OVER>
+template <int NP, bool OVER, bool GUARD>
 int launch_generic_np(const RelaxArgs& a, cudaStream_t stream) {
   long long want = ((long long)a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (NP > 0) {  // the wide path strides a persistent grid over the rows
     static int max_blocks[kMaxDevices];
-    const int mb = resident_blocks(relax_generic_kernel<NP, OVER>, max_blocks);
+    const int mb = resident_blocks(relax_generic_kernel<NP, OVER, GUARD>,
+                                   max_blocks);
     if (want > mb) want = mb;
   }
-  relax_generic_kernel<NP, OVER><<<(unsigned)want, kThreads, 0, stream>>>(
-      a, gen_shape(a.W, a.B, NP));
+  relax_generic_kernel<NP, OVER, GUARD>
+      <<<(unsigned)want, kThreads, 0, stream>>>(a, gen_shape(a.W, a.B, NP));
   return (int)cudaGetLastError();
 }
 
-template <bool OVER>
+template <bool OVER, bool GUARD>
 int launch_generic_over(const RelaxArgs& a, cudaStream_t stream) {
   switch (generic_np(a.W, a.B)) {
-    case 1: return launch_generic_np<1, OVER>(a, stream);
-    case 2: return launch_generic_np<2, OVER>(a, stream);
-    case 4: return launch_generic_np<4, OVER>(a, stream);
-    default: return launch_generic_np<0, OVER>(a, stream);
+    case 1: return launch_generic_np<1, OVER, GUARD>(a, stream);
+    case 2: return launch_generic_np<2, OVER, GUARD>(a, stream);
+    case 4: return launch_generic_np<4, OVER, GUARD>(a, stream);
+    default: return launch_generic_np<0, OVER, GUARD>(a, stream);
   }
 }
 
 int launch_generic(const RelaxArgs& a, cudaStream_t stream) {
-  return a.over ? launch_generic_over<true>(a, stream)
-                : launch_generic_over<false>(a, stream);
+  const bool guard = a.ctl || a.n_live;
+  if (a.over)
+    return guard ? launch_generic_over<true, true>(a, stream)
+                 : launch_generic_over<true, false>(a, stream);
+  return guard ? launch_generic_over<false, true>(a, stream)
+               : launch_generic_over<false, false>(a, stream);
 }
 
 int width_index(int x) {
@@ -803,7 +841,9 @@ RelaxArgs make_args(const void* dist_in, void* out, int B, const void* nbr,
                     const void* wgt, const void* over, int W,
                     const void* roots, const void* src_rows,
                     const void* dst_rows, int row0, int n, void* changed,
-                    void* row_flag, void* rows_changed) {
+                    void* row_flag, void* rows_changed,
+                    const void* ctl = nullptr, int phase_mask = 0,
+                    const void* n_live = nullptr) {
   RelaxArgs a;
   a.dist_in = (const int*)dist_in;
   a.out = (int*)out;
@@ -816,6 +856,9 @@ RelaxArgs make_args(const void* dist_in, void* out, int B, const void* nbr,
   a.changed = (int*)changed;
   a.row_flag = (int*)row_flag;
   a.rows_changed = (int*)rows_changed;
+  a.ctl = (const int*)ctl;
+  a.n_live = (const int*)n_live;
+  a.phase_mask = phase_mask;
   a.B = B;
   a.W = W;
   a.row0 = row0;
@@ -848,6 +891,25 @@ extern "C" int openr_relax_rows(
   const RelaxArgs a = make_args(dist_in, out, B, nbr, wgt, over, W, roots,
                                 src_rows, dst_rows, row0, n, changed,
                                 row_flag, rows_changed);
+  const Launcher vec = vec_launcher(W, B);
+  return vec ? vec(a, (cudaStream_t)stream)
+             : launch_generic(a, (cudaStream_t)stream);
+}
+
+// openr_relax_rows under the split loop's guard: the launch does nothing
+// unless bit ctl[0] of phase_mask is set, and relaxes only the first
+// *n_live listed rows where n_live is given (n sizes the grid).
+extern "C" int openr_relax_rows_guarded(
+    const void* dist_in, void* out, int B,
+    const void* nbr, const void* wgt, const void* over, int W,
+    const void* roots, const void* src_rows, const void* dst_rows,
+    int row0, int n, void* changed, void* row_flag, void* rows_changed,
+    const void* ctl, int phase_mask, const void* n_live, void* stream) {
+  if (n <= 0 || W <= 0 || B <= 0) return 0;  // nothing to relax
+  const RelaxArgs a = make_args(dist_in, out, B, nbr, wgt, over, W, roots,
+                                src_rows, dst_rows, row0, n, changed,
+                                row_flag, rows_changed, ctl, phase_mask,
+                                n_live);
   const Launcher vec = vec_launcher(W, B);
   return vec ? vec(a, (cudaStream_t)stream)
              : launch_generic(a, (cudaStream_t)stream);

@@ -70,6 +70,7 @@ from openr_tpu_torch.ops.spf import (
     pad_batch,
 )
 from openr_tpu_torch.ops.spf_split import (
+    ProgramCache,
     batched_sssp_split,
     batched_sssp_split_rib,
     batched_sssp_split_warm_rib,
@@ -318,17 +319,22 @@ class TorchSpfSolver:
         # solves on the device (cold or warm), and of those the warm ones
         self.solve_count = 0
         self.warm_solves = 0
-        # last solve: sweeps, tail_rounds, spilled, host_syncs,
-        # relax_launches (split); or the table kind with sweeps (dense) or
-        # rounds (edge), host_reads and the launches of relax_launches /
-        # edge_launches (`_solve_dist`)
+        # last solve: on the split tables `SplitProgram.run`'s sweeps,
+        # tail_rounds, spilled, host_syncs (= replays, one read of the
+        # loop's state each), steps, relax_launches (those that did work)
+        # and graph_nodes; on the dense or edge tables (`_solve_dist`) the
+        # table kind with sweeps or rounds, host_reads and the launches of
+        # relax_launches / edge_launches
         self.last_solve_stats: dict = {}
-        # last warm rebuild: changes, cone_cells, seeds, sweeps,
-        # tail_rounds, spilled, host_syncs, relax_launches, and host wall
-        # ms of the cone walk (with the old distances' copy to the host),
-        # the device solve (scatter to buffer decode) and the scoped
-        # assembly
+        # last warm rebuild: changes, cone_cells, seeds, the warm
+        # program's stats, and host wall ms of the cone walk (with the old
+        # distances' copy to the host), the device solve (scatter to
+        # buffer decode) and the scoped assembly
         self.last_warm_stats: dict = {}
+        # the split solve's programs (cold, warm, per B and knobs) of the
+        # cached table sets, replayed as CUDA graphs on the card; dropped
+        # with their table set and by `trim_caches`
+        self._programs = ProgramCache(cap=4)
         # multi-advertiser election: on the device (`elect_seg_kernel`)
         # once the advertiser matrix has at least this many slots, NumPy
         # below; the two are equal (integer algebra). On an H100 the
@@ -378,6 +384,7 @@ class TorchSpfSolver:
         self._dev[csr.base_version] = cache  # refresh the LRU position
         while len(self._dev) > self._dev_lru_cap:
             self._dev.pop(next(iter(self._dev)))
+            self._keep_live_programs()
         got = cache["sets"].get(want)
         if got is not None:
             self.dev_cache_stats["hits"] += 1
@@ -412,7 +419,15 @@ class TorchSpfSolver:
         else:
             raise ValueError(f"unknown device table set {want!r}")
         cache["sets"][want] = got
+        if want == "split":
+            self._keep_live_programs()
         return got
+
+    def _keep_live_programs(self) -> None:
+        """Drops the split programs whose table set left the cache."""
+        self._programs.keep_tables(
+            c["sets"]["split"] for c in self._dev.values()
+            if "split" in c["sets"])
 
     def _apply_patch_suffix(self, cache: dict, csr) -> None:
         """Scatter the journal entries the cache has not applied into
@@ -481,8 +496,10 @@ class TorchSpfSolver:
         set the fingerprint cap of the route caches to `fingerprint_cap`
         and evict their least recently used fingerprints beyond it; drop
         the warm start's host index and the device advertiser matrices,
-        both rebuilt on demand."""
+        both rebuilt on demand, and the split solve's programs (their
+        buffers and CUDA graphs), captured again at the next solve."""
         self._mpls_fingerprint_cap = fingerprint_cap
+        self._programs.clear()
         for cache in (self._mpls_cache, self._uni_cache,
                       self._mpls_cls_cache):
             while len(cache) > fingerprint_cap:
@@ -599,7 +616,7 @@ class TorchSpfSolver:
             if table == "split":
                 out = batched_sssp_split(
                     dev, roots_t, has_overloads=has_over, gs_chunks=gs,
-                    stats=stats,
+                    stats=stats, programs=self._programs,
                 )
             elif table == "dense":
                 out = relax.batched_sssp_relax(
@@ -614,7 +631,8 @@ class TorchSpfSolver:
                 )
             if cap:
                 cap.io(args=(*_tensors(dev), roots_t), outs=(out,))
-        stats["relax_launches"] = relax.LAUNCHES - relax0
+        if table != "split":  # the split program counts its own
+            stats["relax_launches"] = relax.LAUNCHES - relax0
         stats["edge_launches"] = sum(edge_relax.LAUNCHES.values()) - edge0
         self.last_solve_stats = stats
         return out
@@ -746,7 +764,6 @@ class TorchSpfSolver:
         vp = dev["vp"]
         gs = self._pick_gs_and_count(dev)
         stats: dict = {}
-        launches0 = relax.LAUNCHES
         key = (vp, *dev["base_nbr"].shape[1:], *dev["ov_nbr"].shape, b, gs,
                has_over, self.enable_lfa)
         with annotate("spf:batched_solve", self.counters), telemetry.observe(
@@ -762,12 +779,12 @@ class TorchSpfSolver:
                 with_lfa=self.enable_lfa,
                 gs_chunks=gs,
                 stats=stats,
+                programs=self._programs,
             )
             check_byte_order(d)
             buf = _host(packed)
             if cap:
                 cap.io(args=(*_tensors(dev), *args), outs=(dist_dev, packed))
-        stats["relax_launches"] = relax.LAUNCHES - launches0
         self.last_solve_stats = stats
         d_root, fh, lfa = unpack_rib_buffer(buf, vp, b, self.enable_lfa)
         return csr, LazyDist(dist_dev, d_root), fh, nbr_ids, lfa
@@ -1211,13 +1228,13 @@ class TorchSpfSolver:
             roots, nbr_ids_p, nbr_metric, nbr_over = self._rib_pad_arrays(
                 csr, my_id, nbr_ids, nbr_metric_real, bb
             )
-            # a copy: the caller's artifact keeps its distances
+            # a copy with the cones set to INF: the caller's artifact
+            # keeps its distances
             dist0 = old_dist.device_tensor.clone()
             if rows_all:
                 dist0[self._to_dev(np.asarray(rows_all, np.int64)),
                       self._to_dev(np.asarray(cols_all, np.int64))] = INF_DIST
             stats: dict = {}
-            launches0 = relax.LAUNCHES
             has_over = bool(csr.node_overloaded.any())
             key = (vp, *dev["base_nbr"].shape[1:], *dev["ov_nbr"].shape, bb,
                    has_over)
@@ -1229,14 +1246,13 @@ class TorchSpfSolver:
                 seed_t = self._to_dev(seed)
                 dist2, packed = batched_sssp_split_warm_rib(
                     dev, *args, dist0, seed_t, has_overloads=has_over,
-                    stats=stats,
+                    stats=stats, programs=self._programs,
                 )
                 check_byte_order(self.device)
                 buf = _host(packed)
                 if cap:
                     cap.io(args=(*_tensors(dev), *args, seed_t),
                            outs=(dist2, packed))
-            stats["relax_launches"] = relax.LAUNCHES - launches0
             d_root, fh, _ = unpack_rib_buffer(buf, vp, bb, False)
             self.solve_count += 1
             self.warm_solves += 1

@@ -15,10 +15,11 @@ library; a kernel takes any shape after that. So the ledger counts:
     all-sources and fleet chunks). On the CPU the same seams count, as
     the JAX package counts them on its CPU backend;
   * **host syncs**: `record_sync()` at every scalar read of a loop's
-    exit state that the host waits for (the split solve's per-sweep and
-    per-tail-round reads, the sharded solve's per-sweep flag). They move
-    a few bytes each but stall the host until the device drains, so
-    they are counted apart from the transfers.
+    exit state that the host waits for (the split solve's read of its
+    control block, one per block of steps, `ops/spf_split.py`
+    `SplitProgram`; the sharded solve's per-sweep flag). They move a few
+    bytes each but stall the host until the device drains, so they are
+    counted apart from the transfers.
 
 `mark_warm()` then `builds_since_warm()` is the steady-state rule: no
 build after warm-up (the counterpart of "no compile after warm-up").

@@ -9,8 +9,13 @@ DRAM bytes and operations of the hand-kernel launches the call made,
 summed. Each kernel's count lives beside its wrapper (`ops/relax.py`
 `launch_work`, `ops/election.py` `elect_work`, `ops/ksp.py`
 `sssp_work` / `walk_work`, `ops/edge_relax.py` `init_work` /
-`fix_work`) and is the count `chip_smoke.py`'s kernels line turns into
-its `bound_ms`, so the two cannot drift. A wrapper counts the same work
+`fix_work`, `ops/split_loop.py` `snap_work` / `mark_work` /
+`compact_work` / `ctl_work`, `ops/rib_epilogue.py` `epilogue_work`) and
+is the count `chip_smoke.py`'s kernels line turns into its `bound_ms`,
+so the two cannot drift. A launch of the split loop that its guard
+turns into a no-op counts no work, and a launch recorded into a CUDA
+graph counts none either (`paused`): the captured call is the first,
+eager run of a shape. A wrapper counts the same work
 whether it launches its kernel or runs its plain twin on the CPU, so a
 CPU row equals the CUDA row of the same call.
 
@@ -169,6 +174,21 @@ def sink() -> Work | None:
     """The work of the capture running on this thread, or None: a
     wrapper adds its launch's count here when it is not None."""
     return getattr(_TLS, "sink", None)
+
+
+class paused:
+    """Within the block this thread has no sink: launches recorded into
+    a CUDA graph launch nothing, so they count no work (and may not read
+    the device)."""
+
+    def __enter__(self):
+        self._prev = sink()
+        _TLS.sink = None
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _TLS.sink = self._prev
+        return False
 
 
 class _NullCapture:

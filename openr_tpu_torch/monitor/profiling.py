@@ -1,10 +1,19 @@
-"""Named spans around the solver's phases (the port's copy of `annotate`
-in `openr_tpu/monitor/profiling.py`).
+"""Traces and named spans around the solver's phases (the port of
+`openr_tpu/monitor/profiling.py`: `trace` and `annotate`).
 
+    with trace("/tmp/spf_trace"):                  # a Chrome trace file
+        solver.compute_routes(...)
     with annotate("spf:batched_solve"):            # a profiler span
         ...
     with annotate("spf:batched_solve", counters=c):
         ...  # also records its wall ms: `profile.spf:batched_solve_ms`
+
+`trace` runs a `torch.profiler.profile` over the host (and, where CUDA is
+available, the card: CUPTI's kernel and copy records) and exports one
+Chrome trace into the directory on exit, where the spans show as rows
+above the kernels they launched. As in the reference it is a no-op for
+a falsy directory, and a profiler that fails to start or to export is
+logged, never raised: tracing must not break the caller.
 
 The span is a `torch.profiler.record_function`, so a `torch.profiler`
 trace shows it as a row above the kernels it launched. With `counters`
@@ -19,11 +28,52 @@ device work only where the wrapped code reads a result back.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import logging
+import os
 import time
 
 import torch
 
 from openr_tpu_torch.monitor import device
+
+log = logging.getLogger(__name__)
+_TRACES = itertools.count()
+
+
+@contextlib.contextmanager
+def trace(trace_dir: str | os.PathLike | None):
+    """A `torch.profiler.profile` of the block exported as
+    `<trace_dir>/trace.<pid>.<n>.json` (Chrome trace format), or a no-op
+    when `trace_dir` is falsy or the profiler cannot start."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    try:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof = profile(activities=acts)
+        prof.__enter__()
+    except Exception:  # noqa: BLE001 — profiling must never break prod
+        log.warning("torch profiler unavailable; tracing disabled",
+                    exc_info=True)
+        yield
+        return
+    try:
+        yield
+    finally:
+        try:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(
+                trace_dir, f"trace.{os.getpid()}.{next(_TRACES)}.json"))
+        except Exception:  # noqa: BLE001 — export failure (bad dir, ...)
+            log.warning("torch profiler trace export failed",
+                        exc_info=True)
 
 
 def annotate(name: str, counters=None):

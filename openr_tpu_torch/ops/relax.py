@@ -48,17 +48,23 @@ _ROWS_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # changed, flags
     ctypes.c_void_p,  # stream
 ]
+_GUARDED_ARGTYPES = _ROWS_ARGTYPES[:-1] + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # ctl, mask, n_live
+    ctypes.c_void_p,  # stream
+]
 #: the C entry points of `csrc/relax.cu` and the ctypes types bound to them
 ENTRY_POINTS = {
     "openr_relax_rows": (_ROWS_ARGTYPES, ctypes.c_int),
     "openr_relax_rows_generic": (_ROWS_ARGTYPES, ctypes.c_int),
+    "openr_relax_rows_guarded": (_GUARDED_ARGTYPES, ctypes.c_int),
     "openr_relax_vec_shape": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
     "openr_relax_generic_np": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
     "openr_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 #: kernel launches made by the wrappers (CUDA path only): the total, and
-#: by design
+#: by design. A call recorded into a CUDA graph capture launches nothing
+#: and is not counted; the graph's replays run it without a call.
 LAUNCHES = 0
 LAUNCHES_BY_DESIGN = {"vec": 0, "generic": 0}
 _LIB = None
@@ -120,18 +126,32 @@ def _rows(row0, n, src_rows, dst_rows, device):
     return r, (r if dst_rows is None else dst_rows[:n].long())
 
 
+def live_rows(ctl, phase_mask: int, n_live, n: int) -> int:
+    """The rows a guarded launch relaxes: 0 unless bit `ctl[0]` of
+    `phase_mask` is set, else `n` capped at `n_live[0]`. Reads the
+    tensors (a device sync on CUDA)."""
+    if ctl is not None and not (phase_mask >> int(ctl[0])) & 1:
+        return 0
+    return n if n_live is None else min(n, int(n_live[0]))
+
+
 def relax_rows_ref(
     dist_in, out, nbr, wgt, roots, over=None, *,
     row0=0, n=None, src_rows=None, dst_rows=None, changed=None,
-    row_flag=None, rows_changed=None,
+    row_flag=None, rows_changed=None, ctl=None, phase_mask=0, n_live=None,
 ):
     """Plain PyTorch version of the relax kernel, same signature and
     result: min-scatters each listed row's candidate minimum into `out`,
     adds the count of entries below `dist_in` to `changed`, sets
     `row_flag[t]` for each target row the scatter lowered and adds the
     newly set ones to `rows_changed`. All candidates are computed from
-    `dist_in` before `out` is written."""
+    `dist_in` before `out` is written. With the loop guard (`ctl`,
+    `phase_mask`, `n_live`), relaxes the rows `live_rows` names."""
     n = _count(nbr, row0, n, src_rows, dst_rows)
+    if ctl is not None or n_live is not None:
+        n = live_rows(ctl, phase_mask, n_live, n)
+        if n == 0:
+            return changed
     r, t = _rows(row0, n, src_rows, dst_rows, dist_in.device)
     b = dist_in.shape[1]
     nb = nbr[r]  # [n, W]
@@ -216,7 +236,7 @@ def _count(nbr, row0, n, src_rows, dst_rows) -> int:
 
 
 def _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
-           dst_rows, changed, row_flag, rows_changed):
+           dst_rows, changed, row_flag, rows_changed, ctl=None, n_live=None):
     # one launch per sweep chunk: keep these checks cheap on the host
     dev = dist_in.get_device()
     i32 = torch.int32
@@ -225,7 +245,8 @@ def _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
         ("wgt", wgt, i32), ("roots", roots, i32), ("over", over, torch.bool),
         ("src_rows", src_rows, i32), ("dst_rows", dst_rows, i32),
         ("changed", changed, i32), ("row_flag", row_flag, i32),
-        ("rows_changed", rows_changed, i32),
+        ("rows_changed", rows_changed, i32), ("ctl", ctl, i32),
+        ("n_live", n_live, i32),
     ):
         if x is None:
             continue
@@ -287,20 +308,29 @@ def _check_aligned(dist_in, out, nbr, wgt, over, over_align=8):
 
 
 def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
-           dst_rows, changed, row_flag, rows_changed):
+           dst_rows, changed, row_flag, rows_changed, ctl=None, phase_mask=0,
+           n_live=None):
     global LAUNCHES
     n = _count(nbr, row0, n, src_rows, dst_rows)
     _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
-           dst_rows, changed, row_flag, rows_changed)
+           dst_rows, changed, row_flag, rows_changed, ctl, n_live)
+    guarded = ctl is not None or n_live is not None
+    cpu = dist_in.device.type == "cpu"
     sink = _telemetry.sink()
-    if sink is not None and n:
+    # the rows this call relaxes; a guarded launch on the card reads the
+    # loop's state for it only while a capture counts the work
+    live = live_rows(ctl, phase_mask, n_live, n) if guarded and (
+        cpu or sink is not None) else n
+    if sink is not None and live:
         _n, nbytes, ops, _g = launch_work(
-            nbr, wgt, dist_in.shape[1], over=over, row0=row0, n=n,
+            nbr, wgt, dist_in.shape[1], over=over, row0=row0, n=live,
             src_rows=src_rows, dst_rows=dst_rows)
         sink.add("relax", nbytes, ops)
-    if dist_in.device.type == "cpu":
+    if cpu:
+        if not live:
+            return changed
         return relax_rows_ref(
-            dist_in, out, nbr, wgt, roots, over, row0=row0, n=n,
+            dist_in, out, nbr, wgt, roots, over, row0=row0, n=live,
             src_rows=src_rows, dst_rows=dst_rows, changed=changed,
             row_flag=row_flag, rows_changed=rows_changed,
         )
@@ -321,27 +351,30 @@ def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    args = (ptr(dist_in), ptr(out), b, ptr(nbr), ptr(wgt), ptr(over), w,
+            ptr(roots), ptr(src_rows), ptr(dst_rows), int(row0), n,
+            ptr(changed), ptr(row_flag), ptr(rows_changed))
+    if guarded:
+        entry = "openr_relax_rows_guarded"
+        args += (ptr(ctl), int(phase_mask), ptr(n_live))
     with torch.cuda.device(dist_in.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            ptr(dist_in), ptr(out), b, ptr(nbr), ptr(wgt), ptr(over), w,
-            ptr(roots), ptr(src_rows), ptr(dst_rows), int(row0), n,
-            ptr(changed), ptr(row_flag), ptr(rows_changed), stream,
-        )
+        err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"relax kernel launch failed: "
             f"{lib.openr_cuda_error_string(err).decode()} ({err})"
         )
-    LAUNCHES += 1
-    LAUNCHES_BY_DESIGN[design] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
+        LAUNCHES_BY_DESIGN[design] += 1
     return changed
 
 
 def relax_rows(
     dist_in, out, nbr, wgt, roots, over=None, *,
     row0=0, n=None, src_rows=None, dst_rows=None, changed=None,
-    row_flag=None, rows_changed=None,
+    row_flag=None, rows_changed=None, ctl=None, phase_mask=0, n_live=None,
 ):
     """Relax `n` rows of the table [R,W] (`nbr`, `wgt`, optional `over`
     bool mask of overloaded in-neighbors) against `dist_in` [vp,B],
@@ -355,12 +388,19 @@ def relax_rows(
     `rows_changed` (int32 [1]). Neighbor ids must lie in [0, vp) — the
     kernel does not check them. Returns `changed`.
 
+    The split solve's loop guard: with `ctl` (the loop's int32 control
+    block, `ops/split_loop.py`) the call does nothing unless bit `ctl[0]`
+    of `phase_mask` is set, and with `n_live` (int32 [1]) it relaxes only
+    the first `n_live[0]` of its `n` rows; on the card both are read by
+    the kernel, so the launch can sit in a CUDA graph.
+
     A CUDA tensor launches the kernel that `design_for(W, B)` names; a
-    CPU tensor runs `relax_rows_ref`.
+    CPU tensor runs `relax_rows_ref` (on the rows `live_rows` names).
     """
     return _relax(
         "openr_relax_rows", dist_in, out, nbr, wgt, roots, over, row0, n,
-        src_rows, dst_rows, changed, row_flag, rows_changed,
+        src_rows, dst_rows, changed, row_flag, rows_changed, ctl,
+        phase_mask, n_live,
     )
 
 

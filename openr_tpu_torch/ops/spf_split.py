@@ -8,20 +8,26 @@ its three phases and their knobs:
 
   1. dense sweeps, Gauss-Seidel chunked, while more than
      `tail_threshold` rows changed;
-  2. compacted tail rounds: expand the changed rows through the
-     out-neighbor table, dedupe by sort, relax only those rows; a spill
-     flag fires when `tail_cap` would truncate a list;
+  2. compacted tail rounds: relax only the out-neighbors of the rows the
+     last round lowered; a spill flag fires when `tail_cap` would
+     truncate a list;
   3. the exactness net: dense sweeps to fixpoint if the tail spilled or
      hit `tail_rounds_cap` with work left.
 
 The warm solve (`batched_sssp_split_warm_rib`) starts from the previous
 distances instead, skips phase 1 and runs phases 2-3 from a seed set.
 
-Every relax is the hand-written kernel of `ops/relax.py` (the plain
-version when the tensors lie on the CPU), and the kernel's row flags
-are the change detection: the rows a sweep or tail round lowered and
-their count. Loop conditions read one scalar back to the host per sweep
-or tail round (`.item()`); the count is reported in
+The loop runs on the device, as the JAX package's `while_loop`s do: a
+`SplitProgram` keeps its state in a control block that every launch
+reads (`ops/split_loop.py`), so a fixed block of steps runs whichever
+phase the solve is in and the host reads the state once per block; on
+CUDA a kept program replays the block as a CUDA graph. Every relax is
+the hand-written kernel of `ops/relax.py`, and the kernel's row flags
+are the change detection; the tail's lists are stream compactions of
+flag arrays in index order (`flag_compact_kernel`), the sorted,
+deduplicated lists of the JAX package's `_compact_ids` without a sort.
+The RIB epilogue is one kernel, `ops/rib_epilogue.py`. On the CPU every
+launch runs its plain twin. The reads are counted in
 `stats["host_syncs"]` and in the ledger's `cuda.transfers.host_syncs`
 (`monitor/compile_ledger.py`).
 
@@ -37,8 +43,9 @@ import torch
 
 from openr_tpu_torch.common import constants as _C
 from openr_tpu_torch.monitor import compile_ledger
-from openr_tpu_torch.ops import relax
-from openr_tpu_torch.ops.spf import first_hop_matrix, lfa_matrix
+from openr_tpu_torch.monitor import device as _telemetry
+from openr_tpu_torch.ops import relax, rib_epilogue, split_loop
+from openr_tpu_torch.ops.rib_epilogue import packbits_rows  # noqa: F401
 
 INF_DIST = _C.DIST_INF
 DIST_DTYPE = torch.int32
@@ -166,56 +173,76 @@ def pick_gs_chunks(vp: int) -> int:
     return 1
 
 
-def _compact_ids(mask_ids, vp: int, cap: int, dead: int):
-    """Sort-compact: ids < vp first, padded with `dead`, exactly `cap`
-    long (int32). `mask_ids` holds the id where active, >= vp where not."""
-    flat = mask_ids.reshape(-1)
-    if flat.shape[0] < cap:
-        flat = torch.cat(
-            [flat, torch.full((cap - flat.shape[0],), vp, dtype=flat.dtype,
-                              device=flat.device)]
+def _over_masks(tables, has_overloads):
+    """The overload masks of the base and overflow tables' slots, or
+    None twice without overloads."""
+    if not has_overloads:
+        return None, None
+    over = tables["over"]
+    return (over[tables["base_nbr"].long()].contiguous(),
+            over[tables["ov_nbr"].long()].contiguous())
+
+
+class _Relaxes:
+    """The split solve's three kinds of relax launch on kernel A, each
+    min-scattering into `dist` and flagging the rows it lowered in
+    `row_flag` (counted in `rows_changed`): the dense base table in `gs`
+    Gauss-Seidel chunks (reading `dist` itself, or `prev` where gs is 1),
+    a tail round's listed rows and the whole overflow table (both reading
+    `prev`, the step's snapshot). `guard` is the loop guard of
+    `relax.relax_rows` (ctl, phase_mask, n_live)."""
+
+    def __init__(self, tables, over_base, over_ov, roots, gs, row_flag,
+                 rows_changed):
+        self.base_nbr, self.base_wgt = tables["base_nbr"], tables["base_wgt"]
+        self.ov_ids, self.ov_nbr, self.ov_wgt = (
+            tables["ov_ids"], tables["ov_nbr"], tables["ov_wgt"]
         )
-    ids = torch.sort(flat).values[:cap]
-    return torch.where(ids < vp, ids, dead).to(torch.int32)
+        self.over_base, self.over_ov, self.roots = over_base, over_ov, roots
+        self.gs = gs
+        self.csz = self.base_nbr.shape[0] // gs
+        self.fl = dict(row_flag=row_flag, rows_changed=rows_changed)
 
+    def chunks(self, dist, prev, **guard):
+        src = prev if self.gs == 1 else dist
+        for c in range(self.gs):
+            relax.relax_rows(
+                src, dist, self.base_nbr, self.base_wgt, self.roots,
+                self.over_base, row0=c * self.csz, n=self.csz, **self.fl,
+                **guard,
+            )
 
-def _first_of_runs(srt, keep):
-    """Mask of the first element of each run of equal values in a sorted
-    1-D tensor, and'ed with `keep`."""
-    first = torch.ones_like(srt, dtype=torch.bool)
-    first[1:] = srt[1:] != srt[:-1]
-    return first & keep
+    def rows(self, dist, prev, rows, **guard):
+        relax.relax_rows(
+            prev, dist, self.base_nbr, self.base_wgt, self.roots,
+            self.over_base, src_rows=rows, dst_rows=rows, **self.fl, **guard,
+        )
+
+    def overflow(self, dist, prev, **guard):
+        # overflow in-edges: the ov tables are tiny — relax them all
+        relax.relax_rows(
+            prev, dist, self.ov_nbr, self.ov_wgt, self.roots, self.over_ov,
+            dst_rows=self.ov_ids, **self.fl, **guard,
+        )
 
 
 def _make_dense_sweep(tables, over_base, over_ov, roots, gs, flags):
-    """Dense relax sweep over base + overflow tables, in place.
-
-    With gs > 1 the base rows go in `gs` contiguous chunks, each reading
-    the dist the earlier chunks updated; the overflow rows always read
-    the pre-sweep dist, as `_make_dense_sweep` of the JAX package does.
-    Returns `sweep(dist)`: it clears `flags` (int32 [vp + 1]) and leaves
-    in `flags[:vp]` the rows the sweep lowered and in `flags[vp]` their
+    """One dense relax sweep over base + overflow tables, in place, as
+    `_make_dense_sweep` of the JAX package builds it: with gs > 1 the base
+    rows go in `gs` contiguous chunks, each reading the dist the earlier
+    chunks updated; the overflow rows read the pre-sweep dist. Returns
+    `sweep(dist)`: it clears `flags` (int32 [vp + 1]) and leaves in
+    `flags[:vp]` the rows the sweep lowered and in `flags[vp]` their
     count."""
-    base_nbr, base_wgt = tables["base_nbr"], tables["base_wgt"]
-    ov_ids, ov_nbr, ov_wgt = (
-        tables["ov_ids"], tables["ov_nbr"], tables["ov_wgt"]
-    )
-    vp = base_nbr.shape[0]
-    csz = vp // gs
-    fl = dict(row_flag=flags[:vp], rows_changed=flags[vp:])
+    vp = tables["base_nbr"].shape[0]
+    rx = _Relaxes(tables, over_base, over_ov, roots, gs, flags[:vp],
+                  flags[vp:])
 
     def dense_sweep(dist):
         prev = dist.clone()
-        src = prev if gs == 1 else dist
         flags.zero_()
-        for c in range(gs):
-            relax.relax_rows(
-                src, dist, base_nbr, base_wgt, roots, over_base,
-                row0=c * csz, n=csz, **fl,
-            )
-        relax.relax_rows(
-            prev, dist, ov_nbr, ov_wgt, roots, over_ov, dst_rows=ov_ids, **fl
-        )
+        rx.chunks(dist, prev)
+        rx.overflow(dist, prev)
 
     return dense_sweep
 
@@ -225,138 +252,252 @@ def _make_tail_relax(tables, over_base, over_ov, roots, flags):
     overflow row, all reading the pre-round dist (Jacobi), in place.
     Returns `tail_relax(dist, rows)`, which clears `flags` and leaves the
     rows it lowered and their count there, as `dense_sweep` does."""
-    base_nbr, base_wgt = tables["base_nbr"], tables["base_wgt"]
-    ov_ids, ov_nbr, ov_wgt = (
-        tables["ov_ids"], tables["ov_nbr"], tables["ov_wgt"]
-    )
-    vp = base_nbr.shape[0]
-    fl = dict(row_flag=flags[:vp], rows_changed=flags[vp:])
+    vp = tables["base_nbr"].shape[0]
+    rx = _Relaxes(tables, over_base, over_ov, roots, 1, flags[:vp],
+                  flags[vp:])
 
     def tail_relax(dist, rows):
         snap = dist.clone()
         flags.zero_()
-        relax.relax_rows(
-            snap, dist, base_nbr, base_wgt, roots, over_base,
-            src_rows=rows, dst_rows=rows, **fl,
-        )
-        # overflow in-edges: the ov tables are tiny — relax them all
-        relax.relax_rows(
-            snap, dist, ov_nbr, ov_wgt, roots, over_ov, dst_rows=ov_ids, **fl
-        )
+        rx.rows(dist, snap, rows)
+        rx.overflow(dist, snap)
 
     return tail_relax
 
 
-class _Solve:
-    """What the cold and the warm solve share: the overload masks, the
-    Gauss-Seidel chunk count, the flag buffer (`row_flag` [vp] and
-    `rows_changed` [1] in one int32 [vp + 1] tensor), the dense sweep
-    and the tail relax, and the loop counters `st`."""
+#: steps a block (a replay) runs between two reads of the loop's state:
+#: the 100k benchmark's cold solve takes ~15 dense sweeps and a few tail
+#: rounds, config 3's about as many, so one block finishes either; a
+#: warm solve is mostly a few tail rounds
+STEPS_COLD = 32
+STEPS_WARM = 16
 
-    def __init__(self, tables, roots, has_overloads, gs_chunks):
+
+class SplitProgram:
+    """The split solve as a program of steps on the device, for one table
+    set, B, overload flag, Gauss-Seidel chunk count and set of caps, cold
+    or warm.
+
+    State lives in static buffers: `dist` and its snapshot `snap` [vp,
+    B], `row_flag` and `mark` [vp], the tail's `rows` and `frontier`
+    lists [tail_cap], `roots` [B] and the control block `ctl`
+    (`ops/split_loop.py`). A step is one dense sweep (phases 1 and 3) or
+    one tail round (phase 2); every launch of it is guarded by the phase,
+    so the same `7 + gs` launches serve either, and after the loop's exit
+    a step touches nothing:
+
+      1. `split_snap_kernel`: snap = dist, row flags and count cleared;
+      2. `frontier_mark_kernel` (tail): the frontier's out-neighbors (and,
+         warm, the frontier itself) marked;
+      3. `flag_compact_kernel` (tail): the marks into the round's rows,
+         spill if they exceed `tail_cap`;
+      4. kernel A: the `gs` dense chunks (dense), the listed rows up to
+         their count (tail), the overflow rows (both);
+      5. `split_ctl_kernel` stage 0: the step counted, phase 1 ended
+         while at most `tail_threshold` rows changed, the net ended at a
+         sweep that changed nothing;
+      6. `flag_compact_kernel` (tail): the lowered rows into the next
+         frontier, spill if they exceed `tail_cap`;
+      7. `split_ctl_kernel` stage 1 (tail): done on an empty frontier,
+         to the net on a spill or at `tail_rounds_cap` rounds.
+
+    `run` executes blocks of `steps` steps and reads `ctl` back once per
+    block until the phase is done: the solve's host syncs are its blocks.
+    With `graphs` (CUDA only) the first run is eager — the warm-up, and
+    the run whose launches a telemetry capture counts — and then the init
+    and a block of steps are captured as two CUDA graphs that later runs
+    replay. The wrappers count the kernels they launch, so a replay moves
+    no wrapper's count: the stats count replays and graph nodes instead.
+    On the CPU the steps call the twins, and a block is a host loop."""
+
+    def __init__(self, tables, b: int, *, has_overloads: bool,
+                 gs_chunks: int | None, tail_threshold: int, tail_cap: int,
+                 tail_rounds_cap: int, warm: bool, steps: int | None = None,
+                 graphs: bool = False):
         base_nbr = tables["base_nbr"]
-        self.out_nbr, self.ov_ids = tables["out_nbr"], tables["ov_ids"]
-        self.dev = base_nbr.device
+        self.tables = tables  # held: the buffers' pointers stay valid
+        self.dev = dev = base_nbr.device
         self.vp = vp = base_nbr.shape[0]
         self.dead = vp - 1
-        self.iota = torch.arange(vp, dtype=torch.int32, device=self.dev)
-        self.st = {"sweeps": 0, "tail_rounds": 0, "spilled": False,
-                   "host_syncs": 0}
-        if has_overloads:
-            over = tables["over"]
-            over_base = over[base_nbr.long()].contiguous()
-            over_ov = over[tables["ov_nbr"].long()].contiguous()
-        else:
-            over_base = over_ov = None
+        self.b = b
         gs = gs_chunks if gs_chunks is not None else pick_gs_chunks(vp)
         if vp % gs:  # explicit override that doesn't divide: no chunking
             gs = 1
-        # Change detection comes from the kernel: every sweep or tail
-        # round clears `flags` once and each of its launches sets
-        # row_flag[t] for the rows it lowered and counts them in
-        # rows_changed — the JAX package's `(new < dist).any(axis=1)` and
-        # its sum.
-        self.flags = torch.zeros(vp + 1, dtype=torch.int32, device=self.dev)
-        self.row_flag = self.flags[:vp]
-        self.rows_changed = self.flags[vp:]
-        self.dense_sweep = _make_dense_sweep(
-            tables, over_base, over_ov, roots, gs, self.flags
-        )
-        self.tail_relax = _make_tail_relax(
-            tables, over_base, over_ov, roots, self.flags
-        )
+        self.gs = gs
+        self.warm = warm
+        self.steps = steps or (STEPS_WARM if warm else STEPS_COLD)
+        self.graphs = graphs and dev.type == "cuda"
+        self.out_nbr = tables["out_nbr"]
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.dist = torch.empty((vp, b), **i32)
+        self.snap = torch.empty((vp, b), **i32)
+        self.row_flag = torch.zeros(vp, **i32)
+        self.mark = torch.zeros(vp, **i32)
+        self.rows = torch.full((tail_cap,), self.dead, **i32)
+        self.frontier = torch.full((tail_cap,), self.dead, **i32)
+        self.roots = torch.zeros(b, **i32)
+        self.ctl = torch.zeros(split_loop.CTL_WORDS, **i32)
+        self.ctl0 = split_loop.new_ctl(
+            split_loop.TAIL if warm else split_loop.DENSE, tail_threshold,
+            tail_rounds_cap, vp, dev)
+        self.cols = torch.arange(b, device=dev)
+        self.flat = torch.zeros(b, dtype=torch.int64, device=dev)
+        over_base, over_ov = _over_masks(tables, has_overloads)
+        rc = split_loop.ROWS_CHANGED
+        self.rx = _Relaxes(tables, over_base, over_ov, self.roots, gs,
+                           self.row_flag, self.ctl[rc:rc + 1])
+        nr = split_loop.N_ROWS
+        self.n_live = self.ctl[nr:nr + 1]
+        # the loop's iterations are bounded (each phase by its cap), so
+        # are its blocks
+        self.max_blocks = (2 * vp + tail_rounds_cap + 2) // self.steps + 2
+        self._graphs = None  # (init, steps) CUDA graphs once captured
 
-    def synced(self) -> None:
-        """Count one read of the loop's state back to the host."""
-        self.st["host_syncs"] += 1
-        compile_ledger.record_sync()
+    #: launches of one step besides the `gs` dense chunks
+    STEP_LAUNCHES = 7
 
-    def compact(self, mask, cap):
-        """The ids where `mask` [vp] holds, sorted, dead-padded to `cap`."""
-        return _compact_ids(torch.where(mask, self.iota, self.vp), self.vp,
-                            cap, self.dead)
+    def _init(self) -> None:
+        sl = split_loop
+        self.ctl.copy_(self.ctl0)
+        if self.warm:  # the seeds (in `mark`) become the first frontier
+            sl.flag_compact(self.mark, self.frontier, self.ctl, sl.M_TAIL,
+                            sl.N_FRONT, sl.RAW_FRONT, self.dead, True)
+            sl.split_ctl(self.ctl, 1, sl.M_TAIL)
+            return
+        self.flat.copy_(self.roots)
+        self.flat.mul_(self.b).add_(self.cols)
+        self.dist.fill_(INF_DIST)
+        self.dist.view(-1).index_fill_(0, self.flat, 0)
 
-    def tail(self, dist, frontier, spilled, tail_cap, tail_rounds_cap,
-             with_frontier):
-        """Compacted tail rounds from `frontier` until it empties, spills
-        or hits the round cap. Each round relaxes the sorted, deduplicated
-        out-neighbors of the frontier (and, `with_frontier`, the frontier
-        itself) plus every overflow row; the rows it lowered are the next
-        frontier. `spilled` may be a device bool, read back with the
-        frontier's head in one sync. Returns (pending, spilled)."""
-        vp, dead, st = self.vp, self.dead, self.st
-        out_nbr, ov_ids, row_flag = self.out_nbr, self.ov_ids, self.row_flag
-        if torch.is_tensor(spilled):
-            head, sp = torch.stack(
-                [frontier[0].to(torch.int64), spilled.to(torch.int64)]
-            ).tolist()
-            spilled = bool(sp)
+    def _step(self) -> None:
+        sl, ctl = split_loop, self.ctl
+        sl.snap(self.dist, self.snap, self.row_flag, ctl, sl.M_ALL)
+        sl.frontier_mark(self.frontier, self.out_nbr, self.mark, ctl,
+                         sl.M_TAIL, self.warm, self.dead)
+        sl.flag_compact(self.mark, self.rows, ctl, sl.M_TAIL, sl.N_ROWS,
+                        sl.RAW_ROWS, self.dead, True)
+        self.rx.chunks(self.dist, self.snap, ctl=ctl, phase_mask=sl.M_DENSE)
+        self.rx.rows(self.dist, self.snap, self.rows, ctl=ctl,
+                     phase_mask=sl.M_TAIL, n_live=self.n_live)
+        self.rx.overflow(self.dist, self.snap, ctl=ctl, phase_mask=sl.M_ALL)
+        sl.split_ctl(ctl, 0, sl.M_ALL)
+        sl.flag_compact(self.row_flag, self.frontier, ctl, sl.M_TAIL,
+                        sl.N_FRONT, sl.RAW_FRONT, self.dead, False)
+        sl.split_ctl(ctl, 1, sl.M_TAIL)
+
+    def _capture(self) -> None:
+        """The init and a block of steps as two CUDA graphs. Nothing in
+        them syncs or allocates, and capturing launches nothing."""
+        cur = torch.cuda.current_stream(self.dev)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(cur)
+        graphs = []
+        with torch.cuda.stream(side), _telemetry.paused():
+            for body in (self._init, self._block):
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(capture_error_mode="thread_local")
+                try:
+                    body()
+                finally:
+                    g.capture_end()
+                graphs.append(g)
+        cur.wait_stream(side)
+        self._graphs = graphs
+
+    def _block(self) -> None:
+        for _ in range(self.steps):
+            self._step()
+
+    def run(self, roots, dist0=None, seed=None) -> dict:
+        """Solves from `roots` (int32 [B], on the device); a warm program
+        starts from `dist0` [vp, B] (read, not written) and the seed mask
+        `seed` [vp]. The distances are left in `self.dist`. Returns the
+        stats: sweeps, tail_rounds, spilled, host_syncs (= replays, the
+        blocks run), steps (the steps that did work), relax_launches
+        (kernel A's launches that did work; 0 on the CPU, which runs the
+        twin), graph_nodes (launches a replayed block holds, 0 when the
+        blocks ran eagerly)."""
+        self.roots.copy_(roots)
+        if self.warm:
+            self.dist.copy_(dist0)
+            self.mark.copy_(seed)
+        replay = self._graphs is not None and _telemetry.sink() is None
+        if replay:
+            self._graphs[0].replay()
         else:
-            head = int(frontier[0].item())
-        pending = head != dead
-        self.synced()
-        it = 0
-        while pending and not spilled and it < tail_rounds_cap:
-            exp = out_nbr[frontier.long()].reshape(-1)
-            if with_frontier:
-                exp = torch.cat([exp, frontier])
-            exp = torch.sort(exp).values
-            first = _first_of_runs(exp, exp != dead)
-            spill_dev = first.sum() > tail_cap
-            rows = _compact_ids(torch.where(first, exp, vp), vp, tail_cap,
-                                dead)
-            self.tail_relax(dist, rows)
-            changed_rows = row_flag[rows.long()] != 0
-            ov_changed = row_flag[ov_ids.long()] != 0
-            both = torch.cat(
-                [torch.where(changed_rows, rows, vp),
-                 torch.where(ov_changed, ov_ids, vp)]
-            )
-            srt = torch.sort(both).values
-            firstb = _first_of_runs(srt, srt < vp)
-            # a truncated next frontier would drop pending updates: spill
-            spill_dev = spill_dev | (firstb.sum() > tail_cap)
-            frontier = _compact_ids(torch.where(firstb, srt, vp), vp,
-                                    tail_cap, dead)
-            head, sp = torch.stack(
-                [frontier[0].to(torch.int64), spill_dev.to(torch.int64)]
-            ).tolist()
-            self.synced()
-            st["tail_rounds"] += 1
-            pending, spilled = head != dead, bool(sp)
-            it += 1
-        st["spilled"] = bool(spilled)
-        return pending, spilled
+            self._init()
+        blocks = 0
+        while True:
+            if replay:
+                self._graphs[1].replay()
+            else:
+                self._block()
+            blocks += 1
+            c = self.ctl.tolist()  # the block's one read of the loop state
+            compile_ledger.record_sync()
+            if c[split_loop.PHASE] == split_loop.DONE:
+                break
+            if blocks >= self.max_blocks:
+                raise RuntimeError(
+                    f"split solve: the loop did not finish in {blocks} "
+                    f"blocks of {self.steps} steps (ctl {c})")
+        if self.graphs and self._graphs is None:
+            self._capture()
+        sweeps, rounds = c[split_loop.SWEEPS], c[split_loop.TAIL_ROUNDS]
+        cuda = self.dev.type == "cuda"
+        return {
+            "sweeps": sweeps, "tail_rounds": rounds,
+            "spilled": bool(c[split_loop.SPILL]), "host_syncs": blocks,
+            "replays": blocks, "steps": c[split_loop.STEPS],
+            "relax_launches": (sweeps * (self.gs + 1) + 2 * rounds
+                               if cuda else 0),
+            "graph_nodes": (self.steps * (self.gs + self.STEP_LAUNCHES)
+                            if replay else 0),
+        }
 
-    def net(self, dist, changed):
-        """The exactness net: dense sweeps to fixpoint while `changed`."""
-        it = 0
-        while changed and it < self.vp:
-            self.dense_sweep(dist)
-            changed = int(self.rows_changed.item()) > 0
-            self.synced()
-            self.st["sweeps"] += 1
-            it += 1
+
+class ProgramCache:
+    """Split programs by key, least recently used first, at most `cap`
+    (each holds two [vp, B] buffers and, on CUDA, two graphs). Its
+    programs run `steps` steps a block (None: `STEPS_COLD` cold,
+    `STEPS_WARM` warm)."""
+
+    def __init__(self, cap: int = 4, steps: int | None = None):
+        self.cap = cap
+        self.steps = steps
+        self._progs: dict = {}
+
+    def get(self, key, make):
+        prog = self._progs.pop(key, None)
+        if prog is None:
+            prog = make()
+        self._progs[key] = prog
+        while len(self._progs) > self.cap:
+            self._progs.pop(next(iter(self._progs)))
+        return prog
+
+    def keep_tables(self, live) -> None:
+        """Drops the programs of table sets not in `live`."""
+        ids = {id(t) for t in live}
+        for key in [k for k, p in self._progs.items()
+                    if id(p.tables) not in ids]:
+            del self._progs[key]
+
+    def clear(self) -> None:
+        self._progs.clear()
+
+    def __len__(self) -> int:
+        return len(self._progs)
+
+
+def _program(tables, b, programs, **kw):
+    """(the program for this solve, whether it is kept): from `programs`
+    where given, else a fresh one that runs eagerly and is dropped."""
+    if programs is None:
+        return SplitProgram(tables, b, **kw), False
+    key = (id(tables), b, *sorted(kw.items()))
+    return programs.get(key, lambda: SplitProgram(
+        tables, b, steps=programs.steps, graphs=True, **kw)), True
 
 
 def batched_sssp_split(
@@ -368,53 +509,22 @@ def batched_sssp_split(
     tail_rounds_cap: int = 64,
     gs_chunks: int | None = None,
     stats: dict | None = None,
+    programs: ProgramCache | None = None,
 ):
-    """Distances [vp, B] int32 from each root.
+    """Distances [vp, B] int32 from each root, a tensor of its own.
 
     `tables` is the device table set of `convert.split_tables_from_numpy`
-    (base_nbr, base_wgt, ov_ids, ov_nbr, ov_wgt, out_nbr, over). If
-    `stats` is given it is filled with sweeps, tail_rounds, spilled and
-    host_syncs."""
-    sv = _Solve(tables, roots, has_overloads, gs_chunks)
-    vp, b, st = sv.vp, roots.shape[0], sv.st
-    dist = torch.full((vp, b), INF_DIST, dtype=DIST_DTYPE, device=sv.dev)
-    dist[roots.long(), torch.arange(b, device=sv.dev)] = 0
-
-    # ---- phase 1: dense sweeps while the changed set is large ----------
-    sv.row_flag[roots.long()] = 1  # the entry set before any sweep
-    n_changed = tail_threshold + 1
-    it = 0
-    while n_changed > tail_threshold and it < vp:
-        sv.dense_sweep(dist)
-        n_changed = int(sv.rows_changed.item())
-        sv.synced()
-        st["sweeps"] += 1
-        it += 1
-
-    # ---- phase 2: compacted tail --------------------------------------
-    frontier = sv.compact(sv.row_flag != 0, tail_cap)
-    # the entry set itself may not fit
-    pending, spilled = sv.tail(dist, frontier, n_changed > tail_cap,
-                               tail_cap, tail_rounds_cap, False)
-
-    # ---- phase 3: exactness net — dense to fixpoint if the tail bailed
-    sv.net(dist, spilled or pending)
+    (base_nbr, base_wgt, ov_ids, ov_nbr, ov_wgt, out_nbr, over). The solve
+    runs as a `SplitProgram`; with `programs` the program is kept there (on CUDA: replayed as CUDA graphs from its
+    second solve). If `stats` is given it is filled with `run`'s stats."""
+    prog, kept = _program(
+        tables, roots.shape[0], programs, has_overloads=has_overloads,
+        gs_chunks=gs_chunks, tail_threshold=tail_threshold,
+        tail_cap=tail_cap, tail_rounds_cap=tail_rounds_cap, warm=False)
+    st = prog.run(roots)
     if stats is not None:
         stats.update(st)
-    return dist
-
-
-def packbits_rows(bits):
-    """MSB-first packbits along the last axis of a bool [R, V] tensor
-    (V a multiple of 8): the layout of `jnp.packbits(..., axis=1)` and
-    the inverse of `np.unpackbits` with its default bit order."""
-    r, v = bits.shape
-    weights = torch.tensor(
-        [128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=bits.device
-    )
-    return (bits.reshape(r, v // 8, 8).to(torch.uint8) * weights).sum(
-        dim=2, dtype=torch.uint8
-    )
+    return prog.dist.clone() if kept else prog.dist
 
 
 def batched_sssp_split_rib(
@@ -431,9 +541,11 @@ def batched_sssp_split_rib(
     tail_rounds_cap: int = 64,
     gs_chunks: int | None = None,
     stats: dict | None = None,
+    programs: ProgramCache | None = None,
 ):
     """Distances plus the host-bound outputs packed into one uint8
-    buffer, the layout `unpack_rib_buffer` decodes:
+    buffer by `rib_epilogue_kernel` (`ops/rib_epilogue.py`), the layout
+    `unpack_rib_buffer` decodes:
 
         buf = [ d_root as 4·vp bytes | packbits(fh) | packbits(lfa)? ]
     """
@@ -445,23 +557,10 @@ def batched_sssp_split_rib(
         tail_rounds_cap=tail_rounds_cap,
         gs_chunks=gs_chunks,
         stats=stats,
+        programs=programs,
     )
-    return dist, _rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, my_id,
-                             with_lfa)
-
-
-def _rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, my_id, with_lfa):
-    """The packed buffer `unpack_rib_buffer` decodes, from the solved
-    distances."""
-    fh = first_hop_matrix(dist, nbr_metric, nbr_ids, nbr_over)
-    parts = [
-        dist[:, 0].contiguous().view(torch.uint8),
-        packbits_rows(fh).reshape(-1),
-    ]
-    if with_lfa:
-        lfa = lfa_matrix(dist, my_id, nbr_ids, nbr_over)
-        parts.append(packbits_rows(lfa).reshape(-1))
-    return torch.cat(parts)
+    return dist, rib_epilogue.rib_buffer(dist, nbr_metric, nbr_ids, nbr_over,
+                                         my_id, with_lfa)
 
 
 def batched_sssp_split_warm_rib(
@@ -470,13 +569,14 @@ def batched_sssp_split_warm_rib(
     nbr_metric,     # [B-1] i32 metric(root -> neighbor i)
     nbr_ids,        # [B-1] i32 (padding -> dead slot)
     nbr_over,       # [B-1] bool (padding -> True)
-    dist0,          # [vp, B] i32 warm start, relaxed IN PLACE
+    dist0,          # [vp, B] i32 warm start (read, not written)
     seed_mask,      # [vp] bool: nodes whose distance may change
     has_overloads: bool = False,
     tail_cap: int = 8192,
     tail_rounds_cap: int = 64,
     gs_chunks: int | None = None,
     stats: dict | None = None,
+    programs: ProgramCache | None = None,
 ):
     """The warm-start solve after a bounded metric-only delta: same
     fixpoint and packed buffer (without LFA) as `batched_sssp_split_rib`,
@@ -489,19 +589,18 @@ def batched_sssp_split_warm_rib(
     frontier itself with its out-neighbors (cone rows must re-pull from
     their unchanged in-neighbors); the dense net restores exactness if
     the tail spills (already at entry when the seeds exceed `tail_cap`)
-    or hits its round cap. `dist0` is overwritten with the result and
-    returned as the distances, with the packed buffer: the caller owns
-    it, and must pass a copy where the old matrix is still read.
-    `stats` gets sweeps, tail_rounds, spilled and host_syncs."""
-    sv = _Solve(tables, roots, has_overloads, gs_chunks)
-    dist = dist0
-    frontier = sv.compact(seed_mask, tail_cap)
-    pending, spilled = sv.tail(dist, frontier, seed_mask.sum() > tail_cap,
-                               tail_cap, tail_rounds_cap, True)
-    sv.net(dist, spilled or pending)
+    or hits its round cap. Returns the distances (a tensor of its own)
+    and the packed buffer; `stats` gets `SplitProgram.run`'s stats."""
+    prog, kept = _program(
+        tables, roots.shape[0], programs, has_overloads=has_overloads,
+        gs_chunks=gs_chunks, tail_threshold=0, tail_cap=tail_cap,
+        tail_rounds_cap=tail_rounds_cap, warm=True)
+    st = prog.run(roots, dist0, seed_mask)
     if stats is not None:
-        stats.update(sv.st)
-    return dist, _rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, 0, False)
+        stats.update(st)
+    dist = prog.dist.clone() if kept else prog.dist
+    return dist, rib_epilogue.rib_buffer(dist, nbr_metric, nbr_ids, nbr_over,
+                                         0, False)
 
 
 _BYTE_ORDER_OK: dict[str, bool] = {}

@@ -110,7 +110,7 @@ def test_compute_routes_equal_erdos_renyi_lsdb():
     got2 = TorchSpfSolver(device="cpu").compute_routes(moved, pps, "node-0")
     assert canon(got2) == canon(ref)
     st = solver.last_solve_stats
-    assert st["host_syncs"] >= st["sweeps"] + st["tail_rounds"]
+    assert st["host_syncs"] == st["replays"] >= 1
     assert st["relax_launches"] == 0  # CPU: the plain version, no kernel
 
 

@@ -327,7 +327,7 @@ def test_warm_compute_routes_equals_jax_and_cold(topo):
     assert ps_.solve_count == 1 + ps_.warm_solves
     assert ps_.dev_cache_stats["uploads"] == 1
     ws = ps_.last_warm_stats
-    assert ws["host_syncs"] >= ws["tail_rounds"] + ws["sweeps"]
+    assert ws["host_syncs"] == ws["replays"] >= 1
     assert ws["relax_launches"] == 0  # CPU: the plain version
     assert ws["changes"] > 0
     assert min(ws["cone_walk_ms"], ws["solve_ms"], ws["assembly_ms"]) >= 0
