@@ -191,20 +191,28 @@ Phases (any failure exits non-zero and prints no result line):
  14. the split solve's loop on the card and the RIB epilogue
      (`csrc/split_loop.cu`, `csrc/rib_epilogue.cu`): (a) each kernel
      against its twin at er100k's shapes and on random inputs (the
-     compaction at 0, 1, cap and cap + 1 marks and more, the dead slot, a
-     ragged length, clear off and on; the mark with and without the
-     frontier; the snapshot and the decisions in every phase; kernel A
-     under the loop guard with a live count; the epilogue on the solve's
-     distances and INF-holed ones, LFA off and on, overloads flipped),
-     every guarded launch of another phase writing nothing, each timed
+     compaction at 0, 1, cap and cap + 1 marks and more, the edges of
+     its 4 096-flag tiles, lengths below a tile, of 1 and not a multiple
+     of 4, cap - 1 / cap / cap + 1 flags over every tile, the dead slot,
+     clear off and on, the tail's decision on each of its rows, its
+     workspace zero after every launch, 1 000 launches on one workspace
+     and a CUDA graph of them replayed 100 times; the mark with and
+     without the frontier; the snapshot and the decisions in every
+     phase; kernel A under the loop guard with a live count; the
+     epilogue on the solve's distances and INF-holed ones, LFA off and
+     on, overloads flipped), every guarded launch of another phase
+     writing nothing (the compaction's workspace included), each timed
      (CUPTI) with its bound, its plain twin and, for the compaction,
-     `torch.nonzero` on the same flags; (b) the whole program on a
-     20 000-node ER, eager and then replayed from its CUDA graphs, equal to
-     the CPU twins' distances and buffer: cold, one step a block, a
-     spilled tail, a long tail with LFA, overloads with LFA, and warm from
-     a sparse and a dense cone; (c) at er100k through the solver, a block
-     replayed with the loop done (the no-op steps' cost) and the
-     device-idle share of one traced solve (`profiling.trace`). [4]
+     `torch.nonzero` on the same flags; (b) the whole
+     program on a 20 000-node ER, eager and then replayed from its CUDA
+     graphs, equal to the CPU twins' distances and buffer: cold, one
+     step a block, a spilled tail, a long tail with LFA, overloads with
+     LFA, and warm from a sparse and a dense cone; (c) at er100k
+     through the solver, the graph nodes a block holds (the kernels the
+     wrappers recorded into its capture) against a step's launches and
+     beside CUPTI's kernels in one replayed block, a block replayed with the loop done
+     (the no-op steps' cost) and the device-idle share of one traced
+     solve (`profiling.trace`). [4]
      and [10b] print each solve's host syncs, replays, steps and useful
      relax launches, and the idle share of one traced call.
 
@@ -232,6 +240,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from openr_tpu_torch.solve_turns import er_linkstate, flap_round, revert_round
 
 INF = 1 << 30
 WIDTHS = (8, 16, 32, 64)
@@ -317,10 +327,13 @@ def cuda_ms(fn, reps: int = 3) -> float:
 
 def kernel_device_us(prof, names) -> tuple[float, int]:
     """(total CUPTI µs, launches) of the kernels whose name holds one of
-    `names`, from a finished torch.profiler run."""
+    `names`, from a finished torch.profiler run. A span's annotation on
+    the device timeline (its first to its last kernel, gaps included) is
+    not a kernel and is skipped."""
     us, count = 0.0, 0
     for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CPU"):
+        if (str(getattr(ev, "device_type", "")).endswith("CPU")
+                or getattr(ev, "is_user_annotation", False)):
             continue
         if not any(n in ev.key for n in names):
             continue
@@ -940,72 +953,6 @@ def phase4_hub(relax, old_libs) -> dict:
 
 
 # ------------------------------------------------------------ phase 5
-
-
-def er_linkstate(n: int, avg_degree: int, seed: int, max_metric: int):
-    """A real LinkState + PrefixState of `erdos_renyi_csr`'s directed
-    edges, through the topology generator's `_mk_dbs`: the names, node
-    labels and interface names of `erdos_renyi_lsdb`'s view."""
-    from openr_tpu_torch.decision.linkstate import LinkState, PrefixState
-    from openr_tpu_torch.utils.topogen import _mk_dbs, erdos_renyi_csr
-
-    src, dst, met, _vp, nn, e = erdos_renyi_csr(
-        n, avg_degree=avg_degree, seed=seed, max_metric=max_metric
-    )
-    adj, pfx = _mk_dbs(nn, list(zip(src[:e].tolist(), dst[:e].tolist(),
-                                    met[:e].tolist())))
-    ls, ps = LinkState(), PrefixState()
-    for db in adj:
-        ls.update_adjacency_db(db)
-    for db in pfx:
-        ps.update_prefix_db(db)
-    return ls, ps, e
-
-
-def flap_round(ls, rng, n_up: int, n_down: int):
-    """Metric changes on n_up + n_down directed adjacencies of distinct
-    nodes, none touching node-0: n_up raised by +20, n_down lowered to 1.
-    Returns (edge pairs, the replaced AdjacencyDatabases)."""
-    from dataclasses import replace
-
-    names = ls.nodes
-    picked: dict[str, tuple[int, int]] = {}
-    while len(picked) < n_up + n_down:
-        node = names[int(rng.integers(1, len(names)))]
-        if node == "node-0" or node in picked:
-            continue
-        adjs = ls.adjacency_db(node).adjacencies
-        k = int(rng.integers(len(adjs)))
-        if adjs[k].other_node_name == "node-0":
-            continue
-        new = adjs[k].metric + 20 if len(picked) < n_up else 1
-        if new == adjs[k].metric:
-            continue
-        picked[node] = (k, new)
-    pairs: set = set()
-    old_dbs = []
-    for node, (k, m) in picked.items():
-        db = ls.adjacency_db(node)
-        old_dbs.append(db)
-        adjs = list(db.adjacencies)
-        adjs[k] = replace(adjs[k], metric=m)
-        changed, got = ls.update_adjacency_db_delta(
-            replace(db, adjacencies=tuple(adjs)))
-        if not changed or got is None:
-            fail(f"warm: the flap on {node} was not metric-only")
-        pairs.update(got)
-    return pairs, old_dbs
-
-
-def revert_round(ls, old_dbs):
-    pairs: set = set()
-    for db in old_dbs:
-        changed, got = ls.update_adjacency_db_delta(db)
-        if not changed or got is None:
-            fail(f"warm: the revert of {db.this_node_name} was not "
-                 "metric-only")
-        pairs.update(got)
-    return pairs
 
 
 def phase5_warm(relax, shape4) -> dict:
@@ -3646,11 +3593,11 @@ class LaunchWork:
         def spy_loop(name, ctl_at, mask_at, work):
             orig = getattr(sl, name)
 
-            def call(*a):
+            def call(*a, **kw):
                 if (not torch.cuda.is_current_stream_capturing()
                         and sl.runs(a[ctl_at], a[mask_at])):
                     self.add(*work(*a))
-                return orig(*a)
+                return orig(*a, **kw)
 
             self.keep.append((sl, name, orig))
             setattr(sl, name, call)
@@ -3668,7 +3615,7 @@ class LaunchWork:
         spy_loop("flag_compact", 2, 3, lambda f, o, c, k, s1, s2, dd, clear:
                  sl.compact_work(f.shape[0], o.shape[0],
                                  int((f != 0).sum()), clear))
-        spy_loop("split_ctl", 0, 2, lambda *a: sl.ctl_work())
+        spy_loop("split_ctl", 0, 1, lambda *a: sl.ctl_work())
         orig_buf = rib_epilogue.rib_buffer
 
         def spy_buf(dist, metric, ids, over, my_id, with_lfa):
@@ -4086,6 +4033,16 @@ def main(argv=None) -> None:
         if n == 0:
             fail(f"the main path launched the loop's {k} kernel no time "
                  f"({loop_launches})")
+    # the eager blocks' steps (the warm-up solve's): a snapshot, a mark,
+    # two compactions and one decision each
+    prog4 = next(p for p in solver._programs._progs.values() if not p.warm)
+    eager_steps = prog4.steps * sum(x["replays"] for x in run_stats
+                                    if not x.get("graph_nodes"))
+    want = dict(snap=eager_steps, mark=eager_steps, compact=2 * eager_steps,
+                ctl=eager_steps)
+    if {k: loop_launches[k] for k in want} != want:
+        fail(f"[4] the loop's wrapper counts {loop_launches}, not {want} "
+             f"({eager_steps} eager steps)")
     idle4, span4 = trace_idle_share(lambda: solver.solve(ls, "node-0"),
                                     "spf:batched_solve")
     b = solved[1].device_tensor.shape[1]
@@ -4650,6 +4607,161 @@ def loop_ctl(split_loop, phase, **words):
     return ctl
 
 
+#: the tail's decision rows (`tests/test_torch_split_loop.py` DECISIONS,
+#: stage 1): control words before a frontier compaction with `decide`,
+#: RAW_FRONT given as the number of flags set
+DECIDE_ROWS = (dict(RAW_FRONT=0), dict(RAW_FRONT=3, IT=5),
+               dict(RAW_FRONT=3, IT=64), dict(RAW_FRONT=0, SPILL=1, IT=2))
+
+
+def compact_call(sl, kernel: bool, flags, out, ctl, mask, count_slot,
+                 raw_slot, dead, clear, decide, ws) -> None:
+    """One compaction by the kernel (on workspace `ws`) or by its twin."""
+    if kernel:
+        sl.flag_compact(flags, out, ctl, mask, count_slot, raw_slot, dead,
+                        clear, decide=decide, ws=ws)
+    else:
+        sl.flag_compact_ref(flags, out, ctl, mask, count_slot, raw_slot,
+                            dead, clear, decide)
+
+
+def compaction_cases(vp: int, cap: int, g, t: int) -> list:
+    """[14a]'s compaction inputs: (label, flags, control words, decide)."""
+    def flagged(n, pos, vals=None):
+        f = torch.zeros(n, dtype=torch.int32, device=DEVICE)
+        pos = torch.as_tensor(pos, device=DEVICE).long()
+        f[pos] = 1 if vals is None else vals
+        return f
+
+    cases = []
+    for marks in (0, 1, cap, cap + 1, 3000, 50_000, vp):
+        pick = torch.randperm(vp, generator=g, device=DEVICE)[:marks]
+        vals = 1 + torch.randint(0, 5, (pick.numel(),), generator=g,
+                                 device=DEVICE, dtype=torch.int32)
+        cases.append((f"{marks} marks", flagged(vp, pick, vals), {}, False))
+    cases.append(("dead slot", flagged(vp, [3, 17, vp - 1]), {}, False))
+    cases.append(("ragged length", flagged(vp - 5, [vp - 8, vp - 7, vp - 6]),
+                  {}, False))
+    edges = [x for x in (0, t - 1, t, 2 * t - 1, vp - 1) if x < vp]
+    cases.append((f"tile edges of {t}", flagged(vp, edges), {}, False))
+    for n in (1, 1000, 4099, vp - 5):  # n < T, n = 1, not a multiple of 4
+        cases.append((f"all {n} set", flagged(n, torch.arange(n)), {},
+                      False))
+    for raw in (cap - 1, cap, cap + 1):  # spread over every tile
+        pos = torch.linspace(0, vp - 1, raw, device=DEVICE).long()
+        cases.append((f"raw {raw} spread", flagged(vp, pos), {}, False))
+    for words in DECIDE_ROWS:
+        w = dict(words)
+        raw = w.pop("RAW_FRONT")
+        pos = torch.linspace(0, vp - 1, raw, device=DEVICE).long()
+        cases.append((f"decide {words}", flagged(vp, pos), w, True))
+    pos = torch.linspace(0, vp - 1, cap + 1, device=DEVICE).long()
+    cases.append(("decide, its own spill", flagged(vp, pos), dict(IT=1),
+                  True))
+    return cases
+
+
+def compact_vs_twin(sl, flags, cap, words, clear, decide, ws) -> int:
+    """Max |diff| of (out, ctl, flags) between the kernel and its twin on
+    copies of the same inputs; fails if the kernel leaves `ws` non-zero."""
+    res = []
+    for kernel in (True, False):
+        f = flags.clone()
+        out = torch.full((cap,), 7, dtype=torch.int32, device=DEVICE)
+        ctl = loop_ctl(sl, sl.TAIL, **words)
+        compact_call(sl, kernel, f, out, ctl, sl.M_TAIL, sl.N_FRONT,
+                     sl.RAW_FRONT, flags.shape[0] - 1, clear, decide, ws)
+        res.append(torch.cat([out, ctl, f]).long())
+    torch.cuda.synchronize()
+    if bool(ws.any()):
+        fail("[14] flag_compact_kernel left its workspace non-zero: "
+             f"{ws.nonzero().reshape(-1).tolist()[:8]}")
+    return int((res[0] - res[1]).abs().max())
+
+
+def compact_guarded(sl, flags, cap, phase, ws, label) -> None:
+    """A launch in another phase than its mask's touches nothing: not
+    out, flags, ctl or the workspace."""
+    f = flags.clone()
+    out = torch.full((cap,), 7, dtype=torch.int32, device=DEVICE)
+    ctl = loop_ctl(sl, phase, IT=3)
+    ws_before = ws.clone()
+    sl.flag_compact(f, out, ctl, sl.M_TAIL, sl.N_FRONT, sl.RAW_FRONT,
+                    flags.shape[0] - 1, True, decide=True, ws=ws)
+    if not (bool((out == 7).all()) and torch.equal(f, flags)
+            and torch.equal(ctl, loop_ctl(sl, phase, IT=3))
+            and torch.equal(ws, ws_before)):
+        fail(f"[14] flag_compact_kernel ({label}, phase {phase}): a "
+             "guarded launch wrote")
+
+
+def compact_self_reset(sl, vp, cap, g, ws, launches: int = 1000,
+                       replays: int = 100) -> int:
+    """`launches` compactions back to back on one workspace, each with
+    its own flags (densities from none to past the cap), clear, decide
+    and phase varying, then each equal to its twin; then the same
+    sequence, with the copies that restore its inputs, captured once as a
+    CUDA graph and replayed `replays` times: equal again, and the
+    workspace zero after each. Returns the max |diff|."""
+    dens = torch.rand(launches, generator=g, device=DEVICE) * 0.12
+    dens[::50] = 0.0
+    src = (torch.rand(launches, vp, generator=g, device=DEVICE)
+           < dens[:, None]).to(torch.int32)
+    src *= torch.randint(1, 4, (launches, vp), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    phases = [sl.DENSE if i % 7 == 3 else sl.TAIL for i in range(launches)]
+    ctl0 = torch.stack([loop_ctl(sl, ph, IT=i % 70)
+                        for i, ph in enumerate(phases)])
+    dead = vp - 1
+
+    def run(kernel, flags, outs, ctls):
+        for i in range(launches):
+            compact_call(sl, kernel, flags[i], outs[i], ctls[i], sl.M_TAIL,
+                         sl.N_FRONT, sl.RAW_FRONT, dead, i % 2 == 0,
+                         i % 3 == 0, ws)
+
+    def fresh():
+        return (src.clone(), torch.full((launches, cap), 7, dtype=torch.int32,
+                                        device=DEVICE), ctl0.clone())
+
+    want = fresh()
+    run(False, *want)
+    got = fresh()
+    run(True, *got)
+    torch.cuda.synchronize()
+    worst = max(int((a.long() - b.long()).abs().max())
+                for a, b in zip(got, want))
+    if bool(ws.any()):
+        fail("[14] the compaction's workspace is not zero after "
+             f"{launches} launches")
+    flags, outs, ctls = got
+    graph = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        with torch.cuda.graph(graph, stream=s):
+            flags.copy_(src)
+            outs.fill_(7)
+            ctls.copy_(ctl0)
+            run(True, flags, outs, ctls)
+    torch.cuda.current_stream().wait_stream(s)
+    for _ in range(replays):
+        graph.replay()
+    torch.cuda.synchronize()
+    worst = max([worst] + [int((a.long() - b.long()).abs().max())
+                           for a, b in zip(got, want)])
+    if bool(ws.any()):
+        fail(f"[14] the compaction's workspace is not zero after {replays} "
+             "replays of the captured sequence")
+    log(f"[14] flag_compact_kernel: {launches} launches back to back on one "
+        f"workspace (clear / decide / guarded varying, {int((src != 0).sum(dim=1).min())} to "
+        f"{int((src != 0).sum(dim=1).max())} flags set) equal to the twin, "
+        f"then the sequence as one CUDA graph replayed {replays} times: max "
+        f"|diff| {worst}, the workspace zero after both")
+    del graph
+    return worst
+
+
 def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
                      nbr) -> dict:
     """The loop's kernels and the epilogue against their twins on the card
@@ -4670,46 +4782,24 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
         return int((a.long() - b_.long()).abs().max().item()) if a.numel() \
             else 0
 
-    # ---- the compaction: 0, 1, cap, cap + 1 marks, random, dead slot
-    cases = []
-    for marks in (0, 1, cap, cap + 1, 3000, 50_000, vp):
-        flags = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
-        if marks:
-            pick = torch.randperm(vp, generator=g, device=DEVICE)[:marks]
-            flags[pick] = 1 + torch.randint(0, 5, (pick.numel(),),
-                                            generator=g, device=DEVICE,
-                                            dtype=torch.int32)
-        cases.append((f"{marks} marks", flags))
-    dflag = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
-    dflag[[3, 17, dead]] = 1
-    cases.append(("dead slot", dflag))
-    odd = torch.zeros(vp - 5, dtype=torch.int32, device=DEVICE)
-    odd[-3:] = 1
-    cases.append(("ragged length", odd))
-    for label, flags in cases:
+    # ---- the compaction: every case, the workspace zero after each
+    # launch, and each guarded launch touching nothing
+    ws = sl.compact_ws(vp, DEVICE)
+    cases = compaction_cases(vp, cap, g, sl.COMPACT_TILE)
+    n_cases = 0
+    for label, flags, words, decide in cases:
         for clear in (False, True):
-            outs = []
-            for fn in (sl.flag_compact, sl.flag_compact_ref):
-                f = flags.clone()
-                out = torch.full((cap,), 7, dtype=torch.int32, device=DEVICE)
-                ctl = loop_ctl(sl, sl.TAIL)
-                fn(f, out, ctl, sl.M_TAIL, sl.N_FRONT, sl.RAW_FRONT, dead,
-                   clear)
-                outs.append((out, ctl, f))
-            (o1, c1, f1), (o2, c2, f2) = outs
-            torch.cuda.synchronize()
-            worst["compact"] = max(worst["compact"], differ(o1, o2),
-                                   differ(c1, c2), differ(f1, f2))
-        # the guard: another phase's launch touches nothing
-        f, out = flags.clone(), torch.full((cap,), 7, dtype=torch.int32,
-                                           device=DEVICE)
-        ctl = loop_ctl(sl, sl.DENSE)
-        sl.flag_compact(f, out, ctl, sl.M_TAIL, sl.N_FRONT, sl.RAW_FRONT,
-                        dead, True)
-        if not (bool((out == 7).all()) and torch.equal(f, flags)
-                and torch.equal(ctl, loop_ctl(sl, sl.DENSE))):
-            fail(f"[14] flag_compact_kernel ({label}): a guarded launch "
-                 "wrote")
+            err = compact_vs_twin(sl, flags, cap, words, clear, decide, ws)
+            worst["compact"] = max(worst["compact"], err)
+            n_cases += 1
+        for phase in (sl.DONE, sl.DENSE, sl.NET):
+            compact_guarded(sl, flags, cap, phase, ws, label)
+    log(f"[14] flag_compact_kernel vs twin: {n_cases} cases ({len(cases)} "
+        f"inputs x clear off/on, tiles of {sl.COMPACT_TILE}), max |diff| "
+        f"{worst['compact']}; every guarded launch (DONE, DENSE, NET) left "
+        "out, flags, ctl and the workspace as they were")
+    worst["compact"] = max(worst["compact"],
+                           compact_self_reset(sl, vp, cap, g, ws))
     # ---- the mark, on the solve's out-neighbor table
     out_nbr = tables["out_nbr"]
     for n_front in (0, 1, 500, min(cap, vp - 1)):
@@ -4744,10 +4834,18 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
         words["SPILL"] = int(words["SPILL"] == 3)
         phase, stage = int(rng.integers(0, 4)), int(rng.integers(0, 2))
         ctls = []
-        for fn in (sl.split_ctl, sl.split_ctl_ref):
+        for kernel in (True, False):
             ctl = loop_ctl(sl, phase, **words)
             ctl[sl.THRESHOLD], ctl[sl.ROUNDS_CAP], ctl[sl.IT_CAP] = 1, 2, 3
-            fn(ctl, stage, sl.M_ALL if stage == 0 else sl.M_TAIL)
+            if stage == 0:
+                (sl.split_ctl if kernel else sl.split_ctl_ref)(ctl, sl.M_ALL)
+            else:  # the tail's decision: a frontier of RAW_FRONT flags
+                flags = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
+                flags[:words["RAW_FRONT"]] = 1
+                out = torch.empty(cap, dtype=torch.int32, device=DEVICE)
+                compact_call(sl, kernel, flags, out, ctl, sl.M_TAIL,
+                             sl.N_FRONT, sl.RAW_FRONT, dead, False, True,
+                             ws)
             ctls.append(ctl)
         worst["ctl"] = max(worst["ctl"], differ(*ctls))
     # ---- kernel A under the guard, a tail call with a live count
@@ -4804,7 +4902,7 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
     calls = {
         "compact": (
             lambda: sl.flag_compact(flags, out, ctl_t, sl.M_TAIL, sl.N_ROWS,
-                                    sl.RAW_ROWS, dead, False),
+                                    sl.RAW_ROWS, dead, False, ws=ws),
             lambda: sl.flag_compact_ref(flags, out, ctl_t, sl.M_TAIL,
                                         sl.N_ROWS, sl.RAW_ROWS, dead, False),
             sl.compact_work(vp, cap, 2000, False),
@@ -4820,8 +4918,8 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
             lambda: sl.snap_ref(dist, snap_buf, rf, ctl_t, sl.M_ALL),
             sl.snap_work(dist.numel(), vp), None),
         "ctl": (
-            lambda: sl.split_ctl(ctl_t, 0, sl.M_DENSE),
-            lambda: sl.split_ctl_ref(ctl_t, 0, sl.M_DENSE),
+            lambda: sl.split_ctl(ctl_t, sl.M_DENSE),
+            lambda: sl.split_ctl_ref(ctl_t, sl.M_DENSE),
             sl.ctl_work(), None),
         "epilogue": (
             lambda: rib_epilogue.rib_buffer(dist, nbr["metric"], nbr["ids"],
@@ -4853,11 +4951,13 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
             + (f"; torch.nonzero {lib_ms:.4f} ms" if lib_ms is not None
                else "") + f"; card {card}")
     log(f"[14] kernels vs twins on the card: max |diff| {worst} (compaction "
-        "at 0, 1, cap, cap + 1 marks and more, with the dead slot and a "
-        "ragged length, clear off/on, guarded; mark warm off/on; snapshot "
-        "and decisions in every phase; kernel A under the guard; epilogue "
-        "on the solve's and INF-holed distances, LFA off/on, overloads "
-        "flipped)")
+        "at 0, 1, cap, cap + 1 marks and more, tile edges, short and ragged "
+        "lengths, cap - 1 / cap / cap + 1 over every tile, the dead slot, "
+        "clear off/on, the tail's decision, guarded, 1 000 launches and a "
+        "graph replayed 100 times on one workspace; mark warm off/on; "
+        "snapshot and decisions in every phase; kernel A under the guard; "
+        "epilogue on the solve's and INF-holed distances, LFA off/on, "
+        "overloads flipped)")
     return dict(worst=worst, timing=timing)
 
 
@@ -4983,11 +5083,29 @@ def events_us(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps * 1e3
 
 
+def replay_kernels(replay, names, attempts: int = 3) -> int:
+    """The kernels CUPTI saw in one call of `replay` (the most over
+    `attempts` profiles: CUPTI may drop launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = 0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+        seen = max(seen, kernel_device_us(prof, names)[1])
+    return seen
+
+
 def phase14c_replay(solver, ls, split_loop) -> dict:
     """At er100k through the solver: the cost of a replayed block's
     no-op steps (the graph replayed once more with the loop done), the
+    block's kernels as its capture recorded them (`graph_nodes`) against
+    a step's launches and as CUPTI counts them, the
     solve's host syncs, replays and steps, and the device-idle share of
     one traced solve (`profiling.trace`)."""
+    from openr_tpu_torch.ops import relax
     from openr_tpu_torch.ops.spf_split import SplitProgram
 
     solver.solve(ls, "node-0")
@@ -4998,6 +5116,21 @@ def phase14c_replay(solver, ls, split_loop) -> dict:
         fail("[14] the solver's program was not captured")
     st = dict(solver.last_solve_stats)
     noop_us = events_us(prog._graphs[1].replay, 10)  # ctl says done
+    nodes = st["graph_nodes"]  # the kernels the wrappers recorded
+    want = prog.steps * (prog.gs + prog.STEP_LAUNCHES)
+    if nodes != want:
+        fail(f"[14] the block's capture recorded {nodes} kernels, not "
+             f"{prog.steps} steps x (gs {prog.gs} + {prog.STEP_LAUNCHES}) "
+             f"= {want}")
+    seen = replay_kernels(prog._graphs[1].replay, tuple(
+        relax.KERNEL_NAMES.values()) + tuple(split_loop.KERNEL_NAMES.values()))
+    if seen > nodes:
+        fail(f"[14] CUPTI saw {seen} kernels in a replayed block of "
+             f"{nodes} graph nodes")
+    log(f"[14] er100k: graph nodes per block {nodes}, as the capture "
+        f"recorded them ({prog.steps} steps of gs {prog.gs} + "
+        f"{prog.STEP_LAUNCHES} launches); CUPTI's kernels in one replayed "
+        f"block {seen}")
     idle, span_ms = trace_idle_share(lambda: solver.solve(ls, "node-0"),
                                      "spf:batched_solve")
     noop_steps = prog.steps * st["replays"] - st["steps"]
@@ -5010,7 +5143,8 @@ def phase14c_replay(solver, ls, split_loop) -> dict:
         f"of one traced solve "
         f"{'not measured' if idle is None else round(idle, 4)} over its "
         f"{span_ms:.3f} ms span; card {smi('name,power.limit')}")
-    return dict(noop_us=noop_us, idle=idle, span_ms=span_ms, stats=st)
+    return dict(noop_us=noop_us, idle=idle, span_ms=span_ms, stats=st,
+                nodes=nodes, cupti_nodes=seen)
 
 
 def phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables):

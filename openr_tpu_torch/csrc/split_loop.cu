@@ -16,9 +16,10 @@
 //   the ids it holds, in index order, dead-padded to `cap`, with their
 //   count and the spill bit (count > cap). Row ids are positions in
 //   [0, vp), so this is the reference's sorted, deduplicated list without
-//   a sort.
-// * split_ctl_kernel: the reference's cond1/cond2/cond3 decisions, as
-//   writes to the control block.
+//   a sort. With `decide`, its last block also makes the tail's decision
+//   (cond2, and the net's entry) after a frontier's compaction.
+// * split_ctl_kernel: the reference's cond1/cond3 decisions after a
+//   step's relaxes, as writes to the control block.
 //
 // The loop's state is one int32 control block `ctl` (layout in
 // ops/split_loop.py). ctl[0] is the phase: 1 dense sweeps, 2 compacted
@@ -28,14 +29,14 @@
 // CUDA graph of K steps) runs the loop, and a step after the exit touches
 // nothing. The host reads ctl once per K steps.
 //
-// Bound on this card: bytes, and for the compaction the latency of one
-// block's passes. The snapshot moves 2 x vp x B x 4 bytes; the mark reads
-// the frontier's out-neighbour rows; the compaction reads vp flags (426 KB
-// at vp 106 496) in one block of 1024 threads, 16 flags a thread a pass,
-// with a block-wide scan per pass (7 passes at that vp). One block keeps
-// the ids in order without a second pass or a cross-block scan; the
-// flags it reads were written by the step's kernels just before and sit
-// in L2.
+// Bound on this card: bytes, and for the compaction the latency of the
+// chain from the first tile's count to the last tile's prefix. The
+// snapshot moves 2 x vp x B x 4 bytes; the mark reads the frontier's
+// out-neighbour rows; the compaction reads vp flags (426 KB at vp
+// 106 496), written by the step's kernels just before and L2-resident,
+// in one pass: a block a tile of 4 096 flags (one wave of 26 blocks at
+// that vp), the tiles' offsets by decoupled look-back, so each tile waits
+// on its predecessors' status words and not on their loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,123 +120,39 @@ __global__ void __launch_bounds__(256)
 
 // ------------------------------------------------------------- compact
 
-constexpr int kCompactThreads = 1024;
-constexpr int kPerThread = 16;  // flags a thread reads a pass
-constexpr int kPass = kCompactThreads * kPerThread;
+constexpr int kCompactThreads = 256;
+constexpr int kCompactWarps = kCompactThreads / 32;
+// flags a block scans (ops/split_loop.py COMPACT_TILE): 16 a thread. Of
+// 1 024, 2 048 and 4 096, the quickest at the 100k benchmark's vp of
+// 106 496 (PERF.md has the timings)
+constexpr int kTile = 4096;
+// the compaction's workspace (int64 words, ops/split_loop.py compact_ws):
+// the tile ticket, the count of blocks done, then a status word a tile
+enum CompactWs { kTicket = 0, kDoneBlocks = 1, kStatus0 = 2 };
+// a tile's status word: a tag in the high half (0: nothing yet), a count
+// in the low half; the tile's own flags, or all flags up to its end
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kInclusive = 2ull << 32;
 
-// One block. Each pass reads kPass flags (16 contiguous a thread, as four
-// 16-byte loads where the pass is whole), scans the per-thread counts
-// across the block (warp shuffles, then the 32 warp sums), and writes the
-// set positions in order. The count goes to ctl[count_slot] (capped at
-// cap) and ctl[raw_slot]; ctl[kSpill] is set when it exceeds cap.
-__global__ void __launch_bounds__(kCompactThreads)
-    flag_compact_kernel(int* flags, int n, int* __restrict__ out, int cap,
-                        int dead, int* ctl, int phase_mask, int count_slot,
-                        int raw_slot, int clear) {
-  if (!runs(ctl, phase_mask)) return;
-  __shared__ int s_warp[32];
-  __shared__ int s_total;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const bool aligned = ((uintptr_t)flags & 15) == 0;
-  int running = 0;  // ids written by earlier passes (uniform)
-  for (int p0 = 0; p0 < n; p0 += kPass) {
-    const int base = p0 + t * kPerThread;
-    unsigned bits = 0;
-    if (aligned && base + kPerThread <= n) {
-      const int4* f4 = reinterpret_cast<const int4*>(flags + base);
-      int4 v[kPerThread / 4];
-#pragma unroll
-      for (int q = 0; q < kPerThread / 4; ++q) v[q] = __ldcg(f4 + q);
-#pragma unroll
-      for (int q = 0; q < kPerThread / 4; ++q) {
-        bits |= (unsigned)(v[q].x != 0) << (4 * q);
-        bits |= (unsigned)(v[q].y != 0) << (4 * q + 1);
-        bits |= (unsigned)(v[q].z != 0) << (4 * q + 2);
-        bits |= (unsigned)(v[q].w != 0) << (4 * q + 3);
-      }
-    } else {
-      for (int e = 0; e < kPerThread; ++e)
-        if (base + e < n && __ldcg(flags + base + e) != 0) bits |= 1u << e;
-    }
-    const int c = __popc(bits);
-    int incl = c;  // inclusive scan over the warp
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += y;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const int w = s_warp[lane];
-      int wi = w;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(kFull, wi, off);
-        if (lane >= off) wi += y;
-      }
-      s_warp[lane] = wi - w;  // exclusive warp offsets
-      if (lane == 31) s_total = wi;
-    }
-    __syncthreads();
-    int pos = running + s_warp[warp] + incl - c;
-    for (unsigned m = bits; m; m &= m - 1) {
-      const int e = __ffs(m) - 1;
-      if (pos < cap) out[pos] = base + e;
-      ++pos;
-    }
-    if (clear && bits) {
-      if (aligned && base + kPerThread <= n) {
-        int4* f4 = reinterpret_cast<int4*>(flags + base);
-#pragma unroll
-        for (int q = 0; q < kPerThread / 4; ++q)
-          if ((bits >> (4 * q)) & 0xFu) f4[q] = make_int4(0, 0, 0, 0);
-      } else {
-        for (unsigned m = bits; m; m &= m - 1) flags[base + __ffs(m) - 1] = 0;
-      }
-    }
-    running += s_total;
-    __syncthreads();  // s_warp and s_total are rewritten by the next pass
-  }
-  const int kept = running < cap ? running : cap;
-  for (int i = kept + t; i < cap; i += kCompactThreads) out[i] = dead;
-  if (t == 0) {
-    ctl[count_slot] = kept;
-    ctl[raw_slot] = running;
-    if (running > cap) ctl[kSpill] = 1;
-  }
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// ----------------------------------------------------------------- ctl
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
 
-// stage 0, after a step's relaxes: count the step, and end phase 1 (to the
-// tail's entry compaction) or phase 3 (done) as the reference's cond1 and
-// cond3 say. stage 1, after a tail round's (or the tail entry's) frontier
-// compaction: the reference's cond2 and the net's entry condition.
-__global__ void split_ctl_kernel(int* ctl, int stage, int phase_mask) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  if (!runs(ctl, phase_mask)) return;
-  const int phase = ctl[kPhase];
-  if (stage == 0) {
-    ctl[kSteps] += 1;
-    const int it = ctl[kIt] + 1;
-    ctl[kIt] = it;
-    if (phase == kTail) {
-      ctl[kTailRounds] += 1;
-      return;
-    }
-    ctl[kSweeps] += 1;
-    const int changed = ctl[kRowsChanged];
-    if (phase == kDense) {
-      if (!(changed > ctl[kThreshold] && it < ctl[kItCap])) {
-        ctl[kPhase] = kTail;  // the entry compaction runs next
-        ctl[kIt] = 0;
-      }
-    } else if (changed == 0 || it >= ctl[kItCap]) {
-      ctl[kPhase] = kDone;
-    }
-    return;
-  }
+// the reference's cond2 and the net's entry, after a tail round's (or the
+// tail entry's) frontier compaction
+__device__ void tail_decide(int* ctl) {
   if (ctl[kSpill]) {
     ctl[kPhase] = kNet;
     ctl[kIt] = 0;
@@ -244,6 +161,180 @@ __global__ void split_ctl_kernel(int* ctl, int stage, int phase_mask) {
   } else if (ctl[kIt] >= ctl[kRoundsCap]) {
     ctl[kPhase] = kNet;
     ctl[kIt] = 0;
+  }
+}
+
+// One pass over the flags, a block a tile of kTile flags (16 a thread,
+// as 16-byte loads where whole). A block reads the phase guard,
+// then takes its tile from a ticket, so the tiles go out in the order the
+// blocks start and a block waits only on blocks already running. In the
+// tile: a bit a flag, __popc a thread, a block scan (warp shuffles, then
+// the warp sums). Across tiles: the single-pass scan with decoupled
+// look-back (Merrill & Garland, 2016): a tile publishes its count, then
+// its inclusive prefix, as one 64-bit status word; warp 0 sums its
+// predecessors' words, 32 at a time, back to the nearest inclusive
+// prefix. The ids go to prefix + local offset (those below cap). The
+// block of the last tile, whose inclusive prefix is the count, writes the
+// counts (ctl[count_slot] capped at cap, ctl[raw_slot], ctl[kSpill] past
+// cap), pads out[kept:cap) with `dead` and with `decide` runs
+// tail_decide: every block has read the guard by then, since the last
+// ticket is out. The last block done zeroes the workspace (not the last
+// tile's: other blocks may still read status words), so every launch
+// leaves it as it found it and a graph replay needs no memset. Each block
+// fences before it counts itself done and the last one fences again
+// before the reset (the threadFenceReduction pattern): the status words,
+// ticket and count of every block are then ordered before the zeroes. A
+// guarded launch touches nothing, the workspace included.
+__global__ void __launch_bounds__(kCompactThreads)
+    flag_compact_kernel(int* flags, int n, int* __restrict__ out, int cap,
+                        int dead, int* ctl, int phase_mask, int count_slot,
+                        int raw_slot, int clear, int decide,
+                        unsigned long long* ws) {
+  constexpr int kPer = kTile / kCompactThreads;
+  static_assert(kPer % 4 == 0 && kPer <= 32, "a thread's flags in a word");
+  __shared__ int s_tile, s_prefix, s_raw, s_last;
+  __shared__ int s_warp[kCompactWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0)
+    s_tile = runs(ctl, phase_mask) ? (int)atomicAdd(ws + kTicket, 1ull) : -1;
+  __syncthreads();
+  const int tile = s_tile;
+  if (tile < 0) return;
+  const int tiles = gridDim.x;
+  const int base = tile * kTile + t * kPer;
+  const bool whole = ((uintptr_t)flags & 15) == 0 && base + kPer <= n;
+  unsigned bits = 0;
+  if (whole) {
+    const int4* f4 = reinterpret_cast<const int4*>(flags + base);
+    int4 v[kPer / 4];
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) v[q] = __ldcg(f4 + q);
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) {
+      bits |= (unsigned)(v[q].x != 0) << (4 * q);
+      bits |= (unsigned)(v[q].y != 0) << (4 * q + 1);
+      bits |= (unsigned)(v[q].z != 0) << (4 * q + 2);
+      bits |= (unsigned)(v[q].w != 0) << (4 * q + 3);
+    }
+  } else {
+    for (int e = 0; e < kPer; ++e)
+      if (base + e < n && __ldcg(flags + base + e) != 0) bits |= 1u << e;
+  }
+  const int c = __popc(bits);
+  int incl = c;  // inclusive scan over the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kCompactWarps ? s_warp[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int off = 1; off < kCompactWarps; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, wi, off);
+      if (lane >= off) wi += y;
+    }
+    const int agg = __shfl_sync(kFull, wi, kCompactWarps - 1);
+    if (lane < kCompactWarps) s_warp[lane] = wi - w;  // exclusive offsets
+    unsigned long long* status = ws + kStatus0;
+    int prefix = 0;
+    if (tile > 0) {
+      if (lane == 0) st_release(status + tile, kAggregate | (unsigned)agg);
+      // lane l reads tile - 1 - l; a lane before tile 0 reads a zero
+      // inclusive prefix
+      for (int pred = tile - 1 - lane;; pred -= 32) {
+        unsigned long long s;
+        do {
+          s = pred >= 0 ? ld_acquire(status + pred) : kInclusive;
+        } while (__any_sync(kFull, (s >> 32) == 0));
+        const unsigned inclusive = __ballot_sync(kFull, (s >> 32) == 2);
+        const int nearest = inclusive ? __ffs(inclusive) - 1 : 32;
+        prefix += (int)__reduce_add_sync(
+            kFull, lane <= nearest ? (unsigned)(s & 0xffffffffu) : 0u);
+        if (inclusive) break;
+      }
+    }
+    if (lane == 0) {
+      st_release(status + tile, kInclusive | (unsigned)(prefix + agg));
+      s_prefix = prefix;
+      s_raw = prefix + agg;
+    }
+  }
+  __syncthreads();
+  if (tile == tiles - 1) {  // the last tile's prefix is the count
+    const int raw = s_raw, kept = raw < cap ? raw : cap;
+    for (int i = kept + t; i < cap; i += kCompactThreads) out[i] = dead;
+    if (t == 0) {
+      ctl[count_slot] = kept;
+      ctl[raw_slot] = raw;
+      if (raw > cap) ctl[kSpill] = 1;
+      if (decide) tail_decide(ctl);
+    }
+  }
+  int pos = s_prefix + s_warp[warp] + incl - c;
+  for (unsigned m = bits; m; m &= m - 1) {
+    if (pos < cap) out[pos] = base + __ffs(m) - 1;
+    ++pos;
+  }
+  if (clear && bits) {
+    if (whole) {
+      int4* f4 = reinterpret_cast<int4*>(flags + base);
+#pragma unroll
+      for (int q = 0; q < kPer / 4; ++q)
+        if ((bits >> (4 * q)) & 0xFu) f4[q] = make_int4(0, 0, 0, 0);
+    } else {
+      for (unsigned m = bits; m; m &= m - 1) flags[base + __ffs(m) - 1] = 0;
+    }
+  }
+  // done: the last block to get here zeroes the workspace. Thread 0
+  // counts the block after warp 0's look-back (the barrier above), so
+  // every block's reads of the status words are over by then; the fences
+  // order its ticket and status word before its count, and every block's
+  // count before the last one's zeroes.
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(ws + kDoneBlocks, 1ull) ==
+             (unsigned long long)(tiles - 1);
+    if (s_last) __threadfence();
+  }
+  __syncthreads();
+  if (!s_last) return;
+  for (int i = t; i < tiles; i += kCompactThreads) ws[kStatus0 + i] = 0;
+  if (t == 0) {
+    ws[kTicket] = 0;
+    ws[kDoneBlocks] = 0;
+  }
+}
+
+// ----------------------------------------------------------------- ctl
+
+// After a step's relaxes: count the step, and end phase 1 (to the tail's
+// entry compaction) or phase 3 (done) as the reference's cond1 and cond3
+// say. The tail's own decision (cond2) is the frontier compaction's
+// (tail_decide).
+__global__ void split_ctl_kernel(int* ctl, int phase_mask) {
+  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+  if (!runs(ctl, phase_mask)) return;
+  const int phase = ctl[kPhase];
+  ctl[kSteps] += 1;
+  const int it = ctl[kIt] + 1;
+  ctl[kIt] = it;
+  if (phase == kTail) {
+    ctl[kTailRounds] += 1;
+    return;
+  }
+  ctl[kSweeps] += 1;
+  const int changed = ctl[kRowsChanged];
+  if (phase == kDense) {
+    if (!(changed > ctl[kThreshold] && it < ctl[kItCap])) {
+      ctl[kPhase] = kTail;  // the entry compaction runs next
+      ctl[kIt] = 0;
+    }
+  } else if (changed == 0 || it >= ctl[kItCap]) {
+    ctl[kPhase] = kDone;
   }
 }
 
@@ -278,19 +369,20 @@ extern "C" int openr_frontier_mark(const void* frontier, const void* out_nbr,
   return (int)cudaGetLastError();
 }
 
+// `ws`: compact_ws words, all zero (every launch leaves them so).
 extern "C" int openr_flag_compact(void* flags, int n, void* out, int cap,
                                   int dead, void* ctl, int phase_mask,
                                   int count_slot, int raw_slot, int clear,
-                                  void* stream) {
-  flag_compact_kernel<<<1, kCompactThreads, 0, (cudaStream_t)stream>>>(
+                                  int decide, void* ws, void* stream) {
+  const int tiles = n > 0 ? (n + kTile - 1) / kTile : 1;
+  flag_compact_kernel<<<tiles, kCompactThreads, 0, (cudaStream_t)stream>>>(
       (int*)flags, n, (int*)out, cap, dead, (int*)ctl, phase_mask,
-      count_slot, raw_slot, clear);
+      count_slot, raw_slot, clear, decide, (unsigned long long*)ws);
   return (int)cudaGetLastError();
 }
 
-extern "C" int openr_split_ctl(void* ctl, int stage, int phase_mask,
-                               void* stream) {
-  split_ctl_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((int*)ctl, stage,
+extern "C" int openr_split_ctl(void* ctl, int phase_mask, void* stream) {
+  split_ctl_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((int*)ctl,
                                                       phase_mask);
   return (int)cudaGetLastError();
 }

@@ -67,6 +67,8 @@ ENTRY_POINTS = {
 #: and is not counted; the graph's replays run it without a call.
 LAUNCHES = 0
 LAUNCHES_BY_DESIGN = {"vec": 0, "generic": 0}
+#: kernels the wrappers recorded into CUDA graph captures
+CAPTURED = 0
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
@@ -310,7 +312,7 @@ def _check_aligned(dist_in, out, nbr, wgt, over, over_align=8):
 def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
            dst_rows, changed, row_flag, rows_changed, ctl=None, phase_mask=0,
            n_live=None):
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     n = _count(nbr, row0, n, src_rows, dst_rows)
     _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
            dst_rows, changed, row_flag, rows_changed, ctl, n_live)
@@ -365,7 +367,9 @@ def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
             f"relax kernel launch failed: "
             f"{lib.openr_cuda_error_string(err).decode()} ({err})"
         )
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
         LAUNCHES += 1
         LAUNCHES_BY_DESIGN[design] += 1
     return changed

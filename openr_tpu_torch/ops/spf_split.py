@@ -226,45 +226,6 @@ class _Relaxes:
         )
 
 
-def _make_dense_sweep(tables, over_base, over_ov, roots, gs, flags):
-    """One dense relax sweep over base + overflow tables, in place, as
-    `_make_dense_sweep` of the JAX package builds it: with gs > 1 the base
-    rows go in `gs` contiguous chunks, each reading the dist the earlier
-    chunks updated; the overflow rows read the pre-sweep dist. Returns
-    `sweep(dist)`: it clears `flags` (int32 [vp + 1]) and leaves in
-    `flags[:vp]` the rows the sweep lowered and in `flags[vp]` their
-    count."""
-    vp = tables["base_nbr"].shape[0]
-    rx = _Relaxes(tables, over_base, over_ov, roots, gs, flags[:vp],
-                  flags[vp:])
-
-    def dense_sweep(dist):
-        prev = dist.clone()
-        flags.zero_()
-        rx.chunks(dist, prev)
-        rx.overflow(dist, prev)
-
-    return dense_sweep
-
-
-def _make_tail_relax(tables, over_base, over_ov, roots, flags):
-    """One compacted tail round's relax: the listed base rows and every
-    overflow row, all reading the pre-round dist (Jacobi), in place.
-    Returns `tail_relax(dist, rows)`, which clears `flags` and leaves the
-    rows it lowered and their count there, as `dense_sweep` does."""
-    vp = tables["base_nbr"].shape[0]
-    rx = _Relaxes(tables, over_base, over_ov, roots, 1, flags[:vp],
-                  flags[vp:])
-
-    def tail_relax(dist, rows):
-        snap = dist.clone()
-        flags.zero_()
-        rx.rows(dist, snap, rows)
-        rx.overflow(dist, snap)
-
-    return tail_relax
-
-
 #: steps a block (a replay) runs between two reads of the loop's state:
 #: the 100k benchmark's cold solve takes ~15 dense sweeps and a few tail
 #: rounds, config 3's about as many, so one block finishes either; a
@@ -283,8 +244,8 @@ class SplitProgram:
     lists [tail_cap], `roots` [B] and the control block `ctl`
     (`ops/split_loop.py`). A step is one dense sweep (phases 1 and 3) or
     one tail round (phase 2); every launch of it is guarded by the phase,
-    so the same `7 + gs` launches serve either, and after the loop's exit
-    a step touches nothing:
+    so the same `gs + STEP_LAUNCHES` launches serve either, and after the
+    loop's exit a step touches nothing:
 
       1. `split_snap_kernel`: snap = dist, row flags and count cleared;
       2. `frontier_mark_kernel` (tail): the frontier's out-neighbors (and,
@@ -293,13 +254,13 @@ class SplitProgram:
          spill if they exceed `tail_cap`;
       4. kernel A: the `gs` dense chunks (dense), the listed rows up to
          their count (tail), the overflow rows (both);
-      5. `split_ctl_kernel` stage 0: the step counted, phase 1 ended
+      5. `split_ctl_kernel`: the step counted, phase 1 ended
          while at most `tail_threshold` rows changed, the net ended at a
          sweep that changed nothing;
       6. `flag_compact_kernel` (tail): the lowered rows into the next
-         frontier, spill if they exceed `tail_cap`;
-      7. `split_ctl_kernel` stage 1 (tail): done on an empty frontier,
-         to the net on a spill or at `tail_rounds_cap` rounds.
+         frontier, spill if they exceed `tail_cap`; its last block then
+         decides: done on an empty frontier, to the net on a spill or at
+         `tail_rounds_cap` rounds.
 
     `run` executes blocks of `steps` steps and reads `ctl` back once per
     block until the phase is done: the solve's host syncs are its blocks.
@@ -307,7 +268,8 @@ class SplitProgram:
     the run whose launches a telemetry capture counts — and then the init
     and a block of steps are captured as two CUDA graphs that later runs
     replay. The wrappers count the kernels they launch, so a replay moves
-    no wrapper's count: the stats count replays and graph nodes instead.
+    no wrapper's count: the stats count replays instead, and the graph
+    nodes, the kernels the wrappers recorded into the block's capture.
     On the CPU the steps call the twins, and a block is a host loop."""
 
     def __init__(self, tables, b: int, *, has_overloads: bool,
@@ -337,6 +299,7 @@ class SplitProgram:
         self.frontier = torch.full((tail_cap,), self.dead, **i32)
         self.roots = torch.zeros(b, **i32)
         self.ctl = torch.zeros(split_loop.CTL_WORDS, **i32)
+        self.ws = split_loop.compact_ws(vp, dev)  # zero between launches
         self.ctl0 = split_loop.new_ctl(
             split_loop.TAIL if warm else split_loop.DENSE, tail_threshold,
             tail_rounds_cap, vp, dev)
@@ -352,8 +315,11 @@ class SplitProgram:
         # are its blocks
         self.max_blocks = (2 * vp + tail_rounds_cap + 2) // self.steps + 2
         self._graphs = None  # (init, steps) CUDA graphs once captured
+        self._nodes = 0  # kernels recorded into the block's graph
 
-    #: launches of one step besides the `gs` dense chunks
+    #: launches of one step besides the `gs` dense chunks: the snapshot,
+    #: the mark, two compactions, kernel A's listed and overflow rows, the
+    #: decision
     STEP_LAUNCHES = 7
 
     def _init(self) -> None:
@@ -361,8 +327,8 @@ class SplitProgram:
         self.ctl.copy_(self.ctl0)
         if self.warm:  # the seeds (in `mark`) become the first frontier
             sl.flag_compact(self.mark, self.frontier, self.ctl, sl.M_TAIL,
-                            sl.N_FRONT, sl.RAW_FRONT, self.dead, True)
-            sl.split_ctl(self.ctl, 1, sl.M_TAIL)
+                            sl.N_FRONT, sl.RAW_FRONT, self.dead, True,
+                            decide=True, ws=self.ws)
             return
         self.flat.copy_(self.roots)
         self.flat.mul_(self.b).add_(self.cols)
@@ -375,15 +341,15 @@ class SplitProgram:
         sl.frontier_mark(self.frontier, self.out_nbr, self.mark, ctl,
                          sl.M_TAIL, self.warm, self.dead)
         sl.flag_compact(self.mark, self.rows, ctl, sl.M_TAIL, sl.N_ROWS,
-                        sl.RAW_ROWS, self.dead, True)
+                        sl.RAW_ROWS, self.dead, True, ws=self.ws)
         self.rx.chunks(self.dist, self.snap, ctl=ctl, phase_mask=sl.M_DENSE)
         self.rx.rows(self.dist, self.snap, self.rows, ctl=ctl,
                      phase_mask=sl.M_TAIL, n_live=self.n_live)
         self.rx.overflow(self.dist, self.snap, ctl=ctl, phase_mask=sl.M_ALL)
-        sl.split_ctl(ctl, 0, sl.M_ALL)
+        sl.split_ctl(ctl, sl.M_ALL)
         sl.flag_compact(self.row_flag, self.frontier, ctl, sl.M_TAIL,
-                        sl.N_FRONT, sl.RAW_FRONT, self.dead, False)
-        sl.split_ctl(ctl, 1, sl.M_TAIL)
+                        sl.N_FRONT, sl.RAW_FRONT, self.dead, False,
+                        decide=True, ws=self.ws)
 
     def _capture(self) -> None:
         """The init and a block of steps as two CUDA graphs. Nothing in
@@ -392,17 +358,26 @@ class SplitProgram:
         side = torch.cuda.Stream(self.dev)
         side.wait_stream(cur)
         graphs = []
+        nodes = []
         with torch.cuda.stream(side), _telemetry.paused():
             for body in (self._init, self._block):
                 g = torch.cuda.CUDAGraph()
                 g.capture_begin(capture_error_mode="thread_local")
                 try:
-                    body()
+                    nodes.append(self._recorded(body))
                 finally:
                     g.capture_end()
                 graphs.append(g)
         cur.wait_stream(side)
-        self._graphs = graphs
+        self._graphs, self._nodes = graphs, nodes[1]
+
+    @staticmethod
+    def _recorded(body) -> int:
+        """Runs `body`; returns the kernels the wrappers recorded into
+        the running capture meanwhile."""
+        n0 = relax.CAPTURED + split_loop.CAPTURED
+        body()
+        return relax.CAPTURED + split_loop.CAPTURED - n0
 
     def _block(self) -> None:
         for _ in range(self.steps):
@@ -415,8 +390,8 @@ class SplitProgram:
         stats: sweeps, tail_rounds, spilled, host_syncs (= replays, the
         blocks run), steps (the steps that did work), relax_launches
         (kernel A's launches that did work; 0 on the CPU, which runs the
-        twin), graph_nodes (launches a replayed block holds, 0 when the
-        blocks ran eagerly)."""
+        twin), graph_nodes (the kernels a replayed block holds, as the
+        wrappers recorded them; 0 when the blocks ran eagerly)."""
         self.roots.copy_(roots)
         if self.warm:
             self.dist.copy_(dist0)
@@ -451,8 +426,7 @@ class SplitProgram:
             "replays": blocks, "steps": c[split_loop.STEPS],
             "relax_launches": (sweeps * (self.gs + 1) + 2 * rounds
                                if cuda else 0),
-            "graph_nodes": (self.steps * (self.gs + self.STEP_LAUNCHES)
-                            if replay else 0),
+            "graph_nodes": self._nodes if replay else 0,
         }
 
 

@@ -13,8 +13,9 @@ block of steps.
 Each wrapper picks by `tensor.device.type`: a CUDA tensor launches its
 kernel (a build or launch failure raises), a CPU tensor runs the plain
 PyTorch twin `*_ref`, which honours the same guard. Each counts the
-kernels it launches in `LAUNCHES` (a call recorded into a CUDA graph
-capture launches nothing and is not counted) and, while a telemetry capture runs, adds its
+kernels it launches in `LAUNCHES`, and those it records into a CUDA
+graph capture (which launches nothing) in `CAPTURED`; while a
+telemetry capture runs, it adds its
 work (`*_work`, the counts `chip_smoke.py`'s bounds use) to the sink;
 a guarded call that does nothing counts no work.
 """
@@ -75,17 +76,22 @@ ENTRY_POINTS = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # dead, ctl, mask
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # slots, clear
-        ctypes.c_void_p,  # stream
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,  # decide, ws, stream
     ], ctypes.c_int),
     "openr_split_ctl": ([
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ], ctypes.c_int),
     "openr_split_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
+#: flags a block of `flag_compact_kernel` scans (`kTile` in the source)
+COMPACT_TILE = 4096
+
 #: kernel launches made by the wrappers (CUDA path only), by kernel; a
 #: call recorded into a CUDA graph capture is not one
 LAUNCHES = {k: 0 for k in KERNEL_NAMES}
+#: kernels the wrappers recorded into CUDA graph captures
+CAPTURED = 0
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
@@ -125,6 +131,18 @@ def new_ctl(phase: int, threshold: int, rounds_cap: int, it_cap: int,
     return ctl.to(device)
 
 
+def compact_ws(n: int, device) -> torch.Tensor:
+    """The compaction's workspace for up to `n` flags: the
+    tile ticket, the count of blocks done and a status word a tile, int64
+    zeros. Every launch leaves it zero, so one workspace serves every
+    compaction on a stream, captured or not."""
+    return torch.zeros(_ws_words(n), dtype=torch.int64, device=device)
+
+
+def _ws_words(n: int) -> int:
+    return 2 + -(-max(n, 1) // COMPACT_TILE)
+
+
 def runs(ctl, phase_mask: int) -> bool:
     """Whether a launch guarded by `phase_mask` does work in the loop's
     current phase. Reads `ctl` (a device sync on CUDA)."""
@@ -159,11 +177,13 @@ def frontier_mark_ref(frontier, out_nbr, mark, ctl, phase_mask,
 
 
 def flag_compact_ref(flags, out, ctl, phase_mask, count_slot: int,
-                     raw_slot: int, dead: int, clear: bool) -> None:
+                     raw_slot: int, dead: int, clear: bool,
+                     decide: bool = False) -> None:
     """The ids where `flags` [n] is non-zero, in order, into `out` [cap]
     (dead-padded past the first cap); their count capped at cap into
     `ctl[count_slot]`, uncapped into `ctl[raw_slot]`, and `ctl[SPILL]`
-    set when it exceeds cap. `clear` zeroes the flags it read."""
+    set when it exceeds cap. `clear` zeroes the flags it read. `decide`
+    then makes the tail's decision (`tail_decide_ref`)."""
     if not runs(ctl, phase_mask):
         return
     cap = out.shape[0]
@@ -177,35 +197,44 @@ def flag_compact_ref(flags, out, ctl, phase_mask, count_slot: int,
         ctl[SPILL] = 1
     if clear:
         flags[ids] = 0
+    if decide:
+        tail_decide_ref(ctl)
 
 
-def split_ctl_ref(ctl, stage: int, phase_mask) -> None:
-    """The loop's decisions (`csrc/split_loop.cu` split_ctl_kernel):
-    stage 0 after a step's relaxes, stage 1 after a tail frontier's
-    compaction."""
-    if not runs(ctl, phase_mask):
-        return
+def tail_decide_ref(ctl) -> None:
+    """The tail's decision after a frontier's compaction (`csrc/
+    split_loop.cu` tail_decide): the reference's cond2 and the net's
+    entry, to the net on a spill, done on an empty frontier, to the net
+    at `ROUNDS_CAP` rounds."""
     c = ctl.tolist()
-    phase = c[PHASE]
-    if stage == 0:
-        c[STEPS] += 1
-        c[IT] += 1
-        if phase == TAIL:
-            c[TAIL_ROUNDS] += 1
-        else:
-            c[SWEEPS] += 1
-            if phase == DENSE:
-                if not (c[ROWS_CHANGED] > c[THRESHOLD]
-                        and c[IT] < c[IT_CAP]):
-                    c[PHASE], c[IT] = TAIL, 0
-            elif c[ROWS_CHANGED] == 0 or c[IT] >= c[IT_CAP]:
-                c[PHASE] = DONE
-    elif c[SPILL]:
+    if c[SPILL]:
         c[PHASE], c[IT] = NET, 0
     elif c[RAW_FRONT] == 0:
         c[PHASE] = DONE
     elif c[IT] >= c[ROUNDS_CAP]:
         c[PHASE], c[IT] = NET, 0
+    ctl.copy_(torch.tensor(c, dtype=torch.int32))
+
+
+def split_ctl_ref(ctl, phase_mask) -> None:
+    """The loop's decisions after a step's relaxes (`csrc/split_loop.cu`
+    split_ctl_kernel): the step counted, phase 1 ended (cond1) or the
+    net ended (cond3)."""
+    if not runs(ctl, phase_mask):
+        return
+    c = ctl.tolist()
+    phase = c[PHASE]
+    c[STEPS] += 1
+    c[IT] += 1
+    if phase == TAIL:
+        c[TAIL_ROUNDS] += 1
+    else:
+        c[SWEEPS] += 1
+        if phase == DENSE:
+            if not (c[ROWS_CHANGED] > c[THRESHOLD] and c[IT] < c[IT_CAP]):
+                c[PHASE], c[IT] = TAIL, 0
+        elif c[ROWS_CHANGED] == 0 or c[IT] >= c[IT_CAP]:
+            c[PHASE] = DONE
     ctl.copy_(torch.tensor(c, dtype=torch.int32))
 
 
@@ -255,6 +284,7 @@ def _check(nm: str, dev, **tensors) -> None:
 
 
 def _launch(kernel: str, entry: str, dev, *args) -> None:
+    global CAPTURED
     lib = _lib()
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(*args,
@@ -263,7 +293,9 @@ def _launch(kernel: str, entry: str, dev, *args) -> None:
         raise RuntimeError(
             f"{KERNEL_NAMES[kernel]} launch failed: "
             f"{lib.openr_split_error_string(err).decode()} ({err})")
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
         LAUNCHES[kernel] += 1
 
 
@@ -317,8 +349,10 @@ def frontier_mark(frontier, out_nbr, mark, ctl, phase_mask: int,
 
 
 def flag_compact(flags, out, ctl, phase_mask: int, count_slot: int,
-                 raw_slot: int, dead: int, clear: bool) -> None:
-    """`flag_compact_kernel`: see `flag_compact_ref`."""
+                 raw_slot: int, dead: int, clear: bool, decide: bool = False,
+                 ws=None) -> None:
+    """`flag_compact_kernel`: see `flag_compact_ref`. On CUDA `ws` is the
+    workspace (`compact_ws`, on ctl's device); the twin takes none."""
     _check("flag_compact", ctl.device, flags=flags, out=out, ctl=ctl)
     n, cap = flags.shape[0], out.shape[0]
 
@@ -328,19 +362,24 @@ def flag_compact(flags, out, ctl, phase_mask: int, count_slot: int,
     _count(ctl, phase_mask, work)
     if ctl.device.type == "cpu":
         return flag_compact_ref(flags, out, ctl, phase_mask, count_slot,
-                                raw_slot, dead, clear)
+                                raw_slot, dead, clear, decide)
+    if (ws is None or ws.device != ctl.device or ws.dtype != torch.int64
+            or not ws.is_contiguous()
+            or ws.numel() < _ws_words(n)):
+        raise ValueError("flag_compact: needs a workspace from compact_ws("
+                         f"{n}) on {ctl.device}")
     _launch("compact", "openr_flag_compact", ctl.device, flags.data_ptr(),
             n, out.data_ptr(), cap, int(dead), ctl.data_ptr(),
             int(phase_mask), int(count_slot), int(raw_slot),
-            int(bool(clear)))
+            int(bool(clear)), int(bool(decide)), ws.data_ptr())
 
 
-def split_ctl(ctl, stage: int, phase_mask: int) -> None:
+def split_ctl(ctl, phase_mask: int) -> None:
     """`split_ctl_kernel`: see `split_ctl_ref`."""
     _check("split_ctl", ctl.device, ctl=ctl)
     _count(ctl, phase_mask, ctl_work)
     if ctl.device.type == "cpu":
-        return split_ctl_ref(ctl, stage, phase_mask)
-    _launch("ctl", "openr_split_ctl", ctl.device, ctl.data_ptr(), int(stage),
+        return split_ctl_ref(ctl, phase_mask)
+    _launch("ctl", "openr_split_ctl", ctl.device, ctl.data_ptr(),
             int(phase_mask))
 

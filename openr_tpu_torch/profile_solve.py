@@ -65,8 +65,10 @@ def main() -> None:
     rows = []
     for ev in prof.key_averages():
         # device-side events only (kernels, copies, sets): the aten ops
-        # that launched them carry the same time again
-        if str(getattr(ev, "device_type", "")).endswith("CPU"):
+        # that launched them carry the same time again, and a span's
+        # annotation on the device timeline spans their gaps too
+        if (str(getattr(ev, "device_type", "")).endswith("CPU")
+                or getattr(ev, "is_user_annotation", False)):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:

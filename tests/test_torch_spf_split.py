@@ -2,7 +2,8 @@
 `batched_sssp_split` distances and the `batched_sssp_split_rib` packed
 buffer, across overloads, LFA, a forced tail spill, Gauss-Seidel
 chunking and the uniform-metric regime; and the row flags of one dense
-sweep or tail round are the JAX package's changed rows."""
+step or tail step of a `SplitProgram` are the JAX package's changed
+rows."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 from openr_tpu.ops import spf_split as jsplit
 from openr_tpu_torch.convert import split_tables_from_numpy
 from openr_tpu_torch.ops import spf_split as psplit
+from openr_tpu_torch.ops import split_loop as sl
 from openr_tpu_torch.utils import topogen as ptopo
 
 INF = 1 << 30
@@ -132,20 +134,35 @@ def _mid_solve(frac_over, sweeps=2):
     return t, over, roots, j, over_base, over_ov, dist
 
 
-def _port_side(t, over, roots, has_over):
+def _one_step(t, over, roots, has_over, dist, phase, gs=1, rows=None):
+    """One step of a `SplitProgram` on the CPU (`steps=1`), from `dist`
+    in `phase`: a dense step's sweep (a threshold of 0 keeps it dense),
+    or a tail step whose listed rows are `rows` (marked, with an empty
+    frontier, so the step's compaction lists exactly them). Stale row
+    flags and count beforehand: the step's snapshot clears them. Returns
+    the program after the step."""
     tables = split_tables_from_numpy(t, over, "cpu")
-    if has_over:
-        ob = tables["over"][tables["base_nbr"].long()].contiguous()
-        oo = tables["over"][tables["ov_nbr"].long()].contiguous()
-    else:
-        ob = oo = None
-    flags = torch.full((t["vp"] + 1,), 5, dtype=torch.int32)  # stale
-    return tables, ob, oo, flags
+    prog = psplit.SplitProgram(
+        tables, roots.shape[0], has_overloads=has_over, gs_chunks=gs,
+        tail_threshold=0, tail_cap=512, tail_rounds_cap=64, warm=False,
+        steps=1)
+    prog.roots.copy_(torch.from_numpy(roots))
+    prog.ctl.copy_(prog.ctl0)
+    prog.ctl[sl.PHASE] = phase
+    prog.ctl[sl.ROWS_CHANGED] = 5
+    prog.row_flag.fill_(5)
+    prog.dist.copy_(torch.from_numpy(np.array(dist)))
+    if rows is not None:
+        prog.mark[torch.from_numpy(rows).long()] = 1
+    prog._block()
+    return prog
 
 
 @pytest.mark.parametrize("gs", [1, 4])
 @pytest.mark.parametrize("frac_over", [0.0, 0.1])
 def test_dense_sweep_flags_equal_jax_changed_rows(gs, frac_over):
+    """One dense step of the program: JAX's dense sweep, and its row
+    flags and changed-row count are JAX's changed rows."""
     t, over, roots, j, over_base, over_ov, dist = _mid_solve(frac_over)
     has_over = frac_over > 0
     ref = jsplit._make_dense_sweep(
@@ -154,18 +171,19 @@ def test_dense_sweep_flags_equal_jax_changed_rows(gs, frac_over):
     )(dist)
     ref_changed = np.asarray((ref < dist).any(axis=1))
     assert 0 < ref_changed.sum() < t["vp"]
-    tables, ob, oo, flags = _port_side(t, over, roots, has_over)
-    got = torch.from_numpy(np.array(dist))
-    psplit._make_dense_sweep(
-        tables, ob, oo, torch.from_numpy(roots), gs, flags
-    )(got)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    np.testing.assert_array_equal(flags[:-1].numpy() != 0, ref_changed)
-    assert int(flags[-1]) == int(ref_changed.sum())
+    prog = _one_step(t, over, roots, has_over, dist, sl.DENSE, gs=gs)
+    assert prog.gs == gs
+    np.testing.assert_array_equal(prog.dist.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(prog.row_flag.numpy() != 0, ref_changed)
+    assert int(prog.ctl[sl.ROWS_CHANGED]) == int(ref_changed.sum())
+    assert int(prog.ctl[sl.SWEEPS]) == 1
+    assert int(prog.ctl[sl.PHASE]) == sl.DENSE
 
 
 @pytest.mark.parametrize("frac_over", [0.0, 0.1])
 def test_tail_round_flags_equal_jax_changed_rows(frac_over):
+    """One tail step of the program on listed rows: JAX's tail relax of
+    those rows and every overflow row, its flags JAX's changed rows."""
     t, over, roots, j, over_base, over_ov, dist = _mid_solve(frac_over)
     has_over = frac_over > 0
     vp = t["vp"]
@@ -183,11 +201,9 @@ def test_tail_round_flags_equal_jax_changed_rows(frac_over):
     ref = dist.at[jr].min(sub).at[j["ov_ids"]].min(ov)
     ref_changed = np.asarray((ref < dist).any(axis=1))
     assert ref_changed.sum() > 0
-    tables, ob, oo, flags = _port_side(t, over, roots, has_over)
-    got = torch.from_numpy(np.array(dist))
-    psplit._make_tail_relax(
-        tables, ob, oo, torch.from_numpy(roots), flags
-    )(got, torch.from_numpy(rows))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    np.testing.assert_array_equal(flags[:-1].numpy() != 0, ref_changed)
-    assert int(flags[-1]) == int(ref_changed.sum())
+    prog = _one_step(t, over, roots, has_over, dist, sl.TAIL, rows=live)
+    np.testing.assert_array_equal(prog.rows.numpy(), rows)
+    np.testing.assert_array_equal(prog.dist.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(prog.row_flag.numpy() != 0, ref_changed)
+    assert int(prog.ctl[sl.ROWS_CHANGED]) == int(ref_changed.sum())
+    assert int(prog.ctl[sl.TAIL_ROUNDS]) == 1

@@ -131,16 +131,55 @@ DECISIONS = [
 ]
 
 
+def _decide_flags(raw, n=4096):
+    """Crafted flags with `raw` set, spread over the array."""
+    flags = torch.zeros(n, dtype=torch.int32)
+    flags[torch.linspace(0, n - 2, raw).long()] = 1
+    return flags
+
+
+def _words(ctl):
+    return tuple(int(ctl[k]) for k in (sl.PHASE, sl.IT, sl.SWEEPS,
+                                       sl.TAIL_ROUNDS, sl.STEPS))
+
+
 @pytest.mark.parametrize("case", range(len(DECISIONS)))
 def test_decisions_follow_the_reference_conditions(case):
-    """`split_ctl_kernel`'s twin: cond1 (`openr_tpu/ops/spf_split.py:383`),
-    cond2 (:407) and cond3 (:455) as writes to the control block."""
+    """cond1 (`openr_tpu/ops/spf_split.py:383`) and cond3 (:455), stage 0,
+    are `split_ctl_kernel`'s twin after a step's relaxes; cond2 (:407)
+    and the net's entry, stage 1, are the frontier compaction's with
+    `decide`: its RAW_FRONT comes from crafted flags, SPILL from before."""
     (phase, stage, words), want = DECISIONS[case]
     ctl = _ctl(phase, **words)
-    sl.split_ctl(ctl, stage, sl.M_ALL if stage == 0 else sl.M_TAIL)
-    got = tuple(int(ctl[k]) for k in (sl.PHASE, sl.IT, sl.SWEEPS,
-                                      sl.TAIL_ROUNDS, sl.STEPS))
-    assert got == want
+    if stage == 0:
+        sl.split_ctl(ctl, sl.M_ALL)
+    else:
+        raw = words.pop("RAW_FRONT")
+        ctl = _ctl(phase, **words)
+        out = torch.empty(512, dtype=torch.int32)
+        sl.flag_compact(_decide_flags(raw), out, ctl, sl.M_TAIL, sl.N_FRONT,
+                        sl.RAW_FRONT, 4095, False, decide=True)
+        assert int(ctl[sl.RAW_FRONT]) == int(ctl[sl.N_FRONT]) == raw
+    assert _words(ctl) == want
+
+
+@pytest.mark.parametrize("raw", [0, 3, 600])
+def test_compaction_without_decide_leaves_phase_and_it(raw):
+    """Without `decide` the compaction writes its counts (and a spill
+    past the cap) but neither PHASE nor IT; with it, its own spill sends
+    the tail to the net."""
+    ctl = _ctl(sl.TAIL, IT=64)
+    out = torch.empty(512, dtype=torch.int32)
+    sl.flag_compact(_decide_flags(raw), out, ctl, sl.M_TAIL, sl.N_FRONT,
+                    sl.RAW_FRONT, 4095, False)
+    assert (int(ctl[sl.PHASE]), int(ctl[sl.IT])) == (sl.TAIL, 64)
+    assert int(ctl[sl.RAW_FRONT]) == raw
+    assert int(ctl[sl.SPILL]) == (raw > 512)
+    ctl2 = _ctl(sl.TAIL, IT=1)
+    sl.flag_compact(_decide_flags(raw), out, ctl2, sl.M_TAIL, sl.N_FRONT,
+                    sl.RAW_FRONT, 4095, False, decide=True)
+    want = sl.NET if raw > 512 else sl.DONE if raw == 0 else sl.TAIL
+    assert int(ctl2[sl.PHASE]) == want
 
 
 @pytest.mark.parametrize("phase", [sl.DENSE, sl.TAIL])
@@ -200,6 +239,7 @@ def test_program_equals_jax_split_rib(case, steps):
         assert stats["host_syncs"] == stats["replays"] == -(-stats["steps"]
                                                             // k)
         assert stats["steps"] == stats["sweeps"] + stats["tail_rounds"]
+        assert stats["graph_nodes"] == 0  # the CPU runs its blocks eagerly
     if case == "tail_spill":
         assert stats["spilled"]
 
@@ -309,6 +349,53 @@ def test_solver_host_syncs_are_its_replays_and_results_do_not_alias():
     assert len(solver._programs) == 0
 
 
+def test_graph_nodes_are_a_blocks_launches(monkeypatch):
+    """A step launches `gs + STEP_LAUNCHES` kernels (7 besides the
+    chunks: the frontier compaction decides the tail, so one ctl launch),
+    and a replayed block's `graph_nodes` is the count of kernels the
+    wrappers recorded into its capture: 352 at the 100k benchmark's gs 4
+    and 32 steps. On the CPU the wrappers' calls stand for the recorded
+    kernels, and the replay is faked by graphs that run the init and the
+    block."""
+    t, over, roots, *_ = _problem(n=8000, deg=6, mw=16, seed=5)
+    tables = split_tables_from_numpy(t, over, "cpu")
+    prog = psplit.SplitProgram(
+        tables, roots.shape[0], has_overloads=False, gs_chunks=None,
+        tail_threshold=1024, tail_cap=8192, tail_rounds_cap=64, warm=False,
+        steps=32)
+    assert prog.gs == 4 and prog.STEP_LAUNCHES == 7
+    calls = []
+    for mod, name in ((sl, "snap"), (sl, "frontier_mark"),
+                      (sl, "flag_compact"), (sl, "split_ctl"),
+                      (relax, "relax_rows")):
+        def counted(*a, _fn=getattr(mod, name), _name=name, _mod=mod,
+                    **kw):
+            calls.append(_name)
+            _mod.CAPTURED += 1  # as a capture records the kernel on CUDA
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    monkeypatch.setattr(sl, "CAPTURED", 0)
+    monkeypatch.setattr(relax, "CAPTURED", 0)
+    prog.roots.copy_(torch.from_numpy(roots))
+    prog._init()
+    assert prog._recorded(prog._step) == prog.gs + prog.STEP_LAUNCHES
+    assert len(calls) == prog.gs + prog.STEP_LAUNCHES
+    assert calls.count("split_ctl") == 1 and calls.count("flag_compact") == 2
+
+    class Graph:
+        def __init__(self, body):
+            self.replay = body
+
+    # what `_capture` keeps: the two graphs and the block's recorded count
+    prog._graphs = (Graph(prog._init), Graph(prog._block))
+    prog._nodes = prog._recorded(prog._block)
+    st = prog.run(torch.from_numpy(roots))
+    assert st["graph_nodes"] == prog.steps * (prog.gs + 7) == 352
+    ref = jsplit.batched_sssp_split(*_jax_args(t, over, roots))
+    np.testing.assert_array_equal(prog.dist.numpy(), np.asarray(ref))
+
+
 @pytest.mark.parametrize("name", ["split_loop", "rib_epilogue"])
 def test_extern_c_signatures_match_argtypes(name):
     """Every C entry point of csrc/<name>.cu has as many parameters as
@@ -324,6 +411,12 @@ def test_extern_c_signatures_match_argtypes(name):
     for fn, params in sigs.items():
         n_params = len([p for p in params.split(",") if p.strip()])
         assert n_params == len(mod.ENTRY_POINTS[fn][0]), fn
+    if name == "split_loop":  # the compaction's decide and workspace
+        names = [p.split()[-1].lstrip("*")
+                 for p in sigs["openr_flag_compact"].split(",")]
+        assert names[-4:] == ["clear", "decide", "ws", "stream"]
+        assert [p.split()[-1] for p in sigs["openr_split_ctl"].split(",")
+                ] == ["ctl", "phase_mask", "stream"]
 
 
 def test_ctl_words_match_the_kernel_source():
@@ -342,3 +435,5 @@ def test_ctl_words_match_the_kernel_source():
     phases = dict(re.findall(r"\bk(Done|Dense|Tail|Net) = (\d+)", src))
     assert {k: int(v) for k, v in phases.items()} == {
         "Done": sl.DONE, "Dense": sl.DENSE, "Tail": sl.TAIL, "Net": sl.NET}
+    # the compaction's tile, by which the workspace is sized
+    assert f"constexpr int kTile = {sl.COMPACT_TILE};" in src

@@ -306,7 +306,7 @@ class Launches:
             n, w = f.shape[0], out_nbr.shape[1]
             return 4 * (n + n * w + live + n * with_frontier), n * w
 
-        def compact(flags, out, _ctl, _m, _c, _r, _d, clear):
+        def compact(flags, out, _ctl, _m, _c, _r, _d, clear, _decide):
             raw = int((flags != 0).sum())
             return (4 * flags.shape[0] + 4 * out.shape[0]
                     + 4 * raw * clear + 12, flags.shape[0])
@@ -315,7 +315,7 @@ class Launches:
         spy("snap_ref", (3, 4, snap))
         spy("frontier_mark_ref", (3, 4, mark))
         spy("flag_compact_ref", (2, 3, compact))
-        spy("split_ctl_ref", (0, 2, lambda *a: (128, 8)))
+        spy("split_ctl_ref", (0, 1, lambda *a: (128, 8)))
         buf_ref = rib_epilogue.rib_buffer_ref
 
         def epilogue(dist, metric, ids, over, my_id, with_lfa):
