@@ -25,8 +25,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: compiles csrc/relax.cu, election.cu, ksp.cu, edge_relax.cu,
      split_loop.cu and rib_epilogue.cu with one nvcc each and, at the
      same time, a cubin of each with
-     `-Xptxas -v`, whose registers, shared memory and spills it prints per
-     kernel; checks the C dispatch against `design_for`;
+     `-Xptxas -v`, whose registers, shared memory, stack frame and spills
+     it prints per kernel; checks the C dispatch against `design_for`;
   3. kernels vs plain on the card, exact int32 equality of dist, the
      changed count, row_flag and rows_changed: every vectorised
      specialisation (W, B in {8, 16, 32, 64}) and the generic kernel on
@@ -105,8 +105,9 @@ Phases (any failure exits non-zero and prints no result line):
      the first hops against NumPy, the RouteDatabase equal to the CPU
      path's, the device election equal to NumPy's; solve and
      compute_routes p50, phases, sweeps; the generic kernel at the
-     path's dense, overflow and tail calls and the election at 20 000
-     slots, timed with their bounds;
+     path's dense, overflow and tail calls, the election at 20 000
+     slots and the RIB epilogue at the aggregation root's distances (LFA
+     off and on), timed with their bounds;
  10. the batched multi-root paths: (a) `csrc/edge_relax.cu`'s init and
      fixpoint kernels exact against their plain versions on random edge
      lists (padding, parallel edges, unreachable and overloaded nodes,
@@ -196,25 +197,33 @@ Phases (any failure exits non-zero and prints no result line):
      of 4, cap - 1 / cap / cap + 1 flags over every tile, the dead slot,
      clear off and on, the tail's decision on each of its rows, its
      workspace zero after every launch, 1 000 launches on one workspace
-     and a CUDA graph of them replayed 100 times; the mark with and
-     without the frontier; the snapshot and the decisions in every
-     phase; kernel A under the loop guard with a live count; the
-     epilogue on the solve's distances and INF-holed ones, LFA off and
-     on, overloads flipped), every guarded launch of another phase
+     and a CUDA graph of them replayed 100 times; the step's snapshot
+     with the tail's mark (`split_snap_mark_kernel`) in every phase,
+     cold and warm, on frontiers of 0, 1, 500 and cap rows; the
+     decisions in every phase; kernel A under the loop guard with a live
+     count; the epilogue on the solve's distances and INF-holed ones, LFA
+     off and on, overloads flipped, and at the CPU tests' shapes: B 8 to
+     128 with 0, 1 and B - 1 neighbors on a vp whose packed rows are an
+     odd and an even number of bytes, INF rows and columns, LFA and
+     overloads both ways), every guarded launch of another phase
      writing nothing (the compaction's workspace included), each timed
-     (CUPTI) with its bound, its plain twin and, for the compaction,
-     `torch.nonzero` on the same flags; (b) the whole
+     (CUPTI) with its bound and its plain twin: the snapshot at a tail
+     step of 300 frontier rows and at a dense step, the compaction
+     (beside `torch.nonzero` on the same flags), the decision, the
+     epilogue at er100k and at hub102's B = 128, LFA off and on (its
+     share also against the whole matrix, the count before the sectors
+     of columns 0..N); (b) the whole
      program on a 20 000-node ER, eager and then replayed from its CUDA
      graphs, equal to the CPU twins' distances and buffer: cold, one
      step a block, a spilled tail, a long tail with LFA, overloads with
      LFA, and warm from a sparse and a dense cone; (c) at er100k
      through the solver, the graph nodes a block holds (the kernels the
-     wrappers recorded into its capture) against a step's launches and
-     beside CUPTI's kernels in one replayed block, a block replayed with the loop done
-     (the no-op steps' cost) and the device-idle share of one traced
-     solve (`profiling.trace`). [4]
-     and [10b] print each solve's host syncs, replays, steps and useful
-     relax launches, and the idle share of one traced call.
+     wrappers recorded into its capture: steps x (gs + 6)) beside
+     CUPTI's kernels in one replayed block, a block replayed with the
+     loop done (the no-op steps' cost) and the device-idle share of one
+     traced solve (`profiling.trace`). [4] and [10b] print each solve's
+     host syncs, replays, steps and useful relax launches, and the idle
+     share of one traced call.
 
 `--only 14` runs the build and [14] alone, with no result line.
 
@@ -443,10 +452,12 @@ SOURCES = ("relax", "election", "ksp", "edge_relax", "split_loop",
 #: (strips 0, 1, 2, 4, overload off/on) and a vec kernel per (W, B,
 #: overload) specialisation, each with and without the split loop's
 #: guard; ksp's SSSP kernel, its wide-row twin and the walk; edge_relax's
-#: init and fixpoint kernels; split_loop's four; rib_epilogue's one
+#: init and fixpoint kernels; split_loop's three (the snapshot with the
+#: tail's mark, the compaction, the decision); rib_epilogue's one-chunk
+#: and chunked kernels, each with and without LFA
 PTXAS_KERNELS = {"relax": 2 * (8 + 2 * len(WIDTHS) ** 2), "election": 1,
-                 "ksp": 3, "edge_relax": 2, "split_loop": 4,
-                 "rib_epilogue": 1}
+                 "ksp": 3, "edge_relax": 2, "split_loop": 3,
+                 "rib_epilogue": 4}
 
 
 def start_ptxas_report(cuda_build, name: str):
@@ -463,10 +474,10 @@ def start_ptxas_report(cuda_build, name: str):
                             stderr=subprocess.STDOUT, text=True), tmp
 
 
-def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
-    """(kernel, registers, smem bytes, spill stores, spill loads) per
-    kernel in `-Xptxas -v` output."""
-    rows, cur, spill = [], None, (0, 0)
+def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int, int]]:
+    """(kernel, registers, smem bytes, stack frame bytes, spill stores,
+    spill loads) per kernel in `-Xptxas -v` output."""
+    rows, cur, spill = [], None, (0, 0, 0)
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -474,14 +485,18 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
                           r"(?:ILi(\d+)E(?:Li(\d+)E)?Lb(\d)ELb(\d)E)?",
                           m.group(1))
             named = re.search(r"(elect_seg_kernel|ksp_sssp_kernel|"
-                              r"ksp_walk_kernel|split_snap_kernel|"
-                              r"frontier_mark_kernel|flag_compact_kernel|"
-                              r"split_ctl_kernel|rib_epilogue_kernel)"
-                              r"(ILb1E)?", m.group(1))
+                              r"ksp_walk_kernel|split_snap_mark_kernel|"
+                              r"flag_compact_kernel|split_ctl_kernel|"
+                              r"rib_epilogue_kernel)(ILb(\d)ELb(\d)E|ILb1E)?",
+                              m.group(1))
             edge = re.search(r"edge_(?:init|relax)_kernel", m.group(1))
             cur = (k.group(1) if k else named.group(1) if named
                    else edge.group(0) if edge else m.group(1))
-            if named is not None and named.group(2):
+            if named is not None and named.group(3):  # the epilogue's
+                chunks = "chunked" if named.group(3) == "1" else "one chunk"
+                lfa = ", LFA" if named.group(4) == "1" else ""
+                cur += f"<{chunks}{lfa}>"
+            elif named is not None and named.group(2):
                 cur += "<wide rows>"
             if k is not None and k.group(2):
                 over = "over" if k.group(4) == "1" else "no over"
@@ -489,12 +504,12 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int]]:
                 shape = (f"{k.group(2)},{k.group(3)}" if k.group(3)
                          else f"strips {k.group(2)}")
                 cur += f"<{shape},{over}{guard}>"
-            spill = (0, 0)
+            spill = (0, 0, 0)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and cur:
-            spill = (int(m.group(1)), int(m.group(2)))
+            spill = tuple(int(x) for x in m.groups())
             continue
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and cur:
@@ -601,9 +616,9 @@ def build_all(cuda_build, modules, old_dir: Path | None = None) -> dict:
         if len(ptx) != PTXAS_KERNELS[name]:
             fail(f"ptxas reported {len(ptx)} kernels for {name}.cu:\n"
                  f"{outs[name]}")
-        for kname, regs, smem, st, ld in ptx:
-            log(f"[2] ptxas {kname}: {regs} registers, {smem} B smem, spill "
-                f"stores {st} B, spill loads {ld} B")
+        for kname, regs, smem, frame, st, ld in ptx:
+            log(f"[2] ptxas {kname}: {regs} registers, {smem} B smem, stack "
+                f"frame {frame} B, spill stores {st} B, spill loads {ld} B")
     if old_libs:
         log(f"[2] --old {', '.join(n + '.cu' for n in old_libs)} built from "
             f"{old_dir}")
@@ -2159,6 +2174,9 @@ def phase9_config2(relax, election_ops, old_libs, k: int = CONFIG2["k"],
                    rib_ms=rib_ms, stats=st, phases=phases,
                    launches=launches, elect_launches=e_launches,
                    kernel_us=k_us, kernel_n=k_n, busy=dev_us / 1e3 / traced_ms)
+        if me == roots[1]:  # the epilogue at the aggregation root's B = 128
+            row["epilogue"] = epilogue_timed(*rib_arrays(solver, csr, solved,
+                                                         me), f"9 {me}")
         out["roots"][me] = row
         out["ribs"][me] = rdb
         out["generic_launches"] += launches["generic"]
@@ -3602,16 +3620,19 @@ class LaunchWork:
             self.keep.append((sl, name, orig))
             setattr(sl, name, call)
 
-        def mark_work(frontier, out_nbr, _m, ctl, _k, with_frontier, dead):
+        def snap_mark_work(d, _s, rf, frontier, out_nbr, _m, ctl, _k,
+                           with_frontier, dead):
+            nbytes, ops = sl.snap_work(d.numel(), rf.numel())
+            if int(ctl[sl.PHASE]) != sl.TAIL:
+                return nbytes, ops
             f = frontier[: int(ctl[sl.N_FRONT])].long()
-            return sl.mark_work(f.shape[0], out_nbr.shape[1],
-                                int((out_nbr[f] != dead).sum()),
-                                with_frontier)
+            mb, mo = sl.mark_work(f.shape[0], out_nbr.shape[1],
+                                  int((out_nbr[f] != dead).sum()),
+                                  with_frontier)
+            return nbytes + mb, ops + mo
 
         self.keep = []
-        spy_loop("snap", 3, 4, lambda d, s_, rf, *_: sl.snap_work(
-            d.numel(), rf.numel()))
-        spy_loop("frontier_mark", 3, 4, mark_work)
+        spy_loop("snap_mark", 6, 7, snap_mark_work)
         spy_loop("flag_compact", 2, 3, lambda f, o, c, k, s1, s2, dd, clear:
                  sl.compact_work(f.shape[0], o.shape[0],
                                  int((f != 0).sum()), clear))
@@ -3619,8 +3640,8 @@ class LaunchWork:
         orig_buf = rib_epilogue.rib_buffer
 
         def spy_buf(dist, metric, ids, over, my_id, with_lfa):
-            self.add(*rib_epilogue.epilogue_work(dist.shape[0],
-                                                 ids.shape[0] + 1, with_lfa))
+            self.add(*rib_epilogue.epilogue_work(*dist.shape, ids.shape[0],
+                                                 with_lfa))
             return orig_buf(dist, metric, ids, over, my_id, with_lfa)
 
         self.keep.append((rib_epilogue, "rib_buffer", orig_buf))
@@ -4033,12 +4054,12 @@ def main(argv=None) -> None:
         if n == 0:
             fail(f"the main path launched the loop's {k} kernel no time "
                  f"({loop_launches})")
-    # the eager blocks' steps (the warm-up solve's): a snapshot, a mark,
-    # two compactions and one decision each
+    # the eager blocks' steps (the warm-up solve's): a snapshot (with the
+    # tail's mark), two compactions and one decision each
     prog4 = next(p for p in solver._programs._progs.values() if not p.warm)
     eager_steps = prog4.steps * sum(x["replays"] for x in run_stats
                                     if not x.get("graph_nodes"))
-    want = dict(snap=eager_steps, mark=eager_steps, compact=2 * eager_steps,
+    want = dict(snap_mark=eager_steps, compact=2 * eager_steps,
                 ctl=eager_steps)
     if {k: loop_launches[k] for k in want} != want:
         fail(f"[4] the loop's wrapper counts {loop_launches}, not {want} "
@@ -4234,16 +4255,16 @@ def main(argv=None) -> None:
             "library_ms": None,
             "timed_by": row["timed_by"],
         })
+    t14 = p14["a"]["timing"]
     for kind, fn, line in (
-            ("snap", "batched_sssp_split", 393),
-            ("mark", "batched_sssp_split", 414),
+            ("snap_mark", "batched_sssp_split", "393,414"),
             ("compact", "_compact_ids", 250),
             ("ctl", "batched_sssp_split", 383),
             ("epilogue", "batched_sssp_split_rib", 524)):
-        row = p14["a"]["timing"][kind]
+        row = t14[kind]
         kname = (rib_epilogue.KERNEL_NAME if kind == "epilogue"
                  else split_loop.KERNEL_NAMES[kind])
-        kernels.append({
+        entry = {
             "name": kname,
             "route": "cuda",
             "source": ("openr_tpu_torch/csrc/rib_epilogue.cu"
@@ -4262,7 +4283,15 @@ def main(argv=None) -> None:
             "bound_by": row["bound_by"],
             "library_ms": row["lib_ms"],
             "timed_by": row["timed_by"],
-        })
+        }
+        # the other timed calls of the same kernel ([14a]), each with
+        # its bound: a dense step's snapshot; the epilogue with LFA and
+        # at B = 128 (hub102)
+        for other in [k for k in t14 if k != kind and k.startswith(kind)]:
+            tag = other[len(kind) + 1:]
+            entry[f"{tag}_ms"] = t14[other]["us"] / 1e3
+            entry[f"{tag}_bound_ms"] = t14[other]["bound_ms"]
+        kernels.append(entry)
     log(f"[5] warm-path relax launches by design: {warm_launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -4557,6 +4586,13 @@ LOOP_CASES = (
     ("overloads+LFA", {}, True, 0.02, None),
 )
 LOOP_N = 20_000
+#: frontier rows of [14]'s timed tail step (a tail round's at er100k)
+MARK_ROWS = 300
+#: [14a]'s epilogue shapes beside er100k's, the CPU tests' (`tests/
+#: test_torch_rib_epilogue.py` SHAPES): B, with N 0, 1 and B - 1
+#: neighbors, on vp / 8 odd (129) and even
+EPI_B = (8, 16, 32, 64, 128)
+EPI_VP = (1032, 4096)
 
 
 def trace_idle_share(fn, span: str) -> tuple[float | None, float]:
@@ -4598,6 +4634,88 @@ def trace_idle_share(fn, span: str) -> tuple[float | None, float]:
             cur_b = max(cur_b, b)
     busy += cur_b - cur_a
     return 1.0 - busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def epilogue_case(g, vp: int, b: int, n: int, holes: bool) -> tuple:
+    """A seeded [vp, b] distance matrix on the card whose root column is
+    the least of its first neighbors' columns plus their metrics on most
+    rows (so first hops hold), each neighbor at 0 on its own row, with n
+    neighbor arrays (11 real, the rest the dead slot's padding); `holes`
+    adds INF destinations, INF cells, an INF column and INF rows.
+    Returns (dist, metric, ids, over, my_id), `rib_buffer`'s arguments
+    before `with_lfa`."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=DEVICE)
+
+    real = min(n, 11)
+    ids = torch.full((n,), vp - 1, dtype=torch.int32, device=DEVICE)
+    ids[:real] = torch.randperm(vp - 1, generator=g, device=DEVICE)[:real].to(
+        torch.int32)
+    met = torch.full((n,), (1 << 30) - 1, dtype=torch.int32, device=DEVICE)
+    met[:real] = ints(1, 12, (real,)).to(torch.int32)
+    over = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    over[:real] = torch.rand(real, generator=g, device=DEVICE) < 0.4
+    d = ints(0, 60, (vp, b))
+    if real:
+        best = (d[:, 1:1 + real] + met[:real].long()).min(dim=1).values
+        keep = torch.rand(vp, generator=g, device=DEVICE) < 0.8
+        d[:, 0] = torch.where(keep, best, ints(0, 80, (vp,)))
+        d[ids[:real].long(), 1 + torch.arange(real, device=DEVICE)] = 0
+    my_id = int(ints(0, vp - 1, (1,)))
+    d[my_id, 0] = 0
+    if holes:
+        d[torch.rand(vp, generator=g, device=DEVICE) < 0.1, 0] = INF
+        d[torch.rand((vp, b), generator=g, device=DEVICE) < 0.05] = INF
+        d[:, min(3, b - 1)] = INF
+        d[torch.randperm(vp, generator=g, device=DEVICE)[:30]] = INF
+    return d.to(torch.int32), met, ids, over, my_id
+
+
+def epilogue_timed(dist, nbr, tag: str) -> dict:
+    """`rib_epilogue_kernel` on a solve's distances and neighbor arrays
+    (`rib_arrays`), LFA off and on: equal to its twin, then timed (CUPTI)
+    beside its bound and the twin's time."""
+    from openr_tpu_torch.ops import rib_epilogue
+
+    out = {}
+    for with_lfa in (False, True):
+        args = (dist, nbr["metric"], nbr["ids"], nbr["over"], nbr["my_id"],
+                with_lfa)
+        err = max_diff([(rib_epilogue.rib_buffer(*args),
+                         rib_epilogue.rib_buffer_ref(*args))])
+        if err:
+            fail(f"[{tag}] rib_epilogue_kernel differs from its twin by {err}")
+        us, how = kernel_us(lambda: rib_epilogue.rib_buffer(*args),
+                            lambda: None, rib_epilogue.KERNEL_NAME)
+        work = rib_epilogue.epilogue_work(*dist.shape, nbr["ids"].shape[0],
+                                          with_lfa)
+        bms, by = bound(*work)
+        plain_ms = cuda_ms(lambda: rib_epilogue.rib_buffer_ref(*args))
+        out["lfa" if with_lfa else "off"] = dict(
+            us=us, timed_by=how, bound_ms=bms, bound_by=by, plain_ms=plain_ms)
+        log(f"[{tag}] rib_epilogue_kernel at {tuple(dist.shape)} (N "
+            f"{nbr['ids'].shape[0]}, LFA {'on' if with_lfa else 'off'}): "
+            f"{us:.3f} us ({how}), equal to the twin; bound {bms * 1e3:.3f} "
+            f"us by {by} ({work[0]} B), share {bms * 1e3 / us:.3f}; plain "
+            f"twin {plain_ms:.4f} ms; card {smi('name,power.limit')}")
+    return out
+
+
+def rib_arrays(solver, csr, solved, me: str):
+    """(the solve's distances on the card, the epilogue's neighbor
+    arrays as the solver pads them) for `solved`, a `solve` from `me`."""
+    dist = solved[1].device_tensor
+    my_id = csr.name_to_id[me]
+    nbr_ids = solved[3]
+    roots, ids, met, over = solver._rib_pad_arrays(
+        csr, my_id, nbr_ids,
+        np.array([min(x[1] for x in csr.details(my_id, j)) for j in nbr_ids],
+                 np.int32), dist.shape[1])
+    return dist, dict(
+        roots=torch.from_numpy(roots).to(DEVICE),
+        ids=torch.from_numpy(ids).to(DEVICE),
+        metric=torch.from_numpy(met).to(DEVICE),
+        over=torch.from_numpy(over).to(DEVICE), my_id=my_id)
 
 
 def loop_ctl(split_loop, phase, **words):
@@ -4763,19 +4881,22 @@ def compact_self_reset(sl, vp, cap, g, ws, launches: int = 1000,
 
 
 def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
-                     nbr) -> dict:
+                     nbr, hub) -> dict:
     """The loop's kernels and the epilogue against their twins on the card
     at er100k's shapes (the solve's tables, its distances `dist` and its
     neighbor arrays `nbr`), and on random inputs; each timed (CUPTI)
     with its bound, its plain twin, and for the compaction
-    `torch.nonzero` on the same flags."""
+    `torch.nonzero` on the same flags: the snapshot with the mark at a
+    tail step of `MARK_ROWS` frontier rows and at a dense step, the
+    epilogue LFA off and on at er100k and at hub102's B = 128 (`hub`:
+    its distances and neighbor arrays)."""
     from openr_tpu_torch.monitor.device import bound
 
     sl = split_loop
     vp, b = dist.shape
     dead, cap = vp - 1, 8192
     g = torch.Generator(device=DEVICE).manual_seed(14)
-    worst = {k: 0 for k in ("snap", "mark", "compact", "ctl", "relax",
+    worst = {k: 0 for k in ("snap_mark", "compact", "ctl", "relax",
                             "epilogue")}
 
     def differ(a, b_):
@@ -4800,33 +4921,33 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
         "out, flags, ctl and the workspace as they were")
     worst["compact"] = max(worst["compact"],
                            compact_self_reset(sl, vp, cap, g, ws))
-    # ---- the mark, on the solve's out-neighbor table
+    # ---- the snapshot with the tail's mark, on the solve's out-neighbor
+    # table: every phase, cold and warm, frontiers of 0, 1, 500 and cap
+    # rows, `mark` holding earlier flags
     out_nbr = tables["out_nbr"]
+    n_sm = 0
     for n_front in (0, 1, 500, min(cap, vp - 1)):
         frontier = torch.full((cap,), dead, dtype=torch.int32, device=DEVICE)
         frontier[:n_front] = torch.randperm(
             vp - 1, generator=g, device=DEVICE)[:n_front].to(torch.int32)
-        for warm in (False, True):
-            marks = []
-            for fn in (sl.frontier_mark, sl.frontier_mark_ref):
-                m = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
-                ctl = loop_ctl(sl, sl.TAIL, N_FRONT=n_front)
-                fn(frontier, out_nbr, m, ctl, sl.M_TAIL, warm, dead)
-                marks.append(m)
-            torch.cuda.synchronize()
-            worst["mark"] = max(worst["mark"], differ(*marks))
-    # ---- the snapshot and the decisions
-    for phase in (sl.DONE, sl.DENSE, sl.TAIL, sl.NET):
-        res = []
-        d = torch.randint(0, 100, (vp, b), generator=g, device=DEVICE,
-                          dtype=torch.int32)
-        for fn in (sl.snap, sl.snap_ref):
-            s = torch.zeros_like(d)
-            rf = torch.ones(vp, dtype=torch.int32, device=DEVICE)
-            ctl = loop_ctl(sl, phase, ROWS_CHANGED=9)
-            fn(d, s, rf, ctl, sl.M_ALL)
-            res.append(torch.cat([s.reshape(-1), rf, ctl]))
-        worst["snap"] = max(worst["snap"], differ(*res))
+        for phase in (sl.DONE, sl.DENSE, sl.TAIL, sl.NET):
+            d = torch.randint(0, 100, (vp, b), generator=g, device=DEVICE,
+                              dtype=torch.int32)
+            m0 = (torch.rand(vp, generator=g, device=DEVICE) < 0.01).to(
+                torch.int32)
+            for warm in (False, True):
+                res = []
+                for fn in (sl.snap_mark, sl.snap_mark_ref):
+                    s_ = torch.zeros_like(d)
+                    rf = torch.ones(vp, dtype=torch.int32, device=DEVICE)
+                    m = m0.clone()
+                    ctl = loop_ctl(sl, phase, N_FRONT=n_front,
+                                   ROWS_CHANGED=9)
+                    fn(d, s_, rf, frontier, out_nbr, m, ctl, sl.M_ALL, warm,
+                       dead)
+                    res.append(torch.cat([s_.reshape(-1), rf, m, ctl]))
+                worst["snap_mark"] = max(worst["snap_mark"], differ(*res))
+                n_sm += 1
     rng = np.random.default_rng(14)
     for _ in range(400):
         words = {k: int(rng.integers(0, 4)) for k in (
@@ -4871,7 +4992,8 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
                    n_live=ctl[sl.N_ROWS:sl.N_ROWS + 1])
                 res.append(torch.cat([out.reshape(-1), rf, ctl]))
             worst["relax"] = max(worst["relax"], differ(*res))
-    # ---- the epilogue: the solve's distances, and INF rows / columns
+    # ---- the epilogue: the solve's distances, and INF rows / columns;
+    # then the CPU tests' shapes
     rand = dist.clone()
     rand[torch.randperm(vp, generator=g, device=DEVICE)[:5000]] = INF
     rand[:, 5] = INF
@@ -4883,6 +5005,23 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
                         for fn in (rib_epilogue.rib_buffer,
                                    rib_epilogue.rib_buffer_ref)]
                 worst["epilogue"] = max(worst["epilogue"], differ(*bufs))
+    n_epi = 0
+    for eb in EPI_B:
+        for n in sorted({0, 1, eb - 1}):
+            for evp in EPI_VP:
+                for holes in (False, True):
+                    args = epilogue_case(g, evp, eb, n, holes)
+                    for with_lfa in (False, True):
+                        for flip in (False, True):
+                            a_ = list(args)
+                            if flip:
+                                a_[3] = ~a_[3]
+                            bufs = [fn(*a_, with_lfa) for fn in (
+                                rib_epilogue.rib_buffer,
+                                rib_epilogue.rib_buffer_ref)]
+                            worst["epilogue"] = max(worst["epilogue"],
+                                                    differ(*bufs))
+                            n_epi += 1
     if any(worst.values()):
         fail(f"[14] the loop's kernels disagree with their twins: {worst}")
 
@@ -4891,15 +5030,42 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
     flags = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
     flags[torch.randperm(vp, generator=g, device=DEVICE)[:2000]] = 1
     out = torch.empty(cap, dtype=torch.int32, device=DEVICE)
-    ctl_t = loop_ctl(sl, sl.TAIL, N_FRONT=300)
+    ctl_t = loop_ctl(sl, sl.TAIL, N_FRONT=MARK_ROWS)
+    ctl_d = loop_ctl(sl, sl.DENSE, N_FRONT=MARK_ROWS)
+    ctl_g = loop_ctl(sl, sl.DONE, N_FRONT=MARK_ROWS)
     frontier = torch.nonzero(flags).reshape(-1)[:cap].to(torch.int32)
     frontier = torch.cat([frontier, torch.full(
         (cap - frontier.numel(),), dead, dtype=torch.int32, device=DEVICE)])
     mark = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
     snap_buf = torch.empty_like(dist)
     rf = torch.zeros(vp, dtype=torch.int32, device=DEVICE)
-    live_slots = int((out_nbr[frontier[:300].long()] != dead).sum())
+    live_slots = int((out_nbr[frontier[:MARK_ROWS].long()] != dead).sum())
+    snap_w = sl.snap_work(dist.numel(), vp)
+    mark_w = sl.mark_work(MARK_ROWS, out_nbr.shape[1], live_slots, False)
+
+    def snap_mark_at(fn, ctl):
+        return lambda: fn(dist, snap_buf, rf, frontier, out_nbr, mark, ctl,
+                          sl.M_ALL, False, dead)
+
+    def epilogue_at(d, nb, with_lfa):
+        args = (d, nb["metric"], nb["ids"], nb["over"], nb["my_id"],
+                with_lfa)
+        return (lambda: rib_epilogue.rib_buffer(*args),
+                lambda: rib_epilogue.rib_buffer_ref(*args),
+                rib_epilogue.epilogue_work(*d.shape, nb["ids"].shape[0],
+                                           with_lfa), None)
+
     calls = {
+        "snap_mark": (snap_mark_at(sl.snap_mark, ctl_t),
+                      snap_mark_at(sl.snap_mark_ref, ctl_t),
+                      (snap_w[0] + mark_w[0], snap_w[1] + mark_w[1]), None),
+        "snap_mark_dense": (snap_mark_at(sl.snap_mark, ctl_d),
+                            snap_mark_at(sl.snap_mark_ref, ctl_d), snap_w,
+                            None),
+        # the loop done: a no-op step's guarded launch, no work
+        "snap_mark_guarded": (snap_mark_at(sl.snap_mark, ctl_g),
+                              snap_mark_at(sl.snap_mark_ref, ctl_g), (0, 0),
+                              None),
         "compact": (
             lambda: sl.flag_compact(flags, out, ctl_t, sl.M_TAIL, sl.N_ROWS,
                                     sl.RAW_ROWS, dead, False, ws=ws),
@@ -4907,29 +5073,28 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
                                         sl.N_ROWS, sl.RAW_ROWS, dead, False),
             sl.compact_work(vp, cap, 2000, False),
             lambda: torch.nonzero(flags)),
-        "mark": (
-            lambda: sl.frontier_mark(frontier, out_nbr, mark, ctl_t,
-                                     sl.M_TAIL, False, dead),
-            lambda: sl.frontier_mark_ref(frontier, out_nbr, mark, ctl_t,
-                                         sl.M_TAIL, False, dead),
-            sl.mark_work(300, out_nbr.shape[1], live_slots, False), None),
-        "snap": (
-            lambda: sl.snap(dist, snap_buf, rf, ctl_t, sl.M_ALL),
-            lambda: sl.snap_ref(dist, snap_buf, rf, ctl_t, sl.M_ALL),
-            sl.snap_work(dist.numel(), vp), None),
         "ctl": (
             lambda: sl.split_ctl(ctl_t, sl.M_DENSE),
             lambda: sl.split_ctl_ref(ctl_t, sl.M_DENSE),
             sl.ctl_work(), None),
-        "epilogue": (
-            lambda: rib_epilogue.rib_buffer(dist, nbr["metric"], nbr["ids"],
-                                            nbr["over"], nbr["my_id"], False),
-            lambda: rib_epilogue.rib_buffer_ref(
-                dist, nbr["metric"], nbr["ids"], nbr["over"], nbr["my_id"],
-                False),
-            rib_epilogue.epilogue_work(vp, b, False), None),
+        "epilogue": epilogue_at(dist, nbr, False),
+        "epilogue_lfa": epilogue_at(dist, nbr, True),
+        "epilogue_b128": epilogue_at(hub["dist"], hub["nbr"], False),
+        "epilogue_b128_lfa": epilogue_at(hub["dist"], hub["nbr"], True),
     }
-    names = dict(sl.KERNEL_NAMES, epilogue=rib_epilogue.KERNEL_NAME)
+    # each timed call's kernel: the key it starts with
+    base = {k: next(b for b in ("snap_mark", "compact", "ctl", "epilogue")
+                    if k.startswith(b)) for k in calls}
+    names = {k: (rib_epilogue.KERNEL_NAME if base[k] == "epilogue"
+                 else sl.KERNEL_NAMES[base[k]]) for k in calls}
+    shapes = {k: (f"{tuple(hub['dist'].shape)}, hub102" if "b128" in k
+                  else f"{vp} x {b}") for k in calls}
+    notes = dict(snap_mark=f"tail step, {MARK_ROWS} frontier rows",
+                 snap_mark_dense="dense step",
+                 snap_mark_guarded="the loop done: a guarded launch",
+                 epilogue="LFA off",
+                 epilogue_lfa="LFA on", epilogue_b128="LFA off",
+                 epilogue_b128_lfa="LFA on")
     ctl_save = ctl_t.clone()
     card = smi("name,power.limit")
     for kind, (launch, plain, work, lib) in calls.items():
@@ -4943,21 +5108,35 @@ def phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
         bms, by = bound(*work)
         timing[kind] = dict(us=us, timed_by=how, plain_ms=plain_ms,
                             lib_ms=lib_ms, bound_ms=bms, bound_by=by,
-                            err=worst["relax" if kind == "relax" else kind])
-        log(f"[14] {names[kind]} at er100k ({vp} x {b}): {us:.3f} us "
-            f"({how}); bound {bms * 1e3:.3f} us by {by} ({work[0]} B, "
-            f"{work[1]} ops), share {bms * 1e3 / us:.3f}; plain twin "
-            f"{plain_ms:.4f} ms"
+                            err=worst[base[kind]])
+        extra = ""
+        if kind.startswith("epilogue"):  # the count before: all of dist
+            d_ = hub["dist"] if "b128" in kind else dist
+            whole = (work[0] + 4 * d_.numel()
+                     - 32 * rib_epilogue.row_sectors(*d_.shape,
+                                                     d_.shape[1]))
+            wms, _ = bound(whole, work[1])
+            timing[kind]["whole_bound_ms"] = wms
+            extra = (f"; against the whole matrix ({whole} B) "
+                     f"{wms * 1e3:.3f} us, share {wms * 1e3 / us:.3f}")
+        log(f"[14] {names[kind]} at {shapes[kind]}"
+            + (f" ({notes[kind]})" if kind in notes else "")
+            + f": {us:.3f} us ({how}); bound {bms * 1e3:.3f} us by {by} "
+            f"({work[0]} B, {work[1]} ops), share {bms * 1e3 / us:.3f}"
+            + extra + f"; plain twin {plain_ms:.4f} ms"
             + (f"; torch.nonzero {lib_ms:.4f} ms" if lib_ms is not None
                else "") + f"; card {card}")
     log(f"[14] kernels vs twins on the card: max |diff| {worst} (compaction "
         "at 0, 1, cap, cap + 1 marks and more, tile edges, short and ragged "
         "lengths, cap - 1 / cap / cap + 1 over every tile, the dead slot, "
         "clear off/on, the tail's decision, guarded, 1 000 launches and a "
-        "graph replayed 100 times on one workspace; mark warm off/on; "
-        "snapshot and decisions in every phase; kernel A under the guard; "
+        f"graph replayed 100 times on one workspace; {n_sm} snapshot-and-"
+        "mark cases: every phase, cold and warm, frontiers of 0, 1, 500 "
+        "and cap rows; decisions in every phase; kernel A under the guard; "
         "epilogue on the solve's and INF-holed distances, LFA off/on, "
-        "overloads flipped)")
+        f"overloads flipped, and {n_epi} cases at B {EPI_B}, N 0 / 1 / "
+        f"B - 1, vp {EPI_VP} (vp / 8 odd and even), INF rows and columns "
+        "off/on, LFA off/on, overloads flipped)")
     return dict(worst=worst, timing=timing)
 
 
@@ -5150,23 +5329,22 @@ def phase14c_replay(solver, ls, split_loop) -> dict:
 def phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables):
     """[14]: the loop's kernels and the epilogue against their twins and
     timed, the whole program against the CPU twins, the replay's cost."""
+    from openr_tpu_torch import LinkState, TorchSpfSolver
+    from openr_tpu_torch.utils.topogen import hub_and_spoke
+
     t0 = time.perf_counter()
     solved = solver.solve(ls, "node-0")
-    csr, dist_l, _fh, nbr_ids, _lfa = solved
-    dist = dist_l.device_tensor
-    vp, b = dist.shape
-    my_id = csr.name_to_id["node-0"]
-    roots, ids, met, over = solver._rib_pad_arrays(
-        csr, my_id, nbr_ids,
-        np.array([min(x[1] for x in csr.details(my_id, j)) for j in nbr_ids],
-                 np.int32), b)
-    nbr = dict(
-        roots=torch.from_numpy(roots).to(DEVICE),
-        ids=torch.from_numpy(ids).to(DEVICE),
-        metric=torch.from_numpy(met).to(DEVICE),
-        over=torch.from_numpy(over).to(DEVICE), my_id=my_id)
+    dist, nbr = rib_arrays(solver, solved[0], solved, "node-0")
+    hub_ls = LinkState()  # hub102: B = 128
+    for db in hub_and_spoke(hubs=2, spokes=100)[0]:
+        hub_ls.update_adjacency_db(db)
+    hub_solver = TorchSpfSolver(device=DEVICE)
+    hub_solved = hub_solver.solve(hub_ls, "node-0")
+    hub_dist, hub_nbr = rib_arrays(hub_solver, hub_solved[0], hub_solved,
+                                   "node-0")
+    hub = dict(dist=hub_dist, nbr=hub_nbr)
     p14a = phase14a_kernels(relax, split_loop, rib_epilogue, tables, dist,
-                            nbr)
+                            nbr, hub)
     p14b = phase14b_program(split_loop)
     p14c = phase14c_replay(solver, ls, split_loop)
     log(f"[14] done in {time.perf_counter() - t0:.1f} s")

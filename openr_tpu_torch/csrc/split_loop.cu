@@ -6,12 +6,13 @@
 // the device inside one jitted dispatch. The relax itself stays kernel A
 // (csrc/relax.cu); these kernels carry the loop around it:
 //
-// * split_snap_kernel: the step's snapshot of dist (the Jacobi source of
-//   the overflow and tail relaxes) and the clears of the row flags and of
-//   the changed-row count.
-// * frontier_mark_kernel: marks the out-neighbours of the listed frontier
-//   (and, on the warm path, the frontier itself) in a [vp] flag array,
-//   skipping the dead slot vp-1.
+// * split_snap_mark_kernel: the step's snapshot of dist (the Jacobi
+//   source of the overflow and tail relaxes) and the clears of the row
+//   flags and of the changed-row count; in a tail step the same launch
+//   also marks the out-neighbours of the listed frontier (and, on the
+//   warm path, the frontier itself) in a [vp] flag array, skipping the
+//   dead slot vp-1 (the reference's sort of out_nbr[frontier], :414 and
+//   :614).
 // * flag_compact_kernel: the stream compaction of a [vp] flag array into
 //   the ids it holds, in index order, dead-padded to `cap`, with their
 //   count and the spill bit (count > cap). Row ids are positions in
@@ -32,11 +33,19 @@
 // Bound on this card: bytes, and for the compaction the latency of the
 // chain from the first tile's count to the last tile's prefix. The
 // snapshot moves 2 x vp x B x 4 bytes; the mark reads the frontier's
-// out-neighbour rows; the compaction reads vp flags (426 KB at vp
-// 106 496), written by the step's kernels just before and L2-resident,
-// in one pass: a block a tile of 4 096 flags (one wave of 26 blocks at
-// that vp), the tiles' offsets by decoupled look-back, so each tile waits
-// on its predecessors' status words and not on their loads.
+// out-neighbour rows, a few hundred of 256 bytes at er100k, and is
+// latency-bound: a frontier id, then its row, then the stores. So it
+// rides in the snapshot's launch, which every step makes anyway: a
+// group of lanes a frontier row (16-byte loads of its wout slots, at
+// most a warp), the row id read once and broadcast, shifts for wout (a
+// power of two), one plain store a live slot. A dense step skips the
+// mark, and a step after the loop's exit returns at the guard, a launch
+// fewer than with a mark kernel of its own. The compaction reads vp
+// flags (426 KB at vp 106 496), written by the step's kernels just
+// before and L2-resident, in one pass: a block a tile of 4 096 flags (one
+// wave of 26 blocks at that vp), the tiles' offsets by decoupled
+// look-back, so each tile waits on its predecessors' status words and
+// not on their loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,54 +77,139 @@ __device__ __forceinline__ bool runs(const int* ctl, int phase_mask) {
   return (phase_mask >> __ldcg(ctl + kPhase)) & 1;
 }
 
-// ------------------------------------------------------------ snapshot
+// ------------------------------------------------- snapshot and mark
 
-__global__ void __launch_bounds__(256)
-    split_snap_kernel(const int* __restrict__ dist, int* __restrict__ snap,
-                      long long n, int* row_flag, int vp, int* ctl,
-                      int phase_mask) {
-  if (!runs(ctl, phase_mask)) return;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long n4 = n / 4;  // dist and snap are 16-byte aligned
-  const int4* s4 = reinterpret_cast<const int4*>(dist);
-  int4* d4 = reinterpret_cast<int4*>(snap);
-  long long i = tid;
-  for (; i + stride < n4; i += 2 * stride) {  // two loads in flight
-    const int4 a = __ldcg(s4 + i);
-    const int4 b = __ldcg(s4 + i + stride);
-    __stcg(d4 + i, a);
-    __stcg(d4 + i + stride, b);
+// The mark's lanes: a group of `lanes` = min(32, wout / 4) lanes a
+// frontier row (the row's slots as 16-byte loads), `per_warp` rows a
+// warp at once, lane `j` of its group, `leader` the group's first lane.
+struct MarkLanes {
+  int lg_lanes, lanes, lg_wout, j, leader, per_warp;
+  __device__ MarkLanes(int wout, int lane) {
+    lg_lanes = min(5, __ffs(wout) - 3);  // log2(min(32, wout / 4))
+    lanes = 1 << lg_lanes;
+    lg_wout = __ffs(wout) - 1;
+    j = lane & (lanes - 1);
+    leader = lane & ~(lanes - 1);
+    per_warp = 32 >> lg_lanes;
   }
-  if (i < n4) __stcg(d4 + i, __ldcg(s4 + i));
-  for (long long j = 4 * n4 + tid; j < n; j += stride) snap[j] = dist[j];
-  for (long long j = tid; j < vp; j += stride) row_flag[j] = 0;
-  if (tid == 0) ctl[kRowsChanged] = 0;
+};
+
+// one plain store of 1 a live slot: two slots naming one row write the
+// same word, so no atomics
+__device__ __forceinline__ void mark_slots(int4 v, int* __restrict__ mark,
+                                           int dead) {
+  if (v.x != dead) mark[v.x] = 1;
+  if (v.y != dead) mark[v.y] = 1;
+  if (v.z != dead) mark[v.z] = 1;
+  if (v.w != dead) mark[v.w] = 1;
 }
 
-// ---------------------------------------------------------------- mark
-
-__global__ void __launch_bounds__(256)
-    frontier_mark_kernel(const int* __restrict__ frontier,
-                         const int* __restrict__ out_nbr, int wout,
-                         int* mark, int dead, int with_frontier, int* ctl,
-                         int phase_mask) {
-  if (!runs(ctl, phase_mask)) return;
-  const long long n = __ldcg(ctl + kNFront);
-  const long long total = n * wout;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // consecutive threads walk consecutive slots of one out-neighbour row
-  for (long long i = tid; i < total; i += stride) {
-    const int f = __ldcg(frontier + i / wout);
-    const int v = __ldg(out_nbr + (size_t)f * wout + i % wout);
-    if (v != dead) mark[v] = 1;
+// Marks the out-neighbours of frontier rows [0, nf) in `mark` (and, with
+// `with_frontier`, the rows themselves), the dead slot never, from the
+// grid's second pass on (split_snap_mark_kernel marks the first): a
+// warp's groups take consecutive rows, the grid's warps stride over
+// them. The group's first lane reads the row id, a shuffle hands it to
+// the group; every lane of the warp runs the shuffle, so the loop is
+// warp-uniform.
+__device__ __forceinline__ void mark_rows_past_first(
+    const int* __restrict__ frontier, int nf,
+    const int* __restrict__ out_nbr, int wout, int* __restrict__ mark,
+    int dead, int with_frontier, long long warp, long long warps) {
+  const int lane = threadIdx.x & 31;
+  const MarkLanes m(wout, lane);
+  for (long long r0 = (warp + warps) * m.per_warp; r0 < nf;
+       r0 += warps * m.per_warp) {
+    const long long r = r0 + (lane >> m.lg_lanes);
+    const bool live = r < nf;
+    int f = dead;
+    if (live && m.j == 0) f = __ldcg(frontier + r);
+    f = __shfl_sync(kFull, f, m.leader);
+    if (!live) continue;
+    const int4* row =
+        reinterpret_cast<const int4*>(out_nbr + ((size_t)f << m.lg_wout));
+    for (int q = m.j; q < (wout >> 2); q += m.lanes)
+      mark_slots(__ldg(row + q), mark, dead);
+    if (with_frontier && m.j == 0 && f != dead) mark[f] = 1;
   }
-  if (with_frontier)
-    for (long long i = tid; i < n; i += stride) {
-      const int f = __ldcg(frontier + i);
-      if (f != dead) mark[f] = 1;
-    }
+}
+
+// The step's first launch. Every step: snap = dist, the row flags and
+// the changed-row count cleared. A tail step also marks the frontier's
+// out-neighbours. The mark is latency-bound (a row id, then its row,
+// then the stores), so its first pass (a row a group: at er100k the
+// grid's warps, two rows each at wout 64, cover the cap of 8 192) is
+// interleaved with the copy: the row id's load goes out with the
+// copy's first loads, the row's with their stores, and the marks are
+// stored after the copy, so both loads wait under the copy's traffic.
+// Rows past the first pass (mark_rows_past_first) follow. The two halves touch
+// disjoint memory (the snapshot reads dist and writes snap, row_flag
+// and ctl[kRowsChanged]; the mark reads frontier, out_nbr and
+// ctl[kNFront] and writes mark), and the frontier was written by the
+// previous step's last compaction, a launch earlier. The grid is one
+// wave of the kernel on this device whatever its register count
+// (snap_blocks); capping the registers at 32 instead spilled.
+__global__ void __launch_bounds__(256)
+    split_snap_mark_kernel(const int* __restrict__ dist,
+                           int* __restrict__ snap, long long n,
+                           int* __restrict__ row_flag, int vp,
+                           const int* __restrict__ frontier,
+                           const int* __restrict__ out_nbr, int wout,
+                           int* __restrict__ mark, int dead,
+                           int with_frontier, int* ctl, int phase_mask) {
+  // The phase and the frontier's length through the read-only path:
+  // this launch writes no word it reads (thread 0 writes only
+  // ctl[kRowsChanged]), and a launch sees what earlier launches wrote.
+  // Read with ld.global.cg, every warp's request for this one sector
+  // queues at one L2 slice: a dense step took 7.69 us read so and 5.51
+  // us by __ldg (chip_smoke.py [14], NVIDIA H100 80GB HBM3, 700.00 W).
+  const int phase = __ldg(ctl + kPhase);
+  const int n_front = __ldg(ctl + kNFront);
+  if (!((phase_mask >> phase) & 1)) return;
+  // 32-bit indices (the launcher holds n / 4 below 2^31): fewer
+  // registers
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int nf = phase == kTail ? n_front : 0;
+  const MarkLanes m(wout, lane);
+  const int row = (tid >> 5) * m.per_warp + (lane >> m.lg_lanes);
+  const bool marking = row < nf;  // this lane's group has a first-pass row
+  int f = dead;
+  if (marking && m.j == 0) f = __ldcg(frontier + row);
+  const int n4 = (int)(n / 4);  // dist and snap are 16-byte aligned
+  const int4* s4 = reinterpret_cast<const int4*>(dist);
+  int4* d4 = reinterpret_cast<int4*>(snap);
+  int i = tid;
+  const bool has_a = i < n4, has_b = i + stride < n4;
+  int4 a, b;
+  if (has_a) a = __ldcg(s4 + i);
+  if (has_b) b = __ldcg(s4 + i + stride);
+  f = __shfl_sync(kFull, f, m.leader);
+  const int4* nbr_row =
+      reinterpret_cast<const int4*>(out_nbr + ((size_t)f << m.lg_wout));
+  int4 slots = make_int4(dead, dead, dead, dead);
+  if (marking) slots = __ldg(nbr_row + m.j);
+  if (has_a) __stcg(d4 + i, a);
+  if (has_b) __stcg(d4 + i + stride, b);
+  for (i += 2 * stride; i < n4 - stride; i += 2 * stride) {
+    const int4 a2 = __ldcg(s4 + i);  // two loads in flight
+    const int4 b2 = __ldcg(s4 + i + stride);
+    __stcg(d4 + i, a2);
+    __stcg(d4 + i + stride, b2);
+  }
+  if (i < n4) __stcg(d4 + i, __ldcg(s4 + i));
+  if (tid < n - 4LL * n4) snap[4LL * n4 + tid] = dist[4LL * n4 + tid];
+  for (int j = tid; j < vp; j += stride) row_flag[j] = 0;
+  if (tid == 0) ctl[kRowsChanged] = 0;
+  if (marking) {
+    mark_slots(slots, mark, dead);
+    for (int q = m.j + m.lanes; q < (wout >> 2); q += m.lanes)
+      mark_slots(__ldg(nbr_row + q), mark, dead);
+    if (with_frontier && m.j == 0 && f != dead) mark[f] = 1;
+  }
+  if (nf > 0)
+    mark_rows_past_first(frontier, nf, out_nbr, wout, mark, dead,
+                         with_frontier, tid >> 5, stride >> 5);
 }
 
 // ------------------------------------------------------------- compact
@@ -338,32 +432,38 @@ __global__ void split_ctl_kernel(int* ctl, int phase_mask) {
   }
 }
 
-constexpr int kMaxBlocks = 1024;
-
-int blocks_for(long long work, int threads) {
-  long long b = (work + threads - 1) / threads;
-  if (b < 1) b = 1;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
+// The snapshot's grid: a block per 2 048 elements of dist, at most one
+// wave of split_snap_mark_kernel on this device (its resident blocks an
+// SM at its register count, times the SMs), read once a process.
+int snap_blocks(long long n) {
+  static int wave = 0;
+  if (wave == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, split_snap_mark_kernel, 256, 0);
+    wave = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const long long b = (n / 8 + 255) / 256;
+  return (int)(b < 1 ? 1 : b < wave ? b : wave);
 }
 
 }  // namespace
 
-extern "C" int openr_split_snap(const void* dist, void* snap, long long n,
-                                void* row_flag, int vp, void* ctl,
-                                int phase_mask, void* stream) {
-  split_snap_kernel<<<blocks_for(n / 8, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const int*)dist, (int*)snap, n, (int*)row_flag, vp, (int*)ctl,
-      phase_mask);
-  return (int)cudaGetLastError();
-}
-
-// `cap` bounds the frontier's length (the grid is sized for cap x wout).
-extern "C" int openr_frontier_mark(const void* frontier, const void* out_nbr,
-                                   int wout, int cap, void* mark, int dead,
-                                   int with_frontier, void* ctl,
-                                   int phase_mask, void* stream) {
-  frontier_mark_kernel<<<blocks_for((long long)cap * wout, 256), 256, 0,
-                         (cudaStream_t)stream>>>(
+// `wout` a power of two, at least 4; out_nbr [vp, wout] 16-byte aligned;
+// n / 4 below 2^31 (the kernel's indices are 32-bit).
+extern "C" int openr_split_snap_mark(const void* dist, void* snap,
+                                     long long n, void* row_flag, int vp,
+                                     const void* frontier,
+                                     const void* out_nbr, int wout,
+                                     void* mark, int dead, int with_frontier,
+                                     void* ctl, int phase_mask,
+                                     void* stream) {
+  // int4 indices stay 32-bit, with room for i + 2 x the grid's threads
+  if (n / 4 > (1LL << 31) - (1LL << 28)) return (int)cudaErrorInvalidValue;
+  split_snap_mark_kernel<<<snap_blocks(n), 256, 0, (cudaStream_t)stream>>>(
+      (const int*)dist, (int*)snap, n, (int*)row_flag, vp,
       (const int*)frontier, (const int*)out_nbr, wout, (int*)mark, dead,
       with_frontier, (int*)ctl, phase_mask);
   return (int)cudaGetLastError();

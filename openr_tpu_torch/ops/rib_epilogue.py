@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from openr_tpu_torch.monitor import device as _telemetry
@@ -89,16 +90,32 @@ def buffer_bytes(vp: int, n: int, with_lfa: bool) -> int:
     return 4 * vp + (2 if with_lfa else 1) * n * (vp // 8)
 
 
-def epilogue_work(vp: int, b: int, with_lfa: bool) -> tuple[int, int]:
-    """(least DRAM bytes, integer operations) of one epilogue on a
-    [vp, b] distance matrix: `first_hop_work`'s read of the matrix and
-    the neighbors' metric, id and overload flag, with the bits written
-    packed (vp / 8 bytes a neighbor row, twice with LFA) behind the
-    root column's 4·vp bytes; LFA adds the neighbors' row `my_id` and an
-    add, three compares and three ands per bit."""
-    n = b - 1
-    nbytes, ops = first_hop_work(vp, b)
-    nbytes += buffer_bytes(vp, n, with_lfa) - n * vp
+def row_sectors(vp: int, b: int, cols: int) -> int:
+    """32-byte sectors of a row-major int32 [vp, b] matrix (its base
+    32-byte aligned) that hold columns 0 .. cols - 1 of some row: what
+    any reader of those columns must fetch from DRAM."""
+    if (4 * b) % 32 == 0:  # rows start on a sector
+        return vp * -(-4 * cols // 32)
+    start = np.arange(vp, dtype=np.int64) * (4 * b)
+    first, last = start // 32, (start + 4 * cols - 1) // 32
+    prev = np.concatenate([[-1], last[:-1]])  # a sector two rows share
+    return int(np.clip(last - np.maximum(first, prev + 1) + 1, 0, None)
+               .sum())
+
+
+def epilogue_work(vp: int, b: int, n: int, with_lfa: bool
+                  ) -> tuple[int, int]:
+    """(least DRAM bytes, integer operations) of one epilogue of `n`
+    neighbors on a [vp, b] distance matrix: the sectors that hold
+    columns 0..n of every row (`row_sectors`: all of it where n = b - 1
+    and b is a multiple of 8), the neighbors' metric, id and overload
+    flag read, the bits written packed (vp / 8 bytes a neighbor row,
+    twice with LFA) behind the root column's 4·vp bytes;
+    `first_hop_work`'s operations. LFA adds the neighbors' columns of
+    row `my_id` and an add, three compares and three ands per bit."""
+    nbytes = (32 * row_sectors(vp, b, n + 1) + n * 9
+              + buffer_bytes(vp, n, with_lfa))
+    ops = first_hop_work(vp, n + 1)[1]
     if with_lfa:
         nbytes += n * 4
         ops += 7 * n * vp
@@ -136,7 +153,7 @@ def rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, my_id: int,
             f" and flags {tuple(nbr_over.shape)} against {b} columns")
     sink = _telemetry.sink()
     if sink is not None:
-        nbytes, ops = epilogue_work(vp, n + 1, with_lfa)
+        nbytes, ops = epilogue_work(vp, b, n, with_lfa)
         sink.add("rib_epilogue", nbytes, ops)
     if dist.device.type == "cpu":
         return rib_buffer_ref(dist, nbr_metric, nbr_ids, nbr_over, my_id,

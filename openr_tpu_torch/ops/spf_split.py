@@ -247,17 +247,17 @@ class SplitProgram:
     so the same `gs + STEP_LAUNCHES` launches serve either, and after the
     loop's exit a step touches nothing:
 
-      1. `split_snap_kernel`: snap = dist, row flags and count cleared;
-      2. `frontier_mark_kernel` (tail): the frontier's out-neighbors (and,
-         warm, the frontier itself) marked;
-      3. `flag_compact_kernel` (tail): the marks into the round's rows,
+      1. `split_snap_mark_kernel`: snap = dist, row flags and count
+         cleared; in the tail the same launch also marks the frontier's
+         out-neighbors (and, warm, the frontier itself);
+      2. `flag_compact_kernel` (tail): the marks into the round's rows,
          spill if they exceed `tail_cap`;
-      4. kernel A: the `gs` dense chunks (dense), the listed rows up to
+      3. kernel A: the `gs` dense chunks (dense), the listed rows up to
          their count (tail), the overflow rows (both);
-      5. `split_ctl_kernel`: the step counted, phase 1 ended
+      4. `split_ctl_kernel`: the step counted, phase 1 ended
          while at most `tail_threshold` rows changed, the net ended at a
          sweep that changed nothing;
-      6. `flag_compact_kernel` (tail): the lowered rows into the next
+      5. `flag_compact_kernel` (tail): the lowered rows into the next
          frontier, spill if they exceed `tail_cap`; its last block then
          decides: done on an empty frontier, to the net on a spill or at
          `tail_rounds_cap` rounds.
@@ -317,10 +317,10 @@ class SplitProgram:
         self._graphs = None  # (init, steps) CUDA graphs once captured
         self._nodes = 0  # kernels recorded into the block's graph
 
-    #: launches of one step besides the `gs` dense chunks: the snapshot,
-    #: the mark, two compactions, kernel A's listed and overflow rows, the
-    #: decision
-    STEP_LAUNCHES = 7
+    #: launches of one step besides the `gs` dense chunks: the snapshot
+    #: (with the tail's mark), two compactions, kernel A's listed and
+    #: overflow rows, the decision
+    STEP_LAUNCHES = 6
 
     def _init(self) -> None:
         sl = split_loop
@@ -337,9 +337,9 @@ class SplitProgram:
 
     def _step(self) -> None:
         sl, ctl = split_loop, self.ctl
-        sl.snap(self.dist, self.snap, self.row_flag, ctl, sl.M_ALL)
-        sl.frontier_mark(self.frontier, self.out_nbr, self.mark, ctl,
-                         sl.M_TAIL, self.warm, self.dead)
+        sl.snap_mark(self.dist, self.snap, self.row_flag, self.frontier,
+                     self.out_nbr, self.mark, ctl, sl.M_ALL, self.warm,
+                     self.dead)
         sl.flag_compact(self.mark, self.rows, ctl, sl.M_TAIL, sl.N_ROWS,
                         sl.RAW_ROWS, self.dead, True, ws=self.ws)
         self.rx.chunks(self.dist, self.snap, ctl=ctl, phase_mask=sl.M_DENSE)

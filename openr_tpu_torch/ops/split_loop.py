@@ -54,21 +54,17 @@ M_ALL = M_DENSE | M_TAIL
 
 #: the kernel functions, as a profiler names them
 KERNEL_NAMES = {
-    "snap": "split_snap_kernel",
-    "mark": "frontier_mark_kernel",
+    "snap_mark": "split_snap_mark_kernel",
     "compact": "flag_compact_kernel",
     "ctl": "split_ctl_kernel",
 }
 
 #: the C entry points of `csrc/split_loop.cu` and their ctypes types
 ENTRY_POINTS = {
-    "openr_split_snap": ([
+    "openr_split_snap_mark": ([
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # dist, snap, n
         ctypes.c_void_p, ctypes.c_int,  # row_flag, vp
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # ctl, mask, stream
-    ], ctypes.c_int),
-    "openr_frontier_mark": ([
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # frontier, out, wout
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # mark, dead, with_f
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # ctl, mask, stream
     ], ctypes.c_int),
@@ -176,6 +172,16 @@ def frontier_mark_ref(frontier, out_nbr, mark, ctl, phase_mask,
         mark[f[f != dead]] = 1
 
 
+def snap_mark_ref(dist, snap, row_flag, frontier, out_nbr, mark, ctl,
+                  phase_mask, with_frontier: bool, dead: int) -> None:
+    """The step's first launch (`split_snap_mark_kernel`): `snap_ref`
+    under `phase_mask`, then `frontier_mark_ref` where the phase is the
+    tail."""
+    snap_ref(dist, snap, row_flag, ctl, phase_mask)
+    frontier_mark_ref(frontier, out_nbr, mark, ctl, phase_mask & M_TAIL,
+                      with_frontier, dead)
+
+
 def flag_compact_ref(flags, out, ctl, phase_mask, count_slot: int,
                      raw_slot: int, dead: int, clear: bool,
                      decide: bool = False) -> None:
@@ -242,7 +248,7 @@ def split_ctl_ref(ctl, phase_mask) -> None:
 
 
 def snap_work(n: int, vp: int) -> tuple[int, int]:
-    """(least DRAM bytes, integer operations) of one snapshot: the n
+    """(least DRAM bytes, integer operations) of one step's snapshot: the n
     distances written, the vp row flags and the count written. The n
     distances it reads need not come from DRAM: the step's own kernels
     wrote them just before, and at the 100k benchmark's 13.6 MB they sit
@@ -252,8 +258,10 @@ def snap_work(n: int, vp: int) -> tuple[int, int]:
 
 def mark_work(n_front: int, wout: int, live_slots: int,
               with_frontier: bool) -> tuple[int, int]:
-    """One mark: the frontier's ids and out-neighbor rows read, a flag
-    written per live slot (and per frontier row); a compare a slot."""
+    """One tail step's mark: the frontier's ids and out-neighbor rows
+    read, a flag written per live slot (and per frontier row); a compare
+    a slot. `split_snap_mark_kernel` adds it to `snap_work` in a tail
+    step."""
     writes = live_slots + (n_front if with_frontier else 0)
     return n_front * 4 + n_front * wout * 4 + writes * 4, n_front * wout
 
@@ -308,44 +316,44 @@ def _count(ctl, phase_mask, work) -> None:
         sink.add("split_loop", nbytes, ops)
 
 
-def snap(dist, snap_out, row_flag, ctl, phase_mask: int) -> None:
-    """`split_snap_kernel`: `snap_out` = `dist`, row flags and the
-    changed-row count cleared, where the phase is in `phase_mask`."""
-    _check("snap", ctl.device, dist=dist, snap=snap_out, row_flag=row_flag,
+def snap_mark(dist, snap_out, row_flag, frontier, out_nbr, mark, ctl,
+              phase_mask: int, with_frontier: bool, dead: int) -> None:
+    """`split_snap_mark_kernel`: see `snap_mark_ref`. `out_nbr` is
+    [vp, wout] with wout a power of two, at least 4 on CUDA."""
+    _check("snap_mark", ctl.device, dist=dist, snap=snap_out,
+           row_flag=row_flag, frontier=frontier, out_nbr=out_nbr, mark=mark,
            ctl=ctl)
     if snap_out.shape != dist.shape:
-        raise ValueError("snap: dist and snap must be one shape")
-    _count(ctl, phase_mask, lambda: snap_work(dist.numel(), row_flag.numel()))
-    if ctl.device.type == "cpu":
-        return snap_ref(dist, snap_out, row_flag, ctl, phase_mask)
-    for x in (dist, snap_out):
-        if x.data_ptr() % 16:
-            raise ValueError("snap: dist and snap must be 16-byte aligned")
-    _launch("snap", "openr_split_snap", ctl.device, dist.data_ptr(),
-            snap_out.data_ptr(), dist.numel(), row_flag.data_ptr(),
-            row_flag.numel(), ctl.data_ptr(), int(phase_mask))
-
-
-def frontier_mark(frontier, out_nbr, mark, ctl, phase_mask: int,
-                  with_frontier: bool, dead: int) -> None:
-    """`frontier_mark_kernel`: see `frontier_mark_ref`."""
-    _check("frontier_mark", ctl.device, frontier=frontier, out_nbr=out_nbr,
-           mark=mark, ctl=ctl)
+        raise ValueError("snap_mark: dist and snap must be one shape")
+    if mark.data_ptr() == row_flag.data_ptr():
+        raise ValueError("snap_mark: mark and row_flag are one buffer")
     wout = out_nbr.shape[1]
 
     def work():
-        f = frontier[: int(ctl[N_FRONT])].long()
-        live = int((out_nbr[f] != dead).sum())
-        return mark_work(f.shape[0], wout, live, with_frontier)
+        nbytes, ops = snap_work(dist.numel(), row_flag.numel())
+        if int(ctl[PHASE]) == TAIL:
+            f = frontier[: int(ctl[N_FRONT])].long()
+            live = int((out_nbr[f] != dead).sum())
+            mb, mo = mark_work(f.shape[0], wout, live, with_frontier)
+            nbytes, ops = nbytes + mb, ops + mo
+        return nbytes, ops
 
     _count(ctl, phase_mask, work)
     if ctl.device.type == "cpu":
-        return frontier_mark_ref(frontier, out_nbr, mark, ctl, phase_mask,
-                                 with_frontier, dead)
-    _launch("mark", "openr_frontier_mark", ctl.device, frontier.data_ptr(),
-            out_nbr.data_ptr(), wout, frontier.shape[0], mark.data_ptr(),
-            int(dead), int(bool(with_frontier)), ctl.data_ptr(),
-            int(phase_mask))
+        return snap_mark_ref(dist, snap_out, row_flag, frontier, out_nbr,
+                             mark, ctl, phase_mask, with_frontier, dead)
+    for x in (dist, snap_out, out_nbr):
+        if x.data_ptr() % 16:
+            raise ValueError("snap_mark: dist, snap and out_nbr must be "
+                             "16-byte aligned")
+    if wout < 4 or wout & (wout - 1):
+        raise ValueError(f"snap_mark: out_nbr width {wout} is not a power "
+                         "of two of at least 4")
+    _launch("snap_mark", "openr_split_snap_mark", ctl.device,
+            dist.data_ptr(), snap_out.data_ptr(), dist.numel(),
+            row_flag.data_ptr(), row_flag.numel(), frontier.data_ptr(),
+            out_nbr.data_ptr(), wout, mark.data_ptr(), int(dead),
+            int(bool(with_frontier)), ctl.data_ptr(), int(phase_mask))
 
 
 def flag_compact(flags, out, ctl, phase_mask: int, count_slot: int,

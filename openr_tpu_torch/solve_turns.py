@@ -21,6 +21,14 @@ rounds): the stats and the device time by kernel; it fails unless that
 RIB equals a fresh solver's cold one. Run the two checkouts in turns (A, B,
 B, A), each in its own process; the LinkState takes about a minute of
 host set-up and a few GB of host memory.
+
+    python3 openr_tpu_torch/solve_turns.py --compare FILE [FILE ...]
+
+reads such lines (one a turn, in the files' order) and prints, for the
+replayed solves and the traced flap, each kernel's launches and µs in
+every turn by name: a kernel that one checkout has and the other lacks
+(a kernel folded into another) shows 0 launches in the turns without it.
+Then the p50s, the no-op step and the device totals, turn by turn.
 """
 
 from __future__ import annotations
@@ -216,12 +224,60 @@ def _warm(solver_cls, np, sync) -> dict:
             "traced_stats": dict(solver.last_warm_stats), **traced}
 
 
+def compare(runs: list[dict]) -> dict:
+    """Turn by turn, from `main`'s lines: for "solve" and "warm", each
+    kernel name any turn saw -> [(launches, µs)] a turn (0, 0.0 where a
+    turn saw none), and "totals": label, solve / config 3 / warm p50 ms,
+    no-op step µs, device µs of the replayed solves and of the flap."""
+    out = {}
+    for sec in ("solve", "warm"):
+        names = sorted({k for r in runs for k in r[sec]["kernels"]},
+                       key=lambda k: -max(r[sec]["kernels"].get(k, {})
+                                          .get("us", 0.0) for r in runs))
+        out[sec] = {k: [(r[sec]["kernels"].get(k, {}).get("launches", 0),
+                         r[sec]["kernels"].get(k, {}).get("us", 0.0))
+                        for r in runs] for k in names}
+    out["totals"] = [dict(
+        label=r["label"], solve_p50_ms=r["solve"]["p50_ms"],
+        config3_p50_ms=r["config3_split"]["p50_ms"],
+        warm_p50_ms=r["warm"]["p50_ms"],
+        noop_step_us=r["solve"]["noop_step_us"],
+        solve_device_us=r["solve"]["device_us"],
+        flap_device_us=r["warm"]["device_us"]) for r in runs]
+    return out
+
+
+def _print_compare(files: list[str]) -> None:
+    runs = [json.loads(line) for f in files
+            for line in Path(f).read_text().splitlines()
+            if line.startswith("{")]
+    cmp = compare(runs)
+    print("turns: " + " | ".join(f"{r['label']} ({r['card']})"
+                                 for r in runs))
+    for sec, head in (("solve", f"{PROFILED_SOLVES} replayed solves"),
+                      ("warm", "the traced flap")):
+        print(f"{head}, by kernel: launches / µs a turn")
+        for name, cells in cmp[sec].items():
+            print(f"  {name:<40} " + "  ".join(
+                f"{n:>5} / {us:>9.1f}" for n, us in cells))
+    for row in cmp["totals"]:
+        print("  " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                               else f"{k} {v}" for k, v in row.items()))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", required=True,
-                    help="root of the checkout whose port is timed")
+    ap.add_argument("--tree", help="root of the checkout whose port is "
+                    "timed")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--compare", nargs="+", metavar="FILE",
+                    help="print the turns in these files' lines side by "
+                    "side, by kernel name")
     args = ap.parse_args(argv)
+    if args.compare:
+        return _print_compare(args.compare)
+    if not args.tree:
+        ap.error("--tree or --compare is required")
     sys.path.insert(0, args.tree)
     import numpy as np
     import torch

@@ -1,6 +1,8 @@
 """The split solve's loop as a program on the device (`SplitProgram`,
 `ops/split_loop.py`) against the JAX package: the compaction twin
-against `_compact_ids`, the mark and the decisions against hand models,
+against `_compact_ids`, the step's snapshot-and-mark twin against
+`snap_ref` and the reference's sort of the frontier's out-neighbors,
+the mark and the decisions against hand models,
 the whole program (cold, with the RIB buffer, and warm) against
 `batched_sssp_split_rib` and `batched_sssp_split_warm_rib` at one step a
 block and at blocks larger than the solve, a kept program reused from
@@ -104,14 +106,77 @@ def test_mark_twin_marks_the_out_neighbors(with_frontier):
     frontier[:40] = front
     mark = torch.zeros(vp, dtype=torch.int32)
     ctl = _ctl(sl.TAIL, N_FRONT=40)
-    sl.frontier_mark(torch.from_numpy(frontier), torch.from_numpy(
-        t["out_nbr"]), mark, ctl, sl.M_TAIL, with_frontier, dead)
+    dist = torch.zeros((vp, 8), dtype=torch.int32)
+    sl.snap_mark(dist, torch.empty_like(dist),
+                 torch.zeros(vp, dtype=torch.int32),
+                 torch.from_numpy(frontier), torch.from_numpy(t["out_nbr"]),
+                 mark, ctl, sl.M_ALL, with_frontier, dead)
     want = np.zeros(vp, bool)
     src, dst = es[:e], ed[:e]
     want[dst[np.isin(src, front) & (em[:e] < INF)]] = True
     if with_frontier:
         want[front] = True
     np.testing.assert_array_equal(mark.numpy() != 0, want)
+
+
+_PHASES = {"done": sl.DONE, "dense": sl.DENSE, "tail": sl.TAIL,
+           "net": sl.NET}
+
+
+@pytest.mark.parametrize("n_front", ["none", "one", "some", "cap"])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("phase", sorted(_PHASES))
+def test_snap_mark_twin_equals_snap_ref_and_jax_sort(phase, warm, n_front):
+    """The step's first launch (`split_snap_mark_kernel`'s twin): its
+    snapshot, row flags and control block equal `snap_ref`'s in every
+    phase, and in the tail the ids it marks are the reference's rows of
+    a tail round, `_compact_ids` of the sorted, deduplicated
+    `out_nbr[frontier]` (`openr_tpu/ops/spf_split.py:414`; warm, with
+    the frontier itself, `:614`); in every other phase it marks
+    nothing."""
+    es, ed, em, _vp, nn, _e = ptopo.erdos_renyi_csr(700, avg_degree=7,
+                                                     seed=6, max_metric=9)
+    t = jsplit.build_split_tables(es, ed, em, nn)
+    vp, dead, cap = t["vp"], t["vp"] - 1, 256
+    rng = np.random.default_rng(sorted(_PHASES).index(phase) * 8 + warm)
+    k = {"none": 0, "one": 1, "some": 57, "cap": cap}[n_front]
+    frontier = np.full(cap, dead, np.int32)
+    frontier[:k] = rng.choice(nn, k, replace=False)
+    dist = torch.from_numpy(rng.integers(0, 99, (vp, 16)).astype(np.int32))
+    pre = rng.random(vp) < 0.02  # flags already set
+    res = []
+    for fn in ("snap_mark", "snap_ref"):
+        snap = torch.full_like(dist, 7)
+        row_flag = torch.ones(vp, dtype=torch.int32)
+        mark = torch.from_numpy(pre.astype(np.int32))
+        ctl = _ctl(_PHASES[phase], N_FRONT=k, ROWS_CHANGED=9)
+        if fn == "snap_mark":
+            sl.snap_mark(dist, snap, row_flag, torch.from_numpy(frontier),
+                         torch.from_numpy(t["out_nbr"]), mark, ctl, sl.M_ALL,
+                         warm, dead)
+        else:
+            sl.snap_ref(dist, snap, row_flag, ctl, sl.M_ALL)
+        res.append((snap, row_flag, ctl, mark.numpy() != 0))
+    for a, b in zip(res[0][:3], res[1][:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(res[0][0], dist) == (phase != "done")
+    marked = np.flatnonzero(res[0][3] & ~pre)
+    if phase != "tail":
+        assert marked.size == 0
+        return
+    fr = jnp.asarray(frontier)
+    exp = jnp.asarray(t["out_nbr"])[fr].reshape(-1)
+    if warm:
+        exp = jnp.concatenate([exp, fr])
+    exp = jnp.sort(exp)
+    first = jnp.concatenate([jnp.ones((1,), bool), exp[1:] != exp[:-1]]) & (
+        exp != dead)
+    rows = np.asarray(jsplit._compact_ids(jnp.where(first, exp, vp), vp, vp,
+                                          dead))
+    want = rows[rows != dead]
+    assert (want.size > 0) == (k > 0)  # the case marks something
+    np.testing.assert_array_equal(marked, np.setdiff1d(want,
+                                                       np.flatnonzero(pre)))
 
 
 # (phase, stage, words) -> (phase, it, sweeps, tail_rounds, steps)
@@ -350,22 +415,22 @@ def test_solver_host_syncs_are_its_replays_and_results_do_not_alias():
 
 
 def test_graph_nodes_are_a_blocks_launches(monkeypatch):
-    """A step launches `gs + STEP_LAUNCHES` kernels (7 besides the
-    chunks: the frontier compaction decides the tail, so one ctl launch),
-    and a replayed block's `graph_nodes` is the count of kernels the
-    wrappers recorded into its capture: 352 at the 100k benchmark's gs 4
-    and 32 steps. On the CPU the wrappers' calls stand for the recorded
-    kernels, and the replay is faked by graphs that run the init and the
-    block."""
+    """A step launches `gs + STEP_LAUNCHES` kernels (6 besides the
+    chunks: the snapshot carries the tail's mark, and the frontier
+    compaction decides the tail, so one ctl launch), and a replayed
+    block's `graph_nodes` is the count of kernels the wrappers recorded
+    into its capture: 320 at the 100k benchmark's gs 4 and 32 steps. On
+    the CPU the wrappers' calls stand for the recorded kernels, and the
+    replay is faked by graphs that run the init and the block."""
     t, over, roots, *_ = _problem(n=8000, deg=6, mw=16, seed=5)
     tables = split_tables_from_numpy(t, over, "cpu")
     prog = psplit.SplitProgram(
         tables, roots.shape[0], has_overloads=False, gs_chunks=None,
         tail_threshold=1024, tail_cap=8192, tail_rounds_cap=64, warm=False,
         steps=32)
-    assert prog.gs == 4 and prog.STEP_LAUNCHES == 7
+    assert prog.gs == 4 and prog.STEP_LAUNCHES == 6
     calls = []
-    for mod, name in ((sl, "snap"), (sl, "frontier_mark"),
+    for mod, name in ((sl, "snap_mark"),
                       (sl, "flag_compact"), (sl, "split_ctl"),
                       (relax, "relax_rows")):
         def counted(*a, _fn=getattr(mod, name), _name=name, _mod=mod,
@@ -382,6 +447,7 @@ def test_graph_nodes_are_a_blocks_launches(monkeypatch):
     assert prog._recorded(prog._step) == prog.gs + prog.STEP_LAUNCHES
     assert len(calls) == prog.gs + prog.STEP_LAUNCHES
     assert calls.count("split_ctl") == 1 and calls.count("flag_compact") == 2
+    assert calls.count("snap_mark") == 1
 
     class Graph:
         def __init__(self, body):
@@ -391,7 +457,7 @@ def test_graph_nodes_are_a_blocks_launches(monkeypatch):
     prog._graphs = (Graph(prog._init), Graph(prog._block))
     prog._nodes = prog._recorded(prog._block)
     st = prog.run(torch.from_numpy(roots))
-    assert st["graph_nodes"] == prog.steps * (prog.gs + 7) == 352
+    assert st["graph_nodes"] == prog.steps * (prog.gs + 6) == 320
     ref = jsplit.batched_sssp_split(*_jax_args(t, over, roots))
     np.testing.assert_array_equal(prog.dist.numpy(), np.asarray(ref))
 
@@ -417,6 +483,11 @@ def test_extern_c_signatures_match_argtypes(name):
         assert names[-4:] == ["clear", "decide", "ws", "stream"]
         assert [p.split()[-1] for p in sigs["openr_split_ctl"].split(",")
                 ] == ["ctl", "phase_mask", "stream"]
+        names = [p.split()[-1].lstrip("*")
+                 for p in sigs["openr_split_snap_mark"].split(",")]
+        assert names == ["dist", "snap", "n", "row_flag", "vp", "frontier",
+                         "out_nbr", "wout", "mark", "dead", "with_frontier",
+                         "ctl", "phase_mask", "stream"]
 
 
 def test_ctl_words_match_the_kernel_source():

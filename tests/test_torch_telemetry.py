@@ -297,14 +297,15 @@ class Launches:
 
             monkeypatch.setattr(sl, name, call)
 
-        def snap(dist, _snap, row_flag, *_):
-            return 4 * dist.numel() + 4 * row_flag.numel() + 4, 0
-
-        def mark(frontier, out_nbr, _mark, ctl, _m, with_frontier, dead):
+        def snap_mark(dist, _snap, row_flag, frontier, out_nbr, _mark, ctl,
+                      _m, with_frontier, dead):
+            snap = 4 * dist.numel() + 4 * row_flag.numel() + 4
+            if int(ctl[sl.PHASE]) != sl.TAIL:  # the mark is the tail's
+                return snap, 0
             f = frontier[: int(ctl[sl.N_FRONT])].long()
             live = int((out_nbr[f] != dead).sum())
             n, w = f.shape[0], out_nbr.shape[1]
-            return 4 * (n + n * w + live + n * with_frontier), n * w
+            return snap + 4 * (n + n * w + live + n * with_frontier), n * w
 
         def compact(flags, out, _ctl, _m, _c, _r, _d, clear, _decide):
             raw = int((flags != 0).sum())
@@ -312,8 +313,7 @@ class Launches:
                     + 4 * raw * clear + 12, flags.shape[0])
 
         # (the places of ctl and phase_mask among the arguments, the count)
-        spy("snap_ref", (3, 4, snap))
-        spy("frontier_mark_ref", (3, 4, mark))
+        spy("snap_mark_ref", (6, 7, snap_mark))
         spy("flag_compact_ref", (2, 3, compact))
         spy("split_ctl_ref", (0, 1, lambda *a: (128, 8)))
         buf_ref = rib_epilogue.rib_buffer_ref
@@ -321,8 +321,10 @@ class Launches:
         def epilogue(dist, metric, ids, over, my_id, with_lfa):
             vp, b = dist.shape
             n = ids.shape[0]
+            assert b % 8 == 0  # rows start on a 32-byte sector
+            rows = vp * 32 * -(-4 * (n + 1) // 32)  # columns 0..n's sectors
             bits = n * vp // 8 * (2 if with_lfa else 1)
-            self.loop.append((vp * b * 4 + n * 9 + 4 * vp + bits
+            self.loop.append((rows + n * 9 + 4 * vp + bits
                               + (n * 4 if with_lfa else 0),
                               (12 if with_lfa else 5) * n * vp))
             return buf_ref(dist, metric, ids, over, my_id, with_lfa)
