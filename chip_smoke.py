@@ -114,15 +114,19 @@ Phases (any failure exits non-zero and prints no result line):
      overloaded and repeated roots, a hub run of ~300 slots just past
      the split threshold and a 4 096-edge one; B in {1, 8, 32, 33, 256,
      300}): the init with its row marks, single full rounds with the
-     changed word, the fixpoint at the rule's tiles, at tiles of 8 and
+     changed word, the sharded loop's guarded one-round kernel live
+     (equal to the twin) and done (out and changed left as they were),
+     the fixpoint at the rule's tiles, at tiles of 8 and
      capped at 2 and 3 rounds with its round count and gathered edges,
      and `batched_sssp` with one host read and the reference loop's
      round count; (b) BASELINE config 3 at full
      width: `_solve_dist(csr, arange(256) % V)` on [4]'s er100k on the
      split, dense, use_pallas and edge tables (counts from 0 around each
-     kind and around an edge-table RIB): the four matrices equal on the
-     100 000 live rows, three columns equal scipy, the edge-table RIB
-     from node-0 equal to [4]'s; per kind p50 of 3 calls, sources/s,
+     kind and around a dense- and an edge-table RIB): the four matrices
+     equal on the 100 000 live rows, three columns equal scipy, the
+     dense- and edge-table RIBs from node-0 equal to [4]'s, each through
+     one launch of `rib_epilogue_kernel` (timed at vp 131 072, LFA off
+     and on, with its bound); per kind p50 of 3 calls, sources/s,
      sweeps or rounds, host reads (the edge kind: 1 a solve), CUPTI per
      kernel (30 calls in one profile), busy share and peak device
      memory; (c) at config 3's calls, exact and timed with their bounds:
@@ -179,16 +183,27 @@ Phases (any failure exits non-zero and prints no result line):
      width, on positions that all sit on this one card: `_solve_dist(csr,
      arange(256) % V)` on [4]'s er100k through `TorchSpfSolver(mesh=...)`
      on meshes 1x1, 4x2 and 2x4 (kernel A on each position's rows and the
-     overflow rows), each equal to the unmeshed split solve; then
-     `sharded_sssp_padded` on config 3's edge arrays on 4x2 (kernel H's
-     init and single rounds on each edge slice), equal to kernel H's
-     `batched_sssp`; then both again on a 4x2 mesh of a NCCL group of one
-     process (`distributed.initialize` / `global_mesh`), whose exchanges
-     are NCCL's all_gather and all_reduce MIN; counts from 0 around each
-     run: the shard rows, per mesh the p50 of 3 calls beside the
-     unmeshed split's, sweeps or rounds, relax and edge launches, host
-     syncs, peak device memory. This measures the sharding logic and the
-     collectives at full width, not multi-card speed;
+     overflow rows under the loop's guard, the exit kernel), each equal
+     to the unmeshed split solve; then `sharded_sssp_padded` on config
+     3's edge arrays (kernel H's init and guarded single rounds on each
+     edge slice, each slice's index built on the card), equal to kernel
+     H's `batched_sssp`; then both again on a 4x2 mesh of a NCCL group of
+     one process (`distributed.initialize` / `global_mesh`), whose
+     exchanges are NCCL's all_gather and all_reduce MIN. Before the
+     meshes: a 4x2 edge slice's index built on the card equal to NumPy's
+     (both timed), `row_exit_kernel` against its twin and timed at the
+     split and edge calls' shapes, the guarded round against its twin
+     and timed (live and done). Per mesh: the shard rows, the p50 of 3
+     calls beside the unmeshed split's, K, sweeps or rounds, blocks and
+     host syncs per call (at most ceil(trips / K) + 1), the index builds'
+     ms, one more call followed by a block replayed with every row done
+     (its host wall and CUPTI kernels: the no-op cost of a sharded sweep
+     and round; the results must stay equal after it), peak device
+     memory; under `--only 13`, on 4x2 both calls at each K of
+     BLOCK_SWEEP (how K was chosen); the launches of
+     kernel A, H's init and guarded round and the exit over the meshes'
+     runs. This measures the sharding logic and the collectives at full
+     width, not multi-card speed;
  14. the split solve's loop on the card and the RIB epilogue
      (`csrc/split_loop.cu`, `csrc/rib_epilogue.cu`): (a) each kernel
      against its twin at er100k's shapes and on random inputs (the
@@ -225,7 +240,9 @@ Phases (any failure exits non-zero and prints no result line):
      host syncs, replays, steps and useful relax launches, and the idle
      share of one traced call.
 
-`--only 14` runs the build and [14] alone, with no result line.
+`--only 14` runs the build and [14] alone, `--only 13` the build, [10a]
+and [13] with its K sweep, with no result line. Before the result lines,
+[time] gives the host seconds each phase took.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
 each row's `timed_by` saying whether its `ms` is a CUPTI duration
@@ -275,7 +292,20 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: host seconds by phase tag: the wall from the line before to each line
+#: is the tag's of that line ([time] prints them)
+PHASE_S: dict[str, float] = {}
+T_START = time.perf_counter()  # after the imports
+_LAST_LOG = [T_START]
+
+
 def log(msg: str) -> None:
+    now = time.perf_counter()
+    m = re.match(r"\[(\w+)\]", msg)
+    if m:
+        PHASE_S[m.group(1)] = (PHASE_S.get(m.group(1), 0.0)
+                               + now - _LAST_LOG[0])
+    _LAST_LOG[0] = now
     print(msg, flush=True)
 
 
@@ -452,11 +482,12 @@ SOURCES = ("relax", "election", "ksp", "edge_relax", "split_loop",
 #: (strips 0, 1, 2, 4, overload off/on) and a vec kernel per (W, B,
 #: overload) specialisation, each with and without the split loop's
 #: guard; ksp's SSSP kernel, its wide-row twin and the walk; edge_relax's
-#: init and fixpoint kernels; split_loop's three (the snapshot with the
-#: tail's mark, the compaction, the decision); rib_epilogue's one-chunk
-#: and chunked kernels, each with and without LFA
+#: init and fixpoint kernels, the latter with and without the sharded
+#: loop's guard; split_loop's four (the snapshot with the tail's mark,
+#: the compaction, the decision, the sharded loops' exit); rib_epilogue's
+#: one-chunk and chunked kernels, each with and without LFA
 PTXAS_KERNELS = {"relax": 2 * (8 + 2 * len(WIDTHS) ** 2), "election": 1,
-                 "ksp": 3, "edge_relax": 2, "split_loop": 3,
+                 "ksp": 3, "edge_relax": 3, "split_loop": 4,
                  "rib_epilogue": 4}
 
 
@@ -487,11 +518,14 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int, int]]:
             named = re.search(r"(elect_seg_kernel|ksp_sssp_kernel|"
                               r"ksp_walk_kernel|split_snap_mark_kernel|"
                               r"flag_compact_kernel|split_ctl_kernel|"
+                              r"row_exit_kernel|"
                               r"rib_epilogue_kernel)(ILb(\d)ELb(\d)E|ILb1E)?",
                               m.group(1))
-            edge = re.search(r"edge_(?:init|relax)_kernel", m.group(1))
+            edge = re.search(r"edge_(?:init|relax)_kernel(ILb1E)?",
+                             m.group(1))
             cur = (k.group(1) if k else named.group(1) if named
-                   else edge.group(0) if edge else m.group(1))
+                   else edge.group(0).replace("ILb1E", "<guarded>") if edge
+                   else m.group(1))
             if named is not None and named.group(3):  # the epilogue's
                 chunks = "chunked" if named.group(3) == "1" else "one chunk"
                 lfa = ", LFA" if named.group(4) == "1" else ""
@@ -2295,11 +2329,11 @@ def edge_tensors(edge_ops, es, ed, em, over, vp) -> dict:
     card."""
     from openr_tpu_torch.ops.spf import build_blocked
 
-    index = edge_ops.index_to(edge_ops.edge_index(es, ed, em, vp), DEVICE)
-    return dict(src=to_dev(es, np.int32), dst=to_dev(ed, np.int32),
-                metric=to_dev(em, np.int32),
-                blocked=to_dev(build_blocked(em, es, over), np.bool_),
-                row_start=index.row_start, index=index)
+    t = dict(src=to_dev(es, np.int32), dst=to_dev(ed, np.int32),
+             metric=to_dev(em, np.int32),
+             blocked=to_dev(build_blocked(em, es, over), np.bool_))
+    index = edge_ops.device_edge_index(t["src"], t["dst"], t["metric"], vp)
+    return dict(t, row_start=index.row_start, index=index)
 
 
 def edge_args(t, with_blocked=True):
@@ -2379,6 +2413,34 @@ def edge_rounds_vs_plain(edge_ops, t, roots, vp, rounds: int = 2) -> int:
     return max_diff(pairs)
 
 
+def edge_guarded_vs_plain(edge_ops, t, roots, vp) -> int:
+    """The guarded one-round kernel (the sharded loop's,
+    `edge_round(ctl=...)`) from the init: live against `edge_round_ref`
+    (dist and the changed word), and done, when it must leave out and
+    changed as they were: max |diff|."""
+    from openr_tpu_torch.ops import split_loop
+
+    bp = -(-roots.shape[0] // 4) * 4
+    cur = torch.empty((vp, bp), dtype=torch.int32, device=DEVICE)
+    edge_ops.edge_init_ref(cur, *edge_args(t, False), roots)
+    pairs = []
+    for done in (False, True):
+        ctl = split_loop.new_ctl(split_loop.NET, 0, 0, vp, DEVICE)
+        if done:
+            ctl[split_loop.PHASE] = split_loop.DONE
+        out = torch.full_like(cur, -7)
+        ch = torch.full((1,), 5, dtype=torch.int32, device=DEVICE)
+        edge_ops.edge_round(cur, out, *edge_args(t), t["row_start"], ch,
+                            index=t["index"], ctl=ctl,
+                            phase_mask=1 << split_loop.NET)
+        want, want_ch = torch.full_like(cur, -7), ch.clone().fill_(5)
+        if not done:
+            edge_ops.edge_round_ref(cur, want, *edge_args(t), want_ch)
+        pairs += [(out, want), (ch, want_ch)]
+    torch.cuda.synchronize()
+    return max_diff(pairs)
+
+
 def edge_fix_vs_plain(edge_ops, t, roots, vp, tile, cap=None) -> int:
     """The init and the fixpoint launch at tile width `tile` (capped at
     `cap` rounds) against `batched_sssp_ref` at the same tiles: max
@@ -2426,7 +2488,8 @@ def phase10a_edge(edge_ops) -> dict:
             tile = edge_ops.tile_cols(b)
             worst = max(worst, edge_init_vs_plain(edge_ops, t, roots, vp,
                                                   tile),
-                        edge_rounds_vs_plain(edge_ops, t, roots, vp))
+                        edge_rounds_vs_plain(edge_ops, t, roots, vp),
+                        edge_guarded_vs_plain(edge_ops, t, roots, vp))
             runs = [(tile, None)] + [(tile, c) for c in EDGE_CAPS]
             if b > EDGE_SMALL_TILE:
                 runs.append((EDGE_SMALL_TILE, None))
@@ -2449,7 +2512,9 @@ def phase10a_edge(edge_ops) -> dict:
         f"cases (V {[c[0] for c in EDGE_CASES]}, hub runs "
         f"{[c[2] for c in EDGE_CASES]}, segments {segs}, B {EDGE_B}; V "
         f"{wide[0]}, its bitmaps in global memory, B {wide_b}): the "
-        f"init with its row marks, 2 full rounds, the fixpoint at the "
+        f"init with its row marks, 2 full rounds, the guarded one-round "
+        f"kernel live (== the twin) and done (out and changed untouched), "
+        f"the fixpoint at the "
         f"rule's tiles, at tiles of {EDGE_SMALL_TILE} and capped at "
         f"{EDGE_CAPS} rounds, rounds and gathered edges equal, "
         f"batched_sssp with 1 host read and the reference loop's rounds; "
@@ -2580,16 +2645,34 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
     got = ref[:, list(cols)].T.long().cpu().numpy()
     if not np.array_equal(got, want):
         fail("config 3: distances disagree with scipy dijkstra")
-    edge_solver = TorchSpfSolver(device=DEVICE, use_dense=False)
-    edge_ops.reset_launches()
-    rdb = edge_solver.compute_routes(ls, ps, "node-0")
-    torch.cuda.synchronize()
-    rib_stats = dict(edge_solver.last_solve_stats)
-    rib_launches = dict(edge_ops.LAUNCHES)
-    if (rdb.unicast_routes != rdb_split.unicast_routes
-            or rdb.mpls_routes != rdb_split.mpls_routes):
-        fail("config 3: the edge-table RouteDatabase differs from the split "
-             "path's")
+    from openr_tpu_torch.ops import rib_epilogue
+
+    # the dense- and edge-table RIBs, through kernel C; counts from 0
+    # around each RIB
+    epi = {}
+    for kind, use_dense in (("dense", True), ("edge", False)):
+        rib_solver = TorchSpfSolver(device=DEVICE, use_dense=use_dense)
+        edge_ops.reset_launches()
+        epi0 = rib_epilogue.LAUNCHES
+        rdb = rib_solver.compute_routes(ls, ps, "node-0")
+        torch.cuda.synchronize()
+        epi[kind] = rib_epilogue.LAUNCHES - epi0
+        if kind == "edge":
+            rib_stats = dict(rib_solver.last_solve_stats)
+            rib_launches = dict(edge_ops.LAUNCHES)
+        if (rdb.unicast_routes != rdb_split.unicast_routes
+                or rdb.mpls_routes != rdb_split.mpls_routes):
+            fail(f"config 3: the {kind}-table RouteDatabase differs from the "
+                 "split path's")
+        if epi[kind] != 1:
+            fail(f"config 3: the {kind}-table RIB launched "
+                 f"rib_epilogue_kernel {epi[kind]} times, not once")
+        solved = rib_solver.solve(ls, "node-0")
+        check_solve(csr, solved, rdb, cols=3, tag=f"config 3 {kind} RIB")
+        if kind == "dense":  # the epilogue at vp 131 072, its main shape
+            epi["timing"] = epilogue_timed(
+                *rib_arrays(rib_solver, csr, solved, "node-0"), "10b")
+        del rib_solver, solved
     if not all(rib_launches.values()):
         fail(f"config 3: edge launches {rib_launches} in the edge-table "
              "RIB: a kernel of the path was launched no time")
@@ -2630,14 +2713,16 @@ def phase10b_config3(relax, edge_ops, ls, ps, csr, rdb_split,
             f"{(r['peak_bytes'] - r['peak_over_base']) / 2**20:.1f}); "
             f"card {card}")
     log(f"[10b] config 3: the four kinds' {n} x {b} distances equal; "
-        f"columns {cols} == scipy; the edge RIB (solve {rib_stats}, edge "
-        f"launches {rib_launches}) == [4]'s split RIB "
-        f"({len(rdb.unicast_routes)} unicast + {len(rdb.mpls_routes)} "
-        f"mpls); {dense_design} launches in the dense + pallas kinds "
-        f"{dense_launches}, edge launches in the edge kind + its RIB "
-        f"{e_launches}")
+        f"columns {cols} == scipy; the dense and edge RIBs (the edge "
+        f"solve {rib_stats}, edge launches {rib_launches}) == [4]'s split "
+        f"RIB ({len(rdb.unicast_routes)} unicast + {len(rdb.mpls_routes)} "
+        f"mpls), their root and 2 neighbour columns == scipy and first "
+        f"hops == NumPy's, rib_epilogue_kernel launched once a RIB "
+        f"({ {k: epi[k] for k in ('dense', 'edge')} }); {dense_design} "
+        f"launches in the dense + pallas kinds {dense_launches}, edge "
+        f"launches in the edge kind + its RIB {e_launches}")
     return dict(rows=rows, dense_launches=dense_launches,
-                edge_launches=e_launches, roots=roots)
+                edge_launches=e_launches, roots=roots, epilogue=epi)
 
 
 def kernel_launches(relax, edge_ops) -> dict:
@@ -3928,9 +4013,9 @@ def main(argv=None) -> None:
                     help="csrc/ of another checkout: time its relax, "
                     "election and edge kernels beside this checkout's, in "
                     "turns")
-    ap.add_argument("--only", choices=("14",), default=None,
-                    help="run the build and phase 14 alone (no result "
-                    "line)")
+    ap.add_argument("--only", choices=("13", "14"), default=None,
+                    help="run the build and phase 14 alone, or phase 10a "
+                    "and phase 13 (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -3963,12 +4048,18 @@ def main(argv=None) -> None:
         fail(f"C dispatch and design_for / generic_np disagree at {bad}")
 
     dev = torch.device(DEVICE)
-    if args.only == "14":
+    if args.only:
         from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
         from openr_tpu_torch.utils.topogen import erdos_renyi_lsdb
 
         ls, _ps, csr = erdos_renyi_lsdb(100_000, avg_degree=20, seed=0,
                                         max_metric=64)
+        if args.only == "13":
+            phase10a_edge(edge_ops)
+            phase13_sharded(relax, edge_ops, csr, (
+                np.arange(CONFIG3_B) % csr.num_nodes).astype(np.int32),
+                sweep_k=True)
+            return
         solver = TorchSpfSolver(device=DEVICE)
         tables = solver._device_arrays(csr)
         phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables)
@@ -4033,7 +4124,8 @@ def main(argv=None) -> None:
     k_us, k_n = kernel_device_us(prof, tuple(relax.KERNEL_NAMES.values()))
     # each of the loop's kernels as CUPTI saw it in that replayed solve
     loop_cupti = {k: kernel_device_us(prof, (nm,))[1] for k, nm in dict(
-        split_loop.KERNEL_NAMES, epilogue=rib_epilogue.KERNEL_NAME).items()}
+        split_loop.KERNEL_NAMES, epilogue=rib_epilogue.KERNEL_NAME).items()
+        if k != "exit"}
     solver.compute_routes(ls, ps, "node-0")  # warm-up
     run_stats.append(dict(solver.last_solve_stats))
     rib_ms = []
@@ -4044,8 +4136,9 @@ def main(argv=None) -> None:
         run_stats.append(dict(solver.last_solve_stats))
     torch.cuda.synchronize()
     launches = dict(relax.LAUNCHES_BY_DESIGN)
-    loop_launches = dict(split_loop.LAUNCHES,
-                         epilogue=rib_epilogue.LAUNCHES)
+    # the split program's kernels (the sharded loops' exit is [13]'s)
+    loop_launches = {k: n for k, n in split_loop.LAUNCHES.items()
+                     if k != "exit"} | dict(epilogue=rib_epilogue.LAUNCHES)
     # the blocks the counted run replayed as a graph (a run with graph
     # nodes replayed each of its blocks), read from each call's stats
     graph_replays = sum(x["replays"] for x in run_stats
@@ -4147,7 +4240,7 @@ def main(argv=None) -> None:
     phase11_config2(mods, p9, p10e)
 
     # ---- phase 13: the sharded solve at config 3's width ------------------
-    phase13_sharded(relax, edge_ops, csr, p10b["roots"])
+    p13 = phase13_sharded(relax, edge_ops, csr, p10b["roots"])
 
     # ---- phase 14: the split loop on the card and the RIB epilogue -------
     p14 = phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables)
@@ -4291,8 +4384,48 @@ def main(argv=None) -> None:
             tag = other[len(kind) + 1:]
             entry[f"{tag}_ms"] = t14[other]["us"] / 1e3
             entry[f"{tag}_bound_ms"] = t14[other]["bound_ms"]
+        if kind == "epilogue":  # the dense and edge RIBs' ([10b])
+            e10 = p10b["epilogue"]
+            entry["dense_edge_rib_launches"] = e10["dense"] + e10["edge"]
+            for lfa, row in e10["timing"].items():
+                entry[f"vp131072_{lfa}_ms"] = row["us"] / 1e3
+                entry[f"vp131072_{lfa}_bound_ms"] = row["bound_ms"]
         kernels.append(entry)
+    # J's loops ([13]): the guarded one-round kernel H and the exit, at
+    # the 4x2 mesh's shapes; launches over the meshes' runs
+    t13 = p13["timing"]
+    for name, source, line, row, launches, extra in (
+            (f"{edge_ops.KERNEL_NAMES['round']} (guarded round)",
+             "edge_relax.cu", "openr_tpu/parallel/sharded_spf.py:69 "
+             "(_local_sssp's round in its while_loop, :95)", t13["round"],
+             p13["launches"]["round_guarded"], {}),
+            (split_loop.KERNEL_NAMES["exit"], "split_loop.cu",
+             "openr_tpu/parallel/sharded_spf.py:82,84,173,175 (the "
+             "while_loops' changed and cond)", t13["exit_split"],
+             p13["launches"]["exit"],
+             {"edge_ms": t13["exit_edge"]["us"] / 1e3,
+              "edge_bound_ms": t13["exit_edge"]["bound_ms"],
+              "edge_done_ms": t13["exit_edge"]["done_us"] / 1e3})):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"openr_tpu_torch/csrc/{source}",
+            "replaces": line,
+            "launches": launches,
+            "max_abs_err": t13["round"]["err"],
+            "ms": row["us"] / 1e3,
+            "done_ms": row["done_us"] / 1e3,
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "timed_by": row["timed_by"],
+            **extra,
+        })
     log(f"[5] warm-path relax launches by design: {warm_launches}")
+    log(f"[time] host seconds by phase (each line's wall since the line "
+        f"before): { {k: round(v, 1) for k, v in PHASE_S.items()} }; "
+        f"{time.perf_counter() - T_START:.1f} s since the imports")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4317,40 +4450,51 @@ def free_port() -> int:
         return sk.getsockname()[1]
 
 
+def j_counts() -> dict:
+    """The launch counts [13] reads: kernel A's, kernel H's init and
+    guarded round, and the sharded loops' exit."""
+    from openr_tpu_torch.ops import edge_relax, relax, split_loop
+
+    return dict(relax=relax.LAUNCHES, init=edge_relax.LAUNCHES["init"],
+                round_guarded=edge_relax.LAUNCHES_GUARDED,
+                exit=split_loop.LAUNCHES["exit"])
+
+
 def timed_dist(solver, csr, roots, reps: int = 3):
     """(dist, wall ms of `reps` calls after a warm-up, the last call's
-    stats, relax launches, host syncs of the ledger) of
-    `solver._solve_dist(csr, roots)`, counts from 0 before the warm-up."""
+    stats, relax launches, host syncs of the ledger, every call's stats)
+    of `solver._solve_dist(csr, roots)`, counted from before the
+    warm-up."""
     from openr_tpu_torch.monitor import compile_ledger
-    from openr_tpu_torch.ops import edge_relax, relax
+    from openr_tpu_torch.ops import relax
 
     led = compile_ledger.ledger()
-    relax.reset_launches()
-    edge_relax.reset_launches()
+    relax0 = relax.LAUNCHES
     syncs0 = led.host_syncs
     d = solver._solve_dist(csr, roots)  # warm-up: tables and their parts
     torch.cuda.synchronize()
-    times = []
+    times, calls = [], []
     for _ in range(reps):
         t0 = time.perf_counter()
         d = solver._solve_dist(csr, roots)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return (d, times, dict(solver.last_solve_stats), relax.LAUNCHES,
-            led.host_syncs - syncs0)
+        calls.append(dict(solver.last_solve_stats))
+    return (d, times, dict(solver.last_solve_stats), relax.LAUNCHES - relax0,
+            led.host_syncs - syncs0, calls)
 
 
-def sharded_edge_run(edge_ops, sharded_sssp_padded, mesh, args, roots_t, v,
-                     want, tag: str) -> dict:
-    """`sharded_sssp_padded` on config 3's edge arrays, counts from 0:
+def sharded_edge_run(sharded_sssp_padded, mesh, args, roots_t, v, want,
+                     tag: str, reps: int = 3) -> dict:
+    """`sharded_sssp_padded` on config 3's edge arrays, `reps` calls:
     equal to kernel H's `batched_sssp` (`want`), else the run fails."""
     from openr_tpu_torch.monitor import compile_ledger
 
     led = compile_ledger.ledger()
-    edge_ops.reset_launches()
+    c0 = j_counts()
     syncs0 = led.host_syncs
-    times, index_ms = [], []
-    for _ in range(3):
+    times, index_ms, calls = [], [], []
+    for _ in range(reps):
         st: dict = {}
         t0 = time.perf_counter()
         got = sharded_sssp_padded(*args, roots_t, mesh, v, stats=st)
@@ -4358,16 +4502,19 @@ def sharded_edge_run(edge_ops, sharded_sssp_padded, mesh, args, roots_t, v,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         index_ms.append(st["index_ms"])
+        calls.append(st)
         if not torch.equal(full, want):
             bad = int((full != want).sum().item())
             fail(f"phase 13: {tag} sharded edge solve differs from "
                  f"batched_sssp at {bad} entries")
-    launches = dict(edge_ops.LAUNCHES)
+    c1 = j_counts()
+    launches = {k: c1[k] - c0[k] for k in ("init", "round_guarded", "exit")}
     if not all(launches.values()):
         fail(f"phase 13: {tag} edge launches {launches}: a kernel of the "
              "path was launched no time")
     return dict(times=times, index_ms=index_ms, rounds=st["rounds"],
-                launches=launches, syncs=led.host_syncs - syncs0)
+                launches=launches, syncs=led.host_syncs - syncs0,
+                calls=calls)
 
 
 def j_bounds(edge_ops, csr, args, roots_t, dist, tables) -> dict:
@@ -4382,8 +4529,7 @@ def j_bounds(edge_ops, csr, args, roots_t, dist, tables) -> dict:
 
     src, dst, met, blk = args
     v, b = csr.padded_nodes, roots_t.shape[0]
-    index = edge_ops.index_to(edge_ops.edge_index(
-        csr.edge_src, csr.edge_dst, csr.edge_metric, v), src.device)
+    index = edge_ops.device_edge_index(src, dst, met, v)
     tile = edge_ops.tile_cols(b)
     ib, io = edge_ops.init_work(index, v, b, tile, roots_t)
     fb, fo = edge_ops.fix_work(src, blk, index, v, dist)
@@ -4395,15 +4541,198 @@ def j_bounds(edge_ops, csr, args, roots_t, dist, tables) -> dict:
                 ops=fo)
 
 
-def phase13_sharded(relax, edge_ops, csr, roots) -> None:
-    """[13] (see the module docstring)."""
+class noop_block:
+    """Within the block, every sharded solve runs one more block after
+    its loop has ended, with every row done (its launches no-ops, its
+    exchanges moving unchanged rows), twice: timed by the host wall to
+    its end, then in a profile. `got` gains the wall (ms), the device
+    time of its kernels (CUPTI, µs, in all and by name) and K. The
+    result must stay the solve's: the equality checks after it test the
+    guards."""
+
+    def __init__(self):
+        from openr_tpu_torch.parallel import sharded_spf
+
+        self.mod, self.got = sharded_spf, []
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        real = self.keep = self.mod._run_blocks
+
+        def wrapped(ctls, step):
+            out = real(ctls, step)
+            block = self.mod.BLOCK
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(block):
+                for i in range(len(ctls)):
+                    step(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(block):
+                    for i in range(len(ctls)):
+                        step(i)
+                torch.cuda.synchronize()
+            by = {nm: kernel_device_us(prof, (nm,)) for nm in (
+                "relax_vec_kernel", "relax_generic_kernel",
+                "edge_relax_kernel", "row_exit_kernel")}
+            self.got.append(dict(block=block, rows=len(ctls), wall_ms=wall,
+                                 device_us=kernel_device_us(prof, ("",))[0],
+                                 by={k: v for k, v in by.items() if v[1]}))
+            return out
+
+        self.mod._run_blocks = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._run_blocks = self.keep
+
+
+def exit_vs_twin(split_loop, shape, g) -> int:
+    """`row_exit_kernel` against `row_exit_ref` on seeded [shape] buffers
+    (nothing fell, one entry fell, at the cap, done; copy off and on):
+    max |diff| of prev and the control block."""
+    worst = 0
+    base = torch.randint(0, 1 << 20, shape, generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    for case in ("still", "fell", "cap", "done"):
+        for copy in (False, True):
+            prev = base.clone()
+            cur = base.clone()
+            if case != "still":
+                i = int(torch.randint(0, base.numel(), (1,), generator=g,
+                                      device=DEVICE))
+                cur.view(-1)[i] -= 1
+                cur.view(-1)[-1] -= 3  # a lone element past the int4s
+            ctl = split_loop.new_ctl(split_loop.NET, 0, 0, 9, DEVICE)
+            ctl[split_loop.IT] = 8 if case == "cap" else 2
+            if case == "done":
+                ctl[split_loop.PHASE] = split_loop.DONE
+            p2, c2 = prev.clone(), ctl.clone()
+            split_loop.row_exit(cur, prev, ctl, 1 << split_loop.NET, copy)
+            split_loop.row_exit_ref(cur, p2, c2, 1 << split_loop.NET, copy)
+            torch.cuda.synchronize()
+            worst = max(worst, max_diff([(prev, p2), (ctl, c2)]))
+    return worst
+
+
+def guarded_round_at(edge_ops, split_loop, sl, v, b, tag) -> dict:
+    """The guarded one-round `edge_relax_kernel` on one edge slice `sl`
+    (src, dst, metric, blocked, index) at [v, b]: live and done against
+    the twin (a done launch writes neither out nor changed), timed live
+    and done (CUPTI) beside its bound and the twin's time."""
+    from openr_tpu_torch.monitor import device
+
+    src, dst, met, blk, index = sl
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    cur = torch.randint(0, 5000, (v, b), generator=g, device=DEVICE,
+                        dtype=torch.int32)
+    cur[torch.rand((v, b), generator=g, device=DEVICE) < 0.3] = INF
+    live = split_loop.new_ctl(split_loop.NET, 0, 0, v, DEVICE)
+    done = live.clone()
+    done[split_loop.PHASE] = split_loop.DONE
+    mask = 1 << split_loop.NET
+    scratch = edge_ops.fix_scratch(v, cur.device)
+    outs = {}
+    for name, ctl in (("live", live), ("done", done)):
+        out = torch.full_like(cur, -7)
+        ch = torch.full((1,), 5, dtype=torch.int32, device=DEVICE)
+        edge_ops.edge_round(cur, out, src, dst, met, blk, index.row_start,
+                            ch, index=index, ctl=ctl, phase_mask=mask,
+                            scratch=scratch)
+        outs[name] = (out, ch)
+    ref = torch.empty_like(cur)
+    ref_ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    edge_ops.edge_round_ref(cur, ref, src, dst, met, blk, ref_ch)
+    torch.cuda.synchronize()
+    err = max_diff([(outs["live"][0], ref), (outs["live"][1], ref_ch),
+                    (outs["done"][0], torch.full_like(cur, -7)),
+                    (outs["done"][1], torch.full_like(ref_ch, 5))])
+    if err:
+        fail(f"[{tag}] the guarded edge round differs from its twin by {err}")
+    out = torch.empty_like(cur)
+    times = {}
+    for name, ctl in (("live", live), ("done", done)):
+        times[name] = kernel_us(
+            lambda ctl=ctl: edge_ops.edge_round(
+                cur, out, src, dst, met, blk, index.row_start, None,
+                index=index, ctl=ctl, phase_mask=mask, scratch=scratch),
+            lambda: None, edge_ops.KERNEL_NAMES["round"])
+    nbytes, ops, _g = edge_ops.round_work(src, blk, index, v, b)
+    bms, by = device.bound(nbytes, ops)
+    plain_ms = cuda_ms(lambda: edge_ops.edge_round_ref(
+        cur, ref, src, dst, met, blk, ref_ch))
+    log(f"[{tag}] guarded edge_relax_kernel, one round on an edge slice of "
+        f"{int(src.shape[0])} slots at [{v}, {b}]: live "
+        f"{times['live'][0]:.2f} us ({times['live'][1]}), done "
+        f"{times['done'][0]:.2f} us ({times['done'][1]}); equal to its twin "
+        f"live, and done it wrote neither out nor changed; bound "
+        f"{bms * 1e3:.2f} us by {by} ({nbytes} B), share "
+        f"{bms * 1e3 / times['live'][0]:.3f}; plain twin {plain_ms:.3f} ms; "
+        f"card {smi('name,power.limit')}")
+    return dict(us=times["live"][0], timed_by=times["live"][1],
+                done_us=times["done"][0], err=err, bound_ms=bms, bound_by=by,
+                plain_ms=plain_ms)
+
+
+def exit_at(split_loop, shape, copy: bool, tag: str) -> dict:
+    """`row_exit_kernel` at a [13] call's shape: live (one entry fell,
+    the control block restored before each launch) and done, timed
+    (CUPTI) beside its bound and its twin's time."""
+    from openr_tpu_torch.monitor import device
+
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    prev = torch.randint(0, 1 << 20, shape, generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    cur = prev.clone()
+    cur.view(-1)[cur.numel() // 2] -= 1
+    keep = prev.clone()
+    ctl0 = split_loop.new_ctl(split_loop.NET, 0, 0, 1 << 20, DEVICE)
+    ctl = ctl0.clone()
+    done = ctl0.clone()
+    done[split_loop.PHASE] = split_loop.DONE
+    mask = 1 << split_loop.NET
+
+    def restore():
+        ctl.copy_(ctl0)
+        if copy:
+            prev.copy_(keep)
+
+    live_us, how = kernel_us(
+        lambda: split_loop.row_exit(cur, prev, ctl, mask, copy), restore,
+        split_loop.KERNEL_NAMES["exit"])
+    done_us, _how = kernel_us(
+        lambda: split_loop.row_exit(cur, prev, done, mask, copy),
+        lambda: None, split_loop.KERNEL_NAMES["exit"])
+    restore()
+    p2, c2 = prev.clone(), ctl.clone()
+    plain_ms = cuda_ms(lambda: (restore(), split_loop.row_exit_ref(
+        cur, p2, c2, mask, copy), c2.copy_(ctl0)))
+    bms, by = device.bound(*split_loop.exit_work(cur.numel(), copy))
+    log(f"[{tag}] row_exit_kernel at {tuple(shape)} (copy {copy}): live "
+        f"{live_us:.2f} us ({how}), done {done_us:.2f} us; bound "
+        f"{bms * 1e3:.2f} us by {by}, share {bms * 1e3 / live_us:.3f}; "
+        f"plain twin {plain_ms:.3f} ms; card {smi('name,power.limit')}")
+    return dict(us=live_us, timed_by=how, done_us=done_us, bound_ms=bms,
+                bound_by=by, plain_ms=plain_ms)
+
+
+def phase13_sharded(relax, edge_ops, csr, roots,
+                    sweep_k: bool = False) -> dict:
+    """[13] (see the module docstring); with `sweep_k` (`--only 13`),
+    the 4x2 mesh's calls at each K of BLOCK_SWEEP too."""
     import os
 
     from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.ops import split_loop
     from openr_tpu_torch.ops.spf import build_blocked
     from openr_tpu_torch.parallel import (
         distributed,
         make_mesh,
+        sharded_spf,
         sharded_sssp_padded,
     )
 
@@ -4411,15 +4740,21 @@ def phase13_sharded(relax, edge_ops, csr, roots) -> None:
     card = smi("name,power.limit")
     pos = torch.device(DEVICE)  # every position of every mesh
     n = csr.num_nodes
+    k_default = sharded_spf.BLOCK
     torch.cuda.synchronize()
+    relax.reset_launches()
+    edge_ops.reset_launches()
+    split_loop.reset_launches()
     plain = TorchSpfSolver(device=DEVICE)
-    ref, t_plain, st_plain, n_plain, sync_plain = timed_dist(plain, csr, roots)
+    ref, t_plain, st_plain, n_plain, sync_plain, _c = timed_dist(
+        plain, csr, roots)
     p50_plain = statistics.median(t_plain)
     log(f"[13] config 3 unmeshed split: p50 {p50_plain:.3f} ms (samples "
         f"{[round(x, 3) for x in t_plain]}); sweeps {st_plain['sweeps']}, "
         f"relax launches by the wrapper {n_plain} in 4 calls (the first "
         f"eager, then replays), host syncs {sync_plain} in 4 "
         f"calls; card {card}")
+    tables = plain._device_arrays(csr)
     del plain
     blocked = build_blocked(csr.edge_metric, csr.edge_src,
                             csr.node_overloaded)
@@ -4428,15 +4763,56 @@ def phase13_sharded(relax, edge_ops, csr, roots) -> None:
     roots_t = torch.from_numpy(roots).to(DEVICE)
     v = csr.padded_nodes
     want_edge = edge_ops.batched_sssp(*args, roots_t, v)
-    jb = j_bounds(edge_ops, csr, args, roots_t, want_edge,
-                  TorchSpfSolver(device=DEVICE)._device_arrays(csr))
+    jb = j_bounds(edge_ops, csr, args, roots_t, want_edge, tables)
     log(f"[13] J's least time at config 3 on this card: the split version "
         f"{jb['split'][0] * 1e3:.2f} us by {jb['split'][1]} "
         f"({jb['split_bytes']} B, {jb['ops']} integer ops), the edge version "
         f"{jb['edge'][0] * 1e3:.2f} us by {jb['edge'][1]} "
         f"({jb['edge_bytes']} B); no single PyTorch call computes either")
+
+    # ---- the index on the card: slice 0 of 4x2, against NumPy's ----------
+    half = int(args[0].shape[0]) // 2
+    sl = [a[:half].contiguous() for a in args]
+    host = [a.cpu().numpy() for a in sl[:3]]
+    t0 = time.perf_counter()
+    np_index = edge_ops.edge_index(*host, v)
+    np_ms = (time.perf_counter() - t0) * 1e3
+    edge_ops.device_edge_index(*sl[:3], v)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_index = edge_ops.device_edge_index(*sl[:3], v)
+    torch.cuda.synchronize()
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    for name, a, b in zip(edge_ops.EdgeIndex._fields, np_index, dev_index):
+        if not np.array_equal(a, b.cpu().numpy()):
+            fail(f"[13] the index built on the card differs from NumPy's in "
+                 f"{name}")
+    log(f"[13] an edge slice's index ({half} slots, {len(np_index.seg_node)}"
+        f" segments): built on the card {dev_ms:.3f} ms (one host read), "
+        f"NumPy on the host {np_ms:.3f} ms; every field equal")
+
+    # ---- the kernels of J's loops at its main path's shapes --------------
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    bs = len(roots) // 4
+    exit_err = max(exit_vs_twin(split_loop, (4096, 12), g),
+                   exit_vs_twin(split_loop, (tables["vp"], bs), g))
+    if exit_err:
+        fail(f"[13] row_exit_kernel differs from its twin by {exit_err}")
+    log(f"[13] row_exit_kernel vs row_exit_ref: nothing fell, one fell, "
+        f"the cap, done; copy off and on; at [4096, 12] and "
+        f"[{tables['vp']}, {bs}]: equal")
+    timing = dict(
+        exit_split=exit_at(split_loop, (tables["vp"], bs), True, "13"),
+        exit_edge=exit_at(split_loop, (v, bs), False, "13"),
+        round=guarded_round_at(
+            edge_ops, split_loop,
+            (*sl, edge_ops.device_edge_index(*sl[:3], v)), v, bs, "13"))
+    timing["round"]["err"] = max(timing["round"]["err"], exit_err)
+    c_path = j_counts()  # the path's run starts here: counts from here
+
     env = dict(OPENR_COORDINATOR=f"127.0.0.1:{free_port()}",
                OPENR_NUM_PROCESSES="1", OPENR_PROCESS_ID="0")
+    per_mesh = {}
     try:
         for label, s_n, g_n, nccl in MESHES:
             if nccl:
@@ -4454,7 +4830,8 @@ def phase13_sharded(relax, edge_ops, csr, roots) -> None:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            d, times, st, n_relax, syncs = timed_dist(solver, csr, roots)
+            d, times, st, n_relax, syncs, calls = timed_dist(solver, csr,
+                                                             roots)
             peak = torch.cuda.max_memory_allocated()
             if not n_relax:
                 fail(f"phase 13: mesh {label} launched the relax kernel no "
@@ -4462,50 +4839,145 @@ def phase13_sharded(relax, edge_ops, csr, roots) -> None:
             if st.get("mesh") != dict(mesh.shape):
                 fail(f"phase 13: mesh {label} did not take the sharded "
                      f"solve ({st})")
-            if not torch.equal(d[:n], ref[:n]):
-                bad = int((d[:n] != ref[:n]).sum().item())
-                fail(f"phase 13: mesh {label} differs from the unmeshed "
-                     f"split solve at {bad} entries")
+            with noop_block() as nb:  # one call more, a no-op block after
+                d2 = solver._solve_dist(csr, roots)
+            for got in (d, d2):
+                if not torch.equal(got[:n], ref[:n]):
+                    bad = int((got[:n] != ref[:n]).sum().item())
+                    fail(f"phase 13: mesh {label} differs from the unmeshed "
+                         f"split solve at {bad} entries")
+            k = st["block"]
+            limit = -(-st["sweeps"] // k) + 1
+            if any(c["host_syncs"] != c["replays"] or c["host_syncs"] > limit
+                   for c in calls):
+                fail(f"phase 13: mesh {label} split host syncs "
+                     f"{[c['host_syncs'] for c in calls]}, replays "
+                     f"{[c['replays'] for c in calls]}: more than "
+                     f"ceil({st['sweeps']} / {k}) + 1")
             rows = solver.last_shard_rows
             if len(rows) != s_n * g_n:
                 fail(f"phase 13: mesh {label} has {len(rows)} shard rows")
             log(f"[13] mesh {label}: shard rows " + "; ".join(
                 f"{r['device']} {r['platform']} cols {r['index'][1]} "
                 f"{r['shard_bytes']} B" for r in rows))
+            noop = nb.got[-1]
             log(f"[13] mesh {label} split: p50 "
                 f"{statistics.median(times):.3f} ms (samples "
                 f"{[round(x, 3) for x in times]}) beside the unmeshed "
-                f"{p50_plain:.3f} ms; sweeps {st['sweeps']}, relax launches "
-                f"{n_relax} in 4 calls ({st['relax_launches']} in the last), "
-                f"host syncs {syncs} in 4 calls ({st['host_syncs']} in the "
-                f"last); peak device memory {peak / 2**20:.1f} MiB "
-                f"({(peak - base) / 2**20:.1f} over the "
-                f"{base / 2**20:.1f} held before); equal to the unmeshed "
-                f"split on {n} x {len(roots)}; card {card}")
-            del solver, d
-            if g_n == 2 and s_n == 4:
-                torch.cuda.reset_peak_memory_stats()
-                er = sharded_edge_run(edge_ops, sharded_sssp_padded, mesh,
-                                      args, roots_t, v, want_edge, label)
-                log(f"[13] mesh {label} edge (sharded_sssp_padded): p50 "
-                    f"{statistics.median(er['times']):.3f} ms (samples "
-                    f"{[round(x, 3) for x in er['times']]}; of which the "
-                    f"host builds the slice indexes "
-                    f"{[round(x, 3) for x in er['index_ms']]}), rounds "
-                    f"{er['rounds']} a call, edge launches "
-                    f"{er['launches']} in 3 calls, host syncs {er['syncs']} "
-                    "in 3 calls; peak "
-                    f"device memory "
-                    f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
-                    f"equal to batched_sssp on {v} x {len(roots)}; card "
-                    f"{card}")
+                f"{p50_plain:.3f} ms; K {k}, sweeps {st['sweeps']} (rows "
+                f"{st['row_trips']}), blocks and host syncs per call "
+                f"{[c['replays'] for c in calls]} / "
+                f"{[c['host_syncs'] for c in calls]} (ledger {syncs} in 4 "
+                f"calls); relax launches {n_relax} in 4 calls "
+                f"({st['relax_launches']} in the last); a block of {k} "
+                f"sweeps with every row done: {noop['wall_ms']:.3f} ms host "
+                f"wall, {noop['device_us']:.1f} us of kernels "
+                f"({ {a: (round(b[0], 1), b[1]) for a, b in noop['by'].items()} }"
+                f"), {noop['wall_ms'] / k:.3f} ms a no-op sweep; peak device "
+                f"memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} "
+                f"over the {base / 2**20:.1f} held before); equal to the "
+                f"unmeshed split on {n} x {len(roots)}; card {card}")
+            per_mesh[label] = dict(split_p50=statistics.median(times),
+                                   sweeps=st["sweeps"], k=k,
+                                   syncs=[c["host_syncs"] for c in calls],
+                                   noop_sweep_ms=noop["wall_ms"] / k)
+            del solver, d, d2
+            torch.cuda.reset_peak_memory_stats()
+            er = sharded_edge_run(sharded_sssp_padded, mesh, args, roots_t,
+                                  v, want_edge, label)
+            with noop_block() as nb:  # checked equal after its no-op block
+                sharded_edge_run(sharded_sssp_padded, mesh, args, roots_t, v,
+                                 want_edge, label, reps=1)
+            rounds = er["rounds"]
+            limit = -(-rounds // k) + 1
+            if any(c["host_syncs"] != c["replays"] or c["host_syncs"] > limit
+                   for c in er["calls"]):
+                fail(f"phase 13: mesh {label} edge host syncs per call "
+                     f"{[c['host_syncs'] for c in er['calls']]}: more than "
+                     f"ceil({rounds} / {k}) + 1")
+            noop = nb.got[-1]
+            log(f"[13] mesh {label} edge (sharded_sssp_padded): p50 "
+                f"{statistics.median(er['times']):.3f} ms (samples "
+                f"{[round(x, 3) for x in er['times']]}; of which the "
+                f"slice indexes built on the card "
+                f"{[round(x, 3) for x in er['index_ms']]} ms, beside "
+                f"{np_ms:.3f} ms for one NumPy build of a 4x2 slice's), K "
+                f"{k}, rounds {rounds} (rows {er['calls'][-1]['row_trips']}),"
+                f" blocks and host syncs per call "
+                f"{[c['replays'] for c in er['calls']]} / "
+                f"{[c['host_syncs'] for c in er['calls']]} (ledger "
+                f"{er['syncs']} in 3 calls); launches {er['launches']} in 3 "
+                f"calls; a block of {k} rounds with every row done: "
+                f"{noop['wall_ms']:.3f} ms host wall, "
+                f"{noop['device_us']:.1f} us of kernels "
+                f"({ {a: (round(b[0], 1), b[1]) for a, b in noop['by'].items()} }"
+                f"), {noop['wall_ms'] / k:.3f} ms a no-op round; peak device "
+                f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+                f"equal to batched_sssp on {v} x {len(roots)} (after the "
+                f"no-op block); card {card}")
+            per_mesh[label].update(
+                edge_p50=statistics.median(er["times"]), rounds=rounds,
+                edge_syncs=[c["host_syncs"] for c in er["calls"]],
+                index_ms=er["index_ms"], noop_round_ms=noop["wall_ms"] / k)
+            if label == "4x2" and sweep_k:
+                per_mesh["k_sweep"] = block_sweep(
+                    sharded_spf, sharded_sssp_padded, mesh, csr, roots, ref,
+                    args, roots_t, v, want_edge)
     finally:
         distributed.shutdown()
-        for k in env:
-            os.environ.pop(k, None)
-    log(f"[13] {time.perf_counter() - t_phase:.1f} s in all; the positions "
-        "share one card: a correctness path for the sharding and the "
-        "collectives, no multi-card speed")
+        for key in env:
+            os.environ.pop(key, None)
+    c_end = j_counts()
+    launches = {k: c_end[k] - c_path[k] for k in c_path}
+    if not all(launches.values()):
+        fail(f"phase 13: launches {launches} over the meshes: a kernel of "
+             "the path was launched no time")
+    if sharded_spf.BLOCK != k_default:
+        fail("phase 13: the block sweep left sharded_spf.BLOCK changed")
+    log(f"[13] launches over the meshes' runs (counts from before the "
+        f"first mesh): {launches}; {time.perf_counter() - t_phase:.1f} s in "
+        "all; the positions share one card: a correctness path for the "
+        "sharding and the collectives, no multi-card speed")
+    return dict(launches=launches, timing=timing, meshes=per_mesh,
+                index=dict(card_ms=dev_ms, numpy_ms=np_ms))
+
+
+#: [13]: the blocks of K sweeps or rounds tried at config 3 on the 4x2 mesh
+BLOCK_SWEEP = (1, 2, 4, 8, 16, 32)
+
+
+def block_sweep(sharded_spf, sharded_sssp_padded, mesh, csr, roots, ref,
+                args, roots_t, v, want_edge) -> dict:
+    """The 4x2 mesh's split and edge calls at each K of BLOCK_SWEEP (3
+    calls each after a warm-up, results equal): the p50s K is chosen
+    from."""
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    keep = sharded_spf.BLOCK
+    out = {}
+    n = csr.num_nodes
+    try:
+        for k in BLOCK_SWEEP:
+            sharded_spf.BLOCK = k
+            solver = TorchSpfSolver(device=DEVICE, mesh=mesh)
+            d, times, st, _n, _s, calls = timed_dist(solver, csr, roots)
+            if not torch.equal(d[:n], ref[:n]):
+                fail(f"phase 13: K {k}: the meshed split differs")
+            er = sharded_edge_run(sharded_sssp_padded, mesh, args, roots_t,
+                                  v, want_edge, f"K {k}")
+            out[k] = dict(split=statistics.median(times),
+                          split_syncs=calls[-1]["host_syncs"],
+                          edge=statistics.median(er["times"]),
+                          edge_syncs=er["calls"][-1]["host_syncs"])
+            del solver, d
+    finally:
+        sharded_spf.BLOCK = keep
+    log("[13] 4x2 p50 by K (split ms / host syncs, edge ms / host syncs): "
+        + "; ".join(f"K {k}: {r['split']:.3f} / {r['split_syncs']}, "
+                    f"{r['edge']:.3f} / {r['edge_syncs']}"
+                    for k, r in out.items())
+        + f"; the default K {keep}; card {smi('name,power.limit')}")
+    return out
 
 
 def phase6() -> None:

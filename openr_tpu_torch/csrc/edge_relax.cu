@@ -89,6 +89,17 @@
 // tile stopped at max_rounds with an even count, its result is in buf0 and
 // the kernel copies the tile into buf1, so buf1 always holds it.
 //
+// The sharded edge solve (parallel/sharded_spf.py, the port of
+// openr_tpu/parallel/sharded_spf.py:95's while_loop) runs one round a
+// launch on each edge slice, its exchange and exit between launches:
+// edge_relax_kernel<true> through openr_edge_round_guarded, capped at one
+// round with every row changed, behind a guard on the loop's control block
+// (ops/split_loop.py's layout: ctl[0] the phase). A launch after the row's
+// exit reads that word once a thread and returns before the first grid
+// barrier, so a block of K launches replays its done rounds as no-ops. It
+// stays a cooperative launch: a live round's segments merge into rows that
+// the prologue set to INF behind a grid barrier.
+//
 // INF-guarded adds: d < INF is tested before d + metric, and METRIC_MAX =
 // 2^30 - 1, so the sum stays below 2^31.
 //
@@ -166,7 +177,9 @@ struct FixArgs {
   int* flags;              // [3], rotating
   unsigned* arrivals;      // [1]: the grid barrier's count
   unsigned long long* stats;  // [3]: rounds, last round lowered, gathered
-  int V, Bp, Bt, W, n_seg, seg_edges, max_rounds;
+  const int* ctl;          // the guard's control block (GUARD only)
+  int* changed;            // [1]: the last round lowered (null: not kept)
+  int V, Bp, Bt, W, n_seg, seg_edges, max_rounds, phase_mask;
 };
 
 __device__ __forceinline__ int4 inf4() {
@@ -334,8 +347,16 @@ __device__ __forceinline__ bool relax_items(
   return low;
 }
 
+// GUARD: the sharded loop's guard (parallel/sharded_spf.py): the launch
+// does nothing unless bit ctl[0] of phase_mask is set. The control block
+// is written only by launches before this one (the loop's exit kernel),
+// never by this kernel, so one read through the read-only path serves;
+// every block reads the same word, so a done launch returns from every
+// block before the first grid barrier and writes nothing.
+template <bool GUARD>
 __global__ void __launch_bounds__(kThreads)
     edge_relax_kernel(const FixArgs a) {
+  if (GUARD && !((a.phase_mask >> __ldg(a.ctl)) & 1)) return;
   unsigned barriers = 0;
   // the block's copies of the row bitmaps, when W fits: the last round's
   // (read) and this round's (set here, merged into the global one once a
@@ -455,6 +476,7 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) {
     a.stats[0] = rounds_max;
     a.stats[1] = last_changed;
+    if (a.changed != nullptr) *a.changed = (int)last_changed;
   }
 }
 
@@ -516,19 +538,17 @@ extern "C" int openr_edge_init(void* dist, const void* roots,
   return (int)cudaGetLastError();
 }
 
-// Rounds from buf0 to the fixpoint (at most max_rounds a tile), the result
-// in buf1; both [V, Bp]. marks: the init's row marks, or null for "every
-// row changed" (a round from any state). scratch: 3 * bitmap_words(V) + 4
-// ints; stats: 3 unsigned 64-bit words (rounds, last round lowered,
-// gathered edges); both cleared here on the same stream.
-extern "C" int openr_edge_fix(void* buf0, void* buf1, const void* row_start,
-                              const void* src, const void* metric,
-                              const void* blocked, const void* seg_node,
-                              const void* seg_lo, int n_seg, int seg_edges,
-                              const void* marks, void* scratch, void* stats,
-                              int V, int Bp, int Bt, int max_rounds,
-                              void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+namespace {
+
+// The shared body of the two fixpoint entries: clears the scratch and the
+// stats on the stream, then launches edge_relax_kernel<GUARD>.
+template <bool GUARD>
+int launch_fix(void* buf0, void* buf1, const void* row_start,
+               const void* src, const void* metric, const void* blocked,
+               const void* seg_node, const void* seg_lo, int n_seg,
+               int seg_edges, const void* marks, void* scratch, void* stats,
+               int V, int Bp, int Bt, int max_rounds, const void* ctl,
+               int phase_mask, void* changed, cudaStream_t s) {
   const int W = bitmap_words(V);
   cudaError_t err = cudaMemsetAsync(stats, 0, 3 * sizeof(unsigned long long),
                                     s);
@@ -553,6 +573,8 @@ extern "C" int openr_edge_fix(void* buf0, void* buf1, const void* row_start,
   a.flags = (int*)scratch + 3 * (size_t)W;
   a.arrivals = (unsigned*)scratch + 3 * (size_t)W + 3;
   a.stats = (unsigned long long*)stats;
+  a.ctl = (const int*)ctl;
+  a.changed = (int*)changed;
   a.V = V;
   a.Bp = Bp;
   a.Bt = Bt;
@@ -560,17 +582,54 @@ extern "C" int openr_edge_fix(void* buf0, void* buf1, const void* row_start,
   a.n_seg = n_seg;
   a.seg_edges = seg_edges;
   a.max_rounds = max_rounds;
+  a.phase_mask = phase_mask;
   const size_t smem =
       W <= kMaxBitWords ? 2 * (size_t)W * sizeof(unsigned) : 0;
+  const void* fn = (const void*)edge_relax_kernel<GUARD>;
   int blocks = 0;
-  err = coop_grid((const void*)edge_relax_kernel, smem, &blocks);
+  err = coop_grid(fn, smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&a};
-  err = cudaLaunchCooperativeKernel((const void*)edge_relax_kernel,
-                                    dim3(blocks), dim3(kThreads), args, smem,
-                                    s);
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
+                                    smem, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Rounds from buf0 to the fixpoint (at most max_rounds a tile), the result
+// in buf1; both [V, Bp]. marks: the init's row marks, or null for "every
+// row changed" (a round from any state). scratch: 3 * bitmap_words(V) + 4
+// ints; stats: 3 unsigned 64-bit words (rounds, last round lowered,
+// gathered edges); both cleared here on the same stream.
+extern "C" int openr_edge_fix(void* buf0, void* buf1, const void* row_start,
+                              const void* src, const void* metric,
+                              const void* blocked, const void* seg_node,
+                              const void* seg_lo, int n_seg, int seg_edges,
+                              const void* marks, void* scratch, void* stats,
+                              int V, int Bp, int Bt, int max_rounds,
+                              void* stream) {
+  return launch_fix<false>(buf0, buf1, row_start, src, metric, blocked,
+                           seg_node, seg_lo, n_seg, seg_edges, marks,
+                           scratch, stats, V, Bp, Bt, max_rounds, nullptr, 0,
+                           nullptr, (cudaStream_t)stream);
+}
+
+// One full round from buf0 into buf1 (every row changed) under the loop's
+// guard: nothing unless bit ctl[0] of phase_mask is set. changed (null: not
+// kept) receives whether the round lowered an entry; a done launch leaves
+// buf1 and changed as they were (the scratch and stats clears still run).
+extern "C" int openr_edge_round_guarded(
+    void* buf0, void* buf1, const void* row_start, const void* src,
+    const void* metric, const void* blocked, const void* seg_node,
+    const void* seg_lo, int n_seg, int seg_edges, void* scratch, void* stats,
+    int V, int Bp, int Bt, const void* ctl, int phase_mask, void* changed,
+    void* stream) {
+  return launch_fix<true>(buf0, buf1, row_start, src, metric, blocked,
+                          seg_node, seg_lo, n_seg, seg_edges, nullptr,
+                          scratch, stats, V, Bp, Bt, 1, ctl, phase_mask,
+                          changed, (cudaStream_t)stream);
 }
 
 extern "C" const char* openr_edge_error_string(int code) {

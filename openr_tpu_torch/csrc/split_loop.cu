@@ -21,6 +21,11 @@
 //   (cond2, and the net's entry) after a frontier's compaction.
 // * split_ctl_kernel: the reference's cond1/cond3 decisions after a
 //   step's relaxes, as writes to the control block.
+// * row_exit_kernel: the sharded solves' exit (openr_tpu/parallel/
+//   sharded_spf.py:95 and :180, each a while_loop inside shard_map), for
+//   one graph row after its sweep or round: did an entry fall below the
+//   sweep's start, the next snapshot taken in the same pass, and the
+//   reference's cond (done when nothing fell, or at the cap of sweeps).
 //
 // The loop's state is one int32 control block `ctl` (layout in
 // ops/split_loop.py). ctl[0] is the phase: 1 dense sweeps, 2 compacted
@@ -68,6 +73,8 @@ enum Ctl {
   kRoundsCap = 11,
   kItCap = 12,
   kRawRows = 13,
+  kExitFell = 14,    // row_exit_kernel: some block saw an entry fall
+  kExitTicket = 15,  // row_exit_kernel: blocks done
 };
 enum Phase { kDone = 0, kDense = 1, kTail = 2, kNet = 3 };
 
@@ -432,6 +439,77 @@ __global__ void split_ctl_kernel(int* ctl, int phase_mask) {
   }
 }
 
+// ------------------------------------------------------------- exit
+
+constexpr int kExitThreads = 256;
+
+// After a sweep or round of one graph row of a sharded solve: whether an
+// entry of `cur` [n] fell below `prev` (the reference's
+// jnp.any(new < dist)), and with `copy`, prev = cur in the same pass (the
+// split solve's snapshot for its next sweep; the edge solve alternates two
+// buffers and copies nothing). The positions of a graph row hold equal
+// distances after the exchange, so every device and process of the row
+// makes the same decision here without a collective. Each block ORs its
+// finding into ctl[kExitFell], fences and takes a ticket; the last block, by
+// then after every block's guard read, makes the reference's decision
+// (its while cond: done when nothing fell or at ctl[kItCap] sweeps, the
+// sweep counted in kIt, kSweeps and kSteps) and zeroes kExitFell and the
+// ticket for the next launch. One thread a block reads the guard.
+__global__ void __launch_bounds__(kExitThreads)
+    row_exit_kernel(const int* __restrict__ cur, int* __restrict__ prev,
+                    long long n, int copy, int* ctl, int phase_mask) {
+  __shared__ int s_run;
+  if (threadIdx.x == 0) s_run = runs(ctl, phase_mask);
+  __syncthreads();
+  if (!s_run) return;
+  const long long tid = (long long)blockIdx.x * kExitThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kExitThreads;
+  const long long n4 = n >> 2;
+  const int4* c4 = reinterpret_cast<const int4*>(cur);
+  int4* p4 = reinterpret_cast<int4*>(prev);
+  int fell = 0;
+  for (long long i = tid; i < n4; i += stride) {
+    const int4 c = __ldg(c4 + i);
+    const int4 p = p4[i];
+    fell |= (c.x < p.x) | (c.y < p.y) | (c.z < p.z) | (c.w < p.w);
+    if (copy) p4[i] = c;
+  }
+  for (long long i = (n4 << 2) + tid; i < n; i += stride) {
+    const int c = __ldg(cur + i);
+    fell |= c < prev[i];
+    if (copy) prev[i] = c;
+  }
+  fell = __syncthreads_or(fell);
+  if (threadIdx.x != 0) return;
+  if (fell) atomicOr(ctl + kExitFell, 1);
+  __threadfence();
+  if (atomicAdd(ctl + kExitTicket, 1) != (int)gridDim.x - 1) return;
+  __threadfence();
+  const int any = atomicExch(ctl + kExitFell, 0);
+  ctl[kExitTicket] = 0;
+  const int it = __ldcg(ctl + kIt) + 1;
+  ctl[kIt] = it;
+  ctl[kSweeps] = __ldcg(ctl + kSweeps) + 1;
+  ctl[kSteps] = __ldcg(ctl + kSteps) + 1;
+  if (!any || it >= __ldcg(ctl + kItCap)) ctl[kPhase] = kDone;
+}
+
+// The exit's grid: a block per 4 096 elements, at most one wave of
+// row_exit_kernel on this device, read once a process.
+int exit_blocks(long long n) {
+  static int wave = 0;
+  if (wave == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, row_exit_kernel,
+                                                  kExitThreads, 0);
+    wave = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const long long b = (n / 4 + 4 * kExitThreads - 1) / (4 * kExitThreads);
+  return (int)(b < 1 ? 1 : b < wave ? b : wave);
+}
+
 // The snapshot's grid: a block per 2 048 elements of dist, at most one
 // wave of split_snap_mark_kernel on this device (its resident blocks an
 // SM at its register count, times the SMs), read once a process.
@@ -484,6 +562,16 @@ extern "C" int openr_flag_compact(void* flags, int n, void* out, int cap,
 extern "C" int openr_split_ctl(void* ctl, int phase_mask, void* stream) {
   split_ctl_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((int*)ctl,
                                                       phase_mask);
+  return (int)cudaGetLastError();
+}
+
+// cur and prev 16-byte aligned, both [n].
+extern "C" int openr_row_exit(const void* cur, void* prev, long long n,
+                              int copy, void* ctl, int phase_mask,
+                              void* stream) {
+  row_exit_kernel<<<exit_blocks(n), kExitThreads, 0,
+                    (cudaStream_t)stream>>>((const int*)cur, (int*)prev, n,
+                                            copy, (int*)ctl, phase_mask);
   return (int)cudaGetLastError();
 }
 

@@ -57,16 +57,13 @@ from openr_tpu_torch.monitor import compile_ledger
 from openr_tpu_torch.monitor import device as telemetry
 from openr_tpu_torch.monitor import work_ledger as _work_ledger
 from openr_tpu_torch.monitor.profiling import annotate
-from openr_tpu_torch.ops import edge_relax, relax
+from openr_tpu_torch.ops import edge_relax, relax, rib_epilogue
 from openr_tpu_torch.ops.election import elect_multi_device
 from openr_tpu_torch.ops.ksp import ksp_edge_disjoint_dense, paths_to_host
 from openr_tpu_torch.ops.spf import (
     INF_DIST,
     METRIC_MAX,
     build_blocked,
-    first_hop_matrix,
-    first_hop_work,
-    lfa_matrix,
     pad_batch,
 )
 from openr_tpu_torch.ops.spf_split import (
@@ -411,11 +408,9 @@ class TorchSpfSolver:
                 "dst": self._to_dev(csr.edge_dst),
                 "metric": self._to_dev(csr.edge_metric),
                 "blocked": self._to_dev(blocked),
-                "index": edge_relax.index_to(edge_relax.edge_index(
-                    csr.edge_src, csr.edge_dst, csr.edge_metric,
-                    csr.padded_nodes,
-                ), self.device),
             }
+            got["index"] = edge_relax.device_edge_index(
+                got["src"], got["dst"], got["metric"], csr.padded_nodes)
         else:
             raise ValueError(f"unknown device table set {want!r}")
         cache["sets"][want] = got
@@ -705,9 +700,9 @@ class TorchSpfSolver:
         returns (csr, dist, fh, neighbor_ids, lfa), fh/lfa host bool
         [B-1, vp] (lfa None unless enable_lfa), or None if my_node is not
         in the topology. On the split tables, one fused solve returns a
-        packed buffer and dist is a `LazyDist`; on the dense or edge
-        tables, `_solve_dist` then the first-hop / LFA matrices, and dist
-        is a host array, as in the reference."""
+        packed buffer; on the dense or edge tables, `_solve_dist` then
+        the same epilogue (`rib_epilogue.rib_buffer`) on its matrix. dist
+        is a `LazyDist` on every table."""
         csr = ls.to_csr()
         my_id = csr.name_to_id.get(my_node)
         if my_id is None:
@@ -736,31 +731,29 @@ class TorchSpfSolver:
         self.solve_count += 1
         if table != "split":
             # the reference's span for this path ends where the solve's
-            # call returns; the first-hop matrices below read it back
+            # call returns; the epilogue below runs after it has ended
             with annotate("spf:batched_dist", self.counters):
                 dist = self._solve_dist(
                     csr, roots, _dispatched=(table, dev, has_over)
                 )
-            nbr_ids_t = self._to_dev(nbr_ids_p)
-            nbr_over_t = self._to_dev(nbr_over)
-            nbr_metric_t = self._to_dev(nbr_metric)
-            # torch ops, no hand kernel: the row is their own count; it
-            # runs after the span it is joined with has ended
+            vp = int(dist.shape[0])
+            args = (self._to_dev(nbr_metric), self._to_dev(nbr_ids_p),
+                    self._to_dev(nbr_over))
+            # kernel C (`rib_epilogue_kernel`) on the solved matrix, as
+            # the split RIB runs it: one launch, one packed host copy; the
+            # row keeps the reference's name for this branch
             with telemetry.observe(
                 "first_hop_matrix", tuple(dist.shape),
                 span="spf:batched_dist", span_complete=False,
             ) as cap:
-                fh_t = first_hop_matrix(dist, nbr_metric_t, nbr_ids_t,
-                                        nbr_over_t)
+                packed = rib_epilogue.rib_buffer(dist, *args, my_id,
+                                                 self.enable_lfa)
+                check_byte_order(d)
+                buf = _host(packed)
                 if cap:
-                    cap.add(None, *first_hop_work(*dist.shape), launches=0)
-                    cap.io(args=(dist, nbr_metric_t, nbr_ids_t, nbr_over_t),
-                           outs=(fh_t,))
-            fh = _host(fh_t)
-            lfa = None
-            if self.enable_lfa:
-                lfa = _host(lfa_matrix(dist, my_id, nbr_ids_t, nbr_over_t))
-            return csr, _host(dist), fh, nbr_ids, lfa
+                    cap.io(args=(dist, *args), outs=(packed,))
+            d_root, fh, lfa = unpack_rib_buffer(buf, vp, b, self.enable_lfa)
+            return csr, LazyDist(dist, d_root), fh, nbr_ids, lfa
         vp = dev["vp"]
         gs = self._pick_gs_and_count(dev)
         stats: dict = {}
@@ -1159,7 +1152,8 @@ class TorchSpfSolver:
 
         Returns (rdb, new artifact, touched prefixes, touched MPLS
         labels, region size), or None to demand a cold solve: LFA on, an
-        artifact without distance columns (a dense- or edge-table solve),
+        artifact without distance columns or of a dense- or edge-table
+        solve (rows other than the split tables'),
         a structural change (new CSR base), a table choice other than
         "split", an unknown endpoint, a root-incident change, more changed
         edges than `max_frac` of the graph (at least 16), or a cone walk
@@ -1175,6 +1169,8 @@ class TorchSpfSolver:
             return None  # structural change: interning/base moved
         if self._pick_table(csr) != "split":
             return None  # the warm solve runs on the split tables only
+        if old_dist.shape[0] != self.solve_vp(csr):
+            return None  # a dense- or edge-table solve's rows
         my_id = csr.name_to_id.get(my_node)
         if my_id is None:
             return None

@@ -11,10 +11,13 @@ rows that changed in the round before (`csrc/edge_relax.cu` says why both
 leave the distances and the round count as the reference's).
 
 The edge arrays are sorted by destination, as `CsrGraph` keeps them.
-`EdgeIndex` holds what the kernels walk, built on the host once per table
-set (`edge_index`): each node's run of the dst-sorted slots
-(`edge_row_start`), the out-edge index of the init (`edge_out_index`) and
-the segments of the long runs (`edge_segments`).
+`EdgeIndex` holds what the kernels walk: each node's run of the
+dst-sorted slots (`edge_row_start`), the out-edge index of the init
+(`edge_out_index`) and the segments of the long runs (`edge_segments`).
+`device_edge_index` builds it on the tensors' device with one host read
+(the solver's table cache, once per table set; the sharded edge solve,
+per call); `edge_index` builds the same fields from host arrays with
+NumPy, the reference the tests hold it to.
 
 The wrappers pick by `tensor.device.type` alone: a CUDA tensor launches
 `edge_init_kernel` / `edge_relax_kernel` (one cooperative launch each per
@@ -73,11 +76,26 @@ ENTRY_POINTS = {
         ],
         _I,
     ),
+    "openr_edge_round_guarded": (
+        [
+            _P, _P,  # buf0, buf1
+            _P, _P, _P, _P,  # row_start, src, metric, blocked
+            _P, _P, _I, _I,  # seg_node, seg_lo, n_seg, seg_edges
+            _P, _P,  # scratch, stats
+            _I, _I, _I,  # V, Bp, Bt
+            _P, _I, _P,  # ctl, phase_mask, changed
+            _P,  # stream
+        ],
+        _I,
+    ),
     "openr_edge_error_string": ([_I], ctypes.c_char_p),
 }
 
 #: kernel launches made by the wrappers (CUDA path only), by kernel
 LAUNCHES = {"init": 0, "round": 0}
+#: launches of the guarded one-round kernel (`edge_round` with `ctl`, the
+#: sharded loop's), apart: a profiler names it `edge_relax_kernel` too
+LAUNCHES_GUARDED = 0
 _LIB = None
 _LIB_LOCK = threading.Lock()
 #: elements of one [edges, B] candidate chunk of the plain version
@@ -85,8 +103,10 @@ _REF_CHUNK = 1 << 24
 
 
 def reset_launches() -> None:
+    global LAUNCHES_GUARDED
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_GUARDED = 0
 
 
 def _lib():
@@ -120,6 +140,11 @@ def tile_cols(b: int) -> int:
     return min(-(-b // 4) * 4, MAX_TILE)
 
 
+_DST_ERROR = ("edge_dst must be ascending and within [0, num_nodes): the "
+              "edge-list solve walks each node's run of dst-sorted edges")
+_SRC_ERROR = "edge_src of a walked slot is outside [0, V)"
+
+
 def edge_row_start(edge_dst: np.ndarray, num_nodes: int,
                    edge_metric: np.ndarray) -> np.ndarray:
     """int32 [num_nodes + 1]: the first slot of each node's run of the
@@ -136,10 +161,7 @@ def edge_row_start(edge_dst: np.ndarray, num_nodes: int,
         int(dst.min()) < 0 or int(dst.max()) >= num_nodes
         or bool((dst[1:] < dst[:-1]).any())
     ):
-        raise ValueError(
-            "edge_dst must be ascending and within [0, num_nodes): the "
-            "edge-list solve walks each node's run of dst-sorted edges"
-        )
+        raise ValueError(_DST_ERROR)
     finite = np.flatnonzero(np.asarray(edge_metric) < INF_DIST)
     dst = dst[: int(finite[-1]) + 1 if len(finite) else 0]
     return np.searchsorted(dst, np.arange(num_nodes + 1)).astype(np.int32)
@@ -155,7 +177,7 @@ def edge_out_index(edge_src: np.ndarray, row_start: np.ndarray
     v = len(row_start) - 1
     src = np.asarray(edge_src)[: int(row_start[-1])]
     if len(src) and (int(src.min()) < 0 or int(src.max()) >= v):
-        raise ValueError("edge_src of a walked slot is outside [0, V)")
+        raise ValueError(_SRC_ERROR)
     order = np.argsort(src, kind="stable")
     start = np.searchsorted(src[order], np.arange(v + 1))
     return start.astype(np.int32), order.astype(np.int32)
@@ -198,25 +220,96 @@ def edge_index(edge_src, edge_dst, edge_metric, num_nodes: int,
                      *edge_segments(row_start))
 
 
-def index_to(index: EdgeIndex, device) -> EdgeIndex:
-    """The index's arrays as int32 tensors on `device`."""
-    return EdgeIndex(*(
-        torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32)
-        .to(device) for x in index
-    ))
+# ---- the index on the tensors' device ----------------------------------
+
+def _row_start_t(edge_dst, num_nodes: int, edge_metric):
+    """(row_start int32 [num_nodes + 1], a device bool: dst is not
+    ascending or not within [0, num_nodes)). The runs end at the last
+    finite slot: every run is clamped to it, which is `edge_row_start`'s
+    cut of the sorted dst."""
+    dev = edge_dst.device
+    e = edge_dst.shape[0]
+    if e:
+        bad = ((edge_dst.amin() < 0) | (edge_dst.amax() >= num_nodes)
+               | (edge_dst[1:] < edge_dst[:-1]).any())
+        slots = torch.arange(1, e + 1, dtype=torch.int32, device=dev)
+        walk = torch.where(edge_metric < INF_DIST, slots, 0).amax()
+    else:
+        bad = torch.zeros((), dtype=torch.bool, device=dev)
+        walk = torch.zeros((), dtype=torch.int32, device=dev)
+    nodes = torch.arange(num_nodes + 1, dtype=edge_dst.dtype, device=dev)
+    rs = torch.searchsorted(edge_dst.contiguous(), nodes, out_int32=True)
+    return torch.minimum(rs, walk.to(torch.int32)), bad
+
+
+def _out_order_t(edge_src, row_start):
+    """(out_start int32 [V + 1], every slot id sorted stably by src with
+    the slots past the runs' end last (int64 [E]), a device bool: a
+    walked slot's src is outside [0, V)). The first `row_start[-1]` ids
+    are `edge_out_index`'s out_slot."""
+    dev = edge_src.device
+    v = row_start.shape[0] - 1
+    e = edge_src.shape[0]
+    live = torch.arange(e, device=dev) < row_start[-1]
+    bad = (live & ((edge_src < 0) | (edge_src >= v))).any()
+    key = torch.where(live, edge_src.to(torch.int32), v)
+    keys, order = torch.sort(key, stable=True)
+    nodes = torch.arange(v + 1, dtype=torch.int32, device=dev)
+    return torch.searchsorted(keys, nodes, out_int32=True), order, bad
+
+
+def _seg_counts_t(row_start, seg_edges: int):
+    """(segments a node, int64 [V]; their total, a device scalar)."""
+    lens = (row_start[1:] - row_start[:-1]).long()
+    n = torch.where(lens > seg_edges, (lens + seg_edges - 1) // seg_edges,
+                    0)
+    return n, n.sum()
+
+
+def _segments_t(row_start, n, n_seg: int, seg_edges: int):
+    """`edge_segments` from the per-node counts `n` and their total."""
+    dev = row_start.device
+    v = row_start.shape[0] - 1
+    node = torch.repeat_interleave(torch.arange(v, device=dev), n,
+                                   output_size=n_seg)
+    first = torch.repeat_interleave(torch.cumsum(n, 0) - n, n,
+                                    output_size=n_seg)
+    k = torch.arange(n_seg, device=dev) - first
+    lo = row_start.long()[node] + k * seg_edges
+    return node.to(torch.int32), lo.to(torch.int32)
 
 
 def device_edge_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                       edge_metric: torch.Tensor, num_nodes: int,
                       row_start=None) -> EdgeIndex:
-    """`edge_index` of the edge tensors, on their device (one round trip
-    to the host)."""
-    rs = None if row_start is None else torch.as_tensor(row_start).cpu()
-    return index_to(edge_index(
-        edge_src.cpu().numpy(), edge_dst.cpu().numpy(),
-        edge_metric.cpu().numpy(), num_nodes,
-        None if rs is None else rs.numpy(),
-    ), edge_src.device)
+    """`edge_index` of the edge tensors, built on their device with one
+    host read: the two input checks, the walked
+    count and the segment count, which size out_slot and the segments.
+    Every sort, search and count is enqueued before that read; the cut of
+    out_slot and the segments' few launches follow it. `row_start`, where
+    given, is taken as it is (unchecked, as `edge_index` takes it)."""
+    from openr_tpu_torch.monitor import compile_ledger
+
+    dev = edge_src.device
+    i32 = torch.int32
+    if row_start is None:
+        rs, bad_dst = _row_start_t(edge_dst.to(i32), num_nodes,
+                                   edge_metric.to(i32))
+    else:
+        rs = torch.as_tensor(row_start).to(device=dev, dtype=i32)
+        bad_dst = torch.zeros((), dtype=torch.bool, device=dev)
+    start, order, bad_src = _out_order_t(edge_src, rs)
+    n, total = _seg_counts_t(rs, SEG_EDGES)
+    read = torch.stack([bad_dst.long(), bad_src.long(), rs[-1].long(),
+                        total.long()])
+    bad_d, bad_s, walked, n_seg = read.tolist()  # the build's host read
+    compile_ledger.record_transfer(read.numel() * 8)
+    if bad_d:
+        raise ValueError(_DST_ERROR)
+    if bad_s:
+        raise ValueError(_SRC_ERROR)
+    return EdgeIndex(rs, start, order[:walked].to(i32),
+                     *_segments_t(rs, n, n_seg, SEG_EDGES))
 
 
 def walked_slots(index: EdgeIndex) -> int:
@@ -380,14 +473,20 @@ def _round_ref(dist_in, out, src, dst, metric, sel):
     return out
 
 
-def edge_round_ref(dist_in, out, src, dst, metric, blocked, changed):
+def edge_round_ref(dist_in, out, src, dst, metric, blocked, changed,
+                   ctl=None, phase_mask: int = 0):
     """Plain PyTorch version of one full round: `out` = min(dist_in, the
     unblocked edges' guarded candidates, min-scattered by destination),
-    all taken from `dist_in`; `changed` [1] set to 1 if an entry fell,
-    else 0."""
+    all taken from `dist_in`; `changed` [1] (None: not kept) set to 1 if
+    an entry fell, else 0. With the loop's guard (`ctl`, `phase_mask`,
+    as `edge_round`), does nothing unless bit `ctl[0]` of `phase_mask`
+    is set."""
+    if ctl is not None and not (phase_mask >> int(ctl[0])) & 1:
+        return changed
     sel = torch.nonzero(~blocked).flatten()
     _round_ref(dist_in, out, src, dst, metric, sel)
-    changed.fill_(int(bool((out < dist_in).any())))
+    if changed is not None:
+        changed.fill_(int(bool((out < dist_in).any())))
     return changed
 
 
@@ -486,6 +585,15 @@ def edge_init(out, src, dst, metric, roots, index: EdgeIndex,
     return out
 
 
+def fix_scratch(num_nodes: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scratch, stats) of one fixpoint or round launch: the row bitmaps,
+    flags and barrier count, and the device stats; the entry clears both
+    on the stream before each launch."""
+    return (torch.empty(3 * bitmap_words(num_nodes) + 4, dtype=torch.int32,
+                        device=device),
+            torch.empty(3, dtype=torch.int64, device=device))
+
+
 def _fix(buf0, buf1, src, metric, blocked, index: EdgeIndex, tile: int,
          marks, max_rounds: int) -> torch.Tensor:
     """One launch of `edge_relax_kernel`: rounds from `buf0` to each
@@ -495,9 +603,7 @@ def _fix(buf0, buf1, src, metric, blocked, index: EdgeIndex, tile: int,
     last round of some tile lowered anything, gathered edges."""
     v, bp = buf0.shape
     dev = buf0.device
-    scratch = torch.empty(3 * bitmap_words(v) + 4, dtype=torch.int32,
-                          device=dev)
-    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    scratch, stats = fix_scratch(v, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -515,20 +621,31 @@ def _fix(buf0, buf1, src, metric, blocked, index: EdgeIndex, tile: int,
 
 
 def edge_round(dist_in, out, src, dst, metric, blocked, row_start, changed,
-               index: EdgeIndex | None = None):
+               index: EdgeIndex | None = None, *, ctl=None,
+               phase_mask: int = 0, scratch=None):
     """One full Jacobi round from `dist_in` into `out` (distinct [V, B]
-    int32 buffers), `changed` [1] int32 set to 1 if an entry fell, else
-    0: on a CUDA tensor `edge_relax_kernel` capped at one round with
-    every row marked changed (B a multiple of 4; `index`, built from
-    `row_start` when not given, brings the long runs' segments), on a
-    CPU one `edge_round_ref`."""
+    int32 buffers), `changed` [1] int32 (None: not kept) set to 1 if an
+    entry fell, else 0: on a CUDA tensor `edge_relax_kernel` capped at
+    one round with every row marked changed (B a multiple of 4; `index`,
+    built from `row_start` when not given, brings the long runs'
+    segments), on a CPU one `edge_round_ref`.
+
+    The sharded loop's guard: with `ctl` (an int32 control block,
+    `ops/split_loop.py`'s layout) the call does nothing unless bit
+    `ctl[0]` of `phase_mask` is set, and then leaves `out` and `changed`
+    as they were. On the card that is `edge_relax_kernel<true>`, which
+    reads the phase itself (no host read), counted in
+    `LAUNCHES_GUARDED`; `scratch` (`fix_scratch`, on dist's device)
+    spares the launch its two allocations."""
+    global LAUNCHES_GUARDED
     i32 = torch.int32
     _check("edge_round", (
         ("dist_in", dist_in, i32), ("out", out, i32), ("src", src, i32),
         ("dst", dst, i32), ("metric", metric, i32),
         ("blocked", blocked, torch.bool), ("row_start", row_start, i32),
-        ("changed", changed, i32),
-    ), dist_in.device)
+    ) + tuple((nm, x, i32) for nm, x in (("changed", changed),
+                                         ("ctl", ctl)) if x is not None),
+        dist_in.device)
     v, b = dist_in.shape
     if row_start.shape != (v + 1,):
         raise ValueError(f"edge_round: row_start must be [{v + 1}]")
@@ -538,11 +655,13 @@ def edge_round(dist_in, out, src, dst, metric, blocked, row_start, changed,
         raise ValueError("edge_round: out must have dist_in's shape")
     if out.data_ptr() == dist_in.data_ptr():
         raise ValueError("edge_round: a Jacobi round needs two buffers")
-    if changed.numel() < 1:
+    if changed is not None and changed.numel() < 1:
         raise ValueError("edge_round: changed needs one int32 slot")
+    if changed is None and ctl is None:
+        raise ValueError("edge_round: an unguarded round keeps changed")
     if dist_in.device.type == "cpu":
         return edge_round_ref(dist_in, out, src, dst, metric, blocked,
-                              changed)
+                              changed, ctl, phase_mask)
     if dist_in.device.type != "cuda":
         raise ValueError(f"edge_round: no kernel for {dist_in.device}")
     _check_cuda_width("edge_round", dist_in,
@@ -551,8 +670,25 @@ def edge_round(dist_in, out, src, dst, metric, blocked, row_start, changed,
         index = device_edge_index(src, dst, metric, v, row_start)
     _check_index("edge_round", index, v, dist_in.device)
     tile = tile_cols(b)
-    st = _fix(dist_in, out, src, metric, blocked, index, tile, None, 1)
-    changed.view(-1)[:1].copy_(st[1:2])
+    if ctl is None:
+        st = _fix(dist_in, out, src, metric, blocked, index, tile, None, 1)
+        changed.view(-1)[:1].copy_(st[1:2])
+        return changed
+    scratch, stats = (fix_scratch(v, dist_in.device) if scratch is None
+                      else scratch)
+    lib = _lib()
+    with torch.cuda.device(dist_in.device):
+        err = lib.openr_edge_round_guarded(
+            dist_in.data_ptr(), out.data_ptr(), index.row_start.data_ptr(),
+            src.data_ptr(), metric.data_ptr(), blocked.data_ptr(),
+            index.seg_node.data_ptr(), index.seg_lo.data_ptr(),
+            index.seg_node.shape[0], SEG_EDGES, scratch.data_ptr(),
+            stats.data_ptr(), v, b, tile, ctl.data_ptr(), int(phase_mask),
+            None if changed is None else changed.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _launch_error(lib, err, "edge_relax_kernel (guarded)")
+    LAUNCHES_GUARDED += 1
     return changed
 
 

@@ -8,7 +8,9 @@ device, and every launch of a step reads the phase at entry and does
 nothing unless the phase is its own (`phase_mask`), so one fixed
 sequence of launches serves every phase and can be captured in a CUDA
 graph (`ops/spf_split.py` `SplitProgram`). The host reads `ctl` once per
-block of steps.
+block of steps. The sharded solves (`parallel/sharded_spf.py`) keep a
+control block per graph row and device in the same layout, in phase
+`NET` until `row_exit` ends it.
 
 Each wrapper picks by `tensor.device.type`: a CUDA tensor launches its
 kernel (a build or launch failure raises), a CPU tensor runs the plain
@@ -44,6 +46,8 @@ THRESHOLD = 10   # phase 1 runs while more rows than this changed
 ROUNDS_CAP = 11  # tail rounds at most
 IT_CAP = 12      # dense sweeps of one phase at most (vp)
 RAW_ROWS = 13    # tail round rows before the cap
+FELL = 14        # the sharded exit: some block saw an entry fall
+TICKET = 15      # the sharded exit: its blocks done
 CTL_WORDS = 16
 
 DONE, DENSE, TAIL, NET = 0, 1, 2, 3
@@ -57,6 +61,7 @@ KERNEL_NAMES = {
     "snap_mark": "split_snap_mark_kernel",
     "compact": "flag_compact_kernel",
     "ctl": "split_ctl_kernel",
+    "exit": "row_exit_kernel",
 }
 
 #: the C entry points of `csrc/split_loop.cu` and their ctypes types
@@ -76,6 +81,11 @@ ENTRY_POINTS = {
     ], ctypes.c_int),
     "openr_split_ctl": ([
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ], ctypes.c_int),
+    "openr_row_exit": ([
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # cur, prev, n
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # copy, ctl, mask
+        ctypes.c_void_p,  # stream
     ], ctypes.c_int),
     "openr_split_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -222,6 +232,25 @@ def tail_decide_ref(ctl) -> None:
     ctl.copy_(torch.tensor(c, dtype=torch.int32))
 
 
+def row_exit_ref(cur, prev, ctl, phase_mask, copy: bool) -> None:
+    """A sharded graph row's exit after a sweep or round (`csrc/
+    split_loop.cu` row_exit_kernel): did an entry of `cur` fall below
+    `prev`; with `copy`, `prev` = `cur`; the sweep counted (IT, SWEEPS,
+    STEPS) and the row done when nothing fell or at `IT_CAP` sweeps."""
+    if not runs(ctl, phase_mask):
+        return
+    fell = bool((cur < prev).any())
+    if copy:
+        prev.copy_(cur)
+    c = ctl.tolist()
+    c[IT] += 1
+    c[SWEEPS] += 1
+    c[STEPS] += 1
+    if not fell or c[IT] >= c[IT_CAP]:
+        c[PHASE] = DONE
+    ctl.copy_(torch.tensor(c, dtype=torch.int32))
+
+
 def split_ctl_ref(ctl, phase_mask) -> None:
     """The loop's decisions after a step's relaxes (`csrc/split_loop.cu`
     split_ctl_kernel): the step counted, phase 1 ended (cond1) or the
@@ -276,6 +305,12 @@ def compact_work(n: int, cap: int, raw: int, clear: bool
 def ctl_work() -> tuple[int, int]:
     """One decision: a few words of the block read and written."""
     return 2 * CTL_WORDS * 4, 8
+
+
+def exit_work(n: int, copy: bool) -> tuple[int, int]:
+    """One exit of n entries: both buffers read, `prev` written where
+    `copy`, and the decision's words; a compare an entry."""
+    return n * 4 * (3 if copy else 2) + 2 * CTL_WORDS * 4, n
 
 
 # ------------------------------------------------------------ launching
@@ -380,6 +415,24 @@ def flag_compact(flags, out, ctl, phase_mask: int, count_slot: int,
             n, out.data_ptr(), cap, int(dead), ctl.data_ptr(),
             int(phase_mask), int(count_slot), int(raw_slot),
             int(bool(clear)), int(bool(decide)), ws.data_ptr())
+
+
+def row_exit(cur, prev, ctl, phase_mask: int, copy: bool) -> None:
+    """`row_exit_kernel`: see `row_exit_ref`. `cur` and `prev` are int32
+    buffers of one shape, 16-byte aligned on CUDA."""
+    _check("row_exit", ctl.device, cur=cur, prev=prev, ctl=ctl)
+    if cur.shape != prev.shape:
+        raise ValueError("row_exit: cur and prev must be one shape")
+    if cur.data_ptr() == prev.data_ptr():
+        raise ValueError("row_exit: cur and prev are one buffer")
+    _count(ctl, phase_mask, lambda: exit_work(cur.numel(), copy))
+    if ctl.device.type == "cpu":
+        return row_exit_ref(cur, prev, ctl, phase_mask, copy)
+    if cur.data_ptr() % 16 or prev.data_ptr() % 16:
+        raise ValueError("row_exit: cur and prev must be 16-byte aligned")
+    _launch("exit", "openr_row_exit", ctl.device, cur.data_ptr(),
+            prev.data_ptr(), cur.numel(), int(bool(copy)), ctl.data_ptr(),
+            int(phase_mask))
 
 
 def split_ctl(ctl, phase_mask: int) -> None:

@@ -17,22 +17,39 @@ the replicated overflow rows with kernel A from the sweep's start
 updates are Gauss-Seidel where the reference is Jacobi: the same
 fixpoint of the monotone min system, in as many sweeps or fewer.
 `sharded_sssp` runs the edge-list Bellman-Ford: position (s, g) owns the
-contiguous edge slice g. The init is kernel H's init on each slice
-(`edge_relax.edge_init`), then a MIN over the graph row; a round is
-kernel H capped at one round on each slice (`edge_relax.edge_round`,
-which keeps the min with the distances), then a MIN over the graph row.
+contiguous edge slice g, whose `edge_relax.EdgeIndex` is built on its
+device per call (`edge_relax.device_edge_index`). The init is kernel H's
+init on each slice (`edge_relax.edge_init`), then a MIN over the graph
+row; a round is kernel H capped at one round on each slice
+(`edge_relax.edge_round`, which keeps the min with the distances), then
+a MIN over the graph row.
 
 Positions that share a device share one copy of the distances of their
 graph row: a gather between them is nothing, and a MIN is taken as their
 rounds are. Between devices of one process the exchanges are copies;
 between processes (a mesh from `distributed.global_mesh`) they are
 `torch.distributed` collectives on the graph row's own group: an
-`all_gather` of the rows each process relaxed, an `all_reduce` MIN. The
-distances are then equal at every position of a graph row, so each row's
-exit flag (did anything fall this sweep) is the same in every process
-and the trip counts agree without a collective of their own. The flags
-of every row a process drives are read back together, one host sync a
-sweep or round (`compile_ledger.record_sync`).
+`all_gather` of the rows each process relaxed, an `all_reduce` MIN.
+
+The loops run on the devices, as the reference's `while_loop` inside
+`shard_map` does (`openr_tpu/parallel/sharded_spf.py:95,180`). Each graph
+row keeps a control block on each of its devices (`ops/split_loop.py`'s
+layout, in phase NET until the exit), and every launch of a sweep or
+round reads its phase: kernel A and kernel H under their guards, then
+the row's exit (`split_loop.row_exit`: did an entry fall below the
+sweep's start, the reference's cap of sweeps, and for the split solve
+the next sweep's snapshot in the same pass). The host launches a block
+of `BLOCK` sweeps or rounds back to back for every row not yet done and
+reads the control blocks of all its rows once a block
+(`compile_ledger.record_sync`), as `SplitProgram` does. Nothing in the
+loop reads the device otherwise: a capture's sink is paused while it
+runs, and each row's work is counted after it from the sweeps or rounds
+its control block ran. After the
+exchange every position of a graph row holds the same distances, so
+every device and process of the row reaches the same exit with no
+collective of its own: every process runs the same blocks, each with the
+same exchanges, and a row that is done still takes part in its block's
+remaining exchanges, which move unchanged rows.
 
 The results are `ShardedArray`s laid out (None, sources): each position
 holds its row's [vp, B/S] columns.
@@ -48,7 +65,7 @@ import torch
 from openr_tpu_torch.common.constants import DIST_INF
 from openr_tpu_torch.monitor import compile_ledger
 from openr_tpu_torch.monitor import device as _telemetry
-from openr_tpu_torch.ops import edge_relax, relax
+from openr_tpu_torch.ops import edge_relax, relax, split_loop
 from openr_tpu_torch.parallel.mesh import (
     GRAPH_AXIS,
     SOURCES_AXIS,
@@ -60,6 +77,14 @@ from openr_tpu_torch.parallel.mesh import (
 INF_DIST = DIST_INF
 #: the layout of every result: rows whole, roots over `sources`
 OUT_SPEC = (None, SOURCES_AXIS)
+#: sweeps or rounds a block: the host reads the control blocks once per
+#: block. At BASELINE config 3 on an H100 (PERF.md, PR 15) the host's
+#: enqueue of a sweep (~0.6 ms on a 4x2 mesh) is close to its device
+#: time, so each no-op sweep past a row's exit costs about that much:
+#: K 1, 2 and 4 gave the split call one p50, K 8 to 32 2-7 ms more
+BLOCK = 4
+#: the guard of every launch of a sweep or round: the loop's one phase
+LOOP = 1 << split_loop.NET
 
 
 class _GraphRow:
@@ -76,6 +101,7 @@ class _GraphRow:
             if d not in self.devices:
                 self.devices.append(d)
         self.group = mesh.groups[s] if mesh.groups is not None else None
+        self._parts = None
         if self.group is not None and len(self.devices) > 1:
             raise ValueError(
                 "a mesh across processes takes one device per process; "
@@ -98,11 +124,13 @@ class _GraphRow:
 
         (buf,) = bufs.values()
         by_rank = self._positions_by_rank()
-        k = max(len(gs) for gs in by_rank.values())
-        mine = buf.new_empty((k * rows, buf.shape[1]))
+        if self._parts is None:  # the exchange's buffers, once a call
+            k = max(len(gs) for gs in by_rank.values())
+            mine = buf.new_empty((k * rows, buf.shape[1]))
+            self._parts = (mine, [torch.empty_like(mine) for _ in by_rank])
+        mine, got = self._parts
         for j, g in enumerate(self.local):
             mine[j * rows:(j + 1) * rows] = buf[g * rows:(g + 1) * rows]
-        got = [torch.empty_like(mine) for _ in by_rank]
         dist.all_gather(got, mine, group=self.group)
         for part, (rank, gs) in zip(got, sorted(by_rank.items())):
             if rank == self.mesh.rank:
@@ -145,14 +173,61 @@ def _check_divides(n: int, mesh: Mesh, axis: str, what: str) -> None:
         )
 
 
-def _read_flags(flags: list) -> list[bool]:
-    """The rows' exit flags (device bools), read back in one sync."""
-    if not flags:
-        return []
-    dev = flags[0].device
-    vals = torch.stack([f.to(dev) for f in flags]).tolist()
+def _read_ctls(ctls: list[list]) -> list[list[int]]:
+    """The control blocks of the rows (a list of each row's blocks, one a
+    device), read back in one sync; each row's blocks must agree."""
+    flat = [c for row in ctls for c in row]
+    dev = flat[0].device
+    vals = torch.stack([c.to(dev) for c in flat]).tolist()
     compile_ledger.record_sync()
-    return [bool(v) for v in vals]
+    out, i = [], 0
+    for row in ctls:
+        got = vals[i:i + len(row)]
+        i += len(row)
+        if any(g != got[0] for g in got):
+            raise RuntimeError(
+                f"a graph row's control blocks disagree across its devices: "
+                f"{got}")
+        out.append(got[0])
+    return out
+
+
+def _run_blocks(ctls: list[list], step) -> tuple[list, int]:
+    """Runs `step(i)` (one sweep or round of row i, guarded on the
+    device) `BLOCK` times back to back for every row not yet done, then
+    reads every row's control blocks, until every row is done (the exit
+    caps each row's sweeps). The capture's sink, if any, is paused
+    meanwhile: a wrapper that counts its work reads the phase, a device
+    sync a launch. Returns (each row's last control block read, blocks
+    run)."""
+    if BLOCK < 1:
+        raise ValueError(f"BLOCK={BLOCK} must be at least 1")
+    live = list(range(len(ctls)))
+    last: list = [None] * len(ctls)
+    replays = 0
+    with _telemetry.paused():
+        while live:
+            for _ in range(BLOCK):
+                for i in live:
+                    step(i)
+            replays += 1
+            for i, c in zip(live, _read_ctls([ctls[i] for i in live])):
+                last[i] = c
+            live = [i for i in live if last[i][split_loop.PHASE]
+                    != split_loop.DONE]
+    return last, replays
+
+
+def _count_trips(sink, work: list, last: list) -> None:
+    """Adds to `sink` each row's work a live sweep or round (`work[i]`,
+    (source, bytes, operations) a launch) once for each one its control
+    block ran (`last[i][IT]`)."""
+    if sink is None:
+        return
+    for launches, c in zip(work, last):
+        for _ in range(c[split_loop.IT]):
+            for source, nbytes, ops in launches:
+                sink.add(source, nbytes, ops)
 
 
 def _out(mesh: Mesh, shape, dists: dict) -> ShardedArray:
@@ -175,8 +250,11 @@ def sharded_sssp_split(base_nbr, base_wgt, ov_ids, ov_nbr, ov_wgt,
     `ov_wgt`, `node_overloaded` and the roots [B] (B must divide by the
     sources axis) are tensors or NumPy arrays (the same whole arrays in
     every process) or `ShardedArray`s of `shard` with the specs
-    (graph, None), (), (), (), (), (), (sources,). With `stats`, sets
-    sweeps (the most any graph row ran) and host_syncs."""
+    (graph, None), (), (), (), (), (), (sources,). The host reads the
+    rows' control blocks once per `BLOCK` sweeps. With
+    `stats`, sets sweeps (the most any graph row ran), row_trips (each
+    row's sweeps, in the order of the rows this process drives), replays
+    (blocks run), host_syncs (= replays) and block (`BLOCK`)."""
     vp = int(base_nbr.shape[0])
     _check_divides(vp, mesh, GRAPH_AXIS, "vp")
     b = int(roots.shape[0])
@@ -190,23 +268,27 @@ def sharded_sssp_split(base_nbr, base_wgt, ov_ids, ov_nbr, ov_wgt,
     rows = vp // mesh.shape[GRAPH_AXIS]
     bs = b // mesh.shape[SOURCES_AXIS]
 
-    work = []  # per graph row: (row, bufs {device: dist}, per-device args)
+    # per graph row: (row, per device {dist, snap, ctl, overflow args},
+    # per local position its own rows' args)
+    work = []
     for row in _rows(mesh):
         s = row.s
-        bufs, ovs, own = {}, {}, {}
+        per, own = {}, {}
         for d in row.devices:
             g0 = next(g for g in row.local if mesh.device(s, g) == d)
             r = rts.pieces[(s, g0)].to(torch.int32)
             dist = torch.full((vp, bs), INF_DIST, dtype=torch.int32,
                               device=d)
             dist[r.long(), torch.arange(bs, device=d)] = 0
-            bufs[d] = dist
             ovn = ov["nbr"].pieces[(s, g0)]
             over = ov["over"].pieces[(s, g0)]
-            ovs[d] = (r, ov["ids"].pieces[(s, g0)], ovn,
-                      ov["wgt"].pieces[(s, g0)],
-                      over[ovn.long()].contiguous() if has_overloads
-                      else None)
+            per[d] = dict(
+                dist=dist, snap=dist.clone(),
+                ctl=split_loop.new_ctl(split_loop.NET, 0, 0, vp, d),
+                ov=(r, ov["ids"].pieces[(s, g0)], ovn,
+                    ov["wgt"].pieces[(s, g0)],
+                    over[ovn.long()].contiguous() if has_overloads
+                    else None))
         for g in row.local:
             d = mesh.device(s, g)
             n_g = nbr.pieces[(s, g)]
@@ -216,34 +298,62 @@ def sharded_sssp_split(base_nbr, base_wgt, ov_ids, ov_nbr, ov_wgt,
                       else None,
                       torch.arange(g * rows, (g + 1) * rows,
                                    dtype=torch.int32, device=d))
-        work.append((row, bufs, ovs, own))
+        work.append((row, per, own))
 
-    active = list(range(len(work)))
-    sweeps = syncs = 0
-    while active and sweeps < vp:
-        flags = []
-        for i in active:
-            row, bufs, ovs, own = work[i]
-            prev = {d: t.clone() for d, t in bufs.items()}
-            for g in row.local:
-                d, n_g, w_g, o_g, dst = own[g]
-                relax.relax_rows(bufs[d], bufs[d], n_g, w_g, ovs[d][0], o_g,
-                                 n=rows, dst_rows=dst)
-            row.gather_rows(bufs, rows)
-            for d, buf in bufs.items():
-                r, ids, ovn, ovw, ovo = ovs[d]
-                relax.relax_rows(prev[d], buf, ovn, ovw, r, ovo,
-                                 dst_rows=ids)
-            d0 = row.devices[0]
-            flags.append((bufs[d0] < prev[d0]).any())
-        sweeps += 1
-        syncs += 1
-        active = [i for i, f in zip(active, _read_flags(flags)) if f]
+    def sweep(i: int) -> None:
+        """One sweep of row i, every launch guarded: own rows in place,
+        the gather, the overflow rows from the snapshot, the exit (which
+        takes the next snapshot)."""
+        row, per, own = work[i]
+        for g in row.local:
+            d, n_g, w_g, o_g, dst = own[g]
+            p = per[d]
+            relax.relax_rows(p["dist"], p["dist"], n_g, w_g, p["ov"][0],
+                             o_g, n=rows, dst_rows=dst, ctl=p["ctl"],
+                             phase_mask=LOOP)
+        row.gather_rows({d: p["dist"] for d, p in per.items()}, rows)
+        for p in per.values():
+            r, ids, ovn, ovw, ovo = p["ov"]
+            relax.relax_rows(p["snap"], p["dist"], ovn, ovw, r, ovo,
+                             dst_rows=ids, ctl=p["ctl"], phase_mask=LOOP)
+            split_loop.row_exit(p["dist"], p["snap"], p["ctl"], LOOP,
+                                copy=True)
+
+    sink = _telemetry.sink()
+    sweep_work = None
+    if sink is not None:  # a live sweep's launches, counted after the loop
+        sweep_work = [_sweep_work(row, per, own, rows) for row, per, own
+                      in work]
+    last, replays = _run_blocks(
+        [[p["ctl"] for p in per.values()] for _r, per, _o in work], sweep)
+    _count_trips(sink, sweep_work, last)
     if stats is not None:
-        stats["sweeps"] = sweeps
-        stats["host_syncs"] = syncs
-    return _out(mesh, (vp, b), {(row.s, d): t for row, bufs, _o, _w in work
-                                for d, t in bufs.items()})
+        stats["row_trips"] = [c[split_loop.IT] for c in last]
+        stats["sweeps"] = max(stats["row_trips"], default=0)
+        stats["replays"] = stats["host_syncs"] = replays
+        stats["block"] = BLOCK
+    return _out(mesh, (vp, b), {(row.s, d): p["dist"]
+                                for row, per, _o in work
+                                for d, p in per.items()})
+
+
+def _sweep_work(row: _GraphRow, per: dict, own: dict, rows: int) -> list:
+    """(source, bytes, operations) of each launch of a live sweep of
+    `row`: kernel A on each local position's own rows, then on each
+    device the overflow relax and the exit."""
+    out = []
+    for g in row.local:
+        d, n_g, w_g, o_g, dst = own[g]
+        out.append(("relax", *relax.launch_work(
+            n_g, w_g, per[d]["dist"].shape[1], over=o_g, n=rows,
+            dst_rows=dst)[1:3]))
+    for p in per.values():
+        _r, ids, ovn, ovw, ovo = p["ov"]
+        out.append(("relax", *relax.launch_work(
+            ovn, ovw, p["dist"].shape[1], over=ovo, dst_rows=ids)[1:3]))
+        out.append(("split_loop",
+                    *split_loop.exit_work(p["dist"].numel(), True)))
+    return out
 
 
 def _pad_roots(r: torch.Tensor) -> torch.Tensor:
@@ -264,9 +374,12 @@ def sharded_sssp(edge_src, edge_dst, edge_metric, edge_blocked, roots,
     overloaded-transit edges) and the roots [B] (B must divide by the
     sources axis) are tensors or NumPy arrays or `ShardedArray`s of
     `shard` with the specs (graph,) and (sources,). Each slice's
-    `edge_relax.EdgeIndex` is built on the host per call. With `stats`,
-    sets rounds (the most any graph row ran), host_syncs and index_ms
-    (the host wall of the index builds)."""
+    `edge_relax.EdgeIndex` is built on its device per call, with one host
+    read a slice. The host reads the rows' control blocks once per
+    `BLOCK` rounds. With `stats`, sets rounds (the most any graph row
+    ran), row_trips (each row's rounds), replays (blocks run), host_syncs
+    (= replays), block (`BLOCK`) and index_ms (the host wall of the index
+    builds, each up to its read)."""
     e = int(edge_src.shape[0])
     _check_divides(e, mesh, GRAPH_AXIS, "Ep")
     b = int(roots.shape[0])
@@ -285,75 +398,95 @@ def sharded_sssp(edge_src, edge_dst, edge_metric, edge_blocked, roots,
             src, dst, met, blk = (a.pieces[(s, g)] for a in edges)
             src, dst, met = (x.to(torch.int32).contiguous()
                              for x in (src, dst, met))
-            index = edge_relax.index_to(edge_relax.edge_index(
-                src.cpu().numpy(), dst.cpu().numpy(), met.cpu().numpy(), v,
-            ), d)
             slices[(d, g)] = (src, dst, met, blk.to(torch.bool).contiguous(),
-                              index)
+                              edge_relax.device_edge_index(src, dst, met, v))
     index_ms = (time.perf_counter() - t0) * 1e3
 
-    work = []  # per graph row: (row, roots by device, dist by device)
+    # per graph row, per device: the two buffers rounds alternate (the
+    # init into the first), a buffer for each further slice there, each
+    # slice's scratch, the control block; the rows' work a round
+    work = []
     for row in _rows(mesh):
         s = row.s
-        rq, accs = {}, {}
+        per = {}
         for d in row.devices:
             g0 = next(g for g in row.local if mesh.device(s, g) == d)
-            rq[d] = _pad_roots(rts.pieces[(s, g0)].to(torch.int32))
-            bq = rq[d].shape[0]
-            for g in row.local:
-                if mesh.device(s, g) != d:
-                    continue
+            rq = _pad_roots(rts.pieces[(s, g0)].to(torch.int32))
+            mine = [g for g in row.local if mesh.device(s, g) == d]
+            bufs = [torch.empty((v, rq.shape[0]), dtype=torch.int32,
+                                device=d) for _ in range(2)]
+            extra = [torch.empty_like(bufs[0]) for _ in mine[1:]]
+            for g, t in zip(mine, [bufs[0]] + extra):
                 src, dst, met, _blk, index = slices[(d, g)]
-                t = torch.empty((v, bq), dtype=torch.int32, device=d)
-                edge_relax.edge_init(t, src, dst, met, rq[d], index)
+                edge_relax.edge_init(t, src, dst, met, rq, index)
                 if sink is not None:
                     sink.add("edge_relax", *edge_relax.init_work(
-                        index, v, bq, edge_relax.tile_cols(bq), rq[d]))
-                if d in accs:
-                    torch.minimum(accs[d], t, out=accs[d])
-                else:
-                    accs[d] = t
-        row.all_min(accs)
-        work.append((row, rq, accs))
+                        index, v, rq.shape[0],
+                        edge_relax.tile_cols(rq.shape[0]), rq))
+            for t in extra:
+                torch.minimum(bufs[0], t, out=bufs[0])
+            per[d] = dict(bufs=bufs, extra=extra, slices=mine,
+                          scratch=[edge_relax.fix_scratch(v, d)
+                                   for _ in mine],
+                          ctl=split_loop.new_ctl(split_loop.NET, 0, 0, v, d))
+        row.all_min({d: p["bufs"][0] for d, p in per.items()})
+        round_work = None
+        if sink is not None:  # a live round's launches, counted after
+            round_work = [("edge_relax", *edge_relax.round_work(
+                slices[(d, g)][0], slices[(d, g)][3], slices[(d, g)][4], v,
+                p["bufs"][0].shape[1])[:2])
+                for d, p in per.items() for g in p["slices"]] + [
+                ("split_loop", *split_loop.exit_work(p["bufs"][0].numel(),
+                                                     False))
+                for p in per.values()]
+        work.append([row, per, 0, round_work])
 
-    active = list(range(len(work)))
-    rounds = syncs = 0
-    while active and rounds < v:
-        flags = []
-        for i in active:
-            row, rq, dists = work[i]
-            nxt = {}
-            for d, cur in dists.items():
-                changed = torch.zeros(1, dtype=torch.int32, device=d)
-                for g in row.local:
-                    if mesh.device(row.s, g) != d:
-                        continue
-                    src, dst, met, blk, index = slices[(d, g)]
-                    t = torch.empty_like(cur)
-                    edge_relax.edge_round(cur, t, src, dst, met, blk,
-                                          index.row_start, changed,
-                                          index=index)
-                    if sink is not None:
-                        sink.add("edge_relax", *edge_relax.round_work(
-                            src, blk, index, v, cur.shape[1])[:2])
-                    if d in nxt:
-                        torch.minimum(nxt[d], t, out=nxt[d])
-                    else:
-                        nxt[d] = t
-            row.all_min(nxt)
-            d0 = row.devices[0]
-            flags.append((nxt[d0] < dists[d0]).any())
-            work[i] = (row, rq, nxt)
-        rounds += 1
-        syncs += 1
-        active = [i for i, f in zip(active, _read_flags(flags)) if f]
+    def one_round(i: int) -> None:
+        """One round of row i, every launch guarded: kernel H on each
+        slice from buffer r % 2 into buffer (r + 1) % 2 (the device's
+        first slice) or its own buffer, the MIN on the device and over
+        the row, the exit. A round after the exit writes neither kernel
+        H's output nor the control block, and the MINs then leave the
+        result's buffer as it is (each slice buffer is at least the
+        result), so the result is buffer ctl[IT] % 2: the parity of the
+        last live round."""
+        row, per, r, _w = work[i]
+        for d, p in per.items():
+            cur, nxt = p["bufs"][r % 2], p["bufs"][(r + 1) % 2]
+            for g, out, scr in zip(p["slices"], [nxt] + p["extra"],
+                                   p["scratch"]):
+                src, dst, met, blk, index = slices[(d, g)]
+                edge_relax.edge_round(cur, out, src, dst, met, blk,
+                                      index.row_start, None, index=index,
+                                      ctl=p["ctl"], phase_mask=LOOP,
+                                      scratch=scr)
+            for t in p["extra"]:
+                torch.minimum(nxt, t, out=nxt)
+        row.all_min({d: p["bufs"][(r + 1) % 2] for d, p in per.items()})
+        for p in per.values():
+            split_loop.row_exit(p["bufs"][(r + 1) % 2], p["bufs"][r % 2],
+                                p["ctl"], LOOP, copy=False)
+        work[i][2] = r + 1
+
+    last, replays = _run_blocks(
+        [[p["ctl"] for p in per.values()] for _r, per, _n, _w in work],
+        one_round)
+    _count_trips(sink, [w for *_x, w in work], last)
     if stats is not None:
-        stats["rounds"] = rounds
-        stats["host_syncs"] = syncs
+        stats["row_trips"] = [c[split_loop.IT] for c in last]
+        stats["rounds"] = max(stats["row_trips"], default=0)
+        stats["replays"] = stats["host_syncs"] = replays
+        stats["block"] = BLOCK
         stats["index_ms"] = index_ms
     return _out(mesh, (v, b), {
-        (row.s, d): t[:, :bs] if t.shape[1] != bs else t
-        for row, _rq, dists in work for d, t in dists.items()})
+        (row.s, d): _cut(p["bufs"][c[split_loop.IT] % 2], bs)
+        for (row, per, _n, _w), c in zip(work, last)
+        for d, p in per.items()})
+
+
+def _cut(t: torch.Tensor, bs: int) -> torch.Tensor:
+    """The first `bs` columns (the padded roots cut off)."""
+    return t[:, :bs] if t.shape[1] != bs else t
 
 
 def sharded_sssp_padded(edge_src, edge_dst, edge_metric, edge_blocked,
@@ -366,7 +499,8 @@ def sharded_sssp_padded(edge_src, edge_dst, edge_metric, edge_blocked,
     blocked), which no round relaxes and `edge_row_start` leaves out of
     every run. `ShardedArray`s (of `distributed.shard_host_array`) pass
     through unpadded. Returns [num_nodes, len(roots)], and records the
-    `sharded_sssp` cost row under the span `spf:sharded_solve`."""
+    `sharded_sssp` cost row under the span `spf:sharded_solve`. `stats`
+    is `sharded_sssp`'s."""
     s_n, g_n = mesh.shape[SOURCES_AXIS], mesh.shape[GRAPH_AXIS]
     b = int(roots.shape[0])
     bp = b

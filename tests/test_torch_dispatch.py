@@ -19,6 +19,7 @@ from openr_tpu.decision.spf_backend import TpuSpfSolver
 from openr_tpu.utils import topogen as jtopo
 from openr_tpu_torch import LinkState, PrefixState, TorchSpfSolver
 from openr_tpu_torch import types as ptypes
+from openr_tpu_torch.decision.spf_backend import LazyDist
 from openr_tpu_torch.utils import topogen as ptopo
 from test_torch_solver import _states, canon
 
@@ -126,9 +127,11 @@ def test_compute_routes_equal_per_table(knobs, lfa):
         assert len(got.unicast_routes) > 0
         assert canon(got) == canon(ref), (me, knobs)
     dist = ps_.solve(pls, "node-0")[1]
-    # the reference returns a host matrix off the split path
-    assert isinstance(dist, np.ndarray) == (ps_._pick_table(pls.to_csr())
-                                            != "split")
+    # every table's RIB comes through kernel C's packed buffer: the
+    # matrix stays on the device, read on demand, equal to the reference's
+    assert isinstance(dist, LazyDist)
+    np.testing.assert_array_equal(np.asarray(dist),
+                                  np.asarray(js.solve(jls, "node-0")[1]))
 
 
 def test_spf_kernel_stats_equal():
@@ -173,7 +176,12 @@ def test_warm_gate_refuses_other_tables(use_dense):
     pw = ps_.warm_compute_routes(pa, pls, pps, "node-0", set(pres[1]),
                                  set(), pr, 0.5)
     assert jw is None and pw is None
-    assert isinstance(pa.solved[1], np.ndarray)  # a host matrix
+    # the epilogue's lazy matrix has the CSR's rows, not the split
+    # tables': the gate's row check refuses it too
+    assert isinstance(pa.solved[1], LazyDist)
+    csr = pls.to_csr()
+    assert pa.solved[1].shape[0] == csr.padded_nodes != TorchSpfSolver(
+        device="cpu").solve_vp(csr)
     # a split-table artifact (device columns) meets the table gate
     jr, ja = TpuSpfSolver(native_rib="off").compute_routes(
         jls, jps, "node-0", return_artifact=True)

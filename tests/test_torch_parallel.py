@@ -131,7 +131,10 @@ def test_sharded_512_nodes_with_overload_equals_jax():
         *map(jnp.asarray, args), jnp.arange(512, dtype=jnp.int32),
         jax_mesh(n_sources=4, n_graph=2), csr.padded_nodes))
     np.testing.assert_array_equal(got, want)
-    assert 1 <= stats["rounds"] == stats["host_syncs"] <= csr.padded_nodes
+    assert 1 <= stats["rounds"] <= csr.padded_nodes
+    # one host read a block of rounds (the loop runs on the device)
+    assert stats["host_syncs"] == stats["replays"] == -(
+        -stats["rounds"] // stats["block"])
 
 
 def test_all_sources_matches_sharded():
@@ -178,8 +181,11 @@ def test_sharded_split_equals_jax(shape):
                              make_mesh(s, g, devices=CPU8),
                              has_overloads=True, stats=stats)
     np.testing.assert_array_equal(got.full("cpu").numpy(), want)
-    assert stats["host_syncs"] == stats["sweeps"] >= 1
-    assert compile_ledger.ledger().host_syncs - syncs == stats["sweeps"]
+    assert stats["sweeps"] >= 1
+    # one host read a block of sweeps (the loop runs on the device)
+    assert stats["host_syncs"] == stats["replays"] == -(
+        -stats["sweeps"] // stats["block"])
+    assert compile_ledger.ledger().host_syncs - syncs == stats["replays"]
     assert relax.LAUNCHES == launches  # the CPU runs the plain version
 
 

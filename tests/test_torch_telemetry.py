@@ -489,8 +489,10 @@ def test_first_hop_and_warm_rows(monkeypatch):
     csr, _dist, fh, _nbr, _lfa = dense.solve(ls, "node-0")
     row = device.kernel_rows()["first_hop_matrix"]
     vp, n = csr.padded_nodes, fh.shape[0]
+    # kernel C's launch and its epilogue's count, as the split RIB's
     assert (row.bytes_accessed, row.flops, row.launches) == (
-        vp * (n + 1) * 4 + n * 9 + n * vp, 5 * n * vp, 0)
+        *rib_epilogue.epilogue_work(vp, n + 1, n, False), 1)
+    assert row.sources == ("rib_epilogue",)
     assert not row.span_complete
     solver = TorchSpfSolver(device="cpu")
     rdb, art = solver.compute_routes(ls, ps, "node-0", return_artifact=True)
@@ -553,14 +555,18 @@ def test_host_transfers_count_the_seams():
     TorchSpfSolver(device="cpu", use_dense=True, enable_lfa=True).solve(
         ls, "node-0")
     vp2 = csr.padded_nodes
-    # first hops, LFA bits and the distances
-    assert led.transfers() == (3, 2 * (b - 1) * vp2 + vp2 * b * 4)
+    # kernel C's packed buffer: the root column, first hops and LFA bits
+    assert led.transfers() == (1, rib_epilogue.buffer_bytes(vp2, b - 1,
+                                                            True))
     led.reset()
     t = solver._device_arrays(csr, "edge")
+    # the edge table set's index, built on the tensors' device: one read
+    # of its checks and counts (4 int64)
+    assert led.transfers() == (1, 32)
     all_sources_sssp(t["src"], t["dst"], t["metric"], t["blocked"],
                      csr.padded_nodes, chunk=64, index=t["index"])
     chunks = -(-csr.padded_nodes // 64)
-    assert led.transfers() == (chunks, csr.padded_nodes ** 2 * 4)
+    assert led.transfers() == (1 + chunks, 32 + csr.padded_nodes ** 2 * 4)
 
 
 def test_host_syncs_count_the_split_loop():
