@@ -10,10 +10,11 @@ checks their answers.
     python3 chip_smoke.py
     python3 chip_smoke.py --old PARENT/openr_tpu_torch/csrc
 
-With `--old`, the relax, election and edge-list kernels built from
+With `--old`, the relax, election, KSP and edge-list kernels built from
 another checkout's sources (the parent commit's, unpacked with `git
 archive`) are timed beside this checkout's at the same calls, in turns
-(old, new, new, old): [3]'s er100k calls, the hub root's calls, the
+(old, new, new, old): [3]'s er100k calls, [8b]'s and
+[8d]'s first KSP fixpoint, the hub root's calls, the
 probe's B1 sweep, [8c]'s and [9]'s elections, [9]'s three relax calls
 and [10c]'s edge init, full round and whole edge solve (the parent's
 edge library driven through its own C entry points: a launch a round and
@@ -69,11 +70,14 @@ Phases (any failure exits non-zero and prints no result line):
      (4096, 64), (32768, 64), (512, 512), (1024, 512), (512, 2048): hub
      rows), B in {8, 40, 256}, overloads off/on, both table residencies
      of `ksp_sssp_kernel` and rows wider than its staging (streamed in
-     chunks, read from its plan): one sweep, the fixpoint with an equal
-     sweep count, one
+     chunks, read from its plan): one sweep, the fixpoint (the card's
+     grid passes at most the plain loop's sweeps), both capped at
+     KSP_CAP (the card's result between the fixpoint and the plain
+     capped one), one
      walk round incl. the ban words; the whole `ksp_edge_disjoint_dense`
      on the card against the CPU for k in {2, 16}, with and without
-     dist0, rounds and sweeps equal), and one KSP sweep at the er100k
+     dist0: costs, paths and hops equal, rounds and host reads equal,
+     passes at most the sweeps), and one KSP sweep at the er100k
      dense-table shape (streamed), timed; (b) BASELINE config 4 on
      `backbone(32, 32)` (+ one chord per site), `bench_ksp_lfa`'s prefix
      mix and one UCMP anycast /24 per site,
@@ -82,8 +86,9 @@ Phases (any failure exits non-zero and prints no result line):
      unequal-weight UCMP routes, one KSP host read per chunk; p50 of 5
      calls; host reads, launches and sweeps per RIB; at the path's first
      calls both KSP kernels exact and timed, and the fixpoint of one
-     launch equal, with its sweep count, to the host-read loop of
-     one-sweep launches it replaced, both timed; (c) the 100k
+     launch equal to the host-read loop of one-sweep launches it
+     replaced (in no more passes than its sweeps), both timed, and with
+     `--old` against the other checkout's kernel in turns; (c) the 100k
      RIB with `ramp_prefix_state(100 000, anycast_every=4)`, whose
      election runs `elect_seg_kernel`, equal to the NumPy election's RIB;
      p50 of 3 calls, the kernel timed beside `torch.segment_reduce`; the
@@ -241,7 +246,8 @@ Phases (any failure exits non-zero and prints no result line):
      share of one traced call.
 
 `--only 14` runs the build and [14] alone, `--only 13` the build, [10a]
-and [13] with its K sweep, with no result line. Before the result lines,
+and [13] with its K sweep, `--only 3` the build and [3], `--only 8` the
+build and [8a], [8b] and [8d], each with no result line. Before the result lines,
 [time] gives the host seconds each phase took.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
@@ -553,7 +559,7 @@ def parse_ptxas(text: str) -> list[tuple[str, int, int, int, int, int]]:
 
 
 #: the sources `--old` builds from another checkout, by wrapper module
-OLD_SOURCES = ("relax", "election", "edge_relax")
+OLD_SOURCES = ("relax", "election", "edge_relax", "ksp")
 
 
 def start_old_build(cuda_build, src: Path):
@@ -1287,10 +1293,17 @@ def relax_vs_plain(ksp_ops, dist_in, tab) -> tuple[int, int]:
     return max_diff(zip(*res)), int(res[1][1].item())
 
 
+#: [8a]: the passes (card) and Jacobi sweeps (plain) of the capped runs
+KSP_CAP = 2
+
+
 def sssp_vs_plain(ksp_ops, tab, root, b) -> tuple[int, int, int]:
-    """The fixpoint from `root` by the kernel (one launch) and the plain
-    version, sweeps counted on the device; (max |diff| over dist and the
-    sweep count, kernel sweeps, plain sweeps)."""
+    """The fixpoint from `root` by the kernel (one launch, in place, grid
+    passes counted on the card) and the plain version (Jacobi sweeps),
+    then both capped at KSP_CAP: the card's capped result must lie, entry
+    by entry, between the fixpoint and the plain capped one. Returns
+    (max |diff| of the fixpoints plus the capped entries outside those
+    bounds, kernel passes, plain sweeps)."""
     v = tab[0].shape[0]
     res = []
     for fn in (ksp_ops.ksp_sssp, ksp_ops.ksp_sssp_ref):
@@ -1299,9 +1312,35 @@ def sssp_vs_plain(ksp_ops, tab, root, b) -> tuple[int, int, int]:
         dist = fn(None, *tab, root, b, max_sweeps=v, live=live,
                   counters=counters)
         res.append((dist, counters))
+    capped = [fn(None, *tab, root, b, max_sweeps=KSP_CAP)
+              for fn in (ksp_ops.ksp_sssp, ksp_ops.ksp_sssp_ref)]
     torch.cuda.synchronize()
-    return (max_diff(zip(*res)), int(res[0][1][1].item()),
-            int(res[1][1][1].item()))
+    fix = res[1][0]
+    outside = int(((capped[0] < fix) | (capped[0] > capped[1])).sum().item())
+    return (max_diff([(res[0][0], fix)]) + outside,
+            int(res[0][1][1].item()), int(res[1][1][1].item()))
+
+
+def old_sssp(ksp_ops, lib, tab, root, b):
+    """The parent checkout's `ksp_sssp_kernel` (an `--old` build) from
+    `root` to its fixpoint, driven as its wrapper drove it: the start and
+    the result in two buffers, 2 x [V, NW] change bytes of scratch.
+    Returns (distances, sweeps)."""
+    nbr, wgt, blocked, bans = tab
+    v, d = nbr.shape
+    start = torch.empty((v, b), dtype=torch.int32, device=DEVICE)
+    out = torch.empty_like(start)
+    counters = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    flags = torch.empty(4 + -(-2 * v * ksp_ops.ban_words(b) // 4),
+                        dtype=torch.int32, device=DEVICE)
+    err = lib.openr_ksp_sssp(
+        start.data_ptr(), out.data_ptr(), nbr.data_ptr(), wgt.data_ptr(),
+        blocked.data_ptr(), bans.data_ptr(), None, counters.data_ptr(),
+        None, flags.data_ptr(), int(root), v, d, b, v,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the --old ksp_sssp_kernel failed to launch ({err})")
+    return out, counters
 
 
 def walk_vs_plain(ksp_ops, dist, tab, dests, root, max_hops):
@@ -1386,7 +1425,7 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
         f"{worst['elect']}")
 
     g = torch.Generator().manual_seed(20261018)
-    n_ok, modes, n_sweeps, wide = 0, set(), [], []
+    n_ok, modes, n_sweeps, wide = 0, set(), [], []  # n_sweeps: (passes, sweeps)
     for b in (8, 40, 256):
         for i, (v, d) in enumerate(KSP_CASES):
             tab, mid, fix, sweeps, dests, root = ksp_step_case(
@@ -1407,7 +1446,10 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
             if s_ref != sweeps or s_ref < 3:
                 fail(f"ksp fixpoint case V {v} D {d} B={b}: plain sweeps "
                      f"{s_ref}, host loop {sweeps}")
-            n_sweeps.append(s_dev)
+            if not 1 <= s_dev <= s_ref:
+                fail(f"ksp fixpoint case V {v} D {d} B={b}: {s_dev} grid "
+                     f"passes on the card, {s_ref} plain sweeps")
+            n_sweeps.append((s_dev, s_ref))
             worst["sssp"] = max(worst["sssp"], err)
             err, ref = walk_vs_plain(ksp_ops, fix, tab, dests, root, v - 1)
             if not int(ref[4].item()):
@@ -1422,9 +1464,10 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
     log(f"[8a] ksp_sssp_kernel / ksp_walk_kernel vs plain on random tables "
         f"with 5% bans, (V, D) in {KSP_CASES}, B in "
         f"(8, 40, 256), overloads off/on, modes {sorted(modes)}: one sweep, the "
-        f"fixpoint with its sweep count ({n_sweeps} sweeps, each equal to "
-        f"the plain loop's), one walk round ({n_ok} paths walked): max |diff| "
-        f"{worst['sssp']} / {worst['walk']}")
+        f"fixpoint (card passes, plain sweeps {n_sweeps}: passes <= sweeps), "
+        f"both capped at {KSP_CAP} (the card between the fixpoint and the "
+        f"plain capped result), one walk round ({n_ok} paths walked): max "
+        f"|diff| {worst['sssp']} / {worst['walk']}")
 
     nbr, wgt, over, dist0 = ksp_graph(rng, 1024, 2048)
     blocked = ksp_ops.build_ksp_blocked(nbr, over, 0)
@@ -1446,16 +1489,20 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
             torch.cuda.synchronize()
             whole = max(whole, max_diff(
                 (a, b.to(DEVICE)) for a, b in zip(*outs)))
-            if sts[0] != sts[1]:
-                fail(f"ksp whole case: card counters {sts[0]}, CPU {sts[1]}")
-            counts.append((sts[0]["rounds"], sts[0]["sweeps"]))
+            card, cpu = sts
+            if (card["rounds"] != cpu["rounds"]
+                    or card["host_reads"] != cpu["host_reads"]
+                    or not 1 <= card["sweeps"] <= cpu["sweeps"]):
+                fail(f"ksp whole case: card counters {card}, CPU {cpu}")
+            counts.append((card["rounds"], card["sweeps"], cpu["sweeps"]))
             if not bool((outs[1][0] < INF).any()):
                 fail("ksp whole case found no path: untested")
     worst["sssp"] = max(worst["sssp"], whole)
     worst["walk"] = max(worst["walk"], whole)
     log(f"[8a] ksp_edge_disjoint_dense on the card vs on the CPU (plain), "
         f"1 024-node graph, 32 jobs, k in (2, 16), dist0 off/on: max |diff| "
-        f"{whole}; (rounds, sweeps) {counts}, equal on both")
+        f"{whole} (costs, paths, hops); (rounds, card passes, CPU sweeps) "
+        f"{counts}: rounds and host reads equal, passes <= sweeps")
 
     # one sweep at the er100k dense-table shape, B = 32 (and 128, read
     # for the design record only), ~3% bans
@@ -1489,10 +1536,9 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
         p_ms = cuda_ms(lambda: ksp_ops.ksp_relax_ref(dist, out, *tab, flag))
         nbytes, ops = ksp_ops.relax_work(wgt_t, b)
         b_ms, b_by = bound(nbytes, ops)
-        rows, grid, smem, _stage = ksp_ops.sssp_plan(v, d, b)
-        log(f"[8a] ksp_sssp_kernel, one sweep at the er100k dense shape (V "
-            f"{v}, D {d}, B {b}; {'resident' if rows else 'streamed'}, {grid} "
-            f"blocks, {smem} B smem): max |diff| vs plain {err} (changed "
+        log(f"[8a] ksp_sssp_kernel, one Jacobi sweep at the er100k dense "
+            f"shape (V {v}, D {d}, B {b}; streamed, its one pass from one "
+            f"buffer into another): max |diff| vs plain {err} (changed "
             f"{ch}); {us:.2f} us ({by}), bound {b_ms * 1e3:.3f} us by {b_by} "
             f"({nbytes} B), share {b_ms * 1e3 / us:.3f}; plain {p_ms:.4f} ms")
         er[b] = dict(us=us, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1633,13 +1679,16 @@ def wall_ms(fn, reps: int = 3) -> float:
     return statistics.median(out)
 
 
-def fixpoint_at_call(ksp_ops, sx) -> dict:
-    """On the captured inputs `sx` of a path's first SSSP: one sweep of
-    `ksp_sssp_kernel` against its plain version (CUPTI-timed, with the
-    per-sweep bound), and the fixpoint by one launch against the
-    host-read loop it replaced (`ksp_relax` once per sweep, one read of
-    its flag each) and the plain fixpoint: the same distances and sweep
-    count, each timed."""
+def fixpoint_at_call(ksp_ops, sx, old_lib=None) -> dict:
+    """On the captured inputs `sx` of a path's first SSSP: one Jacobi
+    sweep of `ksp_sssp_kernel` against its plain version (CUPTI-timed,
+    with the per-sweep bound), and the fixpoint by one launch (in place,
+    grid passes counted on the card) against the host-read loop of
+    one-sweep launches and the plain fixpoint: the same distances, passes
+    at most the loop's and the plain sweeps, each timed. With `old_lib`
+    (the `--old` build of `ksp.cu`), the parent's fixpoint launch on the
+    same inputs: equal, and timed in turns with this one (old, new, new,
+    old)."""
     args, _kw = sx
     _dist0, nbr, wgt, blocked, bans, root, b = args
     tab = (nbr, wgt, blocked, bans)
@@ -1674,20 +1723,37 @@ def fixpoint_at_call(ksp_ops, sx) -> dict:
     plain, p_counters = device_fix(ksp_ops.ksp_sssp_ref)
     host, host_sweeps = host_loop()
     torch.cuda.synchronize()
-    sweeps = int(counters[1].item())
+    passes = int(counters[1].item())
     err = max(err1, max_diff([(fix, host), (fix, plain)]))
-    if sweeps != host_sweeps or int(p_counters[1].item()) != host_sweeps:
-        fail(f"device fixpoint ran {sweeps} sweeps, the host-read loop "
-             f"{host_sweeps}, the plain one {int(p_counters[1].item())}")
-    fix_us, fix_by = kernel_us(lambda: device_fix(), lambda: None,
-                               ksp_ops.KERNEL_NAMES["sssp"])
+    if (int(p_counters[1].item()) != host_sweeps
+            or not 1 <= passes <= host_sweeps):
+        fail(f"device fixpoint ran {passes} grid passes, the host-read loop "
+             f"{host_sweeps} sweeps, the plain one {int(p_counters[1].item())}")
+    name = ksp_ops.KERNEL_NAMES["sssp"]
+    turns = {"new": [], "old": []}
+    old = None
+    if old_lib is not None:
+        old_fix, old_counters = old_sssp(ksp_ops, old_lib, tab, root, b)
+        torch.cuda.synchronize()
+        err = max(err, max_diff([(fix, old_fix)]))
+        old = dict(sweeps=int(old_counters[1].item()))
+        for lb in ("old", "new", "new", "old"):
+            fn = ((lambda: old_sssp(ksp_ops, old_lib, tab, root, b))
+                  if lb == "old" else device_fix)
+            turns[lb].append(kernel_us(fn, lambda: None, name)[0])
+        old["us"] = statistics.fmean(turns["old"])
+    fix_us, fix_by = kernel_us(lambda: device_fix(), lambda: None, name)
+    if turns["new"]:
+        turns["new"].append(fix_us)
+        fix_us = statistics.fmean(turns["new"])
     f_bytes, f_ops = ksp_ops.sssp_work(nbr, wgt, blocked, fix)
     rows, grid, smem, _stage = ksp_ops.sssp_plan(v, nbr.shape[1], b)
     return dict(
-        err=err, v=v, d=nbr.shape[1], b=b, sweeps=sweeps,
-        mode="resident" if rows else "streamed", grid=grid, smem=smem,
-        sweep_us=sweep_us, sweep_plain_ms=sweep_plain, sweep_bytes=s_bytes,
-        sweep_bound=bound(s_bytes, s_ops), us=fix_us, timed_by=fix_by,
+        err=err, v=v, d=nbr.shape[1], b=b, passes=passes, sweeps=host_sweeps,
+        mode="resident" if rows else "streamed", rows=rows,
+        grid=grid, smem=smem, sweep_us=sweep_us, sweep_plain_ms=sweep_plain,
+        sweep_bytes=s_bytes, sweep_bound=bound(s_bytes, s_ops), us=fix_us,
+        timed_by=fix_by, turns=turns, old=old,
         dev_wall_ms=wall_ms(device_fix), host_wall_ms=wall_ms(host_loop),
         plain_ms=wall_ms(lambda: device_fix(ksp_ops.ksp_sssp_ref), reps=1),
         bytes=f_bytes, ops=f_ops, bound=bound(f_bytes, f_ops),
@@ -1732,34 +1798,45 @@ def walk_at_call(ksp_ops, wk) -> dict:
 
 def log_ksp_run(ksp_ops, tag: str, run: dict, fx: dict, wk: dict) -> None:
     """The KSP lines of [8b] / [8d]: per RIB, the kernels at the path's
-    first calls, the device fixpoint against the host-read loop."""
+    first calls, the device fixpoint against the host-read loop (and,
+    with `--old`, against the parent's kernel in turns)."""
     st, reps = run["stats"], run["reps"]
     per_rib = {k: n / reps for k, n in run["launches"].items()}
     log(f"[{tag}] per RIB: host reads {st['host_reads']}, launches "
-        f"{per_rib}, rounds {st['rounds']}, sweeps {st['sweeps']}; KSP phase "
-        f"{[round(x, 3) for x in run['ksp_ms']]} ms, compute_routes p50 "
-        f"{statistics.median(run['times']):.3f} ms")
+        f"{per_rib}, rounds {st['rounds']}, grid passes {st['sweeps']}; KSP "
+        f"phase {[round(x, 3) for x in run['ksp_ms']]} ms, compute_routes "
+        f"p50 {statistics.median(run['times']):.3f} ms")
     for k, (us, n) in run["cu"].items():
         per = ""
         if n:
             per = f", {us / n:.2f} us each"
             if k == "sssp" and st["sweeps"]:
-                per += f", {us / st['sweeps']:.3f} us per sweep"
+                per += f", {us / st['sweeps']:.3f} us per grid pass"
         log(f"[{tag}] {ksp_ops.KERNEL_NAMES[k]} in one profiled compute_routes: {n} "
             f"launches, {us:.1f} us (CUPTI){per}")
     sb, fb = fx["sweep_bound"], fx["bound"]
     log(f"[{tag}] ksp_sssp_kernel at the path's first SSSP (V {fx['v']}, D "
-        f"{fx['d']}, B {fx['b']}; {fx['mode']}, {fx['grid']} blocks, "
-        f"{fx['smem']} B smem): one sweep {fx['sweep_us']:.2f} us, plain "
-        f"{fx['sweep_plain_ms']:.4f} ms, sweep bound {sb[0] * 1e3:.3f} us by "
-        f"{sb[1]} ({fx['sweep_bytes']} B); fixpoint {fx['sweeps']} sweeps in "
-        f"one launch {fx['us']:.1f} us ({fx['us'] / fx['sweeps']:.3f} us per "
-        f"sweep), bound {fb[0] * 1e3:.3f} us by {fb[1]} ({fx['bytes']} B, "
-        f"{fx['ops']} ops), share {fb[0] * 1e3 / fx['us']:.4f}; host wall: one launch "
-        f"{fx['dev_wall_ms']:.3f} ms vs the host-read loop "
-        f"{fx['host_wall_ms']:.3f} ms (same fixpoint, same {fx['sweeps']} "
-        f"sweeps); plain fixpoint {fx['plain_ms']:.3f} ms; max |diff| "
-        f"{fx['err']}")
+        f"{fx['d']}, B {fx['b']}; {fx['mode']}: {fx['rows']} rows a block, "
+        f"{fx['grid']} blocks, "
+        f"{fx['smem']} B smem): one Jacobi sweep {fx['sweep_us']:.2f} us, "
+        f"plain {fx['sweep_plain_ms']:.4f} ms, sweep bound "
+        f"{sb[0] * 1e3:.3f} us by {sb[1]} ({fx['sweep_bytes']} B); fixpoint "
+        f"in one launch: {fx['passes']} grid passes (the plain loop "
+        f"{fx['sweeps']} sweeps), {fx['us']:.1f} us ({fx['timed_by']}; "
+        f"{fx['us'] / fx['passes']:.3f} us per pass), bound "
+        f"{fb[0] * 1e3:.3f} us by {fb[1]} ({fx['bytes']} B, {fx['ops']} ops), "
+        f"share {fb[0] * 1e3 / fx['us']:.4f}; host wall: one launch "
+        f"{fx['dev_wall_ms']:.3f} ms vs the host-read loop of "
+        f"{fx['sweeps']} one-sweep launches {fx['host_wall_ms']:.3f} ms "
+        f"(same fixpoint); plain fixpoint {fx['plain_ms']:.3f} ms; max "
+        f"|diff| {fx['err']}")
+    if fx["old"]:
+        o = fx["old"]
+        log(f"[{tag}] ksp_sssp_kernel in turns with the --old build (old, "
+            f"new, new, old; CUPTI us): new {[round(x, 1) for x in fx['turns']['new']]}"
+            f", old {[round(x, 1) for x in fx['turns']['old']]} ({o['sweeps']} "
+            f"Jacobi sweeps); new / old {fx['us'] / o['us']:.4f}; the same "
+            f"fixpoint")
     wb = wk["bound"]
     log(f"[{tag}] ksp_walk_kernel at the path's first walk (B {wk['b']}, D "
         f"{wk['d']}, {wk['rows']} rows walked, longest job {wk['longest']} "
@@ -1769,7 +1846,7 @@ def log_ksp_run(ksp_ops, tag: str, run: dict, fx: dict, wk: dict) -> None:
         f"{wk['err']}")
 
 
-def phase8b_config4(ksp_ops) -> dict:
+def phase8b_config4(ksp_ops, old_lib=None) -> dict:
     """Config 4 (KSP k=16 + LFA + UCMP) through `compute_routes` on the
     card, equal to the CPU path; the KSP kernels vs plain at the calls
     the path made, timed. Launch counts from 0 around the timed calls."""
@@ -1807,7 +1884,7 @@ def phase8b_config4(ksp_ops) -> dict:
              f"{st['chunks']} chunks")
 
     # the kernels vs plain at the calls the path made, and their times
-    fx = fixpoint_at_call(ksp_ops, captured["ksp_sssp"])
+    fx = fixpoint_at_call(ksp_ops, captured["ksp_sssp"], old_lib)
     wk = walk_at_call(ksp_ops, captured["ksp_walk"])
     if fx["err"] or wk["err"]:
         fail(f"config 4: ksp kernels disagree with plain at the path's calls "
@@ -1826,7 +1903,7 @@ def phase8b_config4(ksp_ops) -> dict:
     return {"launches": launches, "sssp": fx, "walk": wk}
 
 
-def phase8d_config4_ref(ksp_ops) -> dict:
+def phase8d_config4_ref(ksp_ops, old_lib=None) -> dict:
     """BASELINE config 4 at the size the JAX package measured it
     (`bench_ksp_lfa.py --rings 626`: 10 016 nodes, 1 001 KSP prefixes,
     k=16, LFA on, root bb1; BASELINE.md:78) through `compute_routes` on
@@ -1873,7 +1950,7 @@ def phase8d_config4_ref(ksp_ops) -> dict:
     if st["host_reads"] != st["chunks"]:
         fail(f"config 4 at 10k: {st['host_reads']} KSP host reads for "
              f"{st['chunks']} chunks")
-    fx = fixpoint_at_call(ksp_ops, run["captured"]["ksp_sssp"])
+    fx = fixpoint_at_call(ksp_ops, run["captured"]["ksp_sssp"], old_lib)
     wk = walk_at_call(ksp_ops, run["captured"]["ksp_walk"])
     if fx["err"] or wk["err"]:
         fail(f"config 4 at 10k: ksp kernels disagree with plain (sssp "
@@ -1888,7 +1965,8 @@ def phase8d_config4_ref(ksp_ops) -> dict:
         f"{n_push} PUSH routes for the rest; set-up + CPU "
         f"{time.perf_counter() - t0:.1f} s (CPU {cpu_s:.1f} s)")
     log_ksp_run(ksp_ops, "8d", run, fx, wk)
-    return dict(p50=p50, sssp=fx, walk=wk, stats=st)
+    return dict(p50=p50, sssp=fx, walk=wk, stats=st,
+                launches=run["launches"])
 
 
 def phase8c_election(election_ops, solver, ls, csr, old_libs) -> dict:
@@ -4011,11 +4089,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="csrc/ of another checkout: time its relax, "
-                    "election and edge kernels beside this checkout's, in "
-                    "turns")
-    ap.add_argument("--only", choices=("13", "14"), default=None,
-                    help="run the build and phase 14 alone, or phase 10a "
-                    "and phase 13 (no result line)")
+                    "election, KSP and edge kernels beside this checkout's, "
+                    "in turns")
+    ap.add_argument("--only", choices=("3", "8", "13", "14"), default=None,
+                    help="run the build and phase 3, phase 8 (a, b, d) or "
+                    "phase 14 alone, or phase 10a and phase 13 (no result "
+                    "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -4054,6 +4133,21 @@ def main(argv=None) -> None:
 
         ls, _ps, csr = erdos_renyi_lsdb(100_000, avg_degree=20, seed=0,
                                         max_metric=64)
+        if args.only == "3":
+            worst_r, cases = phase3_random(relax, dev)
+            log(f"[3] kernels vs plain, random tables: {cases} cases, max "
+                f"|diff| {worst_r}")
+            if any(worst_r.values()):
+                fail(f"relax kernels disagree with relax_rows_ref ({worst_r})")
+            solver = TorchSpfSolver(device=DEVICE)
+            main_path_calls(relax, solver, ls, solver._device_arrays(csr),
+                            old_libs)
+            return
+        if args.only == "8":
+            phase8a_kernels(election_ops, ksp_ops, csr)
+            phase8b_config4(ksp_ops, old_libs.get("ksp"))
+            phase8d_config4_ref(ksp_ops, old_libs.get("ksp"))
+            return
         if args.only == "13":
             phase10a_edge(edge_ops)
             phase13_sharded(relax, edge_ops, csr, (
@@ -4219,9 +4313,9 @@ def main(argv=None) -> None:
 
     # ---- phase 8: election and KSP kernels, config 4, election at scale --
     p8a = phase8a_kernels(election_ops, ksp_ops, csr)
-    p8b = phase8b_config4(ksp_ops)
+    p8b = phase8b_config4(ksp_ops, old_libs.get("ksp"))
     p8c = phase8c_election(election_ops, solver, ls, csr, old_libs)
-    phase8d_config4_ref(ksp_ops)
+    p8d = phase8d_config4_ref(ksp_ops, old_libs.get("ksp"))
 
     # ---- phase 9: BASELINE config 2 at full width -----------------------
     p9 = phase9_config2(relax, election_ops, old_libs)
@@ -4267,6 +4361,8 @@ def main(argv=None) -> None:
             "bound_by": d["bound_by"],
             "library_ms": None,
             "timed_by": d[design]["timed_by"],
+            **({"old_ms": d[f"old {design}"]["us"] / 1e3}
+               if f"old {design}" in d else {}),
         })
     for design, fn, line in (("generic", "sweep_b1", 81),
                              ("vec", "sweep_b2", 102)):
@@ -4315,6 +4411,16 @@ def main(argv=None) -> None:
             "bound_by": row["bound"][1],
             "library_ms": None,
             "timed_by": row["timed_by"],
+            **({"passes": row["passes"], "plain_sweeps": row["sweeps"],
+                "config4_10k_ms": p8d["sssp"]["us"] / 1e3,
+                "config4_10k_bound_ms": p8d["sssp"]["bound"][0],
+                "config4_10k_passes": p8d["sssp"]["passes"],
+                "config4_10k_plain_sweeps": p8d["sssp"]["sweeps"],
+                "config4_10k_launches": p8d["launches"]["sssp"],
+                **({"old_ms": row["old"]["us"] / 1e3,
+                    "config4_10k_old_ms": p8d["sssp"]["old"]["us"] / 1e3}
+                   if row["old"] else {})}
+               if step == "sssp" else {}),
         })
     dense3 = p10c["dense"]
     kernels.append({

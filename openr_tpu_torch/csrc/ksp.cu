@@ -19,77 +19,95 @@
 // keeps [V, D, B] bools; the bits cut the mask eightfold, and 32 jobs share
 // a word.
 //
-// ksp_sssp_kernel: the masked SSSP to fixpoint in one cooperative launch.
-// Each sweep is a Jacobi sweep from one dist buffer into the other:
+// ksp_sssp_kernel: the masked SSSP to fixpoint in one cooperative launch,
+// updating dist in place (Gauss-Seidel):
 //
-//   acc = min over d of  min(dist_in[nbr[v,d], b] + wgt[v,d], INF)
+//   acc = min over d of  min(dist[nbr[v,d], b] + wgt[v,d], INF)
 //         skipping slots with wgt >= INF, blocked, banned for b, or an
 //         INF gather
-//   dist_out[v, b] = min(acc, dist_in[v, b])
+//   dist[v, b] = min(acc, dist[v, b])
 //
-// Sweeps run until one lowers nothing or max_sweeps have run (V, as the
-// reference caps it); the buffers swap by sweep parity, and a grid-wide
-// barrier (cooperative_groups::this_grid().sync()) separates the sweeps.
-// Jacobi rather than in-place, so one sweep equals the plain version exactly
-// and the sweep count is the host loop's; the kernel adds it to a device
-// counter. When the last sweep lowered nothing both buffers hold the
-// result; otherwise (the cap) an even count leaves it in dist_in and the
-// kernel copies it over, so dist_out always holds it.
+// Every value dist holds is an upper bound of the masked distance and
+// values only fall, so any order of these updates, and any read that races
+// a write, reaches the same fixpoint; the distances there are unique, so
+// the walk's paths, costs and bans are the plain version's. The kernel runs
+// grid passes separated by a grid-wide barrier (this_grid().sync()) until a
+// pass in which no block lowered anything, or max_sweeps passes (V, as the
+// reference caps it, a cap that never binds: metrics are >= 1). Where a cap
+// binds, each entry lies between the fixpoint and the plain loop's value
+// after as many Jacobi sweeps: pass p is at least the Jacobi sweep p over
+// values at least as low. The kernel adds its passes to a device counter
+// (counters[1]); the plain version counts Jacobi sweeps, as the JAX package
+// does, and a pass does at least one sweep's work, so passes <= sweeps.
+// One Jacobi sweep from one buffer into another (ksp_relax: dist_in !=
+// dist_out) is a single pass with every word active.
 //
 // The changed flag lives on the device, in three words used in rotation:
-// sweep s sets flags[s % 3], every thread reads it after the barrier that
-// ends sweep s, and block 0 clears flags[(s + 1) % 3] during sweep s. That
-// word was last read after the barrier ending sweep s - 2, and every thread
-// has passed the barrier ending sweep s - 1 before block 0 starts sweep s,
+// pass s sets flags[s % 3], every thread reads it after the barrier that
+// ends pass s, and block 0 clears flags[(s + 1) % 3] during pass s. That
+// word was last read after the barrier ending pass s - 2, and every thread
+// has passed the barrier ending pass s - 1 before block 0 starts pass s,
 // so every read of it is done; the clear lands before the barrier ending
-// sweep s, so before any write of sweep s + 1. With two words and one
-// barrier, the word cleared during sweep s would be the one a slower block
-// may still be reading after the barrier ending sweep s - 1: it could see
+// pass s, so before any write of pass s + 1. With two words and one
+// barrier, the word cleared during pass s would be the one a slower block
+// may still be reading after the barrier ending pass s - 1: it could see
 // the clear, leave the loop, and strand the rest of the grid at the next
 // barrier.
 //
-// Bound on this card: the dist traffic and the barrier, sweep after sweep.
-// During one SSSP only dist changes; tables and bans are constant. A sweep
-// must gather one dist value per usable slot and job, read each dist row
-// and write it; the tables need reading once per SSSP, not once per sweep.
-// The least any fixpoint could cost is less: the tables read once, the
-// result written once, and one relaxation of each usable slot out of each
-// reachable entry (chip_smoke.py ksp_sssp_work). The design: a warp
-// per row, its lanes over 32 jobs (one ban word), so each gather reads 128
-// consecutive bytes of one dist row from L2 (ld.global.cg: the buffers are
-// rewritten by other SMs between sweeps, and L1 is not coherent); 8
-// gathers per lane are issued before the first min (4 job words x 2 slots,
-// 2 x 4 at two words, 1 x 8 at one), which keeps the kernel in 64
-// registers, two blocks of 512 threads per SM. Most rows settle long before the
-// fixpoint (a wave of changes crosses the graph, one hop per sweep), so a
-// sweep relaxes a row's job word only if the word changed in the last
-// sweep, at the row or at one of its in-neighbors: a change byte per row
-// and word, two arrays by sweep parity, all written every sweep. A skipped
-// word keeps its value (its in-neighbors are as in the sweep that left it
-// unchanged), and both buffers hold it already; the values of every
-// sweep, so the sweep count and the result, are Jacobi's. Two table
-// residencies, chosen by shape in sssp_plan (openr_ksp_sssp_plan reports
-// the choice):
+// Bound on this card: the barriers, not the bytes. The least any fixpoint
+// could cost is small: the tables read once, the result written once, and
+// one relaxation of each usable slot out of each reachable entry
+// (chip_smoke.py ksp_sssp_work, 5.4 us at config 4's 10 016 nodes). A
+// change moves about one hop a pass, and config 4's backbone (a ring of
+// 626 site rings) needs ~330 of them from bb1, each behind a grid
+// barrier; the design before this one (Jacobi sweeps between two buffers)
+// spent ~15 us a sweep on the barrier, a scan of every row's change bytes
+// and a write of every row. So a pass now does only what a fall makes
+// necessary:
+//
+// * in place: no second buffer, no copy, and a row word that did not
+//   fall is not written;
+// * the change-word skip by stamps: a (row, job word) is relaxed again
+//   only when one of its in-neighbours' words fell since the row last
+//   read it. A stamp per row and word holds the pass that last wrote a
+//   fall (stamp[V, NW]; pass 0 writes every stamp, -1 where nothing
+//   fell). Pass s relaxes a word whose in-neighbours hold a stamp >= s - 1:
+//   a fall written during pass s - 1 may have landed after the row's read
+//   in that pass, and one written in pass s - 2 or before was visible at
+//   the start of pass s - 1, whose stamp rule relaxed the row then. The
+//   row's own fall needs no new relax: its in-neighbours are as they
+//   were. (ops/ksp.py ksp_sssp_passes_ref models the passes on the CPU
+//   under the schedule that leans hardest on the rule, every read taken
+//   at the pass's start; ">= s" fails there.)
+//
+// A local fixpoint per block between barriers cut config 4's passes from
+// 329 to 42 but ran slower than Jacobi sweeps (PERF.md section 6, K3), so
+// a pass is one relaxation of each row. A warp relaxes a row, its lanes
+// over 32 jobs of a ban word, so each gather reads 128 consecutive bytes
+// of one dist row past L1 (ld.global.cg: other SMs rewrite dist during a
+// pass, and L1 is not coherent); 8 gathers per lane are issued before the
+// first min (4 job words x 2 slots, 2 x 4 at two words, 1 x 8 at one),
+// which keeps the kernel in 64 registers, two blocks of 512 threads per
+// SM. Two table residencies, chosen by shape in sssp_plan
+// (openr_ksp_sssp_plan reports the choice):
 //
 // * resident, where one SM's share of the rows (all D slots with their ban
-//   words) fits in 96 KiB of shared memory (config 4 at 1k and 10k nodes):
-//   each block copies its fixed tile of rows into shared memory once per
-//   launch, compacted to the usable slots (finite weight, not blocked) with
-//   their ban words, so every sweep reads only dist, which sits in L2 (two
-//   buffers of V x B x 4 bytes: ~10 MB each at 10k nodes and B = 256). The
-//   copy is plain loads, once per launch: the compaction needs the values in
-//   registers anyway.
-// * streamed, where the tiles do not fit (the 100k graph's tables at D =
-//   64): a warp stages a row's usable slots with their ban words in its
-//   shared memory once per sweep, for all of the row's job words, then
-//   gathers as above. A warp's staging holds up to `stage` slots: the whole
-//   row where (2 + NW) * D * 4 bytes a warp leave two blocks an SM, else the
-//   most 32-slot chunks that do. Tables wider than that (a hub with
-//   hundreds of in-neighbors) take ksp_sssp_kernel<true>, which stages and
-//   relaxes every row chunk by chunk, the running min carried across its
-//   chunks in registers, so any D launches; a row of several chunks
-//   restages them once per group of job words.
-//
+//   words) fits in 96 KiB of shared memory and the card holds a warp per
+//   row (config 4 at 1k nodes; see sssp_plan): each block copies its fixed
+//   tile of rows into shared memory
+//   once per launch, compacted to the usable slots (finite weight, not
+//   blocked) with their ban words, so every pass reads only stamps and
+//   dist, which sit in L2.
+// * streamed, elsewhere (config 4 at 10k nodes; the 100k graph's tables
+//   at D = 64): a warp stages a row's usable slots with their ban words in its
+//   shared memory once per pass, for all of the row's job words, then
+//   gathers as above. A warp's staging holds up to `stage` slots: the
+//   whole row where (2 + NW) * D * 4 bytes a warp leave two blocks an SM,
+//   else the most 32-slot chunks that do. Tables wider than that (a hub
+//   with hundreds of in-neighbors) take the wide twin (kWide), which
+//   stages and relaxes every row chunk by chunk, the running min carried
+//   across its chunks in registers, so any D launches.
+
 // ksp_walk_kernel: one warp per job. From dest toward root, at each hop the
 // smallest in-neighbor id p with a usable slot (not blocked, not banned for
 // the job, wgt < INF, dist[p] < INF) and dist[p] + wgt == dist[cur]; it bans
@@ -133,19 +151,19 @@ constexpr int kWalkThreads = 64;
 constexpr int kMaxDevices = 16;
 
 struct SsspArgs {
-  int* buf0;  // dist_in: sweep s reads buf[s % 2]
-  int* buf1;  // dist_out: holds the result at exit
+  const int* din;  // read: == dout in place (the fixpoint); else one pass
+  int* dout;       // holds the result at exit
   const int* nbr;
   const int* wgt;
   const uint8_t* blocked;
   const unsigned* bans;
   const int* live;  // null, or the round's word: clear = return at once
-  int* counters;    // null, or [rounds, sweeps]; sweeps += this launch's
-  int* changed;     // null, or set to the last sweep's flag
+  int* counters;    // null, or [rounds, passes]; passes += this launch's
+  int* changed;     // null, or set to the last pass's flag
   int* flags;       // [3], zero at launch
-  uint8_t* chg;     // [2, V, NW] change bytes (scratch, no set-up)
-  int root;         // >= 0: buf0 starts INF with row `root` 0
-  int V, D, B, NW, max_sweeps;
+  int* stamp;       // [V, NW]: the pass of each word's last fall (scratch)
+  int root;         // >= 0: dout starts INF with row `root` 0
+  int V, D, B, NW, max_passes;
   int tile_rows;  // resident: rows per block; 0: streamed
   int stage;      // streamed: slots a warp stages at a time
 };
@@ -178,7 +196,7 @@ struct TileRow {
   }
 };
 
-// Streamed, a row wider than the staging: its slots in chunks of a.stage,
+// kWide, a row wider than the staging: its slots in chunks of a.stage,
 // staged into the warp's buffer on demand (the chunk staged last is not
 // staged again).
 struct StagedRow {
@@ -202,63 +220,59 @@ struct StagedRow {
   }
 };
 
-// Which of `row`'s job words can change in this sweep (bit w % 32 for
-// word w): those that changed in the last sweep, at the row or at one of
-// its in-neighbors (chg_in: a byte per row and word). A word with neither
-// keeps its value, and both dist buffers already hold it. The warp's lanes
-// load a chunk's n x NW bytes (and the row's own NW with the first chunk)
-// together.
+// The job words of global row `g` that fell in pass s - 1 or later (bit
+// w % 32 for word w; every word in pass 0).
+__device__ __forceinline__ unsigned stamped(const SsspArgs& a, int g, int s,
+                                            int w) {
+  return s == 0 || __ldcg(a.stamp + (size_t)g * a.NW + w) >= s - 1;
+}
+
+// Which of `row`'s job words pass s relaxes (bit w % 32 for word w): those
+// with an in-neighbour word stamped in pass s - 1 or later. The warp's
+// lanes load a chunk's n x NW stamps together.
 template <class Row>
-__device__ __forceinline__ unsigned active_words(Row& src, int row, int lane,
-                                                 const uint8_t* chg_in,
-                                                 int NW) {
-  if (chg_in == nullptr) return kFull;  // first sweep: all
+__device__ __forceinline__ unsigned active_words(const SsspArgs& a, Row& src,
+                                                 int lane, int s) {
+  if (s == 0 || a.din != a.dout) return kFull;  // every word
   unsigned m = 0;
   for (int c = 0; c < src.chunks(); ++c) {
     RowSlots sl;
     const int n = src.get(c, sl);
-    const int self = c == 0;
-    const int items = (n + self) * NW;
-    for (int i = lane; i < items; i += 32) {
-      const int j = i / NW, w = i - j * NW;
-      const int from = self && j == 0 ? row : sl.nbr[j - self];
-      if (__ldcg(chg_in + (size_t)from * NW + w)) m |= 1u << (w & 31);
+    for (int i = lane; i < n * a.NW; i += 32) {
+      const int j = i / a.NW, w = i - j * a.NW;
+      if (stamped(a, sl.nbr[j], s, w)) m |= 1u << (w & 31);
     }
   }
   return __reduce_or_sync(kFull, m);
 }
 
-// One Jacobi update of `row`'s active job words: the warp's lanes take the
-// 32 jobs of a ban word, WU words at a time, and the gathers of SU slots
-// for all WU words go out before the first min; weights and ban words are
-// read from shared memory at the min. A slot index past the chunk's end is
-// clamped to its last slot: min is idempotent. Writes each word's change
-// byte to chg_out.
+// One update of `row`'s active job words from a.din into a.dout: the
+// warp's lanes take the 32 jobs of a ban word, WU words at a time, and the
+// gathers of SU slots for all WU words go out before the first min;
+// weights and ban words are read from shared memory at the min. A slot
+// index past the chunk's end is clamped to its last slot: min is
+// idempotent. Stamps each word that fell with s (and, in pass 0, the
+// others with -1).
 template <int WU, int SU, class Row>
-__device__ __forceinline__ bool relax_row(Row& src, int row, int lane,
-                                          const int* din, int* dout,
-                                          const uint8_t* chg_in,
-                                          uint8_t* chg_out, int B, int NW) {
-  const unsigned act = active_words(src, row, lane, chg_in, NW);
+__device__ __forceinline__ bool relax_row(const SsspArgs& a, Row& src,
+                                          int row, int lane, int s) {
+  const unsigned act = active_words(a, src, lane, s);
   bool lowered = false;
-  const size_t base = (size_t)row * B;
-  for (int w0 = 0; w0 < NW; w0 += WU) {
+  const size_t base = (size_t)row * a.B;
+  for (int w0 = 0; w0 < a.NW; w0 += WU) {
     bool any = false;
 #pragma unroll
     for (int u = 0; u < WU; ++u)
-      any |= w0 + u < NW && ((act >> ((w0 + u) & 31)) & 1u);
-    if (!any) {
-      if (lane < WU && w0 + lane < NW) chg_out[(size_t)row * NW + w0 + lane] = 0;
-      continue;
-    }
+      any |= w0 + u < a.NW && ((act >> ((w0 + u) & 31)) & 1u);
+    if (!any) continue;
     int acc[WU], old[WU];
     bool job[WU];
 #pragma unroll
     for (int u = 0; u < WU; ++u) {
       const int b = (w0 + u) * 32 + lane;
-      job[u] = w0 + u < NW && b < B;
+      job[u] = w0 + u < a.NW && b < a.B;
       acc[u] = kInf;
-      old[u] = job[u] ? __ldcg(din + base + b) : kInf;
+      old[u] = job[u] ? __ldcg(a.din + base + b) : kInf;
     }
     for (int c = 0; c < src.chunks(); ++c) {
       RowSlots sl;
@@ -267,10 +281,10 @@ __device__ __forceinline__ bool relax_row(Row& src, int row, int lane,
         int g[WU][SU];
 #pragma unroll
         for (int t = 0; t < SU; ++t) {
-          const size_t p = (size_t)sl.nbr[min(j0 + t, n - 1)] * B;
+          const size_t p = (size_t)sl.nbr[min(j0 + t, n - 1)] * a.B;
 #pragma unroll
           for (int u = 0; u < WU; ++u)
-            g[u][t] = job[u] ? __ldcg(din + p + (w0 + u) * 32 + lane) : kInf;
+            g[u][t] = job[u] ? __ldcg(a.din + p + (w0 + u) * 32 + lane) : kInf;
         }
 #pragma unroll
         for (int t = 0; t < SU; ++t) {
@@ -279,7 +293,7 @@ __device__ __forceinline__ bool relax_row(Row& src, int row, int lane,
 #pragma unroll
           for (int u = 0; u < WU; ++u) {
             const bool banned =
-                w0 + u < NW && ((sl.ban[j * NW + w0 + u] >> lane) & 1u);
+                w0 + u < a.NW && ((sl.ban[j * a.NW + w0 + u] >> lane) & 1u);
             if (!banned && g[u][t] < kInf)
               acc[u] = min(acc[u], min(g[u][t] + w, kInf));
           }
@@ -289,10 +303,11 @@ __device__ __forceinline__ bool relax_row(Row& src, int row, int lane,
 #pragma unroll
     for (int u = 0; u < WU; ++u) {
       const int nv = min(acc[u], old[u]);
-      if (job[u]) __stcg(dout + base + (w0 + u) * 32 + lane, nv);
+      if (job[u] && (nv < old[u] || a.din != a.dout))
+        __stcg(a.dout + base + (w0 + u) * 32 + lane, nv);
       const bool fell = __any_sync(kFull, job[u] && nv < old[u]);
-      if (lane == 0 && w0 + u < NW)
-        chg_out[(size_t)row * NW + w0 + u] = fell ? 1 : 0;
+      if (lane == 0 && w0 + u < a.NW && (fell || s == 0))
+        a.stamp[(size_t)row * a.NW + w0 + u] = fell ? s : -1;
       lowered |= fell;
     }
   }
@@ -302,16 +317,11 @@ __device__ __forceinline__ bool relax_row(Row& src, int row, int lane,
 // Eight gathers in flight per lane, spread over the job words a row has
 // (sixteen spill at 64 registers, two blocks of 512 threads per SM).
 template <class Row>
-__device__ __forceinline__ bool relax_row_any(Row& src, int row, int lane,
-                                              const int* din, int* dout,
-                                              const uint8_t* chg_in,
-                                              uint8_t* chg_out, int B,
-                                              int NW) {
-  if (NW == 1)
-    return relax_row<1, 8>(src, row, lane, din, dout, chg_in, chg_out, B, NW);
-  if (NW == 2)
-    return relax_row<2, 4>(src, row, lane, din, dout, chg_in, chg_out, B, NW);
-  return relax_row<4, 2>(src, row, lane, din, dout, chg_in, chg_out, B, NW);
+__device__ __forceinline__ bool relax_row_any(const SsspArgs& a, Row& src,
+                                              int row, int lane, int s) {
+  if (a.NW == 1) return relax_row<1, 8>(a, src, row, lane, s);
+  if (a.NW == 2) return relax_row<2, 4>(a, src, row, lane, s);
+  return relax_row<4, 2>(a, src, row, lane, s);
 }
 
 // Lane `lane`'s slot d0 + lane of `row`: usable (finite weight, not
@@ -411,7 +421,7 @@ __global__ void __launch_bounds__(kSsspThreads, kMaxBlocksPerSm)
   const size_t n_threads = (size_t)gridDim.x * kSsspThreads;
   if (a.root >= 0) {
     for (size_t i = tid; i < n_dist; i += n_threads)
-      __stcg(a.buf0 + i, (int)(i / a.B) == a.root ? 0 : kInf);
+      __stcg(a.dout + i, (int)(i / a.B) == a.root ? 0 : kInf);
     grid.sync();
   }
   const int cap = a.tile_rows * a.D;
@@ -422,15 +432,9 @@ __global__ void __launch_bounds__(kSsspThreads, kMaxBlocksPerSm)
   int* st_nbr = smem + warp * (2 + a.NW) * a.stage;  // streamed: this
   int* st_wgt = st_nbr + a.stage;                    // warp's staging
   unsigned* st_ban = (unsigned*)(st_wgt + a.stage);
-  const size_t chg_half = (size_t)a.V * a.NW;
   int s = 0;
   bool changed = false;
-  while (s < a.max_sweeps) {
-    const int* din = (s & 1) ? a.buf1 : a.buf0;
-    int* dout = (s & 1) ? a.buf0 : a.buf1;
-    // sweep s reads the change bytes of sweep s - 1 and writes its own
-    const uint8_t* chg_in = s == 0 ? nullptr : a.chg + (s & 1) * chg_half;
-    uint8_t* chg_out = a.chg + ((s + 1) & 1) * chg_half;
+  while (s < a.max_passes) {
     if (blockIdx.x == 0 && threadIdx.x == 0) a.flags[(s + 1) % 3] = 0;
     bool lowered = false;
     if (resident) {
@@ -438,24 +442,21 @@ __global__ void __launch_bounds__(kSsspThreads, kMaxBlocksPerSm)
         const int j = start[r];
         TileRow src{RowSlots{s_nbr + j, s_wgt + j, s_ban + (size_t)j * a.NW},
                     start[r + 1] - j};
-        lowered |= relax_row_any(src, r0 + r, lane, din, dout, chg_in,
-                                 chg_out, a.B, a.NW);
+        lowered |= relax_row_any(a, src, r0 + r, lane, s);
       }
     } else {
       for (int row = blockIdx.x * kSsspWarps + warp; row < a.V;
            row += gridDim.x * kSsspWarps) {
         if (kWide) {
           StagedRow src{a, row, lane, st_nbr, st_wgt, st_ban, -1, 0};
-          lowered |= relax_row_any(src, row, lane, din, dout, chg_in,
-                                   chg_out, a.B, a.NW);
+          lowered |= relax_row_any(a, src, row, lane, s);
         } else {  // the whole row staged at once
           __syncwarp();  // every lane is done with the last row's staging
           const int n = stage_row(a, row, 0, a.D, lane, st_nbr, st_wgt,
                                   st_ban);
           __syncwarp();
           TileRow src{RowSlots{st_nbr, st_wgt, st_ban}, n};
-          lowered |= relax_row_any(src, row, lane, din, dout, chg_in,
-                                   chg_out, a.B, a.NW);
+          lowered |= relax_row_any(a, src, row, lane, s);
         }
       }
     }
@@ -464,10 +465,6 @@ __global__ void __launch_bounds__(kSsspThreads, kMaxBlocksPerSm)
     changed = __ldcg(a.flags + s % 3) != 0;
     ++s;
     if (!changed) break;
-  }
-  if (changed && (s & 1) == 0) {  // capped on an even count: result in buf0
-    for (size_t i = tid; i < n_dist; i += n_threads)
-      __stcg(a.buf1 + i, __ldcg(a.buf0 + i));
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     if (a.counters != nullptr) a.counters[1] += s;
@@ -593,7 +590,7 @@ struct Plan {
   int grid;
   int smem;
   int stage;  // streamed: slots a warp stages at a time
-  bool wide;  // streamed, rows wider than the staging: ksp_sssp_kernel<true>
+  bool wide;  // streamed in chunks: ksp_sssp_kernel<true>
 };
 
 int sm_count() {
@@ -609,8 +606,17 @@ int sm_count() {
   return n;
 }
 
+const void* sssp_fn(bool wide) {
+  return wide ? (const void*)ksp_sssp_kernel<true>
+              : (const void*)ksp_sssp_kernel<false>;
+}
+
 // The residency and grid of one launch. Resident iff one SM's share of the
-// rows fits in kResidentSmBytes; the grid is then as many blocks as can be
+// rows fits in kResidentSmBytes and the card holds a warp per row
+// (measured: config 4's 2 048 padded rows run 4.56 us a pass resident, a
+// warp a row; its 16 384, four rows a warp, 14.2 us resident and ~11.4
+// streamed, where the staging of one row overlaps the next row's work);
+// the grid is then as many blocks as can be
 // resident together (at most kMaxBlocksPerSm per SM, and no more than one
 // warp per row unless that tile would not fit: then fewer rows a block,
 // some warps idle), each with its tile of rows. Streamed: a warp stages
@@ -623,11 +629,10 @@ cudaError_t sssp_plan(int V, int D, int B, Plan* out) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= kMaxDevices || !attr_set[dev]) {
-    const void* fns[] = {(const void*)ksp_sssp_kernel<false>,
-                         (const void*)ksp_sssp_kernel<true>};
-    for (const void* fn : fns) {
+    for (bool wide : {false, true}) {
       cudaError_t err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+          sssp_fn(wide), cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kMaxSmem);
       if (err != cudaSuccess) return err;
     }
     if (dev < kMaxDevices) attr_set[dev] = true;
@@ -636,7 +641,8 @@ cudaError_t sssp_plan(int V, int D, int B, Plan* out) {
   const int NW = (B + 31) / 32;
   const long long want = ((long long)V + kSsspWarps - 1) / kSsspWarps;
   const long long share = ((long long)V + sms - 1) / sms;
-  if (tile_bytes(share, D, NW) <= kResidentSmBytes) {
+  if (tile_bytes(share, D, NW) <= kResidentSmBytes &&
+      V <= (long long)kMaxBlocksPerSm * sms * kSsspWarps) {
     for (int k = kMaxBlocksPerSm; k >= 1; --k) {
       long long grid = want < (long long)k * sms ? want : k * sms;
       long long rows = (V + grid - 1) / grid;
@@ -666,8 +672,7 @@ cudaError_t sssp_plan(int V, int D, int B, Plan* out) {
   const bool wide = stage < D;
   int per_sm = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, wide ? ksp_sssp_kernel<true> : ksp_sssp_kernel<false>,
-      kSsspThreads, (int)smem);
+      &per_sm, sssp_fn(wide), kSsspThreads, (int)smem);
   if (err != cudaSuccess) return err;
   if (per_sm <= 0) return cudaErrorInvalidConfiguration;
   const long long cap = (long long)per_sm * sms;
@@ -693,11 +698,12 @@ extern "C" int openr_ksp_sssp_plan(int V, int D, int B, void* out) {
   return 0;
 }
 
-// The masked SSSP from dist_in (or, with root >= 0, from INF with row root
-// at 0, written into dist_in) to its fixpoint, at most max_sweeps Jacobi
-// sweeps; the result lands in dist_out. `flags` is scratch of 16 + 2 * V *
-// ceil(B / 32) bytes: 3 ints cleared here on the same stream, then from
-// byte 16 the change bytes, which need no set-up.
+// The masked SSSP: with dist_in == dist_out, to its fixpoint in place
+// (at most max_sweeps grid passes; with root >= 0 from INF with row root
+// at 0, else from the buffer's values); with two buffers, one Jacobi sweep
+// from dist_in into dist_out (max_sweeps must be 1). `flags` is scratch of
+// 16 + 4 * V * ceil(B / 32) bytes: 3 ints cleared here on the same stream,
+// then from byte 16 the stamps, which need no set-up.
 extern "C" int openr_ksp_sssp(void* dist_in, void* dist_out, const void* nbr,
                               const void* wgt, const void* blocked,
                               const void* bans, const void* live,
@@ -707,13 +713,15 @@ extern "C" int openr_ksp_sssp(void* dist_in, void* dist_out, const void* nbr,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(flags, 0, 3 * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
+  if (dist_in != dist_out && (max_sweeps != 1 || root >= 0))
+    return (int)cudaErrorInvalidValue;
   if (V <= 0 || B <= 0 || max_sweeps <= 0) return 0;
   Plan p{};
   err = sssp_plan(V, D, B, &p);
   if (err != cudaSuccess) return (int)err;
   SsspArgs a;
-  a.buf0 = (int*)dist_in;
-  a.buf1 = (int*)dist_out;
+  a.din = (const int*)dist_in;
+  a.dout = (int*)dist_out;
   a.nbr = (const int*)nbr;
   a.wgt = (const int*)wgt;
   a.blocked = (const uint8_t*)blocked;
@@ -722,20 +730,19 @@ extern "C" int openr_ksp_sssp(void* dist_in, void* dist_out, const void* nbr,
   a.counters = (int*)counters;
   a.changed = (int*)changed;
   a.flags = (int*)flags;
-  a.chg = (uint8_t*)flags + 16;
+  a.stamp = (int*)flags + 4;
   a.root = root;
   a.V = V;
   a.D = D;
   a.B = B;
   a.NW = (B + 31) / 32;
-  a.max_sweeps = max_sweeps;
+  a.max_passes = max_sweeps;
   a.tile_rows = p.tile_rows;
   a.stage = p.stage;
   void* args[] = {(void*)&a};
-  const void* fn = p.wide ? (const void*)ksp_sssp_kernel<true>
-                          : (const void*)ksp_sssp_kernel<false>;
-  err = cudaLaunchCooperativeKernel(fn, dim3(p.grid), dim3(kSsspThreads),
-                                    args, (size_t)p.smem, s);
+  err = cudaLaunchCooperativeKernel(sssp_fn(p.wide), dim3(p.grid),
+                                    dim3(kSsspThreads), args, (size_t)p.smem,
+                                    s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

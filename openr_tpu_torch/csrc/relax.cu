@@ -45,7 +45,11 @@
 // multiplies and adds, and this is a min-plus over int32. Where the whole
 // dist matrix fits in the 50 MB L2 (a 10k-node fabric at B = 128: 5.2 MB),
 // a row is gathered once per in-edge from L2, so the L2 gather traffic
-// (rows x slots x B x 4 bytes) is what the wide shapes wait on.
+// (rows x slots x B x 4 bytes) is what the wide shapes wait on. Measured
+// at the 100k benchmark's dense chunk (26 624 rows, W 32, B 32, ~17 live
+// slots a row; chip_smoke.py [3], PERF.md): ~20.6 us, 2.7-2.8 TB/s of
+// gathers against the 7.9 us bytes bound; the gathers hold it, not the
+// table's staging or the atomics around them (PERF.md section 6, K4).
 //
 // Two designs, chosen by shape alone in openr_relax_rows:
 //

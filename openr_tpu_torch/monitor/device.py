@@ -28,8 +28,9 @@ gathers, the entries a fixpoint reached), so a capture reads the device
 and syncs, once per shape. Rows are keyed by the JAX package's function
 names: `batched_sssp_split_rib`, `batched_sssp_split_warm_rib`,
 `batched_sssp_split`, `batched_sssp_dense`, `_relax_once` (one sweep),
-`batched_sssp`, `first_hop_matrix` (torch ops, no hand kernel: its own
-count), `_elect_seg`, `_ksp_edge_disjoint_dense_jit`. `span_complete`
+`batched_sssp`, `first_hop_matrix` (the dense and edge tables' RIB:
+`rib_epilogue_kernel`'s one launch, counted by `epilogue_work`),
+`_elect_seg`, `_ksp_edge_disjoint_dense_jit`. `span_complete`
 says whether the row's span covers a host read of the result.
 
 **HBM gauges.** `sample_hbm(counters)` writes the JAX package's names

@@ -24,7 +24,11 @@ paths to the host. Each step picks by `tensor.device.type` alone: a CUDA
 tensor launches `ksp_sssp_kernel` / `ksp_walk_kernel` of `csrc/ksp.cu`
 (a build or launch failure raises), a CPU tensor runs the plain PyTorch
 version (`ksp_sssp_ref`, `ksp_walk_ref`), which honours the same round
-words and counters. The per-job bans are bits: int32 words [V, D,
+words and counters. The kernel updates the distances in place, relaxing
+only the job words whose in-neighbours fell since it last read them, and
+counts grid passes where the plain version counts Jacobi sweeps (never
+more passes than sweeps; the fixpoint, so the paths, is the same);
+`ksp_sssp_passes_ref` models its passes and skip on the CPU. The per-job bans are bits: int32 words [V, D,
 ceil(B/32)], bit b % 32 of word b // 32 for job b (the JAX kernel keeps
 [V, D, B] bools).
 """
@@ -51,7 +55,7 @@ ENTRY_POINTS = {
     "openr_ksp_sssp_plan": ([_I, _I, _I, _P], ctypes.c_int),  # V, D, B, out[4]
     "openr_ksp_sssp": (
         [_P, _P, _P, _P, _P, _P,  # dist_in, dist_out, nbr, wgt, blocked, bans
-         _P, _P, _P, _P,  # live, counters, changed, flags
+         _P, _P, _P, _P,  # live, counters, changed, flags and stamps
          _I, _I, _I, _I, _I, _P],  # root, V, D, B, max_sweeps, stream
         ctypes.c_int,
     ),
@@ -156,6 +160,14 @@ def ksp_relax_ref(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
     return changed
 
 
+def _sssp_start(dist0, v: int, b: int, root: int, device):
+    if dist0 is not None:
+        return dist0.clone()
+    dist = torch.full((v, b), INF_DIST, dtype=torch.int32, device=device)
+    dist[root] = 0
+    return dist
+
+
 def ksp_sssp_ref(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
                  max_sweeps: int, live=None, counters=None):
     """Plain PyTorch version of `ksp_sssp_kernel`: `ksp_relax_ref` from
@@ -165,12 +177,7 @@ def ksp_sssp_ref(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
     v = nbr.shape[0]
     if live is not None and not int(live[0]):
         return torch.empty((v, b), dtype=torch.int32, device=nbr.device)
-    if dist0 is not None:
-        dist = dist0.clone()
-    else:
-        dist = torch.full((v, b), INF_DIST, dtype=torch.int32,
-                          device=nbr.device)
-        dist[root] = 0
+    dist = _sssp_start(dist0, v, b, root, nbr.device)
     other = torch.empty_like(dist)
     changed = torch.zeros(1, dtype=torch.int32, device=nbr.device)
     sweeps = 0
@@ -182,6 +189,55 @@ def ksp_sssp_ref(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
             break
     if counters is not None:
         counters[1] += sweeps
+    return dist
+
+
+def _stamped(stamp, s: int):
+    """The (row, job word) stamps that pass s of `ksp_sssp_kernel` must
+    read again: a fall in pass s - 1 or later (csrc/ksp.cu)."""
+    return stamp >= s - 1
+
+
+def ksp_sssp_passes_ref(dist0, nbr, wgt, blocked, bans, root: int, b: int,
+                        *, max_sweeps: int, live=None, counters=None):
+    """CPU model of `ksp_sssp_kernel`'s grid passes (`csrc/ksp.cu`): from
+    `dist0` [V, b] (None: INF with row `root` at 0), each pass relaxes in
+    place only the (row, job word) pairs with a usable in-neighbour word
+    that `_stamped` names (every word in pass 0), and stamps the words
+    that fell with the pass. Every read of a pass sees the distances as
+    they stood at its start and the stamps are written at the barrier:
+    the schedule in which no row sees another's fall before the barrier,
+    the one that leans hardest on the stamps. Stops after a pass in which
+    nothing fell or after `max_sweeps` passes; adds the passes to
+    `counters[1]` and returns the distances. Under this schedule a pass
+    gives the Jacobi sweep's values, so the skip is exact iff the model
+    equals `ksp_sssp_ref` pass for pass."""
+    v = nbr.shape[0]
+    dev = nbr.device
+    if live is not None and not int(live[0]):
+        return torch.empty((v, b), dtype=torch.int32, device=dev)
+    dist = _sssp_start(dist0, v, b, root, dev)
+    nw = ban_words(b)
+    word = torch.arange(b, device=dev) // 32
+    usable = ((wgt < INF_DIST) & ~blocked)[:, :, None]
+    stamp = torch.full((v, nw), -1, dtype=torch.int64, device=dev)
+    sweep = torch.empty_like(dist)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    passes = 0
+    for s in range(max_sweeps):
+        act = (_stamped(stamp, s)[nbr.long()] & usable).any(dim=1)  # [V, NW]
+        ksp_relax_ref(dist, sweep, nbr, wgt, blocked, bans, changed)
+        new = torch.where(act[:, word], sweep, dist)
+        fell = torch.zeros((v, nw * 32), dtype=torch.bool, device=dev)
+        fell[:, :b] = new < dist
+        fell = fell.view(v, nw, 32).any(dim=2)
+        stamp = torch.where(fell, s, stamp)
+        dist = new
+        passes += 1
+        if not bool(fell.any()):
+            break
+    if counters is not None:
+        counters[1] += passes
     return dist
 
 
@@ -277,7 +333,7 @@ def sssp_plan(v: int, d: int, b: int) -> tuple[int, int, int, int]:
     slots a warp stages at a time, 0 when resident) of a
     `ksp_sssp_kernel` launch at this shape on the current card: the
     tables stay in shared memory ("resident") when one SM's share of the
-    rows fits, else each sweep stages a row ("streamed"), in chunks
+    rows fits, else each pass stages a row ("streamed"), in chunks
     where D is wider than the staging."""
     lib = _lib()
     out = (ctypes.c_int * 4)()
@@ -291,9 +347,9 @@ def _sssp_launch(dist_in, dist_out, nbr, wgt, blocked, bans, root: int,
     lib = _lib()
     v, b = dist_in.shape
     with torch.cuda.device(dist_in.device):
-        # 3 flag words, then 2 x [V, NW] change bytes (csrc/ksp.cu)
-        flags = torch.empty(4 + -(-2 * v * ban_words(b) // 4),
-                            dtype=torch.int32, device=dist_in.device)
+        # 3 flag words and a pad, then the [V, NW] stamps (csrc/ksp.cu)
+        flags = torch.empty(4 + v * ban_words(b), dtype=torch.int32,
+                            device=dist_in.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.openr_ksp_sssp(
             dist_in.data_ptr(), dist_out.data_ptr(), nbr.data_ptr(),
@@ -311,9 +367,11 @@ def ksp_sssp(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
     `ksp_sssp_ref`), from `dist0` [V, b] (left as it is) or, if None,
     from `root`; returns the distances [V, b]. `live` (int32 [1]), if
     given, is the round's word: clear, nothing runs. `counters` (int32
-    [2], rounds and sweeps) gains the sweeps run. A CUDA tensor makes one
-    cooperative launch of `ksp_sssp_kernel`; a CPU tensor runs
-    `ksp_sssp_ref`. Neighbor ids must lie in [0, V)."""
+    [2], rounds and sweeps) gains the sweeps run: a CPU tensor runs
+    `ksp_sssp_ref` (Jacobi sweeps); a CUDA tensor makes one cooperative
+    launch of `ksp_sssp_kernel`, which updates one buffer in place and
+    counts its grid passes (at most the Jacobi sweeps; `max_sweeps` caps
+    them). Neighbor ids must lie in [0, V)."""
     i32 = torch.int32
     _check("ksp_sssp", nbr.get_device(), (
         ("dist0", dist0, i32), ("nbr", nbr, i32), ("wgt", wgt, i32),
@@ -335,11 +393,10 @@ def ksp_sssp(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
                            counters=counters)
     elif nbr.device.type != "cuda":
         raise ValueError(f"ksp_sssp: no kernel for {nbr.device}")
-    else:
-        start = (dist0.clone() if dist0 is not None
-                 else torch.empty((v, b), dtype=i32, device=nbr.device))
-        out = torch.empty_like(start)
-        _sssp_launch(start, out, nbr, wgt, blocked, bans,
+    else:  # in place: the kernel writes the start from `root`
+        out = (dist0.clone() if dist0 is not None
+               else torch.empty((v, b), dtype=i32, device=nbr.device))
+        _sssp_launch(out, out, nbr, wgt, blocked, bans,
                      -1 if dist0 is not None else int(root), max_sweeps,
                      live, counters, None)
     if sink is not None:
@@ -351,9 +408,10 @@ def ksp_sssp(dist0, nbr, wgt, blocked, bans, root: int, b: int, *,
 
 def ksp_relax(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
     """One Jacobi sweep of the masked relax over all rows (see
-    `ksp_relax_ref`). A CUDA tensor launches `ksp_sssp_kernel` capped at
-    one sweep; a CPU tensor runs `ksp_relax_ref`. Returns `changed`
-    (int32 [1]), set to 1 if some entry fell, else 0. Neighbor ids must
+    `ksp_relax_ref`). A CUDA tensor launches `ksp_sssp_kernel` for one
+    pass from one buffer into the other; a CPU tensor runs
+    `ksp_relax_ref`. Returns `changed` (int32 [1]), set to 1 if some entry
+    fell, else 0. `dist_out` must not alias `dist_in`. Neighbor ids must
     lie in [0, V)."""
     i32 = torch.int32
     _check("ksp_relax", dist_in.get_device(), (
@@ -364,6 +422,8 @@ def ksp_relax(dist_in, dist_out, nbr, wgt, blocked, bans, changed):
     v, b = dist_in.shape
     if dist_out.shape != dist_in.shape or nbr.shape[0] != v:
         raise ValueError("ksp_relax: dist_in/dist_out must be [V, B] of the table's V")
+    if dist_out.data_ptr() == dist_in.data_ptr():
+        raise ValueError("ksp_relax: dist_out must not alias dist_in")
     _check_tables("ksp_relax", nbr, wgt, blocked, bans, b)
     sink = _telemetry.sink()
     if sink is not None:
@@ -533,7 +593,8 @@ def ksp_edge_disjoint_dense(
     All k rounds are enqueued with no read back between them. With
     `to_host`, the three results come back as NumPy arrays from one copy
     of the buffer that holds them and the device counters; with `stats`,
-    adds `rounds` (walks run), `sweeps` (SSSP sweeps run) and
+    adds `rounds` (walks run), `sweeps` (SSSP sweeps run; on the card
+    the kernel's grid passes) and
     `host_reads` (1: that copy, or a copy of the counters alone)."""
     if device is None:
         device = nbr.device if isinstance(nbr, torch.Tensor) else "cuda"

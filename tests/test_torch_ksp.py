@@ -697,3 +697,181 @@ def test_sssp_wrapper_checks_inputs():
     before = dict(ksp.LAUNCHES)
     ksp.ksp_sssp(None, *tab, 0, 8, max_sweeps=3)
     assert ksp.LAUNCHES == before  # CPU: the plain version, no kernel
+
+
+# ------------------------------------- the kernel's schedule, on the CPU
+
+
+def _model_case(seed, v=96, d=8, b=40):
+    """Random tables with ~5% bans, overloads (blocked slots), rows with
+    no usable slot (unreachable), and hub rows (every 16th row with all
+    of its slots): (nbr, wgt, blocked, banned) as arrays."""
+    rng = np.random.default_rng(100 + seed)
+    nbr = rng.integers(0, v, (v, d)).astype(np.int32)
+    wgt = rng.integers(1, 9, (v, d)).astype(np.int32)
+    hub = np.arange(v) % 16 == 5
+    wgt[~hub[:, None] & (rng.random((v, d)) < 0.4)] = INF
+    wgt[v - 3:] = INF  # no in-neighbour: unreachable
+    over = rng.random(v) < 0.05
+    over[1] = True  # an overloaded root keeps its out-edges
+    blocked = over[nbr] & (nbr != 1)
+    banned = rng.random((v, d, b)) < 0.05
+    return nbr, wgt, blocked, banned
+
+
+def _model_tables(seed, b, v=96):
+    nbr, wgt, blocked, banned = _model_case(seed, v=v, b=b)
+    t = torch.from_numpy
+    return (nbr, wgt, blocked, banned,
+            (t(nbr), t(wgt), t(blocked), ksp.pack_bans(t(banned))))
+
+
+@pytest.mark.parametrize("b", [8, 40, 100])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_pass_model_equals_jacobi_and_dijkstra(seed, b):
+    """`ksp_sssp_passes_ref` (in-place passes relaxing only the job words
+    with an in-neighbour stamped in the last pass or later) reaches the
+    plain Jacobi fixpoint and scipy's Dijkstra on the masked graph, at one,
+    two and four ban words, in as many passes as the plain loop's sweeps:
+    each pass gives the Jacobi sweep's values."""
+    nbr, wgt, blocked, banned, tab = _model_tables(seed, b)
+    v = nbr.shape[0]
+    root = 1
+    c_ref = torch.zeros(2, dtype=torch.int32)
+    want = ksp.ksp_sssp_ref(None, *tab, root, b, max_sweeps=v,
+                            counters=c_ref)
+    c_got = torch.zeros(2, dtype=torch.int32)
+    got = ksp.ksp_sssp_passes_ref(None, *tab, root, b, max_sweeps=v,
+                                  counters=c_got)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        got.numpy(), _scipy_masked(nbr, wgt, blocked, banned, root))
+    assert (got[v - 3:, :] == INF).all()
+    assert int(c_got[1]) == int(c_ref[1]) >= 3
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3, 5])
+@pytest.mark.parametrize("b", [8, 40])
+def test_pass_model_capped_equals_capped_jacobi(b, cap):
+    """Capped below the fixpoint, from `root` and from a start that is
+    already lower in places, the model equals the plain loop capped at as
+    many sweeps (so it lies between the fixpoint and that result, as the
+    card's passes must), after `cap` passes."""
+    _nbr, _wgt, _blocked, _banned, tab = _model_tables(3, b, v=64)
+    v = tab[0].shape[0]
+    fix = ksp.ksp_sssp_ref(None, *tab, 1, b, max_sweeps=v)
+    start = torch.full((v, b), INF, dtype=torch.int32)
+    start[1] = 0
+    start[7, :5] = fix[7, :5]
+    for dist0 in (None, start):
+        jac = ksp.ksp_sssp_ref(dist0, *tab, 1, b, max_sweeps=cap)
+        counters = torch.zeros(2, dtype=torch.int32)
+        got = ksp.ksp_sssp_passes_ref(dist0, *tab, 1, b, max_sweeps=cap,
+                                      counters=counters)
+        assert torch.equal(got, jac)
+        assert bool((got >= fix).all()) and not torch.equal(got, fix)
+        assert int(counters[1]) == cap
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pass_model_in_ksp_equals_jax(seed, k, monkeypatch):
+    """The whole KSP call with every SSSP on the kernel's schedule (the
+    model in place of the plain fixpoint, so the bans of each round
+    change which words the passes relax) equals the JAX package's costs,
+    paths and hops, in as many passes as the plain call's sweeps."""
+    _adj, _names, nbr, wgt, blocked, _over, dests, _real = _case(seed)
+    ref = jksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, np.int32(0), dests,
+                                       k=k, max_hops=N - 1)
+    plain: dict = {}
+    ksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, 0, dests, k=k,
+                                max_hops=N - 1, device="cpu", stats=plain)
+    monkeypatch.setattr(ksp, "ksp_sssp_ref", ksp.ksp_sssp_passes_ref)
+    stats: dict = {}
+    got = ksp.ksp_edge_disjoint_dense(nbr, wgt, blocked, 0, dests, k=k,
+                                      max_hops=N - 1, device="cpu",
+                                      stats=stats)
+    _assert_equal(got, ref)
+    assert stats["rounds"] == plain["rounds"]
+    assert stats["sweeps"] == plain["sweeps"]
+
+
+@pytest.mark.parametrize("sites", [8, 24])
+def test_pass_model_on_a_backbone(sites):
+    """Config 4's shape (a ring of site rings, `backbone(sites, 16)`),
+    from bb1, where a change crosses one hop a pass and most words are
+    settled long before the last pass: the model reaches the plain
+    fixpoint in as many passes as the plain loop's sweeps."""
+    from openr_tpu_torch.utils.topogen import backbone
+
+    pls = LinkState()
+    for db in backbone(sites, 16):
+        pls.update_adjacency_db(db)
+    csr = pls.to_csr()
+    nbr, wgt = csr.dense_tables()
+    v, b = nbr.shape[0], 8
+    t = torch.from_numpy
+    root = csr.name_to_id["bb1"]
+    blocked = t(ksp.build_ksp_blocked(nbr, csr.node_overloaded, root))
+    bans = torch.zeros((*nbr.shape, 1), dtype=torch.int32)
+    tab = (t(nbr), t(wgt), blocked, bans)
+    c_ref = torch.zeros(2, dtype=torch.int32)
+    want = ksp.ksp_sssp_ref(None, *tab, root, b, max_sweeps=v,
+                            counters=c_ref)
+    c_got = torch.zeros(2, dtype=torch.int32)
+    got = ksp.ksp_sssp_passes_ref(None, *tab, root, b, max_sweeps=v,
+                                  counters=c_got)
+    assert torch.equal(got, want)
+    assert int(c_got[1]) == int(c_ref[1]) >= sites // 2
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_stamp_rule_needs_the_last_pass(seed, monkeypatch):
+    """The kernel's rule reads again the words stamped in pass s - 1: a
+    fall of the last pass may land after a row's read in it. With only
+    the stamps of the current pass (`>= s`), the model stops short of the
+    fixpoint."""
+    _nbr, _wgt, _blocked, _banned, tab = _model_tables(seed, 40)
+    v = tab[0].shape[0]
+    want = ksp.ksp_sssp_ref(None, *tab, 1, 40, max_sweeps=v)
+    monkeypatch.setattr(ksp, "_stamped", lambda stamp, s: stamp >= s)
+    got = ksp.ksp_sssp_passes_ref(None, *tab, 1, 40, max_sweeps=v)
+    assert bool((got >= want).all()) and not torch.equal(got, want)
+
+
+def test_relax_refuses_one_buffer():
+    """A Jacobi sweep reads one buffer and writes another: `dist_out`
+    aliasing `dist_in` is refused."""
+    nbr, wgt, blocked, banned, dist = _step_case(0, b=8)
+    t = torch.from_numpy
+    d = t(dist)
+    with pytest.raises(ValueError):
+        ksp.ksp_relax(d, d, t(nbr), t(wgt), t(blocked),
+                      ksp.pack_bans(t(banned)),
+                      torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("how", ["reversed", "random"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pass_model_in_any_row_order_equals_jacobi(seed, how):
+    """The same tables with their rows relabelled: the model reaches the
+    plain fixpoint, relabelled, in as many passes as the plain loop's
+    sweeps."""
+    nbr, wgt, blocked, banned, tab = _model_tables(seed, 40)
+    v, b = nbr.shape[0], banned.shape[2]
+    perm = (np.arange(v)[::-1].copy() if how == "reversed"
+            else np.random.default_rng(seed).permutation(v))
+    pos = np.empty(v, np.int64)
+    pos[perm] = np.arange(v)
+    t = torch.from_numpy
+    relabelled = (t(pos[nbr[perm]].astype(np.int32)),
+                  t(np.ascontiguousarray(wgt[perm])),
+                  t(np.ascontiguousarray(blocked[perm])),
+                  ksp.pack_bans(t(np.ascontiguousarray(banned[perm]))))
+    c_ref = torch.zeros(2, dtype=torch.int32)
+    want = ksp.ksp_sssp_ref(None, *tab, 1, b, max_sweeps=v, counters=c_ref)
+    c_got = torch.zeros(2, dtype=torch.int32)
+    got = ksp.ksp_sssp_passes_ref(None, *relabelled, int(pos[1]), b,
+                                  max_sweeps=v, counters=c_got)
+    assert torch.equal(got, want[t(perm)])
+    assert int(c_got[1]) == int(c_ref[1])
