@@ -4,8 +4,8 @@ kernels from this checkout, holds each against its plain PyTorch
 version, times them on the device, drives the cold single-root RIB
 solve, the warm path, the RIB of every prefix shape, the batched
 multi-root solves (every table kind, all-sources, fleet) and the rebuild
-sequence a Decision runs through the route caches at full size, and
-checks their answers.
+sequence a Decision runs through the route caches at full size and the
+port's own Decision fed publications, and checks their answers.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --old PARENT/openr_tpu_torch/csrc
@@ -245,9 +245,38 @@ Phases (any failure exits non-zero and prints no result line):
      host syncs, replays, steps and useful relax launches, and the idle
      share of one traced call.
 
+ 15. the port's Decision (`openr_tpu_torch.decision.decision.Decision`)
+     on the card, every adjacency and prefix a publication of canonical
+     wire bytes through its `ReplicateQueue`: (a) BASELINE config 5 as
+     `benchmarks/bench_churn.py:279-281` builds it (`fat_tree(32,
+     metric=10)`, 1 280 nodes, root node-0). Step: 40 seeded metric
+     flaps a cycle, then one rebuild, 50 cycles after 5 of warm-up, each
+     rebuild on a new worker thread (the first captures the split
+     program's CUDA graphs, later ones replay them): the recompute p50 /
+     p99, the paths, the decode tiers; after every cycle the RIB equal to
+     a fresh card solver's and the update to the diff of the fresh RIBs,
+     the CPU path's RIB at the first and last cycle; each rebuild's host
+     syncs and reads those of its solver calls, which run with the
+     Decision's device current. Live: the Decision started, 1 000
+     flaps/s in bursts of 10 for 5 s under the default debounce, one flap
+     a burst traced: flap -> RouteUpdate p50 / p99 from the perf events
+     (markers in stage order), flaps coalesced a rebuild, every
+     debounce fire a rebuild done and none raised (a failed solve
+     raises, it never serves the old RIB), the final RIB equal to a
+     fresh solve. On a second card, where there is one, a
+     Decision on cuda:1; (b) BASELINE config 2 at full width ([9]'s
+     states) from node-2025: the cold rebuild (its RIB equal to [9]'s and
+     to a separate card solver's), 32 aggregation -> ToR metrics lowered
+     (a topology-delta rebuild) and put back (whichever path the warm
+     gate takes), 100 ramp /32s withdrawn and re-added (two prefix-only
+     rebuilds), each update the diff of the separate solver's RIBs; each
+     rebuild's wall, split, warm stats, host syncs and reads, decode
+     tiers.
+
 `--only 14` runs the build and [14] alone, `--only 13` the build, [10a]
 and [13] with its K sweep, `--only 3` the build and [3], `--only 8` the
-build and [8a], [8b] and [8d], each with no result line. Before the result lines,
+build and [8a], [8b] and [8d], `--only 15` the build and [15] (config 2's
+states built there, [9]'s RIB not compared), each with no result line. Before the result lines,
 [time] gives the host seconds each phase took.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
@@ -258,6 +287,7 @@ each row's `timed_by` saying whether its `ms` is a CUPTI duration
 
 from __future__ import annotations
 
+import asyncio
 import ctypes
 import gc
 import json
@@ -4091,10 +4121,11 @@ def main(argv=None) -> None:
                     help="csrc/ of another checkout: time its relax, "
                     "election, KSP and edge kernels beside this checkout's, "
                     "in turns")
-    ap.add_argument("--only", choices=("3", "8", "13", "14"), default=None,
-                    help="run the build and phase 3, phase 8 (a, b, d) or "
-                    "phase 14 alone, or phase 10a and phase 13 (no result "
-                    "line)")
+    ap.add_argument("--only", choices=("3", "8", "13", "14", "15"),
+                    default=None,
+                    help="run the build and phase 3, phase 8 (a, b, d), "
+                    "phase 14 or phase 15 alone, or phase 10a and phase 13 "
+                    "(no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -4127,6 +4158,11 @@ def main(argv=None) -> None:
         fail(f"C dispatch and design_for / generic_np disagree at {bad}")
 
     dev = torch.device(DEVICE)
+    if args.only == "15":
+        phase15()
+        log(f"[time] host seconds by phase: "
+            f"{ {k: round(v, 1) for k, v in PHASE_S.items()} }")
+        return
     if args.only:
         from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
         from openr_tpu_torch.utils.topogen import erdos_renyi_lsdb
@@ -4338,6 +4374,9 @@ def main(argv=None) -> None:
 
     # ---- phase 14: the split loop on the card and the RIB epilogue -------
     p14 = phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables)
+
+    # ---- phase 15: the port's Decision on the card, configs 5 and 2 ------
+    phase15(p9)
 
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path
@@ -5927,6 +5966,667 @@ def phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables):
     p14c = phase14c_replay(solver, ls, split_loop)
     log(f"[14] done in {time.perf_counter() - t0:.1f} s")
     return dict(a=p14a, b=p14b, c=p14c)
+
+
+# ----------------------------------------------------------- phase 15
+
+#: BASELINE config 5 ("1k link flaps/s through Decision", BASELINE.md) as
+#: `benchmarks/bench_churn.py:279-281` builds it: `fat_tree(32,
+#: metric=10)`, 1 280 nodes, root node-0; the step protocol's flaps a
+#: cycle, its timed cycles after its warm-up cycles, and the cycles after
+#: them that each run on a new thread; the live protocol's rate
+#: (flaps/s), burst and seconds (one flap a burst traced)
+CONFIG5 = dict(k=32, nodes=1280, flaps=40, cycles=50, warmup=5, fresh=5,
+               rate=1000, burst=10, live_s=5.0)
+#: [15b]: the metric flaps of config 2's topology-delta rebuild
+#: (aggregation -> ToR links outside the root's pod, lowered from 10 to
+#: 5) and the ramp /32s withdrawn and re-added
+DECISION2_FLAPS = 32
+DECISION2_PREFIXES = 100
+
+
+def adj_publication(dbs, version: int):
+    """One Publication of `adj:<node>` keys, each value the canonical
+    wire bytes of the node's AdjacencyDatabase."""
+    from openr_tpu_torch.common.constants import adj_key
+    from openr_tpu_torch.types.kvstore import Publication, Value
+    from openr_tpu_torch.types.serde import to_wire
+
+    return Publication(key_vals={
+        adj_key(db.this_node_name): Value(
+            version=version, originator_id=db.this_node_name,
+            value=to_wire(db)).with_hash()
+        for db in dbs})
+
+
+def prefix_publication(items, version: int):
+    """One Publication of per-prefix keys for (node, PrefixEntry) pairs."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA, prefix_key
+    from openr_tpu_torch.types import PrefixDatabase
+    from openr_tpu_torch.types.kvstore import Publication, Value
+    from openr_tpu_torch.types.serde import to_wire
+
+    return Publication(key_vals={
+        prefix_key(node, DEFAULT_AREA, e.prefix.prefix): Value(
+            version=version, originator_id=node,
+            value=to_wire(PrefixDatabase(this_node_name=node,
+                                         prefix_entries=(e,)))).with_hash()
+        for node, e in items})
+
+
+def prefix_items(ps) -> list:
+    """Every (node, PrefixEntry) of a PrefixState."""
+    return [(node, e) for per in ps.prefixes.values()
+            for node, e in per.items()]
+
+
+def decision_for(me: str, device=None, **dcfg):
+    """A port Decision for `me` on `device` (default: DEVICE), its
+    publications queue and a reader of its RouteUpdates."""
+    from openr_tpu_torch.config import Config
+    from openr_tpu_torch.decision.decision import Decision
+    from openr_tpu_torch.messaging import ReplicateQueue
+    from openr_tpu_torch.monitor import Counters
+
+    cfg = Config.default(me)
+    for k, v in dcfg.items():
+        setattr(cfg.node.decision, k, v)
+    pubs = ReplicateQueue(name="pubs")
+    routes = ReplicateQueue(name="routes")
+    reader = routes.get_reader()
+    d = Decision(cfg, pubs.get_reader(), routes, counters=Counters(),
+                 device=DEVICE if device is None else device)
+    return d, pubs, reader
+
+
+def feed(d) -> int:
+    """Hand what the publications queue holds to the Decision, as its
+    publication loop does; returns the publications taken."""
+    n = 0
+    while d.pub_reader.qsize():
+        d.process_publication(d.pub_reader.get_nowait())
+        n += 1
+    return n
+
+
+def transfer_counts() -> tuple[int, int]:
+    """(host syncs, host reads) of the port's transfer ledger so far."""
+    from openr_tpu_torch.monitor import compile_ledger
+
+    led = compile_ledger.ledger()
+    return led.host_syncs, led.transfers()[0]
+
+
+class SolverSpy:
+    """Wraps a Decision's solver calls: each records its worker thread,
+    the thread's current CUDA device and the host syncs and reads it
+    made, so that a rebuild's own counts can be held to its solver's."""
+
+    NAMES = ("compute_routes", "warm_compute_routes",
+             "assemble_prefix_routes")
+
+    def __init__(self, solver):
+        import threading
+
+        self.calls: list[dict] = []  # thread: the worker's name (unique
+        # per executor, where idents of ended threads are reused)
+        for name in self.NAMES:
+            inner = getattr(solver, name)
+
+            def wrapped(*a, _inner=inner, _name=name, **kw):
+                s0, r0 = transfer_counts()
+                out = _inner(*a, **kw)
+                s1, r1 = transfer_counts()
+                self.calls.append(dict(
+                    name=_name, thread=threading.current_thread().name,
+                    device=(torch.cuda.current_device()
+                            if solver.device.type == "cuda" else None),
+                    syncs=s1 - s0, reads=r1 - r0))
+                return out
+
+            setattr(solver, name, wrapped)
+
+
+def new_worker(loop) -> None:
+    """A fresh one-thread default executor: the next `to_thread` of the
+    Decision runs on a thread that has never touched the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    old = getattr(loop, "_default_executor", None)
+    loop.set_default_executor(ThreadPoolExecutor(max_workers=1))
+    if old is not None:
+        old.shutdown(wait=False)
+
+
+async def timed_rebuild(d, spy, tag: str, fresh_thread: bool = True) -> dict:
+    """One synchronous rebuild, on a new worker thread unless
+    `fresh_thread` is False (then on the loop's executor's, as a running
+    Decision's are); its wall, path, split, the warm stats, decode tiers,
+    and host syncs and reads, failing if they are not its solver calls'
+    own."""
+    if fresh_thread:
+        new_worker(asyncio.get_running_loop())
+    n_calls = len(spy.calls)
+    tiers0 = dict(d.decode_stats)
+    s0, r0 = transfer_counts()
+    await d._rebuild_routes()
+    s1, r1 = transfer_counts()
+    calls = spy.calls[n_calls:]
+    own = (sum(c["syncs"] for c in calls), sum(c["reads"] for c in calls))
+    if (s1 - s0, r1 - r0) != own:
+        fail(f"[15] {tag}: the rebuild made {s1 - s0} host syncs and "
+             f"{r1 - r0} reads, its solver calls {own}")
+    devs = {c["device"] for c in calls}
+    if d.device.type == "cuda" and devs - {d.device.index}:
+        fail(f"[15] {tag}: solver calls ran with current device {devs}, "
+             f"the Decision's is {d.device}")
+    warm = {}
+    if d._rebuild_path == "topo_delta":
+        warm = dict(d.solver.last_warm_stats,
+                    region=d._rebuild_warm_region)
+    return dict(ms=d._last_spf_ms, path=d._rebuild_path, warm=warm,
+                syncs=s1 - s0, reads=r1 - r0,
+                threads={c["thread"] for c in calls},
+                split=dict(d.last_breakdown_ms),
+                tiers={k: v - tiers0[k] for k, v in d.decode_stats.items()})
+
+
+def drain_updates(reader) -> list:
+    return [reader.get_nowait() for _ in range(reader.qsize())]
+
+
+def update_is_diff(updates: list, old, new, tag: str) -> None:
+    """The Decision's RouteUpdates of one rebuild (none, or one) equal
+    `diff_route_dbs` of two independently solved RIBs."""
+    from openr_tpu_torch.types.routes import diff_route_dbs
+
+    want = diff_route_dbs(old, new)
+    if not updates:
+        if not want.empty():
+            fail(f"[15] {tag}: no RouteUpdate, the diff of fresh RIBs has "
+                 f"{len(want.unicast_to_update)} updates")
+        return
+    (got,) = updates
+    if (got.unicast_to_update != want.unicast_to_update
+            or sorted(got.unicast_to_delete) != sorted(want.unicast_to_delete)
+            or got.mpls_to_update != want.mpls_to_update
+            or sorted(got.mpls_to_delete) != sorted(want.mpls_to_delete)):
+        fail(f"[15] {tag}: the RouteUpdate differs from the diff of fresh "
+             "RIBs")
+
+
+def rib_is(d, rdb, tag: str) -> None:
+    if (d.rib.unicast_routes != rdb.unicast_routes
+            or d.rib.mpls_routes != rdb.mpls_routes):
+        fail(f"[15] {tag}: the Decision's RIB differs")
+
+
+def flap_pubs(rng, dbs: list, n: int, versions: dict) -> list:
+    """`n` seeded metric flaps as publications (bench_churn's pregen: a
+    random node, one of its adjacencies, a metric in 1..63), encoded
+    before the clock starts, as the flapping routers would send them."""
+    import dataclasses
+
+    out = []
+    for _ in range(n):
+        i = int(rng.integers(0, len(dbs)))
+        db = dbs[i]
+        k = int(rng.integers(0, len(db.adjacencies)))
+        adjs = list(db.adjacencies)
+        adjs[k] = dataclasses.replace(adjs[k],
+                                      metric=int(rng.integers(1, 64)))
+        db = dataclasses.replace(db, adjacencies=tuple(adjs))
+        dbs[i] = db
+        versions[db.this_node_name] += 1
+        out.append(adj_publication([db], versions[db.this_node_name]))
+    return out
+
+
+def percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def warm_p50s(rows) -> dict:
+    """p50 of the warm stats' host ms and region over topology-delta
+    rebuilds."""
+    keys = ("cone_walk_ms", "solve_ms", "assembly_ms", "region",
+            "cone_cells", "changes")
+    warm = [r["warm"] for r in rows if r["warm"]]
+    return {k: round(statistics.median(w.get(k, 0) for w in warm), 3)
+            for k in keys} if warm else {}
+
+
+def phase15a_step(adj, pfx, me: str) -> dict:
+    """Config 5's step protocol: 40 flaps a cycle through the queue, one
+    synchronous rebuild. The cold rebuild and the warm-up cycles each run
+    on a new worker thread, the timed cycles on the loop's executor's
+    thread (as a running Decision's do), then `fresh` more cycles on new
+    threads again; every cycle's RIB against a fresh card solver's, the
+    update against the diff of fresh RIBs, the CPU path's RIB at the
+    first and last cycle."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    c5 = CONFIG5
+    dbs = list(adj)
+    d, pubs, reader = decision_for(me)
+    spy = SolverSpy(d.solver)
+    versions = {db.this_node_name: 1 for db in dbs}
+    rng = np.random.default_rng(20260505)
+    n_cycles = c5["warmup"] + c5["cycles"] + c5["fresh"]
+    t0 = time.perf_counter()
+    cycles = [flap_pubs(rng, dbs, c5["flaps"], versions)
+              for _ in range(n_cycles)]
+    enc_s = time.perf_counter() - t0
+    rows, cpu_checks = [], 0
+
+    def fresh_rib():
+        ls, ps = d.link_states[DEFAULT_AREA], d.prefix_states[DEFAULT_AREA]
+        return ls, ps, TorchSpfSolver(device=DEVICE).compute_routes(
+            ls, ps, me)
+
+    def on_new_thread(i: int) -> bool:
+        return i < c5["warmup"] or i >= c5["warmup"] + c5["cycles"]
+
+    async def body():
+        nonlocal cpu_checks
+        pubs.push(adj_publication(dbs, 1))
+        pubs.push(prefix_publication(
+            [(db.this_node_name, e) for db in pfx
+             for e in db.prefix_entries], 1))
+        feed(d)
+        cold = await timed_rebuild(d, spy, "15a cold")
+        _ls, _ps, prev = fresh_rib()
+        rib_is(d, prev, "15a cold vs a fresh solver")
+        drain_updates(reader)
+        for i, cyc in enumerate(cycles):
+            for pub in cyc:
+                pubs.push(pub)
+            feed(d)
+            row = await timed_rebuild(d, spy, f"15a cycle {i}",
+                                      fresh_thread=on_new_thread(i))
+            ls, ps, fresh = fresh_rib()
+            rib_is(d, fresh, f"15a cycle {i} vs a fresh card solver")
+            update_is_diff(drain_updates(reader), prev, fresh,
+                           f"15a cycle {i}")
+            if i in (0, n_cycles - 1):
+                cpu = TorchSpfSolver(device="cpu").compute_routes(ls, ps, me)
+                rib_is(d, cpu, f"15a cycle {i} vs the CPU path")
+                cpu_checks += 1
+            prev = fresh
+            rows.append(row)
+        return cold
+
+    cold = asyncio.run(body())
+    timed = rows[c5["warmup"]:c5["warmup"] + c5["cycles"]]
+    fresh_rows = [cold, *rows[:c5["warmup"]],
+                  *rows[c5["warmup"] + c5["cycles"]:]]
+    ms = [r["ms"] for r in timed]
+    fresh_ms = [r["ms"] for r in fresh_rows[1 + c5["warmup"]:]]
+    paths = {}
+    for r in timed:
+        paths[r["path"]] = paths.get(r["path"], 0) + 1
+    by_path = {}
+    for r in rows:
+        b = by_path.setdefault(r["path"], dict(syncs=set(), reads=set()))
+        b["syncs"].add(r["syncs"])
+        b["reads"].add(r["reads"])
+    new_threads = [r["threads"] for r in fresh_rows]
+    threads = set().union(*new_threads)
+    timed_threads = set().union(*(r["threads"] for r in timed))
+    tiers = {k: sum(r["tiers"][k] for r in timed) for k in d.decode_stats}
+    split = {k: round(statistics.median(r["split"].get(k, 0.0)
+                                        for r in timed), 3)
+             for k in timed[0]["split"]}
+    log(f"[15a] config 5 step: fat_tree({c5['k']}, metric=10), "
+        f"{len(d.link_states['0'].nodes)} nodes, root {me}; cold rebuild "
+        f"{cold['ms']:.3f} ms; {c5['cycles']} cycles of {c5['flaps']} flaps "
+        f"after {c5['warmup']}: recompute p50 {statistics.median(ms):.3f} "
+        f"ms, p99 {percentile(ms, 99):.3f} ms (host wall of the rebuild, "
+        f"decode to update, on the executor's one thread); then "
+        f"{c5['fresh']} cycles each on a new thread: p50 "
+        f"{statistics.median(fresh_ms):.3f} ms; paths {paths}; p50 split "
+        f"(ms) {split}; p50 of the warm stats {warm_p50s(timed)}; decode "
+        f"tiers {tiers}; host syncs / reads a rebuild by path "
+        f"{ {p: {k: sorted(v) for k, v in b.items()} for p, b in by_path.items()} } "
+        f"(each the solver calls' own); {len(threads)} new threads for "
+        f"{len(fresh_rows)} rebuilds asked to run on one (the first "
+        f"captured the CUDA graphs), {len(timed_threads)} for the timed "
+        f"cycles; every RIB == a fresh card solver's, every update == the "
+        f"diff of fresh RIBs, {cpu_checks} RIBs == the CPU path's; flaps "
+        f"encoded in {enc_s:.1f} s; card {smi('name,power.limit')}")
+    if len(threads) < len(fresh_rows) or any(len(t) != 1
+                                             for t in new_threads):
+        fail(f"[15a] {len(threads)} worker threads for {len(fresh_rows)} "
+             "rebuilds: a new thread each was asked for")
+    return dict(p50=statistics.median(ms), p99=percentile(ms, 99),
+                paths=paths, tiers=tiers)
+
+
+def phase15a_live(adj, pfx, me: str) -> dict:
+    """Config 5's live protocol: the Decision started (its publication
+    loop, the default debounce), 1 000 flaps/s in bursts of 10 for 5 s
+    pushed into its queue, the first flap of each burst traced;
+    flap -> RouteUpdate from the perf events of the updates it pushed."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+    from openr_tpu_torch.common.tasks import guard_task, reap
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.messaging import QueueClosedError
+    from openr_tpu_torch.monitor import perf
+
+    c5 = CONFIG5
+    dbs = list(adj)
+    d, pubs, reader = decision_for(me)
+    versions = {db.this_node_name: 1 for db in dbs}
+    rng = np.random.default_rng(7)
+    n_max = int(c5["rate"] * c5["live_s"] * 1.2) + 100
+    pregen = flap_pubs(rng, dbs, n_max, versions)
+    lat, orders, updates, rebuilds = [], set(), [], []
+
+    async def body():
+        await d.start()
+        pubs.push(adj_publication(list(adj), 1))
+        pubs.push(prefix_publication(
+            [(db.this_node_name, e) for db in pfx
+             for e in db.prefix_entries], 1))
+        await asyncio.wait_for(d.rib_computed.wait(), 120)
+
+        async def drain():
+            while True:
+                try:
+                    upd = await reader.get()
+                except QueueClosedError:
+                    return
+                updates.append(upd)
+                for pe in upd.perf_events:
+                    names = tuple(pe.names())
+                    orders.add(names)
+                    sent = [e.ts_ns for e in pe.events
+                            if e.event == perf.ROUTE_UPDATE_SENT]
+                    lat.append((sent[-1] - pe.events[0].ts_ns) / 1e6)
+
+        drainer = guard_task(asyncio.ensure_future(drain()), owner="15a")
+        # the baselines once the first RIB's debounce is idle: from here
+        # every fire of the debounce is one rebuild, or one that raised
+        t_idle = time.perf_counter()
+        while d.debounce.pending and time.perf_counter() - t_idle < 30:
+            await asyncio.sleep(0.005)
+        runs0, fires0 = d._spf_runs, d.debounce.fires
+        seen_runs = [runs0]
+
+        def sample():
+            """One recompute sample a rebuild seen (bench_churn's way)."""
+            if d._spf_runs != seen_runs[0]:
+                seen_runs[0] = d._spf_runs
+                rebuilds.append(dict(ms=d._last_spf_ms, path=d._rebuild_path,
+                                     split=dict(d.last_breakdown_ms)))
+
+        n = 0
+        interval = c5["burst"] / c5["rate"]
+        next_send = time.perf_counter()
+        stop = next_send + c5["live_s"]
+        while time.perf_counter() < stop and n < n_max:
+            for j in range(c5["burst"]):
+                if j == 0:
+                    pregen[n].perf_events = perf.PerfEvents.start(
+                        perf.KVSTORE_FLOODED, node="flap")
+                pubs.push(pregen[n])
+                n += 1
+            sample()
+            next_send += interval
+            await asyncio.sleep(max(0.0, next_send - time.perf_counter()))
+        t_end = time.perf_counter()
+        # quiescence: the last window's rebuild done, nothing buffered
+        while time.perf_counter() - t_end < 30:
+            await asyncio.sleep(0.05)
+            sample()
+            if (not d.debounce.pending and not d._pending_kvs
+                    and not d.pub_reader.qsize()):
+                break
+        runs = d._spf_runs - runs0
+        fires = d.debounce.fires - fires0
+        await d.stop()
+        pubs.close()
+        await reap(drainer)
+        return n, runs, fires
+
+    n, runs, fires = asyncio.run(body())
+    failed = int(d.counters.get(f"{d.name}.task_exceptions"))
+    if failed or fires != runs:
+        fail(f"[15a] live: {fires} debounce fires, {runs} rebuilds done, "
+             f"{failed} rebuilds raised")
+    ls, ps = d.link_states[DEFAULT_AREA], d.prefix_states[DEFAULT_AREA]
+    rib_is(d, TorchSpfSolver(device=DEVICE).compute_routes(ls, ps, me),
+           "15a live: the final RIB vs a fresh card solver")
+    want = (perf.KVSTORE_FLOODED, perf.DECISION_RECEIVED,
+            perf.DECISION_DEBOUNCED)
+    tail = {perf.REBUILD_FULL, perf.REBUILD_TOPO_DELTA,
+            perf.REBUILD_PREFIX_ONLY}
+    for o in orders:
+        if (o[:3] != want or o[3] not in tail
+                or o[4:] != (perf.SPF_SOLVE_DONE, perf.ROUTE_UPDATE_SENT)):
+            fail(f"[15a] live: a trace's markers {o}")
+    if not lat or runs == 0:
+        fail(f"[15a] live: {len(lat)} traced flaps reached an update in "
+             f"{runs} rebuilds")
+    c = d.counters
+    paths = {p: int(c.get(f"decision.rebuild.{p}"))
+             for p in ("full", "topo_delta", "prefix_only")}
+    r_ms = [r["ms"] for r in rebuilds]
+    split = {k: round(statistics.median(r["split"].get(k, 0.0)
+                                        for r in rebuilds), 3)
+             for k in rebuilds[0]["split"]} if rebuilds else {}
+    log(f"[15a] config 5 live: {n} flaps in {c5['live_s']} s "
+        f"({c5['rate']}/s in bursts of {c5['burst']}), default debounce "
+        f"({d.config.node.decision.debounce_min_ms}, "
+        f"{d.config.node.decision.debounce_max_ms}) ms: {runs} rebuilds "
+        f"of {fires} debounce fires, 0 raised "
+        f"{paths}, {n / runs:.1f} flaps coalesced a rebuild, {len(updates)} "
+        f"updates; flap -> RouteUpdate p50 {statistics.median(lat):.3f} ms, "
+        f"p99 {percentile(lat, 99):.3f} ms over {len(lat)} traced flaps "
+        f"(perf events, KVSTORE_FLOODED to ROUTE_UPDATE_SENT); rebuild p50 "
+        f"{statistics.median(r_ms):.3f} ms, p99 {percentile(r_ms, 99):.3f} "
+        f"ms over {len(r_ms)} sampled, p50 split (ms) {split}; decode tiers "
+        f"{d.decode_stats}; markers in stage order; final RIB == a fresh "
+        f"card solver's; card {smi('name,power.limit')}")
+    return dict(p50=statistics.median(lat), p99=percentile(lat, 99),
+                coalesced=n / runs)
+
+
+def phase15_other_card(adj, pfx, me: str) -> None:
+    """Where the machine has a second card, a Decision on cuda:1 rebuilt
+    from new worker threads; else says so."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[15a] one card ({n}): the Decision on a card other than the "
+            "default was not run")
+        return
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    dbs = list(adj)
+    d, pubs, reader = decision_for(me, device="cuda:1")
+    spy = SolverSpy(d.solver)
+    versions = {db.this_node_name: 1 for db in dbs}
+    rng = np.random.default_rng(11)
+
+    async def body():
+        pubs.push(adj_publication(dbs, 1))
+        pubs.push(prefix_publication(
+            [(db.this_node_name, e) for db in pfx
+             for e in db.prefix_entries], 1))
+        for i in range(4):
+            if i:
+                for pub in flap_pubs(rng, dbs, 8, versions):
+                    pubs.push(pub)
+            feed(d)
+            await timed_rebuild(d, spy, f"15a cuda:1 rebuild {i}")
+            ls, ps = d.link_states[DEFAULT_AREA], d.prefix_states[DEFAULT_AREA]
+            rib_is(d, TorchSpfSolver(device="cuda:1").compute_routes(
+                ls, ps, me), f"15a cuda:1 rebuild {i}")
+
+    asyncio.run(body())
+    log(f"[15a] on cuda:1 of {n} cards: 4 rebuilds on new worker threads, "
+        f"solver calls on device {sorted({c['device'] for c in spy.calls})}, "
+        f"RIBs == a fresh solver's on cuda:1")
+
+
+def phase15b_config2(ls2, ps2, want=None, k: int = CONFIG2["k"]) -> dict:
+    """Config 2 at full width through the Decision from node-2025 (the
+    first aggregation switch of `fat_tree(k)`): every
+    adjacency and prefix as a publication; the cold rebuild (its RIB
+    equal to `want`, [9]'s, where given, and a separate card solver's);
+    32 metric flaps down (a topology-delta rebuild) and back up (the
+    path the warm gate picks); 100 ramp /32s withdrawn, then re-added
+    (two prefix-only rebuilds); each update equal to the diff of the
+    separate solver's RIBs."""
+    import dataclasses
+
+    from openr_tpu_torch.common.constants import DEFAULT_AREA, prefix_key
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.types.kvstore import Publication
+
+    half = k // 2
+    me = f"node-{half * half}"  # the first aggregation switch
+    t0 = time.perf_counter()
+    dbs = [ls2.adjacency_db(n) for n in ls2.nodes]
+    items = prefix_items(ps2)
+    adj_pub = adj_publication(dbs, 1)
+    pfx_pub = prefix_publication(items, 1)
+    enc_s = time.perf_counter() - t0
+    d, pubs, reader = decision_for(me)
+    spy = SolverSpy(d.solver)
+    ref = TorchSpfSolver(device=DEVICE)
+    rows = {}
+    # ToRs follow the cores and aggregation switches; the root's pod
+    tor0 = half * half + k * half
+    my_pod = (int(me.split("-")[1]) - half * half) // half
+    rng = np.random.default_rng(2025)
+
+    def pick_flaps():
+        """DECISION2_FLAPS distinct aggregation -> ToR links outside the
+        root's pod, lowered from 10 to 5, as new AdjacencyDatabases (and
+        the old ones): half from each pod's aggregation switch of the
+        root's index (those change the root's routes to the ToR), half
+        from any of its aggregation switches. Lowered, because a raised
+        link in a uniform fabric puts most of the graph in the warm
+        start's cone (past its cell budget: a full rebuild, which the
+        revert measures)."""
+        lsd = d.link_states[DEFAULT_AREA]
+        chosen, seen = {}, set()
+        while len(seen) < DECISION2_FLAPS:
+            pod = int(rng.integers(0, k))
+            if pod == my_pod:
+                continue
+            j = 0 if len(seen) < DECISION2_FLAPS // 2 else int(
+                rng.integers(0, half))
+            agg = f"node-{half * half + pod * half + j}"
+            db = chosen.get(agg) or lsd.adjacency_db(agg)
+            downs = [i for i, a in enumerate(db.adjacencies)
+                     if int(a.other_node_name.split("-")[1]) >= tor0]
+            i = downs[int(rng.integers(0, len(downs)))]
+            if (agg, i) in seen:
+                continue
+            seen.add((agg, i))
+            adjs = list(db.adjacencies)
+            adjs[i] = dataclasses.replace(adjs[i], metric=adjs[i].metric - 5)
+            chosen[agg] = dataclasses.replace(db, adjacencies=tuple(adjs))
+        return list(chosen.values()), [lsd.adjacency_db(a) for a in chosen]
+
+    async def body():
+        pubs.push(adj_pub)
+        pubs.push(pfx_pub)
+        feed(d)
+        rows["cold"] = await timed_rebuild(d, spy, "15b cold")
+        t1 = time.perf_counter()
+        ls, ps = d.link_states[DEFAULT_AREA], d.prefix_states[DEFAULT_AREA]
+        prev = ref.compute_routes(ls, ps, me)
+        ref_ms = (time.perf_counter() - t1) * 1e3
+        rib_is(d, prev, "15b cold vs a separate card solver")
+        if want is not None:
+            rib_is(d, want, "15b cold vs [9]'s RIB")
+        drain_updates(reader)
+        # 32 metric flaps down (a topology-delta rebuild), then back up
+        flapped, olds = pick_flaps()
+        for step, dbs_v in (("flaps", (flapped, 2)), ("revert", (olds, 3))):
+            pubs.push(adj_publication(*dbs_v))
+            feed(d)
+            rows[step] = await timed_rebuild(d, spy, f"15b {step}")
+            cur = ref.compute_routes(ls, ps, me)
+            rib_is(d, cur, f"15b {step}")
+            update_is_diff(drain_updates(reader), prev, cur, f"15b {step}")
+            prev = cur
+        # 100 ramp /32s of one advertiser each: withdrawn, then re-added
+        picked = [(p, next(iter(per.items()))) for p, per in ps.prefixes.items()
+                  if p.prefix.startswith("16.") and len(per) == 1]
+        picked = picked[:DECISION2_PREFIXES]
+        for step, pub in (
+                ("withdraw", Publication(expired_keys=[
+                    prefix_key(node, DEFAULT_AREA, p.prefix)
+                    for p, (node, _e) in picked])),
+                ("re-add", prefix_publication(
+                    [ne for _p, ne in picked], 2))):
+            pubs.push(pub)
+            feed(d)
+            rows[step] = await timed_rebuild(d, spy, f"15b {step}")
+            cur = ref.compute_routes(ls, ps, me)
+            rib_is(d, cur, f"15b {step}")
+            update_is_diff(drain_updates(reader), prev, cur, f"15b {step}")
+            prev = cur
+        return ref_ms
+
+    ref_ms = asyncio.run(body())
+    want_paths = dict(cold="full", flaps="topo_delta", withdraw="prefix_only")
+    want_paths["re-add"] = "prefix_only"
+    got_paths = {k2: r["path"] for k2, r in rows.items() if k2 != "revert"}
+    if got_paths != want_paths:
+        fail(f"[15b] rebuild paths {got_paths}, expected {want_paths}")
+    s = d.solver
+    for step, r in rows.items():
+        log(f"[15b] config 2 from {me}, {step}: rebuild {r['ms']:.3f} ms "
+            f"({r['path']}); split (ms) "
+            f"{ {k2: round(v, 3) for k2, v in r['split'].items()} }; host "
+            f"syncs {r['syncs']}, reads {r['reads']} (the solver calls' "
+            f"own); decode tiers {r['tiers']}"
+            + (f"; warm stats {r['warm']}" if r["warm"] else ""))
+    log(f"[15b] {len(dbs)} adjacency and {len(items)} prefix keys encoded "
+        f"in {enc_s:.1f} s; the separate card solver's cold compute_routes "
+        f"{ref_ms:.1f} ms; last_phase_ms of the Decision's solver (its "
+        f"last full assembly) { {k2: round(v, 3) for k2, v in s.last_phase_ms.items()} }; "
+        f"last_solve_stats {s.last_solve_stats}; last_warm_stats "
+        f"{ {k2: v for k2, v in s.last_warm_stats.items() if not k2.endswith('_ms')} }; "
+        f"{len(d.rib.unicast_routes)} unicast + {len(d.rib.mpls_routes)} "
+        f"mpls routes; every RIB == the separate solver's"
+        + (" and the cold one == [9]'s" if want is not None else "")
+        + f"; every update == the diff of its RIBs; card "
+        f"{smi('name,power.limit')}")
+    return rows
+
+
+def phase15(p9=None, k2: int = CONFIG2["k"],
+            n_ramp: int = CONFIG2["n_ramp"]) -> dict:
+    """[15]: the port's Decision on the card, config 5 (step and live)
+    and config 2 (from node-2025, [9]'s states and RIB where given, else
+    `config2_states(k2, n_ramp)`)."""
+    from openr_tpu_torch.utils.topogen import fat_tree
+
+    t0 = time.perf_counter()
+    adj, pfx = fat_tree(CONFIG5["k"], metric=10)
+    if len(adj) != CONFIG5["nodes"]:
+        fail(f"[15a] fat_tree({CONFIG5['k']}) has {len(adj)} nodes")
+    me = adj[0].this_node_name
+    step = phase15a_step(adj, pfx, me)
+    live = phase15a_live(adj, pfx, me)
+    phase15_other_card(*fat_tree(8, metric=10), "node-0")
+    if p9 is None:
+        ls2, ps2 = config2_states(k2, n_ramp)
+        want = None
+    else:
+        ls2, ps2 = p9["states"]
+        want = p9["ribs"].get(f"node-{(k2 // 2) ** 2}")
+    rows = phase15b_config2(ls2, ps2, want, k2)
+    log(f"[15] done in {time.perf_counter() - t0:.1f} s")
+    return dict(step=step, live=live, config2=rows)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,6 @@
-"""Numeric and protocol constants the port's solve path needs.
+"""Numeric and protocol constants the port needs: the solver's numeric
+contract, the KvStore key conventions Decision parses and the Decision
+debounce defaults.
 
 Copied from the JAX package's `common/constants.py`; the port keeps its
 own copy so that it imports nothing of the JAX package.
@@ -9,7 +11,59 @@ min(dist + metric, INF) guarded by dist < INF, so the sum is at most
 (2^30-1) + 2^30 = 2^31-1 == INT32_MAX — no wraparound.
 """
 
+from __future__ import annotations
+
+# KvStore key conventions: `adj:<node>` and
+# `prefix:<node>:<area>:[<prefix>]`
+ADJ_DB_MARKER = "adj:"
+PREFIX_DB_MARKER = "prefix:"
+KEY_DELIMITER = ":"
+
+# Decision's (min, max) debounce window, ms
+DECISION_DEBOUNCE_MIN_MS = 10
+DECISION_DEBOUNCE_MAX_MS = 250
+
 MPLS_LABEL_MIN = 16
 DEFAULT_AREA = "0"
 DIST_INF = 1 << 30
 METRIC_MAX = (1 << 30) - 1
+
+
+def adj_key(node: str) -> str:
+    """`adj:<node>`."""
+    return f"{ADJ_DB_MARKER}{node}"
+
+
+def validate_name(name: str, what: str = "name") -> str:
+    """Node and area names must be non-empty and hold no key delimiter."""
+    if KEY_DELIMITER in name or not name:
+        raise ValueError(f"invalid {what} {name!r}: empty or contains ':'")
+    return name
+
+
+def prefix_key(node: str, area: str, prefix: str) -> str:
+    """Per-prefix key `prefix:<node>:<area>:[<prefix>]`."""
+    validate_name(node, "node name")
+    validate_name(area, "area")
+    return f"{PREFIX_DB_MARKER}{node}{KEY_DELIMITER}{area}{KEY_DELIMITER}[{prefix}]"
+
+
+def parse_adj_key(key: str) -> str | None:
+    """The node name if `key` is an adj key, else None."""
+    if key.startswith(ADJ_DB_MARKER):
+        return key[len(ADJ_DB_MARKER):]
+    return None
+
+
+def parse_prefix_key(key: str) -> tuple[str, str, str] | None:
+    """(node, area, prefix) if `key` is a per-prefix key, else None."""
+    if not key.startswith(PREFIX_DB_MARKER):
+        return None
+    rest = key[len(PREFIX_DB_MARKER):]
+    try:
+        node, area, bracketed = rest.split(KEY_DELIMITER, 2)
+    except ValueError:
+        return None
+    if bracketed.startswith("[") and bracketed.endswith("]"):
+        return node, area, bracketed[1:-1]
+    return None

@@ -1,0 +1,118 @@
+"""The node configuration a Decision reads (the port's copy of
+`DecisionConfig`, `AreaConfig` and the Decision's part of `NodeConfig` /
+`Config` of `openr_tpu/config/config.py`; the other modules' configs and knobs are
+not part of the port).
+
+`DecisionConfig` has every knob of the JAX package's with the same
+defaults. On the port the table knobs (`use_dense_kernel`,
+`use_pallas_kernel`, `spf_kernel`) pick `TorchSpfSolver`'s tables,
+`use_tpu_solver=False` (the JAX package's host oracle) and
+`native_rib="on"` (its host C++ engine) are not part of the port, and
+`mesh_sources` x `mesh_graph` shape the solver's mesh of CUDA devices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+from openr_tpu_torch.common import constants as C
+
+
+class ConfigError(ValueError):
+    """Invalid configuration."""
+
+
+@dataclass
+class DecisionConfig:
+    debounce_min_ms: int = C.DECISION_DEBOUNCE_MIN_MS
+    debounce_max_ms: int = C.DECISION_DEBOUNCE_MAX_MS
+    # False selects the JAX package's host oracle, which the port lacks
+    use_tpu_solver: bool = True
+    use_dense_kernel: bool | None = None  # None = auto
+    # the dense tables on kernel A (the reference's Pallas relax kernel)
+    use_pallas_kernel: bool = False
+    # batched kernel implementation: "split" (the default) or "dense"
+    spf_kernel: str = "split"
+    # the JAX package's host C++ engine: "auto" and "off" solve on the
+    # port's device, "on" is not part of the port
+    native_rib: str = "auto"
+    enable_lfa: bool = False
+    # edge-disjoint paths per SR-MPLS KSP prefix
+    ksp_paths: int = 2
+    # mesh of positions for the batched solves (sources x graph); 0 = off
+    mesh_sources: int = 0
+    mesh_graph: int = 1
+    # metric-only link churn warm-starts from the cached solve
+    # (REBUILD_TOPO_DELTA); False sends every topology change down the
+    # full path
+    enable_topo_delta: bool = True
+    # a warm start is refused when the changed edges exceed this share of
+    # the graph's edges
+    topo_delta_max_frac: float = 0.25
+
+
+@dataclass
+class AreaConfig:
+    """An area as Decision reads it: its id (the reference's interface
+    and neighbor membership regexes belong to LinkMonitor and Spark)."""
+
+    area_id: str = C.DEFAULT_AREA
+
+
+@dataclass
+class NodeConfig:
+    """The root config document, as far as Decision reads it."""
+
+    node_name: str = ""
+    areas: tuple[AreaConfig, ...] = (AreaConfig(),)
+    decision: DecisionConfig = field(default_factory=DecisionConfig)
+
+
+class Config:
+    """Validated accessor wrapper."""
+
+    def __init__(self, node: NodeConfig):
+        self.node = node
+        self._validate()
+
+    @staticmethod
+    def default(node_name: str, **overrides) -> "Config":
+        return Config(replace(NodeConfig(node_name=node_name), **overrides))
+
+    def _validate(self) -> None:
+        n = self.node
+        try:
+            C.validate_name(n.node_name, "node_name")
+        except ValueError as e:
+            raise ConfigError(str(e)) from e
+        if not n.areas:
+            raise ConfigError("at least one area required")
+        seen = set()
+        for a in n.areas:
+            try:
+                C.validate_name(a.area_id, "area_id")
+            except ValueError as e:
+                raise ConfigError(str(e)) from e
+            if a.area_id in seen:
+                raise ConfigError(f"duplicate area {a.area_id!r}")
+            seen.add(a.area_id)
+        d = n.decision
+        if not (0 < d.debounce_min_ms <= d.debounce_max_ms):
+            raise ConfigError("decision: debounce min must be <= max")
+        if not (1 <= d.ksp_paths <= 16):
+            raise ConfigError("decision: ksp_paths must be in 1..16")
+        if d.spf_kernel not in ("split", "dense"):
+            raise ConfigError("decision: spf_kernel must be split|dense")
+        if d.native_rib not in ("auto", "on", "off"):
+            raise ConfigError("decision: native_rib must be auto|on|off")
+        if d.mesh_sources < 0 or d.mesh_graph < 1:
+            raise ConfigError(
+                "decision: mesh_sources must be >= 0 and mesh_graph >= 1"
+            )
+
+    @property
+    def node_name(self) -> str:
+        return self.node.node_name
+
+    def area_ids(self) -> list[str]:
+        return [a.area_id for a in self.node.areas]

@@ -45,27 +45,25 @@ from openr_tpu_torch.monitor import compile_ledger
 from openr_tpu_torch.monitor import device as telemetry
 
 
-def attach(decision, route_types, network_types, device=None,
-           work_ledger=None, device_telemetry=None, mesh_devices=None):
-    """Build the solver from `decision.config.node.decision` as the
-    Decision builds its own (the table knobs, LFA, KSP paths,
-    `native_rib`, the mesh of `mesh_sources` x `mesh_graph` positions
-    over `mesh_devices` when `mesh_sources > 0`, and the Decision's
-    counters), set the adapter as `decision._tpu` and return it.
-    `work_ledger`, anything with `commit(stage, touched, delta)` and
-    `export_to(counters)`, receives the solver's work rounds (default:
-    the port's process ledger). `device_telemetry`, a module whose
-    `kernel_rows`, `sample_hbm` and `telemetry` ctrl reads, gets the
-    port's stand-ins until `detach()`. `native_rib="on"` raises
-    ValueError, and a mesh larger than `mesh_devices` ValueError."""
-    dcfg = decision.config.node.decision
+def solver_for(dcfg, device=None, counters=None, mesh_devices=None,
+               work_ledger=None) -> TorchSpfSolver:
+    """The `TorchSpfSolver` a `DecisionConfig` asks for: the table knobs,
+    LFA, KSP paths, `native_rib`, the mesh of `mesh_sources` x
+    `mesh_graph` positions over `mesh_devices` (default: every CUDA
+    device) when `mesh_sources > 0`, and `counters`. `device=None` is
+    the current CUDA card. `work_ledger`, anything with `commit(stage,
+    touched, delta)` and `export_to(counters)`, receives the solver's
+    work rounds (default: the port's process ledger). `native_rib="on"`
+    raises ValueError, and a mesh larger than `mesh_devices`
+    ValueError. `attach` and the port's own Decision both build their
+    solver here."""
     mesh = None
     if dcfg.mesh_sources > 0:
         from openr_tpu_torch.parallel.mesh import make_mesh
 
         mesh = make_mesh(n_sources=dcfg.mesh_sources,
                          n_graph=dcfg.mesh_graph, devices=mesh_devices)
-    solver = TorchSpfSolver(
+    return TorchSpfSolver(
         device=device,
         use_dense=dcfg.use_dense_kernel,
         use_pallas=dcfg.use_pallas_kernel,
@@ -74,9 +72,20 @@ def attach(decision, route_types, network_types, device=None,
         kernel_impl=dcfg.spf_kernel,
         native_rib=dcfg.native_rib,
         mesh=mesh,
-        counters=decision.counters,
+        counters=counters,
         work_ledger=work_ledger,
     )
+
+
+def attach(decision, route_types, network_types, device=None,
+           work_ledger=None, device_telemetry=None, mesh_devices=None):
+    """Build the solver from `decision.config.node.decision` with
+    `solver_for` (and the Decision's counters), set the adapter as
+    `decision._tpu` and return it. `device_telemetry`, a module whose
+    `kernel_rows`, `sample_hbm` and `telemetry` ctrl reads, gets the
+    port's stand-ins until `detach()`."""
+    solver = solver_for(decision.config.node.decision, device,
+                        decision.counters, mesh_devices, work_ledger)
     adapter = DecisionAdapter(solver, route_types, network_types)
     if device_telemetry is not None:
         adapter.install_telemetry(device_telemetry)
@@ -92,16 +101,24 @@ class RouteConverter:
     while it is a key: an entry the solver's caches hand back again maps
     to the same converted object, and one port `NexthopGroup` to one
     group of the caller's. Past `cap` objects the memo starts afresh.
-    Keys (prefixes) and `best_entry` are the caller's own objects already
-    and pass through."""
+    Behind the caller's Decision, keys (prefixes) and `best_entry` are
+    the caller's own objects already and pass through. Given
+    `topology_types` (the module with the caller's `PrefixEntry`,
+    `PrefixMetrics`, `ForwardingType` and `ForwardingAlgorithm`), they
+    are the port's and are converted too, prefixes by value (the port's
+    own Decision: `update` converts its RouteUpdates)."""
 
-    def __init__(self, route_types, network_types, cap: int = 1 << 20):
+    def __init__(self, route_types, network_types, cap: int = 1 << 20,
+                 topology_types=None):
         self.routes = route_types
         self.network = network_types
+        self.topology = topology_types
         self.cap = cap
         self._memo: dict[int, tuple] = {}
-        # MplsAction by value: the next hops of one label share one
+        # MplsAction and IpPrefix by value: the next hops of one label
+        # share one action
         self._actions: dict = {}
+        self._prefixes: dict = {}
 
     def __len__(self) -> int:
         return len(self._memo)
@@ -109,13 +126,46 @@ class RouteConverter:
     def clear(self) -> None:
         self._memo.clear()
         self._actions.clear()
+        self._prefixes.clear()
 
     def _remember(self, obj, got):
         if len(self._memo) >= self.cap:
-            self._memo.clear()
-            self._actions.clear()
+            self.clear()
         self._memo[id(obj)] = (obj, got)
         return got
+
+    def prefix(self, p):
+        if self.topology is None:
+            return p
+        got = self._prefixes.get(p.prefix)
+        if got is None:
+            got = self._prefixes[p.prefix] = self.network.IpPrefix(
+                prefix=p.prefix)
+        return got
+
+    def prefix_entry(self, e):
+        """A route's `best_entry` (a PrefixEntry, or None)."""
+        if self.topology is None or e is None:
+            return e
+        got = self._memo.get(id(e))
+        if got is not None:
+            return got[1]
+        t, m = self.topology, e.metrics
+        return self._remember(e, t.PrefixEntry(
+            prefix=self.prefix(e.prefix),
+            metrics=t.PrefixMetrics(
+                path_preference=m.path_preference,
+                source_preference=m.source_preference,
+                distance=m.distance,
+            ),
+            forwarding_type=t.ForwardingType(int(e.forwarding_type)),
+            forwarding_algorithm=t.ForwardingAlgorithm(
+                int(e.forwarding_algorithm)),
+            tags=tuple(e.tags),
+            area_stack=tuple(e.area_stack),
+            weight=e.weight,
+            min_nexthop=e.min_nexthop,
+        ))
 
     def action(self, a):
         key = (int(a.action), a.swap_label, tuple(a.push_labels))
@@ -156,11 +206,11 @@ class RouteConverter:
         if got is not None:
             return got[1]
         return self._remember(e, self.routes.RibEntry(
-            prefix=e.prefix,
+            prefix=self.prefix(e.prefix),
             nexthops=self.nexthops(e.nexthops),
             best_node=e.best_node,
             best_nodes=tuple(e.best_nodes),
-            best_entry=e.best_entry,
+            best_entry=self.prefix_entry(e.best_entry),
             igp_cost=e.igp_cost,
             backup_nexthops=self.nexthops(e.backup_nexthops),
         ))
@@ -176,13 +226,29 @@ class RouteConverter:
     def route_db(self, rdb):
         out = self.routes.RouteDatabase(this_node_name=rdb.this_node_name)
         entry, mpls_entry = self.entry, self.mpls_entry
+        prefix = self.prefix
         out.unicast_routes = {
-            p: entry(e) for p, e in rdb.unicast_routes.items()
+            prefix(p): entry(e) for p, e in rdb.unicast_routes.items()
         }
         out.mpls_routes = {
             label: mpls_entry(e) for label, e in rdb.mpls_routes.items()
         }
         return out
+
+    def update(self, upd):
+        """A RouteUpdate of the caller's class (its perf traces stay
+        behind: they do not take part in its equality)."""
+        r = self.routes
+        return r.RouteUpdate(
+            type=r.RouteUpdateType(int(upd.type)),
+            unicast_to_update={self.prefix(p): self.entry(e)
+                               for p, e in upd.unicast_to_update.items()},
+            unicast_to_delete=[self.prefix(p)
+                               for p in upd.unicast_to_delete],
+            mpls_to_update={label: self.mpls_entry(e)
+                            for label, e in upd.mpls_to_update.items()},
+            mpls_to_delete=list(upd.mpls_to_delete),
+        )
 
 
 class DecisionAdapter:

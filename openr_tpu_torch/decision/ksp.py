@@ -1,7 +1,8 @@
 """KSP2_ED_ECMP route construction and UCMP weights: the port's copy of
 the host helpers of `openr_tpu/decision/ksp.py` that the solver calls
 (`nearest_dest`, `ksp2_nexthops`, `ksp_route_from_paths`,
-`ucmp_weights`, `normalize_weights`).
+`ucmp_weights`, `normalize_weights`), and the host path query that
+`Decision.get_spf_path` answers with (`dijkstra`, `extract_path`).
 
 The paths themselves come from the device (`ops/ksp.py`
 `ksp_edge_disjoint_dense`); these turn them into SR-MPLS nexthops: the
@@ -11,6 +12,7 @@ interior hops, top label first.
 
 from __future__ import annotations
 
+import heapq
 import math
 from typing import Iterable
 
@@ -20,6 +22,76 @@ from openr_tpu_torch.types.network import (
     NextHop,
     sorted_nexthops,
 )
+
+
+Link = tuple[str, str]  # directed (u, v)
+
+
+def dijkstra(
+    adj: dict[str, dict[str, int]],
+    root: str,
+    overloaded: set[str],
+    banned: frozenset[Link] = frozenset(),
+) -> dict[str, int]:
+    """Plain SSSP on the host: overloaded nodes carry no transit, banned
+    links are skipped."""
+    dist = {root: 0}
+    pq = [(0, root)]
+    done: set[str] = set()
+    while pq:
+        d, u = heapq.heappop(pq)
+        if u in done:
+            continue
+        done.add(u)
+        if u != root and u in overloaded:
+            continue
+        for v, w in adj.get(u, {}).items():
+            if (u, v) in banned:
+                continue
+            nd = d + w
+            if v not in dist or nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(pq, (nd, v))
+    return dist
+
+
+def extract_path(
+    adj: dict[str, dict[str, int]],
+    dist: dict[str, int],
+    root: str,
+    dest: str,
+    overloaded: set[str],
+    banned: frozenset[Link] = frozenset(),
+) -> list[str] | None:
+    """The deterministic shortest path root -> dest: walking back from
+    dest, the name-smallest predecessor p with dist[p] + w(p, v) ==
+    dist[v] at each step. None when dest is unreached or the root."""
+    if dest not in dist or dest == root:
+        return None
+    rev: dict[str, list[str]] = {}
+    for u, nbrs in adj.items():
+        for v in nbrs:
+            rev.setdefault(v, []).append(u)
+    path = [dest]
+    v = dest
+    seen = {dest}
+    while v != root:
+        best_p = None
+        for p in sorted(rev.get(v, [])):
+            if p in seen or (p, v) in banned or p not in dist:
+                continue
+            if p != root and p in overloaded:
+                continue
+            if dist[p] + adj[p][v] == dist[v]:
+                best_p = p
+                break
+        if best_p is None:
+            return None  # a torn DAG (stale dist): no path
+        path.append(best_p)
+        seen.add(best_p)
+        v = best_p
+    path.reverse()
+    return path
 
 
 def nearest_dest(dist: dict[str, int], dests: Iterable[str]) -> str | None:

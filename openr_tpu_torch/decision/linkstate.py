@@ -270,6 +270,10 @@ class LinkState:
     def adjacency_db(self, node: str) -> AdjacencyDatabase | None:
         return self._adj_dbs.get(node)
 
+    def is_node_overloaded(self, node: str) -> bool:
+        db = self._adj_dbs.get(node)
+        return bool(db and db.is_overloaded)
+
     def link_drained_by_peer(self, me: str, adj) -> bool:
         """Whether the far side of `me`'s adjacency soft-drained it."""
         db = self._adj_dbs.get(adj.other_node_name)
@@ -460,7 +464,10 @@ class PrefixState:
         self.area = area
         self._entries: dict[IpPrefix, dict[str, PrefixEntry]] = {}
         self._rev = 0
-        self._view: tuple | None = None
+        # the election view cache, one cell shared with snapshots (keyed
+        # on the revision), so that a view built on a rebuild's snapshot
+        # serves the live object and later snapshots
+        self._view_cell: list = [None]
         # lineage id: keeps generation tokens of independent instances
         # apart even when their revision counters coincide
         self._lineage = next(_PS_LINEAGE)
@@ -487,12 +494,13 @@ class PrefixState:
         """Cached election classification (`election.ElectView`), keyed
         on (lineage, prefix revision, topology base)."""
         key = (self._lineage, self._rev, base_version)
-        if self._view is not None and self._view[0] == key:
-            return self._view[1]
+        cached = self._view_cell[0]
+        if cached is not None and cached[0] == key:
+            return cached[1]
         from openr_tpu_torch.decision.election import build_elect_view
 
         view = build_elect_view(self._entries, name_to_id, key)
-        self._view = (key, view)
+        self._view_cell[0] = (key, view)
         return view
 
     def withdraw(self, node: str, prefix: IpPrefix) -> bool:
@@ -504,6 +512,30 @@ class PrefixState:
             self._rev += 1
             return True
         return False
+
+    def withdraw_node(self, node: str) -> set[IpPrefix]:
+        """Remove everything `node` advertises; returns the prefixes."""
+        changed: set[IpPrefix] = set()
+        for prefix in list(self._entries):
+            if self.withdraw(node, prefix):
+                changed.add(prefix)
+        return changed
+
+    def snapshot(self) -> "PrefixState":
+        """Consistent copy for a rebuild off the event loop (the entries
+        are frozen), of the same lineage and sharing the view cell."""
+        snap = PrefixState(self.area)
+        snap._entries = {p: dict(per) for p, per in self._entries.items()}
+        snap._rev = self._rev
+        snap._view_cell = self._view_cell
+        snap._lineage = self._lineage
+        return snap
+
+    @property
+    def rev(self) -> int:
+        """Mutation revision, as LinkState.rev: Decision's rebuild guards
+        check it against the bumps its tracked updates made."""
+        return self._rev
 
     @property
     def prefixes(self) -> dict[IpPrefix, dict[str, PrefixEntry]]:
