@@ -273,10 +273,45 @@ Phases (any failure exits non-zero and prints no result line):
      rebuild's wall, split, warm stats, host syncs and reads, decode
      tiers.
 
+ 16. the port's KvStore (`openr_tpu_torch.kvstore`) feeding the port's
+     Decision on the card: two stores in one process over
+     `InProcKvTransport(codec="bin")`, F standing for the fabric (every
+     other node's keys) and N, the root's, whose publications feed the
+     Decision (`device="cuda"`, its first rebuild gated on N's initial
+     sync). Every "fresh solve" below is a new card solver's of the
+     generator's own LSDB (its AdjacencyDatabases, each flap applied as
+     it is set on F), never of the Decision's; after the sync and after
+     each flap's flood, F and N both hold the generator's Value of each
+     key (version, originator, hash and bytes), and the Decision's
+     adjacencies of each flapped node are the generator's. (a) BASELINE
+     config 5 as [15a] builds it: N's full sync from F, the cold rebuild
+     (its kernel launches counted from 0 around it: vec relax, the split
+     loop's kernels, the epilogue) equal to a fresh solve; step: 40
+     seeded flaps a cycle set on F with `set_key`, flooded in the binary
+     codec into N, one rebuild, 50 cycles after 5, every RIB a fresh
+     solve's and every update the diff of fresh RIBs; live: the Decision started, 1 000 flaps/s in bursts
+     of 10 on F for 5 s, one a burst traced from F's `set_key` to
+     ROUTE_UPDATE_SENT (p50 / p99 beside [15a]'s), F's flood counters
+     (`floods_sent`, `floods_held`, `flood_keys_coalesced`,
+     `floods_rate_limited`) under the default limit; then 10 single
+     flaps without a RibPolicy, the policy installed (neighbour weights
+     on the cores' loopbacks, one next hop at weight 0, one route at
+     weight 0), 10 flaps under it (all full rebuilds), a 2 s policy left
+     to expire: every RIB a fresh solve's with the policy applied while
+     one is installed, every update their diff, every debounce fire a
+     finished rebuild and none raised. (b) BASELINE config 2 ([9]'s
+     states) at node-2025: N's full sync of every other node's keys from
+     F (wall, keys), the cold rebuild (decode of the synced payloads,
+     launches: generic relax, the election, the epilogue) equal to [9]'s
+     RIB (under `--only 16`, a separate card solver's of the states the
+     keys were encoded from), one RibPolicy
+     installed and its full rebuild's wall.
+
 `--only 14` runs the build and [14] alone, `--only 13` the build, [10a]
 and [13] with its K sweep, `--only 3` the build and [3], `--only 8` the
 build and [8a], [8b] and [8d], `--only 15` the build and [15] (config 2's
-states built there, [9]'s RIB not compared), each with no result line. Before the result lines,
+states built there, [9]'s RIB not compared), `--only 16` the build and
+[16] (the same), each with no result line. Before the result lines,
 [time] gives the host seconds each phase took.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
@@ -4121,11 +4156,11 @@ def main(argv=None) -> None:
                     help="csrc/ of another checkout: time its relax, "
                     "election, KSP and edge kernels beside this checkout's, "
                     "in turns")
-    ap.add_argument("--only", choices=("3", "8", "13", "14", "15"),
+    ap.add_argument("--only", choices=("3", "8", "13", "14", "15", "16"),
                     default=None,
                     help="run the build and phase 3, phase 8 (a, b, d), "
-                    "phase 14 or phase 15 alone, or phase 10a and phase 13 "
-                    "(no result line)")
+                    "phase 14, phase 15 or phase 16 alone, or phase 10a and "
+                    "phase 13 (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -4158,8 +4193,8 @@ def main(argv=None) -> None:
         fail(f"C dispatch and design_for / generic_np disagree at {bad}")
 
     dev = torch.device(DEVICE)
-    if args.only == "15":
-        phase15()
+    if args.only in ("15", "16"):
+        (phase15 if args.only == "15" else phase16)()
         log(f"[time] host seconds by phase: "
             f"{ {k: round(v, 1) for k, v in PHASE_S.items()} }")
         return
@@ -4376,7 +4411,10 @@ def main(argv=None) -> None:
     p14 = phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables)
 
     # ---- phase 15: the port's Decision on the card, configs 5 and 2 ------
-    phase15(p9)
+    p15 = phase15(p9)
+
+    # ---- phase 16: the port's KvStore feeding the Decision, configs 5, 2 -
+    phase16(p9, p15)
 
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path
@@ -6161,10 +6199,13 @@ def rib_is(d, rdb, tag: str) -> None:
         fail(f"[15] {tag}: the Decision's RIB differs")
 
 
-def flap_pubs(rng, dbs: list, n: int, versions: dict) -> list:
+def flap_pubs(rng, dbs: list, n: int, versions: dict,
+              src: dict | None = None) -> list:
     """`n` seeded metric flaps as publications (bench_churn's pregen: a
     random node, one of its adjacencies, a metric in 1..63), encoded
-    before the clock starts, as the flapping routers would send them."""
+    before the clock starts, as the flapping routers would send them.
+    With `src`, each publication's AdjacencyDatabase is kept there under
+    the publication's id."""
     import dataclasses
 
     out = []
@@ -6179,6 +6220,8 @@ def flap_pubs(rng, dbs: list, n: int, versions: dict) -> list:
         dbs[i] = db
         versions[db.this_node_name] += 1
         out.append(adj_publication([db], versions[db.this_node_name]))
+        if src is not None:
+            src[id(out[-1])] = db
     return out
 
 
@@ -6230,7 +6273,9 @@ def phase15a_step(adj, pfx, me: str) -> dict:
 
     async def body():
         nonlocal cpu_checks
-        pubs.push(adj_publication(dbs, 1))
+        # the unflapped fabric (`dbs` already holds every pregenerated
+        # flap), as bench_churn publishes it before its flaps
+        pubs.push(adj_publication(list(adj), 1))
         pubs.push(prefix_publication(
             [(db.this_node_name, e) for db in pfx
              for e in db.prefix_entries], 1))
@@ -6627,6 +6672,652 @@ def phase15(p9=None, k2: int = CONFIG2["k"],
     rows = phase15b_config2(ls2, ps2, want, k2)
     log(f"[15] done in {time.perf_counter() - t0:.1f} s")
     return dict(step=step, live=live, config2=rows)
+
+
+
+# ----------------------------------------------------------- phase 16
+
+#: [16]: store F's node name (it stands for every other node of the
+#: fabric), the single flaps rebuilt without and under a RibPolicy, and
+#: the short policy TTL left to expire
+KV_FABRIC = "fabric"
+KV_POLICY_FLAPS = 10
+KV_POLICY_TTL_S = 2.0
+
+
+#: the Decision's markers after N's KVSTORE_FLOODED on a live trace
+LIVE_TAILS = {("DECISION_RECEIVED", "DECISION_DEBOUNCED", r,
+               "SPF_SOLVE_DONE", "ROUTE_UPDATE_SENT")
+              for r in ("REBUILD_FULL", "REBUILD_TOPO_DELTA",
+                        "REBUILD_PREFIX_ONLY")}
+
+
+def kv_pair(me: str):
+    """[16]'s two stores in one process over `InProcKvTransport(codec=
+    "bin")`: F (`KV_FABRIC`) and N, `me`'s own, whose publications feed
+    the port's Decision on the card, its first rebuild gated on N's
+    initial sync. Returns (F, N, the Decision, a reader of its
+    RouteUpdates); built inside the running loop."""
+    from openr_tpu_torch.config import Config
+    from openr_tpu_torch.decision.decision import Decision
+    from openr_tpu_torch.kvstore import InProcKvTransport, KvStore
+    from openr_tpu_torch.messaging import ReplicateQueue
+    from openr_tpu_torch.monitor import Counters
+
+    t = InProcKvTransport(codec="bin")
+    f = KvStore(Config.default(KV_FABRIC), t, ReplicateQueue(name="f"),
+                counters=Counters())
+    n_pubs = ReplicateQueue(name="n")
+    n = KvStore(Config.default(me), t, n_pubs, counters=Counters())
+    t.register(KV_FABRIC, f)
+    t.register(me, n)
+    routes = ReplicateQueue(name="routes")
+    reader = routes.get_reader()
+    d = Decision(Config.default(me), n_pubs.get_reader(), routes,
+                 counters=Counters(), device=DEVICE,
+                 initial_sync_event=n.initial_sync_done)
+    return f, n, d, reader
+
+
+def set_on(store, pub, perf_events=None) -> dict:
+    """Every key of `pub` written with the store's `set_key` (as the
+    originating node's LinkMonitor or PrefixManager writes it), the
+    first with `perf_events`; returns key -> version."""
+    for i, (k, v) in enumerate(pub.key_vals.items()):
+        store.set_key(pub.area, k, v, perf_events=None if i else perf_events)
+    return {k: v.version for k, v in pub.key_vals.items()}
+
+
+async def arrived(n, want: dict, tag: str, timeout: float = 120.0) -> None:
+    """Until N holds every key of `want` at its version or later."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+
+    t0 = time.perf_counter()
+    while not all((v := n.get_key(DEFAULT_AREA, k)) is not None
+                  and v.version >= ver for k, ver in want.items()):
+        if time.perf_counter() - t0 > timeout:
+            fail(f"[16] {tag}: the floods did not reach N in {timeout} s")
+        await asyncio.sleep(0.001)
+
+
+def stores_hold(f, n, pubs, tag: str) -> None:
+    """F and N each hold, for every key of `pubs` (the last publication
+    of a key wins), the generator's Value: its version, originator, hash
+    and bytes."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+
+    want = {}
+    for pub in pubs:
+        want.update(pub.key_vals)
+    for name, store in ((KV_FABRIC, f), ("N", n)):
+        kv = store.dbs[DEFAULT_AREA].kv
+        bad = [k for k, v in want.items() if (g := kv.get(k)) is None
+               or (g.version, g.originator_id, g.hash, g.value)
+               != (v.version, v.originator_id, v.hash, v.value)]
+        if bad:
+            fail(f"[16] {tag}: {len(bad)} of {len(want)} keys on {name} "
+                 f"differ from the generator's values, e.g. {bad[0]}")
+
+
+class GenLsdb:
+    """The LSDB of the generator's own AdjacencyDatabases and prefix
+    entries, kept beside the stores: each flap's database is applied as
+    it is set on F, never decoded from a store or the Decision."""
+
+    def __init__(self, adj, pfx_items, src: dict):
+        from openr_tpu_torch.decision.linkstate import LinkState, PrefixState
+        from openr_tpu_torch.types import PrefixDatabase
+
+        self.src = src
+        self.ls, self.ps = LinkState(), PrefixState()
+        for db in adj:
+            self.ls.update_adjacency_db(db)
+        for node, e in pfx_items:
+            self.ps.update_prefix_db(PrefixDatabase(
+                this_node_name=node, prefix_entries=(e,)))
+
+    def flapped(self, pub) -> None:
+        self.ls.update_adjacency_db(self.src[id(pub)])
+
+    def rib(self, me: str):
+        """A fresh card solver's RIB of the generator's LSDB."""
+        from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+        return TorchSpfSolver(device=DEVICE).compute_routes(
+            self.ls.snapshot(), self.ps.snapshot(), me)
+
+    def lsdb_is(self, d, pubs, tag: str) -> None:
+        """The Decision's AdjacencyDatabase of each node `pubs` flapped
+        equals the generator's."""
+        from openr_tpu_torch.common.constants import DEFAULT_AREA
+
+        ls = d.link_states[DEFAULT_AREA]
+        for pub in pubs:
+            node = self.src[id(pub)].this_node_name
+            if ls.adjacency_db(node) != self.ls.adjacency_db(node):
+                fail(f"[16] {tag}: the Decision's adjacencies of {node} "
+                     "differ from the generator's")
+
+
+async def synced(f, n, me: str, tag: str, timeout: float = 600.0) -> float:
+    """Peer F and N both ways; until N's initial sync is done and both
+    stores hold the same keys (the 3-way sync sends N's own back).
+    Returns the wall in ms."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+    from openr_tpu_torch.kvstore.kvstore import PeerSpec
+
+    t0 = time.perf_counter()
+    n.add_peer_sync(PeerSpec(node_name=KV_FABRIC))
+    f.add_peer_sync(PeerSpec(node_name=me))
+    fdb, ndb = f.dbs[DEFAULT_AREA], n.dbs[DEFAULT_AREA]
+    while not (n.initial_sync_done.is_set() and len(ndb.kv) == len(fdb.kv)
+               and ndb.store_hash() == fdb.store_hash()):
+        if time.perf_counter() - t0 > timeout:
+            fail(f"[16] {tag}: N's full sync did not finish in {timeout} s "
+                 f"({len(ndb.kv)} of {len(fdb.kv)} keys)")
+        await asyncio.sleep(0.005)
+    return (time.perf_counter() - t0) * 1e3
+
+
+async def quiet(d, runs0: int, tag: str, timeout: float = 60.0) -> None:
+    """Until a running Decision finished a rebuild after `runs0` and has
+    nothing buffered or pending."""
+    t0 = time.perf_counter()
+    while not (d._spf_runs > runs0 and not d.debounce.pending
+               and not d._pending_kvs and not d.pub_reader.qsize()):
+        if time.perf_counter() - t0 > timeout:
+            fail(f"[16] {tag}: no finished rebuild in {timeout} s")
+        await asyncio.sleep(0.002)
+
+
+def path_launches(relax, split_loop, rib_epilogue, election_ops) -> dict:
+    return dict(relax=dict(relax.LAUNCHES_BY_DESIGN),
+                split_loop=dict(split_loop.LAUNCHES),
+                rib_epilogue=rib_epilogue.LAUNCHES,
+                election=election_ops.LAUNCHES)
+
+
+def reset_path_launches(*mods) -> None:
+    for m in mods:
+        m.reset_launches()
+
+
+def kv_counts(f, n) -> dict:
+    """F's flood counters and N's receive side ([16]'s flood layer)."""
+    fc, nc = f.counters, n.counters
+    out = {k: int(fc.get(f"kvstore.{k}")) for k in (
+        "floods_sent", "floods_held", "flood_keys_coalesced",
+        "floods_rate_limited", "flood_encodes", "flood_bytes",
+        "full_syncs", "full_syncs_served", "full_sync_keys_sent")}
+    out["n_floods_received"] = int(nc.get("kvstore.floods_received"))
+    out["n_full_syncs"] = int(nc.get("kvstore.full_syncs"))
+    for c, k in ((fc, "flood_encode_ms"), (nc, "flood_decode_ms"),
+                 (fc, "flood_fanout_ms")):
+        st = c.stats.get(f"kvstore.{k}")
+        if st is not None and st.count:
+            out[f"{k}_avg"] = round(st.avg, 4)
+    return out
+
+
+def config5_policy(adj, me: str, ttl_s: float):
+    """[16a]'s RibPolicy at config 5's core root: weights 3 and 2 on the
+    uplinks to pods 0 and 1 and 0 on pod 2's (a next hop dropped) for
+    the cores' loopbacks in 10.0.0.0/25, and every next hop of
+    10.0.0.200/32 at 0 (the route removed)."""
+    from openr_tpu_torch.policy import RibPolicy, RibPolicyStatement
+
+    nbrs = [a.other_node_name for a in next(
+        db for db in adj if db.this_node_name == me).adjacencies]
+    return RibPolicy(statements=(
+        RibPolicyStatement(name="drop", match_prefixes=("10.0.0.200/32",),
+                           default_weight=0),
+        RibPolicyStatement(name="cores", match_prefixes=("10.0.0.0/25",),
+                           neighbor_to_weight={nbrs[0]: 3, nbrs[1]: 2,
+                                               nbrs[2]: 0}),
+    ), ttl_secs=ttl_s)
+
+
+def policy_applied(policy, rdb):
+    """`rdb` with `policy` applied (a copy: the policy rewrites its
+    route dicts)."""
+    from openr_tpu_torch.types.routes import RouteDatabase
+
+    out = RouteDatabase(this_node_name=rdb.this_node_name)
+    out.unicast_routes = dict(rdb.unicast_routes)
+    out.mpls_routes = dict(rdb.mpls_routes)
+    policy.apply(out)
+    return out
+
+
+def phase16a_config5(adj, pfx, me: str, mods, p15=None) -> dict:
+    """[16a] (see the module docstring): config 5 through KvStore. The
+    step cycles are [15a]'s flaps (its seed, from the same unflapped
+    topology), so that each rebuild does [15a]'s work; the live flaps are drawn with
+    [15a]'s live seed from the topology the step left. `p15`: [15]'s
+    result, printed beside."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+    from openr_tpu_torch.common.tasks import guard_task, reap
+    from openr_tpu_torch.messaging import QueueClosedError
+    from openr_tpu_torch.monitor import perf
+    from openr_tpu_torch.types import IpPrefix
+
+    c5 = CONFIG5
+    dbs = list(adj)
+    versions = {db.this_node_name: 1 for db in dbs}
+    rng = np.random.default_rng(20260505)  # [15a]'s step seed
+    t_enc = time.perf_counter()
+    src: dict = {}
+    cycles = [flap_pubs(rng, dbs, c5["flaps"], versions, src)
+              for _ in range(c5["warmup"] + c5["cycles"])]
+    n_max = int(c5["rate"] * c5["live_s"] * 1.2) + 100
+    rng = np.random.default_rng(7)  # [15a]'s live seed
+    live = flap_pubs(rng, dbs, n_max, versions, src)
+    singles = flap_pubs(rng, dbs, 2 * KV_POLICY_FLAPS, versions, src)
+    gen = GenLsdb(adj, [(db.this_node_name, e) for db in pfx
+                        for e in db.prefix_entries], src)
+    others = [db for db in adj if db.this_node_name != me]
+    own = [db for db in adj if db.this_node_name == me]
+    f_pubs = [adj_publication(others, 1), prefix_publication(
+        [(db.this_node_name, e) for db in pfx if db.this_node_name != me
+         for e in db.prefix_entries], 1)]
+    n_pubs = [adj_publication(own, 1), prefix_publication(
+        [(db.this_node_name, e) for db in pfx if db.this_node_name == me
+         for e in db.prefix_entries], 1)]
+    enc_s = time.perf_counter() - t_enc
+    out = {}
+
+    async def body():
+        f, n, d, reader = kv_pair(me)
+        spy = SolverSpy(d.solver)
+        for pub in f_pubs:
+            set_on(f, pub)
+        for pub in n_pubs:
+            set_on(n, pub)
+        await f.start()
+        await n.start()
+        out["sync_ms"] = await synced(f, n, me, "16a")
+        out["keys"] = len(n.dbs[DEFAULT_AREA].kv)
+        stores_hold(f, n, f_pubs + n_pubs, "16a full sync")
+        feed(d)
+        reset_path_launches(*mods)
+        cold = await timed_rebuild(d, spy, "16a cold")
+        out["launches"] = path_launches(*mods)
+
+        def fresh_rib():
+            return gen.rib(me)
+
+        prev = fresh_rib()
+        rib_is(d, prev, "16a cold vs a fresh card solver of the generator's "
+               "LSDB")
+        drain_updates(reader)
+        rows = []
+        # step: 40 flaps a cycle set on F, flooded into N, one rebuild
+        for i, cyc in enumerate(cycles):
+            want = {}
+            for pub in cyc:
+                want.update(set_on(f, pub))
+                gen.flapped(pub)
+            await arrived(n, want, f"16a cycle {i}")
+            stores_hold(f, n, cyc, f"16a cycle {i}")
+            feed(d)
+            rows.append(await timed_rebuild(
+                d, spy, f"16a cycle {i}", fresh_thread=i < c5["warmup"]))
+            gen.lsdb_is(d, cyc, f"16a cycle {i}")
+            cur = fresh_rib()
+            rib_is(d, cur, f"16a cycle {i} vs a fresh card solver of the "
+                   "generator's LSDB")
+            update_is_diff(drain_updates(reader), prev, cur, f"16a cycle {i}")
+            prev = cur
+        out["step_rows"] = rows[c5["warmup"]:]
+        out["cold"] = cold
+        out["kv_step"] = kv_counts(f, n)
+        # live: the Decision started, 1 000 flaps/s on F in bursts of 10
+        await d.start()
+        traces, updates = [], []
+
+        async def drain():
+            while True:
+                try:
+                    upd = await reader.get()
+                except QueueClosedError:
+                    return
+                updates.append(upd)
+                traces.extend([(e.event, e.node, e.ts_ns) for e in pe.events]
+                              for pe in upd.perf_events)
+
+        drainer = guard_task(asyncio.ensure_future(drain()), owner="16a")
+        fires0, runs0 = d.debounce.fires, d._spf_runs
+        kv0 = kv_counts(f, n)
+        seen, samples = [runs0], []
+        n_sent, interval = 0, c5["burst"] / c5["rate"]
+        next_send = time.perf_counter()
+        stop = next_send + c5["live_s"]
+        while time.perf_counter() < stop and n_sent < n_max:
+            for j in range(c5["burst"]):
+                pe = (perf.PerfEvents.start(perf.ADJ_DB_UPDATED,
+                                            node=KV_FABRIC) if j == 0
+                      else None)
+                set_on(f, live[n_sent], perf_events=pe)
+                gen.flapped(live[n_sent])
+                n_sent += 1
+            if d._spf_runs != seen[0]:
+                seen[0] = d._spf_runs
+                samples.append(d._last_spf_ms)
+            next_send += interval
+            await asyncio.sleep(max(0.0, next_send - time.perf_counter()))
+        want = {}
+        for pub in live[:n_sent]:
+            want.update({k: v.version for k, v in pub.key_vals.items()})
+        await arrived(n, want, "16a live")
+        stores_hold(f, n, live[:n_sent], "16a live")
+        await quiet(d, runs0, "16a live")
+        await asyncio.sleep(0.05)
+        await reap(drainer)
+        kv1 = kv_counts(f, n)
+        out["live"] = dict(
+            n=n_sent, runs=d._spf_runs - runs0,
+            fires=d.debounce.fires - fires0, traces=traces,
+            updates=len(updates), samples=samples,
+            kv={k: v - kv0.get(k, 0) for k, v in kv1.items()
+                if isinstance(v, int)})
+        gen.lsdb_is(d, live[:n_sent], "16a live")
+        rib_is(d, fresh_rib(), "16a live: the final RIB vs a fresh solver "
+               "of the generator's LSDB")
+        # single flaps without, then under a RibPolicy; then its TTL
+        reader2 = d.route_updates.get_reader()
+        prev = fresh_rib()
+        dropped = IpPrefix.make("10.0.0.200/32")
+        pol_rows = {"none": [], "policy": []}
+
+        async def single(pub, tag, policy):
+            nonlocal prev
+            runs = d._spf_runs
+            want = set_on(f, pub)
+            gen.flapped(pub)
+            await arrived(n, want, tag)
+            stores_hold(f, n, [pub], tag)
+            await quiet(d, runs, tag)
+            gen.lsdb_is(d, [pub], tag)
+            cur = fresh_rib()
+            if policy is not None:
+                cur = policy_applied(policy, cur)
+            rib_is(d, cur, f"{tag} vs a fresh card solver's"
+                   + (" with the policy" if policy is not None else ""))
+            update_is_diff(drain_updates(reader2), prev, cur, tag)
+            prev = cur
+            return dict(ms=d._last_spf_ms, path=d._rebuild_path)
+
+        for i in range(KV_POLICY_FLAPS):
+            pol_rows["none"].append(await single(
+                singles[i], f"16a flap {i}", None))
+        pol = config5_policy(adj, me, 3600.0)
+        runs = d._spf_runs
+        d.set_rib_policy(pol)
+        await quiet(d, runs, "16a policy install")
+        cur = policy_applied(pol, fresh_rib())
+        rib_is(d, cur, "16a policy install vs a fresh solve with it")
+        update_is_diff(drain_updates(reader2), prev, cur, "16a policy install")
+        prev = cur
+        if dropped in d.rib.unicast_routes:
+            fail("[16a] the policy's dropped route is in the RIB")
+        install = dict(ms=d._last_spf_ms, path=d._rebuild_path)
+        for i in range(KV_POLICY_FLAPS):
+            pol_rows["policy"].append(await single(
+                singles[KV_POLICY_FLAPS + i], f"16a flap {i} under the policy",
+                pol))
+        # a short-lived policy replaces it, and expires
+        short = config5_policy(adj, me, KV_POLICY_TTL_S)
+        runs = d._spf_runs
+        t_set = time.perf_counter()
+        d.set_rib_policy(short)
+        await quiet(d, runs, "16a short policy")
+        cur = policy_applied(short, fresh_rib())
+        rib_is(d, cur, "16a short policy vs a fresh solve with it")
+        update_is_diff(drain_updates(reader2), prev, cur, "16a short policy")
+        prev = cur
+        runs = d._spf_runs
+        await quiet(d, runs, "16a policy expiry", timeout=KV_POLICY_TTL_S + 30)
+        expiry_ms = (time.perf_counter() - t_set) * 1e3
+        if d.get_rib_policy() is not None:
+            fail("[16a] the policy outlived its TTL")
+        cur = fresh_rib()
+        rib_is(d, cur, "16a after the expiry vs a fresh solve")
+        if dropped not in d.rib.unicast_routes:
+            fail("[16a] the dropped route did not come back")
+        update_is_diff(drain_updates(reader2), prev, cur, "16a expiry")
+        out["policy"] = dict(rows=pol_rows, install=install,
+                             expiry=dict(ms=d._last_spf_ms,
+                                         path=d._rebuild_path,
+                                         since_set_ms=expiry_ms))
+        kcfg = f.config.node.kvstore
+        out["limit"] = (kcfg.flood_rate_msgs_per_sec,
+                        kcfg.flood_rate_burst_size)
+        out["started"] = dict(runs=d._spf_runs - runs0,
+                              fires=d.debounce.fires - fires0)
+        out["failed"] = int(d.counters.get(f"{d.name}.task_exceptions"))
+        out["kv"] = kv_counts(f, n)
+        await d.stop()
+        await n.stop()
+        await f.stop()
+
+    asyncio.run(body())
+    st = out["started"]
+    if out["failed"] or st["fires"] != st["runs"]:
+        fail(f"[16a] {st['fires']} debounce fires, {st['runs']} rebuilds "
+             f"done, {out['failed']} rebuilds raised")
+    lv = out["live"]
+    lat, merged = [], 0
+    for ev in lv["traces"]:
+        names = [e for e, _nd, _t in ev]
+        i_n = next((i for i, (e, nd, _t) in enumerate(ev)
+                    if (e, nd) == (perf.KVSTORE_FLOODED, me)), None)
+        # F's origin and flood stamps (more than one flap's where floods
+        # coalesced), N's flood stamp, then the Decision's chain
+        if (i_n is None or names[0] != perf.ADJ_DB_UPDATED
+                or any(e not in (perf.ADJ_DB_UPDATED, perf.KVSTORE_FLOODED)
+                       or nd != KV_FABRIC for e, nd, _t in ev[:i_n])
+                or tuple(names[i_n + 1:]) not in LIVE_TAILS):
+            fail(f"[16a] live: a trace's markers {names}")
+        merged += names[:i_n].count(perf.ADJ_DB_UPDATED) > 1
+        lat.append((ev[-1][2] - ev[0][2]) / 1e6)
+    if not lat or lv["runs"] == 0:
+        fail(f"[16a] live: {len(lat)} traced flaps reached an update in "
+             f"{lv['runs']} rebuilds")
+    la = out["launches"]
+    if not (la["relax"]["vec"] and la["rib_epilogue"]
+            and all(la["split_loop"][k]
+                    for k in ("snap_mark", "compact", "ctl"))):
+        fail(f"[16a] the cold rebuild's kernel launches {la}")
+    pol = out["policy"]
+    bad = [r["path"] for r in pol["rows"]["policy"] if r["path"] != "full"]
+    if bad or pol["install"]["path"] != "full":
+        fail(f"[16a] rebuilds under the policy took {bad}")
+    ms = [r["ms"] for r in out["step_rows"]]
+    paths = {}
+    for r in out["step_rows"]:
+        paths[r["path"]] = paths.get(r["path"], 0) + 1
+    p_none = [r["ms"] for r in pol["rows"]["none"]]
+    p_pol = [r["ms"] for r in pol["rows"]["policy"]]
+    fl = (f"p50 {p15['live']['p50']:.3f} ms, p99 "
+          f"{p15['live']['p99']:.3f} ms" if p15 else "not run (--only 16)")
+    fs = (f"p50 {p15['step']['p50']:.3f} ms, p99 "
+          f"{p15['step']['p99']:.3f} ms" if p15 else "not run (--only 16)")
+    log(f"[16a] config 5 through KvStore: fat_tree({c5['k']}, metric=10), "
+        f"{out['keys']} keys, root {me}; F (every other node's keys) and N "
+        f"over InProcKvTransport(codec='bin'); N's full sync from F "
+        f"{out['sync_ms']:.1f} ms; cold rebuild {out['cold']['ms']:.3f} ms, "
+        f"its launches {la}; step: {c5['cycles']} cycles of {c5['flaps']} "
+        f"flaps set on F after {c5['warmup']}: recompute p50 "
+        f"{statistics.median(ms):.3f} ms, p99 {percentile(ms, 99):.3f} ms "
+        f"([15a]'s on the same flaps, pushed straight into the Decision's "
+        f"queue: {fs}), paths {paths}, p50 of the warm stats "
+        f"{warm_p50s(out['step_rows'])}; flood counters after the step "
+        f"{out['kv_step']}; every RIB == a fresh card solver's, every "
+        f"update == the diff of fresh RIBs; publications encoded in "
+        f"{enc_s:.1f} s; card {smi('name,power.limit')}")
+    log(f"[16a] config 5 live through KvStore: {lv['n']} flaps set on F in "
+        f"{c5['live_s']} s ({c5['rate']}/s in bursts of {c5['burst']}), "
+        f"{lv['runs']} rebuilds, {lv['n'] / lv['runs']:.1f} flaps a "
+        f"rebuild, {lv['updates']} updates; flap -> RouteUpdate (F's set_key "
+        f"to ROUTE_UPDATE_SENT) p50 {statistics.median(lat):.3f} ms, p99 "
+        f"{percentile(lat, 99):.3f} ms over {len(lat)} traces ({merged} "
+        f"of them two or more traced flaps coalesced into one flood); [15a]'s "
+        f"(pushed straight into the Decision's queue): {fl}; rebuild p50 "
+        f"{statistics.median(lv['samples']):.3f} ms over "
+        f"{len(lv['samples'])} sampled; F -> N floods in the window "
+        f"{lv['kv']} (F's limit {out['limit'][0]} msgs/s, burst "
+        f"{out['limit'][1]}); card "
+        f"{smi('name,power.limit')}")
+    log(f"[16a] RibPolicy at {me}: {KV_POLICY_FLAPS} single flaps without "
+        f"it: recompute p50 {statistics.median(p_none):.3f} ms, paths "
+        f"{sorted({r['path'] for r in pol['rows']['none']})}; installed: "
+        f"{pol['install']['ms']:.3f} ms ({pol['install']['path']}); "
+        f"{KV_POLICY_FLAPS} flaps under it: p50 "
+        f"{statistics.median(p_pol):.3f} ms, all full; a {KV_POLICY_TTL_S} s "
+        f"policy: its expiry's rebuild {pol['expiry']['ms']:.3f} ms "
+        f"({pol['expiry']['path']}) "
+        f"{pol['expiry']['since_set_ms']:.0f} ms after it was set; every "
+        f"RIB == a fresh solve's (with the policy applied while one is "
+        f"installed), every update == their diff; {st['fires']} debounce "
+        f"fires, {st['runs']} rebuilds, 0 raised; flood counters "
+        f"{out['kv']}")
+    return dict(step_p50=statistics.median(ms),
+                live_p50=statistics.median(lat), live_p99=percentile(lat, 99),
+                policy_p50=statistics.median(p_pol),
+                none_p50=statistics.median(p_none))
+
+
+def config2_policy(ls2, me: str):
+    """[16b]'s RibPolicy at node-2025: weights 3 and 0 on its first two
+    neighbours for the ramp /32s in 16.0.0.0/8."""
+    from openr_tpu_torch.policy import RibPolicy, RibPolicyStatement
+
+    nbrs = [a.other_node_name for a in ls2.adjacency_db(me).adjacencies]
+    return RibPolicy(statements=(RibPolicyStatement(
+        name="ramp", match_prefixes=("16.0.0.0/8",),
+        neighbor_to_weight={nbrs[0]: 3, nbrs[1]: 0}),), ttl_secs=3600.0)
+
+
+def phase16b_config2(ls2, ps2, mods, want=None,
+                     k: int = CONFIG2["k"]) -> dict:
+    """[16b] (see the module docstring): config 2 through KvStore."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    half = k // 2
+    me = f"node-{half * half}"
+    t0 = time.perf_counter()
+    dbs = [ls2.adjacency_db(nd) for nd in ls2.nodes]
+    items = prefix_items(ps2)
+    f_pubs = [adj_publication([db for db in dbs if db.this_node_name != me],
+                              1),
+              prefix_publication([ne for ne in items if ne[0] != me], 1)]
+    n_pubs = [adj_publication([db for db in dbs if db.this_node_name == me],
+                              1),
+              prefix_publication([ne for ne in items if ne[0] == me], 1)]
+    enc_s = time.perf_counter() - t0
+    out = {}
+
+    async def body():
+        f, n, d, reader = kv_pair(me)
+        spy = SolverSpy(d.solver)
+        t1 = time.perf_counter()
+        for pub in f_pubs:
+            set_on(f, pub)
+        for pub in n_pubs:
+            set_on(n, pub)
+        out["load_ms"] = (time.perf_counter() - t1) * 1e3
+        await f.start()
+        await n.start()
+        out["sync_ms"] = await synced(f, n, me, "16b")
+        out["keys"] = len(n.dbs[DEFAULT_AREA].kv)
+        stores_hold(f, n, f_pubs + n_pubs, "16b full sync")
+        out["kv"] = kv_counts(f, n)
+        feed(d)
+        reset_path_launches(*mods)
+        with GcClock() as g:
+            out["cold"] = await timed_rebuild(d, spy, "16b cold")
+        out["cold_gc_ms"] = g.ms
+        out["launches"] = path_launches(*mods)
+        t2 = time.perf_counter()
+        ref = TorchSpfSolver(device=DEVICE).compute_routes(ls2, ps2, me)
+        out["ref_ms"] = (time.perf_counter() - t2) * 1e3
+        rib_is(d, ref, "16b cold vs a separate card solver of the source "
+               "states")
+        if want is not None:
+            rib_is(d, want, "16b cold vs [9]'s RIB")
+        drain_updates(reader)
+        pol = config2_policy(ls2, me)
+        d.set_rib_policy(pol)
+        d.debounce.cancel()  # the rebuild below is the one timed here
+        with GcClock() as g:
+            out["policy"] = await timed_rebuild(d, spy, "16b policy install",
+                                                fresh_thread=False)
+        out["policy_gc_ms"] = g.ms
+        t3 = time.perf_counter()
+        cur = policy_applied(pol, ref)
+        out["apply_ms"] = (time.perf_counter() - t3) * 1e3
+        rib_is(d, cur, "16b policy install vs a separate solve with it")
+        update_is_diff(drain_updates(reader), ref, cur, "16b policy install")
+        out["changed"] = sum(1 for p, e in cur.unicast_routes.items()
+                             if ref.unicast_routes.get(p) is not e)
+        await n.stop()
+        await f.stop()
+
+    asyncio.run(body())
+    la = out["launches"]
+    if not (la["relax"]["generic"] and la["election"] and la["rib_epilogue"]):
+        fail(f"[16b] the cold rebuild's kernel launches {la}")
+    if out["policy"]["path"] != "full":
+        fail(f"[16b] the policy's rebuild took {out['policy']['path']}")
+    c, pr = out["cold"], out["policy"]
+    log(f"[16b] config 2 through KvStore from {me}: {out['keys']} keys "
+        f"(F: every other node's; {len(f_pubs[0].key_vals)} adjacency, "
+        f"{len(f_pubs[1].key_vals)} prefix), loaded on the stores in "
+        f"{out['load_ms']:.1f} ms; N's full sync from F {out['sync_ms']:.1f} "
+        f"ms (F sent {out['kv']['full_sync_keys_sent']} keys); cold rebuild "
+        f"{c['ms']:.3f} ms ({c['path']}; {out['cold_gc_ms']:.1f} ms of it in "
+        f"the collector), split (ms) "
+        f"{ {k2: round(v, 3) for k2, v in c['split'].items()} } (decode: the "
+        f"synced keys' payloads), host syncs {c['syncs']}, reads "
+        f"{c['reads']}; its launches {la}; RIB == a separate card solver's "
+        f"({out['ref_ms']:.1f} ms)"
+        + (" and [9]'s" if want is not None else "")
+        + f"; RibPolicy installed: its full rebuild {pr['ms']:.3f} ms "
+        f"({pr['path']}, {out['changed']} routes rewritten; "
+        f"{out['policy_gc_ms']:.1f} ms in the collector; the policy's apply "
+        f"alone on a copy of the separate RIB {out['apply_ms']:.1f} ms), "
+        f"split (ms) "
+        f"{ {k2: round(v, 3) for k2, v in pr['split'].items()} }, RIB == the "
+        f"policy on the separate solve, the update == their diff; "
+        f"publications encoded in {enc_s:.1f} s; card "
+        f"{smi('name,power.limit')}")
+    return out
+
+
+def phase16(p9=None, p15=None, k2: int = CONFIG2["k"],
+            n_ramp: int = CONFIG2["n_ramp"]) -> dict:
+    """[16]: the port's KvStore feeding its Decision on the card, config 5
+    and config 2 ([9]'s states and RIB where given, else
+    `config2_states(k2, n_ramp)`)."""
+    from openr_tpu_torch.ops import election as election_ops
+    from openr_tpu_torch.ops import relax, rib_epilogue, split_loop
+    from openr_tpu_torch.utils.topogen import fat_tree
+
+    mods = (relax, split_loop, rib_epilogue, election_ops)
+    t0 = time.perf_counter()
+    adj, pfx = fat_tree(CONFIG5["k"], metric=10)
+    a = phase16a_config5(adj, pfx, adj[0].this_node_name, mods,
+                         p15=p15)
+    if p9 is None:
+        ls2, ps2 = config2_states(k2, n_ramp)
+        want = None
+    else:
+        ls2, ps2 = p9["states"]
+        want = p9["ribs"].get(f"node-{(k2 // 2) ** 2}")
+    b = phase16b_config2(ls2, ps2, mods, want, k2)
+    log(f"[16] done in {time.perf_counter() - t0:.1f} s")
+    return dict(config5=a, config2=b)
 
 
 if __name__ == "__main__":

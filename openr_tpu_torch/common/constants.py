@@ -1,6 +1,6 @@
 """Numeric and protocol constants the port needs: the solver's numeric
-contract, the KvStore key conventions Decision parses and the Decision
-debounce defaults.
+contract, the KvStore key conventions Decision parses, the KvStore
+defaults and the Decision debounce defaults.
 
 Copied from the JAX package's `common/constants.py`; the port keeps its
 own copy so that it imports nothing of the JAX package.
@@ -18,6 +18,17 @@ from __future__ import annotations
 ADJ_DB_MARKER = "adj:"
 PREFIX_DB_MARKER = "prefix:"
 KEY_DELIMITER = ":"
+
+# KvStore defaults: key TTL, anti-entropy period, flood rate limit (a
+# token bucket per peer), the bound of a peer's pending-flood buffer
+KVSTORE_DEFAULT_TTL_MS = 300_000
+KVSTORE_TTL_DECREMENT_MS = 1  # the least decrement of a flooded TTL
+KVSTORE_SYNC_INTERVAL_S = 60
+KVSTORE_FLOOD_RATE_MSGS_PER_SEC = 600
+KVSTORE_FLOOD_RATE_BURST = 300
+KVSTORE_FLOOD_PENDING_MAX_KEYS = 8192
+# an originator refreshes a key's TTL at this fraction of it left
+TTL_REFRESH_FRACTION = 0.25
 
 # Decision's (min, max) debounce window, ms
 DECISION_DEBOUNCE_MIN_MS = 10

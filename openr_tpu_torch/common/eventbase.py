@@ -2,8 +2,9 @@
 
 A module is a set of asyncio tasks on the process loop: `start()` runs
 `main()`, which spawns its long-running fibers with `spawn`; `stop()`
-cancels them in reverse order, reaps them and runs `cleanup()`. A
-heartbeat fiber stamps `last_heartbeat` once a second.
+cancels them in reverse order, reaps them and runs `cleanup()`.
+`run_every` adds a periodic timer fiber. A heartbeat fiber stamps
+`last_heartbeat` once a second.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import Coroutine
+from typing import Awaitable, Callable, Coroutine
 
 from openr_tpu_torch.common.tasks import guard_task, reap
 
@@ -103,6 +104,32 @@ class OpenrModule:
             log.exception("module %s fiber crashed", self.name)
             if self.counters is not None:
                 self.counters.increment(f"{self.name}.fiber_crashes")
+
+    def run_every(
+        self,
+        interval_s: float,
+        fn: Callable[[], Awaitable | None],
+        name: str | None = None,
+    ) -> asyncio.Task:
+        """A periodic timer fiber calling `fn` (awaited when it returns a
+        coroutine) every `interval_s`; a call that raises is logged and
+        counted under `<name>.timer_errors`, and the timer keeps going."""
+
+        async def loop():
+            while not self.stopped:
+                await asyncio.sleep(interval_s)
+                try:
+                    res = fn()
+                    if asyncio.iscoroutine(res):
+                        await res
+                except asyncio.CancelledError:
+                    raise
+                except Exception:  # noqa: BLE001
+                    log.exception("module %s timer %s failed", self.name, name)
+                    if self.counters is not None:
+                        self.counters.increment(f"{self.name}.timer_errors")
+
+        return self.spawn(loop(), name=name or f"{self.name}.timer")
 
     async def _heartbeat_loop(self) -> None:
         while not self.stopped:

@@ -1,7 +1,7 @@
-"""The node configuration a Decision reads (the port's copy of
-`DecisionConfig`, `AreaConfig` and the Decision's part of `NodeConfig` /
-`Config` of `openr_tpu/config/config.py`; the other modules' configs and knobs are
-not part of the port).
+"""The node configuration the port's KvStore and Decision read (the
+port's copy of `KvstoreConfig`, `DecisionConfig`, `AreaConfig` and their
+part of `NodeConfig` / `Config` of `openr_tpu/config/config.py`; the
+other modules' configs and knobs come with those modules).
 
 `DecisionConfig` has every knob of the JAX package's with the same
 defaults. On the port the table knobs (`use_dense_kernel`,
@@ -20,6 +20,30 @@ from openr_tpu_torch.common import constants as C
 
 class ConfigError(ValueError):
     """Invalid configuration."""
+
+
+@dataclass
+class KvstoreConfig:
+    key_ttl_ms: int = C.KVSTORE_DEFAULT_TTL_MS
+    sync_interval_s: int = C.KVSTORE_SYNC_INTERVAL_S
+    flood_rate_msgs_per_sec: int = C.KVSTORE_FLOOD_RATE_MSGS_PER_SEC
+    flood_rate_burst_size: int = C.KVSTORE_FLOOD_RATE_BURST
+    # bound on a peer's coalesced pending-flood buffer; overflow drops
+    # the backlog and schedules a full sync (backpressure)
+    flood_pending_max_keys: int = C.KVSTORE_FLOOD_PENDING_MAX_KEYS
+    # floods restricted to a DUAL spanning tree of the peers
+    enable_flood_optimization: bool = False
+    # flood-root eligibility: this node, or the nodes named in
+    # flood_root_candidates (the same list on every node; it overrides
+    # is_flood_root)
+    is_flood_root: bool = False
+    flood_root_candidates: tuple[str, ...] = ()
+    # grace before a store with no peer declares its initial sync done
+    initial_sync_grace_s: float = 2.0
+    # cross-node flood-span sampling (every Nth local origination); the
+    # port's KvStore carries spans but does not stamp them, so it
+    # refuses trace_sample_every > 0
+    trace_sample_every: int = 0
 
 
 @dataclass
@@ -61,10 +85,12 @@ class AreaConfig:
 
 @dataclass
 class NodeConfig:
-    """The root config document, as far as Decision reads it."""
+    """The root config document, as far as KvStore and Decision read
+    it."""
 
     node_name: str = ""
     areas: tuple[AreaConfig, ...] = (AreaConfig(),)
+    kvstore: KvstoreConfig = field(default_factory=KvstoreConfig)
     decision: DecisionConfig = field(default_factory=DecisionConfig)
 
 
@@ -109,6 +135,8 @@ class Config:
             raise ConfigError(
                 "decision: mesh_sources must be >= 0 and mesh_graph >= 1"
             )
+        if n.kvstore.key_ttl_ms <= 0:
+            raise ConfigError("kvstore: key_ttl_ms must be positive")
 
     @property
     def node_name(self) -> str:

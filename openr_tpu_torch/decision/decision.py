@@ -40,8 +40,11 @@ The solver is built from `DecisionConfig` by `hook.solver_for`, as
 `native_rib`, a mesh of `mesh_sources` x `mesh_graph` positions over
 `mesh_devices`);
 `use_tpu_solver=False` (the JAX package's host oracle) and
-`native_rib="on"` raise ValueError, as neither is part of the port, and
-neither is RibPolicy. Counters go to `counters` under the Decision's
+`native_rib="on"` raise ValueError, as neither is part of the port.
+`set_rib_policy` installs a `RibPolicy` (`policy/policy.py`), applied to
+the merged RIB of every rebuild; while one is installed every rebuild
+takes the full path, and its TTL expiry (or `set_rib_policy(None)`)
+triggers a rebuild without it. Counters go to `counters` under the Decision's
 `decision.*` names and the port's `cuda.*`, `device.*` and `work.*`
 names (the port's `monitor/` modules). A rebuild whose solve raises
 (a kernel that fails to build or launch included) raises out of
@@ -381,6 +384,8 @@ class Decision(OpenrModule):
         self._area_cache: dict[str, dict] = {}
         # send every rebuild down the from-scratch path (benchmarks)
         self.force_full_rebuild = False
+        # the installed RibPolicy (set_rib_policy), or None
+        self.rib_policy = None
         self._area_solves = 0  # _compute_area calls (full area solves)
         self._rebuild_path = "full"  # the path the last rebuild took
         self._rebuild_cached_areas = 0
@@ -892,10 +897,19 @@ class Decision(OpenrModule):
         """The full cross-area RIB from scratch (synchronous)."""
         if states is None:
             states = self._snapshot_states()
+        return self._full_rib(states, self.rib_policy)
+
+    def _full_rib(self, states, policy) -> RouteDatabase:
+        """The full RIB under `policy`, which the caller read once: a
+        removal or expiry on the event loop meanwhile rebinds
+        `self.rib_policy` and pokes the next rebuild."""
         per_area = self._on_device(lambda: {
             a: self._compute_area(ls, ps) for a, (ls, ps) in states.items()
         })
-        return merge_area_ribs(per_area, self.node_name)
+        rdb = merge_area_ribs(per_area, self.node_name)
+        if policy is not None:
+            policy.apply(rdb)
+        return rdb
 
     def _warm_area(self, ls, ps, cache, d: _TopoDelta):
         """A topology-delta warm rebuild of one area against its cached
@@ -925,8 +939,9 @@ class Decision(OpenrModule):
         (revision-verified) reuses the cached RIB; prefix dirt
         re-assembles the touched prefixes. With no area solved, the
         merge is the scoped book fold, whose RouteUpdate is the diff.
-        `force_full_rebuild`, a first build, a revision mismatch or a
-        missing artifact fall back to the full path."""
+        An installed RibPolicy, `force_full_rebuild`, a first build, a
+        revision mismatch or a missing artifact fall back to the full
+        path."""
         ts = time.perf_counter()
         if dirt is None:
             dirt = {a: None for a in states}
@@ -935,9 +950,14 @@ class Decision(OpenrModule):
         cached_areas = 0
         warm_areas = 0
         warm_region = 0
-        if self.force_full_rebuild:
+        policy = self.rib_policy  # one read: the event loop may clear it
+        if policy is not None or self.force_full_rebuild:
+            # RibPolicy.apply rewrites the merged rdb in place, which is
+            # the area's own rdb when there is one area: no per-area cache
+            # while a policy is installed. The empty cache sends the round
+            # after its removal or expiry down the full path too
             self._area_cache.clear()
-            new_rib = self.compute_rib(states)
+            new_rib = self._full_rib(states, policy)
             path = "full"
         else:
             per_area: dict[str, RouteDatabase] = {}
@@ -1254,6 +1274,27 @@ class Decision(OpenrModule):
             if art is not None:
                 art.drop_warm_state()
         self.solver.trim_caches()
+
+    def set_rib_policy(self, policy) -> None:
+        """Install or replace the RibPolicy (None removes it) and rebuild;
+        another rebuild is scheduled at the policy's TTL expiry, so its
+        weights do not outlive it on a quiet network."""
+        self.rib_policy = policy
+        self.debounce.poke()
+        if policy is not None and getattr(policy, "ttl_secs", None):
+            self.spawn(
+                self._policy_expiry_watch(policy),
+                name=f"{self.name}.policy-ttl",
+            )
+
+    async def _policy_expiry_watch(self, policy) -> None:
+        await asyncio.sleep(policy.ttl_secs)
+        if self.rib_policy is policy:
+            self.rib_policy = None  # expired: drop it and rebuild
+            self.debounce.poke()
+
+    def get_rib_policy(self):
+        return self.rib_policy
 
     def get_route_db(self) -> RouteDatabase:
         return self.rib

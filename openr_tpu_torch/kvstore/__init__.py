@@ -1,0 +1,11 @@
+"""KvStore: the eventually-consistent replicated key-value store (the
+port's copy of `openr_tpu/kvstore/`): versioned values resolved by
+(version, originator, hash), a full sync on peer-up, incremental flooding
+with split horizon, TTL expiry with originator refresh, one database an
+area. `TcpKvTransport` comes with the port's `rpc/`.
+"""
+
+from openr_tpu_torch.kvstore.store import KvStoreDb, merge_key_values  # noqa: F401
+from openr_tpu_torch.kvstore.kvstore import KvStore  # noqa: F401
+from openr_tpu_torch.kvstore.client import KvStoreClient  # noqa: F401
+from openr_tpu_torch.kvstore.transport import InProcKvTransport  # noqa: F401

@@ -1,6 +1,7 @@
 """PerfEvents: per-update convergence tracing (the port's copy of the
 marker list of `openr_tpu/monitor/perf.py`; the cross-node flood spans
-are not part of the port).
+are not part of the port: `span_bin`, the packed span a JAX node may
+stamp, is carried as opaque bytes and never unpacked or stamped).
 
 An ordered list of (stage marker, monotonic ns, node) rides each queue
 payload: a Publication into Decision, the RouteUpdate out of it. The
@@ -57,6 +58,8 @@ ALL_MARKERS = (
 
 # a full trace evicts a middle marker rather than drop a new stamp
 MAX_EVENTS_PER_TRACE = 64
+# a merge of coalesced traces is trimmed to this many markers
+_MERGE_CAP = MAX_EVENTS_PER_TRACE - 8
 
 
 @dataclass
@@ -68,12 +71,36 @@ class PerfEvent:
     node: str = ""
 
 
+def _cap_events(ev: list[PerfEvent], cap: int) -> list[PerfEvent]:
+    """Trim a marker list to about `cap`, keeping the origin, the newest
+    stamps and at least one stamp per node (so a multi-hop trace keeps
+    every hop; the result may exceed `cap` by the nodes outside the kept
+    tail)."""
+    if len(ev) <= cap:
+        return list(ev)
+    keep: set[int] = {0, len(ev) - 1}
+    seen: set[str] = set()
+    for i, e in enumerate(ev):  # each node's earliest marker
+        if e.node not in seen:
+            seen.add(e.node)
+            keep.add(i)
+    i = len(ev) - 1
+    while len(keep) < cap and i >= 0:
+        keep.add(i)
+        i -= 1
+    return [ev[i] for i in sorted(keep)]
+
+
 @dataclass
 class PerfEvents:
     """Ordered marker list carried on queue payloads; `deltas()` is the
-    per-stage breakdown."""
+    per-stage breakdown. `span_bin` is the JAX package's appended wire
+    field for its packed flood span: the binary codec encodes fields by
+    position, so the port carries it to keep the two packages' bytes
+    equal."""
 
     events: list[PerfEvent] = field(default_factory=list)
+    span_bin: bytes | None = None
 
     @classmethod
     def start(cls, event: str, node: str = "") -> "PerfEvents":
@@ -110,8 +137,17 @@ class PerfEvents:
 
     def copy(self) -> "PerfEvents":
         """Independent snapshot: each consumer that stamps on its own
-        schedule takes its own copy."""
-        return PerfEvents(events=list(self.events))
+        schedule takes its own copy (the span bytes are immutable)."""
+        return PerfEvents(events=list(self.events), span_bin=self.span_bin)
+
+    def merge(self, other: "PerfEvents") -> "PerfEvents":
+        """Two traces combined (coalesced floods): the union of markers
+        in timestamp order, trimmed by `_cap_events`; self's span bytes,
+        else other's."""
+        ev = sorted([*self.events, *other.events], key=lambda e: e.ts_ns)
+        if len(ev) > _MERGE_CAP:
+            ev = _cap_events(ev, _MERGE_CAP)
+        return PerfEvents(events=ev, span_bin=self.span_bin or other.span_bin)
 
     def deltas(self) -> list[tuple[str, float]]:
         """Per-stage (event, ms since the previous marker); the first

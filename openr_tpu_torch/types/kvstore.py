@@ -1,9 +1,10 @@
-"""KvStore wire types: versioned values and publications (the port's
-copy of `Value` and `Publication` of `openr_tpu/types/kvstore.py`).
+"""KvStore wire types: versioned values, publications and dump filters
+(the port's copy of `openr_tpu/types/kvstore.py`).
 
-A Decision reads publications: each maps keys to versioned `Value`s,
-whose payload is the canonical JSON of an `AdjacencyDatabase` or a
-`PrefixDatabase` (`types/serde.py`), and lists the expired keys.
+A publication maps keys to versioned `Value`s, whose payload is the
+canonical JSON of an `AdjacencyDatabase` or a `PrefixDatabase`
+(`types/serde.py`), and lists the expired keys. KvStore floods them
+between stores in the binary codec and publishes them to Decision.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import hashlib
 from dataclasses import dataclass, field
 
 from openr_tpu_torch.common.constants import DEFAULT_AREA
-from openr_tpu_torch.monitor.perf import PerfEvents
+from openr_tpu_torch.monitor.perf import PerfEvent, PerfEvents
+from openr_tpu_torch.types.serde import register_wire_types
 
 # TTL sentinel: the key never expires
 TTL_INFINITY = -1
@@ -64,3 +66,26 @@ class Publication:
     # convergence trace riding the update; it annotates the update and
     # does not identify it
     perf_events: PerfEvents | None = field(default=None, compare=False)
+    # the encoded flood blob, keyed by codec ("bin"): encoded once and
+    # shared by every peer's flood. Transient (never on the wire); safe
+    # to share because KvStore's coalescing always builds new
+    # Publications, so a cached blob never goes stale in place
+    _wire_cache: dict | None = field(
+        default=None, compare=False, repr=False
+    )
+
+
+@dataclass
+class KeyDumpParams:
+    """Filter of a store dump: a key prefix ("" for all), originators,
+    keys."""
+
+    prefix: str = ""
+    originator_ids: list[str] = field(default_factory=list)
+    keys: list[str] = field(default_factory=list)
+    ignore_ttl: bool = True
+
+
+# the flood and full-sync payloads; the perf pair is registered here
+# because monitor/perf.py cannot import types/serde.py back
+register_wire_types(Value, Publication, KeyDumpParams, PerfEvent, PerfEvents)

@@ -1,7 +1,7 @@
 """Network-layer types: prefixes, nexthops, MPLS actions.
 
 Same fields, ordering and equality as `openr_tpu/types/network.py`;
-the wire-format registration is not part of the port.
+its FIB route types (`UnicastRoute`, `MplsRoute`) come with Fib.
 """
 
 from __future__ import annotations
@@ -9,7 +9,9 @@ from __future__ import annotations
 import enum
 import ipaddress
 from dataclasses import dataclass
-from functools import total_ordering
+from functools import cached_property, total_ordering
+
+from openr_tpu_torch.types.serde import register_wire_types
 
 
 class MplsActionType(enum.IntEnum):
@@ -44,6 +46,11 @@ class IpPrefix:
         except AttributeError:
             object.__setattr__(self, "_hash", hash(self.prefix))
             return self._hash
+
+    @cached_property
+    def network(self) -> ipaddress.IPv4Network | ipaddress.IPv6Network:
+        # parsed once per instance (policy matching reads it per route)
+        return ipaddress.ip_network(self.prefix)
 
     def __str__(self) -> str:
         return self.prefix
@@ -88,3 +95,6 @@ class NextHop:
 def sorted_nexthops(nhs) -> tuple[NextHop, ...]:
     """Canonical ordering so route equality is set-equality."""
     return tuple(sorted(nhs, key=NextHop._key))
+
+
+register_wire_types(MplsAction, IpPrefix, NextHop)

@@ -11,6 +11,7 @@ import enum
 from dataclasses import dataclass, field
 
 from openr_tpu_torch.types.network import IpPrefix, NextHop
+from openr_tpu_torch.types.serde import register_wire_types
 from openr_tpu_torch.types.topology import PrefixEntry
 
 
@@ -186,3 +187,6 @@ def diff_route_dbs(
             if prev_m is not mentry and prev_m != mentry:
                 upd.mpls_to_update[label] = mentry
     return upd
+
+
+register_wire_types(RibEntry, RibMplsEntry, RouteDatabase, RouteUpdate)

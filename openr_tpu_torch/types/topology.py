@@ -10,6 +10,7 @@ from dataclasses import dataclass
 
 from openr_tpu_torch.common.constants import DEFAULT_AREA
 from openr_tpu_torch.types.network import IpPrefix
+from openr_tpu_torch.types.serde import register_wire_types
 
 
 class ForwardingType(enum.IntEnum):
@@ -77,3 +78,8 @@ class PrefixDatabase:
     prefix_entries: tuple[PrefixEntry, ...] = ()
     area: str = DEFAULT_AREA
     delete_prefix: bool = False
+
+
+register_wire_types(
+    Adjacency, AdjacencyDatabase, PrefixMetrics, PrefixEntry, PrefixDatabase
+)

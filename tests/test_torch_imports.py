@@ -54,6 +54,13 @@ def test_package_imports_without_jax_or_openr_tpu():
         "openr_tpu_torch.decision.linkstate", "openr_tpu_torch.ops.spf_split",
         "openr_tpu_torch.ops.election", "openr_tpu_torch.ops.ksp",
         "openr_tpu_torch.decision.ksp",
+        "openr_tpu_torch.decision.decision", "openr_tpu_torch.types.serde",
+        "openr_tpu_torch.common.backoff", "openr_tpu_torch.rpc",
+        "openr_tpu_torch.kvstore", "openr_tpu_torch.kvstore.store",
+        "openr_tpu_torch.kvstore.transport", "openr_tpu_torch.kvstore.kvstore",
+        "openr_tpu_torch.kvstore.floodtopo", "openr_tpu_torch.kvstore.client",
+        "openr_tpu_torch.dual", "openr_tpu_torch.dual.dual",
+        "openr_tpu_torch.policy", "openr_tpu_torch.policy.policy",
     } <= names
 
 
