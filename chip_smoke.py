@@ -4,8 +4,10 @@ kernels from this checkout, holds each against its plain PyTorch
 version, times them on the device, drives the cold single-root RIB
 solve, the warm path, the RIB of every prefix shape, the batched
 multi-root solves (every table kind, all-sources, fleet) and the rebuild
-sequence a Decision runs through the route caches at full size and the
-port's own Decision fed publications, and checks their answers.
+sequence a Decision runs through the route caches at full size, the
+port's own Decision fed publications and one node's route pipeline
+(LinkMonitor, KvStore, Decision, Fib, PrefixManager, Monitor), and
+checks their answers.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --old PARENT/openr_tpu_torch/csrc
@@ -306,12 +308,59 @@ Phases (any failure exits non-zero and prints no result line):
      RIB (under `--only 16`, a separate card solver's of the states the
      keys were encoded from), one RibPolicy
      installed and its full rebuild's wall.
+ 17. node N's route pipeline in one process, wired as
+     `openr_tpu/node.py:149-260` wires a node without Spark, rpc and
+     ctrl (`NodeN`): the port's KvStore, Decision (`device="cuda"`, its
+     first rebuild gated on the store's initial sync), Fib on a
+     `MockFibHandler` (each call timed), LinkMonitor (a Spark stand-in;
+     one traced NEIGHBOR_UP a neighbour, each link's metric pinned to the
+     generator's, SR on: its adjacency labels replace the generator's, so
+     the MPLS routes differ from [15]'s and [16]'s), PrefixManager (the
+     loopback and the aggregate `NODE_AGGREGATE` from the config, gated
+     on `NODE_AGG_SUPPORT` programmed routes; N's other prefixes as one
+     API event) and Monitor, the log samples and the completed traces on
+     queues that shed their oldest. Store F holds every other node's keys
+     and is every neighbour's store (`fabric_for`): F pushes its keys to
+     N, then the neighbours come up and LinkMonitor's PeerEvents peer N's
+     store with them. Every table check holds the handler's whole table
+     (unicast and MPLS) to the converted RIB of a fresh card solve of the
+     generator's LSDB with N's databases replaced by LinkMonitor's and
+     PrefixManager's (`NodeLsdb`), never of the Decision's state. (a)
+     BASELINE config 5 at node-0: start-up (the walls of KVSTORE_SYNCED,
+     RIB_COMPUTED and FIB_SYNCED, the FULL_SYNC's routes and walls, the
+     start-up's launches: vec relax, the split loop's kernels, the
+     epilogue; a start-up trace NEIGHBOR_EVENT ... FIB_PROGRAMMED; the
+     aggregate absent before Fib's sync, in F after); step: 40 seeded
+     flaps a cycle set on F, 50 cycles after 5, the table checked after
+     each, flap -> FIB_PROGRAMMED; live: 1 000 flaps/s in bursts of 10
+     for 5 s, flap -> FIB_PROGRAMMED p50 / p99 from Monitor's ring beside
+     flap -> ROUTE_UPDATE_SENT on the same traces, the event loop's lag;
+     own links: `NODE_OWN_LINKS` of node-0's links changed through
+     `LinkMonitor.set_link_metric` and reverted, ADJ_DB_UPDATED ->
+     FIB_PROGRAMMED and each rebuild's path; [16a]'s RibPolicy installed
+     (the table the policy's RIB) and removed; failures: `NODE_FAILS`
+     handler calls failed under a cycle of flaps, a full resync after
+     them, the trace completed once, converged. (b) BASELINE config 2
+     ([9]'s states) at node-2025: start-up as (a), the cold rebuild, the
+     FULL_SYNC's routes and walls, launches (generic relax, the
+     election, the epilogue), the table equal to a separate card solve's
+     and its unicast part to [9]'s RIB; once a periodic full resync of
+     Fib's has run, `NODE_RAMP` ramp /32s withdrawn on F (tombstones)
+     and re-added: each one prefix-only rebuild and one handler call of
+     that many deletes or adds, flap -> FIB_PROGRAMMED. Every solver
+     call of a rebuild ran with the card current; every solve read its
+     result back, save a warm call that refused (a full solve follows)
+     or found no edge metric changed (it reuses the cached solve); no
+     rebuild raised. Each window waits for N to settle with O(1) checks
+     first, and runs the O(table) ones (Fib's `pending_changes`, the
+     stores' hashes) only once those hold (`node_quiet`).
 
 `--only 14` runs the build and [14] alone, `--only 13` the build, [10a]
 and [13] with its K sweep, `--only 3` the build and [3], `--only 8` the
 build and [8a], [8b] and [8d], `--only 15` the build and [15] (config 2's
 states built there, [9]'s RIB not compared), `--only 16` the build and
-[16] (the same), each with no result line. Before the result lines,
+[16] (the same), `--only 17` the build and [17] (the same), each with no
+result line. Before the result lines,
 [time] gives the host seconds each phase took.
 
 The line before the card's name is a JSON object `{"kernels": [...]}`,
@@ -4156,11 +4205,12 @@ def main(argv=None) -> None:
                     help="csrc/ of another checkout: time its relax, "
                     "election, KSP and edge kernels beside this checkout's, "
                     "in turns")
-    ap.add_argument("--only", choices=("3", "8", "13", "14", "15", "16"),
+    ap.add_argument("--only",
+                    choices=("3", "8", "13", "14", "15", "16", "17"),
                     default=None,
                     help="run the build and phase 3, phase 8 (a, b, d), "
-                    "phase 14, phase 15 or phase 16 alone, or phase 10a and "
-                    "phase 13 (no result line)")
+                    "phase 14, phase 15, phase 16 or phase 17 alone, or "
+                    "phase 10a and phase 13 (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -4193,8 +4243,9 @@ def main(argv=None) -> None:
         fail(f"C dispatch and design_for / generic_np disagree at {bad}")
 
     dev = torch.device(DEVICE)
-    if args.only in ("15", "16"):
-        (phase15 if args.only == "15" else phase16)()
+    if args.only in ("15", "16", "17"):
+        dict(zip(("15", "16", "17"), (phase15, phase16, phase17)))[
+            args.only]()
         log(f"[time] host seconds by phase: "
             f"{ {k: round(v, 1) for k, v in PHASE_S.items()} }")
         return
@@ -4415,6 +4466,9 @@ def main(argv=None) -> None:
 
     # ---- phase 16: the port's KvStore feeding the Decision, configs 5, 2 -
     phase16(p9, p15)
+
+    # ---- phase 17: node N's route pipeline, a link change in, routes out -
+    phase17(p9)
 
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path
@@ -6098,7 +6152,10 @@ def transfer_counts() -> tuple[int, int]:
 class SolverSpy:
     """Wraps a Decision's solver calls: each records its worker thread,
     the thread's current CUDA device and the host syncs and reads it
-    made, so that a rebuild's own counts can be held to its solver's."""
+    made, so that a rebuild's own counts can be held to its solver's. A
+    warm call records too whether it refused (returned None: the
+    Decision then solves in full), whether one of its changed edges
+    leaves the root, and the solver's warm stats it set."""
 
     NAMES = ("compute_routes", "warm_compute_routes",
              "assemble_prefix_routes")
@@ -6112,17 +6169,56 @@ class SolverSpy:
             inner = getattr(solver, name)
 
             def wrapped(*a, _inner=inner, _name=name, **kw):
+                stats0 = solver.last_warm_stats
                 s0, r0 = transfer_counts()
                 out = _inner(*a, **kw)
                 s1, r1 = transfer_counts()
-                self.calls.append(dict(
+                call = dict(
                     name=_name, thread=threading.current_thread().name,
                     device=(torch.cuda.current_device()
                             if solver.device.type == "cuda" else None),
-                    syncs=s1 - s0, reads=r1 - r0))
+                    syncs=s1 - s0, reads=r1 - r0)
+                if _name == "warm_compute_routes":
+                    # (art, ls, ps, my_node, edge_pairs, ..., max_frac)
+                    call.update(
+                        refused=out is None, pairs=len(a[4]),
+                        why=None if out is not None else warm_refusal(
+                            solver, a[0], a[1], a[3], a[4], a[7]),
+                        warm=(None if solver.last_warm_stats is stats0
+                              else dict(solver.last_warm_stats)))
+                self.calls.append(call)
                 return out
 
             setattr(solver, name, wrapped)
+
+
+def warm_refusal(solver, art, ls, me: str, pairs, max_frac: float) -> str:
+    """Why `warm_compute_routes` refused, by its own tests in its order
+    (the last, a cone walk over its cell budget, by elimination)."""
+    from openr_tpu_torch.decision.spf_backend import LazyDist
+
+    csr = ls.to_csr()
+    solved = art.solved
+    if solver.enable_lfa or solved is None or solved[4] is not None \
+            or not isinstance(solved[1], LazyDist):
+        return "no warmable artifact"
+    if csr.base_version != solved[0].base_version:
+        return "structural change"
+    if solver._pick_table(csr) != "split" \
+            or solved[1].shape[0] != solver.solve_vp(csr):
+        return "not the split tables"
+    ids = [(csr.name_to_id.get(u), csr.name_to_id.get(v)) for u, v in pairs]
+    if any(u is None or v is None for u, v in ids):
+        return "unknown endpoint"
+    if any(u == csr.name_to_id[me] for u, _v in ids):
+        return "a changed edge at the root"
+    old = solved[0]
+    n = sum(1 for u, v in ids if (u, v) in csr.edge_index and int(
+        old.edge_metric[csr.edge_index[(u, v)]]) != int(
+            csr.edge_metric[csr.edge_index[(u, v)]]))
+    if n > max(16, int(max_frac * max(csr.num_edges, 1))):
+        return f"{n} changed edges, over the share"
+    return f"the cone walk over its cell budget ({n} changed edges)"
 
 
 def new_worker(loop) -> None:
@@ -7317,6 +7413,1042 @@ def phase16(p9=None, p15=None, k2: int = CONFIG2["k"],
         want = p9["ribs"].get(f"node-{(k2 // 2) ** 2}")
     b = phase16b_config2(ls2, ps2, mods, want, k2)
     log(f"[16] done in {time.perf_counter() - t0:.1f} s")
+    return dict(config5=a, config2=b)
+
+
+
+# ----------------------------------------------------------- phase 17
+
+#: [17]: node N's aggregate, advertised once this many programmed routes
+#: of its block support it; its own links changed and reverted; the
+#: program passes failed on purpose; config 2's ramp /32s withdrawn
+NODE_AGGREGATE = "10.0.0.0/8"
+NODE_AGG_SUPPORT = 64
+NODE_OWN_LINKS = 10
+NODE_FAILS = 3
+NODE_RAMP = 100
+
+
+class SparkStandIn:
+    """What LinkMonitor calls on Spark (not ported): the interfaces it
+    runs discovery on."""
+
+    def __init__(self):
+        self.interfaces: set[str] = set()
+
+    def add_interface(self, name: str) -> None:
+        self.interfaces.add(name)
+
+    def remove_interface(self, name: str) -> None:
+        self.interfaces.discard(name)
+
+
+def timed_handler(before_sync=None):
+    """A `MockFibHandler` that records each call: (method, routes or
+    keys, host ms, succeeded), and counts the calls in flight.
+    `before_sync` runs once, at the first `sync_fib`."""
+    from openr_tpu_torch.fib import MockFibHandler
+
+    class Timed(MockFibHandler):
+        def __init__(self):
+            super().__init__()
+            self.calls: list[tuple[str, int, float, bool]] = []
+            self.before_sync = before_sync
+            self.in_flight = 0
+
+    for m in ("add_unicast_routes", "delete_unicast_routes",
+              "add_mpls_routes", "delete_mpls_routes", "sync_fib",
+              "sync_mpls_fib"):
+        async def call(self, client_id, arg, _m=m):
+            if _m == "sync_fib" and self.before_sync is not None:
+                self.before_sync()
+                self.before_sync = None
+            t0, ok = time.perf_counter(), False
+            self.in_flight += 1
+            try:
+                await getattr(MockFibHandler, _m)(self, client_id, arg)
+                ok = True
+            finally:
+                self.in_flight -= 1
+                self.calls.append((_m, len(arg),
+                                   (time.perf_counter() - t0) * 1e3, ok))
+
+        setattr(Timed, m, call)
+    return Timed()
+
+
+def fabric_for(me_db):
+    """Store F (`KV_FABRIC`, every node's keys but N's) on a transport
+    where each of N's neighbours is F: N's KvStore peers with its
+    neighbours (LinkMonitor's PeerEvents) and full-syncs with each of
+    them against F. The neighbours stand for hosts of their own, so what
+    they would do there is not charged to N's process twice: N's floods
+    reach F over its first neighbour's session, and over the others'
+    they are encoded (once a publication, as for every session) and
+    counted, not delivered (those neighbours hold what F holds); a
+    full sync's answer is F's, computed once for each pair of store
+    hashes (N's, F's) and handed to every neighbour asking with that
+    pair (the answer depends on the two stores alone). Returns
+    (transport, F)."""
+    from openr_tpu_torch.config import Config
+    from openr_tpu_torch.kvstore import InProcKvTransport, KvStore
+    from openr_tpu_torch.kvstore.transport import _InProcSession, pub_wire_bin
+    from openr_tpu_torch.messaging import ReplicateQueue
+    from openr_tpu_torch.monitor import Counters
+
+    class NeighbourSession(_InProcSession):
+        async def full_sync(self, area, sender_id, digest, store_hash=None):
+            t = self._t
+            key = (area, store_hash, digest is None,
+                   self._peer().dbs[area].store_hash())
+            out = t.answers.get(key)
+            if out is None:
+                out = await super().full_sync(area, sender_id, digest,
+                                              store_hash)
+                if len(t.answers) > 64:
+                    t.answers.clear()
+                t.answers[key] = out
+            else:
+                t.reused += 1
+            return dict(out)
+
+        async def flood(self, pub) -> int:
+            if self.peer_id == self._t.primary:
+                return await super().flood(pub)
+            await asyncio.sleep(0)
+            self._t.copies += 1
+            return len(pub_wire_bin(pub, self.counters))
+
+    class FabricTransport(InProcKvTransport):
+        def __init__(self):
+            super().__init__(codec="bin")
+            self.copies = self.reused = 0
+            self.answers: dict = {}
+            self.neighbours: set[str] = set()
+            self.primary = ""
+
+        async def connect(self, peer_id, endpoint, counters=None):
+            s = await super().connect(peer_id, endpoint, counters)
+            if peer_id in self.neighbours:
+                return NeighbourSession(self, peer_id, counters=counters)
+            return s
+
+    t = FabricTransport()
+    f = KvStore(Config.default(KV_FABRIC), t, ReplicateQueue(name="f"),
+                counters=Counters())
+    t.register(KV_FABRIC, f)
+    for a in me_db.adjacencies:
+        t.register(a.other_node_name, f)
+    t.neighbours = {a.other_node_name for a in me_db.adjacencies}
+    t.primary = me_db.adjacencies[0].other_node_name
+    return t, f
+
+
+class FirstRebuild(asyncio.Event):
+    """The Decision's RIB_COMPUTED gate, which also keeps the first
+    rebuild's wall, path and split as it opens (a later rebuild may have
+    run by the time a waiter wakes)."""
+
+    def __init__(self, decision, out: dict):
+        super().__init__()
+        self.decision, self.out = decision, out
+
+    def set(self) -> None:
+        if not self.is_set():
+            d = self.decision
+            self.out.update(ms=d._last_spf_ms, path=d._rebuild_path,
+                            split=dict(d.last_breakdown_ms))
+        super().set()
+
+
+class NodeN:
+    """Node N in one process, wired as `openr_tpu/node.py:149-260` wires
+    a node, without Spark, rpc and ctrl: its queues (the log samples and
+    the completed traces shed their oldest at the bound, as there), then
+    Monitor, KvStore (its peers from LinkMonitor's PeerEvents), the
+    KvStoreClient, the Decision on the card (its first rebuild gated on
+    the store's initial sync), Fib on a `MockFibHandler`, PrefixManager
+    (the loopback and `NODE_AGGREGATE` from the config, N's other
+    prefixes as one API event, the aggregate gated on Fib's programmed
+    stream) and LinkMonitor (a Spark stand-in; the neighbour events
+    pushed as Spark would push them). SR is on with the generator's node
+    label; LinkMonitor gives the adjacency labels."""
+
+    def __init__(self, me: str, me_db, transport, loopback, others: list,
+                 before_sync=None):
+        from openr_tpu_torch.config import (Config, KvstoreConfig,
+                                            NodeConfig, OriginatedPrefix,
+                                            SegmentRoutingConfig)
+        from openr_tpu_torch.decision.decision import Decision
+        from openr_tpu_torch.fib import Fib
+        from openr_tpu_torch.kvstore import KvStore, KvStoreClient
+        from openr_tpu_torch.linkmonitor import LinkMonitor
+        from openr_tpu_torch.messaging import SHED_OLDEST, ReplicateQueue
+        from openr_tpu_torch.monitor import Counters, Monitor
+        from openr_tpu_torch.prefixmgr import (PrefixEvent, PrefixEventType,
+                                               PrefixManager, PrefixSource)
+
+        self.me, self.me_db = me, me_db
+        cfg = Config(NodeConfig(
+            node_name=me,
+            # no peer until LinkMonitor's first PeerEvent: never "synced"
+            # by the grace alone
+            kvstore=KvstoreConfig(initial_sync_grace_s=3600.0),
+            segment_routing=SegmentRoutingConfig(
+                enable=True, node_segment_label=me_db.node_label),
+            originated_prefixes=(
+                OriginatedPrefix(prefix=str(loopback)),
+                OriginatedPrefix(prefix=NODE_AGGREGATE,
+                                 minimum_supporting_routes=NODE_AGG_SUPPORT))))
+        self.counters = Counters()
+
+        def q(short, policy=None):
+            return ReplicateQueue(name=f"{me}.{short}",
+                                  maxsize=1024 if policy else 0,
+                                  policy=policy, counters=self.counters,
+                                  counter_key=short)
+
+        self.neighbor_events = q("neighbor_events")
+        self.interface_events = q("interface_events")
+        self.peer_events = q("peer_events")
+        self.kvstore_pubs = q("kvstore_pubs")
+        self.prefix_events = q("prefix_events")
+        self.route_updates = q("route_updates")
+        self.fib_updates = q("fib_updates")
+        self.log_samples = q("log_samples", SHED_OLDEST)
+        self.perf_events = q("perf_events", SHED_OLDEST)
+        self.monitor = Monitor(cfg, self.log_samples.get_reader(),
+                               perf_events_reader=self.perf_events.get_reader(),
+                               counters=self.counters)
+        self.kvstore = KvStore(cfg, transport, self.kvstore_pubs,
+                               peer_events_reader=self.peer_events.get_reader(),
+                               counters=self.counters)
+        transport.register(me, self.kvstore)
+        self.kv_client = KvStoreClient(self.kvstore, me,
+                                       self.kvstore_pubs.get_reader(),
+                                       counters=self.counters)
+        self.decision = Decision(
+            cfg, self.kvstore_pubs.get_reader(), self.route_updates,
+            counters=self.counters,
+            initial_sync_event=self.kvstore.initial_sync_done, device=DEVICE)
+        self.first_rebuild: dict = {}
+        self.decision.rib_computed = FirstRebuild(self.decision,
+                                                  self.first_rebuild)
+        self.handler = timed_handler(before_sync)
+        self.fib = Fib(cfg, self.route_updates.get_reader(), self.handler,
+                       fib_updates_queue=self.fib_updates,
+                       perf_events_queue=self.perf_events,
+                       counters=self.counters)
+        self.spark = SparkStandIn()
+        self.linkmonitor = LinkMonitor(
+            cfg, self.spark, self.kv_client, self.neighbor_events.get_reader(),
+            self.peer_events,
+            interface_events_reader=self.interface_events.get_reader(),
+            log_samples_queue=self.log_samples, counters=self.counters)
+        self.prefixmgr = PrefixManager(
+            cfg, self.kv_client,
+            prefix_events_reader=self.prefix_events.get_reader(),
+            fib_updates_reader=self.fib_updates.get_reader(),
+            counters=self.counters)
+        if others:
+            self.prefix_events.push(PrefixEvent(
+                type=PrefixEventType.ADD_PREFIXES, source=PrefixSource.API,
+                entries=tuple(others)))
+        self.modules = [self.monitor, self.kvstore, self.kv_client,
+                        self.decision, self.fib, self.prefixmgr,
+                        self.linkmonitor]
+        self.queues = [self.neighbor_events, self.interface_events,
+                       self.peer_events, self.kvstore_pubs,
+                       self.prefix_events, self.route_updates,
+                       self.fib_updates, self.log_samples, self.perf_events]
+        self.traces_seen = 0
+
+    async def start(self) -> None:
+        for m in self.modules:
+            await m.start()
+
+    async def stop(self) -> None:
+        for m in reversed(self.modules):
+            await m.stop()
+        for qu in self.queues:
+            qu.close()
+
+    def neighbors_up(self) -> None:
+        """Interfaces up, each link's metric pinned to the generator's,
+        then one traced NEIGHBOR_UP a neighbour, as Spark pushes them."""
+        from openr_tpu_torch.common.constants import DEFAULT_AREA
+        from openr_tpu_torch.monitor import perf
+        from openr_tpu_torch.types.events import (InterfaceEvent,
+                                                  InterfaceInfo,
+                                                  NeighborEvent,
+                                                  NeighborEventType,
+                                                  NeighborInfo)
+
+        adjs = self.me_db.adjacencies
+        for a in adjs:
+            self.linkmonitor.set_link_metric(a.if_name, a.metric)
+        self.interface_events.push(InterfaceEvent(
+            interfaces=[InterfaceInfo(name=a.if_name) for a in adjs]))
+        for a in adjs:
+            self.neighbor_events.push(NeighborEvent(
+                type=NeighborEventType.NEIGHBOR_UP,
+                info=NeighborInfo(node_name=a.other_node_name,
+                                  local_if=a.if_name,
+                                  remote_if=a.other_if_name,
+                                  area=DEFAULT_AREA),
+                perf_events=perf.PerfEvents.start(perf.NEIGHBOR_EVENT,
+                                                  node=self.me)))
+
+    def busy(self, f) -> bool:
+        """O(1) checks: a queue of N's holds an item, a debounce is
+        pending, Fib has a pass due, under way or traces to stamp, or a
+        flood to or from F is waiting in a pending buffer."""
+        d, fib = self.decision, self.fib
+        return bool(
+            any(r.qsize() for qu in self.queues[:7] for r in qu.readers)
+            or self.linkmonitor._advertise_debounce.pending
+            or d.debounce.pending or d._pending_kvs
+            or fib._dirty.is_set() or fib._pending_perf
+            or self.handler.in_flight
+            or any(p.pending_keys or p.pending_expired
+                   for st in (f, self.kvstore) for p in st.peers.values()))
+
+    def table(self) -> tuple[dict, dict]:
+        from openr_tpu_torch.fib import CLIENT_ID_OPENR
+
+        return (dict(self.handler.unicast.get(CLIENT_ID_OPENR, {})),
+                dict(self.handler.mpls.get(CLIENT_ID_OPENR, {})))
+
+    def new_traces(self) -> list:
+        """The traces Monitor completed since the last call (from its
+        ring: the newest MAX_PERF_TRACES), each [(marker, node, ns)]."""
+        ring = list(self.monitor.perf_traces)
+        total = int(self.counters.get("monitor.perf_traces"))
+        n = min(total - self.traces_seen, len(ring))
+        self.traces_seen = total
+        return [[(e.event, e.node, e.ts_ns) for e in t.events]
+                for t in ring[len(ring) - n:]] if n > 0 else []
+
+
+async def node_quiet(node: NodeN, f, tag: str, timeout: float = 300.0,
+                     traces: int = 0) -> float:
+    """Until N is idle (queues drained, no debounce pending, Fib
+    converged) and F and N hold the same keys. The O(table) checks
+    (Fib's `pending_changes`, the stores' hashes) stay off the loop
+    while a window is measured: first `traces` more traces reach
+    Monitor, and N's O(1) checks (`NodeN.busy`) hold for three 5 ms
+    polls; only then the O(table) checks, and after each that fails
+    the wait before the next doubles (to 160 ms). Returns the wall in
+    ms."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+
+    t0 = time.perf_counter()
+    calm, backoff = 0, 0.005
+    fdb, ndb = f.dbs[DEFAULT_AREA], node.kvstore.dbs[DEFAULT_AREA]
+    want = node.traces_seen + traces
+    while True:
+        if time.perf_counter() - t0 > timeout:
+            fail(f"[17] {tag}: N did not settle in {timeout} s (busy "
+                 f"{node.busy(f)}, traces "
+                 f"{int(node.counters.get('monitor.perf_traces'))} of "
+                 f"{want}, F {len(fdb.kv)} keys, N {len(ndb.kv)})")
+        if int(node.counters.get("monitor.perf_traces")) < want \
+                or node.busy(f):
+            calm = 0
+        else:
+            calm += 1
+        if calm >= 3:
+            if len(fdb.kv) == len(ndb.kv) \
+                    and node.fib.pending_changes()["converged"] \
+                    and fdb.store_hash() == ndb.store_hash():
+                return (time.perf_counter() - t0) * 1e3
+            calm = 0
+            await asyncio.sleep(backoff)
+            backoff = min(2 * backoff, 0.16)
+        await asyncio.sleep(0.005)
+
+
+class NodeLsdb:
+    """The generator's LSDB with N's own AdjacencyDatabase replaced by
+    LinkMonitor's and N's prefixes by what its PrefixManager advertises:
+    each flap applied as it is set on F, never read back from a store or
+    the Decision. `ls` / `ps` may be shared states (config 2's), then
+    `restore` puts back what was replaced."""
+
+    def __init__(self, ls, ps, me: str, src: dict):
+        self.ls, self.ps, self.me, self.src = ls, ps, me, src
+        self.orig_db = ls.adjacency_db(me)
+        self.orig_items = [(nd, e) for nd, e in prefix_items(ps) if nd == me]
+        self.own_pfx: dict = {}
+
+    def flapped(self, pub) -> None:
+        self.ls.update_adjacency_db(self.src[id(pub)])
+
+    def set_own(self, node: NodeN) -> None:
+        """N's databases as its LinkMonitor and PrefixManager hold them."""
+        from openr_tpu_torch.common.constants import DEFAULT_AREA
+        from openr_tpu_torch.types import PrefixDatabase
+
+        self.ls.update_adjacency_db(
+            node.linkmonitor.build_adjacency_db(DEFAULT_AREA))
+        adv = node.prefixmgr.get_advertised()
+        for p, e in adv.items():
+            if self.own_pfx.get(p) != e:
+                self.ps.update_prefix_db(PrefixDatabase(
+                    this_node_name=self.me, prefix_entries=(e,)))
+        for p in [p for p in self.own_pfx if p not in adv]:
+            self.ps.update_prefix_db(PrefixDatabase(
+                this_node_name=self.me, delete_prefix=True,
+                prefix_entries=(self.own_pfx[p],)))
+        self.own_pfx = dict(adv)
+
+    def restore(self) -> None:
+        from openr_tpu_torch.types import PrefixDatabase
+
+        self.ls.update_adjacency_db(self.orig_db)
+        for p, e in self.own_pfx.items():
+            self.ps.update_prefix_db(PrefixDatabase(
+                this_node_name=self.me, delete_prefix=True,
+                prefix_entries=(e,)))
+        for nd, e in self.orig_items:
+            self.ps.update_prefix_db(PrefixDatabase(
+                this_node_name=nd, prefix_entries=(e,)))
+
+    def rib(self):
+        """A fresh card solver's RIB of this LSDB."""
+        from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+        return TorchSpfSolver(device=DEVICE).compute_routes(
+            self.ls.snapshot(), self.ps.snapshot(), self.me)
+
+
+def table_is(node: NodeN, rdb, tag: str) -> tuple[int, int]:
+    """N's handler holds exactly `rdb` converted: every unicast and MPLS
+    route, equal; returns the counts."""
+    uni, mpls = node.table()
+    want_u = {p: e.to_unicast_route() for p, e in rdb.unicast_routes.items()}
+    want_m = {lb: e.to_mpls_route() for lb, e in rdb.mpls_routes.items()}
+    if uni != want_u or mpls != want_m:
+        bad = [str(p) for p in want_u.keys() | uni.keys()
+               if want_u.get(p) != uni.get(p)]
+        badm = [lb for lb in want_m.keys() | mpls.keys()
+                if want_m.get(lb) != mpls.get(lb)]
+        fail(f"[17] {tag}: the handler's table differs from the converted "
+             f"RIB of a fresh card solve: {len(bad)} unicast (e.g. "
+             f"{bad[:3]}), {len(badm)} mpls (e.g. {badm[:3]})")
+    return len(uni), len(mpls)
+
+
+def trace_ms(ev, marker: str) -> float | None:
+    """ms from a trace's first marker to its last `marker`."""
+    ts = [t for e, _n, t in ev if e == marker]
+    return (ts[-1] - ev[0][2]) / 1e6 if ts else None
+
+
+async def loop_lag(stop: list, out: list) -> None:
+    """How late the event loop wakes a 1 ms sleep, while `stop` is
+    empty: Fib and PrefixManager run on this loop, the rebuilds on
+    workers."""
+    while not stop:
+        t0 = time.perf_counter()
+        await asyncio.sleep(0.001)
+        out.append((time.perf_counter() - t0) * 1e3 - 1.0)
+
+
+async def node_up(node: NodeN, f, tag: str) -> dict:
+    """N started; F pushes its keys to N (F's session to N); then N's
+    interfaces and neighbours come up through LinkMonitor, whose
+    PeerEvents peer N's store with each neighbour (F, registered under
+    each neighbour's name) and whose adj:<N> floods to F. The walls of
+    KVSTORE_SYNCED, RIB_COMPUTED and FIB_SYNCED from the first neighbour
+    event."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA
+    from openr_tpu_torch.kvstore.kvstore import PeerSpec
+
+    out = {}
+    await node.start()
+    t0 = time.perf_counter()
+    f.add_peer_sync(PeerSpec(node_name=node.me))
+    fdb, ndb = f.dbs[DEFAULT_AREA], node.kvstore.dbs[DEFAULT_AREA]
+    while not all(k in ndb.kv for k in fdb.kv):
+        if time.perf_counter() - t0 > 600:
+            fail(f"[17] {tag}: F's push to N did not finish")
+        await asyncio.sleep(0.005)
+    out["push_ms"] = (time.perf_counter() - t0) * 1e3
+    out["keys"] = len(ndb.kv)
+    out["peers"] = len(node.me_db.adjacencies)
+    t1 = time.perf_counter()
+    node.neighbors_up()
+    for name, gate in (("kvstore_synced", node.kvstore.initial_sync_done),
+                       ("rib_computed", node.decision.rib_computed),
+                       ("fib_synced", node.fib.synced)):
+        try:
+            await asyncio.wait_for(gate.wait(), 900)
+        except asyncio.TimeoutError:
+            fail(f"[17] {tag}: the {name} gate did not pass")
+        out[name + "_ms"] = (time.perf_counter() - t1) * 1e3
+    out["cold"] = node.first_rebuild
+    out["quiet_ms"] = await node_quiet(node, f, tag)
+    out["rebuilds"] = node.decision._spf_runs
+    return out
+
+
+def sync_row(node: NodeN) -> dict:
+    """The first full sync: the handler's sync calls (routes, ms) and
+    Fib's longest pass of the start-up (its full sync)."""
+    calls = [c for c in node.handler.calls if c[0].startswith("sync")]
+    st = node.counters.stats.get("fib.program_ms")
+    return dict(unicast=calls[0][1], mpls=calls[1][1],
+                handler_ms=round(calls[0][2] + calls[1][2], 3),
+                pass_ms=None if st is None else round(st.max, 3))
+
+
+def phase17a_config5(adj, pfx, me: str, mods) -> dict:
+    """[17a] (see the module docstring): node N at config 5's core."""
+    import dataclasses
+
+    from openr_tpu_torch.common.constants import DEFAULT_AREA, prefix_key
+    from openr_tpu_torch.decision.linkstate import LinkState, PrefixState
+    from openr_tpu_torch.monitor import perf
+    from openr_tpu_torch.types import IpPrefix, PrefixDatabase
+    from openr_tpu_torch.types.serde import from_wire
+
+    c5 = CONFIG5
+    dbs = list(adj)
+    versions = {db.this_node_name: 1 for db in dbs}
+    me_db = next(db for db in adj if db.this_node_name == me)
+    src: dict = {}
+    # the fabric's flaps, drawn with [16a]'s seeds among every node but
+    # N (N's own database is LinkMonitor's), from the unflapped fabric
+    others = [db for db in dbs if db.this_node_name != me]
+    f_adj = list(others)
+    rng = np.random.default_rng(20260505)
+    cycles = [flap_pubs(rng, others, c5["flaps"], versions, src)
+              for _ in range(c5["warmup"] + c5["cycles"])]
+    rng = np.random.default_rng(7)
+    n_max = int(c5["rate"] * c5["live_s"] * 1.2) + 100
+    live = flap_pubs(rng, others, n_max, versions, src)
+    fails = flap_pubs(rng, others, c5["flaps"], versions, src)
+    picks = [me_db.adjacencies[int(i)] for i in rng.choice(
+        len(me_db.adjacencies), NODE_OWN_LINKS, replace=False)]
+    own_metrics = [int(rng.integers(11, 64)) for _ in picks]
+    ls, ps = LinkState(), PrefixState()
+    for db in adj:
+        ls.update_adjacency_db(db)
+    for db in pfx:
+        ps.update_prefix_db(db)
+    gen = NodeLsdb(ls, ps, me, src)
+    loopback = next(db for db in pfx if db.this_node_name == me)\
+        .prefix_entries[0].prefix
+    out = {}
+
+    async def body():
+        t, f = fabric_for(me_db)
+        for pub in (adj_publication(f_adj, 1), prefix_publication(
+                [(db.this_node_name, e) for db in pfx
+                 if db.this_node_name != me for e in db.prefix_entries], 1)):
+            set_on(f, pub)
+        agg_key = prefix_key(me, DEFAULT_AREA, NODE_AGGREGATE)
+        agg_before = []
+        node = NodeN(me, me_db, t, loopback, [], before_sync=lambda: (
+            agg_before.append(f.get_key(DEFAULT_AREA, agg_key) is None
+                              and node.kvstore.get_key(DEFAULT_AREA, agg_key)
+                              is None)))
+        spy = SolverSpy(node.decision.solver)
+        d = node.decision
+        await f.start()
+        reset_path_launches(*mods)
+        out["up"] = await node_up(node, f, "17a start-up")
+        out["launches"] = path_launches(*mods)
+        out["sync"] = sync_row(node)
+        v = f.get_key(DEFAULT_AREA, agg_key)
+        if agg_before != [True] or v is None or from_wire(
+                v.value, PrefixDatabase).delete_prefix:
+            fail(f"[17a] the gated aggregate: absent before Fib's sync "
+                 f"{agg_before}, in F after it {v is not None}")
+        gen.set_own(node)
+        out["table"] = table_is(node, gen.rib(), "17a start-up")
+        out["startup_traces"] = node.new_traces()
+        # step: 40 flaps a cycle set on F, one traced
+        rows = []
+        for i, cyc in enumerate(cycles):
+            runs0, w0 = d._spf_runs, node.route_updates.num_writes
+            pe = perf.PerfEvents.start(perf.ADJ_DB_UPDATED, node=KV_FABRIC)
+            for j, pub in enumerate(cyc):
+                set_on(f, pub, perf_events=None if j else pe)
+                gen.flapped(pub)
+            await node_quiet(node, f, f"17a cycle {i}")
+            table_is(node, gen.rib(), f"17a cycle {i}")
+            tr = [ev for ev in node.new_traces()
+                  if ev[0][:2] == (perf.ADJ_DB_UPDATED, KV_FABRIC)]
+            rows.append(dict(ms=d._last_spf_ms, path=d._rebuild_path,
+                             runs=d._spf_runs - runs0,
+                             pushed=node.route_updates.num_writes - w0,
+                             fib=[trace_ms(ev, perf.FIB_PROGRAMMED)
+                                  for ev in tr],
+                             sent=[trace_ms(ev, perf.ROUTE_UPDATE_SENT)
+                                   for ev in tr]))
+        out["step"] = rows[c5["warmup"]:]
+        # live: 1 000 flaps/s on F in bursts of 10, each burst's first
+        # traced; the loop's lag sampled meanwhile
+        runs0, fires0 = d._spf_runs, d.debounce.fires
+        lag, stop = [], []
+        lagger = asyncio.ensure_future(loop_lag(stop, lag))
+        n_sent, interval = 0, c5["burst"] / c5["rate"]
+        next_send = time.perf_counter()
+        t_live = time.monotonic_ns()
+        end = next_send + c5["live_s"]
+        while time.perf_counter() < end and n_sent < n_max:
+            for j in range(c5["burst"]):
+                pe = (perf.PerfEvents.start(perf.ADJ_DB_UPDATED,
+                                            node=KV_FABRIC) if j == 0
+                      else None)
+                set_on(f, live[n_sent], perf_events=pe)
+                gen.flapped(live[n_sent])
+                n_sent += 1
+            next_send += interval
+            await asyncio.sleep(max(0.0, next_send - time.perf_counter()))
+        await node_quiet(node, f, "17a live")
+        stop.append(1)
+        await lagger
+        table_is(node, gen.rib(), "17a live")
+        done = int(node.counters.get("monitor.perf_traces"))
+        tr = [ev for ev in node.new_traces()
+              if ev[0][:2] == (perf.ADJ_DB_UPDATED, KV_FABRIC)
+              and ev[0][2] >= t_live]
+        out["live"] = dict(
+            n=n_sent, runs=d._spf_runs - runs0,
+            fires=d.debounce.fires - fires0, ring=len(tr),
+            completed=done, lag=lag,
+            fib=[trace_ms(ev, perf.FIB_PROGRAMMED) for ev in tr],
+            sent=[trace_ms(ev, perf.ROUTE_UPDATE_SENT) for ev in tr])
+        # N's own links, one at a time, through LinkMonitor, and back
+        lm, own = node.linkmonitor, []
+        for a, m in zip(picks, own_metrics):
+            for metric in (m, a.metric):
+                runs0 = d._spf_runs
+                # set_link_metric carries no trace (an operator's call,
+                # as in the JAX package): start one where LinkMonitor
+                # merges its neighbour events' traces
+                lm._pending_perf = perf.PerfEvents.start(
+                    perf.ADJ_DB_UPDATED, node=me)
+                lm.set_link_metric(a.if_name, metric)
+                await node_quiet(node, f, f"17a own link {a.if_name}",
+                                 traces=1)
+                gen.set_own(node)
+                table_is(node, gen.rib(), f"17a own link {a.if_name} "
+                         f"metric {metric}")
+                tr = [ev for ev in node.new_traces()
+                      if ev[0][:2] == (perf.ADJ_DB_UPDATED, me)]
+                if len(tr) != 1:
+                    fail(f"[17a] own link {a.if_name}: {len(tr)} traces")
+                own.append(dict(ms=d._last_spf_ms, path=d._rebuild_path,
+                                runs=d._spf_runs - runs0,
+                                fib=trace_ms(tr[0], perf.FIB_PROGRAMMED),
+                                names=[e for e, _n, _t in tr[0]]))
+        out["own"] = own
+        # a RibPolicy ([16a]'s) installed, then removed: the programmed
+        # table follows the policy's RIB and comes back
+        pol_rows = []
+        for pol in (config5_policy(adj, me, 3600.0), None):
+            runs0 = d._spf_runs
+            d.set_rib_policy(pol)
+            await node_quiet(node, f, "17a RibPolicy")
+            rdb = gen.rib()
+            table_is(node, rdb if pol is None else policy_applied(pol, rdb),
+                     "17a RibPolicy " + ("installed" if pol else "removed"))
+            uni, _m = node.table()
+            held = IpPrefix.make("10.0.0.200/32")
+            pol_rows.append(dict(ms=d._last_spf_ms, path=d._rebuild_path,
+                                 runs=d._spf_runs - runs0,
+                                 held=held in uni,
+                                 solved=held in rdb.unicast_routes))
+        out["policy"] = pol_rows
+        # failures: the next NODE_FAILS handler calls fail
+        h, c = node.handler, node.counters
+        fails0, syncs0 = c.get("fib.program_fail"), h.sync_count
+        h.fail_next_n = NODE_FAILS
+        pe = perf.PerfEvents.start(perf.ADJ_DB_UPDATED, node=KV_FABRIC)
+        for j, pub in enumerate(fails):
+            set_on(f, pub, perf_events=None if j else pe)
+            gen.flapped(pub)
+        await node_quiet(node, f, "17a failures", traces=1)
+        pend = node.fib.pending_changes()
+        tr = [ev for ev in node.new_traces()
+              if ev[0][:2] == (perf.ADJ_DB_UPDATED, KV_FABRIC)]
+        out["fails"] = dict(failed=int(c.get("fib.program_fail") - fails0),
+                            syncs=h.sync_count - syncs0,
+                            converged=pend["converged"], traces=len(tr),
+                            fib=trace_ms(tr[0], perf.FIB_PROGRAMMED)
+                            if tr else None,
+                            streak=int(c.get("fib.program_fail_streak")))
+        table_is(node, gen.rib(), "17a after the failures")
+        out["calls"] = spy.calls
+        out["copies"] = (t.copies, t.reused)
+        out["fib"] = {k: c.get(f"fib.{k}") for k in (
+            "program_ok", "program_fail", "program_batches",
+            "routes_programmed", "program_scan_routes",
+            "perf_traces_completed")}
+        st = c.stats.get("fib.program_batch_size")
+        out["batch_max"] = st.max if st is not None else None
+        out["failed"] = int(c.get(f"{d.name}.task_exceptions"))
+        out["samples"] = len(node.monitor.events)
+        await node.stop()
+        await f.stop()
+
+    asyncio.run(body())
+    return check17a(out, mods)
+
+
+def calls_on_card(calls, tag: str) -> dict:
+    """Every solver call of the rebuilds ran with the card current, and
+    every solve that computed read its result back from it. A warm call
+    that refused is followed by a full solve, which read; one that did
+    not may read nothing only where none of its edges changed metric (the
+    solver's reuse branch: `changes` 0). Returns the counts: solves,
+    refused warm calls by their reason, reused ones and their edge
+    pairs."""
+    solves = [c for c in calls if c["name"] != "assemble_prefix_routes"]
+    bad = [c for c in calls if c["device"] is None]
+    refused, reused = [], []
+    for i, c in enumerate(solves):
+        if c.get("refused"):
+            nxt = solves[i + 1] if i + 1 < len(solves) else None
+            if nxt is None or nxt["name"] != "compute_routes" \
+                    or not nxt["syncs"] + nxt["reads"]:
+                bad.append(c)
+            refused.append(c)
+        elif c["syncs"] + c["reads"]:
+            continue
+        elif c["name"] == "compute_routes":
+            bad.append(c)
+        elif c["warm"] is not None and c["warm"].get("changes") == 0:
+            reused.append(c)
+        else:
+            bad.append(c)
+    if bad or not solves:
+        fail(f"[17] {tag}: solver calls off the card {bad[:3]} "
+             f"({len(solves)} solves)")
+    why: dict = {}
+    for c in refused:
+        why[c["why"]] = why.get(c["why"], 0) + 1
+    return dict(solves=len(solves), refused=len(refused), why=why,
+                reused=len(reused),
+                reused_pairs=sorted(c["pairs"] for c in reused))
+
+
+def p50(xs) -> float:
+    return statistics.median(xs) if xs else float("nan")
+
+
+def p99(xs) -> float:
+    return percentile(xs, 99) if xs else float("nan")
+
+
+def check17a(out: dict, mods) -> dict:
+    """[17a]'s lines, then its gates (every reading printed before a
+    failing gate stops the run)."""
+    from openr_tpu_torch.monitor import perf
+
+    c5 = CONFIG5
+    bad = []
+    la = out["launches"]
+    if not (la["relax"]["vec"] and la["rib_epilogue"]
+            and all(la["split_loop"][k]
+                    for k in ("snap_mark", "compact", "ctl"))):
+        bad.append(f"the start-up's kernel launches {la}")
+    solves = calls_on_card(out["calls"], "17a")
+    if out["failed"]:
+        bad.append(f"{out['failed']} rebuilds raised")
+    want = [perf.NEIGHBOR_EVENT, perf.ADJ_DB_UPDATED, perf.KVSTORE_FLOODED,
+            perf.DECISION_RECEIVED, perf.DECISION_DEBOUNCED,
+            perf.REBUILD_FULL, perf.SPF_SOLVE_DONE, perf.ROUTE_UPDATE_SENT,
+            perf.FIB_PROGRAMMED]
+    # LinkMonitor merges the neighbour events' traces that one
+    # advertisement covers: a run of one marker per merged event
+    if not any([e for i, (e, _n, _t) in enumerate(ev)
+                if i == 0 or ev[i - 1][0] != e] == want
+               for ev in out["startup_traces"]):
+        bad.append(f"no start-up trace with the markers {want}: "
+                   f"{[[e for e, _n, _t in ev] for ev in out['startup_traces']]}")
+    step = out["step"]
+    ms = [r["ms"] for r in step]
+    fib = [x for r in step for x in r["fib"] if x is not None]
+    runs = [r["runs"] for r in step]
+    # a cycle whose rebuild changed no route ends its trace at the
+    # Decision (no RouteUpdate); every other reaches FIB_PROGRAMMED
+    still = sum(1 for r in step if not r["pushed"])
+    lost = [i for i, r in enumerate(step) if r["pushed"] and not r["fib"]]
+    paths = {}
+    for r in step:
+        paths[r["path"]] = paths.get(r["path"], 0) + 1
+    lv = out["live"]
+    lat = [x for x in lv["fib"] if x is not None]
+    sent = [x for x, y in zip(lv["sent"], lv["fib"]) if y is not None]
+    if not lat or lost:
+        bad.append(f"traced flaps reached FIB_PROGRAMMED: live {len(lat)}, "
+                   f"step cycles with an update and no trace {lost}")
+    fl = out["fails"]
+    if fl["failed"] != NODE_FAILS or not fl["syncs"] or not fl["converged"] \
+            or fl["traces"] != 1 or fl["streak"]:
+        bad.append(f"the failures window {fl}")
+    own = out["own"]
+    own_paths = {}
+    for r in own:
+        own_paths[r["path"]] = own_paths.get(r["path"], 0) + 1
+    up, sy = out["up"], out["sync"]
+    lag = sorted(lv["lag"])
+    card = smi("name,power.limit")
+    log(f"[17a] node N at config 5's core node-0 "
+        f"(fat_tree({c5['k']}, metric=10)): F pushed "
+        f"{up['keys']} keys to N in {up['push_ms']:.1f} ms; from the first "
+        f"neighbour event KVSTORE_SYNCED {up['kvstore_synced_ms']:.1f} ms "
+        f"(N's KvStore peered with its {up['peers']} neighbours), "
+        f"RIB_COMPUTED {up['rib_computed_ms']:.1f} ms, FIB_SYNCED "
+        f"{up['fib_synced_ms']:.1f} ms, quiet after {up['quiet_ms']:.1f} "
+        f"ms; the first rebuild {up['cold']['ms']:.3f} ms "
+        f"({up['cold']['path']}; {up['rebuilds']} rebuilds by the quiet), "
+        f"the start-up's launches {la}; FULL_SYNC "
+        f"{sy['unicast']} unicast + {sy['mpls']} mpls routes, the handler's "
+        f"sync calls {sy['handler_ms']} ms, Fib's pass {sy['pass_ms']} ms; "
+        f"the table == a fresh card solve's converted RIB "
+        f"({out['table'][0]} + {out['table'][1]}); aggregate "
+        f"{NODE_AGGREGATE} absent before the sync, in F after; card {card}")
+    log(f"[17a] step: {c5['cycles']} cycles of {c5['flaps']} flaps set on F "
+        f"after {c5['warmup']}: rebuilds a cycle {sorted(set(runs))} "
+        f"({still} cycles changed no route: their traces end at the "
+        f"Decision), "
+        f"recompute p50 {p50(ms):.3f} ms, p99 "
+        f"{p99(ms):.3f} ms, paths {paths}; flap -> "
+        f"FIB_PROGRAMMED p50 {p50(fib):.3f} ms, p99 "
+        f"{p99(fib):.3f} ms; every table == a fresh card solve's "
+        f"converted RIB; card {card}")
+    log(f"[17a] live: {lv['n']} flaps set on F in {c5['live_s']} s "
+        f"({c5['rate']}/s in bursts of {c5['burst']}), {lv['runs']} rebuilds "
+        f"({lv['fires']} debounce fires); flap -> FIB_PROGRAMMED p50 "
+        f"{p50(lat):.3f} ms, p99 {p99(lat):.3f} ms, "
+        f"flap -> ROUTE_UPDATE_SENT on the same traces p50 "
+        f"{p50(sent):.3f} ms, p99 {p99(sent):.3f} "
+        f"ms, over {len(lat)} traces in Monitor's ring ({lv['completed']} "
+        f"completed in all); event-loop lag p50 "
+        f"{p50(lag):.3f} ms, p99 {p99(lag):.3f} "
+        f"ms, max {max(lag, default=float('nan')):.3f} ms over {len(lag)} "
+        f"samples; the final "
+        f"table == a fresh card solve's; card {card}")
+    pol = out["policy"]
+    if pol[0]["held"] or pol[1]["held"] != pol[1]["solved"]:
+        bad.append(f"the policy's dropped route: {pol}")
+    own_fib = [r["fib"] for r in own]
+    log(f"[17a] own links: {NODE_OWN_LINKS} of node-0's link metrics "
+        f"changed through LinkMonitor.set_link_metric and reverted: "
+        f"ADJ_DB_UPDATED -> FIB_PROGRAMMED p50 "
+        f"{p50(own_fib):.3f} ms, max {max(own_fib, default=float('nan')):.3f} ms; "
+        f"recompute p50 {p50([r['ms'] for r in own]):.3f} ms; "
+        f"paths {own_paths}; markers {own[0]['names']}; every table == a "
+        f"fresh card solve's; [16a]'s RibPolicy installed: rebuild "
+        f"{pol[0]['ms']:.3f} ms ({pol[0]['path']}), the table == the "
+        f"policy on a fresh solve (10.0.0.200/32 withdrawn), removed: "
+        f"{pol[1]['ms']:.3f} ms ({pol[1]['path']}), the table == a fresh "
+        f"solve's")
+    log(f"[17a] failures: {fl['failed']} failed handler calls, "
+        f"{fl['syncs']} full resyncs after them, the trace completed once "
+        f"after {fl['fib']} ms, converged; Fib over [17a] {out['fib']} "
+        f"(largest batch {out['batch_max']}); N's floods to its neighbours "
+        f"other than F's session, encoded and counted, and full-sync "
+        f"answers handed on: {out['copies']}; "
+        f"{solves['solves']} solver calls, every one on the card: "
+        f"{solves['refused']} warm calls refused, each followed by a full "
+        f"solve (by reason {solves['why']}), {solves['reused']} warm "
+        f"calls reused the cached solve with no edge metric changed "
+        f"(edge pairs in each {solves['reused_pairs']}); "
+        f"{out['samples']} log samples in Monitor")
+    if bad:
+        fail("[17a] " + "; ".join(bad))
+    return dict(step_p50=p50(ms), step_fib_p50=p50(fib), live_p50=p50(lat),
+                live_p99=p99(lat), own_p50=p50(own_fib))
+
+
+def phase17b_config2(ls2, ps2, mods, want=None,
+                     k: int = CONFIG2["k"]) -> dict:
+    """[17b] (see the module docstring): node N at config 2's
+    aggregation switch node-2025."""
+    from openr_tpu_torch.common.constants import DEFAULT_AREA, prefix_key
+    from openr_tpu_torch.monitor import perf
+    from openr_tpu_torch.types import PrefixDatabase
+    from openr_tpu_torch.types.kvstore import Value
+    from openr_tpu_torch.types.serde import to_wire
+
+    half = k // 2
+    me = f"node-{half * half}"
+    t0 = time.perf_counter()
+    me_db = ls2.adjacency_db(me)
+    dbs = [ls2.adjacency_db(nd) for nd in ls2.nodes if nd != me]
+    items = prefix_items(ps2)
+    own_items = [e for nd, e in items if nd == me]
+    loopback = next(e.prefix for e in own_items
+                    if e.prefix.prefix.startswith("10."))
+    f_pubs = [adj_publication(dbs, 1),
+              prefix_publication([ne for ne in items if ne[0] != me], 1)]
+    ramp = [(p, next(iter(per.items()))) for p, per in ps2.prefixes.items()
+            if p.prefix.startswith("16.") and len(per) == 1
+            and me not in per][:NODE_RAMP]
+    enc_s = time.perf_counter() - t0
+    gen = NodeLsdb(ls2, ps2, me, {})
+    out = {}
+
+    def ramp_pub(version: int, delete: bool, traced: bool):
+        """The ramp /32s as their originators write them on F: their
+        databases at `version`, tombstones with `delete`."""
+        for i, (p, (nd, e)) in enumerate(ramp):
+            pe = (perf.PerfEvents.start(perf.ADJ_DB_UPDATED, node=KV_FABRIC)
+                  if traced and i == 0 else None)
+            yield (prefix_key(nd, DEFAULT_AREA, p.prefix), Value(
+                version=version, originator_id=nd, value=to_wire(
+                    PrefixDatabase(this_node_name=nd, prefix_entries=(e,),
+                                   delete_prefix=delete))).with_hash(), pe)
+
+    async def body():
+        t, f = fabric_for(me_db)
+        t1 = time.perf_counter()
+        for pub in f_pubs:
+            set_on(f, pub)
+        out["load_ms"] = (time.perf_counter() - t1) * 1e3
+        node = NodeN(me, me_db, t, loopback,
+                     [e for e in own_items if e.prefix != loopback])
+        spy = SolverSpy(node.decision.solver)
+        d = node.decision
+        await f.start()
+        reset_path_launches(*mods)
+        with GcClock() as g:
+            out["up"] = await node_up(node, f, "17b start-up")
+        out["gc_ms"] = g.ms
+        out["launches"] = path_launches(*mods)
+        out["sync"] = sync_row(node)
+        gen.set_own(node)
+        t2 = time.perf_counter()
+        ref = gen.rib()
+        out["ref_ms"] = (time.perf_counter() - t2) * 1e3
+        out["table"] = table_is(node, ref, "17b start-up vs a separate card "
+                                "solve")
+        if want is not None:
+            uni, _m = node.table()
+            if uni != {p: e.to_unicast_route()
+                       for p, e in want.unicast_routes.items()}:
+                fail("[17b] the handler's unicast table differs from [9]'s "
+                     "RIB converted")
+        # the ramp's windows start just after a periodic full resync of
+        # Fib's (every sync_interval_s, 60 s), so that none falls in them
+        syncs0, t3 = node.handler.sync_count, time.perf_counter()
+        while node.handler.sync_count == syncs0:
+            if time.perf_counter() - t3 > 90:
+                fail("[17b] no periodic full resync of Fib's in 90 s")
+            await asyncio.sleep(0.05)
+        out["resync_wait_ms"] = (time.perf_counter() - t3) * 1e3
+        await node_quiet(node, f, "17b the resync")
+        node.new_traces()
+        start_u, start_m = node.table()
+        rows = {}
+        for step, version, delete in (("withdraw", 2, True),
+                                      ("re-add", 3, False)):
+            runs0, calls0 = d._spf_runs, len(node.handler.calls)
+            for key, val, pe in ramp_pub(version, delete, True):
+                f.set_key(DEFAULT_AREA, key, val, perf_events=pe)
+            await node_quiet(node, f, f"17b {step}", traces=1)
+            uni, mpls = node.table()
+            gone = {p for p, _x in ramp}
+            want_u = ({p: r for p, r in start_u.items() if p not in gone}
+                      if delete else start_u)
+            if uni != want_u or mpls != start_m:
+                fail(f"[17b] {step}: the table is not the start-up table "
+                     f"{'less' if delete else 'with'} the {len(ramp)} ramp "
+                     "/32s")
+            tr = [ev for ev in node.new_traces()
+                  if ev[0][:2] == (perf.ADJ_DB_UPDATED, KV_FABRIC)]
+            rows[step] = dict(
+                ms=d._last_spf_ms, path=d._rebuild_path,
+                runs=d._spf_runs - runs0,
+                calls=[c[:2] for c in node.handler.calls[calls0:]],
+                fib=trace_ms(tr[0], perf.FIB_PROGRAMMED) if tr else None,
+                sent=trace_ms(tr[0], perf.ROUTE_UPDATE_SENT) if tr else None)
+        out["ramp"] = rows
+        out["calls"] = spy.calls
+        out["copies"] = (t.copies, t.reused)
+        out["failed"] = int(node.counters.get(f"{d.name}.task_exceptions"))
+        await node.stop()
+        await f.stop()
+
+    try:
+        asyncio.run(body())
+    finally:
+        gen.restore()
+    la = out["launches"]
+    if not (la["relax"]["generic"] and la["election"] and la["rib_epilogue"]):
+        fail(f"[17b] the start-up's kernel launches {la}")
+    solves = calls_on_card(out["calls"], "17b")
+    if out["failed"]:
+        fail(f"[17b] {out['failed']} rebuilds raised")
+    for step, r in out["ramp"].items():
+        kind = ("delete_unicast_routes" if step == "withdraw"
+                else "add_unicast_routes")
+        if r["path"] != "prefix_only" or r["runs"] != 1 or r["fib"] is None \
+                or r["calls"] != [(kind, len(ramp))]:
+            fail(f"[17b] {step}: {r}")
+    up, sy = out["up"], out["sync"]
+    c = up["cold"]
+    log(f"[17b] node at config 2's node-2025 ({len(me_db.adjacencies)} "
+        f"neighbours): F loaded with {up['keys']} keys in "
+        f"{out['load_ms']:.1f} ms, pushed to N in {up['push_ms']:.1f} ms; "
+        f"from the first neighbour event KVSTORE_SYNCED "
+        f"{up['kvstore_synced_ms']:.1f} ms, RIB_COMPUTED "
+        f"{up['rib_computed_ms']:.1f} ms, FIB_SYNCED "
+        f"{up['fib_synced_ms']:.1f} ms ({out['gc_ms']:.1f} ms in the "
+        f"collector), quiet after {up['quiet_ms']:.1f} ms; the first "
+        f"rebuild {c['ms']:.3f} ms ({c['path']}; {up['rebuilds']} rebuilds "
+        f"by the quiet), split "
+        f"(ms) { {k2: round(v, 3) for k2, v in c['split'].items()} }; "
+        f"launches {la}; FULL_SYNC {sy['unicast']} unicast + {sy['mpls']} "
+        f"mpls routes, the handler's sync calls {sy['handler_ms']} ms, "
+        f"Fib's pass {sy['pass_ms']} ms; table == a separate card solve's "
+        f"converted RIB ({out['ref_ms']:.1f} ms)"
+        + (" and the unicast table == [9]'s" if want is not None else "")
+        + f"; publications encoded in {enc_s:.1f} s; card "
+        f"{smi('name,power.limit')}")
+    for step, r in out["ramp"].items():
+        log(f"[17b] {len(ramp)} ramp /32s {step} on F: rebuild "
+            f"{r['ms']:.3f} ms ({r['path']}), handler calls {r['calls']} "
+            f"(the windows opened after a periodic full resync of Fib's, "
+            f"awaited {out['resync_wait_ms']:.1f} ms), "
+            f"flap -> ROUTE_UPDATE_SENT {r['sent']:.3f} ms, -> "
+            f"FIB_PROGRAMMED {r['fib']:.3f} ms")
+    log(f"[17b] {solves['solves']} solver calls, every one on the card "
+        f"({solves['refused']} refused warm calls, {solves['reused']} "
+        f"reused); N's floods to its "
+        f"neighbours other than F's session, encoded and counted, and "
+        f"full-sync answers handed on: {out['copies']}")
+    return out
+
+
+def phase17(p9=None, k2: int = CONFIG2["k"],
+            n_ramp: int = CONFIG2["n_ramp"]) -> dict:
+    """[17]: node N's route pipeline on the card, config 5 and config 2
+    ([9]'s states and RIB where given, else `config2_states(k2,
+    n_ramp)`)."""
+    from openr_tpu_torch.ops import election as election_ops
+    from openr_tpu_torch.ops import relax, rib_epilogue, split_loop
+    from openr_tpu_torch.utils.topogen import fat_tree
+
+    mods = (relax, split_loop, rib_epilogue, election_ops)
+    t0 = time.perf_counter()
+    adj, pfx = fat_tree(CONFIG5["k"], metric=10)
+    a = phase17a_config5(adj, pfx, adj[0].this_node_name, mods)
+    if p9 is None:
+        ls2, ps2 = config2_states(k2, n_ramp)
+        want = None
+    else:
+        ls2, ps2 = p9["states"]
+        want = p9["ribs"].get(f"node-{(k2 // 2) ** 2}")
+    b = phase17b_config2(ls2, ps2, mods, want, k2)
+    log(f"[17] done in {time.perf_counter() - t0:.1f} s")
     return dict(config5=a, config2=b)
 
 

@@ -1,6 +1,7 @@
 """Numeric and protocol constants the port needs: the solver's numeric
 contract, the KvStore key conventions Decision parses, the KvStore
-defaults and the Decision debounce defaults.
+defaults, the Decision debounce defaults, LinkMonitor's flap damping,
+Fib's retry bounds and client ids, and the SR-MPLS label ranges.
 
 Copied from the JAX package's `common/constants.py`; the port keeps its
 own copy so that it imports nothing of the JAX package.
@@ -34,7 +35,25 @@ TTL_REFRESH_FRACTION = 0.25
 DECISION_DEBOUNCE_MIN_MS = 10
 DECISION_DEBOUNCE_MAX_MS = 250
 
+# LinkMonitor's interface flap damping (an exponential hold-down), ms
+LINK_FLAP_INITIAL_BACKOFF_MS = 60
+LINK_FLAP_MAX_BACKOFF_MS = 300_000
+
+# Fib's program retry backoff (ms) and full-resync period (s)
+FIB_INITIAL_RETRY_MS = 8
+FIB_MAX_RETRY_MS = 4_096
+FIB_SYNC_INTERVAL_S = 60
+
+# FibService client ids: each routing daemon programs its own table
+FIB_CLIENT_OPENR = 786
+FIB_CLIENT_STATIC = 64
+
+# SR-MPLS label spaces: node segment labels, adjacency labels
 MPLS_LABEL_MIN = 16
+MPLS_LABEL_MAX = (1 << 20) - 1
+SR_GLOBAL_RANGE = (101, 49_999)
+SR_LOCAL_RANGE = (50_000, 59_999)
+
 DEFAULT_AREA = "0"
 DIST_INF = 1 << 30
 METRIC_MAX = (1 << 30) - 1

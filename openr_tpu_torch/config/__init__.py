@@ -1,10 +1,15 @@
-"""The node configuration the port's KvStore and Decision read."""
+"""The node configuration the port's modules read."""
 
 from openr_tpu_torch.config.config import (  # noqa: F401
     AreaConfig,
     Config,
     ConfigError,
     DecisionConfig,
+    FibConfig,
     KvstoreConfig,
+    LinkMonitorConfig,
     NodeConfig,
+    OriginatedPrefix,
+    PrefixAllocationConfig,
+    SegmentRoutingConfig,
 )

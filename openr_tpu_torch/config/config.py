@@ -1,7 +1,9 @@
-"""The node configuration the port's KvStore and Decision read (the
-port's copy of `KvstoreConfig`, `DecisionConfig`, `AreaConfig` and their
-part of `NodeConfig` / `Config` of `openr_tpu/config/config.py`; the
-other modules' configs and knobs come with those modules).
+"""The node configuration the port's modules read (the port's copy of
+`KvstoreConfig`, `DecisionConfig`, `AreaConfig`, `LinkMonitorConfig`,
+`FibConfig`, `SegmentRoutingConfig`, `OriginatedPrefix`,
+`PrefixAllocationConfig` and their part of `NodeConfig` / `Config` of
+`openr_tpu/config/config.py`; Spark's, the messaging bounds, the
+watchdog's and the origination policy's come with those modules).
 
 `DecisionConfig` has every knob of the JAX package's with the same
 defaults. On the port the table knobs (`use_dense_kernel`,
@@ -16,6 +18,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 
 from openr_tpu_torch.common import constants as C
+from openr_tpu_torch.types.network import IpPrefix
+from openr_tpu_torch.types.topology import ForwardingAlgorithm, ForwardingType
 
 
 class ConfigError(ValueError):
@@ -44,6 +48,16 @@ class KvstoreConfig:
     # port's KvStore carries spans but does not stamp them, so it
     # refuses trace_sample_every > 0
     trace_sample_every: int = 0
+
+
+@dataclass
+class LinkMonitorConfig:
+    linkflap_initial_backoff_ms: int = C.LINK_FLAP_INITIAL_BACKOFF_MS
+    linkflap_max_backoff_ms: int = C.LINK_FLAP_MAX_BACKOFF_MS
+    # metric from the neighbour's RTT (rtt_us // 100) instead of 1 a hop
+    use_rtt_metric: bool = False
+    include_interface_regexes: tuple[str, ...] = ()
+    exclude_interface_regexes: tuple[str, ...] = ()
 
 
 @dataclass
@@ -76,6 +90,26 @@ class DecisionConfig:
 
 
 @dataclass
+class FibConfig:
+    initial_retry_ms: int = C.FIB_INITIAL_RETRY_MS
+    max_retry_ms: int = C.FIB_MAX_RETRY_MS
+    sync_interval_s: int = C.FIB_SYNC_INTERVAL_S
+    dry_run: bool = False
+    # adopt the handler's table at start and program only the delta
+    # against the first RIB
+    enable_warm_boot: bool = True
+    # most routes a FibService add or delete call on the delta path
+    program_batch_size: int = 4096
+
+
+@dataclass
+class SegmentRoutingConfig:
+    enable: bool = False
+    node_segment_label: int = 0  # 0: picked from sr_global_range
+    sr_global_range: tuple[int, int] = C.SR_GLOBAL_RANGE
+
+
+@dataclass
 class AreaConfig:
     """An area as Decision reads it: its id (the reference's interface
     and neighbor membership regexes belong to LinkMonitor and Spark)."""
@@ -84,14 +118,46 @@ class AreaConfig:
 
 
 @dataclass
+class OriginatedPrefix:
+    """A prefix the node originates from its config; with
+    `minimum_supporting_routes`, only while that many more-specific
+    routes are programmed."""
+
+    prefix: str = ""
+    forwarding_type: ForwardingType = ForwardingType.IP
+    forwarding_algorithm: ForwardingAlgorithm = ForwardingAlgorithm.SP_ECMP
+    path_preference: int = 1000
+    source_preference: int = 100
+    minimum_supporting_routes: int = 0
+    tags: tuple[str, ...] = ()
+
+
+@dataclass
+class PrefixAllocationConfig:
+    """Carve `seed_prefix` into /alloc_prefix_len blocks; each node
+    elects one through KvStore (or pins `static_index`)."""
+
+    seed_prefix: str = ""
+    alloc_prefix_len: int = 0
+    static_index: int | None = None
+
+
+@dataclass
 class NodeConfig:
-    """The root config document, as far as KvStore and Decision read
+    """The root config document, as far as the port's modules read
     it."""
 
     node_name: str = ""
     areas: tuple[AreaConfig, ...] = (AreaConfig(),)
     kvstore: KvstoreConfig = field(default_factory=KvstoreConfig)
+    link_monitor: LinkMonitorConfig = field(default_factory=LinkMonitorConfig)
     decision: DecisionConfig = field(default_factory=DecisionConfig)
+    fib: FibConfig = field(default_factory=FibConfig)
+    segment_routing: SegmentRoutingConfig = field(
+        default_factory=SegmentRoutingConfig
+    )
+    originated_prefixes: tuple[OriginatedPrefix, ...] = ()
+    prefix_allocation: PrefixAllocationConfig | None = None
 
 
 class Config:
@@ -137,10 +203,39 @@ class Config:
             )
         if n.kvstore.key_ttl_ms <= 0:
             raise ConfigError("kvstore: key_ttl_ms must be positive")
+        f = n.fib
+        if not (0 < f.initial_retry_ms <= f.max_retry_ms):
+            raise ConfigError("fib: retry bounds invalid")
+        sr = n.segment_routing
+        if sr.enable:
+            lo, hi = sr.sr_global_range
+            if not (C.MPLS_LABEL_MIN <= lo <= hi <= C.MPLS_LABEL_MAX):
+                raise ConfigError("segment_routing: bad global label range")
+        for p in n.originated_prefixes:
+            try:
+                IpPrefix.make(p.prefix)
+            except ValueError as e:
+                raise ConfigError(f"bad originated prefix {p.prefix!r}") from e
+        pa = n.prefix_allocation
+        if pa is not None:
+            try:
+                seed = IpPrefix.make(pa.seed_prefix)
+            except ValueError as e:
+                raise ConfigError(f"bad seed prefix {pa.seed_prefix!r}") from e
+            top = 32 if seed.is_v4 else 128
+            if not (seed.prefix_len < pa.alloc_prefix_len <= top):
+                raise ConfigError(
+                    "prefix_allocation: alloc_prefix_len must be within "
+                    f"({seed.prefix_len}, {top}]"
+                )
 
     @property
     def node_name(self) -> str:
         return self.node.node_name
+
+    @property
+    def areas(self) -> tuple[AreaConfig, ...]:
+        return self.node.areas
 
     def area_ids(self) -> list[str]:
         return [a.area_id for a in self.node.areas]

@@ -139,16 +139,17 @@ class KvStoreDb:
     def dump(self, params: KeyDumpParams | None = None) -> dict[str, Value]:
         """Filtered copy of the store with flooding-ready TTLs."""
         params = params or KeyDumpParams()
+        # sets: a full sync's send-back names every key a restarted peer
+        # lacks, and a list probe a key made that dump quadratic
+        keys = set(params.keys) if params.keys else None
+        origins = set(params.originator_ids) if params.originator_ids else None
         out: dict[str, Value] = {}
         for key, v in self.kv.items():
             if params.prefix and not key.startswith(params.prefix):
                 continue
-            if params.keys and key not in params.keys:
+            if keys is not None and key not in keys:
                 continue
-            if (
-                params.originator_ids
-                and v.originator_id not in params.originator_ids
-            ):
+            if origins is not None and v.originator_id not in origins:
                 continue
             out[key] = Value(
                 version=v.version,

@@ -1,7 +1,7 @@
 """Network-layer types: prefixes, nexthops, MPLS actions.
 
-Same fields, ordering and equality as `openr_tpu/types/network.py`;
-its FIB route types (`UnicastRoute`, `MplsRoute`) come with Fib.
+Same fields, ordering and equality as `openr_tpu/types/network.py`,
+with the FIB's route types (`UnicastRoute`, `MplsRoute`).
 """
 
 from __future__ import annotations
@@ -52,6 +52,14 @@ class IpPrefix:
         # parsed once per instance (policy matching reads it per route)
         return ipaddress.ip_network(self.prefix)
 
+    @property
+    def prefix_len(self) -> int:
+        return self.network.prefixlen
+
+    @property
+    def is_v4(self) -> bool:
+        return self.network.version == 4
+
     def __str__(self) -> str:
         return self.prefix
 
@@ -92,9 +100,25 @@ class NextHop:
         return self._key() < other._key()
 
 
+@dataclass(frozen=True)
+class UnicastRoute:
+    """A route as the FIB programs it."""
+
+    dest: IpPrefix
+    nexthops: tuple[NextHop, ...]
+
+
+@dataclass(frozen=True)
+class MplsRoute:
+    """A label route as the FIB programs it."""
+
+    top_label: int
+    nexthops: tuple[NextHop, ...]
+
+
 def sorted_nexthops(nhs) -> tuple[NextHop, ...]:
     """Canonical ordering so route equality is set-equality."""
     return tuple(sorted(nhs, key=NextHop._key))
 
 
-register_wire_types(MplsAction, IpPrefix, NextHop)
+register_wire_types(MplsAction, IpPrefix, NextHop, UnicastRoute, MplsRoute)

@@ -1,8 +1,8 @@
 """RIB types: computed routes.
 
 Same fields, ordering and equality as `openr_tpu/types/routes.py`, with
-its route delta (`RouteUpdate`, `diff_route_dbs`); the conversions to
-FIB routes are not part of the port.
+its route delta (`RouteUpdate`, `diff_route_dbs`) and the conversions to
+FIB routes (`to_unicast_route`, `to_mpls_route`).
 """
 
 from __future__ import annotations
@@ -10,7 +10,12 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass, field
 
-from openr_tpu_torch.types.network import IpPrefix, NextHop
+from openr_tpu_torch.types.network import (
+    IpPrefix,
+    MplsRoute,
+    NextHop,
+    UnicastRoute,
+)
 from openr_tpu_torch.types.serde import register_wire_types
 from openr_tpu_torch.types.topology import PrefixEntry
 
@@ -81,11 +86,17 @@ class RibEntry:
     igp_cost: int = 0
     backup_nexthops: tuple[NextHop, ...] = ()
 
+    def to_unicast_route(self) -> UnicastRoute:
+        return UnicastRoute(dest=self.prefix, nexthops=self.nexthops)
+
 
 @dataclass(frozen=True, slots=True)
 class RibMplsEntry:
     label: int
     nexthops: tuple[NextHop, ...]
+
+    def to_mpls_route(self) -> MplsRoute:
+        return MplsRoute(top_label=self.label, nexthops=self.nexthops)
 
 
 @dataclass

@@ -280,7 +280,9 @@ def test_a_failed_solve_is_raised(monkeypatch):
         # started: the debounce's task fails, its guard counts it
         await d.start()
         d.debounce.poke()
-        for _ in range(200):
+        # up to 30 s, as the wait below: the worker thread may start late
+        # on a loaded host
+        for _ in range(6000):
             await asyncio.sleep(0.005)
             if not d.debounce.pending:
                 break

@@ -61,6 +61,15 @@ def test_package_imports_without_jax_or_openr_tpu():
         "openr_tpu_torch.kvstore.floodtopo", "openr_tpu_torch.kvstore.client",
         "openr_tpu_torch.dual", "openr_tpu_torch.dual.dual",
         "openr_tpu_torch.policy", "openr_tpu_torch.policy.policy",
+        "openr_tpu_torch.types.events", "openr_tpu_torch.monitor.monitor",
+        "openr_tpu_torch.fib", "openr_tpu_torch.fib.fib",
+        "openr_tpu_torch.prefixmgr", "openr_tpu_torch.prefixmgr.ranges",
+        "openr_tpu_torch.prefixmgr.prefix_manager",
+        "openr_tpu_torch.allocators",
+        "openr_tpu_torch.allocators.range_allocator",
+        "openr_tpu_torch.allocators.prefix_allocator",
+        "openr_tpu_torch.linkmonitor",
+        "openr_tpu_torch.linkmonitor.linkmonitor",
     } <= names
 
 

@@ -138,6 +138,34 @@ def test_store_digests_agree(trial):
             == sorted(k for k in p_in if k.startswith("k1")))
 
 
+@pytest.mark.parametrize("trial", range(10))
+def test_dump_filters_agree(trial):
+    """`KvStoreDb.dump` filtered by keys, originators and a prefix (the
+    3-way full sync's send-back names the keys) answers as the JAX
+    package's: the port's filters are sets, the reference's lists."""
+    rng = np.random.default_rng(SEED + 150 + trial)
+    r_db, p_db = rkvs.KvStoreDb("0"), pkvs.KvStoreDb("0")
+    r_in, p_in = {}, {}
+    for i in range(60):
+        r_in[f"k{i}"], p_in[f"k{i}"] = value_pair(rng, versions=9)
+    r_db.merge(r_in)
+    p_db.merge(p_in)
+    for _ in range(8):
+        keys = [f"k{int(i)}" for i in rng.integers(0, 80, 30)]
+        origins = [f"o{int(i)}" for i in rng.integers(0, 3, 2)]
+        prefix = str(rng.choice(["", "k1", "k2"]))
+        kw = [dict(keys=keys), dict(originator_ids=origins),
+              dict(keys=keys, originator_ids=origins, prefix=prefix)][
+                  int(rng.integers(0, 3))]
+        got = p_db.dump(pkv.KeyDumpParams(**kw))
+        want = r_db.dump(rkv.KeyDumpParams(**kw))
+        assert sorted(got) == sorted(want)
+        assert {k: (v.version, v.originator_id, v.value, v.ttl_version,
+                    v.hash) for k, v in got.items()} == \
+            {k: (v.version, v.originator_id, v.value, v.ttl_version, v.hash)
+             for k, v in want.items()}
+
+
 def test_trace_sampling_refused():
     cfg = Config.default("a")
     cfg.node.kvstore.trace_sample_every = 4

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 
 import openr_tpu.monitor.perf as rperf
+import openr_tpu.prefixmgr.ranges  # noqa: F401 — registers PrefixRange
+import openr_tpu.types.events  # noqa: F401 — registers the events
 import openr_tpu.types.kvstore as rkv
 import openr_tpu.types.routes as rroutes
 import openr_tpu.types.serde as rs
@@ -24,6 +26,8 @@ import openr_tpu.types.topology as rtopo
 from openr_tpu.decision.linkstate import LinkState, PrefixState
 from openr_tpu.decision.oracle import compute_routes
 from openr_tpu.utils import topogen
+import openr_tpu_torch.prefixmgr.ranges  # noqa: F401
+import openr_tpu_torch.types.events  # noqa: F401
 from openr_tpu_torch.monitor import perf as pperf
 from openr_tpu_torch.types import kvstore as pkv
 from openr_tpu_torch.types import routes as proutes
@@ -300,13 +304,14 @@ def test_wire_schemas_agree_for_every_shared_type():
     ref, port = rs.registered_wire_types(), ps.registered_wire_types()
     shared = sorted(ref.keys() & port.keys())
     # the port registers what it has; the JAX package's other wire types
-    # (Spark, events, Fib routes, journal, prefix ranges) come with their
-    # modules
+    # (Spark, the journal) come with their modules
     assert set(port) <= set(ref)
     assert {"Value", "Publication", "KeyDumpParams", "PerfEvent",
             "PerfEvents", "Adjacency", "AdjacencyDatabase", "PrefixEntry",
             "PrefixDatabase", "RibEntry", "RouteDatabase", "RouteUpdate",
-            "NextHop", "IpPrefix", "MplsAction"} <= set(shared)
+            "NextHop", "IpPrefix", "MplsAction", "UnicastRoute", "MplsRoute",
+            "NeighborInfo", "NeighborEvent", "InterfaceInfo",
+            "InterfaceEvent", "PrefixRange"} <= set(shared)
     for name in shared:
         a, b = rs.wire_schema_of(ref[name]), ps.wire_schema_of(port[name])
         assert a.pop("module").startswith("openr_tpu.")
