@@ -5,9 +5,10 @@ version, times them on the device, drives the cold single-root RIB
 solve, the warm path, the RIB of every prefix shape, the batched
 multi-root solves (every table kind, all-sources, fleet) and the rebuild
 sequence a Decision runs through the route caches at full size, the
-port's own Decision fed publications and one node's route pipeline
-(LinkMonitor, KvStore, Decision, Fib, PrefixManager, Monitor), and
-checks their answers.
+port's own Decision fed publications, one node's route pipeline (the
+port's `OpenrNode`: Spark, LinkMonitor, KvStore, Decision, Fib,
+PrefixManager, Monitor) and the node daemon `python -m openr_tpu_torch`
+on UDP and TCP, and checks their answers.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --old PARENT/openr_tpu_torch/csrc
@@ -53,7 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
      the hub of `hub_and_spoke(2, 100)` (101 neighbors, B = 128), which
      takes the generic kernel;
   5. the link-flap warm path on the same graph, built as a real
-     `LinkState` from its directed edges: 5 seeded rounds of 32 metric
+     `LinkState` from its directed edges: `WARM_ROUNDS` seeded rounds
+     of 32 metric
      changes (16 raised by +20, 16 lowered to 1, none root-incident)
      through `update_adjacency_db_delta` and `warm_compute_routes`, each
      round then reverted the same way; every warm RouteDatabase equal to
@@ -301,65 +303,90 @@ Phases (any failure exits non-zero and prints no result line):
      weight 0), 10 flaps under it (all full rebuilds), a 2 s policy left
      to expire: every RIB a fresh solve's with the policy applied while
      one is installed, every update their diff, every debounce fire a
-     finished rebuild and none raised. (b) BASELINE config 2 ([9]'s
-     states) at node-2025: N's full sync of every other node's keys from
-     F (wall, keys), the cold rebuild (decode of the synced payloads,
-     launches: generic relax, the election, the epilogue) equal to [9]'s
-     RIB (under `--only 16`, a separate card solver's of the states the
-     keys were encoded from), one RibPolicy
-     installed and its full rebuild's wall.
- 17. node N's route pipeline in one process, wired as
-     `openr_tpu/node.py:149-260` wires a node without Spark, rpc and
-     ctrl (`NodeN`): the port's KvStore, Decision (`device="cuda"`, its
-     first rebuild gated on the store's initial sync), Fib on a
-     `MockFibHandler` (each call timed), LinkMonitor (a Spark stand-in;
-     one traced NEIGHBOR_UP a neighbour, each link's metric pinned to the
-     generator's, SR on: its adjacency labels replace the generator's, so
-     the MPLS routes differ from [15]'s and [16]'s), PrefixManager (the
-     loopback and the aggregate `NODE_AGGREGATE` from the config, gated
-     on `NODE_AGG_SUPPORT` programmed routes; N's other prefixes as one
-     API event) and Monitor, the log samples and the completed traces on
-     queues that shed their oldest. Store F holds every other node's keys
-     and is every neighbour's store (`fabric_for`): F pushes its keys to
-     N, then the neighbours come up and LinkMonitor's PeerEvents peer N's
-     store with them. Every table check holds the handler's whole table
-     (unicast and MPLS) to the converted RIB of a fresh card solve of the
-     generator's LSDB with N's databases replaced by LinkMonitor's and
-     PrefixManager's (`NodeLsdb`), never of the Decision's state. (a)
-     BASELINE config 5 at node-0: start-up (the walls of KVSTORE_SYNCED,
-     RIB_COMPUTED and FIB_SYNCED, the FULL_SYNC's routes and walls, the
-     start-up's launches: vec relax, the split loop's kernels, the
-     epilogue; a start-up trace NEIGHBOR_EVENT ... FIB_PROGRAMMED; the
-     aggregate absent before Fib's sync, in F after); step: 40 seeded
-     flaps a cycle set on F, 50 cycles after 5, the table checked after
-     each, flap -> FIB_PROGRAMMED; live: 1 000 flaps/s in bursts of 10
-     for 5 s, flap -> FIB_PROGRAMMED p50 / p99 from Monitor's ring beside
+     finished rebuild and none raised. BASELINE config 2's start-up
+     through KvStore (the full sync of every other node's keys, the cold
+     rebuild) and its RibPolicy's full rebuild run once, in [17b]'s node.
+ 17. node N's route pipeline: N is the port's `OpenrNode`
+     (`openr_tpu_torch/node.py`, `device=None`: the card) with its
+     neighbours' Sparks as speakers on one `MockIoHub` (linked over the
+     generator's interfaces, hold time `NODE_SPARK`'s), its KvStore,
+     Decision (its first rebuild gated on the store's initial sync), Fib
+     on a `MockFibHandler` (each call timed, `fib_handler=`), LinkMonitor
+     (N's interfaces up after each link's metric is set to the
+     generator's by LinkMonitor's override, as an operator would; Spark
+     finds the neighbours, each a traced NEIGHBOR_UP; SR on: its
+     adjacency labels replace the generator's, so the MPLS routes differ
+     from [15]'s and [16]'s), PrefixManager (the loopback and the
+     aggregate `NODE_AGGREGATE` from the config, gated on
+     `NODE_AGG_SUPPORT` programmed routes; N's other prefixes as one API
+     event) and Monitor, on the node's own queues (the publications and
+     route updates coalesce at the bound, telemetry sheds its oldest).
+     Store F holds every other node's keys and is every neighbour's
+     store (`fabric_for`): F pushes its keys to N, then the neighbours
+     come up and LinkMonitor's PeerEvents peer N's store with them. Every
+     table check holds the handler's whole table (unicast and MPLS) to
+     the converted RIB of a fresh card solve of the generator's LSDB with
+     N's databases replaced by LinkMonitor's and PrefixManager's
+     (`NodeLsdb`), never of the Decision's state. (a) BASELINE config 5
+     at node-0: start-up (the walls of every neighbour found,
+     KVSTORE_SYNCED, RIB_COMPUTED and FIB_SYNCED from the interfaces
+     coming up, the FULL_SYNC's routes and walls, the start-up's
+     launches: vec relax, the split loop's kernels, the epilogue; a
+     start-up trace NEIGHBOR_EVENT ... FIB_PROGRAMMED; the aggregate
+     absent before Fib's sync, in F after); step: 40 seeded flaps a
+     cycle set on F, 50 cycles after 5, the table checked after each,
+     flap -> FIB_PROGRAMMED; live: 1 000 flaps/s in bursts of 10 for
+     5 s, flap -> FIB_PROGRAMMED p50 / p99 from Monitor's ring beside
      flap -> ROUTE_UPDATE_SENT on the same traces, the event loop's lag;
      own links: `NODE_OWN_LINKS` of node-0's links changed through
      `LinkMonitor.set_link_metric` and reverted, ADJ_DB_UPDATED ->
      FIB_PROGRAMMED and each rebuild's path; [16a]'s RibPolicy installed
      (the table the policy's RIB) and removed; failures: `NODE_FAILS`
      handler calls failed under a cycle of flaps, a full resync after
-     them, the trace completed once, converged. (b) BASELINE config 2
-     ([9]'s states) at node-2025: start-up as (a), the cold rebuild, the
-     FULL_SYNC's routes and walls, launches (generic relax, the
-     election, the epilogue), the table equal to a separate card solve's
-     and its unicast part to [9]'s RIB; once a periodic full resync of
-     Fib's has run, `NODE_RAMP` ramp /32s withdrawn on F (tombstones)
-     and re-added: each one prefix-only rebuild and one handler call of
-     that many deletes or adds, flap -> FIB_PROGRAMMED. Every solver
-     call of a rebuild ran with the card current; every solve read its
-     result back, save a warm call that refused (a full solve follows)
-     or found no edge metric changed (it reuses the cached solve); no
-     rebuild raised. Each window waits for N to settle with O(1) checks
-     first, and runs the O(table) ones (Fib's `pending_changes`, the
-     stores' hashes) only once those hold (`node_quiet`).
+     them, the trace completed once, converged. (c) the daemon: `python
+     -m openr_tpu_torch --config n.json --ready-file ...` as node-0 of
+     config 5 (N's config, its 32 links `udp_interfaces` on port 0),
+     its neighbours 32 Sparks on `UdpIoProvider` in this process aimed
+     at the ports the ready file reports and advertising F's listener
+     (F behind an `RpcServer` with `register_rpc`): the daemon's pid
+     holds a context on the card (`nvidia-smi --query-compute-apps`, in
+     each of 3 samples);
+     its `adj:node-0` reaches F over TCP with 32 adjacencies equal to
+     (a)'s (neighbours, interfaces, labels; the metric is LinkMonitor's
+     own, with no ctrl to override it); its aggregate reaches F (so its
+     Decision solved on the card and its Fib programmed the supporting
+     routes); one flap set on F reaches N over F's session to N's
+     listener; SIGTERM ends it with exit 0; the walls from the launch to
+     OPENR_READY, to `adj:node-0` in F and to the aggregate in F. It
+     checks the daemon's liveness, not its table (no ctrl to read it
+     from), and its own links carry LinkMonitor's metric 1 where (a)
+     sets the generator's 10, so it solves another fabric than (a). (b)
+     BASELINE config 2 ([9]'s states) at node-2025: start-up as (a), the
+     cold rebuild, the FULL_SYNC's routes and walls, launches (generic
+     relax, the election, the epilogue), F's and N's stores holding the
+     generator's Value of every key F was loaded with, the table equal to
+     a separate card solve's and its unicast part to [9]'s RIB; once a periodic
+     full resync of Fib's has run, `NODE_RAMP` ramp /32s withdrawn on F
+     (tombstones) and re-added: each one prefix-only rebuild and one
+     handler call of that many deletes or adds, flap -> FIB_PROGRAMMED;
+     then a RibPolicy (weights 3 and 0 on two neighbours for the ramp's
+     16.0.0.0/8) installed on the running Decision: one full rebuild, its
+     RIB equal to the policy applied to the separate solve and its
+     RouteUpdate to their diff.
+     Every solver call of a rebuild ran with the card current; every
+     solve read its result back, save a warm call that refused (a full
+     solve follows) or found no edge metric changed (it reuses the
+     cached solve); no rebuild raised. Each window waits for N to settle
+     with O(1) checks first, and runs the O(table) ones (Fib's
+     `pending_changes`, the stores' hashes) only once those hold
+     (`node_quiet`).
 
 `--only 14` runs the build and [14] alone, `--only 13` the build, [10a]
 and [13] with its K sweep, `--only 3` the build and [3], `--only 8` the
 build and [8a], [8b] and [8d], `--only 15` the build and [15] (config 2's
 states built there, [9]'s RIB not compared), `--only 16` the build and
-[16] (the same), `--only 17` the build and [17] (the same), each with no
+[16], `--only 17` the build and [17] (config 2's states built there),
+each with no
 result line. Before the result lines,
 [time] gives the host seconds each phase took.
 
@@ -375,6 +402,7 @@ import asyncio
 import ctypes
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
@@ -1124,6 +1152,10 @@ def phase4_hub(relax, old_libs) -> dict:
 # ------------------------------------------------------------ phase 5
 
 
+#: [5]'s rounds of a flap and its revert, then one traced flap and revert
+WARM_ROUNDS = 1
+
+
 def phase5_warm(relax, shape4) -> dict:
     """The link-flap warm path on the 100k graph; returns the relax
     launches by design of its warm calls (counts set to 0 just before
@@ -1206,7 +1238,7 @@ def phase5_warm(relax, shape4) -> dict:
         warm_ms.append(warm(pairs, tag))
         cold_ms.append(check(tag, scipy_check))
 
-    for rnd in range(5):
+    for rnd in range(WARM_ROUNDS):
         pairs, old_dbs = flap_round(ls, rng, 16, 16)
         warm_call(pairs, f"round {rnd} flap", scipy_check=rnd == 0)
         warm_call(revert_round(ls, old_dbs), f"round {rnd} revert")
@@ -4465,7 +4497,7 @@ def main(argv=None) -> None:
     p15 = phase15(p9)
 
     # ---- phase 16: the port's KvStore feeding the Decision, configs 5, 2 -
-    phase16(p9, p15)
+    phase16(p15)
 
     # ---- phase 17: node N's route pipeline, a link change in, routes out -
     phase17(p9)
@@ -6836,7 +6868,7 @@ async def arrived(n, want: dict, tag: str, timeout: float = 120.0) -> None:
         await asyncio.sleep(0.001)
 
 
-def stores_hold(f, n, pubs, tag: str) -> None:
+def stores_hold(f, n, pubs, tag: str, phase: str = "16") -> None:
     """F and N each hold, for every key of `pubs` (the last publication
     of a key wins), the generator's Value: its version, originator, hash
     and bytes."""
@@ -6851,7 +6883,7 @@ def stores_hold(f, n, pubs, tag: str) -> None:
                or (g.version, g.originator_id, g.hash, g.value)
                != (v.version, v.originator_id, v.hash, v.value)]
         if bad:
-            fail(f"[16] {tag}: {len(bad)} of {len(want)} keys on {name} "
+            fail(f"[{phase}] {tag}: {len(bad)} of {len(want)} keys on {name} "
                  f"differ from the generator's values, e.g. {bad[0]}")
 
 
@@ -7283,119 +7315,9 @@ def phase16a_config5(adj, pfx, me: str, mods, p15=None) -> dict:
                 none_p50=statistics.median(p_none))
 
 
-def config2_policy(ls2, me: str):
-    """[16b]'s RibPolicy at node-2025: weights 3 and 0 on its first two
-    neighbours for the ramp /32s in 16.0.0.0/8."""
-    from openr_tpu_torch.policy import RibPolicy, RibPolicyStatement
-
-    nbrs = [a.other_node_name for a in ls2.adjacency_db(me).adjacencies]
-    return RibPolicy(statements=(RibPolicyStatement(
-        name="ramp", match_prefixes=("16.0.0.0/8",),
-        neighbor_to_weight={nbrs[0]: 3, nbrs[1]: 0}),), ttl_secs=3600.0)
-
-
-def phase16b_config2(ls2, ps2, mods, want=None,
-                     k: int = CONFIG2["k"]) -> dict:
-    """[16b] (see the module docstring): config 2 through KvStore."""
-    from openr_tpu_torch.common.constants import DEFAULT_AREA
-    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
-
-    half = k // 2
-    me = f"node-{half * half}"
-    t0 = time.perf_counter()
-    dbs = [ls2.adjacency_db(nd) for nd in ls2.nodes]
-    items = prefix_items(ps2)
-    f_pubs = [adj_publication([db for db in dbs if db.this_node_name != me],
-                              1),
-              prefix_publication([ne for ne in items if ne[0] != me], 1)]
-    n_pubs = [adj_publication([db for db in dbs if db.this_node_name == me],
-                              1),
-              prefix_publication([ne for ne in items if ne[0] == me], 1)]
-    enc_s = time.perf_counter() - t0
-    out = {}
-
-    async def body():
-        f, n, d, reader = kv_pair(me)
-        spy = SolverSpy(d.solver)
-        t1 = time.perf_counter()
-        for pub in f_pubs:
-            set_on(f, pub)
-        for pub in n_pubs:
-            set_on(n, pub)
-        out["load_ms"] = (time.perf_counter() - t1) * 1e3
-        await f.start()
-        await n.start()
-        out["sync_ms"] = await synced(f, n, me, "16b")
-        out["keys"] = len(n.dbs[DEFAULT_AREA].kv)
-        stores_hold(f, n, f_pubs + n_pubs, "16b full sync")
-        out["kv"] = kv_counts(f, n)
-        feed(d)
-        reset_path_launches(*mods)
-        with GcClock() as g:
-            out["cold"] = await timed_rebuild(d, spy, "16b cold")
-        out["cold_gc_ms"] = g.ms
-        out["launches"] = path_launches(*mods)
-        t2 = time.perf_counter()
-        ref = TorchSpfSolver(device=DEVICE).compute_routes(ls2, ps2, me)
-        out["ref_ms"] = (time.perf_counter() - t2) * 1e3
-        rib_is(d, ref, "16b cold vs a separate card solver of the source "
-               "states")
-        if want is not None:
-            rib_is(d, want, "16b cold vs [9]'s RIB")
-        drain_updates(reader)
-        pol = config2_policy(ls2, me)
-        d.set_rib_policy(pol)
-        d.debounce.cancel()  # the rebuild below is the one timed here
-        with GcClock() as g:
-            out["policy"] = await timed_rebuild(d, spy, "16b policy install",
-                                                fresh_thread=False)
-        out["policy_gc_ms"] = g.ms
-        t3 = time.perf_counter()
-        cur = policy_applied(pol, ref)
-        out["apply_ms"] = (time.perf_counter() - t3) * 1e3
-        rib_is(d, cur, "16b policy install vs a separate solve with it")
-        update_is_diff(drain_updates(reader), ref, cur, "16b policy install")
-        out["changed"] = sum(1 for p, e in cur.unicast_routes.items()
-                             if ref.unicast_routes.get(p) is not e)
-        await n.stop()
-        await f.stop()
-
-    asyncio.run(body())
-    la = out["launches"]
-    if not (la["relax"]["generic"] and la["election"] and la["rib_epilogue"]):
-        fail(f"[16b] the cold rebuild's kernel launches {la}")
-    if out["policy"]["path"] != "full":
-        fail(f"[16b] the policy's rebuild took {out['policy']['path']}")
-    c, pr = out["cold"], out["policy"]
-    log(f"[16b] config 2 through KvStore from {me}: {out['keys']} keys "
-        f"(F: every other node's; {len(f_pubs[0].key_vals)} adjacency, "
-        f"{len(f_pubs[1].key_vals)} prefix), loaded on the stores in "
-        f"{out['load_ms']:.1f} ms; N's full sync from F {out['sync_ms']:.1f} "
-        f"ms (F sent {out['kv']['full_sync_keys_sent']} keys); cold rebuild "
-        f"{c['ms']:.3f} ms ({c['path']}; {out['cold_gc_ms']:.1f} ms of it in "
-        f"the collector), split (ms) "
-        f"{ {k2: round(v, 3) for k2, v in c['split'].items()} } (decode: the "
-        f"synced keys' payloads), host syncs {c['syncs']}, reads "
-        f"{c['reads']}; its launches {la}; RIB == a separate card solver's "
-        f"({out['ref_ms']:.1f} ms)"
-        + (" and [9]'s" if want is not None else "")
-        + f"; RibPolicy installed: its full rebuild {pr['ms']:.3f} ms "
-        f"({pr['path']}, {out['changed']} routes rewritten; "
-        f"{out['policy_gc_ms']:.1f} ms in the collector; the policy's apply "
-        f"alone on a copy of the separate RIB {out['apply_ms']:.1f} ms), "
-        f"split (ms) "
-        f"{ {k2: round(v, 3) for k2, v in pr['split'].items()} }, RIB == the "
-        f"policy on the separate solve, the update == their diff; "
-        f"publications encoded in {enc_s:.1f} s; card "
-        f"{smi('name,power.limit')}")
-    return out
-
-
-def phase16(p9=None, p15=None, k2: int = CONFIG2["k"],
-            n_ramp: int = CONFIG2["n_ramp"]) -> dict:
-    """[16]: the port's KvStore feeding its Decision on the card, config 5
-    and config 2 ([9]'s states and RIB where given, else
-    `config2_states(k2, n_ramp)`)."""
+def phase16(p15=None) -> dict:
+    """[16]: the port's KvStore feeding its Decision on the card at
+    config 5 (config 2's start-up through KvStore runs in [17b]'s node)."""
     from openr_tpu_torch.ops import election as election_ops
     from openr_tpu_torch.ops import relax, rib_epilogue, split_loop
     from openr_tpu_torch.utils.topogen import fat_tree
@@ -7405,15 +7327,8 @@ def phase16(p9=None, p15=None, k2: int = CONFIG2["k"],
     adj, pfx = fat_tree(CONFIG5["k"], metric=10)
     a = phase16a_config5(adj, pfx, adj[0].this_node_name, mods,
                          p15=p15)
-    if p9 is None:
-        ls2, ps2 = config2_states(k2, n_ramp)
-        want = None
-    else:
-        ls2, ps2 = p9["states"]
-        want = p9["ribs"].get(f"node-{(k2 // 2) ** 2}")
-    b = phase16b_config2(ls2, ps2, mods, want, k2)
     log(f"[16] done in {time.perf_counter() - t0:.1f} s")
-    return dict(config5=a, config2=b)
+    return dict(config5=a)
 
 
 
@@ -7427,20 +7342,6 @@ NODE_AGG_SUPPORT = 64
 NODE_OWN_LINKS = 10
 NODE_FAILS = 3
 NODE_RAMP = 100
-
-
-class SparkStandIn:
-    """What LinkMonitor calls on Spark (not ported): the interfaces it
-    runs discovery on."""
-
-    def __init__(self):
-        self.interfaces: set[str] = set()
-
-    def add_interface(self, name: str) -> None:
-        self.interfaces.add(name)
-
-    def remove_interface(self, name: str) -> None:
-        self.interfaces.discard(name)
 
 
 def timed_handler(before_sync=None):
@@ -7561,182 +7462,157 @@ class FirstRebuild(asyncio.Event):
         super().set()
 
 
-class NodeN:
-    """Node N in one process, wired as `openr_tpu/node.py:149-260` wires
-    a node, without Spark, rpc and ctrl: its queues (the log samples and
-    the completed traces shed their oldest at the bound, as there), then
-    Monitor, KvStore (its peers from LinkMonitor's PeerEvents), the
-    KvStoreClient, the Decision on the card (its first rebuild gated on
-    the store's initial sync), Fib on a `MockFibHandler`, PrefixManager
-    (the loopback and `NODE_AGGREGATE` from the config, N's other
-    prefixes as one API event, the aggregate gated on Fib's programmed
-    stream) and LinkMonitor (a Spark stand-in; the neighbour events
-    pushed as Spark would push them). SR is on with the generator's node
-    label; LinkMonitor gives the adjacency labels."""
-
-    def __init__(self, me: str, me_db, transport, loopback, others: list,
-                 before_sync=None):
-        from openr_tpu_torch.config import (Config, KvstoreConfig,
-                                            NodeConfig, OriginatedPrefix,
-                                            SegmentRoutingConfig)
-        from openr_tpu_torch.decision.decision import Decision
-        from openr_tpu_torch.fib import Fib
-        from openr_tpu_torch.kvstore import KvStore, KvStoreClient
-        from openr_tpu_torch.linkmonitor import LinkMonitor
-        from openr_tpu_torch.messaging import SHED_OLDEST, ReplicateQueue
-        from openr_tpu_torch.monitor import Counters, Monitor
-        from openr_tpu_torch.prefixmgr import (PrefixEvent, PrefixEventType,
-                                               PrefixManager, PrefixSource)
-
-        self.me, self.me_db = me, me_db
-        cfg = Config(NodeConfig(
-            node_name=me,
-            # no peer until LinkMonitor's first PeerEvent: never "synced"
-            # by the grace alone
-            kvstore=KvstoreConfig(initial_sync_grace_s=3600.0),
-            segment_routing=SegmentRoutingConfig(
-                enable=True, node_segment_label=me_db.node_label),
-            originated_prefixes=(
-                OriginatedPrefix(prefix=str(loopback)),
-                OriginatedPrefix(prefix=NODE_AGGREGATE,
-                                 minimum_supporting_routes=NODE_AGG_SUPPORT))))
-        self.counters = Counters()
-
-        def q(short, policy=None):
-            return ReplicateQueue(name=f"{me}.{short}",
-                                  maxsize=1024 if policy else 0,
-                                  policy=policy, counters=self.counters,
-                                  counter_key=short)
-
-        self.neighbor_events = q("neighbor_events")
-        self.interface_events = q("interface_events")
-        self.peer_events = q("peer_events")
-        self.kvstore_pubs = q("kvstore_pubs")
-        self.prefix_events = q("prefix_events")
-        self.route_updates = q("route_updates")
-        self.fib_updates = q("fib_updates")
-        self.log_samples = q("log_samples", SHED_OLDEST)
-        self.perf_events = q("perf_events", SHED_OLDEST)
-        self.monitor = Monitor(cfg, self.log_samples.get_reader(),
-                               perf_events_reader=self.perf_events.get_reader(),
-                               counters=self.counters)
-        self.kvstore = KvStore(cfg, transport, self.kvstore_pubs,
-                               peer_events_reader=self.peer_events.get_reader(),
-                               counters=self.counters)
-        transport.register(me, self.kvstore)
-        self.kv_client = KvStoreClient(self.kvstore, me,
-                                       self.kvstore_pubs.get_reader(),
-                                       counters=self.counters)
-        self.decision = Decision(
-            cfg, self.kvstore_pubs.get_reader(), self.route_updates,
-            counters=self.counters,
-            initial_sync_event=self.kvstore.initial_sync_done, device=DEVICE)
-        self.first_rebuild: dict = {}
-        self.decision.rib_computed = FirstRebuild(self.decision,
-                                                  self.first_rebuild)
-        self.handler = timed_handler(before_sync)
-        self.fib = Fib(cfg, self.route_updates.get_reader(), self.handler,
-                       fib_updates_queue=self.fib_updates,
-                       perf_events_queue=self.perf_events,
-                       counters=self.counters)
-        self.spark = SparkStandIn()
-        self.linkmonitor = LinkMonitor(
-            cfg, self.spark, self.kv_client, self.neighbor_events.get_reader(),
-            self.peer_events,
-            interface_events_reader=self.interface_events.get_reader(),
-            log_samples_queue=self.log_samples, counters=self.counters)
-        self.prefixmgr = PrefixManager(
-            cfg, self.kv_client,
-            prefix_events_reader=self.prefix_events.get_reader(),
-            fib_updates_reader=self.fib_updates.get_reader(),
-            counters=self.counters)
-        if others:
-            self.prefix_events.push(PrefixEvent(
-                type=PrefixEventType.ADD_PREFIXES, source=PrefixSource.API,
-                entries=tuple(others)))
-        self.modules = [self.monitor, self.kvstore, self.kv_client,
-                        self.decision, self.fib, self.prefixmgr,
-                        self.linkmonitor]
-        self.queues = [self.neighbor_events, self.interface_events,
-                       self.peer_events, self.kvstore_pubs,
-                       self.prefix_events, self.route_updates,
-                       self.fib_updates, self.log_samples, self.perf_events]
-        self.traces_seen = 0
-
-    async def start(self) -> None:
-        for m in self.modules:
-            await m.start()
-
-    async def stop(self) -> None:
-        for m in reversed(self.modules):
-            await m.stop()
-        for qu in self.queues:
-            qu.close()
-
-    def neighbors_up(self) -> None:
-        """Interfaces up, each link's metric pinned to the generator's,
-        then one traced NEIGHBOR_UP a neighbour, as Spark pushes them."""
-        from openr_tpu_torch.common.constants import DEFAULT_AREA
-        from openr_tpu_torch.monitor import perf
-        from openr_tpu_torch.types.events import (InterfaceEvent,
-                                                  InterfaceInfo,
-                                                  NeighborEvent,
-                                                  NeighborEventType,
-                                                  NeighborInfo)
-
-        adjs = self.me_db.adjacencies
-        for a in adjs:
-            self.linkmonitor.set_link_metric(a.if_name, a.metric)
-        self.interface_events.push(InterfaceEvent(
-            interfaces=[InterfaceInfo(name=a.if_name) for a in adjs]))
-        for a in adjs:
-            self.neighbor_events.push(NeighborEvent(
-                type=NeighborEventType.NEIGHBOR_UP,
-                info=NeighborInfo(node_name=a.other_node_name,
-                                  local_if=a.if_name,
-                                  remote_if=a.other_if_name,
-                                  area=DEFAULT_AREA),
-                perf_events=perf.PerfEvents.start(perf.NEIGHBOR_EVENT,
-                                                  node=self.me)))
-
-    def busy(self, f) -> bool:
-        """O(1) checks: a queue of N's holds an item, a debounce is
-        pending, Fib has a pass due, under way or traces to stamp, or a
-        flood to or from F is waiting in a pending buffer."""
-        d, fib = self.decision, self.fib
-        return bool(
-            any(r.qsize() for qu in self.queues[:7] for r in qu.readers)
-            or self.linkmonitor._advertise_debounce.pending
-            or d.debounce.pending or d._pending_kvs
-            or fib._dirty.is_set() or fib._pending_perf
-            or self.handler.in_flight
-            or any(p.pending_keys or p.pending_expired
-                   for st in (f, self.kvstore) for p in st.peers.values()))
-
-    def table(self) -> tuple[dict, dict]:
-        from openr_tpu_torch.fib import CLIENT_ID_OPENR
-
-        return (dict(self.handler.unicast.get(CLIENT_ID_OPENR, {})),
-                dict(self.handler.mpls.get(CLIENT_ID_OPENR, {})))
-
-    def new_traces(self) -> list:
-        """The traces Monitor completed since the last call (from its
-        ring: the newest MAX_PERF_TRACES), each [(marker, node, ns)]."""
-        ring = list(self.monitor.perf_traces)
-        total = int(self.counters.get("monitor.perf_traces"))
-        n = min(total - self.traces_seen, len(ring))
-        self.traces_seen = total
-        return [[(e.event, e.node, e.ts_ns) for e in t.events]
-                for t in ring[len(ring) - n:]] if n > 0 else []
+#: [17]'s Spark timers: the defaults, but a hold time of a minute, so
+#: that the event loop's stalls at config 2's start-up (the digests of
+#: ~70 000 keys for each of 90 neighbours, run on the loop) expire no
+#: neighbour
+NODE_SPARK = dict(hold_time_ms=60_000, graceful_restart_time_ms=60_000)
 
 
-async def node_quiet(node: NodeN, f, tag: str, timeout: float = 300.0,
+def node_config(me: str, me_db, loopback):
+    """N's config: SR on with the generator's node label, the loopback
+    and `NODE_AGGREGATE` (gated on `NODE_AGG_SUPPORT` programmed routes)
+    originated, no initial sync by the grace alone (N has no peer until
+    LinkMonitor's first PeerEvent), the watchdog off (not part of the
+    port yet)."""
+    from openr_tpu_torch.config import (Config, KvstoreConfig, NodeConfig,
+                                        OriginatedPrefix,
+                                        SegmentRoutingConfig, SparkConfig,
+                                        WatchdogConfig)
+
+    return Config(NodeConfig(
+        node_name=me,
+        spark=SparkConfig(**NODE_SPARK),
+        kvstore=KvstoreConfig(initial_sync_grace_s=3600.0),
+        watchdog=WatchdogConfig(enable=False),
+        segment_routing=SegmentRoutingConfig(
+            enable=True, node_segment_label=me_db.node_label),
+        originated_prefixes=(
+            OriginatedPrefix(prefix=str(loopback)),
+            OriginatedPrefix(prefix=NODE_AGGREGATE,
+                             minimum_supporting_routes=NODE_AGG_SUPPORT))))
+
+
+def speakers_for(me_db, io_for, kvstore_port: int = 0) -> list:
+    """N's neighbours as Spark speakers: one a neighbour, named as the
+    generator names it, on the far end of each of N's links
+    (`io_for(name)` gives its packet I/O); each advertises
+    `kvstore_port` (0: peered in process, by name). Returns (Spark,
+    interface) pairs."""
+    from openr_tpu_torch.config import Config, NodeConfig, SparkConfig
+    from openr_tpu_torch.messaging import ReplicateQueue
+    from openr_tpu_torch.spark import Spark
+
+    out = []
+    for a in me_db.adjacencies:
+        nbr = a.other_node_name
+        out.append((Spark(Config(NodeConfig(
+            node_name=nbr, spark=SparkConfig(**NODE_SPARK))),
+            io_for(nbr), ReplicateQueue(name=f"{nbr}.nbr"),
+            kvstore_port=kvstore_port), a.other_if_name))
+    return out
+
+
+def node_n(me: str, me_db, transport, loopback, others: list,
+           before_sync=None):
+    """Node N: the port's `OpenrNode` on the card (`device=None`), its
+    neighbours' Sparks on one `MockIoHub` with N's (linked over the
+    generator's interfaces), Fib on a timed `MockFibHandler`, the
+    Decision's RIB_COMPUTED gate keeping the first rebuild's wall, N's
+    other prefixes (`others`) one API event. Returns (N, speakers)."""
+    from openr_tpu_torch.node import OpenrNode
+    from openr_tpu_torch.prefixmgr import (PrefixEvent, PrefixEventType,
+                                           PrefixSource)
+    from openr_tpu_torch.spark import MockIoHub
+
+    hub = MockIoHub()
+    for a in me_db.adjacencies:
+        hub.link(me, a.if_name, a.other_node_name, a.other_if_name)
+    node = OpenrNode(node_config(me, me_db, loopback), hub.io_for(me),
+                     transport, fib_handler=timed_handler(before_sync),
+                     device=None if DEVICE == "cuda" else DEVICE)
+    transport.register(me, node.kvstore)
+    node.me_db, node.first_rebuild, node.traces_seen = me_db, {}, 0
+    node.decision.rib_computed = FirstRebuild(node.decision,
+                                              node.first_rebuild)
+    if others:
+        node.prefix_events.push(PrefixEvent(
+            type=PrefixEventType.ADD_PREFIXES, source=PrefixSource.API,
+            entries=tuple(others)))
+    return node, speakers_for(me_db, hub.io_for)
+
+
+def neighbors_up(node) -> None:
+    """Each link's metric pinned to the generator's through LinkMonitor's
+    override, as an operator would (LinkMonitor's own metric is 1 a
+    hop), then N's interfaces up: LinkMonitor runs Spark on them, and
+    each neighbour found is a traced NEIGHBOR_UP."""
+    from openr_tpu_torch.types.events import InterfaceEvent, InterfaceInfo
+
+    adjs = node.me_db.adjacencies
+    for a in adjs:
+        node.linkmonitor.set_link_metric(a.if_name, a.metric)
+    node.interface_events.push(InterfaceEvent(
+        interfaces=[InterfaceInfo(name=a.if_name) for a in adjs]))
+
+
+def node_busy(node, f) -> bool:
+    """O(1) checks: a queue of N's holds an item, a debounce is pending,
+    Fib has a pass due, under way or traces to stamp, or a flood to or
+    from F is waiting in a pending buffer."""
+    d, fib = node.decision, node.fib
+    qs = [node.queues[k] for k in (
+        "neighbor_events", "interface_events", "peer_events", "kvstore_pubs",
+        "prefix_events", "route_updates", "fib_updates")]
+    return bool(
+        any(r.qsize() for qu in qs for r in qu.readers)
+        or node.linkmonitor._advertise_debounce.pending
+        or d.debounce.pending or d._pending_kvs
+        or fib._dirty.is_set() or fib._pending_perf
+        or node.fib_handler.in_flight
+        or any(p.pending_keys or p.pending_expired
+               for st in (f, node.kvstore) for p in st.peers.values()))
+
+
+def node_table(node) -> tuple[dict, dict]:
+    from openr_tpu_torch.fib import CLIENT_ID_OPENR
+
+    h = node.fib_handler
+    return (dict(h.unicast.get(CLIENT_ID_OPENR, {})),
+            dict(h.mpls.get(CLIENT_ID_OPENR, {})))
+
+
+def node_traces(node) -> list:
+    """The traces Monitor completed since the last call (from its ring:
+    the newest MAX_PERF_TRACES), each [(marker, node, ns)]."""
+    ring = list(node.monitor.perf_traces)
+    total = int(node.counters.get("monitor.perf_traces"))
+    n = min(total - node.traces_seen, len(ring))
+    node.traces_seen = total
+    return [[(e.event, e.node, e.ts_ns) for e in t.events]
+            for t in ring[len(ring) - n:]] if n > 0 else []
+
+
+async def start_node(node, speakers) -> None:
+    for sp, ifn in speakers:
+        await sp.start()
+        sp.add_interface(ifn)
+    await node.start()
+
+
+async def stop_node(node, speakers) -> None:
+    await node.stop()
+    for sp, _ifn in speakers:
+        await sp.stop()
+
+
+async def node_quiet(node, f, tag: str, timeout: float = 300.0,
                      traces: int = 0) -> float:
     """Until N is idle (queues drained, no debounce pending, Fib
     converged) and F and N hold the same keys. The O(table) checks
     (Fib's `pending_changes`, the stores' hashes) stay off the loop
     while a window is measured: first `traces` more traces reach
-    Monitor, and N's O(1) checks (`NodeN.busy`) hold for three 5 ms
+    Monitor, and N's O(1) checks (`node_busy`) hold for three 5 ms
     polls; only then the O(table) checks, and after each that fails
     the wait before the next doubles (to 160 ms). Returns the wall in
     ms."""
@@ -7749,11 +7625,11 @@ async def node_quiet(node: NodeN, f, tag: str, timeout: float = 300.0,
     while True:
         if time.perf_counter() - t0 > timeout:
             fail(f"[17] {tag}: N did not settle in {timeout} s (busy "
-                 f"{node.busy(f)}, traces "
+                 f"{node_busy(node, f)}, traces "
                  f"{int(node.counters.get('monitor.perf_traces'))} of "
                  f"{want}, F {len(fdb.kv)} keys, N {len(ndb.kv)})")
         if int(node.counters.get("monitor.perf_traces")) < want \
-                or node.busy(f):
+                or node_busy(node, f):
             calm = 0
         else:
             calm += 1
@@ -7784,7 +7660,7 @@ class NodeLsdb:
     def flapped(self, pub) -> None:
         self.ls.update_adjacency_db(self.src[id(pub)])
 
-    def set_own(self, node: NodeN) -> None:
+    def set_own(self, node) -> None:
         """N's databases as its LinkMonitor and PrefixManager hold them."""
         from openr_tpu_torch.common.constants import DEFAULT_AREA
         from openr_tpu_torch.types import PrefixDatabase
@@ -7822,10 +7698,10 @@ class NodeLsdb:
             self.ls.snapshot(), self.ps.snapshot(), self.me)
 
 
-def table_is(node: NodeN, rdb, tag: str) -> tuple[int, int]:
+def table_is(node, rdb, tag: str) -> tuple[int, int]:
     """N's handler holds exactly `rdb` converted: every unicast and MPLS
     route, equal; returns the counts."""
-    uni, mpls = node.table()
+    uni, mpls = node_table(node)
     want_u = {p: e.to_unicast_route() for p, e in rdb.unicast_routes.items()}
     want_m = {lb: e.to_mpls_route() for lb, e in rdb.mpls_routes.items()}
     if uni != want_u or mpls != want_m:
@@ -7855,20 +7731,21 @@ async def loop_lag(stop: list, out: list) -> None:
         out.append((time.perf_counter() - t0) * 1e3 - 1.0)
 
 
-async def node_up(node: NodeN, f, tag: str) -> dict:
-    """N started; F pushes its keys to N (F's session to N); then N's
-    interfaces and neighbours come up through LinkMonitor, whose
-    PeerEvents peer N's store with each neighbour (F, registered under
-    each neighbour's name) and whose adj:<N> floods to F. The walls of
-    KVSTORE_SYNCED, RIB_COMPUTED and FIB_SYNCED from the first neighbour
-    event."""
+async def node_up(node, speakers, f, tag: str) -> dict:
+    """N and its neighbours' Sparks started; F pushes its keys to N (F's
+    session to N); then N's interfaces come up: LinkMonitor runs Spark on
+    them, the neighbours are found, and LinkMonitor's PeerEvents peer N's
+    store with each (F, registered under each neighbour's name) and its
+    adj:<N> floods to F. The walls of every neighbour in LinkMonitor,
+    KVSTORE_SYNCED, RIB_COMPUTED and FIB_SYNCED from the interfaces coming
+    up."""
     from openr_tpu_torch.common.constants import DEFAULT_AREA
     from openr_tpu_torch.kvstore.kvstore import PeerSpec
 
     out = {}
-    await node.start()
+    await start_node(node, speakers)
     t0 = time.perf_counter()
-    f.add_peer_sync(PeerSpec(node_name=node.me))
+    f.add_peer_sync(PeerSpec(node_name=node.name))
     fdb, ndb = f.dbs[DEFAULT_AREA], node.kvstore.dbs[DEFAULT_AREA]
     while not all(k in ndb.kv for k in fdb.kv):
         if time.perf_counter() - t0 > 600:
@@ -7878,7 +7755,14 @@ async def node_up(node: NodeN, f, tag: str) -> dict:
     out["keys"] = len(ndb.kv)
     out["peers"] = len(node.me_db.adjacencies)
     t1 = time.perf_counter()
-    node.neighbors_up()
+    neighbors_up(node)
+    n_adj = len(node.me_db.adjacencies)
+    while len(node.linkmonitor.adjacencies) < n_adj:
+        if time.perf_counter() - t1 > 600:
+            fail(f"[17] {tag}: Spark found {len(node.linkmonitor.adjacencies)}"
+                 f" of N's {n_adj} neighbours")
+        await asyncio.sleep(0.005)
+    out["discovered_ms"] = (time.perf_counter() - t1) * 1e3
     for name, gate in (("kvstore_synced", node.kvstore.initial_sync_done),
                        ("rib_computed", node.decision.rib_computed),
                        ("fib_synced", node.fib.synced)):
@@ -7893,10 +7777,10 @@ async def node_up(node: NodeN, f, tag: str) -> dict:
     return out
 
 
-def sync_row(node: NodeN) -> dict:
+def sync_row(node) -> dict:
     """The first full sync: the handler's sync calls (routes, ms) and
     Fib's longest pass of the start-up (its full sync)."""
-    calls = [c for c in node.handler.calls if c[0].startswith("sync")]
+    calls = [c for c in node.fib_handler.calls if c[0].startswith("sync")]
     st = node.counters.stats.get("fib.program_ms")
     return dict(unicast=calls[0][1], mpls=calls[1][1],
                 handler_ms=round(calls[0][2] + calls[1][2], 3),
@@ -7950,15 +7834,15 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
             set_on(f, pub)
         agg_key = prefix_key(me, DEFAULT_AREA, NODE_AGGREGATE)
         agg_before = []
-        node = NodeN(me, me_db, t, loopback, [], before_sync=lambda: (
-            agg_before.append(f.get_key(DEFAULT_AREA, agg_key) is None
-                              and node.kvstore.get_key(DEFAULT_AREA, agg_key)
-                              is None)))
+        node, speakers = node_n(me, me_db, t, loopback, [], before_sync=(
+            lambda: agg_before.append(
+                f.get_key(DEFAULT_AREA, agg_key) is None
+                and node.kvstore.get_key(DEFAULT_AREA, agg_key) is None)))
         spy = SolverSpy(node.decision.solver)
         d = node.decision
         await f.start()
         reset_path_launches(*mods)
-        out["up"] = await node_up(node, f, "17a start-up")
+        out["up"] = await node_up(node, speakers, f, "17a start-up")
         out["launches"] = path_launches(*mods)
         out["sync"] = sync_row(node)
         v = f.get_key(DEFAULT_AREA, agg_key)
@@ -7968,7 +7852,9 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
                  f"{agg_before}, in F after it {v is not None}")
         gen.set_own(node)
         out["table"] = table_is(node, gen.rib(), "17a start-up")
-        out["startup_traces"] = node.new_traces()
+        out["startup_traces"] = node_traces(node)
+        out["adjacencies"] = node.linkmonitor.build_adjacency_db(
+            DEFAULT_AREA).adjacencies
         # step: 40 flaps a cycle set on F, one traced
         rows = []
         for i, cyc in enumerate(cycles):
@@ -7979,7 +7865,7 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
                 gen.flapped(pub)
             await node_quiet(node, f, f"17a cycle {i}")
             table_is(node, gen.rib(), f"17a cycle {i}")
-            tr = [ev for ev in node.new_traces()
+            tr = [ev for ev in node_traces(node)
                   if ev[0][:2] == (perf.ADJ_DB_UPDATED, KV_FABRIC)]
             rows.append(dict(ms=d._last_spf_ms, path=d._rebuild_path,
                              runs=d._spf_runs - runs0,
@@ -8013,7 +7899,7 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
         await lagger
         table_is(node, gen.rib(), "17a live")
         done = int(node.counters.get("monitor.perf_traces"))
-        tr = [ev for ev in node.new_traces()
+        tr = [ev for ev in node_traces(node)
               if ev[0][:2] == (perf.ADJ_DB_UPDATED, KV_FABRIC)
               and ev[0][2] >= t_live]
         out["live"] = dict(
@@ -8038,7 +7924,7 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
                 gen.set_own(node)
                 table_is(node, gen.rib(), f"17a own link {a.if_name} "
                          f"metric {metric}")
-                tr = [ev for ev in node.new_traces()
+                tr = [ev for ev in node_traces(node)
                       if ev[0][:2] == (perf.ADJ_DB_UPDATED, me)]
                 if len(tr) != 1:
                     fail(f"[17a] own link {a.if_name}: {len(tr)} traces")
@@ -8057,7 +7943,7 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
             rdb = gen.rib()
             table_is(node, rdb if pol is None else policy_applied(pol, rdb),
                      "17a RibPolicy " + ("installed" if pol else "removed"))
-            uni, _m = node.table()
+            uni, _m = node_table(node)
             held = IpPrefix.make("10.0.0.200/32")
             pol_rows.append(dict(ms=d._last_spf_ms, path=d._rebuild_path,
                                  runs=d._spf_runs - runs0,
@@ -8065,7 +7951,7 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
                                  solved=held in rdb.unicast_routes))
         out["policy"] = pol_rows
         # failures: the next NODE_FAILS handler calls fail
-        h, c = node.handler, node.counters
+        h, c = node.fib_handler, node.counters
         fails0, syncs0 = c.get("fib.program_fail"), h.sync_count
         h.fail_next_n = NODE_FAILS
         pe = perf.PerfEvents.start(perf.ADJ_DB_UPDATED, node=KV_FABRIC)
@@ -8074,7 +7960,7 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
             gen.flapped(pub)
         await node_quiet(node, f, "17a failures", traces=1)
         pend = node.fib.pending_changes()
-        tr = [ev for ev in node.new_traces()
+        tr = [ev for ev in node_traces(node)
               if ev[0][:2] == (perf.ADJ_DB_UPDATED, KV_FABRIC)]
         out["fails"] = dict(failed=int(c.get("fib.program_fail") - fails0),
                             syncs=h.sync_count - syncs0,
@@ -8093,7 +7979,7 @@ def phase17a_config5(adj, pfx, me: str, mods) -> dict:
         out["batch_max"] = st.max if st is not None else None
         out["failed"] = int(c.get(f"{d.name}.task_exceptions"))
         out["samples"] = len(node.monitor.events)
-        await node.stop()
+        await stop_node(node, speakers)
         await f.stop()
 
     asyncio.run(body())
@@ -8165,10 +8051,10 @@ def check17a(out: dict, mods) -> dict:
             perf.REBUILD_FULL, perf.SPF_SOLVE_DONE, perf.ROUTE_UPDATE_SENT,
             perf.FIB_PROGRAMMED]
     # LinkMonitor merges the neighbour events' traces that one
-    # advertisement covers: a run of one marker per merged event
-    if not any([e for i, (e, _n, _t) in enumerate(ev)
-                if i == 0 or ev[i - 1][0] != e] == want
-               for ev in out["startup_traces"]):
+    # advertisement covers, in timestamp order: each (marker, node) pair
+    # counted once
+    if not any([e for e, _n in dict.fromkeys((e, n) for e, n, _t in ev)]
+               == want for ev in out["startup_traces"]):
         bad.append(f"no start-up trace with the markers {want}: "
                    f"{[[e for e, _n, _t in ev] for ev in out['startup_traces']]}")
     step = out["step"]
@@ -8199,10 +8085,16 @@ def check17a(out: dict, mods) -> dict:
     up, sy = out["up"], out["sync"]
     lag = sorted(lv["lag"])
     card = smi("name,power.limit")
-    log(f"[17a] node N at config 5's core node-0 "
-        f"(fat_tree({c5['k']}, metric=10)): F pushed "
-        f"{up['keys']} keys to N in {up['push_ms']:.1f} ms; from the first "
-        f"neighbour event KVSTORE_SYNCED {up['kvstore_synced_ms']:.1f} ms "
+    log(f"[17a] node N (the port's OpenrNode, device=None) at config 5's "
+        f"core node-0 (fat_tree({c5['k']}, metric=10)), its {up['peers']} "
+        f"neighbours Spark speakers on one MockIoHub (hold time "
+        f"{NODE_SPARK['hold_time_ms']} ms), each link's metric set to the "
+        f"generator's 10 by LinkMonitor's override as an operator would "
+        f"(LinkMonitor's own is 1 a hop): F pushed "
+        f"{up['keys']} keys to N in {up['push_ms']:.1f} ms; from N's "
+        f"interfaces coming up every neighbour found by Spark "
+        f"{up['discovered_ms']:.1f} ms, KVSTORE_SYNCED "
+        f"{up['kvstore_synced_ms']:.1f} ms "
         f"(N's KvStore peered with its {up['peers']} neighbours), "
         f"RIB_COMPUTED {up['rib_computed_ms']:.1f} ms, FIB_SYNCED "
         f"{up['fib_synced_ms']:.1f} ms, quiet after {up['quiet_ms']:.1f} "
@@ -8265,7 +8157,19 @@ def check17a(out: dict, mods) -> dict:
     if bad:
         fail("[17a] " + "; ".join(bad))
     return dict(step_p50=p50(ms), step_fib_p50=p50(fib), live_p50=p50(lat),
-                live_p99=p99(lat), own_p50=p50(own_fib))
+                live_p99=p99(lat), own_p50=p50(own_fib),
+                adjacencies=out["adjacencies"])
+
+
+def config2_policy(me_db):
+    """[17b]'s RibPolicy at node-2025: weights 3 and 0 on its first two
+    neighbours for the ramp /32s in 16.0.0.0/8."""
+    from openr_tpu_torch.policy import RibPolicy, RibPolicyStatement
+
+    nbrs = [a.other_node_name for a in me_db.adjacencies]
+    return RibPolicy(statements=(RibPolicyStatement(
+        name="ramp", match_prefixes=("16.0.0.0/8",),
+        neighbor_to_weight={nbrs[0]: 3, nbrs[1]: 0}),), ttl_secs=3600.0)
 
 
 def phase17b_config2(ls2, ps2, mods, want=None,
@@ -8313,17 +8217,19 @@ def phase17b_config2(ls2, ps2, mods, want=None,
         for pub in f_pubs:
             set_on(f, pub)
         out["load_ms"] = (time.perf_counter() - t1) * 1e3
-        node = NodeN(me, me_db, t, loopback,
-                     [e for e in own_items if e.prefix != loopback])
+        node, speakers = node_n(me, me_db, t, loopback,
+                                [e for e in own_items if e.prefix != loopback])
         spy = SolverSpy(node.decision.solver)
         d = node.decision
         await f.start()
         reset_path_launches(*mods)
         with GcClock() as g:
-            out["up"] = await node_up(node, f, "17b start-up")
+            out["up"] = await node_up(node, speakers, f, "17b start-up")
         out["gc_ms"] = g.ms
         out["launches"] = path_launches(*mods)
         out["sync"] = sync_row(node)
+        stores_hold(f, node.kvstore, f_pubs, "17b start-up's full sync",
+                    phase="17b")
         gen.set_own(node)
         t2 = time.perf_counter()
         ref = gen.rib()
@@ -8331,30 +8237,30 @@ def phase17b_config2(ls2, ps2, mods, want=None,
         out["table"] = table_is(node, ref, "17b start-up vs a separate card "
                                 "solve")
         if want is not None:
-            uni, _m = node.table()
+            uni, _m = node_table(node)
             if uni != {p: e.to_unicast_route()
                        for p, e in want.unicast_routes.items()}:
                 fail("[17b] the handler's unicast table differs from [9]'s "
                      "RIB converted")
         # the ramp's windows start just after a periodic full resync of
         # Fib's (every sync_interval_s, 60 s), so that none falls in them
-        syncs0, t3 = node.handler.sync_count, time.perf_counter()
-        while node.handler.sync_count == syncs0:
+        syncs0, t3 = node.fib_handler.sync_count, time.perf_counter()
+        while node.fib_handler.sync_count == syncs0:
             if time.perf_counter() - t3 > 90:
                 fail("[17b] no periodic full resync of Fib's in 90 s")
             await asyncio.sleep(0.05)
         out["resync_wait_ms"] = (time.perf_counter() - t3) * 1e3
         await node_quiet(node, f, "17b the resync")
-        node.new_traces()
-        start_u, start_m = node.table()
+        node_traces(node)
+        start_u, start_m = node_table(node)
         rows = {}
         for step, version, delete in (("withdraw", 2, True),
                                       ("re-add", 3, False)):
-            runs0, calls0 = d._spf_runs, len(node.handler.calls)
+            runs0, calls0 = d._spf_runs, len(node.fib_handler.calls)
             for key, val, pe in ramp_pub(version, delete, True):
                 f.set_key(DEFAULT_AREA, key, val, perf_events=pe)
             await node_quiet(node, f, f"17b {step}", traces=1)
-            uni, mpls = node.table()
+            uni, mpls = node_table(node)
             gone = {p for p, _x in ramp}
             want_u = ({p: r for p, r in start_u.items() if p not in gone}
                       if delete else start_u)
@@ -8362,19 +8268,46 @@ def phase17b_config2(ls2, ps2, mods, want=None,
                 fail(f"[17b] {step}: the table is not the start-up table "
                      f"{'less' if delete else 'with'} the {len(ramp)} ramp "
                      "/32s")
-            tr = [ev for ev in node.new_traces()
+            tr = [ev for ev in node_traces(node)
                   if ev[0][:2] == (perf.ADJ_DB_UPDATED, KV_FABRIC)]
             rows[step] = dict(
                 ms=d._last_spf_ms, path=d._rebuild_path,
                 runs=d._spf_runs - runs0,
-                calls=[c[:2] for c in node.handler.calls[calls0:]],
+                calls=[c[:2] for c in node.fib_handler.calls[calls0:]],
                 fib=trace_ms(tr[0], perf.FIB_PROGRAMMED) if tr else None,
                 sent=trace_ms(tr[0], perf.ROUTE_UPDATE_SENT) if tr else None)
         out["ramp"] = rows
+        # a RibPolicy installed on the running Decision: its full rebuild
+        # (R4 at config 2), the RIB held to the policy applied to the
+        # separate solve and the RouteUpdate to their diff (the ramp's
+        # re-add put back the start-up's prefixes)
+        pol = config2_policy(me_db)
+        reader = node.route_updates.get_reader("17b.policy")
+        runs0 = d._spf_runs
+        d.set_rib_policy(pol)
+        t4 = time.perf_counter()
+        with GcClock() as g:
+            while d._spf_runs == runs0:
+                if time.perf_counter() - t4 > 300:
+                    fail("[17b] the policy's rebuild did not finish in 300 s")
+                await asyncio.sleep(0.005)
+        out["policy"] = dict(ms=d._last_spf_ms, path=d._rebuild_path,
+                             runs=d._spf_runs - runs0, gc_ms=g.ms,
+                             split=dict(d.last_breakdown_ms))
+        updates = drain_updates(reader)
+        t5 = time.perf_counter()
+        cur = policy_applied(pol, ref)
+        out["policy"]["apply_ms"] = (time.perf_counter() - t5) * 1e3
+        rib_is(d, cur, "17b policy install vs the policy on a separate "
+               "solve")
+        update_is_diff(updates, ref, cur, "17b policy install")
+        out["policy"]["changed"] = sum(
+            1 for p, e in cur.unicast_routes.items()
+            if ref.unicast_routes.get(p) is not e)
         out["calls"] = spy.calls
         out["copies"] = (t.copies, t.reused)
         out["failed"] = int(node.counters.get(f"{d.name}.task_exceptions"))
-        await node.stop()
+        await stop_node(node, speakers)
         await f.stop()
 
     try:
@@ -8393,12 +8326,18 @@ def phase17b_config2(ls2, ps2, mods, want=None,
         if r["path"] != "prefix_only" or r["runs"] != 1 or r["fib"] is None \
                 or r["calls"] != [(kind, len(ramp))]:
             fail(f"[17b] {step}: {r}")
+    pr = out["policy"]
+    if pr["path"] != "full" or pr["runs"] != 1 or not pr["changed"]:
+        fail(f"[17b] the policy's rebuild: {pr}")
     up, sy = out["up"], out["sync"]
     c = up["cold"]
-    log(f"[17b] node at config 2's node-2025 ({len(me_db.adjacencies)} "
-        f"neighbours): F loaded with {up['keys']} keys in "
+    log(f"[17b] node N (the port's OpenrNode) at config 2's node-2025 "
+        f"({len(me_db.adjacencies)} neighbours, Spark speakers on one "
+        f"MockIoHub, the links' metrics set by LinkMonitor's override): F "
+        f"loaded with {up['keys']} keys in "
         f"{out['load_ms']:.1f} ms, pushed to N in {up['push_ms']:.1f} ms; "
-        f"from the first neighbour event KVSTORE_SYNCED "
+        f"from N's interfaces coming up every neighbour found "
+        f"{up['discovered_ms']:.1f} ms, KVSTORE_SYNCED "
         f"{up['kvstore_synced_ms']:.1f} ms, RIB_COMPUTED "
         f"{up['rib_computed_ms']:.1f} ms, FIB_SYNCED "
         f"{up['fib_synced_ms']:.1f} ms ({out['gc_ms']:.1f} ms in the "
@@ -8408,7 +8347,9 @@ def phase17b_config2(ls2, ps2, mods, want=None,
         f"(ms) { {k2: round(v, 3) for k2, v in c['split'].items()} }; "
         f"launches {la}; FULL_SYNC {sy['unicast']} unicast + {sy['mpls']} "
         f"mpls routes, the handler's sync calls {sy['handler_ms']} ms, "
-        f"Fib's pass {sy['pass_ms']} ms; table == a separate card solve's "
+        f"Fib's pass {sy['pass_ms']} ms; F's and N's stores hold the "
+        f"generator's Values of F's {sum(len(p.key_vals) for p in f_pubs)} "
+        f"keys; table == a separate card solve's "
         f"converted RIB ({out['ref_ms']:.1f} ms)"
         + (" and the unicast table == [9]'s" if want is not None else "")
         + f"; publications encoded in {enc_s:.1f} s; card "
@@ -8420,12 +8361,269 @@ def phase17b_config2(ls2, ps2, mods, want=None,
             f"awaited {out['resync_wait_ms']:.1f} ms), "
             f"flap -> ROUTE_UPDATE_SENT {r['sent']:.3f} ms, -> "
             f"FIB_PROGRAMMED {r['fib']:.3f} ms")
+    log(f"[17b] RibPolicy installed (weights 3 / 0 on two neighbours for "
+        f"16.0.0.0/8): its full rebuild {pr['ms']:.3f} ms ({pr['path']}, "
+        f"{pr['changed']} routes rewritten; {pr['gc_ms']:.1f} ms in the "
+        f"collector; the policy's apply alone on a copy of the separate "
+        f"RIB {pr['apply_ms']:.1f} ms), split (ms) "
+        f"{ {k2: round(v, 3) for k2, v in pr['split'].items()} }; RIB == "
+        f"the policy on the separate solve, the update == their diff")
     log(f"[17b] {solves['solves']} solver calls, every one on the card "
         f"({solves['refused']} refused warm calls, {solves['reused']} "
         f"reused); N's floods to its "
         f"neighbours other than F's session, encoded and counted, and "
         f"full-sync answers handed on: {out['copies']}")
     return out
+
+
+def compute_apps() -> list:
+    """The (pid, used memory) rows `nvidia-smi --query-compute-apps`
+    lists: one a context on the card. In a sandbox of its own the pids
+    may be masked (all 1); the rows still count the contexts."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return [tuple(x.strip() for x in line.split(",", 1))
+            for line in res.stdout.strip().splitlines() if "," in line]
+
+
+def holds_context(pid: int, before: list, during: list) -> bool:
+    """`pid` holds a context on the card: listed by its pid where the
+    list names this process by its own, else one more context than
+    before it started."""
+    pids = {int(p) for p, _m in during if p.isdigit()}
+    if os.getpid() in pids:
+        return pid in pids
+    return len(during) == len(before) + 1
+
+
+def adjacency_shape(adjs) -> tuple:
+    """What Spark and LinkMonitor decide of N's adjacencies: each
+    neighbour with its two interfaces, its overload and weight, and the
+    set of adjacency labels (given in the order the neighbours came up)."""
+    return (sorted((a.other_node_name, a.if_name, a.other_if_name,
+                    a.is_overloaded, a.weight) for a in adjs),
+            sorted(a.adj_label for a in adjs))
+
+
+def phase17c_daemon(adj, pfx, me: str, want_adjs) -> dict:
+    """[17c] (see the module docstring): `python -m openr_tpu_torch` as
+    node-0 of config 5, its neighbours' Sparks on UDP in this process and
+    the fabric's store F behind an `RpcServer`."""
+    import dataclasses
+    import signal
+
+    from openr_tpu_torch.common.constants import (DEFAULT_AREA, adj_key,
+                                                  prefix_key)
+    from openr_tpu_torch.config import Config, UdpInterfaceConfig
+    from openr_tpu_torch.kvstore import KvStore, TcpKvTransport
+    from openr_tpu_torch.kvstore.kvstore import PeerSpec
+    from openr_tpu_torch.messaging import ReplicateQueue
+    from openr_tpu_torch.monitor import Counters
+    from openr_tpu_torch.rpc import RpcClient, RpcServer
+    from openr_tpu_torch.spark import UdpIoProvider
+    from openr_tpu_torch.types import AdjacencyDatabase, PrefixDatabase
+    from openr_tpu_torch.types.kvstore import Value
+    from openr_tpu_torch.types.serde import from_wire, to_wire
+
+    me_db = next(db for db in adj if db.this_node_name == me)
+    others = [db for db in adj if db.this_node_name != me]
+    loopback = next(db for db in pfx if db.this_node_name == me)\
+        .prefix_entries[0].prefix
+    run_dir = Path(tempfile.mkdtemp(prefix="daemon_"))
+    ready_path = run_dir / "ready.json"
+    n_adj = len(me_db.adjacencies)
+
+    def log_tail() -> str:
+        path = run_dir / "daemon.log"
+        return path.read_text()[-2000:] if path.exists() else ""
+    out = {}
+
+    async def wait_for(cond, tag: str, timeout: float = 300.0) -> float:
+        t0 = time.perf_counter()
+        while not cond():
+            if proc.returncode is not None:
+                fail(f"[17c] the daemon exited {proc.returncode} while "
+                     f"waiting for {tag}; its log ends: {log_tail()}")
+            if time.perf_counter() - t0 > timeout:
+                fail(f"[17c] {tag}: not within {timeout} s; the daemon's "
+                     f"log ends: {log_tail()}")
+            await asyncio.sleep(0.01)
+        return (time.perf_counter() - t_launch) * 1e3
+
+    async def n_holds(kv_port: int, key: str, version: int) -> bool:
+        """N's store holds `key` at `version`, read by a full sync with an
+        empty digest against N's listener."""
+        c = RpcClient("127.0.0.1", kv_port)
+        await c.connect()
+        try:
+            r = await c.call("kv.fullSync", {"area": DEFAULT_AREA,
+                                             "sender": KV_FABRIC,
+                                             "digest": {}}, timeout=60.0)
+        finally:
+            await c.close()
+        v = (r.get("key_vals") or {}).get(key)
+        return v is not None and v.get("version") == version
+
+    async def body():
+        nonlocal proc, t_launch
+        f = KvStore(Config.default(KV_FABRIC), TcpKvTransport(),
+                    ReplicateQueue(name="f"), counters=Counters())
+        for pub in (adj_publication(others, 1), prefix_publication(
+                [(db.this_node_name, e) for db in pfx
+                 if db.this_node_name != me for e in db.prefix_entries], 1)):
+            set_on(f, pub)
+        server = RpcServer(f"{KV_FABRIC}.kv")
+        f.register_rpc(server)
+        f_port = await server.start("127.0.0.1", 0)
+        await f.start()
+        ios: dict = {}
+
+        def io_for(name):
+            ios[name] = UdpIoProvider()
+            return ios[name]
+
+        speakers = speakers_for(me_db, io_for, kvstore_port=f_port)
+        spk_port = {}
+        for (_sp, ifn), a in zip(speakers, me_db.adjacencies):
+            spk_port[a.if_name] = await ios[a.other_node_name].add_interface(
+                ifn, 0)
+        cfg = node_config(me, me_db, loopback)
+        cfg = Config(dataclasses.replace(
+            cfg.node, kvstore_port=0, ctrl_port=0,
+            udp_interfaces=tuple(UdpInterfaceConfig(
+                a.if_name, 0, "127.0.0.1", spk_port[a.if_name])
+                for a in me_db.adjacencies)))
+        (run_dir / "n.json").write_text(cfg.to_json())
+        out["apps_before"] = compute_apps()
+        started = []
+        try:
+            with open(run_dir / "daemon.log", "wb") as lf:
+                t_launch = time.perf_counter()
+                proc = await asyncio.create_subprocess_exec(
+                    sys.executable, "-m", "openr_tpu_torch", "--config",
+                    str(run_dir / "n.json"), "--ready-file", str(ready_path),
+                    "--log-level", "WARNING", "--device", DEVICE,
+                    cwd=str(Path(__file__).resolve().parent),
+                    stdout=lf, stderr=lf)
+            out["ready_ms"] = await wait_for(ready_path.exists,
+                                             "OPENR_READY", 300.0)
+            ready = json.loads(ready_path.read_text())
+            if "error" in ready or ready["pid"] != proc.pid \
+                    or ready["ctrl_port"] is not None \
+                    or set(ready["udp_ports"]) != set(spk_port):
+                fail(f"[17c] the ready file {ready}")
+            out["ready"] = ready
+            for (sp, ifn), a in zip(speakers, me_db.adjacencies):
+                ios[a.other_node_name].set_peer(
+                    ifn, ("127.0.0.1", ready["udp_ports"][a.if_name]))
+                await sp.start()
+                started.append(sp)
+                sp.add_interface(ifn)
+            f.add_peer_sync(PeerSpec(node_name=me, endpoint=(
+                "127.0.0.1", ready["kvstore_port"])))
+
+            def n_adj_db():
+                v = f.get_key(DEFAULT_AREA, adj_key(me))
+                return None if v is None else from_wire(v.value,
+                                                        AdjacencyDatabase)
+
+            out["adj_ms"] = await wait_for(
+                lambda: (db := n_adj_db()) is not None
+                and len(db.adjacencies) == n_adj, f"adj:{me} in F")
+            out["adjacencies"] = n_adj_db().adjacencies
+            agg_key = prefix_key(me, DEFAULT_AREA, NODE_AGGREGATE)
+
+            def agg_in_f():
+                v = f.get_key(DEFAULT_AREA, agg_key)
+                return v is not None and not from_wire(
+                    v.value, PrefixDatabase).delete_prefix
+
+            out["agg_ms"] = await wait_for(agg_in_f, "the aggregate in F")
+            loop = asyncio.get_running_loop()
+            out["apps"] = [await loop.run_in_executor(None, compute_apps)]
+            # one flap set on F, flooded to N over F's session to N's
+            # listener
+            db = others[0]
+            flapped = dataclasses.replace(db, adjacencies=(dataclasses.replace(
+                db.adjacencies[0], metric=db.adjacencies[0].metric + 7),
+                *db.adjacencies[1:]))
+            t_flap = time.perf_counter()
+            f.set_key(DEFAULT_AREA, adj_key(db.this_node_name), Value(
+                version=2, originator_id=db.this_node_name,
+                value=to_wire(flapped)).with_hash())
+            while not await n_holds(ready["kvstore_port"],
+                                    adj_key(db.this_node_name), 2):
+                if time.perf_counter() - t_flap > 120:
+                    fail("[17c] the flap set on F did not reach N")
+                await asyncio.sleep(0.05)
+            out["flap_ms"] = (time.perf_counter() - t_flap) * 1e3
+            out["f_peers"] = sorted(n for _a, n in f.peers)
+            # two more samples of the card's contexts, the last 0.5 s
+            # later, so that another process's context appearing at one
+            # moment does not pass for the daemon's
+            out["apps"].append(await loop.run_in_executor(None, compute_apps))
+            await asyncio.sleep(0.5)
+            out["apps"].append(await loop.run_in_executor(None, compute_apps))
+            proc.send_signal(signal.SIGTERM)
+            t_term = time.perf_counter()
+            try:
+                out["rc"] = await asyncio.wait_for(proc.wait(), 120)
+            except asyncio.TimeoutError:
+                fail("[17c] the daemon did not exit within 120 s of SIGTERM")
+            out["term_ms"] = (time.perf_counter() - t_term) * 1e3
+            out["apps_after"] = compute_apps()
+        finally:
+            if proc is not None and proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+            for sp in started:
+                await sp.stop()
+            for io in ios.values():
+                io.close()
+            await f.stop()
+            await server.stop()
+
+    proc, t_launch = None, 0.0
+    asyncio.run(body())
+    shutil.rmtree(run_dir, ignore_errors=True)
+    got, want = adjacency_shape(out["adjacencies"]), adjacency_shape(want_adjs)
+    metrics = sorted({a.metric for a in out["adjacencies"]})
+    pid = out["ready"]["pid"]
+    seen = all(holds_context(pid, out["apps_before"], apps)
+               for apps in out["apps"])
+    bad = []
+    if got != want:
+        bad.append(f"N's adjacencies {got} differ from [17a]'s {want}")
+    if DEVICE == "cuda" and not seen:
+        bad.append(f"the daemon (pid {pid}) holds no context on the card "
+                   f"in every sample ({out['apps']})")
+    if out["rc"] != 0:
+        bad.append(f"SIGTERM: exit {out['rc']}")
+    log(f"[17c] python -m openr_tpu_torch as {me} of config 5, "
+        f"{n_adj} udp_interfaces on port 0, its neighbours {n_adj} Spark "
+        f"speakers on UdpIoProvider in this process advertising F's "
+        f"listener: from the launch OPENR_READY {out['ready_ms']:.1f} ms, "
+        f"adj:{me} in F over TCP {out['adj_ms']:.1f} ms, the aggregate "
+        f"{NODE_AGGREGATE} (originated after Fib programmed "
+        f"{NODE_AGG_SUPPORT} supporting routes the Decision solved on the "
+        f"card) in F {out['agg_ms']:.1f} ms; the daemon's pid {pid} "
+        f"{'holds' if seen else 'does not hold'} a context on the card "
+        f"(nvidia-smi compute apps (pid, memory) before the launch "
+        f"{out['apps_before']}, with the daemon up (3 samples, after the "
+        f"aggregate, after the flap and 0.5 s later) {out['apps']}, after "
+        f"its exit {out['apps_after']}); its {n_adj} adjacencies "
+        f"== [17a]'s (neighbours, interfaces, labels) with LinkMonitor's "
+        f"own metric {metrics} (no operator override without ctrl; [17a] "
+        f"set the generator's 10); one flap set on F reached N's store over "
+        f"F's session to N's listener in {out['flap_ms']:.1f} ms (F's "
+        f"peers {out['f_peers']}); SIGTERM: exit {out['rc']} in "
+        f"{out['term_ms']:.1f} ms; card {smi('name,power.limit')}")
+    if bad:
+        fail("[17c] " + "; ".join(bad))
+    return dict(ready_ms=out["ready_ms"], adj_ms=out["adj_ms"],
+                agg_ms=out["agg_ms"], flap_ms=out["flap_ms"])
 
 
 def phase17(p9=None, k2: int = CONFIG2["k"],
@@ -8441,6 +8639,7 @@ def phase17(p9=None, k2: int = CONFIG2["k"],
     t0 = time.perf_counter()
     adj, pfx = fat_tree(CONFIG5["k"], metric=10)
     a = phase17a_config5(adj, pfx, adj[0].this_node_name, mods)
+    c = phase17c_daemon(adj, pfx, adj[0].this_node_name, a.pop("adjacencies"))
     if p9 is None:
         ls2, ps2 = config2_states(k2, n_ramp)
         want = None
@@ -8449,7 +8648,7 @@ def phase17(p9=None, k2: int = CONFIG2["k"],
         want = p9["ribs"].get(f"node-{(k2 // 2) ** 2}")
     b = phase17b_config2(ls2, ps2, mods, want, k2)
     log(f"[17] done in {time.perf_counter() - t0:.1f} s")
-    return dict(config5=a, config2=b)
+    return dict(config5=a, config2=b, daemon=c)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """Numeric and protocol constants the port needs: the solver's numeric
-contract, the KvStore key conventions Decision parses, the KvStore
-defaults, the Decision debounce defaults, LinkMonitor's flap damping,
-Fib's retry bounds and client ids, and the SR-MPLS label ranges.
+contract, the KvStore key conventions Decision parses, the default
+ports, Spark's timers, the KvStore defaults, the queue and inbox bounds,
+the Decision debounce defaults, LinkMonitor's flap damping, Fib's retry
+bounds and client ids, the SR-MPLS label ranges and the watchdog's
+periods.
 
 Copied from the JAX package's `common/constants.py`; the port keeps its
 own copy so that it imports nothing of the JAX package.
@@ -20,6 +22,18 @@ ADJ_DB_MARKER = "adj:"
 PREFIX_DB_MARKER = "prefix:"
 KEY_DELIMITER = ":"
 
+# default ports: the ctrl API, KvStore peering (TCP)
+CTRL_PORT = 2018
+KVSTORE_PORT = 2019
+
+# Spark's timers, ms
+SPARK_HELLO_INTERVAL_MS = 500
+SPARK_FASTINIT_HELLO_INTERVAL_MS = 100
+SPARK_HANDSHAKE_INTERVAL_MS = 500
+SPARK_HEARTBEAT_INTERVAL_MS = 500
+SPARK_HOLD_TIME_MS = 2_000
+SPARK_GR_HOLD_TIME_MS = 30_000
+
 # KvStore defaults: key TTL, anti-entropy period, flood rate limit (a
 # token bucket per peer), the bound of a peer's pending-flood buffer
 KVSTORE_DEFAULT_TTL_MS = 300_000
@@ -28,6 +42,11 @@ KVSTORE_SYNC_INTERVAL_S = 60
 KVSTORE_FLOOD_RATE_MSGS_PER_SEC = 600
 KVSTORE_FLOOD_RATE_BURST = 300
 KVSTORE_FLOOD_PENDING_MAX_KEYS = 8192
+# per-reader depth cap of the policied inter-module queues (0: unbounded)
+QUEUE_MAXSIZE = 1024
+# Spark's inbox bound in the packet providers: past it the oldest packet
+# is shed
+SPARK_INBOX_MAXSIZE = 2048
 # an originator refreshes a key's TTL at this fraction of it left
 TTL_REFRESH_FRACTION = 0.25
 
@@ -53,6 +72,10 @@ MPLS_LABEL_MIN = 16
 MPLS_LABEL_MAX = (1 << 20) - 1
 SR_GLOBAL_RANGE = (101, 49_999)
 SR_LOCAL_RANGE = (50_000, 59_999)
+
+# the watchdog's check period and a module's heartbeat timeout, s
+WATCHDOG_INTERVAL_S = 20
+WATCHDOG_THREAD_TIMEOUT_S = 300
 
 DEFAULT_AREA = "0"
 DIST_INF = 1 << 30

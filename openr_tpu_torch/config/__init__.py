@@ -8,8 +8,15 @@ from openr_tpu_torch.config.config import (  # noqa: F401
     FibConfig,
     KvstoreConfig,
     LinkMonitorConfig,
+    MessagingConfig,
     NodeConfig,
     OriginatedPrefix,
+    PolicyStatementConfig,
     PrefixAllocationConfig,
+    RouteMapTermConfig,
     SegmentRoutingConfig,
+    SparkConfig,
+    TlsConfig,
+    UdpInterfaceConfig,
+    WatchdogConfig,
 )

@@ -1,9 +1,11 @@
 """The node configuration the port's modules read (the port's copy of
-`KvstoreConfig`, `DecisionConfig`, `AreaConfig`, `LinkMonitorConfig`,
-`FibConfig`, `SegmentRoutingConfig`, `OriginatedPrefix`,
-`PrefixAllocationConfig` and their part of `NodeConfig` / `Config` of
-`openr_tpu/config/config.py`; Spark's, the messaging bounds, the
-watchdog's and the origination policy's come with those modules).
+`openr_tpu/config/config.py`): every section of `NodeConfig` but the
+three fields no module reads (`enable_v4`, `enable_best_route_selection`,
+`dry_run`), `SegmentRoutingConfig.sr_local_range` and
+`OriginatedPrefix.install_to_fib` (the adjacency labels come from the
+`SR_LOCAL_RANGE` constant in both packages). `Config.from_json`,
+`from_file` and `to_json` read and write the same JSON document as the
+JAX package's.
 
 `DecisionConfig` has every knob of the JAX package's with the same
 defaults. On the port the table knobs (`use_dense_kernel`,
@@ -15,15 +17,30 @@ defaults. On the port the table knobs (`use_dense_kernel`,
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field, replace
 
 from openr_tpu_torch.common import constants as C
 from openr_tpu_torch.types.network import IpPrefix
+from openr_tpu_torch.types.serde import from_wire, to_jsonable
 from openr_tpu_torch.types.topology import ForwardingAlgorithm, ForwardingType
 
 
 class ConfigError(ValueError):
     """Invalid configuration."""
+
+
+@dataclass
+class SparkConfig:
+    hello_time_ms: int = C.SPARK_HELLO_INTERVAL_MS
+    fastinit_hello_time_ms: int = C.SPARK_FASTINIT_HELLO_INTERVAL_MS
+    handshake_time_ms: int = C.SPARK_HANDSHAKE_INTERVAL_MS
+    keepalive_time_ms: int = C.SPARK_HEARTBEAT_INTERVAL_MS
+    hold_time_ms: int = C.SPARK_HOLD_TIME_MS
+    graceful_restart_time_ms: int = C.SPARK_GR_HOLD_TIME_MS
+    # the codec Spark sends in: "bin" (compact binary) or "json"; every
+    # packet received is sniffed, so neighbours of either codec interoperate
+    wire_codec: str = "bin"
 
 
 @dataclass
@@ -48,6 +65,17 @@ class KvstoreConfig:
     # port's KvStore carries spans but does not stamp them, so it
     # refuses trace_sample_every > 0
     trace_sample_every: int = 0
+
+
+@dataclass
+class MessagingConfig:
+    """The bounds of the inter-module queues: the publications and route
+    updates coalesce at the bound, telemetry sheds its oldest items."""
+
+    # per-reader depth cap of the policied queues; 0 = unbounded
+    queue_maxsize: int = C.QUEUE_MAXSIZE
+    # False keeps queue_maxsize but builds the queues unbounded
+    enforce_bounds: bool = True
 
 
 @dataclass
@@ -110,11 +138,21 @@ class SegmentRoutingConfig:
 
 
 @dataclass
+class WatchdogConfig:
+    enable: bool = True
+    interval_s: int = C.WATCHDOG_INTERVAL_S
+    thread_timeout_s: int = C.WATCHDOG_THREAD_TIMEOUT_S
+
+
+@dataclass
 class AreaConfig:
-    """An area as Decision reads it: its id (the reference's interface
-    and neighbor membership regexes belong to LinkMonitor and Spark)."""
+    """An area: its id and its interface and neighbour membership
+    regexes (Spark negotiates a neighbour into the first area whose
+    `neighbor_regexes` match its name)."""
 
     area_id: str = C.DEFAULT_AREA
+    include_interface_regexes: tuple[str, ...] = (".*",)
+    neighbor_regexes: tuple[str, ...] = (".*",)
 
 
 @dataclass
@@ -132,6 +170,40 @@ class OriginatedPrefix:
     tags: tuple[str, ...] = ()
 
 
+@dataclass(frozen=True)
+class PolicyStatementConfig:
+    """A `policy.PolicyStatement` as the config holds it (OpenrNode
+    converts it)."""
+
+    name: str = ""
+    match_tags: tuple[str, ...] = ()
+    match_prefixes: tuple[str, ...] = ()
+    action_accept: bool = True
+    set_path_preference: int | None = None
+    set_source_preference: int | None = None
+    set_distance_increment: int | None = None
+    add_tags: tuple[str, ...] = ()
+
+
+@dataclass
+class RouteMapTermConfig:
+    """One term of an ordered route-map as the config holds it;
+    `match_prefixes` entries are "PREFIX [ge N] [le N]" strings."""
+
+    seq: int = 0
+    action: str = "permit"
+    match_tags_any: tuple[str, ...] = ()
+    match_tags_all: tuple[str, ...] = ()
+    match_not_tags: tuple[str, ...] = ()
+    match_prefixes: tuple[str, ...] = ()
+    set_path_preference: int | None = None
+    set_source_preference: int | None = None
+    set_distance_increment: int | None = None
+    set_tags: tuple[str, ...] | None = None
+    add_tags: tuple[str, ...] = ()
+    remove_tags: tuple[str, ...] = ()
+
+
 @dataclass
 class PrefixAllocationConfig:
     """Carve `seed_prefix` into /alloc_prefix_len blocks; each node
@@ -143,21 +215,63 @@ class PrefixAllocationConfig:
 
 
 @dataclass
+class UdpInterfaceConfig:
+    """One point-to-point UDP "interface" of a standalone node: Spark's
+    packets for `if_name` leave from `local_port` (0: any free port) to
+    the peer's address."""
+
+    if_name: str
+    local_port: int
+    peer_host: str
+    peer_port: int
+
+
+@dataclass
+class TlsConfig:
+    """TLS of the KvStore peering (and of the ctrl API): contexts built
+    by `rpc.tls`."""
+
+    enabled: bool = False
+    cert_path: str = ""
+    key_path: str = ""
+    ca_path: str = ""  # the trust anchor both sides verify against
+    # a verified client certificate is required (mutual auth)
+    require_client_cert: bool = True
+
+
+@dataclass
 class NodeConfig:
     """The root config document, as far as the port's modules read
     it."""
 
     node_name: str = ""
     areas: tuple[AreaConfig, ...] = (AreaConfig(),)
+    spark: SparkConfig = field(default_factory=SparkConfig)
     kvstore: KvstoreConfig = field(default_factory=KvstoreConfig)
+    messaging: MessagingConfig = field(default_factory=MessagingConfig)
     link_monitor: LinkMonitorConfig = field(default_factory=LinkMonitorConfig)
     decision: DecisionConfig = field(default_factory=DecisionConfig)
     fib: FibConfig = field(default_factory=FibConfig)
     segment_routing: SegmentRoutingConfig = field(
         default_factory=SegmentRoutingConfig
     )
+    watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
     originated_prefixes: tuple[OriginatedPrefix, ...] = ()
+    # PrefixManager's origination policy: statements (empty: accept
+    # everything), or an ordered route-map, which takes precedence
+    prefix_policy_statements: tuple["PolicyStatementConfig", ...] = ()
+    prefix_policy_default_accept: bool = True
+    prefix_route_map: tuple["RouteMapTermConfig", ...] = ()
+    prefix_route_map_default_accept: bool = False
     prefix_allocation: PrefixAllocationConfig | None = None
+    # listener ports (0: any free port)
+    ctrl_port: int = C.CTRL_PORT
+    kvstore_port: int = C.KVSTORE_PORT
+    # a standalone node's Spark links (`python -m openr_tpu_torch`)
+    udp_interfaces: tuple[UdpInterfaceConfig, ...] = ()
+    # the host the listeners bind and Spark advertises to neighbours
+    endpoint_host: str = "127.0.0.1"
+    tls: TlsConfig = field(default_factory=TlsConfig)
 
 
 class Config:
@@ -168,8 +282,20 @@ class Config:
         self._validate()
 
     @staticmethod
+    def from_json(text: str | bytes) -> "Config":
+        return Config(from_wire(text, NodeConfig))
+
+    @staticmethod
+    def from_file(path: str) -> "Config":
+        with open(path, "rb") as f:
+            return Config.from_json(f.read())
+
+    @staticmethod
     def default(node_name: str, **overrides) -> "Config":
         return Config(replace(NodeConfig(node_name=node_name), **overrides))
+
+    def to_json(self) -> str:
+        return json.dumps(to_jsonable(self.node), indent=2)
 
     def _validate(self) -> None:
         n = self.node
@@ -188,6 +314,13 @@ class Config:
             if a.area_id in seen:
                 raise ConfigError(f"duplicate area {a.area_id!r}")
             seen.add(a.area_id)
+        s = n.spark
+        if not (0 < s.fastinit_hello_time_ms <= s.hello_time_ms):
+            raise ConfigError("spark: fastinit must be <= hello interval")
+        if s.hold_time_ms < 3 * s.keepalive_time_ms:
+            raise ConfigError("spark: hold_time must be >= 3x keepalive")
+        if s.wire_codec not in ("bin", "json"):
+            raise ConfigError("spark: wire_codec must be bin|json")
         d = n.decision
         if not (0 < d.debounce_min_ms <= d.debounce_max_ms):
             raise ConfigError("decision: debounce min must be <= max")
@@ -203,6 +336,8 @@ class Config:
             )
         if n.kvstore.key_ttl_ms <= 0:
             raise ConfigError("kvstore: key_ttl_ms must be positive")
+        if n.messaging.queue_maxsize < 0:
+            raise ConfigError("messaging: queue_maxsize must be >= 0")
         f = n.fib
         if not (0 < f.initial_retry_ms <= f.max_retry_ms):
             raise ConfigError("fib: retry bounds invalid")

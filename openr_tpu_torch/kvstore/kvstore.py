@@ -13,11 +13,17 @@ subscribers (Decision, clients) receive every accepted update on the
 publications queue. KvStore holds no device state: it runs on the event
 loop, and a Decision behind it solves in its own worker threads.
 
-Counters keep the JAX package's `kvstore.*` names. Not part of the port:
-the flight-recorder records (the port's `Counters` has none), stamping
-cross-node flood spans (`trace_sample_every > 0` raises; a span a JAX
-peer stamped rides along as opaque bytes) and `register_rpc`, which
-comes with the port's `rpc/`.
+Peers are reached through the transport the store was given:
+`InProcKvTransport` in process, `TcpKvTransport` over the port's `rpc/`,
+with `register_rpc` putting the store's handlers on a node's
+`RpcServer` (full sync, flood, DUAL, flood topology). Counters keep the
+JAX package's `kvstore.*` names. Not part of the port yet: the
+flight-recorder records at the store's record sites, and the cross-node
+flood spans: the port's store does not sample them
+(`trace_sample_every > 0` raises) and does not stamp its hop into a
+span a JAX peer sampled. A relayed publication that carries such a span
+(`perf_events.span_bin`) gets no KVSTORE_FLOODED marker, as in the JAX
+package, and is flooded on with its span and events as they came.
 """
 
 from __future__ import annotations
@@ -428,7 +434,14 @@ class KvStore(OpenrModule):
         accepted, _stale = db.merge(pub.key_vals)
         if accepted or pub.expired_keys:
             pe = pub.perf_events
-            if pe is not None:
+            # a relayed flood that carries a JAX node's sampled flood span
+            # is not stamped: there the span's hop record stands for the
+            # marker, as in the JAX package (which stamps the hop into
+            # the span; the port carries the span as it came). A local
+            # write and an untraced relay are stamped.
+            relayed_span = from_peer is not None and pe is not None \
+                and bool(pe.span_bin)
+            if pe is not None and not relayed_span:
                 pe.add_perf_event(perf.KVSTORE_FLOODED, node=self.node_name)
             out = Publication(
                 area=area,
@@ -825,6 +838,29 @@ class KvStore(OpenrModule):
             ft.handle_topo_set(
                 params["root"], params["child"], bool(params["set"])
             )
+
+    def register_rpc(self, server) -> None:
+        """Put the store's transport handlers on a node's RpcServer."""
+
+        async def full_sync(params):
+            return await self.handle_full_sync(params)
+
+        async def flood(params):
+            await self.handle_flood(params)
+            return None
+
+        async def dual(params):
+            await self.handle_dual_messages(params)
+            return None
+
+        async def flood_topo_set(params):
+            await self.handle_flood_topo_set(params)
+            return None
+
+        server.register("kv.fullSync", full_sync)
+        server.register("kv.flood", flood)
+        server.register("kv.dual", dual)
+        server.register("kv.floodTopoSet", flood_topo_set)
 
     # ------------------------------------------------------------ local API
 

@@ -1,6 +1,5 @@
-"""Peer transport seam (the port's copy of the in-process half of
-`openr_tpu/kvstore/transport.py`; `TcpKvTransport` comes with the port's
-`rpc/`).
+"""Peer transport seam (the port's copy of
+`openr_tpu/kvstore/transport.py`): in process for tests, TCP for real.
 
 `InProcKvTransport` wires N stores in one process. Floods still cross a
 real encode/decode boundary (bytes in, bytes out), so the codec is paid
@@ -8,8 +7,12 @@ honestly: `codec="bin"` is the compact binary codec with a
 serialize-once flood path (a Publication fanned out to N peers is
 encoded one time, the blob cached on the Publication, and every session
 ships the same immutable bytes); `codec="json"` is one canonical-JSON
-encode a peer. `flood` returns the blob's size, so KvStore's
-`kvstore.flood_bytes` is counted from the wire.
+encode a peer. `TcpKvTransport` opens an `RpcClient` session to a peer's
+KvStore listener (`KvStore.register_rpc`); each session negotiates the
+binary framing on connect and falls back to JSON lines against a peer
+that declines, and its binary flood is one cached `kv.flood` frame
+written to every peer (`pub_flood_frame`). `flood` returns the size it
+wrote, so KvStore's `kvstore.flood_bytes` is counted from the wire.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import asyncio
 import time
 from typing import Any
 
+from openr_tpu_torch.rpc import RpcClient, RpcError, RpcTransportError, bin_frame
 from openr_tpu_torch.types.kvstore import Publication
 from openr_tpu_torch.types.serde import (
     from_jsonable,
@@ -56,6 +60,25 @@ def pub_wire_bin(pub: Publication, counters=None) -> bytes:
                 (time.perf_counter() - t0) * 1e3,
             )
     return blob
+
+
+def pub_flood_frame(pub: Publication, counters=None) -> bytes:
+    """The complete, immutable ``kv.flood`` notification frame of a
+    binary connection. It is the same for every peer (a notification
+    carries no request id), so the whole frame is cached beside the blob
+    and a TCP fan-out is one ``writer.write(frame)`` a peer."""
+    cache = pub._wire_cache
+    if cache is None:
+        cache = pub._wire_cache = {}
+    frame = cache.get("rpc_bin")
+    if frame is None:
+        frame = cache["rpc_bin"] = bin_frame(
+            {
+                "method": "kv.flood",
+                "params": {"pub_bin": pub_wire_bin(pub, counters)},
+            }
+        )
+    return frame
 
 
 def decode_flood_params(params: dict) -> Publication:
@@ -164,3 +187,106 @@ class _InProcSession:
 
     async def close(self) -> None:
         pass
+
+
+class TcpKvTransport:
+    """RPC-over-TCP sessions to peers' KvStore listeners. Pass a client
+    `ssl.SSLContext` (rpc.tls) for a TLS mesh. Each session negotiates
+    the binary framing on connect (rpc ``_wire.hello``) and falls back
+    to JSON lines against a peer that declines."""
+
+    codec = "bin"  # preferred; per-session actual comes from negotiation
+
+    def __init__(self, ssl=None):
+        self.ssl = ssl
+
+    async def connect(
+        self, peer_id: str, endpoint: tuple[str, int], counters=None
+    ):
+        host, port = endpoint
+        client = RpcClient(host, port, ssl=self.ssl, counters=counters)
+        await client.connect()
+        return _TcpSession(client, peer_id, counters=counters)
+
+
+class _TcpSession:
+    def __init__(self, client: RpcClient, peer_id: str, counters=None):
+        self._c = client
+        self.peer_id = peer_id
+        self.counters = counters
+
+    @property
+    def codec(self) -> str:
+        """The negotiated per-connection codec ("bin" | "json"): a
+        JSON-only peer gets a freshly built publication (with its
+        defensive trace copy), never the cached binary-path object."""
+        return self._c.codec
+
+    async def full_sync(
+        self, area: str, sender_id: str, digest: dict | None,
+        store_hash: int | None = None,
+    ) -> dict:
+        try:
+            return await self._c.call(
+                "kv.fullSync",
+                {
+                    "area": area,
+                    "sender": sender_id,
+                    "digest": digest,
+                    "store_hash": store_hash,
+                },
+            )
+        except (ConnectionError, RpcTransportError) as e:
+            # connection-level death (peer process SIGKILLed mid-sync,
+            # RST, timeout) surfaces as ConnectionError so the KvStore
+            # repair loop treats it exactly like a refused connect:
+            # backoff + retry. A plain RpcError — the peer's HANDLER
+            # answered with an error — passes through untouched; that
+            # is the only signal the legacy-responder probe may use.
+            raise ConnectionError(str(e)) from e
+
+    async def flood(self, pub: Publication) -> int:
+        try:
+            if self._c.codec == "bin":
+                # serialize-once: the complete notification frame is
+                # cached on the Publication; N peers, one encode, N
+                # writes of the same bytes
+                frame = pub_flood_frame(pub, self.counters)
+                await self._c.send_frame(frame)
+                return len(frame)
+            # a JSON-negotiated peer: one encode a peer
+            t0 = time.perf_counter()
+            tree = pub_to_json(pub)
+            if self.counters is not None:
+                self.counters.increment("kvstore.flood_encodes")
+                self.counters.add_value(
+                    "kvstore.flood_encode_ms",
+                    (time.perf_counter() - t0) * 1e3,
+                )
+            return await self._c.notify("kv.flood", {"pub": tree})
+        except (ConnectionError, RpcError) as e:
+            raise ConnectionError(str(e)) from e
+
+    async def dual_messages(
+        self, area: str, sender: str, msgs: list[dict]
+    ) -> None:
+        try:
+            await self._c.notify(
+                "kv.dual", {"area": area, "sender": sender, "msgs": msgs}
+            )
+        except (ConnectionError, RpcError) as e:
+            raise ConnectionError(str(e)) from e
+
+    async def flood_topo_set(
+        self, area: str, root: str, child: str, set_flag: bool
+    ) -> None:
+        try:
+            await self._c.notify(
+                "kv.floodTopoSet",
+                {"area": area, "root": root, "child": child, "set": set_flag},
+            )
+        except (ConnectionError, RpcError) as e:
+            raise ConnectionError(str(e)) from e
+
+    async def close(self) -> None:
+        await self._c.close()

@@ -130,6 +130,16 @@ class _Stat:
 class Counters:
     counters: dict[str, float] = field(default_factory=dict)
     stats: dict[str, _Stat] = field(default_factory=dict)
+    # the node's FlightRecorder (monitor/flight.py), attached by
+    # OpenrNode; not a metric, so left out of snapshot() and compare
+    flight: object | None = field(default=None, compare=False, repr=False)
+
+    def flight_record(self, kind: str, **attrs) -> None:
+        """Record one flight-recorder event; nothing without a recorder."""
+        f = self.flight
+        if f is not None:
+            f.record(kind, **attrs)
+
     def set(self, key: str, value: float) -> None:
         self.counters[key] = value
 

@@ -1,17 +1,22 @@
-"""The RPC layer's error classes (the port's copy of `RpcError` and
-`RpcTransportError` of `openr_tpu/rpc/core.py`; the RPC client, server
-and framing come with the port's `rpc/`).
+"""Async RPC (the port's copy of `openr_tpu/rpc/`): request / response
+calls, notifications and server-push streams over TCP, in JSON lines or
+binary frames negotiated per connection (`core.py`), optionally over TLS
+(`tls.py`). KvStore peers over it (`kvstore.TcpKvTransport`,
+`KvStore.register_rpc`).
 
-KvStore's sync loop tells them apart: a plain `RpcError` means the peer's
-handler answered with an error (an older peer rejecting the compact
-full-sync digest), a `RpcTransportError` that the connection failed.
+KvStore's sync loop tells the two error classes apart: a plain
+`RpcError` means the peer's handler answered with an error (an older
+peer rejecting the compact full-sync digest), a `RpcTransportError` that
+the connection failed.
 """
 
-
-class RpcError(Exception):
-    """The remote handler raised, or the transport failed."""
-
-
-class RpcTransportError(RpcError):
-    """The connection failed (refused, reset, closed, timed out): the
-    remote handler never answered."""
+from openr_tpu_torch.rpc.core import (  # noqa: F401
+    WIRE_CODEC_BIN,
+    RpcClient,
+    RpcError,
+    RpcServer,
+    RpcTransportError,
+    StreamWriter,
+    WireFrameError,
+    bin_frame,
+)

@@ -406,6 +406,10 @@ def _r_uvarint(buf, pos: int) -> tuple[int, int]:
             raise WireDecodeError("varint too long")
 
 
+# the frame layer's length prefixes (rpc/core.py) use this writer
+write_uvarint = _w_uvarint
+
+
 _pack_f8 = struct.Struct(">d").pack
 _unpack_f8 = struct.Struct(">d").unpack_from
 

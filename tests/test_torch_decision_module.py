@@ -281,12 +281,16 @@ def test_a_failed_solve_is_raised(monkeypatch):
         await d.start()
         d.debounce.poke()
         # up to 30 s, as the wait below: the worker thread may start late
-        # on a loaded host
+        # on a loaded host. The task's guard counts the exception in a
+        # done-callback, one loop turn after `pending` turns false, so
+        # the wait goes on until the count is in, within the same 30 s
+        key = f"{d.name}.task_exceptions"
         for _ in range(6000):
             await asyncio.sleep(0.005)
-            if not d.debounce.pending:
+            if not d.debounce.pending and counters.get(key) >= 1:
                 break
-        assert counters.get(f"{d.name}.task_exceptions") == 1
+        await asyncio.sleep(0)
+        assert counters.get(key) == 1
         assert d.debounce.fires == 1 and d._spf_runs == 0
         assert reader.qsize() == 0
         monkeypatch.setattr(d.solver, "compute_routes", solve)

@@ -70,6 +70,12 @@ def test_package_imports_without_jax_or_openr_tpu():
         "openr_tpu_torch.allocators.prefix_allocator",
         "openr_tpu_torch.linkmonitor",
         "openr_tpu_torch.linkmonitor.linkmonitor",
+        "openr_tpu_torch.spark", "openr_tpu_torch.spark.spark",
+        "openr_tpu_torch.spark.io", "openr_tpu_torch.node",
+        "openr_tpu_torch.rpc.core", "openr_tpu_torch.rpc.tls",
+        "openr_tpu_torch.__main__", "openr_tpu_torch.monitor.flight",
+        "openr_tpu_torch.messaging.policies",
+        "openr_tpu_torch.types.wirelock",
     } <= names
 
 
