@@ -54,7 +54,9 @@ Phases (any failure exits non-zero and prints no result line):
      the hub of `hub_and_spoke(2, 100)` (101 neighbors, B = 128), which
      takes the generic kernel;
   5. the link-flap warm path on the same graph, built as a real
-     `LinkState` from its directed edges: `WARM_ROUNDS` seeded rounds
+     `LinkState` from its directed edges (in a thread started before
+     [2]'s build, with the collector off, joined before [4]'s set-up:
+     `start_warm_states`): `WARM_ROUNDS` seeded rounds
      of 32 metric
      changes (16 raised by +20, 16 lowered to 1, none root-incident)
      through `update_adjacency_db_delta` and `warm_compute_routes`, each
@@ -254,7 +256,7 @@ Phases (any failure exits non-zero and prints no result line):
      wire bytes through its `ReplicateQueue`: (a) BASELINE config 5 as
      `benchmarks/bench_churn.py:279-281` builds it (`fat_tree(32,
      metric=10)`, 1 280 nodes, root node-0). Step: 40 seeded metric
-     flaps a cycle, then one rebuild, 50 cycles after 5 of warm-up, each
+     flaps a cycle, then one rebuild, 30 cycles after 5 of warm-up, each
      rebuild on a new worker thread (the first captures the split
      program's CUDA graphs, later ones replay them): the recompute p50 /
      p99, the paths, the decode tiers; after every cycle the RIB equal to
@@ -292,7 +294,7 @@ Phases (any failure exits non-zero and prints no result line):
      (its kernel launches counted from 0 around it: vec relax, the split
      loop's kernels, the epilogue) equal to a fresh solve; step: 40
      seeded flaps a cycle set on F with `set_key`, flooded in the binary
-     codec into N, one rebuild, 50 cycles after 5, every RIB a fresh
+     codec into N, one rebuild, 30 cycles after 5, every RIB a fresh
      solve's and every update the diff of fresh RIBs; live: the Decision started, 1 000 flaps/s in bursts
      of 10 on F for 5 s, one a burst traced from F's `set_key` to
      ROUTE_UPDATE_SENT (p50 / p99 beside [15a]'s), F's flood counters
@@ -305,7 +307,7 @@ Phases (any failure exits non-zero and prints no result line):
      one is installed, every update their diff, every debounce fire a
      finished rebuild and none raised. BASELINE config 2's start-up
      through KvStore (the full sync of every other node's keys, the cold
-     rebuild) and its RibPolicy's full rebuild run once, in [17b]'s node.
+     rebuild) runs once, in [17b]'s node.
  17. node N's route pipeline: N is the port's `OpenrNode`
      (`openr_tpu_torch/node.py`, `device=None`: the card) with its
      neighbours' Sparks as speakers on one `MockIoHub` (linked over the
@@ -334,7 +336,7 @@ Phases (any failure exits non-zero and prints no result line):
      launches: vec relax, the split loop's kernels, the epilogue; a
      start-up trace NEIGHBOR_EVENT ... FIB_PROGRAMMED; the aggregate
      absent before Fib's sync, in F after); step: 40 seeded flaps a
-     cycle set on F, 50 cycles after 5, the table checked after each,
+     cycle set on F, 30 cycles after 5, the table checked after each,
      flap -> FIB_PROGRAMMED; live: 1 000 flaps/s in bursts of 10 for
      5 s, flap -> FIB_PROGRAMMED p50 / p99 from Monitor's ring beside
      flap -> ROUTE_UPDATE_SENT on the same traces, the event loop's lag;
@@ -352,15 +354,21 @@ Phases (any failure exits non-zero and prints no result line):
      holds a context on the card (`nvidia-smi --query-compute-apps`, in
      each of 3 samples);
      its `adj:node-0` reaches F over TCP with 32 adjacencies equal to
-     (a)'s (neighbours, interfaces, labels; the metric is LinkMonitor's
-     own, with no ctrl to override it); its aggregate reaches F (so its
-     Decision solved on the card and its Fib programmed the supporting
-     routes); one flap set on F reaches N over F's session to N's
-     listener; SIGTERM ends it with exit 0; the walls from the launch to
-     OPENR_READY, to `adj:node-0` in F and to the aggregate in F. It
-     checks the daemon's liveness, not its table (no ctrl to read it
-     from), and its own links carry LinkMonitor's metric 1 where (a)
-     sets the generator's 10, so it solves another fabric than (a). (b)
+     (a)'s (neighbours, interfaces, labels); its aggregate reaches F (so
+     its Decision solved on the card and its Fib programmed the
+     supporting routes). Then over its ctrl API (the ready line's
+     `ctrl_port`, `RpcClient`): INITIALIZED; `set_interface_metric` sets
+     its 32 interfaces to (a)'s metric 10, and its table is read until it
+     equals a fresh `TorchSpfSolver` solve, on the card in this process,
+     of the LSDB it reports over ctrl (`get_decision_adjacency_dbs` and
+     its store's prefix keys; the wall from the metric change to that);
+     its adjacencies then equal (a)'s, metric included;
+     `check_fib_oracle` passes with the oracle's route count equal to the
+     programmed one; `get_device_telemetry` lists kernel rows of its own
+     launches; `validate` passes; each call's wall. One flap set on F
+     reaches N over F's session to N's listener; SIGTERM ends it with
+     exit 0; the walls from the launch to OPENR_READY, to `adj:node-0`
+     in F and to the aggregate in F. (b)
      BASELINE config 2 ([9]'s states) at node-2025: start-up as (a), the
      cold rebuild, the FULL_SYNC's routes and walls, launches (generic
      relax, the election, the epilogue), F's and N's stores holding the
@@ -368,11 +376,7 @@ Phases (any failure exits non-zero and prints no result line):
      a separate card solve's and its unicast part to [9]'s RIB; once a periodic
      full resync of Fib's has run, `NODE_RAMP` ramp /32s withdrawn on F
      (tombstones) and re-added: each one prefix-only rebuild and one
-     handler call of that many deletes or adds, flap -> FIB_PROGRAMMED;
-     then a RibPolicy (weights 3 and 0 on two neighbours for the ramp's
-     16.0.0.0/8) installed on the running Decision: one full rebuild, its
-     RIB equal to the policy applied to the separate solve and its
-     RouteUpdate to their diff.
+     handler call of that many deletes or adds, flap -> FIB_PROGRAMMED.
      Every solver call of a rebuild ran with the card current; every
      solve read its result back, save a warm call that refused (a full
      solve follows) or found no edge metric changed (it reuses the
@@ -380,13 +384,40 @@ Phases (any failure exits non-zero and prints no result line):
      with O(1) checks first, and runs the O(table) ones (Fib's
      `pending_changes`, the stores' hashes) only once those hold
      (`node_quiet`).
+[18] BASELINE config 1 (`config1-emulator`): `emulator.Cluster.from_edges`
+     over `topogen.edges_of(fat_tree(6))`, 45 port `OpenrNode`s (9
+     cores, 18 aggregation, 18 ToR; 108 links, a /32 loopback each; see
+     `CONFIG1_K` for why not fat_tree(10)'s 125 or fat_tree(8)'s 80) in
+     this process, every Decision on the card, Spark on the in-process
+     hub, KvStore over `InProcKvTransport(codec="bin")`, the Spark timers
+     and the debounce scaled as the emulator scales them. Cold start to
+     `wait_converged` (the emulator CLI's timeout, max(60, 36 x
+     hold)),
+     then `wait_quiescent` and `check_cluster` with no violation (every
+     store equal, every FIB equal to the port's host oracle over that
+     node's LinkState, nothing stuck, counters sane, queues in bounds);
+     a core's, an aggregation's and a ToR's table equal to a fresh card
+     solve of its LinkState; every Decision on the card backend, every
+     solver call with the card current and every solve read back from
+     it. Then `ChaosPlan(seed=22).build_storm(links, nodes, duration_s=3,
+     n_flaps=8, n_crashes=2, n_partitions=1, graceful_crashes=None)`,
+     `run_schedule`, `wait_quiescent` and `check_cluster` again, each
+     restarted node on a new solver on the card; its `schedule_hash`.
+     Launches counted from 0 around the phase (vec or generic relax, the
+     split loop's kernels, the epilogue). Readings: the cold convergence
+     wall, the spread of RIB_COMPUTED and FIB_SYNCED across nodes,
+     rebuilds per node (p50, max), the full SPF p50 / p99 (a solver's
+     `compute_routes` that solved, less its wait for the card's lock)
+     and routes/s, that wait apart, every rebuild's wall, the storm's
+     wall to quiescence, peak device memory and `nvidia-smi`'s used
+     MiB, with the card's name and power limit.
 
 `--only 14` runs the build and [14] alone, `--only 13` the build, [10a]
 and [13] with its K sweep, `--only 3` the build and [3], `--only 8` the
 build and [8a], [8b] and [8d], `--only 15` the build and [15] (config 2's
 states built there, [9]'s RIB not compared), `--only 16` the build and
 [16], `--only 17` the build and [17] (config 2's states built there),
-each with no
+`--only 18` the build and [18], each with no
 result line. Before the result lines,
 [time] gives the host seconds each phase took.
 
@@ -432,6 +463,13 @@ TIMING_REPS = 30
 #: row)
 KSP_CASES = ((4096, 8), (4096, 64), (32768, 64), (512, 512), (1024, 512),
              (512, 2048))
+#: the job counts B each (V, D) runs at: every case, every B of 8 (one
+#: partial ban word), 40 (several, the last partial) and 256 (whole
+#: words), both overload settings and every plan mode stay covered, in
+#: 10 of the 18 cases the full cross runs
+KSP_CASE_B = {(4096, 8): (8, 40), (4096, 64): (256,), (32768, 64): (8,),
+              (512, 512): (40, 256), (1024, 512): (8, 256),
+              (512, 2048): (8, 256)}
 DEVICE = "cuda"  # every tensor and solver of the run lives here
 
 
@@ -444,6 +482,10 @@ def fail(msg: str) -> None:
 #: is the tag's of that line ([time] prints them)
 PHASE_S: dict[str, float] = {}
 T_START = time.perf_counter()  # after the imports
+#: the run's wall budget from `T_START`: past it every thread's stack is
+#: printed to stderr and the run exits with 1 (a phase stuck on the card
+#: or on a wait would otherwise run into the 1 200 s limit unexplained)
+RUN_BUDGET_S = 1140
 _LAST_LOG = [T_START]
 
 
@@ -1156,20 +1198,57 @@ def phase4_hub(relax, old_libs) -> dict:
 WARM_ROUNDS = 1
 
 
-def phase5_warm(relax, shape4) -> dict:
-    """The link-flap warm path on the 100k graph; returns the relax
-    launches by design of its warm calls (counts set to 0 just before
-    each call and read just after) and the (LinkState, PrefixState) it
-    ran on, for [11]."""
+def start_warm_states():
+    """Starts building [5]'s 100k LinkState, its PrefixState and its CSR
+    in a thread, with the collector off until it is joined (the set-up
+    makes millions of objects and no garbage); [2]'s nvcc processes and
+    [3]'s device work leave the interpreter mostly idle meanwhile.
+    Returns the join, which gives (ls, ps, edges, csr, seconds of the
+    databases, seconds of the CSR, seconds waited at the join)."""
+    import threading
+
+    from openr_tpu_torch.decision import linkstate  # noqa: F401
+    from openr_tpu_torch.utils import topogen  # noqa: F401
+
+    box: dict = {}
+
+    def work():
+        try:
+            t0 = time.perf_counter()
+            ls, ps, e = er_linkstate(100_000, avg_degree=20, seed=0,
+                                     max_metric=64)
+            t1 = time.perf_counter()
+            csr = ls.to_csr()
+            box["out"] = (ls, ps, e, csr, t1 - t0, time.perf_counter() - t1)
+        except BaseException as exc:  # re-raised by the join
+            box["err"] = exc
+
+    gc.disable()
+    th = threading.Thread(target=work, name="warm-states", daemon=True)
+    th.start()
+
+    def join():
+        t0 = time.perf_counter()
+        th.join()
+        gc.enable()
+        if "err" in box:
+            raise box.pop("err")
+        return box.pop("out") + (time.perf_counter() - t0,)
+
+    return join
+
+
+def phase5_warm(relax, shape4, states) -> dict:
+    """The link-flap warm path on the 100k graph (`states`: what
+    `start_warm_states`' join returned); returns the relax launches by
+    design of its warm calls (counts set to 0 just before each call and
+    read just after) and the (LinkState, PrefixState) it ran on, for
+    [11]."""
     from torch.profiler import ProfilerActivity, profile
 
     from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
 
-    t0 = time.perf_counter()
-    ls, ps, e = er_linkstate(100_000, avg_degree=20, seed=0, max_metric=64)
-    t_dbs = time.perf_counter() - t0
-    csr = ls.to_csr()
-    t_csr = time.perf_counter() - t0 - t_dbs
+    ls, ps, e, csr, t_dbs, t_csr, waited = states
     solver = TorchSpfSolver(device=DEVICE)
     tables = solver._device_arrays(csr)
     shape = (tables["vp"], tables["base_nbr"].shape[1],
@@ -1179,7 +1258,9 @@ def phase5_warm(relax, shape4) -> dict:
              f"edges; phase 4 gave {shape4}, {e}")
     log(f"[5] LinkState: {csr.num_nodes} nodes, {csr.num_edges} directed "
         f"edges, vp {shape[0]}, W {shape[1]}, overflow {shape[2]}; set-up "
-        f"{t_dbs:.1f} s (AdjacencyDatabases) + {t_csr:.1f} s (CSR)")
+        f"{t_dbs:.1f} s (AdjacencyDatabases) + {t_csr:.1f} s (CSR), in a "
+        f"thread beside [2] and [3] with the collector off, {waited:.1f} s "
+        f"of it waited for before [4]")
     rdb, art = solver.compute_routes(ls, ps, "node-0", return_artifact=True)
     cold_solver = TorchSpfSolver(device=DEVICE)
     cold_solver.compute_routes(ls, ps, "node-0")  # uploads its tables
@@ -1572,10 +1653,12 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
 
     g = torch.Generator().manual_seed(20261018)
     n_ok, modes, n_sweeps, wide = 0, set(), [], []  # n_sweeps: (passes, sweeps)
-    for b in (8, 40, 256):
-        for i, (v, d) in enumerate(KSP_CASES):
+    overs = set()
+    for i, (v, d) in enumerate(KSP_CASES):
+        for b in KSP_CASE_B[(v, d)]:
             tab, mid, fix, sweeps, dests, root = ksp_step_case(
                 ksp_ops, g, v, d, b, with_over=(b + i) % 2 == 1)
+            overs.add((b + i) % 2 == 1)
             plan = ksp_ops.sssp_plan(v, d, b)
             mode = "resident" if plan[0] else "streamed"
             if plan[3] and plan[3] < d:
@@ -1605,11 +1688,13 @@ def phase8a_kernels(election_ops, ksp_ops, csr) -> dict:
             worst["walk"] = max(worst["walk"], err)
     if modes != {"resident", "streamed", "streamed in chunks"}:
         fail(f"ksp_sssp_kernel cases ran in {modes} only")
+    if overs != {False, True}:
+        fail(f"ksp cases ran with overloads {overs} only")
     log(f"[8a] ksp_sssp_kernel plans (rows a block, blocks, smem B, staged "
         f"slots) of the hub-row cases (D, B, mode, plan): {wide}")
     log(f"[8a] ksp_sssp_kernel / ksp_walk_kernel vs plain on random tables "
-        f"with 5% bans, (V, D) in {KSP_CASES}, B in "
-        f"(8, 40, 256), overloads off/on, modes {sorted(modes)}: one sweep, the "
+        f"with 5% bans, (V, D): B {KSP_CASE_B}, overloads off/on, modes "
+        f"{sorted(modes)}: one sweep, the "
         f"fixpoint (card passes, plain sweeps {n_sweeps}: passes <= sweeps), "
         f"both capped at {KSP_CAP} (the card between the fixpoint and the "
         f"plain capped result), one walk round ({n_ok} paths walked): max "
@@ -2369,7 +2454,8 @@ def phase9_config2(relax, election_ops, old_libs, k: int = CONFIG2["k"],
         relax.reset_launches()
         election_ops.reset_launches()
         # the warm-up solve runs eagerly (its kernels launched by their
-        # wrappers) and captures the program the timed solves replay
+        # wrappers); the first timed solve captures the program, which it
+        # and the later ones replay
         solver._programs.clear()
         solver.solve(ls, me)  # warm-up
         dev0 = solver.elect_stats["device_elections"]
@@ -4238,14 +4324,19 @@ def main(argv=None) -> None:
                     "election, KSP and edge kernels beside this checkout's, "
                     "in turns")
     ap.add_argument("--only",
-                    choices=("3", "8", "13", "14", "15", "16", "17"),
+                    choices=("3", "8", "13", "14", "15", "16", "17", "18"),
                     default=None,
                     help="run the build and phase 3, phase 8 (a, b, d), "
-                    "phase 14, phase 15, phase 16 or phase 17 alone, or "
+                    "phase 14, phase 15, phase 16, phase 17 or phase 18 "
+                    "alone, or "
                     "phase 10a and phase 13 (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    import faulthandler
+
+    faulthandler.dump_traceback_later(
+        max(1.0, RUN_BUDGET_S - (time.perf_counter() - T_START)), exit=True)
     card = smi("name,power.limit")
     if not card:
         fail("nvidia-smi could not read the card's name and power limit")
@@ -4262,6 +4353,7 @@ def main(argv=None) -> None:
 
     fresh = not any(cuda_build.BUILD_DIR.glob("lib*.so"))
     mods = (relax, election_ops, ksp_ops, edge_ops)
+    warm_states = None if args.only else start_warm_states()
     old_libs = build_all(cuda_build, mods + (split_loop, rib_epilogue),
                          args.old)
     compile_ledger.mark_warm()  # no build after this ([12] checks)
@@ -4275,9 +4367,9 @@ def main(argv=None) -> None:
         fail(f"C dispatch and design_for / generic_np disagree at {bad}")
 
     dev = torch.device(DEVICE)
-    if args.only in ("15", "16", "17"):
-        dict(zip(("15", "16", "17"), (phase15, phase16, phase17)))[
-            args.only]()
+    if args.only in ("15", "16", "17", "18"):
+        dict(zip(("15", "16", "17", "18"),
+                 (phase15, phase16, phase17, phase18)))[args.only]()
         log(f"[time] host seconds by phase: "
             f"{ {k: round(v, 1) for k, v in PHASE_S.items()} }")
         return
@@ -4323,6 +4415,8 @@ def main(argv=None) -> None:
     from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
     from openr_tpu_torch.utils.topogen import erdos_renyi_lsdb
 
+    p5_states = warm_states()  # before any host wall is timed
+    warm_states = None
     t0 = time.perf_counter()
     ls, ps, csr = erdos_renyi_lsdb(
         100_000, avg_degree=20, seed=0, max_metric=64
@@ -4454,7 +4548,8 @@ def main(argv=None) -> None:
     phase4_hub(relax, old_libs)
 
     # ---- phase 5: the link-flap warm path ------------------------------
-    p5 = phase5_warm(relax, (vp, w_base, ov_shape))
+    p5 = phase5_warm(relax, (vp, w_base, ov_shape), p5_states)
+    del p5_states  # [11] gets the states from p5; the CSR goes here
     warm_launches = p5["launches"]
     # ---- phase 11a: the rebuild sequence Decision runs, on [5]'s states --
     phase11_er100k(mods, p5.pop("states"), dict(solver=solver, ls=ls), fresh)
@@ -4502,6 +4597,16 @@ def main(argv=None) -> None:
     # ---- phase 17: node N's route pipeline, a link change in, routes out -
     phase17(p9)
 
+    # ---- phase 18: BASELINE config 1, a fat tree of port nodes in process -
+    # the earlier phases' objects (config 2's states, ~millions) leave
+    # the collector's scans, so that its full collections, which stop
+    # every node's event loop, see the cluster's heap alone
+    gc.collect()
+    gc.freeze()
+    p18 = phase18()
+    gc.unfreeze()
+    l18 = p18["launches"]
+
     kernels = []
     # vec: the er100k dense chunk; generic: config 2's, its main path
     for design, d, name, n_launch, worst in (
@@ -4517,6 +4622,8 @@ def main(argv=None) -> None:
             "source": "openr_tpu_torch/csrc/relax.cu",
             "replaces": "openr_tpu/ops/spf_pallas.py:90",
             "launches": n_launch,
+            # [18]'s run, counted from 0 around it
+            "config1_launches": l18["relax"][design],
             "max_abs_err": worst,
             "ms": d[design]["us"] / 1e3,
             "plain_ms": d["plain_ms"],
@@ -4636,6 +4743,8 @@ def main(argv=None) -> None:
             # by the wrappers in [4]'s run: the warm-up solve's eager
             # blocks (and every epilogue); the replayed blocks beside it
             "launches": loop_launches[kind],
+            "config1_launches": (l18["rib_epilogue"] if kind == "epilogue"
+                                 else l18["split_loop"][kind]),
             "graph_replays": graph_replays,
             "cupti_launches_one_solve": loop_cupti[kind],
             "max_abs_err": row["err"],
@@ -6028,7 +6137,8 @@ def phase14c_replay(solver, ls, split_loop) -> dict:
     from openr_tpu_torch.ops import relax
     from openr_tpu_torch.ops.spf_split import SplitProgram
 
-    solver.solve(ls, "node-0")
+    for _ in range(2):  # a program new here captures on its second run
+        solver.solve(ls, "node-0")
     progs = [p for p in solver._programs._progs.values()
              if isinstance(p, SplitProgram) and not p.warm]
     prog = progs[-1]
@@ -6100,7 +6210,7 @@ def phase14_loop(relax, split_loop, rib_epilogue, solver, ls, tables):
 #: cycle, its timed cycles after its warm-up cycles, and the cycles after
 #: them that each run on a new thread; the live protocol's rate
 #: (flaps/s), burst and seconds (one flap a burst traced)
-CONFIG5 = dict(k=32, nodes=1280, flaps=40, cycles=50, warmup=5, fresh=5,
+CONFIG5 = dict(k=32, nodes=1280, flaps=40, cycles=30, warmup=5, fresh=5,
                rate=1000, burst=10, live_s=5.0)
 #: [15b]: the metric flaps of config 2's topology-delta rebuild
 #: (aggregation -> ToR links outside the root's pod, lowered from 10 to
@@ -8161,17 +8271,6 @@ def check17a(out: dict, mods) -> dict:
                 adjacencies=out["adjacencies"])
 
 
-def config2_policy(me_db):
-    """[17b]'s RibPolicy at node-2025: weights 3 and 0 on its first two
-    neighbours for the ramp /32s in 16.0.0.0/8."""
-    from openr_tpu_torch.policy import RibPolicy, RibPolicyStatement
-
-    nbrs = [a.other_node_name for a in me_db.adjacencies]
-    return RibPolicy(statements=(RibPolicyStatement(
-        name="ramp", match_prefixes=("16.0.0.0/8",),
-        neighbor_to_weight={nbrs[0]: 3, nbrs[1]: 0}),), ttl_secs=3600.0)
-
-
 def phase17b_config2(ls2, ps2, mods, want=None,
                      k: int = CONFIG2["k"]) -> dict:
     """[17b] (see the module docstring): node N at config 2's
@@ -8277,33 +8376,6 @@ def phase17b_config2(ls2, ps2, mods, want=None,
                 fib=trace_ms(tr[0], perf.FIB_PROGRAMMED) if tr else None,
                 sent=trace_ms(tr[0], perf.ROUTE_UPDATE_SENT) if tr else None)
         out["ramp"] = rows
-        # a RibPolicy installed on the running Decision: its full rebuild
-        # (R4 at config 2), the RIB held to the policy applied to the
-        # separate solve and the RouteUpdate to their diff (the ramp's
-        # re-add put back the start-up's prefixes)
-        pol = config2_policy(me_db)
-        reader = node.route_updates.get_reader("17b.policy")
-        runs0 = d._spf_runs
-        d.set_rib_policy(pol)
-        t4 = time.perf_counter()
-        with GcClock() as g:
-            while d._spf_runs == runs0:
-                if time.perf_counter() - t4 > 300:
-                    fail("[17b] the policy's rebuild did not finish in 300 s")
-                await asyncio.sleep(0.005)
-        out["policy"] = dict(ms=d._last_spf_ms, path=d._rebuild_path,
-                             runs=d._spf_runs - runs0, gc_ms=g.ms,
-                             split=dict(d.last_breakdown_ms))
-        updates = drain_updates(reader)
-        t5 = time.perf_counter()
-        cur = policy_applied(pol, ref)
-        out["policy"]["apply_ms"] = (time.perf_counter() - t5) * 1e3
-        rib_is(d, cur, "17b policy install vs the policy on a separate "
-               "solve")
-        update_is_diff(updates, ref, cur, "17b policy install")
-        out["policy"]["changed"] = sum(
-            1 for p, e in cur.unicast_routes.items()
-            if ref.unicast_routes.get(p) is not e)
         out["calls"] = spy.calls
         out["copies"] = (t.copies, t.reused)
         out["failed"] = int(node.counters.get(f"{d.name}.task_exceptions"))
@@ -8326,9 +8398,6 @@ def phase17b_config2(ls2, ps2, mods, want=None,
         if r["path"] != "prefix_only" or r["runs"] != 1 or r["fib"] is None \
                 or r["calls"] != [(kind, len(ramp))]:
             fail(f"[17b] {step}: {r}")
-    pr = out["policy"]
-    if pr["path"] != "full" or pr["runs"] != 1 or not pr["changed"]:
-        fail(f"[17b] the policy's rebuild: {pr}")
     up, sy = out["up"], out["sync"]
     c = up["cold"]
     log(f"[17b] node N (the port's OpenrNode) at config 2's node-2025 "
@@ -8361,13 +8430,6 @@ def phase17b_config2(ls2, ps2, mods, want=None,
             f"awaited {out['resync_wait_ms']:.1f} ms), "
             f"flap -> ROUTE_UPDATE_SENT {r['sent']:.3f} ms, -> "
             f"FIB_PROGRAMMED {r['fib']:.3f} ms")
-    log(f"[17b] RibPolicy installed (weights 3 / 0 on two neighbours for "
-        f"16.0.0.0/8): its full rebuild {pr['ms']:.3f} ms ({pr['path']}, "
-        f"{pr['changed']} routes rewritten; {pr['gc_ms']:.1f} ms in the "
-        f"collector; the policy's apply alone on a copy of the separate "
-        f"RIB {pr['apply_ms']:.1f} ms), split (ms) "
-        f"{ {k2: round(v, 3) for k2, v in pr['split'].items()} }; RIB == "
-        f"the policy on the separate solve, the update == their diff")
     log(f"[17b] {solves['solves']} solver calls, every one on the card "
         f"({solves['refused']} refused warm calls, {solves['reused']} "
         f"reused); N's floods to its "
@@ -8405,6 +8467,125 @@ def adjacency_shape(adjs) -> tuple:
     return (sorted((a.other_node_name, a.if_name, a.other_if_name,
                     a.is_overloaded, a.weight) for a in adjs),
             sorted(a.adj_label for a in adjs))
+
+
+#: the metric [17c] sets on the daemon's interfaces over ctrl: config 5's
+NODE_METRIC = 10
+
+
+async def ctrl_lsdb(call):
+    """The LSDB a node reports over ctrl: its Decision's adjacency DBs and
+    its store's prefix DBs, as the port's LinkState and PrefixState."""
+    from openr_tpu_torch.decision.linkstate import LinkState, PrefixState
+    from openr_tpu_torch.kvstore.kvstore import value_from_json
+    from openr_tpu_torch.types import AdjacencyDatabase, PrefixDatabase
+    from openr_tpu_torch.types.serde import from_jsonable, from_wire_auto
+
+    adj = await call("get_decision_adjacency_dbs")
+    kv = await call("dump_kvstore", {"prefix": "prefix:"})
+    ls, ps = LinkState(), PrefixState()
+    for dbs in adj.values():
+        for db in dbs:
+            ls.update_adjacency_db(from_jsonable(db, AdjacencyDatabase))
+    for raw in kv["key_vals"].values():
+        ps.update_prefix_db(from_wire_auto(value_from_json(raw).value,
+                                           PrefixDatabase))
+    return ls, ps
+
+
+def json_tables(rdb) -> tuple[dict, dict]:
+    """A RouteDatabase as ctrl encodes a programmed table: unicast routes
+    by destination and MPLS routes by label."""
+    from openr_tpu_torch.ctrl.server import _mpls_json, _unicast_json
+
+    return ({str(p): _unicast_json(e.to_unicast_route())
+             for p, e in rdb.unicast_routes.items()},
+            {e.label: _mpls_json(e.to_mpls_route())
+             for e in rdb.mpls_routes.values()})
+
+
+async def daemon_over_ctrl(port: int, me: str, me_db, rc, log_tail) -> dict:
+    """[17c]'s ctrl half (see the module docstring); `rc()` is the
+    daemon's exit code or None while it runs."""
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+    from openr_tpu_torch.rpc import RpcClient
+
+    cli = RpcClient("127.0.0.1", port)
+    await cli.connect()
+    walls: dict = {}
+
+    async def call(method, params=None):
+        t0 = time.perf_counter()
+        r = await cli.call(method, params or {}, timeout=120.0)
+        walls.setdefault(method, []).append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    solver = TorchSpfSolver(device=DEVICE)
+    out: dict = {}
+    try:
+        st = await call("get_initialization_status")
+        if not st["INITIALIZED"]:
+            fail(f"[17c] over ctrl, the daemon is not INITIALIZED: {st}")
+        ifaces = await call("get_interfaces")
+        names = sorted(i["name"] for i in ifaces["interfaces"])
+        if names != sorted(a.if_name for a in me_db.adjacencies):
+            fail(f"[17c] the daemon's interfaces over ctrl {names}")
+        t_metric = time.perf_counter()
+        for ifn in names:
+            await call("set_interface_metric",
+                       {"interface": ifn, "metric": NODE_METRIC})
+        polls = 0
+        while True:
+            if rc() is not None:
+                fail(f"[17c] the daemon exited {rc()} after the metric "
+                     f"change; its log ends: {log_tail()}")
+            polls += 1
+            ls, ps = await ctrl_lsdb(call)
+            mine = ls.adjacency_db(me)
+            if mine is not None and len(mine.adjacencies) == len(
+                    me_db.adjacencies) and all(
+                    a.metric == NODE_METRIC for a in mine.adjacencies):
+                got = await call("get_route_db_programmed")
+                got_u = {r["dest"]: r for r in got["unicast_routes"]}
+                got_m = {r["top_label"]: r for r in got["mpls_routes"]}
+                t0 = time.perf_counter()
+                want_u, want_m = json_tables(
+                    solver.compute_routes(ls, ps, me))
+                out.setdefault("solve_ms", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                if got_u == want_u and got_m == want_m:
+                    break
+            if time.perf_counter() - t_metric > 180:
+                fail(f"[17c] 180 s after the metric change the daemon's "
+                     f"table over ctrl does not equal a fresh card solve of "
+                     f"the LSDB it reports ({polls} reads)")
+            await asyncio.sleep(0.1)
+        out["metric_ms"] = (time.perf_counter() - t_metric) * 1e3
+        out["polls"] = polls
+        out["routes"] = (len(got_u), len(got_m))
+        out["adjacencies"] = mine.adjacencies
+        orc = await call("check_fib_oracle")
+        if not orc["pass"] or orc["oracle_unicast"] != \
+                orc["programmed_unicast"]:
+            fail(f"[17c] check_fib_oracle: {orc}")
+        out["oracle"] = orc
+        tel = await call("get_device_telemetry")
+        rows = [r for r in tel["kernels"] if r["launches"] > 0]
+        if not rows:
+            fail(f"[17c] get_device_telemetry lists no kernel row with a "
+                 f"launch: {tel['kernels']}")
+        out["telemetry"] = {r["fn"]: (r["launches"], r["sources"])
+                            for r in rows}
+        val = await call("validate")
+        if not val["pass"]:
+            fail(f"[17c] validate: {val}")
+        out["checks"] = [c["name"] for c in val["checks"]]
+    finally:
+        await cli.close()
+    out["walls_ms"] = {k: round(statistics.median(v), 3)
+                       for k, v in walls.items()}
+    out["calls"] = {k: len(v) for k, v in walls.items()}
+    return out
 
 
 def phase17c_daemon(adj, pfx, me: str, want_adjs) -> dict:
@@ -8511,7 +8692,8 @@ def phase17c_daemon(adj, pfx, me: str, want_adjs) -> dict:
                                              "OPENR_READY", 300.0)
             ready = json.loads(ready_path.read_text())
             if "error" in ready or ready["pid"] != proc.pid \
-                    or ready["ctrl_port"] is not None \
+                    or not isinstance(ready["ctrl_port"], int) \
+                    or ready["ctrl_port"] <= 0 \
                     or set(ready["udp_ports"]) != set(spk_port):
                 fail(f"[17c] the ready file {ready}")
             out["ready"] = ready
@@ -8541,6 +8723,9 @@ def phase17c_daemon(adj, pfx, me: str, want_adjs) -> dict:
                     v.value, PrefixDatabase).delete_prefix
 
             out["agg_ms"] = await wait_for(agg_in_f, "the aggregate in F")
+            out["ctrl"] = await daemon_over_ctrl(
+                ready["ctrl_port"], me, me_db, lambda: proc.returncode,
+                log_tail)
             loop = asyncio.get_running_loop()
             out["apps"] = [await loop.run_in_executor(None, compute_apps)]
             # one flap set on F, flooded to N over F's session to N's
@@ -8589,13 +8774,21 @@ def phase17c_daemon(adj, pfx, me: str, want_adjs) -> dict:
     asyncio.run(body())
     shutil.rmtree(run_dir, ignore_errors=True)
     got, want = adjacency_shape(out["adjacencies"]), adjacency_shape(want_adjs)
-    metrics = sorted({a.metric for a in out["adjacencies"]})
+    ctl = out["ctrl"]
+    metrics = sorted({a.metric for a in ctl["adjacencies"]})
+    got_c = sorted((a.other_node_name, a.if_name, a.metric)
+                   for a in ctl["adjacencies"])
+    want_c = sorted((a.other_node_name, a.if_name, a.metric)
+                    for a in want_adjs)
     pid = out["ready"]["pid"]
     seen = all(holds_context(pid, out["apps_before"], apps)
                for apps in out["apps"])
     bad = []
     if got != want:
         bad.append(f"N's adjacencies {got} differ from [17a]'s {want}")
+    if got_c != want_c or adjacency_shape(ctl["adjacencies"]) != want:
+        bad.append(f"N's adjacencies over ctrl {got_c} differ from "
+                   f"[17a]'s {want_c}")
     if DEVICE == "cuda" and not seen:
         bad.append(f"the daemon (pid {pid}) holds no context on the card "
                    f"in every sample ({out['apps']})")
@@ -8613,17 +8806,29 @@ def phase17c_daemon(adj, pfx, me: str, want_adjs) -> dict:
         f"(nvidia-smi compute apps (pid, memory) before the launch "
         f"{out['apps_before']}, with the daemon up (3 samples, after the "
         f"aggregate, after the flap and 0.5 s later) {out['apps']}, after "
-        f"its exit {out['apps_after']}); its {n_adj} adjacencies "
-        f"== [17a]'s (neighbours, interfaces, labels) with LinkMonitor's "
-        f"own metric {metrics} (no operator override without ctrl; [17a] "
-        f"set the generator's 10); one flap set on F reached N's store over "
+        f"its exit {out['apps_after']}); its {n_adj} adjacencies in F "
+        f"== [17a]'s (neighbours, interfaces, labels). Over ctrl (port "
+        f"{out['ready']['ctrl_port']}): INITIALIZED; set_interface_metric "
+        f"{NODE_METRIC} on its {n_adj} interfaces, then its table "
+        f"({ctl['routes'][0]} unicast + {ctl['routes'][1]} mpls routes) "
+        f"equal to a fresh card solve of the LSDB it reports "
+        f"{ctl['metric_ms']:.1f} ms after the change ({ctl['polls']} reads; "
+        f"the fresh solves {[round(x, 1) for x in ctl['solve_ms']]} ms); "
+        f"its adjacencies over ctrl == [17a]'s with metric {metrics}; "
+        f"check_fib_oracle {ctl['oracle']['oracle_unicast']} oracle == "
+        f"{ctl['oracle']['programmed_unicast']} programmed; device "
+        f"telemetry rows with launches {ctl['telemetry']}; validate pass "
+        f"({len(ctl['checks'])} checks); each call's median wall (ms) "
+        f"{ctl['walls_ms']} over {ctl['calls']} calls. One flap set on F "
+        f"reached N's store over "
         f"F's session to N's listener in {out['flap_ms']:.1f} ms (F's "
         f"peers {out['f_peers']}); SIGTERM: exit {out['rc']} in "
         f"{out['term_ms']:.1f} ms; card {smi('name,power.limit')}")
     if bad:
         fail("[17c] " + "; ".join(bad))
     return dict(ready_ms=out["ready_ms"], adj_ms=out["adj_ms"],
-                agg_ms=out["agg_ms"], flap_ms=out["flap_ms"])
+                agg_ms=out["agg_ms"], flap_ms=out["flap_ms"],
+                metric_ms=ctl["metric_ms"], walls_ms=ctl["walls_ms"])
 
 
 def phase17(p9=None, k2: int = CONFIG2["k"],
@@ -8649,6 +8854,415 @@ def phase17(p9=None, k2: int = CONFIG2["k"],
     b = phase17b_config2(ls2, ps2, mods, want, k2)
     log(f"[17] done in {time.perf_counter() - t0:.1f} s")
     return dict(config5=a, config2=b, daemon=c)
+
+
+# ----------------------------------------------------------- phase 18
+
+#: [18]: BASELINE config 1 (`BASELINE.md`: a ~100-node 3-tier fat tree,
+#: single-area SPF, RIB diff against the oracle 0) as fat_tree(6): 45
+#: nodes, 108 links. One process and one event loop carry every node's
+#: Spark, KvStore and Decision. At fat_tree(10) (125 nodes, 500 links)
+#: that loop saturates with the emulator's scaled Spark timers, in the
+#: JAX package's emulator on its host oracle as in the port's: the loop
+#: runs seconds late, hold timers expire and adjacencies flap for as
+#: long as the run lasts (`tools/emulator_scale.py`). fat_tree(8) (80
+#: nodes) converges on a fast host in 57-76 s and on a slower one not in
+#: 180 s, the same way; fat_tree(6) is the largest k-ary fat tree that
+#: converges within the emulator CLI's own timeout on either. A cluster
+#: of processes is the path to 125 nodes
+CONFIG1_K = 6
+#: the seeded storm [18] runs after the cold start
+CONFIG1_STORM = dict(seed=22, duration_s=3.0, n_flaps=8, n_crashes=2,
+                     n_partitions=1, graceful_crashes=None)
+
+
+class CaptureClock:
+    """Times every `SplitProgram._capture` while open: each capture's
+    wall and thread, and the most that overlapped."""
+
+    def __init__(self):
+        import threading
+
+        from openr_tpu_torch.ops.spf_split import SplitProgram
+
+        self.rows: list = []
+        self.live = self.peak = 0
+        self._lock = threading.Lock()
+        self._cls = SplitProgram
+        self._inner = SplitProgram._capture
+        clock = self
+
+        def timed(prog):
+            with clock._lock:
+                clock.live += 1
+                clock.peak = max(clock.peak, clock.live)
+            t0 = time.perf_counter()
+            try:
+                return clock._inner(prog)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                with clock._lock:
+                    clock.live -= 1
+                    clock.rows.append(ms)
+
+        SplitProgram._capture = timed
+
+    def close(self) -> dict:
+        self._cls._capture = self._inner
+        xs = sorted(self.rows)
+        return dict(n=len(xs), peak_overlap=self.peak,
+                    p50_ms=round(p50(xs), 2) if xs else None,
+                    max_ms=round(xs[-1], 2) if xs else None,
+                    total_s=round(sum(xs) / 1e3, 2))
+
+
+def rebuild_summary(rebuilds: list, nodes) -> dict:
+    """Every node's rebuilds so far: count and wall per node, and the
+    slowest rebuild's split."""
+    per: dict = {}
+    for name, ms, path, _n in rebuilds:
+        per.setdefault(name, []).append(ms)
+    walls = sorted(ms for _n, ms, _p, _r in rebuilds)
+    slow = max(nodes, key=lambda n: nodes[n].decision._last_spf_ms)
+    return dict(rebuilds=len(rebuilds),
+                per_node_p50=p50([len(v) for v in per.values()]) if per
+                else 0, wall_p50_ms=round(p50(walls), 1) if walls else None,
+                wall_max_ms=round(walls[-1], 1) if walls else None,
+                slowest=(slow, {k: round(v, 1) for k, v in
+                                nodes[slow].decision.last_breakdown_ms.items()}))
+
+
+class CardSpy:
+    """Wraps one node's solver: each solve and warm call records the
+    worker thread's current CUDA device, whether it solved (a node not
+    yet in its own LSDB has nothing to solve), its wall, and the solver's
+    own stats of that call (its host syncs; per solver, so another node's
+    concurrent rebuild cannot move them) and how long it waited for the
+    card's lock."""
+
+    def __init__(self, node, calls: list):
+        solver = node.decision.solver
+
+        def wrap(name):
+            inner = getattr(solver, name)
+
+            def wrapped(*a, **kw):
+                n0, w0 = solver.solve_count, solver.warm_solves
+                st0 = (solver.last_warm_stats, solver.last_solve_stats)
+                t0 = time.perf_counter()
+                out = inner(*a, **kw)
+                ms = (time.perf_counter() - t0) * 1e3
+                solved = (solver.warm_solves > w0
+                          if name == "warm_compute_routes"
+                          else solver.solve_count > n0)
+                st = (solver.last_warm_stats if name == "warm_compute_routes"
+                      else solver.last_solve_stats)
+                calls.append(dict(
+                    node=node.name, name=name,
+                    device=(torch.cuda.current_device()
+                            if solver.device.type == "cuda" else None),
+                    want=solver.device.index, refused=out is None,
+                    solved=solved, ms=ms,
+                    syncs=(int(st.get("host_syncs", 0)) if solved and all(
+                        st is not x for x in st0) else 0),
+                    wait_ms=solver.last_card_wait_ms))
+                return out
+
+            setattr(solver, name, wrapped)
+
+        for name in ("compute_routes", "warm_compute_routes"):
+            wrap(name)
+
+
+def rebuild_recorder(node, rows: list) -> None:
+    """Records every completed rebuild of `node`'s Decision: its wall
+    (the Decision's `_last_spf_ms`, decode to diff), its path and its
+    unicast route count."""
+    d = node.decision
+    inner = d.debounce.fn
+
+    async def recorded():
+        runs = d._spf_runs
+        await inner()
+        if d._spf_runs > runs:
+            rows.append((node.name, d._last_spf_ms, d._rebuild_path,
+                         len(d.rib.unicast_routes)))
+
+    d.debounce.fn = recorded
+
+
+def check_card_calls(calls: list, nodes: dict) -> dict:
+    """[18]: every node's Decision is on the card backend, and every
+    solver call ran with its card current; every call that solved read
+    its result back (host syncs). Returns the counts."""
+    bad = [n for n, node in nodes.items()
+           if node.decision.backend != "card"
+           or node.decision.solver is None
+           or node.decision.solver.device.type != torch.device(DEVICE).type]
+    if bad:
+        fail(f"[18] nodes off the card backend: {bad[:5]}")
+    off = [c for c in calls if DEVICE == "cuda" and c["device"] != c["want"]]
+    unread = [c for c in calls if c["solved"] and not c["syncs"]]
+    if off or unread or not calls:
+        fail(f"[18] solver calls off the card {off[:3]}, full solves that "
+             f"read nothing {unread[:3]} ({len(calls)} calls)")
+    return dict(calls=len(calls),
+                full=sum(c["name"] == "compute_routes" and c["solved"]
+                         for c in calls),
+                unsolved=sum(c["name"] == "compute_routes"
+                             and not c["solved"] for c in calls),
+                warm=sum(c["name"] == "warm_compute_routes"
+                         and not c["refused"] for c in calls),
+                refused=sum(c["refused"] for c in calls))
+
+
+def tables_fresh(cluster, names, tag: str) -> dict:
+    """Each named node's programmed table equals a fresh card solve of its
+    own LinkState and PrefixState."""
+    from openr_tpu_torch.decision.spf_backend import TorchSpfSolver
+
+    solver = TorchSpfSolver(device=DEVICE)
+    out = {}
+    for name in names:
+        node = cluster.nodes[name]
+        dec = node.decision
+        area = next(iter(dec.link_states))
+        rdb = solver.compute_routes(dec.link_states[area].snapshot(),
+                                    dec.prefix_states[area].snapshot(), name)
+        uni, mpls = node_table(node)
+        want_u = {p: e.to_unicast_route()
+                  for p, e in rdb.unicast_routes.items()}
+        want_m = {lb: e.to_mpls_route() for lb, e in rdb.mpls_routes.items()}
+        if uni != want_u or mpls != want_m:
+            diff = [str(p) for p in want_u.keys() | uni.keys()
+                    if want_u.get(p) != uni.get(p)]
+            fail(f"[18] {tag}: {name}'s table differs from a fresh card "
+                 f"solve of its LinkState: {len(diff)} unicast, e.g. "
+                 f"{diff[:3]}")
+        out[name] = (len(uni), len(mpls))
+    return out
+
+
+def phase18(k: int = CONFIG1_K) -> dict:
+    """[18] (see the module docstring)."""
+    from openr_tpu_torch.emulator import (ChaosPlan, Cluster, check_cluster,
+                                          run_schedule, scaled_spark,
+                                          wait_quiescent)
+    from openr_tpu_torch.ops import election as election_ops
+    from openr_tpu_torch.ops import relax, rib_epilogue, split_loop
+    from openr_tpu_torch.utils.topogen import edges_of, fat_tree
+
+    t_phase = time.perf_counter()
+    mods = (relax, split_loop, rib_epilogue, election_ops)
+    adj, _pfx = fat_tree(k)
+    edges = edges_of(adj)
+    names = [db.this_node_name for db in adj]
+    half = k // 2
+    n_core, n_agg = half * half, k * half
+    picks = (names[0], names[n_core], names[n_core + n_agg])
+    hold_s = scaled_spark(len(names)).hold_time_ms / 1e3
+    conv_timeout = max(60.0, 36 * hold_s)  # the emulator CLI's
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    reset_path_launches(*mods)
+    calls: list = []
+    rebuilds: list = []
+    out: dict = {}
+    caps = CaptureClock()
+
+    async def body():
+        c = Cluster.from_edges(edges, device=None if DEVICE == "cuda"
+                               else DEVICE)
+        if sorted(c.nodes) != sorted(names) or len(c.links) != len(edges):
+            fail(f"[18] the cluster has {len(c.nodes)} nodes and "
+                 f"{len(c.links)} links")
+        for node in c.nodes.values():
+            CardSpy(node, calls)
+            rebuild_recorder(node, rebuilds)
+        restart = c.restart_node
+        restarted = {}
+
+        async def restart_node(name):
+            await restart(name)
+            node = c.nodes[name]
+            restarted[name] = node.decision.solver
+            CardSpy(node, calls)
+            rebuild_recorder(node, rebuilds)
+
+        c.restart_node = restart_node
+        first: dict = {"rib": {}, "fib": {}}
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+
+        async def gates():
+            next_log = 5.0
+            while True:
+                now = loop.time() - t0
+                for n, node in list(c.nodes.items()):
+                    if node.decision.rib_computed.is_set():
+                        first["rib"].setdefault(n, now)
+                    if node.fib.synced.is_set():
+                        first["fib"].setdefault(n, now)
+                if now >= next_log:
+                    next_log += 5.0
+                    routes = [len(x.fib.programmed_unicast)
+                              for x in c.nodes.values()]
+                    log(f"[18] +{now:.1f} s: {sum(x.initialized for x in c.nodes.values())}"
+                        f" of {len(c.nodes)} nodes initialized, routes "
+                        f"min {min(routes)} p50 {p50(sorted(routes)):.0f}, "
+                        f"{len(rebuilds)} rebuilds, {len(calls)} solver "
+                        f"calls, {len(caps.rows)} captures ({caps.live} "
+                        f"running)")
+                await asyncio.sleep(0.005)
+
+        solvers0 = {n: node.decision.solver for n, node in c.nodes.items()}
+        await c.start()
+        watch = asyncio.ensure_future(gates())
+        try:
+            try:
+                await c.wait_converged(timeout=conv_timeout)
+            except TimeoutError as e:
+                out["failed"] = (f"[18] cold start, {conv_timeout:.0f} s: "
+                                 f"{e}; rebuilds {rebuild_summary(rebuilds, c.nodes)}"
+                                 f"; captures {caps.close()}")
+                return
+            out["cold_ms"] = (loop.time() - t0) * 1e3
+            out["cold_rebuilds"] = len(rebuilds)
+            t1 = loop.time()
+            await wait_quiescent(c, timeout_s=conv_timeout,
+                                 context="[18] cold start")
+            out["quiesce_ms"] = (loop.time() - t1) * 1e3
+            t1 = loop.time()
+            v = check_cluster(c)
+            out["check_ms"] = (loop.time() - t1) * 1e3
+            if v:
+                fail(f"[18] check_cluster after the cold start: "
+                     f"{[str(x) for x in v[:8]]}")
+            out["tables"] = tables_fresh(c, picks, "cold start")
+            out["spf_runs"] = sorted(
+                int(node.counters.get("decision.spf_runs"))
+                for node in c.nodes.values())
+            out["cold_calls"] = check_card_calls(calls, c.nodes)
+            if DEVICE == "cuda":
+                out["smi_mib"] = smi("memory.used")
+            plan = ChaosPlan(CONFIG1_STORM["seed"])
+            events = plan.build_storm(
+                edges, names, **{k_: v_ for k_, v_ in CONFIG1_STORM.items()
+                                 if k_ != "seed"})
+            out["hash"] = plan.schedule_hash()
+            out["events"] = [(e.at_s, e.kind, e.target) for e in events]
+            n_rb = len(rebuilds)
+            t1 = loop.time()
+            await run_schedule(c, plan)
+            out["storm_ms"] = (loop.time() - t1) * 1e3
+            await wait_quiescent(c, timeout_s=max(120.0, conv_timeout),
+                                 context=plan.replay_hint())
+            out["storm_quiet_ms"] = (loop.time() - t1) * 1e3
+            out["storm_rebuilds"] = len(rebuilds) - n_rb
+            v = check_cluster(c)
+            if v:
+                fail(f"[18] check_cluster after the storm "
+                     f"({plan.replay_hint()}): {[str(x) for x in v[:8]]}")
+            crashed = sorted({e.target[0] for e in events
+                              if e.kind == "crash"})
+            if sorted(restarted) != crashed:
+                fail(f"[18] restarted {sorted(restarted)}, crashed {crashed}")
+            for n in crashed:
+                s_new = c.nodes[n].decision.solver
+                if s_new is solvers0[n] or s_new is not restarted[n] \
+                        or s_new.device.type != torch.device(DEVICE).type:
+                    fail(f"[18] {n} restarted without a new solver on the "
+                         f"card")
+            out["crashed"] = crashed
+            out["storm_tables"] = tables_fresh(c, picks, "after the storm")
+            out["calls"] = check_card_calls(calls, c.nodes)
+            out["routes"] = sorted({len(node.fib.programmed_unicast)
+                                    for node in c.nodes.values()})
+            if out["routes"] != [len(names) - 1]:
+                fail(f"[18] programmed route counts {out['routes']}")
+        finally:
+            watch.cancel()
+            await c.stop()
+        out["rib_spread"] = first["rib"]
+        out["fib_spread"] = first["fib"]
+
+    asyncio.run(body())
+    if "failed" in out:
+        fail(out["failed"])
+    out["captures"] = caps.close()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    launches = path_launches(*mods)
+    out["launches"] = launches
+    loop_n = dict(launches["split_loop"])
+    for kname in ("snap_mark", "compact", "ctl"):
+        if not loop_n.get(kname):
+            fail(f"[18] the split loop's {kname} kernel was launched no "
+                 f"time ({launches})")
+    if not launches["rib_epilogue"]:
+        fail(f"[18] the epilogue was launched no time ({launches})")
+    if not sum(launches["relax"].values()):
+        fail(f"[18] no relax kernel was launched ({launches})")
+    peak = (torch.cuda.max_memory_allocated() - mem0
+            if DEVICE == "cuda" else 0)
+    rb_ms = [r[1] for r in rebuilds]
+    # config 1's full SPF: the solver's full solves (`compute_routes`
+    # calls that solved), host CSR build and route assembly included,
+    # less the wait for the card's lock, which is read apart
+    full = [c_ for c_ in calls
+            if c_["name"] == "compute_routes" and c_["solved"]]
+    spf_ms = sorted(c_["ms"] - c_["wait_ms"] for c_ in full)
+    wait_ms = sorted(c_["wait_ms"] for c_ in full)
+    routes = [r[3] for r in rebuilds]
+    p50_ms, p99_ms = p50(spf_ms), p99(spf_ms)
+
+    def spread(d):
+        xs = sorted(d.values())
+        return (round(xs[0] * 1e3, 1), round(p50(xs) * 1e3, 1),
+                round(xs[-1] * 1e3, 1)) if xs else None
+
+    runs = out["spf_runs"]
+    paths: dict = {}
+    for r in rebuilds:
+        paths[r[2]] = paths.get(r[2], 0) + 1
+    log(f"[18] BASELINE config 1: fat_tree({k}), {len(names)} port nodes "
+        f"({n_core} cores, {n_agg} aggregation, {len(names) - n_core - n_agg}"
+        f" ToR), {len(edges)} links, every Decision on the card (hold "
+        f"{hold_s:.3f} s, converge timeout {conv_timeout:.0f} s): cold "
+        f"convergence {out['cold_ms']:.1f} ms (every node INITIALIZED with "
+        f"{len(names) - 1} routes; {out['cold_rebuilds']} rebuilds), "
+        f"RIB_COMPUTED min/p50/max {spread(out['rib_spread'])} ms and "
+        f"FIB_SYNCED {spread(out['fib_spread'])} ms from the start; "
+        f"quiescent {out['quiesce_ms']:.1f} ms later, check_cluster clean "
+        f"({out['check_ms']:.1f} ms, {len(names)} FIBs against the oracle); "
+        f"tables of {list(picks)} == fresh card solves {out['tables']}; "
+        f"rebuilds per node p50 {p50(runs):.0f} max {runs[-1]}; solver "
+        f"calls {out['cold_calls']} with the card current; split-program "
+        f"captures {out['captures']}")
+    log(f"[18] storm ChaosPlan(seed={CONFIG1_STORM['seed']}) "
+        f"schedule_hash {out['hash']}: {len(out['events'])} events "
+        f"(crashes {out['crashed']}), run {out['storm_ms']:.1f} ms, "
+        f"quiescent {out['storm_quiet_ms']:.1f} ms from its start "
+        f"({out['storm_rebuilds']} rebuilds), check_cluster clean, the "
+        f"restarted nodes on new card solvers, tables {out['storm_tables']} "
+        f"== fresh card solves; full SPF ({len(spf_ms)} full solves): "
+        f"p50 {p50_ms:.3f} ms p99 {p99_ms:.3f} ms, routes/s "
+        f"{statistics.median(routes) / (p50_ms / 1e3):.0f} "
+        f"({statistics.median(routes):.0f} routes a RIB over the p50), "
+        f"besides the card lock's wait p50 {p50(wait_ms):.3f} ms p99 "
+        f"{p99(wait_ms):.3f} ms total {sum(wait_ms) / 1e3:.2f} s; every "
+        f"rebuild ({len(rb_ms)}, paths {paths}, decode to diff, the "
+        f"worker's queue included) p50 {p50(sorted(rb_ms)):.3f} ms p99 "
+        f"{p99(sorted(rb_ms)):.3f} ms; "
+        f"solver calls {out['calls']}; launches from 0 around the phase "
+        f"{launches}; peak device memory {peak / 2**20:.1f} MiB above the "
+        f"phase's start, nvidia-smi used {out.get('smi_mib')} with the "
+        f"cluster up; card {smi('name,power.limit')}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, cold_ms=out["cold_ms"],
+                p50_ms=p50_ms, p99_ms=p99_ms)
 
 
 if __name__ == "__main__":

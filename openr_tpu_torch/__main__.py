@@ -13,6 +13,11 @@ default; `--device cpu` runs the CPU twins, for tests) and Fib programs
 the in-memory `MockFibHandler`. Without CUDA, `--device cuda` exits
 non-zero before it binds anything: nothing carries on on the CPU.
 
+The node serves the ctrl API (`ctrl.CtrlServer`) on `endpoint_host` at
+the config's `ctrl_port` (0: an ephemeral port); query it with
+`rpc.RpcClient(host, ctrl_port)`, e.g. `await cli.call(
+"get_route_db_programmed")`.
+
 Once every listener is bound, the node prints one line
 `OPENR_READY {"node", "pid", "ctrl_port", "kvstore_port", "udp_ports"}`
 and writes the same JSON atomically to `--ready-file`; a bind failure
@@ -21,9 +26,8 @@ SIGINT or SIGTERM stops the node and exits with 0.
 
 Not part of the port yet, each refused with a clear error: `--dataplane
 netlink` (the kernel FIB and interface source), `--store-path` (the
-persistent config store), `--persist-dir` (the durable journal) and the
-ctrl API (so `ctrl_port` in the ready line is null). The config's
-`watchdog.enable` must be False.
+persistent config store) and `--persist-dir` (the durable journal). The
+config's `watchdog.enable` must be False.
 """
 
 from __future__ import annotations
@@ -101,6 +105,8 @@ async def run_node(config: Config, device, ready_file: str | None = None):
         device=device,
         kvstore_port=kv_port,
         endpoint_host=host,
+        enable_ctrl=True,
+        ctrl_port=config.node.ctrl_port,
     )
     node.kvstore.register_rpc(kv_rpc)
     # wire byte accounting (rpc.bytes_tx / rx): the listener exists
@@ -117,11 +123,12 @@ async def run_node(config: Config, device, ready_file: str | None = None):
                 ]
             )
         )
-    log.info("node %s up (device %s)", node.name, node.decision.device)
+    log.info("node %s up (ctrl %s:%d, device %s)", node.name, host,
+             node.ctrl.port, node.decision.device)
     ready = {
         "node": node.name,
         "pid": os.getpid(),
-        "ctrl_port": None,
+        "ctrl_port": node.ctrl.port,
         "kvstore_port": kv_port,
         "udp_ports": udp_ports,
     }

@@ -10,9 +10,10 @@ JAX package's.
 `DecisionConfig` has every knob of the JAX package's with the same
 defaults. On the port the table knobs (`use_dense_kernel`,
 `use_pallas_kernel`, `spf_kernel`) pick `TorchSpfSolver`'s tables,
-`use_tpu_solver=False` (the JAX package's host oracle) and
-`native_rib="on"` (its host C++ engine) are not part of the port, and
-`mesh_sources` x `mesh_graph` shape the solver's mesh of CUDA devices.
+`use_tpu_solver=False` selects the host oracle (`decision/oracle.py`)
+in place of the card, `native_rib="on"` (the JAX package's host C++
+engine) is not part of the port, and `mesh_sources` x `mesh_graph`
+shape the solver's mesh of CUDA devices.
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ class LinkMonitorConfig:
 class DecisionConfig:
     debounce_min_ms: int = C.DECISION_DEBOUNCE_MIN_MS
     debounce_max_ms: int = C.DECISION_DEBOUNCE_MAX_MS
-    # False selects the JAX package's host oracle, which the port lacks
+    # False selects the host oracle: no solver, no device
     use_tpu_solver: bool = True
     use_dense_kernel: bool | None = None  # None = auto
     # the dense tables on kernel A (the reference's Pallas relax kernel)

@@ -38,9 +38,10 @@ device current first, since PyTorch's current device is per thread.
 The solver is built from `DecisionConfig` by `hook.solver_for`, as
 `hook.attach` builds its own (the table knobs, LFA, KSP paths,
 `native_rib`, a mesh of `mesh_sources` x `mesh_graph` positions over
-`mesh_devices`);
-`use_tpu_solver=False` (the JAX package's host oracle) and
-`native_rib="on"` raise ValueError, as neither is part of the port.
+`mesh_devices`). `use_tpu_solver=False` selects the host oracle
+(`decision/oracle.py`) instead, as the reference's "cpu" backend: such
+a Decision builds no solver, needs no CUDA and never touches the card.
+`native_rib="on"` raises ValueError, as it is not part of the port.
 `set_rib_policy` installs a `RibPolicy` (`policy/policy.py`), applied to
 the merged RIB of every rebuild; while one is installed every rebuild
 takes the full path, and its TTL expiry (or `set_rib_policy(None)`)
@@ -69,7 +70,7 @@ from openr_tpu_torch.common import constants as C
 from openr_tpu_torch.common.eventbase import OpenrModule
 from openr_tpu_torch.common.throttle import AsyncDebounce
 from openr_tpu_torch.config import Config
-from openr_tpu_torch.decision import hook
+from openr_tpu_torch.decision import hook, oracle
 from openr_tpu_torch.decision.ksp import normalize_weights
 from openr_tpu_torch.decision.linkstate import LinkState, PrefixState
 from openr_tpu_torch.decision.oracle import metric_key
@@ -306,12 +307,6 @@ class Decision(OpenrModule):
         mesh_devices=None,
     ):
         dcfg = config.node.decision
-        if not dcfg.use_tpu_solver:
-            raise ValueError(
-                "Decision: use_tpu_solver=False selects the host oracle, "
-                "which is not part of the port; the port solves with "
-                "TorchSpfSolver"
-            )
         super().__init__(f"{config.node_name}.decision", counters=counters)
         self.config = config
         self.node_name = config.node_name
@@ -346,9 +341,16 @@ class Decision(OpenrModule):
         # parse, payload-identical
         self.decode_stats = {"fast": 0, "multi": 0, "full": 0, "same": 0}
         self._decode_stats_lock = threading.Lock()
-        self.device = solver_device(device)
-        self.solver = hook.solver_for(dcfg, self.device, counters,
-                                      mesh_devices)
+        # what solves: a TorchSpfSolver on `device` ("card"), or the
+        # host oracle, with no solver and no device ("oracle")
+        self.device = None
+        if dcfg.use_tpu_solver:
+            self.device = solver_device(device)
+            self.engine = hook.solver_for(dcfg, self.device, counters,
+                                          mesh_devices)
+        else:
+            self.engine = oracle.OracleEngine(dcfg.enable_lfa,
+                                              dcfg.ksp_paths)
         self.debounce = AsyncDebounce(
             dcfg.debounce_min_ms, dcfg.debounce_max_ms, self._rebuild_routes,
             owner=self.name, counters=counters,
@@ -412,7 +414,7 @@ class Decision(OpenrModule):
     def _on_device(self, fn, *args):
         """`fn(*args)` with the solver's CUDA device current (the calling
         thread's current device is not the solver's in a worker)."""
-        if self.device.type != "cuda":
+        if self.device is None or self.device.type != "cuda":
             return fn(*args)
         with torch.cuda.device(self.device):
             return fn(*args)
@@ -427,6 +429,18 @@ class Decision(OpenrModule):
                 return
             if self.process_publication(pub):
                 self.debounce.poke()
+
+    @property
+    def backend(self) -> str:
+        """"card" or "oracle": what `engine` solves on."""
+        return ("oracle" if isinstance(self.engine, oracle.OracleEngine)
+                else "card")
+
+    @property
+    def solver(self):
+        """The card solver (or its `hook.DecisionAdapter`); None on the
+        oracle backend."""
+        return None if self.backend == "oracle" else self.engine
 
     @property
     def link_states(self) -> dict[str, LinkState]:
@@ -853,7 +867,7 @@ class Decision(OpenrModule):
         """One area's full solve and assembly; with `want_artifact`,
         (rdb, SolveArtifact | None)."""
         self._area_solves += 1
-        res = self.solver.compute_routes(
+        res = self.engine.compute_routes(
             ls, ps, self.node_name, return_artifact=want_artifact
         )
         rdb = res[0] if want_artifact else res
@@ -872,7 +886,7 @@ class Decision(OpenrModule):
         object and the diff short-circuits on identity."""
         rdb = cache["rdb"]
         work_ledger.commit("assembly", len(prefixes), len(prefixes))
-        entries = self.solver.assemble_prefix_routes(cache["art"], ps,
+        entries = self.engine.assemble_prefix_routes(cache["art"], ps,
                                                       prefixes)
         for p in prefixes:
             e = entries.get(p)
@@ -915,7 +929,7 @@ class Decision(OpenrModule):
         """A topology-delta warm rebuild of one area against its cached
         artifact: (rdb, art, touched prefixes, touched labels, region),
         or None to demand a full area solve."""
-        return self.solver.warm_compute_routes(
+        return self.engine.warm_compute_routes(
             cache["art"], ls, ps, self.node_name,
             d.edges, d.prefixes, cache["rdb"],
             self.config.node.decision.topo_delta_max_frac,
@@ -1217,6 +1231,14 @@ class Decision(OpenrModule):
             for tier, n in self.decode_stats.items():
                 c.set(f"decision.decode.{tier}", n)
         s = self.solver
+        if s is None:
+            # the oracle: host accounting only, no device ledgers
+            work_ledger.export_to(c)
+            c.set("decision.nexthop_groups", sum(
+                len(a["art"].nh_intern) for a in self._area_cache.values()
+                if a.get("art") is not None
+                and a["art"].nh_intern is not None))
+            return
         for k, n in s.dev_cache_stats.items():
             c.set(f"decision.dev_cache.{k}", n)
         for k, n in s.spf_kernel_stats.items():
@@ -1257,7 +1279,8 @@ class Decision(OpenrModule):
             for per in ps.prefixes.values():
                 # the per-advertiser dict and a rough constant per entry
                 total += sys.getsizeof(per) + 96 * len(per)
-        total += 120 * len(self.solver._nh_intern)
+        if self.solver is not None:
+            total += 120 * len(self.solver._nh_intern)
         for c in self._area_cache.values():
             art = c.get("art")
             if art is not None and art.nh_intern is not None:
@@ -1273,7 +1296,7 @@ class Decision(OpenrModule):
             art = cache.get("art")
             if art is not None:
                 art.drop_warm_state()
-        self.solver.trim_caches()
+        self.engine.trim_caches()
 
     def set_rib_policy(self, policy) -> None:
         """Install or replace the RibPolicy (None removes it) and rebuild;

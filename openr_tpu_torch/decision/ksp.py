@@ -1,13 +1,14 @@
 """KSP2_ED_ECMP route construction and UCMP weights: the port's copy of
-the host helpers of `openr_tpu/decision/ksp.py` that the solver calls
+`openr_tpu/decision/ksp.py`. The solver calls the route helpers
 (`nearest_dest`, `ksp2_nexthops`, `ksp_route_from_paths`,
-`ucmp_weights`, `normalize_weights`), and the host path query that
-`Decision.get_spf_path` answers with (`dijkstra`, `extract_path`).
+`ucmp_weights`, `normalize_weights`); `Decision.get_spf_path` answers
+with `dijkstra` and `extract_path`; the host oracle computes its paths
+with `k_edge_disjoint_paths` and builds the route with `ksp2_route`.
 
-The paths themselves come from the device (`ops/ksp.py`
-`ksp_edge_disjoint_dense`); these turn them into SR-MPLS nexthops: the
-first link of each path, PUSHing the node-segment labels of its
-interior hops, top label first.
+On the card the paths come from the device (`ops/ksp.py`
+`ksp_edge_disjoint_dense`) by the same rule; either way they become
+SR-MPLS nexthops: the first link of each path, PUSHing the node-segment
+labels of its interior hops, top label first.
 """
 
 from __future__ import annotations
@@ -94,6 +95,16 @@ def extract_path(
     return path
 
 
+def path_links(path: list[str]) -> frozenset[Link]:
+    """Both directions of every link on the path: an edge-disjoint second
+    path may not reuse a link in either direction."""
+    links: set[Link] = set()
+    for u, v in zip(path, path[1:]):
+        links.add((u, v))
+        links.add((v, u))
+    return frozenset(links)
+
+
 def nearest_dest(dist: dict[str, int], dests: Iterable[str]) -> str | None:
     """The destination KSP pins all paths to: min distance, then name."""
     reachable = [d for d in dests if d in dist]
@@ -101,6 +112,46 @@ def nearest_dest(dist: dict[str, int], dests: Iterable[str]) -> str | None:
         return None
     best = min(dist[d] for d in reachable)
     return min(d for d in reachable if dist[d] == best)
+
+
+def k_edge_disjoint_paths(
+    adj: dict[str, dict[str, int]],
+    root: str,
+    dests: Iterable[str],
+    overloaded: set[str],
+    k: int = 2,
+) -> list[tuple[int, list[str]]]:
+    """Up to k edge-disjoint shortest paths from root to the nearest of
+    `dests`, by successive pruning: a shortest path, its links banned, a
+    shortest path again. Returns [(cost, path), ...] sorted by (cost,
+    path)."""
+    dist = dijkstra(adj, root, overloaded)
+    dest = nearest_dest(dist, dests)
+    if dest is None:
+        return []
+    out: list[tuple[int, list[str]]] = []
+    banned: frozenset[Link] = frozenset()
+    for _ in range(k):
+        if dest not in dist:
+            break
+        p = extract_path(adj, dist, root, dest, overloaded, banned=banned)
+        if p is None:
+            break
+        out.append((dist[dest], p))
+        banned = banned | path_links(p)
+        dist = dijkstra(adj, root, overloaded, banned=banned)
+    out.sort(key=lambda cp: (cp[0], cp[1]))
+    return out
+
+
+def two_edge_disjoint_paths(
+    adj: dict[str, dict[str, int]],
+    root: str,
+    dests: Iterable[str],
+    overloaded: set[str],
+) -> list[tuple[int, list[str]]]:
+    """KSP2: `k_edge_disjoint_paths` with k=2."""
+    return k_edge_disjoint_paths(adj, root, dests, overloaded, k=2)
 
 
 def ksp2_nexthops(
@@ -181,6 +232,25 @@ def ksp_route_from_paths(
         best_nodes=tuple(best_nodes),
         best_entry=best_entry,
         igp_cost=min(nh.metric for nh in nhs),
+    )
+
+
+def ksp2_route(
+    ls,  # LinkState
+    my_node: str,
+    prefix,
+    reachable: dict,  # node -> PrefixEntry
+    best_nodes: list[str],
+    adjmap: dict[str, dict[str, int]],
+    overloaded: set[str],
+    k: int = 2,
+):
+    """The whole KSP RibEntry from host paths (the oracle's route; the
+    card computes the same paths with `ops/ksp.ksp_edge_disjoint_dense`
+    and calls `ksp_route_from_paths`)."""
+    paths = k_edge_disjoint_paths(adjmap, my_node, best_nodes, overloaded, k=k)
+    return ksp_route_from_paths(
+        ls, my_node, prefix, reachable, best_nodes, paths
     )
 
 

@@ -1,39 +1,957 @@
-"""Host helpers of the JAX package's `openr_tpu/decision/oracle.py` that
-the port's Decision reads: `metric_key` (the cross-area best-route key)
-and `build_adjacency` (the directed graph `Decision.get_spf_path`
-walks). The oracle's route computation, the JAX package's "cpu"
-backend, is not part of the port.
+"""The host oracle: the port's copy of `openr_tpu/decision/oracle.py`,
+a scalar SPF and best-route selection with the reference's semantics
+(openr/decision/LinkState.cpp runSpf, SpfSolver.cpp selectBestRoutes /
+selectBestPathsSpf / createMplsRoutes). It shares no arrays with the
+card's solver, so tests compare two code paths. It is the Decision's
+host backend (`use_tpu_solver=False`), and ctrl's `check_fib_oracle` and
+the emulator's invariant checker hold FIBs to it.
+
+Semantics (all integer metrics, exact):
+  * Dijkstra per root over the bidirectionally checked graph.
+  * Link overload: the edge is excluded; node overload: no transit
+    through the node (its out-edges are skipped unless it is the root).
+  * ECMP: every equal-cost first hop, by predecessor-DAG propagation.
+  * Best route across advertisers: lexicographic on (path_preference
+    desc, source_preference desc, distance asc), then the min IGP
+    distance among the metric-best; nexthops are the union of first
+    hops toward every min-IGP best node (anycast ECMP).
+  * A local prefix (this node among the best advertisers) has no route.
+  * MPLS: node-segment label routes (SWAP, PHP at the penultimate hop)
+    and adjacency label routes (PHP to the neighbour).
+  * The topology-delta warm start (`warm_spf`, `warm_compute_routes`)
+    repairs the predecessor DAG in cost proportional to the affected
+    region.
 """
 
 from __future__ import annotations
 
-from openr_tpu_torch.common.constants import METRIC_MAX
-from openr_tpu_torch.decision.artifact import metric_key  # noqa: F401
+import heapq
+import numpy as np
+
+from openr_tpu_torch.common.constants import DIST_INF, METRIC_MAX, MPLS_LABEL_MIN
+from openr_tpu_torch.decision.artifact import (  # noqa: F401
+    SolveArtifact,
+    SpfResult,
+    metric_key,
+)
+from openr_tpu_torch.decision.election import (
+    elect_multi_np,
+    iter_multi_winners,
+)
+from openr_tpu_torch.decision.ksp import (
+    ksp2_route,
+    normalize_weights,
+    ucmp_weights,
+)
+from openr_tpu_torch.decision.linkstate import LinkState, PrefixState
+from openr_tpu_torch.monitor import work_ledger
+from openr_tpu_torch.types.network import (
+    MplsAction,
+    MplsActionType,
+    NextHop,
+    sorted_nexthops,
+)
+from openr_tpu_torch.types.routes import (
+    NexthopIntern,
+    RibEntry,
+    RibMplsEntry,
+    RouteDatabase,
+)
+from openr_tpu_torch.types.topology import ForwardingAlgorithm
+
+INF = float("inf")
 
 
-def build_adjacency(ls) -> dict[str, dict[str, int]]:
-    """Directed min-metric adjacency of a LinkState, with the
-    bidirectional check and the drain rules of its CSR: an overloaded
-    adjacency drains both directions of its link."""
+def build_adjacency(ls: LinkState) -> dict[str, dict[str, int]]:
+    """Directed min-metric adjacency with the bidirectional check applied."""
     nodes = set(ls.nodes)
     reported: set[tuple[str, str]] = set()
     drained: set[tuple[str, str]] = set()  # (advertiser, if_name)
     for u in nodes:
-        for a in ls.adjacency_db(u).adjacencies:
+        db = ls.adjacency_db(u)
+        for a in db.adjacencies:
             reported.add((u, a.other_node_name))
             if a.is_overloaded:
                 drained.add((u, a.if_name))
     adj: dict[str, dict[str, int]] = {u: {} for u in nodes}
     for u in nodes:
-        for a in ls.adjacency_db(u).adjacencies:
+        db = ls.adjacency_db(u)
+        for a in db.adjacencies:
             v = a.other_node_name
             if v not in nodes or a.is_overloaded:
                 continue
+            # either side draining the link removes BOTH directions
+            # (same rule as LinkState.build_csr — CSR/oracle equality)
             if (v, a.other_if_name) in drained:
                 continue
             if (v, u) not in reported:
                 continue
-            m = min(int(a.metric), METRIC_MAX)  # the CSR's clamp
+            m = min(int(a.metric), METRIC_MAX)  # same clamp as the CSR
             if v not in adj[u] or m < adj[u][v]:
                 adj[u][v] = m
     return adj
+
+
+def run_spf(
+    ls: LinkState,
+    root: str,
+    adj: dict[str, dict[str, int]] | None = None,
+) -> SpfResult:
+    """Dijkstra from `root` with equal-cost first-hop sets.
+
+    reference: openr/decision/LinkState.cpp runSpf (std::priority_queue,
+    collects all equal-cost predecessors for the ECMP DAG).
+    """
+    if adj is None:
+        adj = build_adjacency(ls)
+    dist: dict[str, int] = {root: 0}
+    preds: dict[str, set[str]] = {root: set()}
+    pq: list[tuple[int, str]] = [(0, root)]
+    done: set[str] = set()
+    order: list[str] = []
+    while pq:
+        d, u = heapq.heappop(pq)
+        if u in done:
+            continue
+        done.add(u)
+        order.append(u)
+        if u != root and ls.is_node_overloaded(u):
+            continue  # no transit through an overloaded node
+        for v, w in adj.get(u, {}).items():
+            nd = d + w
+            if nd >= DIST_INF:
+                continue  # saturate: same unreachability cutoff as kernel
+            if v not in dist or nd < dist[v]:
+                dist[v] = nd
+                preds[v] = {u}
+                heapq.heappush(pq, (nd, v))
+            elif nd == dist[v]:
+                preds[v].add(u)
+
+    first_hops: dict[str, set[str]] = {root: set()}
+    for v in order:
+        if v == root:
+            continue
+        fh: set[str] = set()
+        for p in preds[v]:
+            if p == root:
+                fh.add(v)
+            else:
+                fh |= first_hops.get(p, set())
+        first_hops[v] = fh
+    return SpfResult(dist=dist, first_hops=first_hops, preds=preds)
+
+
+def _nexthops_to_nodes(
+    ls: LinkState,
+    my_node: str,
+    spf: SpfResult,
+    targets: list[str],
+    weights: dict[str, int] | None = None,
+) -> tuple[NextHop, ...]:
+    """Union of ECMP first-hops toward `targets`, as NextHop objects.
+
+    Parallel links: every interface at the min metric toward the first-hop
+    neighbor becomes its own nexthop (reference keeps per-interface
+    nexthops). With `weights` (UCMP), each (neighbor, interface) nexthop
+    carries the gcd-normalized sum of the weights of the targets it
+    serves (reference: selectBestPathsSpf UCMP weight aggregation).
+    """
+    csr = ls.to_csr()
+    my_id = csr.name_to_id.get(my_node)
+    slots: dict[tuple[str, str], int] = {}  # (fh, if) -> igp metric
+    wsum: dict[tuple[str, str], int] = {}
+    for tgt in targets:
+        igp = spf.dist[tgt]
+        for fh in spf.first_hops.get(tgt, ()):
+            fh_id = csr.name_to_id.get(fh)
+            details = csr.details_get(my_id, fh_id, [])
+            best = min((d[1] for d in details), default=None)
+            for if_name, metric, _w, _lbl, _oif in details:
+                if metric != best:
+                    continue
+                key = (fh, if_name)
+                slots.setdefault(key, igp)
+                if weights is not None:
+                    wsum[key] = wsum.get(key, 0) + weights[tgt]
+    if weights is not None:
+        wsum = normalize_weights(wsum)
+    nhs = [
+        NextHop(
+            address=fh,
+            if_name=if_name,
+            metric=igp,
+            weight=wsum.get((fh, if_name), 0) if weights is not None else 0,
+            neighbor_node=fh,
+            area=ls.area,
+        )
+        for (fh, if_name), igp in slots.items()
+    ]
+    return sorted_nexthops(nhs)
+
+
+def _lfa_backups(
+    ls: LinkState,
+    my_node: str,
+    spf: SpfResult,
+    lfa_spfs: dict[str, SpfResult],
+    targets: list[str],
+) -> tuple[NextHop, ...]:
+    """RFC 5286 loop-free alternates toward `targets` — the oracle mirror
+    of TorchSpfSolver's backups (ops.spf.lfa_matrix):
+    dist_n(t) < dist_n(root) + dist_root(t), neighbor not already a
+    primary first hop for any target, overloaded neighbors excluded
+    unless they ARE the target."""
+    csr = ls.to_csr()
+    my_id = csr.name_to_id[my_node]
+    primary: set[str] = set()
+    for t in targets:
+        primary |= spf.first_hops.get(t, set())
+    out: dict[tuple[str, str], int] = {}
+    for n, nspf in sorted(lfa_spfs.items()):
+        if n in primary:
+            continue
+        d_n_root = nspf.dist.get(my_node)
+        if d_n_root is None:
+            continue
+        over = ls.is_node_overloaded(n)
+        vias = [
+            nspf.dist[t]
+            for t in targets
+            if t in nspf.dist
+            and t in spf.dist
+            and nspf.dist[t] < d_n_root + spf.dist[t]
+            and (not over or t == n)
+        ]
+        if not vias:
+            continue
+        via = min(vias)
+        n_id = csr.name_to_id[n]
+        details = csr.details_get(my_id, n_id, [])
+        best = min((d[1] for d in details), default=None)
+        if best is None:
+            continue
+        m = best + via
+        for if_name, metric, _w, _lbl, _oif in details:
+            if metric != best:
+                continue
+            key = (n, if_name)
+            if key not in out or m < out[key]:
+                out[key] = m
+    return sorted_nexthops(
+        NextHop(
+            address=n,
+            if_name=if_name,
+            metric=m,
+            neighbor_node=n,
+            area=ls.area,
+        )
+        for (n, if_name), m in out.items()
+    )
+
+
+def _unicast_route(art: SolveArtifact, prefix, per_node) -> RibEntry | None:
+    """One prefix's best route against a completed solve, or None when
+    no route is programmed (unreachable, local, or below min_nexthop).
+
+    The single source of truth for the per-prefix selection semantics:
+    the full `compute_routes` loop and the prefix-scoped
+    `assemble_prefix_routes` fast path both call it, so the scoped
+    rebuild is byte-equal to a from-scratch build by construction.
+    """
+    ls, my_node, spf, adj = art.ls, art.my_node, art.spf, art.adj
+    reachable = {
+        n: e
+        for n, e in per_node.items()
+        if n == my_node or (n in spf.dist and spf.first_hops.get(n))
+    }
+    if not reachable:
+        return None
+    best_key = max(metric_key(e) for e in reachable.values())
+    best_nodes = sorted(
+        n for n, e in reachable.items() if metric_key(e) == best_key
+    )
+    if my_node in best_nodes:
+        return None  # local prefix: not programmed via SPF
+    if (
+        reachable[best_nodes[0]].forwarding_algorithm
+        == ForwardingAlgorithm.KSP2_ED_ECMP
+    ):
+        if art.overloaded_set is None:  # built lazily, once
+            art.overloaded_set = {
+                n for n in ls.nodes if ls.is_node_overloaded(n)
+            }
+        return ksp2_route(
+            ls, my_node, prefix, reachable, best_nodes, adj,
+            art.overloaded_set, k=art.ksp_k,
+        )
+    min_igp = min(spf.dist[n] for n in best_nodes)
+    chosen = [n for n in best_nodes if spf.dist[n] == min_igp]
+    weights = ucmp_weights({n: reachable[n] for n in chosen})
+    nexthops = _nexthops_to_nodes(ls, my_node, spf, chosen, weights)
+    if not nexthops:
+        return None
+    if art.nh_intern is not None:
+        nexthops = art.nh_intern.intern(nexthops)
+    best_entry = reachable[chosen[0]]
+    if best_entry.min_nexthop and len(nexthops) < best_entry.min_nexthop:
+        return None  # reference: drop route below min_nexthop
+    backups: tuple[NextHop, ...] = ()
+    if art.lfa_spfs is not None:
+        backups = _lfa_backups(ls, my_node, spf, art.lfa_spfs, chosen)
+    return RibEntry(
+        prefix=prefix,
+        nexthops=nexthops,
+        best_node=chosen[0],
+        best_nodes=tuple(best_nodes),
+        best_entry=best_entry,
+        igp_cost=min_igp,
+        backup_nexthops=backups,
+    )
+
+
+def _mpls_node_route(
+    ls: LinkState, my_node: str, spf: SpfResult, node: str, label: int
+) -> RibMplsEntry | None:
+    """One node-segment label route against a completed SPF, or None
+    when the node is unreachable. The single source of the SWAP/PHP
+    construction: the full `compute_routes` loop and the topology-delta
+    warm path both call it, so the scoped MPLS reassembly is byte-equal
+    to a from-scratch build by construction."""
+    if node not in spf.dist or not spf.first_hops.get(node):
+        return None
+    base = _nexthops_to_nodes(ls, my_node, spf, [node])
+    nhs = tuple(
+        NextHop(
+            address=nh.address,
+            if_name=nh.if_name,
+            metric=nh.metric,
+            neighbor_node=nh.neighbor_node,
+            area=nh.area,
+            mpls_action=(
+                MplsAction(action=MplsActionType.PHP)
+                if nh.neighbor_node == node
+                else MplsAction(action=MplsActionType.SWAP, swap_label=label)
+            ),
+        )
+        for nh in base
+    )
+    if not nhs:
+        return None
+    return RibMplsEntry(label=label, nexthops=nhs)
+
+
+def assemble_prefix_routes(
+    art: SolveArtifact, ps: PrefixState, prefixes
+) -> dict:
+    """Prefix-scoped reassembly against a cached artifact: routes for
+    `prefixes` only, with zero SPF work. A prefix absent from the result
+    has no route (withdrawn/unreachable/local) — the caller deletes it."""
+    out: dict = {}
+    # scoped election accounting: candidates examined per touched prefix
+    with work_ledger.scope("election", len(prefixes)) as ws:
+        for prefix in sorted(prefixes):
+            per_node = ps.prefixes.get(prefix)
+            if not per_node:
+                continue  # fully withdrawn
+            ws.add(len(per_node))
+            entry = _unicast_route(art, prefix, per_node)
+            if entry is not None:
+                out[prefix] = entry
+    return out
+
+
+def _elect_assemble(art: SolveArtifact, csr, view, out: dict) -> None:
+    """Vectorized unicast assembly of the electable prefixes against a
+    completed SPF: the oracle's NumPy twin of the card solver's batched
+    election. Distances/reachability are materialized ONCE as node-id
+    vectors; plain prefixes reduce to a reachability mask + distance
+    gather, multi-advertiser prefixes run the segmented election
+    (election.elect_multi_np); NextHop construction is memoized per
+    distinct chosen set and interned into shared NexthopGroups. The
+    outcome is byte-equal to running `_unicast_route` per prefix (the
+    parity tests prove it)."""
+    ls, my_node, spf = art.ls, art.my_node, art.spf
+    n2i = csr.name_to_id
+    vp = csr.padded_nodes
+    d_vec = np.full(vp, int(DIST_INF), np.int64)
+    reach = np.zeros(vp, dtype=bool)
+    for n, dd in spf.dist.items():
+        i = n2i.get(n)
+        if i is not None:
+            d_vec[i] = dd
+    for n, fhs in spf.first_hops.items():
+        if fhs:
+            i = n2i.get(n)
+            if i is not None:
+                reach[i] = True
+    my_id = n2i[my_node]
+    intern = art.nh_intern
+    nhs_memo: dict[tuple, tuple] = {}
+
+    def mk(chosen_names: tuple):
+        got = nhs_memo.get(chosen_names)
+        if got is None:
+            got = _nexthops_to_nodes(ls, my_node, spf, list(chosen_names))
+            if intern is not None and got:
+                got = intern.intern(got)
+            nhs_memo[chosen_names] = got
+        return got
+
+    # ---- plain: one advertiser — election degenerates to the mask ----
+    orig = view.orig
+    if len(orig):
+        ok = np.nonzero(reach[orig] & (orig != my_id))[0]
+        igp = d_vec[orig]
+        plain_p, plain_n, plain_e = view.plain_p, view.plain_n, view.plain_e
+        for i in ok.tolist():
+            node = plain_n[i]
+            nhs = mk((node,))
+            if not nhs:
+                continue
+            p = plain_p[i]
+            out[p] = RibEntry(
+                prefix=p,
+                nexthops=nhs,
+                best_node=node,
+                best_nodes=(node,),
+                best_entry=plain_e[i],
+                igp_cost=int(igp[i]),
+            )
+
+    # ---- multi: segmented election over the advertiser matrix --------
+    if view.multi is not None:
+        res = elect_multi_np(view.multi, d_vec, reach, my_id)
+        for p, best_names, _ids, chosen_names, igp_c, best_e in (
+            iter_multi_winners(view.multi, res)
+        ):
+            nhs = mk(tuple(chosen_names))
+            if not nhs:
+                continue
+            out[p] = RibEntry(
+                prefix=p,
+                nexthops=nhs,
+                best_node=chosen_names[0],
+                best_nodes=best_names,
+                best_entry=best_e,
+                igp_cost=igp_c,
+            )
+
+
+def compute_routes(
+    ls: LinkState,
+    ps: PrefixState,
+    my_node: str,
+    enable_lfa: bool = False,
+    ksp_k: int = 2,
+    return_artifact: bool = False,
+    vectorize: bool = True,
+):
+    """Full RIB for `my_node` (reference: SpfSolver::buildRouteDb).
+
+    With `return_artifact=True`, returns (rdb, SolveArtifact | None) —
+    the artifact feeds `assemble_prefix_routes` for dirty-scoped
+    rebuilds (None when my_node is not in the topology).
+
+    ``vectorize=False`` forces the per-prefix scalar election loop —
+    the reference path the vectorized election is byte-parity-gated
+    against (and what the LFA configuration always uses: backups are
+    per-target, outside the election classes)."""
+    rdb = RouteDatabase(this_node_name=my_node)
+    if my_node not in set(ls.nodes):
+        return (rdb, None) if return_artifact else rdb
+    adj = build_adjacency(ls)
+    spf = run_spf(ls, my_node, adj)
+    lfa_spfs: dict[str, SpfResult] | None = None
+    if enable_lfa:
+        # one SPF per neighbor — the card's batched solve gets these rows
+        # for free; the oracle pays them explicitly
+        lfa_spfs = {
+            n: run_spf(ls, n, adj) for n in sorted(adj.get(my_node, {}))
+        }
+    use_elect = vectorize and lfa_spfs is None
+    art = SolveArtifact(
+        my_node=my_node, ls=ls, adj=adj, spf=spf, lfa_spfs=lfa_spfs,
+        ksp_k=ksp_k,
+        nh_intern=NexthopIntern() if use_elect else None,
+    )
+
+    # ---- unicast ----------------------------------------------------------
+    if use_elect:
+        csr = ls.to_csr()
+        view = ps.election_view(csr.name_to_id, csr.base_version)
+        # full-solve election: delta = electable prefixes, touched =
+        # candidate advertiser slots (same accounting as the card
+        # backend's elect site — parity extends to the work ledger)
+        work_ledger.commit(
+            "election",
+            len(view.plain_p)
+            + (len(view.multi.adv) if view.multi is not None else 0)
+            + sum(len(pn) for _p, pn in view.complex_items),
+            len(view.plain_p)
+            + (len(view.multi.prefixes) if view.multi is not None else 0)
+            + len(view.complex_items),
+        )
+        _elect_assemble(art, csr, view, rdb.unicast_routes)
+        for prefix, per_node in view.complex_items:
+            entry = _unicast_route(art, prefix, per_node)
+            if entry is not None:
+                rdb.unicast_routes[prefix] = entry
+    else:
+        # scalar reference seam: the loop the batched election is
+        # parity-gated against (and the LFA path); the WorkScope keeps
+        # its honest O(prefixes) ratio visible in `work.election.*`
+        with work_ledger.scope("election", len(ps.prefixes)) as ws:
+            for prefix, per_node in sorted(ps.prefixes.items()):
+                ws.add(len(per_node))
+                entry = _unicast_route(art, prefix, per_node)
+                if entry is not None:
+                    rdb.unicast_routes[prefix] = entry
+
+    # ---- MPLS node-segment routes ----------------------------------------
+    # reference: SpfSolver::createMplsRoutes — for every remote node with a
+    # node label: SWAP to the same label, PHP when the nexthop IS the target.
+    for node in ls.nodes:
+        label = ls.node_label(node)
+        if label < MPLS_LABEL_MIN or node == my_node:
+            continue
+        entry = _mpls_node_route(ls, my_node, spf, node, label)
+        if entry is not None:
+            rdb.mpls_routes[label] = entry
+
+    # ---- MPLS adjacency-label routes -------------------------------------
+    my_db = ls.adjacency_db(my_node)
+    csr = ls.to_csr()
+    if my_db:
+        for a in my_db.adjacencies:
+            if a.adj_label < MPLS_LABEL_MIN:
+                continue
+            if a.other_node_name not in csr.name_to_id or a.is_overloaded:
+                continue
+            if ls.link_drained_by_peer(my_node, a):
+                # far side soft-drained the link: same both-directions
+                # rule as the card solver (the parity contract)
+                continue
+            rdb.mpls_routes[a.adj_label] = RibMplsEntry(
+                label=a.adj_label,
+                nexthops=(
+                    NextHop(
+                        address=a.other_node_name,
+                        if_name=a.if_name,
+                        metric=int(a.metric),
+                        neighbor_node=a.other_node_name,
+                        area=ls.area,
+                        mpls_action=MplsAction(action=MplsActionType.PHP),
+                    ),
+                ),
+            )
+    return (rdb, art) if return_artifact else rdb
+
+
+# ---------------------------------------------------------------------------
+# Topology-delta warm start (DeltaPath 1808.06893 + Bounded Dijkstra
+# 1903.00436): recompute an SPF after a bounded set of metric-only edge
+# changes in cost proportional to the AFFECTED REGION, not the graph.
+# ---------------------------------------------------------------------------
+
+
+def warm_spf(
+    adj: dict[str, dict[str, int]],
+    radj: dict[str, dict[str, int]],
+    old: SpfResult,
+    overloaded: set[str],
+    root: str,
+    changes: list[tuple[str, str, int, int]],
+    node_budget: int,
+):
+    """Exact incremental re-solve of `run_spf` after metric-only edge
+    changes; returns (SpfResult, changed_nodes, region) or None to
+    demand a full solve (affected region exceeded `node_budget`).
+
+    `changes` is [(u, v, w_old, w_new)] over the DIRECTED min-metric
+    edges; `adj`/`radj` already carry the NEW weights. Requires every
+    edge weight >= 1 (strict pred-DAG distance ordering — the caller
+    guards); `overloaded` is the no-transit set, unchanged by metric
+    churn (overload toggles are structural and take the full path).
+
+    Three phases, each output-sensitive:
+
+      1. **Increase cone** — the closure of OLD tight edges from each
+         raised edge's head: every node whose distance can increase is
+         inside it (any old shortest path that degraded runs through a
+         raised edge and then along old tight edges). Cone distances
+         are removed; everything outside keeps its old distance, which
+         is thereby a valid UPPER bound (it can only improve).
+      2. **Bounded Dijkstra** — seeded with the cone boundary's best
+         non-cone tentatives and the lowered edges' direct relaxations;
+         standard improve-only Dijkstra then touches exactly the nodes
+         whose distance changes (plus the cone), truncated by the
+         old-distance bound implicitly: a relaxation that cannot beat
+         the standing (old) distance never enters the heap.
+      3. **DAG repair** — predecessor sets are recomputed only where
+         membership can have moved (changed distance at either endpoint
+         or a changed edge weight), and first-hop sets are re-derived
+         down the pred DAG in distance order, stopping wherever the
+         recomputed set equals the old one.
+    """
+    dist_old = old.dist
+    D = dict(dist_old)
+    P = dict(old.preds)
+    FH = dict(old.first_hops)
+    cw = {(u, v): (wo, wn) for (u, v, wo, wn) in changes}
+
+    # ---- phase 1: conservative increase cone (old tight-edge closure)
+    cone: set[str] = set()
+    stack: list[str] = []
+    for u, v, w_old, _w_new in changes:
+        if _w_new <= w_old:
+            continue
+        du = dist_old.get(u)
+        if du is None or v not in dist_old:
+            continue
+        if u != root and u in overloaded:
+            continue  # u never relaxed: the edge was not on any path
+        if du + w_old == dist_old[v] and v not in cone:
+            cone.add(v)
+            stack.append(v)
+    while stack:
+        x = stack.pop()
+        if len(cone) > node_budget:
+            return None
+        if x != root and x in overloaded:
+            continue  # no transit: no tight out-edges contribute
+        dx = dist_old[x]
+        for y, w in adj.get(x, {}).items():
+            wo = cw.get((x, y), (w,))[0]  # OLD weight for tightness
+            if y in dist_old and dx + wo == dist_old[y] and y not in cone:
+                cone.add(y)
+                stack.append(y)
+    for x in cone:
+        del D[x]
+
+    # ---- phase 2: bounded Dijkstra over the affected region ----------
+    pq: list[tuple[int, str]] = []
+    touched: set[str] = set(cone)
+
+    def push(nd: int, v: str) -> None:
+        if nd < D.get(v, DIST_INF):
+            D[v] = nd
+            heapq.heappush(pq, (nd, v))
+            touched.add(v)
+
+    for x in cone:
+        best = DIST_INF
+        for u, w in radj.get(x, {}).items():
+            if u in cone:
+                continue
+            du = D.get(u)
+            if du is None or (u != root and u in overloaded):
+                continue
+            nd = du + w
+            if nd < best:
+                best = nd
+        if best < DIST_INF:
+            heapq.heappush(pq, (best, x))
+            D[x] = best
+    for u, v, w_old, w_new in changes:
+        if w_new >= w_old or u in cone:
+            continue  # raised edges handled by the cone; coned u relaxes
+        du = D.get(u)
+        if du is None or (u != root and u in overloaded):
+            continue
+        nd = du + w_new
+        if nd < DIST_INF:
+            push(nd, v)
+    budget = node_budget
+    while pq:
+        d, x = heapq.heappop(pq)
+        if d != D.get(x):
+            continue  # stale heap entry
+        budget -= 1
+        if budget < 0:
+            return None
+        if x != root and x in overloaded:
+            continue
+        for y, w in adj.get(x, {}).items():
+            nd = d + w
+            if nd >= DIST_INF:
+                continue
+            push(nd, y)
+
+    # ---- phase 3: DAG repair (preds, then first hops) ----------------
+    dist_changed = {
+        x for x in touched if D.get(x) != dist_old.get(x)
+    }
+    repair: set[str] = set()
+    for x in dist_changed:
+        if x in D:
+            repair.add(x)
+        else:
+            P.pop(x, None)
+            FH.pop(x, None)
+        for y in adj.get(x, {}):
+            if y in D:
+                repair.add(y)
+    for _u, v, _wo, _wn in changes:
+        if v in D:
+            repair.add(v)
+    repair.discard(root)
+    for v in repair:
+        dv = D[v]
+        ps_: set[str] = set()
+        for u, w in radj.get(v, {}).items():
+            du = D.get(u)
+            if du is None or (u != root and u in overloaded):
+                continue
+            if du + w == dv:
+                ps_.add(u)
+        P[v] = ps_
+
+    work = [(D[v], v) for v in repair]
+    heapq.heapify(work)
+    done: set[str] = set()
+    fh_changed: set[str] = set()
+    while work:
+        dv, v = heapq.heappop(work)
+        if v in done or dv != D.get(v):
+            continue
+        done.add(v)
+        fh: set[str] = set()
+        for p in P.get(v, ()):
+            if p == root:
+                fh.add(v)
+            else:
+                fh |= FH.get(p, set())
+        if fh != FH.get(v):
+            FH[v] = fh
+            fh_changed.add(v)
+            # the change propagates only down the pred DAG (strictly
+            # larger distances — weights >= 1), so heap order processes
+            # every ancestor before its descendants
+            for y in adj.get(v, {}):
+                if y in D and v in P.get(y, ()) and y not in done:
+                    heapq.heappush(work, (D[y], y))
+
+    changed_nodes = dist_changed | fh_changed
+    region = len(touched | changed_nodes)
+    return (
+        SpfResult(dist=D, first_hops=FH, preds=P),
+        changed_nodes,
+        region,
+    )
+
+
+def resolve_metric_changes(
+    art: SolveArtifact, ls: LinkState, edge_pairs
+):
+    """Map the dirt classifier's (u, v) pairs onto the oracle artifact:
+    [(u, v, w_old, w_new)] with no-op pairs dropped, or None when the
+    pairs are not a pure metric delta against the cached adjacency
+    (structural doubt -> full solve)."""
+    changes: list[tuple[str, str, int, int]] = []
+    for u, v in sorted(edge_pairs):
+        w_old = art.adj.get(u, {}).get(v)
+        w_new = ls.effective_metric(u, v)
+        if w_old is None and w_new is None:
+            continue  # edge unusable before and after: irrelevant
+        if w_old is None or w_new is None:
+            return None  # edge appeared/vanished: not metric-only
+        if w_old != w_new:
+            changes.append((u, v, w_old, w_new))
+    return changes
+
+
+def warm_compute_routes(
+    art: SolveArtifact,
+    ls: LinkState,
+    ps: PrefixState,
+    my_node: str,
+    edge_pairs,
+    prefix_dirt,
+    cached_rdb: RouteDatabase,
+    max_frac: float,
+):
+    """Topology-delta warm rebuild for one area on the oracle engine.
+
+    Returns (rdb, new_artifact, touched_prefixes, touched_labels,
+    region_nodes) or None to demand a full solve. Byte-equality
+    contract: the returned rdb must equal a from-scratch
+    `compute_routes(ls, ps, my_node)` — the reassembly runs the same
+    `_unicast_route` / `_mpls_node_route` code over a provably
+    sufficient touched set (see the JAX package's docs/Decision.md for the bound
+    derivation), and everything else is reused by object identity.
+    """
+    spf = art.spf
+    if spf is None or spf.preds is None or art.adj is None:
+        return None
+    if art.lfa_spfs is not None:
+        return None  # LFA artifacts are per-neighbor solves: full path
+    if any(u == my_node for u, _v in edge_pairs):
+        return None  # root-incident: my own nexthop slot metrics moved
+    changes = resolve_metric_changes(art, ls, edge_pairs)
+    if changes is None:
+        return None
+    n_nodes = len(art.adj)
+    n_edges = sum(len(vs) for vs in art.adj.values())
+    if len(changes) > max(16, int(max_frac * max(n_edges, 1))):
+        return None  # delta set too large: a full solve is cheaper
+    if art.min_metric is None:
+        art.min_metric = min(
+            (w for vs in art.adj.values() for w in vs.values()),
+            default=1,
+        )
+    min_metric = min(
+        art.min_metric, min((wn for *_x, wn in changes), default=DIST_INF)
+    )
+    if min_metric < 1:
+        return None  # zero-weight edges break the strict DAG ordering
+    if art.overloaded_set is None:
+        art.overloaded_set = {
+            n for n in art.ls.nodes if art.ls.is_node_overloaded(n)
+        }
+    if art.radj is None:
+        radj: dict[str, dict[str, int]] = {}
+        for u, vs in art.adj.items():
+            for v, w in vs.items():
+                radj.setdefault(v, {})[u] = w
+        art.radj = radj
+
+    if not changes:
+        # pure no-op window (flap fully reverted inside one debounce):
+        # keep the solved state, only the prefix dirt needs reassembly
+        adj2, radj2, spf2 = art.adj, art.radj, spf
+        changed_nodes: set[str] = set()
+        region = 0
+    else:
+        # copy-on-write patched adjacency (rows for changed sources /
+        # dests only; the artifact's maps stay valid for the fallback)
+        adj2 = dict(art.adj)
+        radj2 = dict(art.radj)
+        patched_rows: set[str] = set()
+        patched_rrows: set[str] = set()
+        for u, v, _wo, wn in changes:
+            if u not in patched_rows:
+                adj2[u] = dict(adj2.get(u, {}))
+                patched_rows.add(u)
+            adj2[u][v] = wn
+            if v not in patched_rrows:
+                radj2[v] = dict(radj2.get(v, {}))
+                patched_rrows.add(v)
+            radj2[v][u] = wn
+        # the node budget is the WHOLE graph: the configurable fraction
+        # caps the delta SET (above); the affected region itself is
+        # allowed to grow to the graph — worst case the warm solve
+        # costs one cold solve, and single-link changes near the root
+        # of a uniform-metric graph legitimately touch half of it
+        res = warm_spf(
+            adj2, radj2, spf, art.overloaded_set, my_node, changes,
+            node_budget=n_nodes + 1,
+        )
+        if res is None:
+            return None
+        spf2, changed_nodes, region = res
+
+    art2 = SolveArtifact(
+        my_node=my_node,
+        ls=ls,
+        adj=adj2,
+        spf=spf2,
+        lfa_spfs=None,
+        overloaded_set=art.overloaded_set,
+        ksp_k=art.ksp_k,
+        radj=radj2,
+        min_metric=min_metric,
+        nh_intern=art.nh_intern,  # keep group identity across warm rounds
+    )
+
+    # ---- touched unicast prefixes ------------------------------------
+    # a route can change only if an advertiser's (dist, first-hop) class
+    # changed, or the prefix itself is dirty, or it is KSP (k-disjoint
+    # paths depend on the whole graph, not just advertiser distances).
+    # The advertiser→prefix resolution runs over the cached election
+    # view's id arrays (np.isin) instead of a per-prefix python walk —
+    # at a million prefixes the walk would cost more than the warm
+    # solve it scopes.
+    touched: set = set(prefix_dirt)
+    csr = ls.to_csr()
+    view = ps.election_view(csr.name_to_id, csr.base_version)
+    changed_ids = np.fromiter(
+        (
+            csr.name_to_id[n]
+            for n in changed_nodes
+            if n in csr.name_to_id
+        ),
+        np.int64,
+    )
+    if len(view.orig) and len(changed_ids):
+        for i in np.nonzero(np.isin(view.orig, changed_ids))[0].tolist():
+            touched.add(view.plain_p[i])
+    if view.multi is not None and len(changed_ids):
+        t = view.multi
+        hit = t.known & np.isin(t.adv, changed_ids)
+        for i in np.unique(t.seg[hit]).tolist():
+            touched.add(t.prefixes[i])
+    for prefix, per_node in view.complex_items:
+        if prefix in touched:
+            continue
+        for n, e in per_node.items():
+            if (
+                n in changed_nodes
+                or e.forwarding_algorithm
+                == ForwardingAlgorithm.KSP2_ED_ECMP
+            ):
+                touched.add(prefix)
+                break
+    entries = assemble_prefix_routes(art2, ps, touched)
+    rdb = RouteDatabase(this_node_name=my_node)
+    rdb.unicast_routes = dict(cached_rdb.unicast_routes)
+    rdb.mpls_routes = dict(cached_rdb.mpls_routes)
+    for p in touched:
+        e = entries.get(p)
+        if e is None:
+            rdb.unicast_routes.pop(p, None)
+        else:
+            rdb.unicast_routes[p] = e
+
+    # ---- touched MPLS node segments ----------------------------------
+    # node labels are structural (a label change is a full rebuild), so
+    # only CHANGED nodes' segment routes can differ; my own adjacency
+    # labels cannot move (root-incident changes bailed above)
+    touched_labels: set[int] = set()
+    for n in changed_nodes:
+        if n == my_node:
+            continue
+        label = ls.node_label(n)
+        if label < MPLS_LABEL_MIN:
+            continue
+        touched_labels.add(label)
+        entry = _mpls_node_route(ls, my_node, spf2, n, label)
+        if entry is None:
+            rdb.mpls_routes.pop(label, None)
+        else:
+            rdb.mpls_routes[label] = entry
+    return rdb, art2, touched, touched_labels, region
+
+
+class OracleEngine:
+    """The oracle behind the solver's interface: what a Decision with
+    `use_tpu_solver=False` calls where the card backend calls its solver
+    (`hook.DecisionAdapter`). It holds no device and no cache, so
+    `trim_caches` has nothing to drop."""
+
+    def __init__(self, enable_lfa: bool = False, ksp_k: int = 2):
+        self.enable_lfa = enable_lfa
+        self.ksp_k = ksp_k
+
+    def compute_routes(self, ls, ps, my_node: str,
+                       return_artifact: bool = False):
+        return compute_routes(ls, ps, my_node, enable_lfa=self.enable_lfa,
+                              ksp_k=self.ksp_k,
+                              return_artifact=return_artifact)
+
+    assemble_prefix_routes = staticmethod(assemble_prefix_routes)
+    warm_compute_routes = staticmethod(warm_compute_routes)
+
+    def trim_caches(self, fingerprint_cap: int = 8) -> None:
+        pass
+

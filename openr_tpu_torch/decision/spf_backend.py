@@ -34,6 +34,7 @@ per-prefix path (`assemble_prefix_routes`).
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 
@@ -69,6 +70,7 @@ from openr_tpu_torch.ops.spf import (
 from openr_tpu_torch.ops.spf_split import (
     ProgramCache,
     batched_sssp_split,
+    card_lock,
     batched_sssp_split_rib,
     batched_sssp_split_warm_rib,
     build_split_tables,
@@ -218,6 +220,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _on_card(method):
+    """Runs a solver method under its card's `card_lock`: the solvers of
+    many Decisions in one process take turns on the card, each solve's
+    device work (uploads, launches, graph capture and replay, reads)
+    whole. The outermost call keeps the time it waited for the lock in
+    `last_card_wait_ms`."""
+    @functools.wraps(method)
+    def locked(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        with card_lock(self.device):
+            outer = not self._on_card_depth
+            if outer:
+                self.last_card_wait_ms = (time.perf_counter() - t0) * 1e3
+            self._on_card_depth += 1
+            try:
+                return method(self, *args, **kwargs)
+            finally:
+                self._on_card_depth -= 1
+
+    return locked
+
+
 class TorchSpfSolver:
     """Computes a node's RouteDatabase from the padded CSR LSDB, on
     `device` (default: the CUDA card).
@@ -323,6 +347,10 @@ class TorchSpfSolver:
         # table kind with sweeps or rounds, host_reads and the launches of
         # relax_launches / edge_launches
         self.last_solve_stats: dict = {}
+        # `_on_card`: the lock's nesting in the calling thread, and the
+        # wait of the last outermost call
+        self._on_card_depth = 0
+        self.last_card_wait_ms = 0.0
         # last warm rebuild: changes, cone_cells, seeds, the warm
         # program's stats, and host wall ms of the cone walk (with the old
         # distances' copy to the host), the device solve (scatter to
@@ -557,6 +585,7 @@ class TorchSpfSolver:
         self.spf_kernel_stats["gs_active" if gs > 1 else "gs_disabled"] += 1
         return gs
 
+    @_on_card
     def _solve_dist(self, csr, roots, _dispatched: tuple | None = None
                     ) -> torch.Tensor:
         """Distances [solve_vp(csr), B] int32 from each of `roots` (ids,
@@ -587,8 +616,8 @@ class TorchSpfSolver:
                     dict(self.mesh.shape), dev["vp"], roots_t.shape[0],
                 )
         stats: dict = {"table": table}
-        relax0 = relax.LAUNCHES
-        edge0 = sum(edge_relax.LAUNCHES.values())
+        relax0 = relax.launches_here()
+        edge0 = edge_relax.launches_here()
         b = roots_t.shape[0]
         # every kind reads its loop's state back, so the solve is
         # complete when it returns; use_pallas keeps one sweep's row
@@ -627,8 +656,8 @@ class TorchSpfSolver:
             if cap:
                 cap.io(args=(*_tensors(dev), roots_t), outs=(out,))
         if table != "split":  # the split program counts its own
-            stats["relax_launches"] = relax.LAUNCHES - relax0
-        stats["edge_launches"] = sum(edge_relax.LAUNCHES.values()) - edge0
+            stats["relax_launches"] = relax.launches_here() - relax0
+        stats["edge_launches"] = edge_relax.launches_here() - edge0
         self.last_solve_stats = stats
         return out
 
@@ -675,7 +704,7 @@ class TorchSpfSolver:
         parts = self._mesh_parts(dev)
         b = roots_t.shape[0]
         stats: dict = {"table": "split", "mesh": dict(self.mesh.shape)}
-        relax0 = relax.LAUNCHES
+        relax0 = relax.launches_here()
         key = (dev["vp"], *dev["base_nbr"].shape[1:], *dev["ov_nbr"].shape,
                b, has_over, tuple(self.mesh.shape.values()))
         with annotate("spf:sharded_solve", self.counters), telemetry.observe(
@@ -690,11 +719,12 @@ class TorchSpfSolver:
             if cap:
                 cap.io(args=(*_tensors(dev), roots_t), outs=(full,))
         self.last_shard_rows = telemetry.shard_rows(out)
-        stats["relax_launches"] = relax.LAUNCHES - relax0
+        stats["relax_launches"] = relax.launches_here() - relax0
         stats["edge_launches"] = 0
         self.last_solve_stats = stats
         return full
 
+    @_on_card
     def solve(self, ls, my_node: str):
         """Distances + the ECMP first-hop matrix for my_node's RIB:
         returns (csr, dist, fh, neighbor_ids, lfa), fh/lfa host bool
@@ -803,6 +833,7 @@ class TorchSpfSolver:
 
     # --------------------------------------------------------------- RIB
 
+    @_on_card
     def compute_routes(self, ls, ps, my_node: str,
                        return_artifact: bool = False):
         """Full RIB of my_node. With `return_artifact=True`, returns
@@ -824,6 +855,7 @@ class TorchSpfSolver:
             nh_intern=self._nh_intern,
         )
 
+    @_on_card
     def assemble_prefix_routes(self, art: SolveArtifact, ps, prefixes) -> dict:
         """Routes for `prefixes` only, against a cached artifact, with no
         new solve: every prefix goes down the general per-prefix path
@@ -1141,6 +1173,7 @@ class TorchSpfSolver:
                 cols_all.append(c)
         return rows_all, cols_all, seed, cone_union
 
+    @_on_card
     def warm_compute_routes(
         self, art: SolveArtifact, ls, ps, my_node: str, edge_pairs,
         prefix_dirt, cached_rdb: RouteDatabase, max_frac: float,

@@ -178,3 +178,108 @@ class Counters:
                         if v is not None:
                             out[f"{k}.{qname}.{w}"] = v
         return out
+
+
+# --------------------------------------------------------- prometheus export
+
+
+def _esc(label_value: str) -> str:
+    """Prometheus label-value escaping (text exposition format: backslash,
+    double-quote, newline)."""
+    return (
+        label_value.replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _num(v: float) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    if v == float("-inf"):
+        return "-Inf"
+    return repr(round(float(v), 6))
+
+
+def render_prometheus(
+    counters: Counters, node: str, now: float | None = None
+) -> str:
+    """Prometheus text exposition (format 0.0.4) of one node's counters.
+
+    Counter keys are dotted free-form strings, so they ride in a `key`
+    label rather than the metric name (names allow only [a-zA-Z0-9_:]).
+    Three families:
+
+      openr_counter{node,key}                       plain counters
+      openr_stat{node,key,stat[,window]}            add_value aggregates
+                                                    + windowed p50/p99
+      openr_latency_bucket/_sum/_count{node,key,le} all-time histogram
+    """
+    lines: list[str] = []
+    n = _esc(node)
+
+    lines.append("# TYPE openr_counter gauge")
+    for k in sorted(counters.counters):
+        lines.append(
+            f'openr_counter{{node="{n}",key="{_esc(k)}"}} '
+            f"{_num(counters.counters[k])}"
+        )
+
+    lines.append("# TYPE openr_stat gauge")
+    for k in sorted(counters.stats):
+        s = counters.stats[k]
+        ek = _esc(k)
+        base = (
+            ("count", float(s.count)),
+            ("sum", s.sum),
+            ("avg", s.avg),
+        )
+        for stat, v in base:
+            lines.append(
+                f'openr_stat{{node="{n}",key="{ek}",stat="{stat}"}} {_num(v)}'
+            )
+        if not s.count:
+            continue
+        for q, qname in ((0.5, "p50"), (0.99, "p99")):
+            v = s.percentile(q, None, now)
+            if v is not None:
+                lines.append(
+                    f'openr_stat{{node="{n}",key="{ek}",stat="{qname}",'
+                    f'window="all"}} {_num(v)}'
+                )
+            for w in WINDOWS_S:
+                v = s.percentile(q, w, now)
+                if v is not None:
+                    lines.append(
+                        f'openr_stat{{node="{n}",key="{ek}",stat="{qname}",'
+                        f'window="{w}s"}} {_num(v)}'
+                    )
+
+    lines.append("# TYPE openr_latency histogram")
+    for k in sorted(counters.stats):
+        s = counters.stats[k]
+        if not s.count:
+            continue
+        ek = _esc(k)
+        acc = 0
+        for i, c in enumerate(s.hist[: len(_EDGES)]):
+            if not c:
+                continue  # one line per OCCUPIED bucket: dense enough to
+                # parse, sparse enough to read (120 empty les elided);
+                # cumulative values stay exact since empties add 0
+            acc += c
+            lines.append(
+                f'openr_latency_bucket{{node="{n}",key="{ek}",'
+                f'le="{_num(_EDGES[i])}"}} {acc}'
+            )
+        lines.append(
+            f'openr_latency_bucket{{node="{n}",key="{ek}",le="+Inf"}} '
+            f"{s.count}"
+        )
+        lines.append(
+            f'openr_latency_sum{{node="{n}",key="{ek}"}} {_num(s.sum)}'
+        )
+        lines.append(
+            f'openr_latency_count{{node="{n}",key="{ek}"}} {s.count}'
+        )
+    return "\n".join(lines) + "\n"

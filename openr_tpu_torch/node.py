@@ -13,14 +13,17 @@ route programming (`fib_handler`, a `MockFibHandler` by default).
 
 `device` takes the place of the JAX package's `solver=`: None is the
 current CUDA card (the Decision's solver raises without one), "cpu"
-the CPU twins. The modules the port does not have yet raise
-`NotImplementedError` naming them: `enable_ctrl` (ctrl), `store_path`
-(configstore), `persist_dir` / `persist` (persist) and
-`watchdog.enable` (watchdog). The config's `watchdog.enable` defaults to
-True, as in the JAX package, so a port node's config turns it off. The
-JAX package's `ctrl_port` and `watchdog_abort_fn` arguments are not
-taken at all until ctrl and the watchdog come: passing one is a
-`TypeError`, never a setting silently ignored.
+the CPU twins; a config with `decision.use_tpu_solver=False` solves in
+the host oracle. `enable_ctrl=True` serves the ctrl API
+(`ctrl.CtrlServer`) on `endpoint_host`:`ctrl_port` (0: an ephemeral
+port, read back from `node.ctrl.port` once started), last in the start
+order. The modules the port does not have yet raise
+`NotImplementedError` naming them: `store_path` (configstore),
+`persist_dir` / `persist` (persist) and `watchdog.enable` (watchdog).
+The config's `watchdog.enable` defaults to True, as in the JAX package,
+so a port node's config turns it off. The JAX package's
+`watchdog_abort_fn` argument is not taken at all until the watchdog
+comes: passing it is a `TypeError`, never a setting silently ignored.
 """
 
 from __future__ import annotations
@@ -69,12 +72,11 @@ class OpenrNode:
         kvstore_port: int = 0,
         endpoint_host: str = "127.0.0.1",
         enable_ctrl: bool = False,
+        ctrl_port: int = 0,
         store_path: str | None = None,
         persist_dir: str | None = None,
         persist=None,
     ):
-        if enable_ctrl:
-            raise _not_ported("enable_ctrl", "ctrl/ (the ctrl API server)")
         if store_path is not None:
             raise _not_ported("store_path", "configstore/")
         if persist is not None or persist_dir is not None:
@@ -254,6 +256,11 @@ class OpenrNode:
             )
 
         self.ctrl = None
+        if enable_ctrl:
+            # built before start, so its queue readers see every message
+            from openr_tpu_torch.ctrl import CtrlServer
+
+            self.ctrl = CtrlServer(self, host=endpoint_host, port=ctrl_port)
         self.watchdog = None
         # start order: discovery last; shutdown is the reverse
         self._modules = [
@@ -268,6 +275,8 @@ class OpenrNode:
         ]
         if self.prefix_allocator is not None:
             self._modules.append(self.prefix_allocator)
+        if self.ctrl is not None:
+            self._modules.append(self.ctrl)
         self._started = False
 
     # ------------------------------------------------------------ lifecycle

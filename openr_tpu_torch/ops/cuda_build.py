@@ -10,6 +10,15 @@ The route is nvcc + ctypes rather than `torch.utils.cpp_extension.load`
 because a source that includes PyTorch's headers takes minutes to
 compile, a plain C interface seconds, and every run on a fresh machine
 builds anew.
+
+The libraries are loaded as `ctypes.PyDLL`, whose calls keep the GIL:
+every entry point only enqueues work on a stream (or reads a device
+attribute) and never waits for the card, so a call is a few
+microseconds. Through `ctypes.CDLL` each launch would release the GIL
+and take it back; with other Python threads busy (the rebuild workers
+of many nodes' Decisions in one process) taking it back costs up to the
+interpreter's switch interval, for each of the hundreds of launches of
+a solve.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.PyDLL] = {}
 #: the library file each loaded source came from (the build ledger,
 #: `monitor/compile_ledger.py`, counts builds with their seconds and
 #: loads per source)
@@ -90,12 +99,13 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
+def load(name: str) -> ctypes.PyDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use; its
+    calls hold the GIL (see the module docstring)."""
     lib = _LIBS.get(name)
     if lib is None:
         path = build(name)
-        lib = ctypes.CDLL(str(path))
+        lib = ctypes.PyDLL(str(path))
         _LIBS[name] = lib
         _PATHS[name] = path
     return lib

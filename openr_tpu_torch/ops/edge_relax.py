@@ -40,6 +40,7 @@ import torch
 
 from openr_tpu_torch.common.constants import DIST_INF
 from openr_tpu_torch.monitor import device as _telemetry
+from openr_tpu_torch.ops import counts
 
 INF_DIST = DIST_INF
 #: the kernel functions, as a profiler names them
@@ -91,7 +92,9 @@ ENTRY_POINTS = {
     "openr_edge_error_string": ([_I], ctypes.c_char_p),
 }
 
-#: kernel launches made by the wrappers (CUDA path only), by kernel
+#: kernel launches made by the wrappers (CUDA path only), by kernel,
+#: bumped under a lock from every thread; `launches_here` is the calling
+#: thread's own
 LAUNCHES = {"init": 0, "round": 0}
 #: launches of the guarded one-round kernel (`edge_round` with `ctl`, the
 #: sharded loop's), apart: a profiler names it `edge_relax_kernel` too
@@ -107,6 +110,18 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCHES_GUARDED = 0
+
+
+def launches_here() -> int:
+    """`init` and `round` launches the wrappers made in the calling
+    thread so far."""
+    return counts.mine("edge_relax.launches")
+
+
+def _counted(kernel: str) -> None:
+    with counts.LOCK:
+        LAUNCHES[kernel] += 1
+    counts.add_mine("edge_relax.launches")
 
 
 def _lib():
@@ -581,7 +596,7 @@ def edge_init(out, src, dst, metric, roots, index: EdgeIndex,
             marks.data_ptr(), v, b, bp, tile, stream,
         )
     _launch_error(lib, err, "edge_init_kernel")
-    LAUNCHES["init"] += 1
+    _counted("init")
     return out
 
 
@@ -616,7 +631,7 @@ def _fix(buf0, buf1, src, metric, blocked, index: EdgeIndex, tile: int,
             stats.data_ptr(), v, bp, tile, max_rounds, stream,
         )
     _launch_error(lib, err, "edge_relax_kernel")
-    LAUNCHES["round"] += 1
+    _counted("round")
     return stats
 
 
@@ -688,7 +703,8 @@ def edge_round(dist_in, out, src, dst, metric, blocked, row_start, changed,
             torch.cuda.current_stream().cuda_stream,
         )
     _launch_error(lib, err, "edge_relax_kernel (guarded)")
-    LAUNCHES_GUARDED += 1
+    with counts.LOCK:
+        LAUNCHES_GUARDED += 1
     return changed
 
 

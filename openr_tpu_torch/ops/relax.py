@@ -29,6 +29,7 @@ import torch
 
 from openr_tpu_torch.common.constants import DIST_INF
 from openr_tpu_torch.monitor import device as _telemetry
+from openr_tpu_torch.ops import counts
 
 INF_DIST = DIST_INF
 
@@ -64,7 +65,9 @@ ENTRY_POINTS = {
 
 #: kernel launches made by the wrappers (CUDA path only): the total, and
 #: by design. A call recorded into a CUDA graph capture launches nothing
-#: and is not counted; the graph's replays run it without a call.
+#: and is not counted; the graph's replays run it without a call. The
+#: counts are the process's, bumped under a lock from every thread;
+#: `launches_here` and `captured_here` are the calling thread's own.
 LAUNCHES = 0
 LAUNCHES_BY_DESIGN = {"vec": 0, "generic": 0}
 #: kernels the wrappers recorded into CUDA graph captures
@@ -78,6 +81,31 @@ def reset_launches() -> None:
     LAUNCHES = 0
     for k in LAUNCHES_BY_DESIGN:
         LAUNCHES_BY_DESIGN[k] = 0
+
+
+def launches_here() -> int:
+    """Kernel launches the wrappers made in the calling thread so far."""
+    return counts.mine("relax.launches")
+
+
+def captured_here() -> int:
+    """Kernels the wrappers recorded into captures in the calling thread
+    so far."""
+    return counts.mine("relax.captured")
+
+
+def _counted(design: str) -> None:
+    """Counts one wrapper call on the CUDA path: a launch, or a kernel
+    recorded into the running capture."""
+    global LAUNCHES, CAPTURED
+    capturing = torch.cuda.is_current_stream_capturing()
+    with counts.LOCK:
+        if capturing:
+            CAPTURED += 1
+        else:
+            LAUNCHES += 1
+            LAUNCHES_BY_DESIGN[design] += 1
+    counts.add_mine("relax.captured" if capturing else "relax.launches")
 
 
 def design_for(w: int, b: int) -> str:
@@ -312,7 +340,6 @@ def _check_aligned(dist_in, out, nbr, wgt, over, over_align=8):
 def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
            dst_rows, changed, row_flag, rows_changed, ctl=None, phase_mask=0,
            n_live=None):
-    global LAUNCHES, CAPTURED
     n = _count(nbr, row0, n, src_rows, dst_rows)
     _check(dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
            dst_rows, changed, row_flag, rows_changed, ctl, n_live)
@@ -367,11 +394,7 @@ def _relax(entry, dist_in, out, nbr, wgt, roots, over, row0, n, src_rows,
             f"relax kernel launch failed: "
             f"{lib.openr_cuda_error_string(err).decode()} ({err})"
         )
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED += 1
-    else:
-        LAUNCHES += 1
-        LAUNCHES_BY_DESIGN[design] += 1
+    _counted(design)
     return changed
 
 

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.monitor import device as _telemetry
+from openr_tpu_torch.ops import counts
 from openr_tpu_torch.ops.spf import first_hop_matrix, first_hop_work, lfa_matrix
 
 #: the kernel function, as a profiler names it
@@ -158,7 +159,6 @@ def rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, my_id: int,
     if dist.device.type == "cpu":
         return rib_buffer_ref(dist, nbr_metric, nbr_ids, nbr_over, my_id,
                               with_lfa)
-    global LAUNCHES
     for nm, x, dt in (("dist", dist, torch.int32),
                       ("nbr_metric", nbr_metric, torch.int32),
                       ("nbr_ids", nbr_ids, torch.int32),
@@ -184,5 +184,12 @@ def rib_buffer(dist, nbr_metric, nbr_ids, nbr_over, my_id: int,
         raise RuntimeError(
             f"{KERNEL_NAME} launch failed: "
             f"{lib.openr_rib_error_string(err).decode()} ({err})")
-    LAUNCHES += 1
+    _counted()
     return out
+
+
+def _counted() -> None:
+    """One launch, counted under the shared lock (many threads launch)."""
+    global LAUNCHES
+    with counts.LOCK:
+        LAUNCHES += 1

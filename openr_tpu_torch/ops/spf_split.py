@@ -38,6 +38,11 @@ in-place chunk updates converge in a different number of sweeps.
 
 from __future__ import annotations
 
+import atexit
+import collections
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -234,6 +239,55 @@ STEPS_COLD = 32
 STEPS_WARM = 16
 
 
+_CARD_LOCKS: dict[int, threading.RLock] = {}
+_CARD_LOCKS_GUARD = threading.Lock()
+#: per card, the CUDA graphs of dropped split programs, destroyed by the
+#: next `SplitProgram.run` on that card under its lock (a deque: the
+#: thread that drops a program appends without taking a lock)
+_DROPPED: dict[int, collections.deque] = {}
+
+
+def _card_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def card_lock(device):
+    """The lock a process's solvers hold around their work on one CUDA
+    card (a no-op context on the CPU). Many nodes' Decisions solve on one
+    card from worker threads; with it, no graph capture, replay or
+    destruction of one solver's split programs overlaps another's work on
+    the card. Reentrant: a solve inside `compute_routes` takes it again,
+    and so does `SplitProgram.run`."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    idx = _card_index(dev)
+    with _CARD_LOCKS_GUARD:
+        lock = _CARD_LOCKS.get(idx)
+        if lock is None:
+            lock = _CARD_LOCKS[idx] = threading.RLock()
+    return lock
+
+
+def _destroy_dropped(idx: int) -> int:
+    """Destroys card `idx`'s dropped graphs; the caller holds its lock.
+    Returns how many programs' graphs went."""
+    dq = _DROPPED.get(idx)
+    n = 0
+    while dq:
+        graphs = dq.popleft()
+        del graphs
+        n += 1
+    return n
+
+
+@atexit.register
+def _destroy_all_dropped() -> None:
+    for idx in list(_DROPPED):
+        with card_lock(torch.device("cuda", idx)):
+            _destroy_dropped(idx)
+
+
 class SplitProgram:
     """The split solve as a program of steps on the device, for one table
     set, B, overload flag, Gauss-Seidel chunk count and set of caps, cold
@@ -265,10 +319,12 @@ class SplitProgram:
     `run` executes blocks of `steps` steps and reads `ctl` back once per
     block until the phase is done: the solve's host syncs are its blocks.
     With `graphs` (CUDA only) the first run is eager — the warm-up, and
-    the run whose launches a telemetry capture counts — and then the init
-    and a block of steps are captured as two CUDA graphs that later runs
-    replay. The wrappers count the kernels they launch, so a replay moves
-    no wrapper's count: the stats count replays instead, and the graph
+    the run whose launches a telemetry capture counts — and the second
+    captures the init and a block of steps as two CUDA graphs, which it
+    and later runs replay. A program run once (a table set solved once,
+    as a cluster's churn leaves most) never pays for a capture. The
+    wrappers count the kernels they launch, so a replay moves no
+    wrapper's count: the stats count replays instead, and the graph
     nodes, the kernels the wrappers recorded into the block's capture.
     On the CPU the steps call the twins, and a block is a host loop."""
 
@@ -316,6 +372,7 @@ class SplitProgram:
         self.max_blocks = (2 * vp + tail_rounds_cap + 2) // self.steps + 2
         self._graphs = None  # (init, steps) CUDA graphs once captured
         self._nodes = 0  # kernels recorded into the block's graph
+        self._runs = 0  # runs so far: the second captures the graphs
 
     #: launches of one step besides the `gs` dense chunks: the snapshot
     #: (with the tail's mark), two compactions, kernel A's listed and
@@ -371,13 +428,25 @@ class SplitProgram:
         cur.wait_stream(side)
         self._graphs, self._nodes = graphs, nodes[1]
 
+    def __del__(self):
+        # whichever thread drops the program's last reference (an event
+        # loop's, too) only queues its graphs: the next run on the card
+        # destroys them under the card's lock
+        graphs = self.__dict__.get("_graphs")
+        if graphs is not None:
+            self._graphs = None
+            _DROPPED.setdefault(_card_index(self.dev), collections.deque()
+                                ).append(graphs)
+
     @staticmethod
     def _recorded(body) -> int:
         """Runs `body`; returns the kernels the wrappers recorded into
-        the running capture meanwhile."""
-        n0 = relax.CAPTURED + split_loop.CAPTURED
+        the running capture meanwhile. The capture runs in this thread,
+        so this thread's counts are read: a capture in another thread
+        (another node's Decision) does not move them."""
+        n0 = relax.captured_here() + split_loop.captured_here()
         body()
-        return relax.CAPTURED + split_loop.CAPTURED - n0
+        return relax.captured_here() + split_loop.captured_here() - n0
 
     def _block(self) -> None:
         for _ in range(self.steps):
@@ -392,32 +461,36 @@ class SplitProgram:
         (kernel A's launches that did work; 0 on the CPU, which runs the
         twin), graph_nodes (the kernels a replayed block holds, as the
         wrappers recorded them; 0 when the blocks ran eagerly)."""
-        self.roots.copy_(roots)
-        if self.warm:
-            self.dist.copy_(dist0)
-            self.mark.copy_(seed)
-        replay = self._graphs is not None and _telemetry.sink() is None
-        if replay:
-            self._graphs[0].replay()
-        else:
-            self._init()
-        blocks = 0
-        while True:
+        with card_lock(self.dev):
+            if self.dev.type == "cuda":
+                _destroy_dropped(_card_index(self.dev))
+            self.roots.copy_(roots)
+            if self.warm:
+                self.dist.copy_(dist0)
+                self.mark.copy_(seed)
+            if self.graphs and self._graphs is None and self._runs:
+                self._capture()
+            self._runs += 1
+            replay = self._graphs is not None and _telemetry.sink() is None
             if replay:
-                self._graphs[1].replay()
+                self._graphs[0].replay()
             else:
-                self._block()
-            blocks += 1
-            c = self.ctl.tolist()  # the block's one read of the loop state
-            compile_ledger.record_sync()
-            if c[split_loop.PHASE] == split_loop.DONE:
-                break
-            if blocks >= self.max_blocks:
-                raise RuntimeError(
-                    f"split solve: the loop did not finish in {blocks} "
-                    f"blocks of {self.steps} steps (ctl {c})")
-        if self.graphs and self._graphs is None:
-            self._capture()
+                self._init()
+            blocks = 0
+            while True:
+                if replay:
+                    self._graphs[1].replay()
+                else:
+                    self._block()
+                blocks += 1
+                c = self.ctl.tolist()  # the block's one read of the loop state
+                compile_ledger.record_sync()
+                if c[split_loop.PHASE] == split_loop.DONE:
+                    break
+                if blocks >= self.max_blocks:
+                    raise RuntimeError(
+                        f"split solve: the loop did not finish in {blocks} "
+                        f"blocks of {self.steps} steps (ctl {c})")
         sweeps, rounds = c[split_loop.SWEEPS], c[split_loop.TAIL_ROUNDS]
         cuda = self.dev.type == "cuda"
         return {

@@ -30,6 +30,7 @@ import threading
 import torch
 
 from openr_tpu_torch.monitor import device as _telemetry
+from openr_tpu_torch.ops import counts
 
 # ---- the control block: int32 [CTL_WORDS] ------------------------------
 PHASE = 0        # DENSE, TAIL, NET or DONE
@@ -94,7 +95,9 @@ ENTRY_POINTS = {
 COMPACT_TILE = 4096
 
 #: kernel launches made by the wrappers (CUDA path only), by kernel; a
-#: call recorded into a CUDA graph capture is not one
+#: call recorded into a CUDA graph capture is not one. The counts are the
+#: process's, bumped under a lock from every thread; `captured_here` is
+#: the calling thread's own.
 LAUNCHES = {k: 0 for k in KERNEL_NAMES}
 #: kernels the wrappers recorded into CUDA graph captures
 CAPTURED = 0
@@ -105,6 +108,12 @@ _LIB_LOCK = threading.Lock()
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def captured_here() -> int:
+    """Kernels the wrappers recorded into captures in the calling thread
+    so far."""
+    return counts.mine("split_loop.captured")
 
 
 def _lib():
@@ -327,7 +336,6 @@ def _check(nm: str, dev, **tensors) -> None:
 
 
 def _launch(kernel: str, entry: str, dev, *args) -> None:
-    global CAPTURED
     lib = _lib()
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(*args,
@@ -336,10 +344,21 @@ def _launch(kernel: str, entry: str, dev, *args) -> None:
         raise RuntimeError(
             f"{KERNEL_NAMES[kernel]} launch failed: "
             f"{lib.openr_split_error_string(err).decode()} ({err})")
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED += 1
-    else:
-        LAUNCHES[kernel] += 1
+    _counted(kernel)
+
+
+def _counted(kernel: str) -> None:
+    """Counts one wrapper call on the CUDA path: a launch, or a kernel
+    recorded into the running capture."""
+    global CAPTURED
+    capturing = torch.cuda.is_current_stream_capturing()
+    with counts.LOCK:
+        if capturing:
+            CAPTURED += 1
+        else:
+            LAUNCHES[kernel] += 1
+    if capturing:
+        counts.add_mine("split_loop.captured")
 
 
 def _count(ctl, phase_mask, work) -> None:

@@ -121,6 +121,8 @@ class _Neighbor:
     last_heard: float = 0.0
     last_seq: int = 0
     handshake_done: bool = False
+    # when our last handshake to it went out (monotonic s), in NEGOTIATE
+    handshake_sent_at: float = 0.0
     # RTT measurement state: the neighbor's latest hello sent-timestamp
     # (THEIR clock, echoed back verbatim) and when we received it (OUR
     # monotonic clock), so our next hello can report our turnaround lag.
@@ -411,8 +413,19 @@ class Spark(OpenrModule):
                 raw_rtt = now_us - echoed_sent_us - their_lag_us
                 if raw_rtt > 0:
                     self._update_rtt(nb, raw_rtt)
-            if nb.state == SparkNeighborState.WARM:
+            if nb.state == SparkNeighborState.WARM or (
+                nb.state == SparkNeighborState.NEGOTIATE
+                and now - nb.handshake_sent_at
+                >= self.config.node.spark.handshake_time_ms / 1e3
+            ):
+                # in NEGOTIATE a hello that hears us, handshake_time_ms
+                # after our handshake, sends it again: the handshake and
+                # its ack are single packets, and with both lost the
+                # neighbour, ESTABLISHED on our earlier ack, would never
+                # send another (Open/R's Spark repeats its handshake every
+                # handshakeTime for the same reason)
                 nb.state = SparkNeighborState.NEGOTIATE
+                nb.handshake_sent_at = now
                 self.spawn(self._send_handshake(nb, is_ack=False))
             elif (
                 nb.state == SparkNeighborState.RESTART

@@ -84,6 +84,14 @@ def grid(rows: int, cols: int, metric: int = 1):
     return _mk_dbs(rows * cols, edges)
 
 
+def full_mesh(n: int, metric: int = 1):
+    edges = []
+    for i in range(n):
+        for j in range(i + 1, n):
+            edges += [(i, j, metric), (j, i, metric)]
+    return _mk_dbs(n, edges)
+
+
 def fat_tree(k: int = 4, metric: int = 1):
     """3-tier k-ary fat-tree: (k/2)^2 cores; k pods of k/2 agg + k/2
     tor; every tor to every agg of its pod; agg i of each pod to cores
@@ -104,6 +112,27 @@ def fat_tree(k: int = 4, metric: int = 1):
                 core = a * half + c
                 edges += [(agg, core, metric), (core, agg, metric)]
     return _mk_dbs(n, edges)
+
+
+def fat_tree_pod(k: int = 4, pods: int = 1, metric: int = 1):
+    """A pod-granular slice of `fat_tree(k)`: the (k/2)^2 cores and
+    `pods` pods of k/2 agg + k/2 tor each ((k/2)^2 + pods * k nodes;
+    `pods=k` is the whole tree), with the same wiring."""
+    assert k % 2 == 0 and k >= 2, k
+    assert 1 <= pods <= k, (pods, k)
+    half = k // 2
+    n_core = half * half
+    edges = []
+    for pod in range(pods):
+        for a in range(half):
+            agg = n_core + pod * k + a
+            for t in range(half):
+                tor = n_core + pod * k + half + t
+                edges += [(agg, tor, metric), (tor, agg, metric)]
+            for c in range(half):
+                core = a * half + c
+                edges += [(agg, core, metric), (core, agg, metric)]
+    return _mk_dbs(n_core + pods * k, edges)
 
 
 def wan_like(
@@ -167,6 +196,18 @@ def hub_and_spoke(
             b = (h + 1) % hubs
             edges += [(sid, b, spoke_metric), (b, sid, spoke_metric)]
     return _mk_dbs(hubs + spokes, edges)
+
+
+def edges_of(adj_dbs) -> list[tuple[str, str]]:
+    """The undirected (name_a, name_b) pairs of a generator's adjacency
+    databases, sorted: the wiring list `emulator.Cluster.from_edges`
+    takes (each pair becomes one point-to-point link)."""
+    pairs: set[tuple[str, str]] = set()
+    for db in adj_dbs:
+        for adj in db.adjacencies:
+            a, b = db.this_node_name, adj.other_node_name
+            pairs.add((a, b) if a < b else (b, a))
+    return sorted(pairs)
 
 
 def erdos_renyi(n: int, avg_degree: int = 10, seed: int = 0,

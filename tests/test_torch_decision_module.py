@@ -37,6 +37,7 @@ from openr_tpu_torch.common import constants as pconst
 from openr_tpu_torch.common.throttle import AsyncDebounce
 from openr_tpu_torch.decision import decision as pdecision
 from openr_tpu_torch.decision import hook
+from openr_tpu_torch.decision import oracle as poracle
 from openr_tpu_torch.monitor import Counters, perf
 from openr_tpu_torch.types import kvstore as pkv
 from openr_tpu_torch.types import network as pnetwork
@@ -315,7 +316,6 @@ def test_decision_runs_on_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,msg", [
-    (dict(use_tpu_solver=False), "oracle"),
     (dict(native_rib="on"), "not part of the port"),
 ])
 def test_what_the_port_lacks_raises(knob, msg):
@@ -324,6 +324,75 @@ def test_what_the_port_lacks_raises(knob, msg):
     q = pmessaging.ReplicateQueue(name="x")
     with pytest.raises(ValueError, match=msg):
         pdecision.Decision(cfg, q.get_reader(), q, device="cpu")
+
+
+def mk_oracle_pair(**dcfg):
+    """(reference Decision on its "cpu" backend, its reader, port Decision
+    with `use_tpu_solver=False`, its reader)."""
+    ref_cfg = RefConfig(RefNodeConfig(
+        node_name="node-0", decision=RefDecisionConfig(**dcfg)))
+    ref_routes_q = RefQueue(name="routes")
+    r_ref = ref_routes_q.get_reader()
+    d_ref = ref_decision.Decision(
+        ref_cfg, RefQueue(name="pubs").get_reader(), ref_routes_q,
+        solver="cpu", counters=RefCounters())
+    cfg = pconfig.Config(pconfig.NodeConfig(
+        node_name="node-0",
+        decision=pconfig.DecisionConfig(use_tpu_solver=False, **dcfg)))
+    routes_q = pmessaging.ReplicateQueue(name="routes")
+    r_port = routes_q.get_reader()
+    d_port = pdecision.Decision(
+        cfg, pmessaging.ReplicateQueue(name="pubs").get_reader(), routes_q,
+        counters=Counters())
+    return d_ref, r_ref, d_port, r_port
+
+
+def test_the_oracle_backend_builds_no_solver_and_needs_no_cuda(monkeypatch):
+    """`use_tpu_solver=False` with no `device`: no CUDA asked for, no
+    solver built, and every solve runs in the host oracle."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_solver(*a, **k):
+        raise AssertionError("the oracle backend built a solver")
+
+    monkeypatch.setattr(hook, "solver_for", no_solver)
+    monkeypatch.setattr(torch.cuda, "device", no_solver)
+    d_ref, r_ref, d_port, r_port = mk_oracle_pair()
+    assert d_port.backend == "oracle"
+    assert d_port.solver is None and d_port.device is None
+    assert isinstance(d_port.engine, poracle.OracleEngine)
+    churn_parity(d_ref, r_ref, d_port, r_port, 4, 1, topogen.ring(16))
+    art = d_port._area_cache[DEFAULT_AREA]["art"]
+    assert art.solved is None and art.spf is not None
+    assert d_port.warm_cache_bytes() >= 0 and d_port.prefix_table_bytes() > 0
+    d_port.trim_warm_state()
+    assert art.radj is None and art.spf.preds is None
+
+
+@pytest.mark.parametrize("seed", [42, 7, 2026])
+def test_oracle_backend_churn_parity_with_the_reference_cpu_backend(seed):
+    """The port's Decision on the oracle against the JAX Decision's "cpu"
+    backend, rebuild by rebuild: RIBs, RouteUpdates, rebuild paths,
+    decode tiers and perf markers."""
+    d_ref, r_ref, d_port, r_port = mk_oracle_pair()
+    paths = churn_parity(d_ref, r_ref, d_port, r_port, 20, seed,
+                         topogen.fat_tree(4))
+    assert {"full", "prefix_only", "topo_delta"} <= set(paths)
+    c, rc = d_port.counters, d_ref.counters
+    for k in ("decision.rebuild.topo_delta", "decision.rebuild.full",
+              "decision.rebuild.prefix_only", "decision.spf.warm_starts",
+              "decision.rebuild.area_solves", "decision.nexthop_groups"):
+        assert c.get(k) == rc.get(k), k
+    assert "decision.spf.solves" not in c.counters  # no solver to count
+
+
+@pytest.mark.parametrize("knobs", [dict(enable_lfa=True),
+                                   dict(ksp_paths=4)])
+def test_oracle_backend_churn_parity_under_the_knobs(knobs):
+    d_ref, r_ref, d_port, r_port = mk_oracle_pair(**knobs)
+    paths = churn_parity(d_ref, r_ref, d_port, r_port, 14, 5,
+                         topogen.grid(4, 4))
+    assert "prefix_only" in paths
 
 
 # ------------------------------------------------------------------ config

@@ -76,6 +76,13 @@ def test_package_imports_without_jax_or_openr_tpu():
         "openr_tpu_torch.__main__", "openr_tpu_torch.monitor.flight",
         "openr_tpu_torch.messaging.policies",
         "openr_tpu_torch.types.wirelock",
+        "openr_tpu_torch.decision.oracle", "openr_tpu_torch.ops.counts",
+        "openr_tpu_torch.monitor.counters", "openr_tpu_torch.monitor.fleet",
+        "openr_tpu_torch.ctrl", "openr_tpu_torch.ctrl.server",
+        "openr_tpu_torch.emulator", "openr_tpu_torch.emulator.cluster",
+        "openr_tpu_torch.emulator.chaos",
+        "openr_tpu_torch.emulator.invariants",
+        "openr_tpu_torch.emulator.__main__",
     } <= names
 
 

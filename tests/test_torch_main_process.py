@@ -13,6 +13,10 @@ each daemon's datagrams to the other's reported port.
   is advertised only once Fib has programmed the route the Decision
   solved. Each aggregate shows up in the other daemon's store, read by a
   TCP full sync against that daemon's KvStore listener.
+* Each daemon serves ctrl on the port its ready line reports: over
+  `RpcClient` it is INITIALIZED, and its programmed table equals the JAX
+  package's oracle solved on the LSDB it reports over ctrl (adjacency
+  DBs, and the prefix DBs of its store).
 * SIGTERM ends each daemon with exit 0.
 * A third daemon whose `kvstore_port` is pinned to a port the first one
   holds exits with 1, and its ready file carries `error`.
@@ -117,6 +121,52 @@ async def store_keys(kv_port: int) -> set:
     return set(r.get("key_vals") or {})
 
 
+async def table_equals_jax_oracle(name: str, ctrl_port: int) -> None:
+    """Over ctrl: the daemon is INITIALIZED, and `get_route_db_programmed`
+    equals the JAX oracle's table for the LSDB the daemon reports (its
+    Decision's adjacency DBs and its store's prefix DBs). Once the other
+    daemon's aggregate is in, the table has two routes (the other's
+    loopback and aggregate; its own aggregate is local); it is read again
+    until it holds them (bounded)."""
+    from openr_tpu.common.constants import parse_prefix_key
+    from openr_tpu.ctrl.server import _unicast_json
+    from openr_tpu.decision.linkstate import LinkState, PrefixState
+    from openr_tpu.decision.oracle import compute_routes
+    from openr_tpu.kvstore.kvstore import value_from_json
+    from openr_tpu.types.serde import from_jsonable, from_wire_auto
+    from openr_tpu.types.topology import AdjacencyDatabase, PrefixDatabase
+
+    c = RpcClient("127.0.0.1", ctrl_port)
+    await c.connect()
+    loop = asyncio.get_running_loop()
+    t0 = loop.time()
+    try:
+        while True:
+            st = await c.call("get_initialization_status", timeout=10.0)
+            adj = await c.call("get_decision_adjacency_dbs", timeout=10.0)
+            kv = await c.call("dump_kvstore", {"prefix": "prefix:"},
+                              timeout=10.0)
+            got = await c.call("get_route_db_programmed", timeout=10.0)
+            ls, ps = LinkState(), PrefixState()
+            for db in adj["0"]:
+                ls.update_adjacency_db(from_jsonable(db, AdjacencyDatabase))
+            for key, raw in kv["key_vals"].items():
+                assert parse_prefix_key(key) is not None
+                v = value_from_json(raw)
+                ps.update_prefix_db(from_wire_auto(v.value, PrefixDatabase))
+            want = compute_routes(ls, ps, name)
+            want_u = sorted((_unicast_json(e.to_unicast_route())
+                             for e in want.unicast_routes.values()),
+                            key=lambda r: r["dest"])
+            got_u = sorted(got["unicast_routes"], key=lambda r: r["dest"])
+            if st["INITIALIZED"] and len(got_u) == 2 and got_u == want_u:
+                return
+            assert loop.time() - t0 < 60, (name, st, got_u, want_u)
+            await asyncio.sleep(0.2)
+    finally:
+        await c.close()
+
+
 def test_two_daemons_converge_and_stop(tmp_path):
     async def main():
         loop = asyncio.get_running_loop()
@@ -138,7 +188,8 @@ def test_two_daemons_converge_and_stop(tmp_path):
                 ready[k] = await read_ready(tmp_path / f"{k}.ready", p)
                 assert ready[k]["node"] == f"proc-{k}"
                 assert ready[k]["pid"] == p.pid
-                assert ready[k]["ctrl_port"] is None
+                assert isinstance(ready[k]["ctrl_port"], int)
+                assert ready[k]["ctrl_port"] > 0
             # a's datagrams go on to b's socket, b's to a's
             for k, other in (("a", "b"), ("b", "a")):
                 relays[k].out = socks[k]
@@ -154,6 +205,9 @@ def test_two_daemons_converge_and_stop(tmp_path):
                 keys = await store_keys(ready[k]["kvstore_port"])
                 assert {"adj:proc-a", "adj:proc-b",
                         f"prefix:proc-{other}:0:[{LOOPBACKS[other]}]"} <= keys
+            for k in "ab":
+                await table_equals_jax_oracle(f"proc-{k}",
+                                              ready[k]["ctrl_port"])
             # a third daemon pinned to a's KvStore port: exit 1, error
             cfg = tmp_path / "c.json"
             await asyncio.to_thread(cfg.write_text, json.dumps(node_cfg(

@@ -116,8 +116,7 @@ def test_left_out_options_raise():
                                hub.io_for("n"), pkvs.InProcKvTransport(),
                                **{"device": "cpu", **kw})
 
-    for kw, module in ((dict(enable_ctrl=True), "ctrl"),
-                       (dict(store_path="/nonexistent/s"), "configstore"),
+    for kw, module in ((dict(store_path="/nonexistent/s"), "configstore"),
                        (dict(persist_dir="/nonexistent/p"), "persist"),
                        (dict(persist=object()), "persist")):
         with pytest.raises(NotImplementedError, match=module):
@@ -133,12 +132,12 @@ def test_left_out_options_raise():
     mk()  # the CPU twins, every module built
 
 
-@pytest.mark.parametrize("kw", [dict(ctrl_port=2018),
-                                dict(watchdog_abort_fn=lambda: None)],
-                         ids=["ctrl_port", "watchdog_abort_fn"])
+@pytest.mark.parametrize("kw", [dict(watchdog_abort_fn=lambda: None)],
+                         ids=["watchdog_abort_fn"])
 def test_ctrl_and_watchdog_arguments_are_not_taken(kw):
-    """The JAX node takes these; the port has neither ctrl nor the
-    watchdog, so a caller who passes one is refused, not ignored."""
+    """The JAX node takes this; the port has no watchdog, so a caller who
+    passes one is refused, not ignored. (`ctrl_port` is taken since the
+    port serves ctrl: `test_enable_ctrl_starts_ctrl_last`.)"""
     rnode.OpenrNode(node_cfg(PKGS["ref"], "n"),
                     rspark.MockIoHub().io_for("n"),
                     rkvs.InProcKvTransport(), solver="cpu", **kw)
@@ -146,6 +145,43 @@ def test_ctrl_and_watchdog_arguments_are_not_taken(kw):
         pnode.OpenrNode(node_cfg(PKGS["port"], "n"),
                         pspark.MockIoHub().io_for("n"),
                         pkvs.InProcKvTransport(), device="cpu", **kw)
+
+
+def test_enable_ctrl_starts_ctrl_last():
+    """`enable_ctrl=True` builds a `CtrlServer`, last in the start order as
+    in the JAX node, serving on `ctrl_port` (0: ephemeral) until stop."""
+    async def main():
+        built = {}
+        for tag, pkg in PKGS.items():
+            hub = pkg.spark.MockIoHub()
+            built[tag] = pkg.node.OpenrNode(
+                node_cfg(pkg, "n", prefixes=("10.9.0.1/32",)),
+                hub.io_for("n"), pkg.kvs.InProcKvTransport(),
+                enable_ctrl=True, ctrl_port=0, **pkg.solver)
+        ref, port = built["ref"], built["port"]
+        assert [type(m).__name__ for m in port._modules] == \
+            [type(m).__name__ for m in ref._modules]
+        assert port._modules[-1] is port.ctrl
+        assert type(port.ctrl).__module__ == "openr_tpu_torch.ctrl.server"
+        await port.start()
+        try:
+            assert port.ctrl.port > 0
+            cli = prpc.RpcClient(port=port.ctrl.port)
+            await cli.connect()
+            assert await cli.call("get_my_node_name") == "n"
+            await until(lambda: port.initialized, "node initialized")
+            st = await cli.call("get_initialization_status")
+            assert st["INITIALIZED"]
+            adv = await cli.call("get_advertised_prefixes")
+            assert "10.9.0.1/32" in adv
+            await cli.close()
+        finally:
+            await port.stop()
+        with pytest.raises(OSError):
+            probe = prpc.RpcClient(port=port.ctrl.port)
+            await probe.connect()
+
+    asyncio.run(main())
 
 
 def test_wire_schema_lock_is_the_reference_lock():

@@ -194,3 +194,51 @@ def test_jax_and_port_spark_establish_over_udp(codec):
                 await s["spark"].stop()
 
     asyncio.run(main())
+
+
+@pytest.mark.parametrize("lost", [1, 2, 3])
+def test_a_lost_handshake_is_sent_again(lost):
+    """The first `lost` handshakes b sends (its acks, and its own
+    handshake if it sends one) are lost. a, left in NEGOTIATE while b is
+    ESTABLISHED on a's handshake, sends its handshake again on b's next
+    hello that hears it, handshake_time_ms after the last, until an ack
+    arrives: both sides reach ESTABLISHED. (The JAX package's Spark
+    sends one handshake on entering NEGOTIATE and none after, and stays
+    there.)"""
+
+    async def main():
+        hub = pspark.MockIoHub()
+        sa, _qa = SPARK_CASES.mk_spark(hub, "a")
+        sb, _qb = SPARK_CASES.mk_spark(hub, "b")
+        inner, dropped = sb._send_handshake, []
+
+        async def lossy(nb, is_ack):
+            if len(dropped) < lost:
+                dropped.append(is_ack)
+                return
+            await inner(nb, is_ack)
+
+        sb._send_handshake = lossy
+        hub.link("a", "if-ab", "b", "if-ba")
+        await sa.start()
+        await sb.start()
+        sa.add_interface("if-ab")
+        sb.add_interface("if-ba")
+        try:
+            up = await SPARK_CASES.settle(lambda: all(
+                s.neighbors.get(k) is not None and s.neighbors[k].state
+                == psm.SparkNeighborState.ESTABLISHED
+                for s, k in ((sa, ("if-ab", "b")), (sb, ("if-ba", "a")))),
+                timeout=10.0)
+            assert up, {k: v.state for s in (sa, sb)
+                        for k, v in s.neighbors.items()}
+            assert len(dropped) == lost
+            if lost >= 2:
+                # b's first ack to a was among the lost, whichever of
+                # them sent first
+                assert sa.counters.get("spark.handshake_sent") >= 2
+        finally:
+            await sa.stop()
+            await sb.stop()
+
+    asyncio.run(main())

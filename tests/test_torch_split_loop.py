@@ -22,7 +22,7 @@ from openr_tpu.ops import spf_split as jsplit
 from openr_tpu_torch import LinkState, PrefixState, TorchSpfSolver
 from openr_tpu_torch.convert import split_tables_from_numpy
 from openr_tpu_torch.monitor import compile_ledger
-from openr_tpu_torch.ops import relax, rib_epilogue, split_loop as sl
+from openr_tpu_torch.ops import counts, relax, rib_epilogue, split_loop as sl
 from openr_tpu_torch.ops import spf_split as psplit
 from openr_tpu_torch.utils import topogen as ptopo
 from test_torch_solver import _states
@@ -436,7 +436,10 @@ def test_graph_nodes_are_a_blocks_launches(monkeypatch):
         def counted(*a, _fn=getattr(mod, name), _name=name, _mod=mod,
                     **kw):
             calls.append(_name)
-            _mod.CAPTURED += 1  # as a capture records the kernel on CUDA
+            # as a capture records the kernel on CUDA: the module's count
+            # and this thread's, which `_recorded` reads
+            _mod.CAPTURED += 1
+            counts.add_mine(f"{_mod.__name__.rsplit('.', 1)[1]}.captured")
             return _fn(*a, **kw)
 
         monkeypatch.setattr(mod, name, counted)
@@ -460,6 +463,41 @@ def test_graph_nodes_are_a_blocks_launches(monkeypatch):
     assert st["graph_nodes"] == prog.steps * (prog.gs + 6) == 320
     ref = jsplit.batched_sssp_split(*_jax_args(t, over, roots))
     np.testing.assert_array_equal(prog.dist.numpy(), np.asarray(ref))
+
+
+def test_a_program_captures_on_its_second_run():
+    """A program with graphs runs its first solve eagerly and captures
+    nothing; the second captures once and replays, as do the later ones,
+    each with the eager run's distances. On the CPU the capture is faked
+    by graphs that run the init and the block."""
+    t, over, roots, *_ = _problem(n=3000, deg=6, mw=16, seed=7)
+    tables = split_tables_from_numpy(t, over, "cpu")
+    prog = psplit.SplitProgram(
+        tables, roots.shape[0], has_overloads=False, gs_chunks=None,
+        tail_threshold=1024, tail_cap=8192, tail_rounds_cap=64, warm=False,
+        steps=8)
+    prog.graphs = True  # as on CUDA
+
+    class Graph:
+        def __init__(self, body):
+            self.replay = body
+
+    captures = []
+
+    def capture():
+        captures.append(prog._runs)
+        prog._graphs = (Graph(prog._init), Graph(prog._block))
+        prog._nodes = 1
+
+    prog._capture = capture
+    first = prog.run(torch.from_numpy(roots))
+    want = prog.dist.clone()
+    assert captures == [] and first["graph_nodes"] == 0
+    for _ in range(2):
+        st = prog.run(torch.from_numpy(roots))
+        assert captures == [1] and st["graph_nodes"] == 1
+        assert st["replays"] == first["replays"]
+        assert torch.equal(prog.dist, want)
 
 
 @pytest.mark.parametrize("name", ["split_loop", "rib_epilogue"])
